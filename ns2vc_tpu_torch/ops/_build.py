@@ -1,0 +1,133 @@
+"""Build and bind the port's CUDA kernels.
+
+The sources under `ns2vc_tpu_torch/csrc/` are compiled by `nvcc` for
+`sm_90a` into one shared library with a plain C interface, at first use,
+into `ns2vc_tpu_torch/_build/` (listed in .gitignore). The library name
+carries a hash of the sources and flags, so an edit rebuilds. It is loaded
+with ctypes: every pointer and the stream go as `c_void_p`, the kernels
+launch on PyTorch's current stream, allocate nothing, and return
+`cudaGetLastError()`, which `check` turns into an exception.
+
+Nothing here runs at import time: importing the package never reaches
+`nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "ns2vc_flash_attention_fwd":
+        [_P] * 5 + [_I] * 6 + [_I64] * 12 + [ctypes.c_float, _P],
+    "ns2vc_affine_silu_conv1d": [_P] * 6 + [_I] * 5 + [_P],
+}
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str        # nvcc's output (ptxas register / spill report)
+
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> BuildInfo:
+    """Compile the kernels if this source hash has no library yet."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out = BUILD_DIR / f"libns2vc_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return BuildInfo(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in srcs if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC_DIR)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                           f"\n{log}")
+    os.replace(tmp, out)
+    return BuildInfo(out, seconds, log)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build().path))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.ns2vc_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.ns2vc_cuda_error_string.restype = ctypes.c_char_p
+                _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        msg = library().ns2vc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_current_device(*tensors: torch.Tensor) -> None:
+    """Kernels launch on the current device; refuse tensors elsewhere."""
+    cur = torch.cuda.current_device()
+    for t in tensors:
+        if t.device.index != cur:
+            raise ValueError(f"tensor on {t.device}, current CUDA device is "
+                             f"cuda:{cur}")
