@@ -2,28 +2,50 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from `ns2vc_tpu_torch/csrc/`, holds each
-against its plain PyTorch version at the shapes the serving path gives it,
-checks the full-width model on the card against the same model on the CPU,
-and drives the serving path (`Svc.infer_batch` / `infer_from_features`) at
-full width in bf16, with launch counters that show the path went through
-both kernels. Every phase passes or the script exits non-zero; there is no
-CPU fallback. It imports no JAX.
+Builds the hand-written kernels from `ns2vc_tpu_torch/csrc/` (one nvcc per
+source, in parallel), holds each against its plain PyTorch version at the
+shapes the path gives it (K1 also at ContentVec's (1, 12, T, 64) f32
+shapes), checks the full-width model and the audio front end (resampling,
+log-mel, ContentVec, CREPE) on the card against the CPU, and drives the
+port at full width in bf16: `Svc.infer_batch` / `infer_from_features`
+serving, the ddim / dpmsolver / unipc samplers, the readback overlap of
+`infer_batch_async`, the MicroBatcher, and wav in -> wav out through the
+port CLI's `main` (unipc, and CREPE F0 with -fmp), with launch counters
+that show each path went through both kernels. Weights are random from a
+seed and the audio is synthesized. Every phase passes or the script exits
+non-zero; there is no CPU fallback. It imports no JAX.
 
-Output: one line per phase result, then a JSON line
-{"kernels": [...]} (per kernel: launches counted in the 16-request serving
-call; max_abs_err, the largest f32 error against the plain version over the
-path shapes; ms / plain_ms, the time of one UNet step's calls at B=16 in
-bf16, kernel vs plain, from CUDA events after warm-up), then the card's name
-and power limit, and last {"ok": true, "device": {...}}.
+Parity phases run with TF32 off; the serving and CLI phases run with
+PyTorch's defaults.
+
+The main path is the wav-in -> wav-out CLI run (unipc, bf16): its launch
+counts are read around it, and every K1 / K2 call it makes is recorded by
+geometry (shape, strides, key bias, dtype), and each geometry is then held
+against the plain version in f32 and in bf16. The same conversion in f32
+with TF32 off runs once through the kernels and once through their plain
+versions, and the two waveforms are compared.
+
+Output: one line per phase result (every timing line ends with the card's
+name and power limit), then a JSON line {"kernels": [...]} (per kernel:
+launches counted in the CLI run; max_abs_err, the largest f32 error
+against the plain version over every shape checked, the CLI run's
+included; ms / plain_ms, the CLI run's calls of the kernel, each geometry
+timed alone with CUDA events after warm-up in the dtype the run gave it,
+times its calls, summed, kernel vs plain), then the card's name and power
+limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from collections import defaultdict
 
 import numpy as np
 
@@ -40,6 +62,45 @@ RESNET_F32_ATOL = 1e-4     # sums of up to 3*1024 products of O(1) terms
 ATTN_BF16_ATOL = 3e-2
 RESNET_BF16_RTOL = 1e-2    # of max |plain|, floored at 1
 UNET_ATOL, MODEL_ATOL = 5e-4, 1e-3   # full-width f32, card vs CPU
+# front end, f32, card vs CPU: cuDNN / cuFFT against CPU kernels
+RESAMPLE_ATOL = 1e-5       # one 171- or 475-tap dot product per sample
+MEL_ATOL = 1e-3            # log of a mel power above the 1e-7 clip
+CONTENTVEC_ATOL = 1e-3     # 7 convs + 12 layers, as the full model's bound
+CREPE_ATOL = 1e-4          # sigmoid probabilities after 6 conv blocks
+CONTENTVEC_T = (50, 850, 3000)  # K1 keys: 1 s, 17 s, one unbroken 60 s
+CLI_STEPS = 30             # the CLI's default sampling_timesteps
+# f32, TF32 off, the CLI's waveform through the kernels vs through their
+# plain versions, of max(1, max|wav|): 30 sampler steps carry the one-step
+# error (MODEL_ATOL's bound) forward, and ContentVec's into the content
+CLI_WAV_ATOL = 1e-3
+CARD = ""                  # nvidia-smi's name and power limit, set in main
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 parity: cuBLAS and cuDNN without TF32, restored afterwards."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def wall_ms(fn):
+    """Host wall time of fn() between two device synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def fail(msg: str) -> None:
@@ -105,6 +166,8 @@ def attention_cases(cfg):
     out.append(("pool_add_embedding", B, d.addition_embed_heads, 1,
                 TP_PAD + 1, d.hidden_channels // d.addition_embed_heads,
                 None, 0, "cross"))
+    for t in CONTENTVEC_T:   # ContentVec: 12 heads of 64 over T50 frames
+        out.append((f"contentvec_T{t}", 1, 12, t, t, 64, None, 0, "cross"))
     return out
 
 
@@ -132,13 +195,69 @@ def resnet_cases(unet):
 
 # -- phases -----------------------------------------------------------------
 
+def k1_case(q, k, v, bias, scale=None, timed=True):
+    """K1 against its plain version on one input set: (max_abs_err, tol,
+    kernel_ms, plain_ms), the times None when not timed. Fails past the
+    dtype's tolerance."""
+    import torch
+
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+
+    got = flash_attention(q, k, v, bias, scale)
+    want = flash_attention_plain(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = ATTN_F32_ATOL if q.dtype == torch.float32 else ATTN_BF16_ATOL
+    ms = pms = None
+    if timed:
+        ms = time_ms(lambda: flash_attention(q, k, v, bias, scale))
+        pms = time_ms(lambda: flash_attention_plain(q, k, v, bias, scale))
+    return err, tol, ms, pms
+
+
+def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
+    """K2 against its plain version on random inputs of one geometry, the
+    affine folded from a GroupNorm (with FiLM if `film`): (max_abs_err,
+    tol, kernel_ms, plain_ms), the times None when not timed."""
+    import torch
+
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d, affine_silu_conv1d_plain, group_norm_affine,
+    )
+
+    x = torch.randn(bsz, t, c, generator=g, device=dev).to(dtype)
+    w = (torch.randn(co, c, 3, generator=g, device=dev)
+         / (3 * c) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    s = sh = None
+    if film:
+        s = 0.2 * torch.randn(bsz, c, generator=g, device=dev)
+        sh = 0.2 * torch.randn(bsz, c, generator=g, device=dev)
+    a, b = group_norm_affine(x, gamma, beta, 8, 1e-5, s, sh)
+    got = affine_silu_conv1d(x, a, b, w, bias)
+    want = affine_silu_conv1d_plain(x, a, b, w, bias)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        tol = RESNET_F32_ATOL
+    else:
+        tol = RESNET_BF16_RTOL * max(1.0, want.float().abs().max().item())
+    ms = pms = None
+    if timed:
+        ms = time_ms(lambda: affine_silu_conv1d(x, a, b, w, bias))
+        pms = time_ms(lambda: affine_silu_conv1d_plain(x, a, b, w, bias))
+    return err, tol, ms, pms
+
+
 def check_attention(cfg, dev):
     import torch
 
     from ns2vc_tpu_torch.ops.attention import split_heads
-    from ns2vc_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain,
-    )
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst, ms_step, plain_step = 0.0, 0.0, 0.0
@@ -156,16 +275,10 @@ def check_attention(cfg, dev):
             if valid is not None:
                 bias = torch.zeros(b, tk, device=dev)
                 bias[:, valid:] = -1e4
-            got = flash_attention(q, k, v, bias)
-            want = flash_attention_plain(q, k, v, bias)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = ATTN_F32_ATOL if dtype == torch.float32 else ATTN_BF16_ATOL
-            ms = time_ms(lambda: flash_attention(q, k, v, bias))
-            pms = time_ms(lambda: flash_attention_plain(q, k, v, bias))
+            err, tol, ms, pms = k1_case(q, k, v, bias)
             say(f"K1 {name:20s} {str(dtype)[6:]:8s} B={b} H={h} Tq={tq} "
                 f"Tk={tk} D={d} max_abs_err={err:.3e} (tol {tol:g}) "
-                f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+                f"kernel_ms={ms:.4f} plain_ms={pms:.4f} [{CARD}]")
             if not err <= tol:
                 fail(f"K1 {name} {dtype}: error {err} > {tol}")
             if dtype == torch.float32:
@@ -184,46 +297,24 @@ def check_attention(cfg, dev):
         if not torch.isfinite(out).all():
             fail(f"K1 fully masked row (bias {fill}) is not finite")
     say("K1 fully masked batch rows: finite")
-    return worst, ms_step, plain_step
+    say(f"K1 one UNet step at B={B} bf16: kernel {ms_step:.4f} ms, plain "
+        f"{plain_step:.4f} ms [{CARD}]")
+    return worst
 
 
 def check_resnet(unet, dev):
     import torch
-
-    from ns2vc_tpu_torch.ops.fused_resnet import (
-        affine_silu_conv1d, affine_silu_conv1d_plain, group_norm_affine,
-    )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     cases = resnet_cases(unet) + [("ragged_T", 437, 128, 128, True)]
     worst, ms_step, plain_step = 0.0, 0.0, 0.0
     for name, t, c, co, film in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(B, t, c, generator=g, device=dev).to(dtype)
-            w = (torch.randn(co, c, 3, generator=g, device=dev)
-                 / (3 * c) ** 0.5).to(dtype)
-            bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
-            gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
-            beta = 0.1 * torch.randn(c, generator=g, device=dev)
-            s = sh = None
-            if film:
-                s = 0.2 * torch.randn(B, c, generator=g, device=dev)
-                sh = 0.2 * torch.randn(B, c, generator=g, device=dev)
-            a, b = group_norm_affine(x, gamma, beta, 8, 1e-5, s, sh)
-            got = affine_silu_conv1d(x, a, b, w, bias)
-            want = affine_silu_conv1d_plain(x, a, b, w, bias)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if dtype == torch.float32:
-                tol = RESNET_F32_ATOL
-            else:
-                tol = RESNET_BF16_RTOL * max(1.0, want.float().abs().max()
-                                             .item())
-            ms = time_ms(lambda: affine_silu_conv1d(x, a, b, w, bias))
-            pms = time_ms(lambda: affine_silu_conv1d_plain(x, a, b, w, bias))
+            err, tol, ms, pms = k2_case(B, t, c, co, film, dtype, g, dev)
             say(f"K2 {name:18s} {str(dtype)[6:]:8s} B={B} T={t} C={c} "
                 f"Co={co} film={int(film)} max_abs_err={err:.3e} "
-                f"(tol {tol:.3g}) kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+                f"(tol {tol:.3g}) kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                f"[{CARD}]")
             if not err <= tol:
                 fail(f"K2 {name} {dtype}: error {err} > {tol}")
             if dtype == torch.float32:
@@ -231,7 +322,105 @@ def check_resnet(unet, dev):
             elif name != "ragged_T":
                 ms_step += ms
                 plain_step += pms
-    return worst, ms_step, plain_step
+    say(f"K2 one UNet step at B={B} bf16: kernel {ms_step:.4f} ms, plain "
+        f"{plain_step:.4f} ms [{CARD}]")
+    return worst
+
+
+class PathCalls:
+    """The K1 and K2 calls of one run, grouped by geometry: K1 by the
+    shape, strides, storage offset and storage size of q, k and v, the
+    dtype, the scale and whether a key bias came (the first call's bias is
+    kept), recorded where `multihead_attention` calls it; K2 by (B, T, C),
+    the dtype and Co, recorded where the UNet calls `gn_silu_conv1d`. Each
+    group counts its calls; the dtype is the second field of every key."""
+
+    def __init__(self):
+        self.k1: dict = {}     # key -> calls
+        self.k2: dict = {}     # key -> calls
+        self.bias: dict = {}   # K1 key -> the first call's key bias
+
+    def patches(self):
+        from unittest import mock
+
+        import ns2vc_tpu_torch.models.unet as unet
+        import ns2vc_tpu_torch.ops.attention as attention
+
+        k1, k2 = attention.flash_attention, unet.gn_silu_conv1d
+
+        def k1_rec(q, k, v, bias=None, scale=None):
+            geo = tuple((tuple(t.shape), t.stride(), t.storage_offset(),
+                         t.untyped_storage().nbytes() // t.element_size())
+                        for t in (q, k, v))
+            key = (geo, q.dtype, scale, bias is None)
+            if key not in self.k1:
+                self.bias[key] = None if bias is None else bias.clone()
+            self.k1[key] = self.k1.get(key, 0) + 1
+            return k1(q, k, v, bias, scale)
+
+        def k2_rec(x, gamma, beta, w, *args, **kwargs):
+            key = (tuple(x.shape), x.dtype, w.shape[0])
+            self.k2[key] = self.k2.get(key, 0) + 1
+            return k2(x, gamma, beta, w, *args, **kwargs)
+        return [mock.patch.object(attention, "flash_attention", k1_rec),
+                mock.patch.object(unet, "gn_silu_conv1d", k2_rec)]
+
+
+def check_path_calls(calls: PathCalls, dev):
+    """Every K1 and K2 geometry of a recorded run against its plain
+    version, in f32 and in bf16, on random inputs laid out as the run's
+    (K1: the same strides and key bias). Each geometry is timed in the
+    dtype the run gave it. Returns per kernel (the worst f32 error, the
+    run's summed kernel and plain time (each geometry's time x its
+    calls), the calls)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def k1(key, dtype, timed):
+        geo, _, scale, _ = key
+        q, k, v = (torch.randn(size, generator=g, device=dev).to(dtype)
+                   .as_strided(shape, stride, offset)
+                   for shape, stride, offset, size in geo)
+        return k1_case(q, k, v, calls.bias[key], scale, timed)
+
+    def k2(key, dtype, timed):
+        (bsz, t, c), _, co = key
+        return k2_case(bsz, t, c, co, True, dtype, g, dev, timed)
+
+    def k1_label(key):
+        (q, *_), (k, *_) = key[0][:2]
+        return f"q{q} k{k} bias={int(not key[3])}"
+
+    def k2_label(key):
+        (bsz, t, c), _, co = key
+        return f"B={bsz} T={t} C={c} Co={co}"
+    out = {}
+    for name, groups, run, label in (
+            ("flash_attention", calls.k1, k1, k1_label),
+            ("affine_silu_conv1d", calls.k2, k2, k2_label)):
+        worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+        for key, n in groups.items():
+            errs, dtype0 = [], key[1]
+            for dtype in (torch.float32, torch.bfloat16):
+                err, tol, ms, pms = run(key, dtype, dtype == dtype0)
+                if not err <= tol:
+                    fail(f"{name} CLI geometry {label(key)} {dtype}: error "
+                         f"{err} > {tol}")
+                errs.append(err)
+                if dtype == dtype0:
+                    ms_sum += n * ms
+                    plain_sum += n * pms
+                    times = f"kernel_ms={ms:.4f} plain_ms={pms:.4f}"
+            worst = max(worst, errs[0])
+            say(f"{name} CLI {label(key)} x{n} {str(dtype0)[6:]}: err f32 "
+                f"{errs[0]:.2e} bf16 {errs[1]:.2e}; {times}")
+        n = sum(groups.values())
+        out[name] = (worst, ms_sum, plain_sum, n)
+        say(f"{name} over the CLI run's {n} calls: worst f32 error "
+            f"{worst:.3e}; kernel {ms_sum:.2f} ms, plain {plain_sum:.2f} ms "
+            f"[{CARD}]")
+    return out
 
 
 def check_full_model(cfg, sd, vsd, dev):
@@ -303,8 +492,8 @@ def check_serving(cfg, sd, vsd, dev):
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention
     from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
 
-    svc = Svc(cfg, params=sd, vocos_params=vsd, compute_dtype="bfloat16",
-              device=dev)
+    svc = Svc(config=cfg, params=sd, vocos_params=vsd,
+              compute_dtype="bfloat16", device=dev)
     r = np.random.default_rng(SEED + 2)
     clips = [(0.1 * r.standard_normal((T_CLIP, 256))).astype(np.float32)
              for _ in range(B)]
@@ -341,7 +530,7 @@ def check_serving(cfg, sd, vsd, dev):
     say(f"serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} bf16 pcm16: "
         f"{B} x int16 ({n_samples},) finite; warm-up {warm_ms:.1f} ms, "
         f"call {ms:.1f} ms = {audio_s / (ms / 1e3):.2f}x real time; launches "
-        f"{counts}")
+        f"{counts} [{CARD}]")
     single_ms = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -357,8 +546,399 @@ def check_serving(cfg, sd, vsd, dev):
         f"({n_samples},) finite; first {single_ms[0]:.1f} ms, second "
         f"{single_ms[1]:.1f} ms = "
         f"{n_samples / cfg.data.sampling_rate / (single_ms[1] / 1e3):.2f}x "
-        f"real time")
-    return counts
+        f"real time [{CARD}]")
+    return svc, clips, refer
+
+
+# -- slice 2: front end, samplers, overlap, MicroBatcher, wav in -> wav out ---
+
+def tone(n: int, sr: int, seed: int, f: float = 220.0) -> np.ndarray:
+    """A voiced-like test signal: a harmonic tone with vibrato and noise."""
+    r = np.random.default_rng(seed)
+    t = np.arange(n) / sr
+    ph = 2 * np.pi * f * t + 3.0 * np.sin(2 * np.pi * 5 * t)
+    x = 0.3 * np.sin(ph) + 0.15 * np.sin(2 * ph) + 0.05 * np.sin(3 * ph)
+    return (x + 0.01 * r.standard_normal(n)).astype(np.float32)
+
+
+def front_end_weights():
+    """Seeded full-width ContentVec and CREPE 'full' state dicts."""
+    import torch
+
+    from ns2vc_tpu_torch.convert import (
+        init_contentvec_params, init_crepe_params,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    return init_contentvec_params(gen), init_crepe_params(gen, "full")
+
+
+def check_front_end(dev, cv_sd, crepe_sd):
+    """f32, TF32 off: resampling 44.1 k -> 24 k / 16 k and log-mel of a 17 s
+    signal, full-width ContentVec on 4 s and CREPE full on 2 s, card vs
+    CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    from ns2vc_tpu_torch.audio.mel import log_mel_spectrogram
+    from ns2vc_tpu_torch.audio.resample import resample
+    from ns2vc_tpu_torch.features.contentvec import ContentVec
+    from ns2vc_tpu_torch.features.crepe import WINDOW, Crepe
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
+
+    cpu = torch.device("cpu")
+    x44 = torch.from_numpy(tone(17 * 44100, 44100, SEED + 3))
+    errs = {}
+
+    def compare(name, fn, tol, mask_fn=None):
+        got, ms = wall_ms(lambda: fn(dev))
+        want = fn(cpu)
+        got = got.cpu()
+        if not torch.isfinite(got).all():
+            fail(f"front end: {name} not finite on the card")
+        diff = (got - want).abs()
+        if mask_fn is not None:
+            diff = diff[mask_fn(want)]
+        errs[name] = diff.max().item()
+        say(f"front end f32 {name:22s} shape={tuple(got.shape)} "
+            f"max_abs_err={errs[name]:.3e} (tol {tol:g}) card_ms={ms:.2f} "
+            f"[{CARD}]")
+        if not errs[name] <= tol:
+            fail(f"front end: {name} error {errs[name]} > {tol}")
+        return want
+
+    with no_tf32(), torch.no_grad():
+        compare("resample 44.1k->24k",
+                lambda d: resample(x44.to(d), 44100, 24000), RESAMPLE_ATOL)
+        compare("resample 44.1k->16k",
+                lambda d: resample(x44.to(d), 44100, 16000), RESAMPLE_ATOL)
+        x24 = resample(x44, 44100, 24000)
+        compare("log-mel 24k (above clip)",
+                lambda d: log_mel_spectrogram(x24.to(d)), MEL_ATOL,
+                lambda w: w > float(np.log(1e-7)) + 1e-3)
+
+        models = {}
+        for d in (dev, cpu):
+            cv = ContentVec()
+            cv.load_state_dict(cv_sd)
+            cr = Crepe("full")
+            cr.load_state_dict(crepe_sd)
+            models[d.type] = (cv.to(d).eval(), cr.to(d).eval())
+        wav16 = resample(x44[: 4 * 44100], 44100, 16000)[None]
+        flash_attention.launches = 0
+        compare("ContentVec 768x12, 4 s",
+                lambda d: models[d.type][0](wav16.to(d)), CONTENTVEC_ATOL)
+        if flash_attention.launches != 12:
+            fail(f"ContentVec launched K1 {flash_attention.launches} times, "
+                 f"expected 12 (one per layer)")
+        x16 = F.pad(resample(x44[: 2 * 44100], 44100, 16000),
+                    (WINDOW // 2, WINDOW // 2))
+        frames = x16.unfold(0, WINDOW, 171)   # hop 256 at 24 kHz -> 16 kHz
+        frames = (frames - frames.mean(1, keepdim=True)) / torch.clamp(
+            frames.std(1, keepdim=True, correction=0), min=1e-10)
+        compare(f"CREPE full, {frames.shape[0]} frames",
+                lambda d: models[d.type][1](frames.to(d)), CREPE_ATOL)
+
+
+def check_samplers(svc, clips, refer, hop, sr):
+    """ddim (50 steps), dpmsolver (order 2, 50 steps) and unipc (50 steps)
+    through Svc.infer_batch at B=16 x 400 frames, bf16, pcm16."""
+    audio_s = len(clips) * clips[0].shape[0] * hop / sr
+    for method in ("ddim", "dpmsolver", "unipc"):
+        outs, ms = wall_ms(lambda: svc.infer_batch(
+            clips, refer, sample_method=method, sampling_timesteps=STEPS,
+            order=2, output="pcm16"))
+        if any(o.shape != (clips[0].shape[0] * hop,) or o.dtype != np.int16
+               for o in outs):
+            fail(f"sampler {method}: wrong shape or dtype")
+        say(f"sampler {method:9s} B={len(clips)} T={clips[0].shape[0]} "
+            f"steps={STEPS} bf16 pcm16: {ms:.1f} ms = "
+            f"{audio_s / (ms / 1e3):.2f}x real time [{CARD}]")
+
+
+def check_overlap(svc, refer):
+    """Batch 1's finish() must return while batch 2, dispatched after it,
+    is still running: the readback waits on its own event. Both geometries
+    run once first (a geometry's first call synchronises in the libraries'
+    set-up), and batch 2's device work ends in ~0.5 s of spin, so the check
+    does not hang on how far the host runs ahead of the card."""
+    import torch
+
+    r = np.random.default_rng(SEED + 5)
+    small = [(0.1 * r.standard_normal((100, 256))).astype(np.float32)
+             for _ in range(4)]
+    big = [(0.1 * r.standard_normal((1600, 256))).astype(np.float32)
+           for _ in range(16)]
+    svc.infer_batch(small, refer, sampling_timesteps=5)
+    svc.infer_batch(big, refer, sampling_timesteps=30, output="pcm16")
+    run = svc._run
+
+    def run_then_spin(*args, **kwargs):
+        wav = run(*args, **kwargs)
+        torch.cuda._sleep(int(1e9))
+        return wav
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f1 = svc.infer_batch_async(small, refer, sampling_timesteps=5)
+    svc._run = run_then_spin
+    try:
+        f2 = svc.infer_batch_async(big, refer, sampling_timesteps=30,
+                                   output="pcm16")
+    finally:
+        del svc._run
+    t_dispatched = time.perf_counter()
+    outs = f1()
+    t_f1 = time.perf_counter()
+    pending = not f2.done.query()
+    outs2 = f2()
+    t_f2 = time.perf_counter()
+    if not pending:
+        fail("overlap: batch 1's finish() returned only after batch 2's "
+             "device work had finished")
+    if len(outs) != 4 or len(outs2) != 16 or outs2[0].dtype != np.int16:
+        fail("overlap: wrong outputs")
+    say(f"readback overlap: both dispatched at {1e3 * (t_dispatched - t0):.0f}"
+        f" ms; batch 1 (4x100, 5 steps) read back at "
+        f"{1e3 * (t_f1 - t0):.0f} ms with batch 2 (16x1600, 30 steps, then "
+        f"a spin) still running; batch 2 read back at "
+        f"{1e3 * (t_f2 - t0):.0f} ms [{CARD}]")
+
+
+def check_microbatcher(svc, refer, hop):
+    """32 requests of 150-600 frames from 4 threads through one
+    MicroBatcher (max_batch 16, max_inflight 2, pcm16)."""
+    from ns2vc_tpu_torch.infer.serve import MicroBatcher
+
+    r = np.random.default_rng(SEED + 6)
+    lens = r.integers(150, 601, size=32)
+    clips = [(0.1 * r.standard_normal((int(n), 256))).astype(np.float32)
+             for n in lens]
+    futs = [None] * 32
+    t0 = time.perf_counter()
+    with MicroBatcher(svc, refer, max_batch=16, max_inflight=2,
+                      sampling_timesteps=CLI_STEPS, output="pcm16") as mb:
+        def client(k):
+            for i in range(k, 32, 4):
+                futs[i] = mb.submit(clips[i])
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        outs = [f.result(timeout=600) for f in futs]
+        mix = list(mb.dispatch_log)
+    wall = (time.perf_counter() - t0) * 1e3
+    for n, o in zip(lens, outs):
+        if o.shape != (int(n) * hop,) or o.dtype != np.int16:
+            fail(f"MicroBatcher: a {n}-frame request came back "
+                 f"{o.shape} {o.dtype}")
+    if svc._refer_cache:
+        fail(f"MicroBatcher: {len(svc._refer_cache)} refer cache entries "
+             f"left after close()")
+    audio_s = float(lens.sum()) * hop / 24000
+    say(f"MicroBatcher 32 requests (150-600 frames, 4 threads) steps="
+        f"{CLI_STEPS} pcm16: batches (real, dispatched) {mix}; wall "
+        f"{wall:.0f} ms = {audio_s / (wall / 1e3):.2f}x real time; refer "
+        f"cache empty after close [{CARD}]")
+
+
+class Stages:
+    """Exclusive wall time per stage: each wrapped call synchronises the
+    card before and after, and a nested stage's time is taken out of its
+    parent's."""
+
+    def __init__(self):
+        self.ms = defaultdict(float)
+        self._stack = []
+
+    def wrap(self, name, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                self.ms[name] += dt - self._stack.pop()
+                if self._stack:
+                    self._stack[-1] += dt
+        return timed
+
+
+def write_checkpoints(tmp, sd, vsd, cv_sd, crepe_sd) -> dict:
+    """The seeded weights in the files the CLI reads: a port state dict,
+    and the public fairseq contentvec (with head metadata), Vocos and
+    torchcrepe layouts, written by the port's inverses of its loaders."""
+    import torch
+
+    from ns2vc_tpu_torch.features.contentvec import contentvec_to_fairseq
+    from ns2vc_tpu_torch.features.crepe import crepe_to_torchcrepe
+    from ns2vc_tpu_torch.models.vocos import vocos_to_public
+
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("model", "model.pt"), ("cv", "contentvec.pt"),
+        ("vocos", "vocos.bin"), ("crepe", "full.pth"))}
+    torch.save(sd, paths["model"])
+    torch.save({"model": contentvec_to_fairseq(cv_sd),
+                "cfg": {"model": {"encoder_attention_heads": 12}}},
+               paths["cv"])
+    torch.save(vocos_to_public(vsd), paths["vocos"])
+    torch.save(crepe_to_torchcrepe(crepe_sd), paths["crepe"])
+    return paths
+
+
+def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
+    """wav in -> wav out at full width through the port CLI's main(): bf16
+    unipc (counted, with every K1 / K2 call's geometry recorded, then timed
+    by stage), bf16 -fmp (CREPE F0, timed), and f32 with TF32 off through
+    the kernels against the same run through their plain versions."""
+    from unittest import mock
+
+    import ns2vc_tpu_torch.infer.svc as svc_mod
+    import ns2vc_tpu_torch.ops.attention as attention
+    import ns2vc_tpu_torch.ops.fused_resnet as fused_resnet
+    from ns2vc_tpu_torch.audio.host import Slicer, read_wav, write_wav
+    from ns2vc_tpu_torch.features.contentvec import ContentVec
+    from ns2vc_tpu_torch.infer.cli import main as cli_main
+    from ns2vc_tpu_torch.models.vocos import Vocos
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d, affine_silu_conv1d_plain,
+    )
+
+    sr = 44100
+    src = np.concatenate([tone(int(6.0 * sr), sr, SEED + 7, 200.0),
+                          np.zeros(sr, np.float32),
+                          tone(int(6.5 * sr), sr, SEED + 8, 240.0),
+                          np.zeros(sr, np.float32),
+                          tone(int(5.5 * sr), sr, SEED + 9, 180.0)])
+    want_len = -(-len(src) * cfg.data.sampling_rate // sr)
+    hop = cfg.data.hop_length
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_checkpoints(tmp, sd, vsd, cv_sd, crepe_sd)
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(raw)
+        write_wav(os.path.join(raw, "src.wav"), src, sr)
+        write_wav(os.path.join(raw, "ref.wav"), tone(3 * sr, sr, SEED + 10,
+                                                     150.0), sr)
+        argv = ["-m", paths["model"], "-n", "src.wav", "-r", "ref.wav",
+                "--contentvec_ckpt", paths["cv"], "--vocos_ckpt",
+                paths["vocos"], "--crepe_ckpt", paths["crepe"],
+                "--raw_dir", raw, "--out_dir", os.path.join(tmp, "out"),
+                "--compute_dtype", "bfloat16", "--sampling_timesteps",
+                str(CLI_STEPS)]
+        out_path = os.path.join(tmp, "out", "src_0key_ref.wav")
+        slice_inference = svc_mod.Svc.slice_inference
+
+        def run(extra, stages=None, patches=()):
+            """One CLI run: (launch counts, calls of ContentVec and of the
+            device batch, wall ms, the converted audio before writing)."""
+            calls, audio = defaultdict(int), []
+
+            def counted(name, fn):
+                def f(*a, **k):
+                    calls[name] += 1
+                    return fn(*a, **k)
+                return f
+
+            def kept(*a, **k):
+                audio.append(slice_inference(*a, **k))
+                return audio[-1]
+            patches = [
+                *patches,
+                mock.patch.object(ContentVec, "forward", counted(
+                    "contentvec", ContentVec.forward)),
+                mock.patch.object(svc_mod.Svc, "_run", counted(
+                    "batches", svc_mod.Svc._run)),
+                mock.patch.object(svc_mod.Svc, "slice_inference", kept)]
+            if stages is not None:
+                for obj, attr, name in (
+                        (svc_mod.Svc, "__init__", "load checkpoints"),
+                        (Slicer, "slice", "slicer"),
+                        (svc_mod, "resample", "resample"),
+                        (svc_mod.Svc, "compute_f0", "F0"),
+                        (ContentVec, "forward", "ContentVec"),
+                        (svc_mod.Svc, "compute_refer_mel", "refer mel"),
+                        (svc_mod, "generate_mel", "sampler"),
+                        (Vocos, "forward", "Vocos")):
+                    patches.append(mock.patch.object(
+                        obj, attr, stages.wrap(name, getattr(obj, attr))))
+            flash_attention.launches = affine_silu_conv1d.launches = 0
+            with contextlib.ExitStack() as stack:
+                for p in patches:
+                    stack.enter_context(p)
+                _, ms = wall_ms(lambda: cli_main(argv + extra))
+            counts = {"flash_attention": flash_attention.launches,
+                      "affine_silu_conv1d": affine_silu_conv1d.launches}
+            wav, out_sr = read_wav(out_path)
+            if out_sr != cfg.data.sampling_rate or not np.isfinite(
+                    wav).all() or abs(len(wav) - want_len) > hop:
+                fail(f"CLI {extra}: output {len(wav)} samples at {out_sr} "
+                     f"Hz, expected {want_len} +- {hop} at "
+                     f"{cfg.data.sampling_rate}, finite")
+            os.remove(out_path)
+            return counts, dict(calls), ms, audio[0]
+
+        path_calls = PathCalls()
+        counts, calls, ms, _ = run([], patches=path_calls.patches())
+        want = {"flash_attention": 12 * calls["contentvec"]
+                + calls["batches"] * (14 + 32 * CLI_STEPS),
+                "affine_silu_conv1d": calls["batches"] * 45 * CLI_STEPS}
+        if counts != want or calls["contentvec"] < 3:
+            fail(f"CLI launch counts {counts} for {calls}, expected {want}")
+        recorded = {"flash_attention": sum(path_calls.k1.values()),
+                    "affine_silu_conv1d": sum(path_calls.k2.values())}
+        if recorded != counts:
+            fail(f"CLI: {recorded} wrapper calls recorded, {counts} "
+                 f"launches counted")
+        say(f"wav in -> wav out, CLI unipc {CLI_STEPS} steps bf16: 20.0 s "
+            f"source at 44.1 kHz -> {want_len} samples at 24 kHz, finite; "
+            f"{ms:.0f} ms = {len(src) / sr / (ms / 1e3):.2f}x real time; "
+            f"{calls['contentvec']} ContentVec calls, {calls['batches']} "
+            f"device batches; launches {counts}; K1 geometries "
+            f"{len(path_calls.k1)}, K2 geometries {len(path_calls.k2)} "
+            f"[{CARD}]")
+        for name, extra in (("unipc", []), ("-fmp (CREPE)", ["-fmp"])):
+            stages = Stages()
+            _, _, ms, _ = run(extra, stages)
+            rest = ms - sum(stages.ms.values())
+            parts = ", ".join(f"{k} {v:.0f}" for k, v in stages.ms.items())
+            say(f"wav in -> wav out, CLI {name}, ms per stage (synchronised): "
+                f"{parts}, assembly and the rest {rest:.0f}; total {ms:.0f} "
+                f"[{CARD}]")
+
+        # f32, TF32 off: the same conversion through the kernels and
+        # through their plain versions
+        f32 = ["--compute_dtype", "float32"]
+        with no_tf32():
+            k_counts, _, k_ms, k_wav = run(f32)
+            p_counts, _, p_ms, p_wav = run(f32, patches=[
+                mock.patch.object(attention, "flash_attention",
+                                  flash_attention_plain),
+                mock.patch.object(fused_resnet, "affine_silu_conv1d",
+                                  affine_silu_conv1d_plain)])
+        if min(k_counts.values()) == 0 or max(p_counts.values()) != 0:
+            fail(f"CLI f32: launches {k_counts} through the kernels, "
+                 f"{p_counts} through the plain versions")
+        scale = max(1.0, float(np.abs(p_wav).max()))
+        err = float(np.abs(k_wav - p_wav).max()) if k_wav.shape == \
+            p_wav.shape else float("inf")
+        say(f"wav in -> wav out, CLI unipc {CLI_STEPS} steps f32 (TF32 off), "
+            f"kernels vs plain versions: {k_wav.shape[0]} samples, "
+            f"max_abs_err={err:.3e} (tol {CLI_WAV_ATOL:g} x max(1, "
+            f"max|wav|)={scale:.3g}); {k_ms:.0f} ms vs {p_ms:.0f} ms "
+            f"[{CARD}]")
+        if not err <= CLI_WAV_ATOL * scale:
+            fail(f"CLI f32: kernels vs plain versions differ by {err} > "
+                 f"{CLI_WAV_ATOL} x {scale}")
+    return counts, path_calls
 
 
 def main() -> int:
@@ -379,12 +959,11 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    global CARD
+    CARD = card_line()
     say(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__} CUDA "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; {CARD}")
 
     t0 = time.perf_counter()
     info = _build.build()
@@ -403,25 +982,37 @@ def main() -> int:
         from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
         unet = NaturalSpeech2(cfg).diff_model.unet
 
-    k1_err, k1_ms, k1_plain = check_attention(cfg, dev)
-    k2_err, k2_ms, k2_plain = check_resnet(unet, dev)
-    check_full_model(cfg, sd, vsd, dev)
-    counts = check_serving(cfg, sd, vsd, dev)
+    with no_tf32():
+        k1_err = check_attention(cfg, dev)
+        k2_err = check_resnet(unet, dev)
+        check_full_model(cfg, sd, vsd, dev)
+    # the timed phases first; the CPU references of the front end last
+    svc, clips, refer = check_serving(cfg, sd, vsd, dev)
+    check_samplers(svc, clips, refer, cfg.data.hop_length,
+                   cfg.data.sampling_rate)
+    check_overlap(svc, refer)
+    check_microbatcher(svc, refer, cfg.data.hop_length)
+    del svc
+    cv_sd, crepe_sd = front_end_weights()
+    counts, path_calls = check_cli(cfg, sd, vsd, cv_sd, crepe_sd)
+    with no_tf32():
+        on_path = check_path_calls(path_calls, dev)
+    check_front_end(dev, cv_sd, crepe_sd)
 
-    kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "ns2vc_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "ns2vc_tpu/ops/pallas_attention.py:92",
-         "launches": counts["flash_attention"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "affine_silu_conv1d", "route": "cuda",
-         "source": "ns2vc_tpu_torch/csrc/gn_silu_conv1d.cu",
-         "replaces": "ns2vc_tpu/ops/pallas_resnet.py:71",
-         "launches": counts["affine_silu_conv1d"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-    ]
+    kernels = []
+    for name, worst, source, replaces in (
+            ("flash_attention", k1_err, "flash_attention.cu",
+             "ns2vc_tpu/ops/pallas_attention.py:92"),
+            ("affine_silu_conv1d", k2_err, "gn_silu_conv1d.cu",
+             "ns2vc_tpu/ops/pallas_resnet.py:71")):
+        err, ms, plain_ms, _ = on_path[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": counts[name], "max_abs_err": max(worst, err),
+            "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
-    print(card)
+    print(CARD)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,45 @@
-"""The iSTFT pieces the Vocos head needs (counterpart of
-ns2vc_tpu/audio/mel.py::hann_window and `_overlap_add`). The rest of that
-module (STFT, log-mel, the feature front end) belongs to a later slice."""
+"""STFT, log-mel and the iSTFT pieces of the Vocos head (counterpart of
+ns2vc_tpu/audio/mel.py).
+
+Log-mel semantics are torchaudio's MelSpectrogram(sample_rate=24000,
+n_fft=1024, hop_length=256, n_mels=100, center=True, power=1) followed by
+log(clamp(., 1e-7)): periodic hann window, reflect centre padding,
+magnitude spectrogram, HTK mel scale, no filterbank norm. The filterbank
+and window are host constants; the STFT and the projection run on the
+waveform's device.
+"""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def hz_to_mel(freq) -> np.ndarray:
+    """HTK mel scale (torchaudio's default for MelSpectrogram)."""
+    return 2595.0 * np.log10(1.0 + np.asarray(freq, dtype=np.float64) / 700.0)
+
+
+def mel_to_hz(mel) -> np.ndarray:
+    return 700.0 * (10.0 ** (np.asarray(mel, dtype=np.float64) / 2595.0) - 1.0)
+
+
+def mel_filterbank(n_freqs: int, n_mels: int, sample_rate: int,
+                   f_min: float = 0.0, f_max: float | None = None
+                   ) -> np.ndarray:
+    """Triangular HTK filterbank without norm, (n_freqs, n_mels) f32."""
+    f_max = f_max if f_max is not None else sample_rate / 2.0
+    all_freqs = np.linspace(0.0, sample_rate / 2.0, n_freqs)
+    m_pts = np.linspace(hz_to_mel(f_min), hz_to_mel(f_max), n_mels + 2)
+    f_pts = mel_to_hz(m_pts)
+    f_diff = np.diff(f_pts)
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
 
 
 def hann_window(win_length: int) -> np.ndarray:
@@ -13,6 +47,59 @@ def hann_window(win_length: int) -> np.ndarray:
     n = np.arange(win_length, dtype=np.float64)
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(
         np.float32)
+
+
+def stft(x: torch.Tensor, window: torch.Tensor, n_fft: int = 1024,
+         hop: int = 256, center: bool = True) -> torch.Tensor:
+    """Complex STFT of (..., L) -> (..., 1 + L//hop, n_fft//2 + 1); center
+    pads n_fft//2 per side by reflection (torch.stft semantics)."""
+    if window.shape[-1] < n_fft:  # torch centre-pads the window to n_fft
+        lpad = (n_fft - window.shape[-1]) // 2
+        window = F.pad(window, (lpad, n_fft - window.shape[-1] - lpad))
+    x = x.float()
+    if center:
+        shape = x.shape
+        x = F.pad(x.reshape(-1, 1, shape[-1]), (n_fft // 2, n_fft // 2),
+                  mode="reflect").reshape(shape[:-1] + (-1,))
+    frames = x.unfold(-1, n_fft, hop) * window.to(x.device)
+    return torch.fft.rfft(frames, dim=-1)
+
+
+class MelSpectrogram:
+    """(..., L) waveform at `sample_rate` -> (..., n_mels, 1 + L//hop)
+    log-mel (or linear mel with log=False)."""
+
+    def __init__(self, sample_rate: int = 24000, n_fft: int = 1024,
+                 hop_length: int = 256, win_length: int | None = None,
+                 n_mels: int = 100, f_min: float = 0.0,
+                 f_max: float | None = None, power: float = 1.0,
+                 log_clip: float = 1e-7):
+        self.n_fft, self.hop_length = n_fft, hop_length
+        self.power, self.log_clip = power, log_clip
+        self.window = torch.from_numpy(hann_window(win_length or n_fft))
+        self.fbank = torch.from_numpy(mel_filterbank(
+            n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max))
+
+    def __call__(self, wav: torch.Tensor, log: bool = True) -> torch.Tensor:
+        mag = stft(wav, self.window, self.n_fft, self.hop_length).abs()
+        if self.power != 1.0:
+            mag = mag ** self.power
+        mel = torch.matmul(mag, self.fbank.to(mag.device)).transpose(-1, -2)
+        return torch.log(mel.clamp(min=self.log_clip)) if log else mel
+
+
+@functools.lru_cache(maxsize=8)
+def _get_mel(sample_rate: int, n_fft: int, hop_length: int,
+             n_mels: int) -> MelSpectrogram:
+    return MelSpectrogram(sample_rate=sample_rate, n_fft=n_fft,
+                          hop_length=hop_length, n_mels=n_mels)
+
+
+def log_mel_spectrogram(wav: torch.Tensor, sample_rate: int = 24000,
+                        n_fft: int = 1024, hop_length: int = 256,
+                        n_mels: int = 100) -> torch.Tensor:
+    """One-shot log-mel (constants cached per geometry)."""
+    return _get_mel(sample_rate, n_fft, hop_length, n_mels)(wav)
 
 
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:

@@ -2,10 +2,13 @@
 
 `from_flax` maps the JAX package's parameter tree (nested dicts of numpy
 arrays, as `NaturalSpeech2.init` makes them) onto the port's modules, whose
-submodule names follow the flax paths. Leaf rules:
+submodule names follow the flax paths; `vocos_from_flax`,
+`contentvec_from_flax` and `crepe_from_flax` do the same for the other
+models (CREPE's `batch_stats` become BatchNorm running statistics). Leaf
+rules:
 
     Dense kernel (in, out)            -> Linear weight (out, in)
-    Conv kernel (K, Cin, Cout)        -> Conv1d weight (Cout, Cin, K)
+    Conv kernel (K, Cin/g, Cout)      -> Conv1d weight (Cout, Cin/g, K)
     depthwise kernel (K, 1, C)        -> Conv1d weight (C, 1, K)
     DenseGeneral in_proj (C, 3, C)    -> Linear weight (3C, C)
     norm scale                        -> weight
@@ -14,6 +17,11 @@ submodule names follow the flax paths. Leaf rules:
 
 The mapping is strict: a leaf that no port parameter takes, a port
 parameter that no leaf fills, or a shape that disagrees raises.
+
+`load_checkpoint` reads a `.pt` file into the port's NaturalSpeech2 state
+dict: the reference NS2VC `model-N.pt` through the JAX package's jax-free
+converter (`ns2vc_tpu.utils.convert_reference`) and `from_flax`, or a port
+state dict saved with `torch.save`.
 
 `init_params` draws a state dict from a `torch.Generator` in flax's
 initialiser families (lecun-normal kernels, zero biases, unit norms, the
@@ -25,12 +33,15 @@ scale. The values are not those `jax.random` would give.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 from torch import nn
 
 from ns2vc_tpu.config import Config
+from ns2vc_tpu_torch.features.contentvec import ContentVec
+from ns2vc_tpu_torch.features.crepe import BatchNorm, Crepe
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
 from ns2vc_tpu_torch.models.encoders import AttentionPooling, LNConv
 from ns2vc_tpu_torch.models.vocos import ConvNeXtBlock, Vocos
@@ -112,6 +123,39 @@ def vocos_from_flax(params_np: dict, **vocos_kwargs) -> dict:
     return from_flax_tree(params_np, _skeleton(lambda: Vocos(**vocos_kwargs)))
 
 
+def contentvec_from_flax(params_np: dict, **contentvec_kwargs) -> dict:
+    """ContentVec flax params -> the port's ContentVec state dict;
+    `contentvec_kwargs` are its widths (defaults: HuBERT-base)."""
+    return from_flax_tree(params_np,
+                          _skeleton(lambda: ContentVec(**contentvec_kwargs)))
+
+
+def crepe_from_flax(variables: dict, model: str = "full") -> dict:
+    """CREPE flax variables {'params', 'batch_stats'} -> the port's Crepe
+    state dict (batch_stats mean/var -> running_mean/running_var)."""
+    tree = {k: dict(v) for k, v in variables["params"].items()}
+    for name, st in variables["batch_stats"].items():
+        tree[name].update(running_mean=st["mean"], running_var=st["var"])
+    return from_flax_tree(tree, _skeleton(lambda: Crepe(model)))
+
+
+def load_checkpoint(path: str, cfg: Config) -> dict:
+    """A `.pt` file -> the port's NaturalSpeech2 state dict: a reference
+    `model-N.pt` ({'step', 'model'}) or a port state dict. Orbax
+    checkpoint directories are not read by the port."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory: orbax checkpoints of the JAX package "
+            f"are not read by the port; pass a reference model-N.pt or a "
+            f"port state dict saved with torch.save")
+    data = torch.load(path, map_location="cpu")
+    if "model" in data:
+        from ns2vc_tpu.utils.convert_reference import natural_speech2
+
+        return from_flax(natural_speech2(data["model"]), cfg)
+    return data
+
+
 # -- seeded initialiser ------------------------------------------------------
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -141,7 +185,7 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(_lecun_normal(w.shape, fan_in, generator))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
     for m in module.modules():
@@ -164,3 +208,16 @@ def init_params(cfg: Config, generator: torch.Generator) -> dict:
 def init_vocos_params(generator: torch.Generator, **vocos_kwargs) -> dict:
     """A seeded Vocos state dict (CPU, f32)."""
     return init_module_(Vocos(**vocos_kwargs), generator).state_dict()
+
+
+def init_contentvec_params(generator: torch.Generator,
+                           **contentvec_kwargs) -> dict:
+    """A seeded ContentVec state dict (CPU, f32)."""
+    return init_module_(ContentVec(**contentvec_kwargs),
+                        generator).state_dict()
+
+
+def init_crepe_params(generator: torch.Generator, model: str = "full"
+                      ) -> dict:
+    """A seeded Crepe state dict (CPU, f32; unit BatchNorm statistics)."""
+    return init_module_(Crepe(model), generator).state_dict()

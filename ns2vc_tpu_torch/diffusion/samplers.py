@@ -1,18 +1,23 @@
-"""UniPC sampler (counterpart of ns2vc_tpu/diffusion/samplers.py::
-unipc_sample and `_fast_sampler_consts`).
+"""Diffusion samplers (counterpart of ns2vc_tpu/diffusion/samplers.py):
+DDPM, DDIM, DPM-Solver++ (multistep, singlestep, adaptive, inverse), UniPC
+and the `sample` dispatcher with the JAX package's default step counts.
 
-The sampler consumes an x0-prediction function `x0_fn(x, t_input)` where
+Every sampler consumes an x0-prediction function `x0_fn(x, t_input)` where
 `t_input` is the (possibly fractional) discrete-time label in [0, 1000).
 Every schedule constant is host float64 math folded to Python floats; the
-loop over steps is a Python loop that makes exactly `steps` model calls.
-The JAX package runs the homogeneous middle of the loop as one `lax.scan`;
-here every update goes through the same `update` step, which is the same
-arithmetic. DDPM, DDIM and DPM-Solver++ are not ported yet.
+loop over steps is a Python loop that makes exactly one model call per
+NFE. The JAX package runs the homogeneous middle of each loop as one
+`lax.scan`; here every update goes through the same update function, which
+is the same arithmetic.
+
+DDPM and DDIM draw their per-step noise from an explicit `torch.Generator`
+on x's device, or take it in as a sequence (`noise`), so a test can feed
+the draws `jax.random` makes.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -22,13 +27,161 @@ from ns2vc_tpu_torch.diffusion.schedule import NoiseSchedule
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def _fast_sampler_consts(schedule: NoiseSchedule, steps: int):
-    """Marginals on the time-uniform grid, (steps+1,) each, host float64."""
-    ts = schedule.time_uniform_steps(steps)
+def _check_order(order: int, allowed: tuple) -> None:
+    if order not in allowed:
+        raise ValueError(f"order must be one of {allowed}, got {order}")
+
+
+def _labels(x: torch.Tensor, t: float) -> torch.Tensor:
+    """The (B,) f32 time-label vector of one model call."""
+    return torch.full((x.shape[0],), float(np.float32(t)),
+                      dtype=torch.float32, device=x.device)
+
+
+def _noise(x: torch.Tensor, i: int, noise: Sequence | None,
+           generator: torch.Generator | None) -> torch.Tensor:
+    if noise is not None:
+        return noise[i].to(x.device, x.dtype)
+    return torch.randn(x.shape, generator=generator, device=x.device,
+                       dtype=x.dtype)
+
+
+def ddpm_sample(x0_fn: DenoiseFn, x_T: torch.Tensor, schedule: NoiseSchedule,
+                generator: torch.Generator | None = None,
+                noise: Sequence | None = None) -> torch.Tensor:
+    """Ancestral sampling over all T steps (posterior mean of the x0
+    prediction plus exp(0.5 logvar) noise, none at t = 0). `noise[j]` is
+    the draw of the j-th call (t = T-1-j)."""
+    n = schedule.num_timesteps
+    c1 = schedule.posterior_mean_coef1.astype(np.float32)
+    c2 = schedule.posterior_mean_coef2.astype(np.float32)
+    logvar = schedule.posterior_log_variance_clipped.astype(np.float32)
+    x = x_T
+    for j, t in enumerate(range(n - 1, -1, -1)):
+        x0 = x0_fn(x, _labels(x, t))
+        eps = _noise(x, j, noise, generator)   # drawn at t = 0 too, as JAX
+        x = float(c1[t]) * x0 + float(c2[t]) * x
+        if t > 0:
+            x = x + float(np.exp(0.5 * logvar[t])) * eps
+    return x
+
+
+def ddim_sample(x0_fn: DenoiseFn, x_T: torch.Tensor, schedule: NoiseSchedule,
+                steps: int, generator: torch.Generator | None = None,
+                eta: float = 0.0, noise: Sequence | None = None
+                ) -> torch.Tensor:
+    """DDIM over `steps` calls (default eta 0: deterministic; the final
+    step returns the x0 prediction). `noise[j]` is the j-th call's draw."""
+    n = schedule.num_timesteps
+    times = np.trunc(np.linspace(-1.0, n - 1, steps + 1)).astype(np.int64)
+    pairs = list(zip(times[::-1][:-1], times[::-1][1:]))   # (t, t_next)
+    acp = schedule.alphas_cumprod
+    x = x_T
+    for j, (t, tn) in enumerate(pairs):
+        x0 = x0_fn(x, _labels(x, t))
+        if tn < 0:
+            x = x0
+            continue
+        alpha, alpha_next = acp[t], acp[tn]
+        sigma = eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
+                              / (1 - alpha))
+        c = np.float32(np.sqrt(1 - alpha_next - sigma ** 2))
+        srt = np.float32(schedule.sqrt_recip_alphas_cumprod[t])
+        srm1 = np.float32(schedule.sqrt_recipm1_alphas_cumprod[t])
+        pred_noise = (float(srt) * x - x0) / max(float(srm1), 1e-20)
+        x = float(np.float32(np.sqrt(alpha_next))) * x0 + float(c) * pred_noise
+        if sigma != 0.0:
+            x = x + float(np.float32(sigma)) * _noise(x, j, noise, generator)
+    return x
+
+
+def _fast_sampler_consts(schedule: NoiseSchedule, steps: int,
+                         t_start: float | None = None,
+                         t_end: float | None = None):
+    """Marginals on the time-uniform grid, (steps+1,) each, host float64;
+    an ascending range (t_start < t_end) runs the ODE forward."""
+    ts = schedule.time_uniform_steps(steps, t_start, t_end)
     lam = schedule.marginal_lambda(ts)
     alpha = np.exp(schedule.marginal_log_alpha(ts))
     sigma = schedule.marginal_std(ts)
     return lam, alpha, sigma, schedule.model_input_time(ts)
+
+
+def dynamic_thresholding(x0: torch.Tensor, ratio: float = 0.995,
+                         max_val: float = 1.0) -> torch.Tensor:
+    """Imagen-style dynamic thresholding of an x0 prediction: clamp each
+    sample to its |x0| `ratio`-quantile (floored at max_val) and rescale
+    into [-1, 1]."""
+    s = torch.quantile(x0.abs().reshape(x0.shape[0], -1).float(), ratio,
+                       dim=1)
+    s = torch.clamp(s, min=max_val).reshape((-1,) + (1,) * (x0.ndim - 1))
+    s = s.to(x0.dtype)
+    return torch.maximum(torch.minimum(x0, s), -s) / s
+
+
+def thresholded_x0_fn(x0_fn: DenoiseFn, ratio: float = 0.995,
+                      max_val: float = 1.0) -> DenoiseFn:
+    """x0_fn -> x0_fn with dynamic thresholding on every prediction."""
+    def fn(x, t):
+        return dynamic_thresholding(x0_fn(x, t), ratio, max_val)
+    return fn
+
+
+def add_noise(schedule: NoiseSchedule, x: torch.Tensor, t: float,
+              noise: torch.Tensor) -> torch.Tensor:
+    """x_t = alpha_t x + sigma_t noise at continuous time t."""
+    a = float(schedule.marginal_alpha(t))
+    s = float(schedule.marginal_std(t))
+    return a * x + s * noise
+
+
+def dpmpp_2m_sample(x0_fn: DenoiseFn, x_T: torch.Tensor,
+                    schedule: NoiseSchedule, steps: int = 40,
+                    order: int = 2, t_start: float | None = None,
+                    t_end: float | None = None) -> torch.Tensor:
+    """DPM-Solver++ multistep (orders 1-3), time-uniform, 'dpmsolver'
+    variant, `steps` NFE. Below 10 steps the final updates lower their
+    order (lower_order_final); from 10 steps on the order rises 1, 2, ...
+    to `order` and stays there. An ascending t range integrates the ODE
+    forward (see `dpm_inverse`)."""
+    _check_order(order, (1, 2, 3))
+    if steps < order:
+        raise ValueError(f"steps={steps} must be at least order={order}")
+    lam, alpha, sigma, t_in = _fast_sampler_consts(schedule, steps,
+                                                   t_start, t_end)
+    h = lam[1:] - lam[:-1]                              # h_i for update i+1
+    sig_ratio = sigma[1:] / sigma[:-1]
+    phi_1 = np.expm1(-h)
+    aphi1 = alpha[1:] * phi_1
+    aphi2 = alpha[1:] * (phi_1 / h + 1.0)
+    aphi3 = alpha[1:] * ((phi_1 / h + 1.0) / h - 0.5)
+
+    def update(x, k, i, m0, m1, m2):
+        x_ = float(sig_ratio[i]) * x - float(aphi1[i]) * m0
+        if k == 1:
+            return x_
+        r0 = float(h[i - 1] / h[i])
+        d1_0 = (m0 - m1) / r0
+        if k == 2:
+            return x_ - float(aphi1[i]) * 0.5 * d1_0
+        r1 = float(h[i - 2] / h[i])
+        d1_1 = (m1 - m2) / r1
+        d1 = d1_0 + (r0 / (r0 + r1)) * (d1_0 - d1_1)
+        d2 = (d1_0 - d1_1) / (r0 + r1)
+        return x_ + float(aphi2[i]) * d1 - float(aphi3[i]) * d2
+
+    x = x_T
+    m0 = x0_fn(x, _labels(x, t_in[0]))
+    m1 = m2 = m0
+    for step in range(1, steps + 1):
+        if steps < 10:
+            k = step if step < order else min(order, steps + 1 - step)
+        else:
+            k = min(order, step)
+        x = update(x, k, step - 1, m0, m1, m2)
+        if step < steps:
+            m2, m1, m0 = m1, m0, x0_fn(x, _labels(x, t_in[step]))
+    return x
 
 
 def unipc_sample(x0_fn: DenoiseFn, x_T: torch.Tensor,
@@ -39,8 +192,7 @@ def unipc_sample(x0_fn: DenoiseFn, x_T: torch.Tensor,
     warm-up, order-k body with corrector, and the lower_order_final tail
     (the last k-1 updates drop to orders k-1..1; the final update runs
     without corrector). `steps` model calls in total."""
-    if order not in (1, 2, 3):
-        raise ValueError(f"order must be 1, 2 or 3, got {order}")
+    _check_order(order, (1, 2, 3))
     if variant not in ("bh2", "bh1", "vary_coeff"):
         raise ValueError(f"unknown UniPC variant {variant!r}")
     if steps < order + 1:
@@ -109,9 +261,7 @@ def unipc_sample(x0_fn: DenoiseFn, x_T: torch.Tensor,
         return wp, wc, wt, float(alpha[i + 1])
 
     def eval_m(x, i):
-        t = torch.full((x.shape[0],), float(np.float32(t_in[i])),
-                       dtype=torch.float32, device=x.device)
-        return x0_fn(x, t)
+        return x0_fn(x, _labels(x, t_in[i]))
 
     def update(x, i, k, ms, use_corrector):
         """One multistep update with h-index i at order k; ms = (m0, m1, m2)."""
@@ -141,3 +291,176 @@ def unipc_sample(x0_fn: DenoiseFn, x_T: torch.Tensor,
         if m_t is not None:
             ms = (m_t, ms[0], ms[1])
     return x
+
+
+def _eval_at(x0_fn: DenoiseFn, schedule: NoiseSchedule, x, t_cont: float):
+    """Model call at a continuous time (host float) -> discrete label."""
+    return x0_fn(x, _labels(x, schedule.model_input_time(t_cont)))
+
+
+def _singlestep_update(x0_fn: DenoiseFn, schedule: NoiseSchedule, x,
+                       s: float, t: float, order: int,
+                       r1: float | None, r2: float | None,
+                       solver_type: str = "dpmsolver",
+                       model_s=None, model_s1=None,
+                       return_intermediate: bool = False):
+    """One DPM-Solver++ singlestep block from time s to t at order 1-3
+    ('dpmsolver' or 'taylor' solver type); schedule scalars fold to host
+    floats."""
+    lam_s, lam_t = (float(schedule.marginal_lambda(u)) for u in (s, t))
+    h = lam_t - lam_s
+    sig_s, sig_t = (float(schedule.marginal_std(u)) for u in (s, t))
+    alpha_t = float(schedule.marginal_alpha(t))
+    phi_1 = float(np.expm1(-h))
+    if model_s is None:
+        model_s = _eval_at(x0_fn, schedule, x, s)
+    if order == 1:
+        x_t = (sig_t / sig_s) * x - (alpha_t * phi_1) * model_s
+        return (x_t, {"model_s": model_s}) if return_intermediate else x_t
+
+    r1 = (0.5 if order == 2 else 1.0 / 3.0) if r1 is None else float(r1)
+    s1 = float(schedule.inverse_lambda(lam_s + r1 * h))
+    sig_s1 = float(schedule.marginal_std(s1))
+    alpha_s1 = float(schedule.marginal_alpha(s1))
+    phi_11 = float(np.expm1(-r1 * h))
+    if model_s1 is None:
+        x_s1 = (sig_s1 / sig_s) * x - (alpha_s1 * phi_11) * model_s
+        model_s1 = _eval_at(x0_fn, schedule, x_s1, s1)
+    inter = {"model_s": model_s, "model_s1": model_s1}
+    base = (sig_t / sig_s) * x - (alpha_t * phi_1) * model_s
+    if order == 2:
+        if solver_type == "dpmsolver":
+            x_t = base - (0.5 / r1) * (alpha_t * phi_1) * (model_s1 - model_s)
+        else:  # taylor
+            x_t = base + (1.0 / r1) * (alpha_t * (phi_1 / h + 1.0)) \
+                * (model_s1 - model_s)
+        return (x_t, inter) if return_intermediate else x_t
+
+    _check_order(order, (1, 2, 3))
+    r2 = 2.0 / 3.0 if r2 is None else float(r2)
+    s2 = float(schedule.inverse_lambda(lam_s + r2 * h))
+    sig_s2 = float(schedule.marginal_std(s2))
+    alpha_s2 = float(schedule.marginal_alpha(s2))
+    phi_12 = float(np.expm1(-r2 * h))
+    phi_22 = float(np.expm1(-r2 * h) / (r2 * h) + 1.0)
+    phi_2 = phi_1 / h + 1.0
+    phi_3 = phi_2 / h - 0.5
+    x_s2 = ((sig_s2 / sig_s) * x - (alpha_s2 * phi_12) * model_s
+            + (r2 / r1) * (alpha_s2 * phi_22) * (model_s1 - model_s))
+    model_s2 = _eval_at(x0_fn, schedule, x_s2, s2)
+    if solver_type == "dpmsolver":
+        x_t = base + (1.0 / r2) * (alpha_t * phi_2) * (model_s2 - model_s)
+    else:  # taylor
+        d1_0 = (1.0 / r1) * (model_s1 - model_s)
+        d1_1 = (1.0 / r2) * (model_s2 - model_s)
+        d1 = (r2 * d1_0 - r1 * d1_1) / (r2 - r1)
+        d2 = 2.0 * (d1_1 - d1_0) / (r2 - r1)
+        x_t = base + (alpha_t * phi_2) * d1 - (alpha_t * phi_3) * d2
+    return (x_t, inter) if return_intermediate else x_t
+
+
+def dpmpp_singlestep_sample(x0_fn: DenoiseFn, x_T: torch.Tensor,
+                            schedule: NoiseSchedule, steps: int = 20,
+                            order: int = 2, solver_type: str = "dpmsolver",
+                            fixed: bool = False,
+                            t_start: float | None = None,
+                            t_end: float | None = None) -> torch.Tensor:
+    """Singlestep DPM-Solver++: `steps` NFE split into order-k blocks, each
+    one singlestep update whose intra-block r1/r2 come from the
+    time-uniform inner grid. `fixed`: steps//order equal blocks."""
+    _check_order(order, (1, 2, 3))
+    if fixed:
+        k_blocks = steps // order
+        orders = [order] * k_blocks
+        outer = schedule.time_uniform_steps(k_blocks, t_start, t_end)
+    else:
+        if order == 3:
+            k_blocks = steps // 3 + 1
+            orders = ([3] * (k_blocks - 2) + [2, 1] if steps % 3 == 0 else
+                      [3] * (k_blocks - 1) + [1] if steps % 3 == 1 else
+                      [3] * (k_blocks - 1) + [2])
+        elif order == 2:
+            orders = [2] * (steps // 2) + ([1] if steps % 2 else [])
+        else:
+            orders = [1] * steps
+        ts = schedule.time_uniform_steps(steps, t_start, t_end)
+        outer = ts[np.cumsum([0] + orders)]
+    x = x_T
+    for i, k in enumerate(orders):
+        s, t = float(outer[i]), float(outer[i + 1])
+        lam_in = schedule.marginal_lambda(np.linspace(s, t, k + 1))
+        hh = lam_in[-1] - lam_in[0]
+        r1 = float((lam_in[1] - lam_in[0]) / hh) if k >= 2 else None
+        r2 = float((lam_in[2] - lam_in[0]) / hh) if k >= 3 else None
+        x = _singlestep_update(x0_fn, schedule, x, s, t, k, r1, r2,
+                               solver_type)
+    return x
+
+
+def dpmpp_adaptive_sample(x0_fn: DenoiseFn, x_T: torch.Tensor,
+                          schedule: NoiseSchedule, order: int = 2,
+                          h_init: float = 0.05, atol: float = 0.0078,
+                          rtol: float = 0.05, theta: float = 0.9,
+                          t_err: float = 1e-5, solver_type: str = "dpmsolver",
+                          t_start: float | None = None,
+                          t_end: float | None = None) -> torch.Tensor:
+    """Adaptive-step singlestep DPM-Solver++: an embedded lower/higher
+    order pair; a step is accepted when the scaled error E <= 1, and the
+    logSNR step h adapts by theta * E^(-1/order). The error test is a host
+    decision, so every step reads one scalar back."""
+    _check_order(order, (2, 3))
+    t_0 = 1.0 / schedule.num_timesteps if t_end is None else t_end
+    s = schedule.T if t_start is None else t_start
+    lam_s = float(schedule.marginal_lambda(s))
+    lam_0 = float(schedule.marginal_lambda(t_0))
+    h = h_init
+    x = x_prev = x_T
+    r1, r2 = (0.5, None) if order == 2 else (1.0 / 3.0, 2.0 / 3.0)
+    while abs(s - t_0) > t_err:
+        t = float(schedule.inverse_lambda(lam_s + h))
+        x_lower, inter = _singlestep_update(
+            x0_fn, schedule, x, s, t, order - 1, r1 if order == 3 else None,
+            None, solver_type, return_intermediate=True)
+        x_higher = _singlestep_update(
+            x0_fn, schedule, x, s, t, order, r1, r2, solver_type,
+            model_s=inter["model_s"], model_s1=inter.get("model_s1"))
+        delta = torch.clamp(rtol * torch.maximum(x_lower.abs(),
+                                                 x_prev.abs()), min=atol)
+        err = ((x_higher - x_lower) / delta).reshape(x_T.shape[0], -1)
+        e = float(torch.sqrt(torch.mean(err.float() ** 2, dim=-1)).max())
+        if e <= 1.0:
+            x, x_prev, s = x_higher, x_lower, t
+            lam_s = float(schedule.marginal_lambda(s))
+        h = min(theta * h * e ** (-1.0 / order), lam_0 - lam_s)
+    return x
+
+
+def dpm_inverse(x0_fn: DenoiseFn, x0: torch.Tensor, schedule: NoiseSchedule,
+                steps: int = 20, order: int = 2) -> torch.Tensor:
+    """Encode a sample x_{1/N} -> x_T: the multistep solver over the
+    ascending time grid [1/N, T]."""
+    return dpmpp_2m_sample(x0_fn, x0, schedule, steps=steps, order=order,
+                           t_start=1.0 / schedule.num_timesteps,
+                           t_end=schedule.T)
+
+
+def sample(method: str, x0_fn: DenoiseFn, x_T: torch.Tensor,
+           schedule: NoiseSchedule, steps: int | None = None,
+           generator: torch.Generator | None = None, order: int = 2,
+           variant: str = "bh2", noise: Sequence | None = None
+           ) -> torch.Tensor:
+    """Dispatch by method name: 'ddpm', 'ddim' (100 steps), 'dpmsolver'
+    (DPM-Solver++ multistep, 40 steps) or 'unipc' (30 steps, `variant`
+    bh2/bh1/vary_coeff). `generator` / `noise` feed DDPM's and DDIM's
+    draws."""
+    if method == "ddpm":
+        return ddpm_sample(x0_fn, x_T, schedule, generator, noise)
+    if method == "ddim":
+        return ddim_sample(x0_fn, x_T, schedule, steps or 100, generator,
+                           noise=noise)
+    if method == "dpmsolver":
+        return dpmpp_2m_sample(x0_fn, x_T, schedule, steps or 40, order=order)
+    if method == "unipc":
+        return unipc_sample(x0_fn, x_T, schedule, steps or 30, order=order,
+                            variant=variant)
+    raise ValueError(f"unknown sample method {method!r}")

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ns2vc_tpu.config import Config
-from ns2vc_tpu_torch.diffusion.samplers import unipc_sample
+from ns2vc_tpu_torch.diffusion.samplers import sample
 from ns2vc_tpu_torch.diffusion.schedule import NoiseSchedule
 from ns2vc_tpu_torch.models.encoders import (
     PhoneEncoder, PromptEncoder, TextTimeEmbedding,
@@ -105,14 +105,14 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
                  x_T: torch.Tensor | None = None,
                  generator: torch.Generator | None = None,
                  method: str = "unipc", steps: int | None = None,
-                 order: int = 2) -> torch.Tensor:
-    """Encode the conditioning once, run the sampler, return the (B, T, 100)
-    log-mel in f32. The model runs in the dtype of its parameters; c and
-    refer are cast to it. `x_T` (B, T, 100) is the initial noise; without
-    it the noise is drawn from `generator` on the model's device."""
-    if method != "unipc":
-        raise NotImplementedError(f"sampler {method!r} is not ported yet "
-                                  f"(only 'unipc')")
+                 order: int = 2, noise=None) -> torch.Tensor:
+    """Encode the conditioning once, run the sampler (`method` 'ddpm',
+    'ddim', 'dpmsolver' or 'unipc', the JAX package's default steps when
+    `steps` is None), return the (B, T, 100) log-mel in f32. The model
+    runs in the dtype of its parameters; c and refer are cast to it. `x_T`
+    (B, T, 100) is the initial noise; without it the noise is drawn from
+    `generator` on the model's device, which also feeds DDPM's and DDIM's
+    per-step draws unless `noise` gives them."""
     dtype = next(model.parameters()).dtype
     c, refer = c.to(dtype), refer.to(dtype)
     t_len = c.shape[1]
@@ -131,6 +131,6 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
                           dtype=dtype)
     elif tuple(x_T.shape) != shape:
         raise ValueError(f"x_T shape {tuple(x_T.shape)}, expected {shape}")
-    mel = unipc_sample(x0_fn, x_T.to(c.device, dtype), model.schedule,
-                       steps or 30, order=order)
+    mel = sample(method, x0_fn, x_T.to(c.device, dtype), model.schedule,
+                 steps, generator=generator, order=order, noise=noise)
     return mel.float()

@@ -5,6 +5,8 @@ padding. Submodule names follow the flax parameter tree."""
 
 from __future__ import annotations
 
+import re
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -115,3 +117,48 @@ def vocos_from_state_dict(sd: dict, hop_length: int = 256) -> Vocos:
                  num_layers=n_layers,
                  n_fft=int(sd["head.out.weight"].shape[0]) - 2,
                  hop_length=hop_length)
+
+
+# the one key that differs: (pattern, replacement) each way
+_PUBLIC_TO_PORT = (r"backbone\.convnext\.(\d+)\.", r"backbone.convnext_\1.")
+_PORT_TO_PUBLIC = (r"backbone\.convnext_(\d+)\.", r"backbone.convnext.\1.")
+
+
+def vocos_from_public(sd, strict: bool = True) -> dict:
+    """Public charactr/vocos state dict (`pytorch_model.bin`) -> this
+    module's state dict: `backbone.convnext.{i}.*` -> `backbone.convnext_{i}.*`,
+    every other parameter keeps its name. Under `strict` a key neither
+    converted nor a buffer recomputed here (the feature extractor's mel
+    filterbank and windows, the iSTFT window) raises."""
+    from ns2vc_tpu.utils.convert_reference import (
+        TrackedStateDict, assert_fully_consumed,
+    )
+
+    sd = TrackedStateDict(sd)
+    out = {}
+    names = [f"backbone.{m}.{p}" for m in ("embed", "norm", "final_layer_norm")
+             for p in ("weight", "bias")] + ["head.out.weight", "head.out.bias"]
+    names += [k for k in sd if re.fullmatch(r"backbone\.convnext\.\d+\..*", k)]
+    for key in names:
+        out[re.sub(*_PUBLIC_TO_PORT, key)] = torch.as_tensor(sd[key]).float()
+    if strict:
+        assert_fully_consumed(
+            sd, ignore=(r"feature_extractor\..*", r"head\.istft\.window"),
+            context="vocos_from_public")
+    return out
+
+
+def vocos_to_public(sd: dict) -> dict:
+    """This module's state dict -> the public charactr/vocos layout that
+    `vocos_from_public` reads (without the buffers it recomputes)."""
+    return {re.sub(*_PORT_TO_PUBLIC, k): v for k, v in sd.items()}
+
+
+def load_vocos(ckpt_path: str, hop_length: int = 256) -> Vocos:
+    """torch.load a public Vocos checkpoint -> a loaded Vocos (CPU, f32)
+    whose widths are read off the state dict."""
+    sd = torch.load(ckpt_path, map_location="cpu")
+    sd = vocos_from_public(sd.get("state_dict", sd))
+    vocos = vocos_from_state_dict(sd, hop_length)
+    vocos.load_state_dict(sd)
+    return vocos.eval()

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
 The sources under `ns2vc_tpu_torch/csrc/` are compiled by `nvcc` for
-`sm_90a` into one shared library with a plain C interface, at first use,
-into `ns2vc_tpu_torch/_build/` (listed in .gitignore). The library name
+`sm_90a`, one `nvcc -c` per source, all started together, and linked into
+one shared library with a plain C interface, at first use, into
+`ns2vc_tpu_torch/_build/` (listed in .gitignore). The library name
 carries a hash of the sources and flags, so an edit rebuilds. It is loaded
 with ctypes: every pointer and the stream go as `c_void_p`, the kernels
 launch on PyTorch's current stream, allocate nothing, and return
@@ -30,7 +31,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,17 +83,35 @@ def build() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in srcs if p.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC_DIR)
+    jobs = []
+    for src in (p for p in srcs if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=CSRC_DIR)))
+    log, failed = "", None
+    for cmd, _, proc in jobs:
+        log += proc.communicate()[0]
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if failed is None:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = (proc.returncode, cmd)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                           f"{' '.join(failed[1])}\n{log}")
     os.replace(tmp, out)
     return BuildInfo(out, seconds, log)
 

@@ -13,6 +13,10 @@ products in another order); in bf16, 3e-2 for K1 (the plain version rounds
 the probabilities to bf16 before the PV product, the kernel keeps f32) and
 1e-2 of the output's scale for K2 (one bf16 rounding of f32 sums taken in
 another order); UNet card vs CPU 5e-4 (the JAX suite's UNet bound).
+K1 also runs at ContentVec's shapes, (1, 12, T, 64) in f32 with T up to
+3000 keys (one unbroken 60 s segment). The Svc readback test checks that
+batch N's `finish()` waits on its own CUDA event only: it returns while
+batch N+1, whose device work ends in a spin kernel, is still running.
 """
 
 import pytest
@@ -71,6 +75,26 @@ def test_flash_attention_matches_plain(dev, dtype, atol, b, h, tq, tk, d,
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("t", [50, 850, 3000])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_at_contentvec_shapes(dev, t, masked):
+    """ContentVec's self-attention: 12 heads of width 64, f32, q/k/v as
+    head views of three (1, T, 768) projections."""
+    g = _gen(dev, 3)
+    q, k, v = (split_heads(torch.randn(1, t, 768, generator=g, device=dev),
+                           12) for _ in range(3))
+    bias = None
+    if masked:
+        bias = torch.zeros(1, t, device=dev)
+        bias[:, t - t // 5:] = -1e4
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, bias)
+    assert flash_attention.launches == n0 + 1
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5
 
 
 def test_flash_attention_fully_masked_row_is_finite(dev):
@@ -165,3 +189,79 @@ def test_unet_on_card_matches_cpu(dev):
         unet.to(dev)
         got = unet(*(a.to(dev) for a in (x, ts, ctx, mask)))
     assert (got.cpu() - want).abs().max().item() <= 5e-4
+
+
+def _small_svc(device):
+    """A Svc of a narrow configuration with seeded weights."""
+    from ns2vc_tpu.config import (
+        Config, DiffusionEncoderConfig, EncoderConfig,
+    )
+    from ns2vc_tpu_torch.convert import init_params, init_vocos_params
+    from ns2vc_tpu_torch.infer.svc import Svc
+
+    cfg = Config(phoneme_encoder=EncoderConfig(n_layers=1),
+                 prompt_encoder=EncoderConfig(in_channels=100, n_layers=1),
+                 diffusion_encoder=DiffusionEncoderConfig(
+                     block_out_channels=(16, 24, 32, 40)))
+    g = torch.Generator().manual_seed(0)
+    return Svc(config=cfg, params=init_params(cfg, g),
+               vocos_params=init_vocos_params(g), device=device)
+
+
+def test_svc_finish_waits_only_on_its_own_batch(dev, monkeypatch):
+    """Batch 2's dispatch ends in ~0.5 s of spin on the stream, enqueued
+    before its readback: batch 1's finish() must return while batch 2's
+    end event still reports not done. A readback that synchronised the
+    stream (a blocking `.cpu()` in finish) would wait for the spin."""
+    import numpy as np
+
+    svc = _small_svc(dev)
+    r = np.random.default_rng(0)
+    clips = [r.standard_normal((n, 256)).astype(np.float32) for n in (40, 70)]
+    refer = r.standard_normal((30, 100)).astype(np.float32)
+    svc.infer_batch(clips, refer, sampling_timesteps=3)       # warm-up
+    f1 = svc.infer_batch_async(clips, refer, sampling_timesteps=3)
+    run = svc._run
+
+    def run_then_spin(*args, **kwargs):
+        wav = run(*args, **kwargs)
+        torch.cuda._sleep(int(1e9))
+        return wav
+    monkeypatch.setattr(svc, "_run", run_then_spin)
+    f2 = svc.infer_batch_async(clips, refer, sampling_timesteps=3,
+                               output="pcm16")
+    outs = f1()
+    assert not f2.done.query(), "batch 1's readback waited for batch 2"
+    assert f1.done.query()
+    assert [o.shape for o in outs] == [(40 * 256,), (70 * 256,)]
+    pcm = f2()
+    assert f2.done.query() and pcm[1].dtype == np.int16
+
+
+def test_svc_dispatch_from_another_thread(dev):
+    """The MicroBatcher dispatches from its worker thread, whose current
+    device is cuda:0. A Svc made with device 'cuda' while the last card is
+    current keeps that card, and a dispatch and readback from a fresh
+    thread give the main thread's result (with two or more cards, on a
+    card that is not the thread's current one)."""
+    import threading
+
+    import numpy as np
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    with torch.cuda.device(last):
+        svc = _small_svc("cuda")
+    assert svc.device == last
+    r = np.random.default_rng(1)
+    clips = [r.standard_normal((n, 256)).astype(np.float32) for n in (40, 70)]
+    refer = r.standard_normal((30, 100)).astype(np.float32)
+    want = svc.infer_batch(clips, refer, sampling_timesteps=3)
+    got = []
+    t = threading.Thread(target=lambda: got.append(svc.infer_batch_async(
+        clips, refer, sampling_timesteps=3, refer_cache_key="k")()))
+    t.start()
+    t.join(timeout=300)
+    assert len(got) == 1 and svc._refer_cache
+    assert next(iter(svc._refer_cache.values())).device == last
+    for a, b in zip(got[0], want):
+        np.testing.assert_allclose(a, b, atol=1e-5)
