@@ -11,9 +11,13 @@ port at full width in bf16: `Svc.infer_batch` / `infer_from_features`
 serving, the ddim / dpmsolver / unipc samplers, the readback overlap of
 `infer_batch_async`, the MicroBatcher, and wav in -> wav out through the
 port CLI's `main` (unipc, and CREPE F0 with -fmp), with launch counters
-that show each path went through both kernels. Weights are random from a
-seed and the audio is synthesized. Every phase passes or the script exits
-non-zero; there is no CPU fallback. It imports no JAX.
+that show each path went through both kernels, each by the route its dtype
+takes. Last, one serving call at B=16 and one at B=1 run under
+torch.profiler: device time by kernel and the device's busy share (last,
+because the profiler slows the launches of what runs after it). Weights
+are random from a seed and the audio is synthesized. Every phase passes or
+the script exits non-zero; there is no CPU fallback. It imports nothing of
+JAX or of the JAX package.
 
 Parity phases run with TF32 off; the serving and CLI phases run with
 PyTorch's defaults.
@@ -25,14 +29,32 @@ against the plain version in f32 and in bf16. The same conversion in f32
 with TF32 off runs once through the kernels and once through their plain
 versions, and the two waveforms are compared.
 
+Each kernel has two routes, chosen by dtype in its wrapper: bf16 goes to
+the tensor-core kernel (`flash_attention_tc`, `affine_silu_conv1d_tc`), f32
+to the CUDA-core one (`flash_attention`, `affine_silu_conv1d`). Every
+route is held against the plain version at the B=16 serving shapes and at
+every geometry the CLI run recorded, in its own dtype's tolerance.
+
 Output: one line per phase result (every timing line ends with the card's
-name and power limit), then a JSON line {"kernels": [...]} (per kernel:
-launches counted in the CLI run; max_abs_err, the largest f32 error
-against the plain version over every shape checked, the CLI run's
-included; ms / plain_ms, the CLI run's calls of the kernel, each geometry
-timed alone with CUDA events after warm-up in the dtype the run gave it,
-times its calls, summed, kernel vs plain), then the card's name and power
-limit, and last {"ok": true, "device": {...}}.
+name and power limit), then a JSON line {"kernels": [...]}, one entry per
+route: launches (counted in the bf16 CLI run, or for the f32 resnet route,
+which that run does not take, in the f32 CLI run through the kernels;
+`launches_from` names the run); max_abs_err, the largest error against the
+plain version over every shape checked in the route's dtype; ms / plain_ms,
+the CLI run's calls of the route, each geometry's device time (10 calls
+captured as a CUDA graph, the replay timed with CUDA events) times its
+calls, summed, and eager_ms, the same with the calls made back to back
+from Python (which at most of these shapes times the host's launches);
+bound_ms, the same sum of each geometry's least time on an H100 SXM: the
+larger of its FLOPs over the peak rate of its type (989 TFLOP/s bf16
+tensor cores, 67 TFLOP/s f32) and its bytes (each input read once, each
+output written once) over 3.35 TB/s, with bound_by the term that bounds
+the most of that sum;
+library_ms, the same sum for one PyTorch call of the same function
+(`F.scaled_dot_product_attention` with the additive key bias for K1; none
+for K2, whose affine -> SiLU -> conv has no single call: `conv_alone_ms`
+times cuDNN's conv1d of the pre-activated input beside it). Then the
+card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,6 +96,19 @@ CLI_STEPS = 30             # the CLI's default sampling_timesteps
 # error (MODEL_ATOL's bound) forward, and ContentVec's into the content
 CLI_WAV_ATOL = 1e-3
 CARD = ""                  # nvidia-smi's name and power limit, set in main
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for bound_ms
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+ROUTES = {   # route -> (kernel source, the TPU kernel it replaces)
+    "flash_attention": ("flash_attention.cu",
+                        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "flash_attention_tc": ("flash_attention_tc.cu",
+                           "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "affine_silu_conv1d": ("gn_silu_conv1d.cu",
+                           "ns2vc_tpu/ops/pallas_resnet.py:71"),
+    "affine_silu_conv1d_tc": ("gn_silu_conv1d_tc.cu",
+                              "ns2vc_tpu/ops/pallas_resnet.py:71"),
+}
 
 
 @contextlib.contextmanager
@@ -126,6 +161,41 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 10) -> float:
+    """Device time of fn(): `iters` calls captured as one CUDA graph, the
+    replay timed with CUDA events, per call. Eager back-to-back calls
+    measure the host's launch rate whenever a call's device work is shorter
+    than its Python and launch cost, as at most of the path's shapes; the
+    graph replays the same kernels without the host. Falls back to
+    time_ms (and says so) if the capture fails."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        say(f"  (graph capture failed, eager timing: {str(e)[:120]})")
+        return time_ms(fn)
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(2):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (2 * iters)
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -133,6 +203,100 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi: {out.returncode} {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """The least time (ms) an H100 SXM could take, and which term sets it."""
+    f = flops / PEAK_FLOPS[str(dtype)[6:]]
+    m = nbytes / PEAK_BYTES
+    return max(f, m) * 1e3, ("operations" if f >= m else "bytes")
+
+
+def k1_bound(q, k, bias):
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    nbytes = q.element_size() * (2 * b * h * tq * d + 2 * b * h * tk * d)
+    return bound(4.0 * b * h * tq * tk * d,
+                 nbytes + (0 if bias is None else 4 * b * tk), q.dtype)
+
+
+def k2_bound(bsz, t, c, co, dtype):
+    es = 2 if str(dtype) == "torch.bfloat16" else 4
+    nbytes = es * (bsz * t * c + 3 * co * c + co + bsz * t * co) + 8 * bsz * c
+    return bound(6.0 * bsz * t * c * co, nbytes, dtype)
+
+
+def k1_route(dtype, d) -> str:
+    from ns2vc_tpu_torch.ops.flash_attention import attention_route
+
+    return {"tc": "flash_attention_tc", "simt": "flash_attention"}[
+        attention_route("cuda", dtype, d)]
+
+
+def k2_route(dtype) -> str:
+    from ns2vc_tpu_torch.ops.fused_resnet import resnet_route
+
+    return {"tc": "affine_silu_conv1d_tc", "simt": "affine_silu_conv1d"}[
+        resnet_route("cuda", dtype)]
+
+
+def sdpa_call(q, k, v, bias, scale):
+    """The library yardstick of K1: one SDPA call with the additive key
+    bias as its mask (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=scale)
+
+
+def sdpa_backend(q, k, v, bias, scale) -> str:
+    """Which SDPA backend the dispatcher picks for these inputs."""
+    import torch
+
+    mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, mask, 0.0, False, scale=scale)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError,
+            ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+def forced_simt(module: str):
+    """Patch a wrapper's route table to send every CUDA call to the
+    CUDA-core kernel: the old kernel timed on the same bf16 inputs as the
+    tensor-core one, for the same-call comparison only."""
+    from unittest import mock
+
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
+    mod, name = {"k1": (fa, "attention_route"),
+                 "k2": (fr, "resnet_route")}[module]
+    return mock.patch.object(mod, name, lambda *a: "simt")
+
+
+def reset_launches() -> None:
+    from ns2vc_tpu_torch.ops import flash_attention, fused_resnet
+
+    flash_attention.reset_launches()
+    fused_resnet.reset_launches()
+
+
+def route_counts() -> dict:
+    """Launches per route since the last reset_launches()."""
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
+    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
+
+    k1, k2 = flash_attention.route_launches, affine_silu_conv1d.route_launches
+    return {"flash_attention": k1["simt"],
+            "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
+            "flash_attention_tc_narrow": k1["tc_narrow"],
+            "affine_silu_conv1d": k2["simt"],
+            "affine_silu_conv1d_tc": k2["tc"]}
 
 
 # -- the path's shapes ------------------------------------------------------
@@ -196,9 +360,12 @@ def resnet_cases(unet):
 # -- phases -----------------------------------------------------------------
 
 def k1_case(q, k, v, bias, scale=None, timed=True):
-    """K1 against its plain version on one input set: (max_abs_err, tol,
-    kernel_ms, plain_ms), the times None when not timed. Fails past the
-    dtype's tolerance."""
+    """K1 against its plain version on one input set, through the route its
+    dtype takes. Returns a dict: route, err, tol, bound, bound_by, and when
+    timed the device times (graph_ms) ms, plain, lib (SDPA), old (the
+    CUDA-core kernel on the same bf16 inputs, for the tensor-core route),
+    and eager, the kernel's eager time_ms; the times None when not
+    timed."""
     import torch
 
     from ns2vc_tpu_torch.ops.flash_attention import (
@@ -208,20 +375,35 @@ def k1_case(q, k, v, bias, scale=None, timed=True):
     got = flash_attention(q, k, v, bias, scale)
     want = flash_attention_plain(q, k, v, bias, scale)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = ATTN_F32_ATOL if q.dtype == torch.float32 else ATTN_BF16_ATOL
-    ms = pms = None
+    r = {"route": k1_route(q.dtype, q.shape[-1]),
+         "err": (got.float() - want.float()).abs().max().item(),
+         "tol": ATTN_F32_ATOL if q.dtype == torch.float32 else ATTN_BF16_ATOL,
+         "ms": None, "plain": None, "lib": None, "old": None, "eager": None}
+    r["bound"], r["bound_by"] = k1_bound(q, k, bias)
     if timed:
-        ms = time_ms(lambda: flash_attention(q, k, v, bias, scale))
-        pms = time_ms(lambda: flash_attention_plain(q, k, v, bias, scale))
-    return err, tol, ms, pms
+        s = q.shape[-1] ** -0.5 if scale is None else scale
+        r["ms"] = graph_ms(lambda: flash_attention(q, k, v, bias, scale))
+        r["eager"] = time_ms(lambda: flash_attention(q, k, v, bias, scale))
+        r["plain"] = graph_ms(lambda: flash_attention_plain(q, k, v, bias,
+                                                            scale))
+        r["lib"] = graph_ms(sdpa_call(q, k, v, bias, s))
+        if r["route"] == "flash_attention_tc":
+            with forced_simt("k1"):
+                r["old"] = graph_ms(lambda: flash_attention(q, k, v, bias,
+                                                            scale))
+    return r
 
 
 def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     """K2 against its plain version on random inputs of one geometry, the
-    affine folded from a GroupNorm (with FiLM if `film`): (max_abs_err,
-    tol, kernel_ms, plain_ms), the times None when not timed."""
+    affine folded from a GroupNorm (with FiLM if `film`), through the route
+    its dtype takes. Returns a dict: route, err, tol, bound, bound_by, and
+    when timed the device times (graph_ms) ms, plain, conv (cuDNN's conv1d
+    of the pre-activated input alone), old (the CUDA-core kernel on the same
+    bf16 inputs, for the tensor-core route), and eager, the kernel's eager
+    time_ms; the times None when not timed."""
     import torch
+    import torch.nn.functional as F
 
     from ns2vc_tpu_torch.ops.fused_resnet import (
         affine_silu_conv1d, affine_silu_conv1d_plain, group_norm_affine,
@@ -241,26 +423,81 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     got = affine_silu_conv1d(x, a, b, w, bias)
     want = affine_silu_conv1d_plain(x, a, b, w, bias)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    r = {"route": k2_route(dtype),
+         "err": (got.float() - want.float()).abs().max().item(),
+         "ms": None, "plain": None, "conv": None, "old": None, "eager": None}
     if dtype == torch.float32:
-        tol = RESNET_F32_ATOL
+        r["tol"] = RESNET_F32_ATOL
     else:
-        tol = RESNET_BF16_RTOL * max(1.0, want.float().abs().max().item())
-    ms = pms = None
+        r["tol"] = RESNET_BF16_RTOL * max(1.0, want.float().abs().max().item())
+    r["bound"], r["bound_by"] = k2_bound(bsz, t, c, co, dtype)
     if timed:
-        ms = time_ms(lambda: affine_silu_conv1d(x, a, b, w, bias))
-        pms = time_ms(lambda: affine_silu_conv1d_plain(x, a, b, w, bias))
-    return err, tol, ms, pms
+        r["ms"] = graph_ms(lambda: affine_silu_conv1d(x, a, b, w, bias))
+        r["eager"] = time_ms(lambda: affine_silu_conv1d(x, a, b, w, bias))
+        r["plain"] = graph_ms(lambda: affine_silu_conv1d_plain(x, a, b, w,
+                                                               bias))
+        h = F.silu(x.float() * a[:, None, :] + b[:, None, :]).to(
+            dtype).transpose(1, 2).contiguous()
+        r["conv"] = graph_ms(lambda: F.conv1d(h, w, bias, padding=1))
+        if r["route"] == "affine_silu_conv1d_tc":
+            with forced_simt("k2"):
+                r["old"] = graph_ms(lambda: affine_silu_conv1d(x, a, b, w,
+                                                               bias))
+    return r
+
+
+def fmt(v, spec=".4f"):
+    return "n/a" if v is None else format(v, spec)
+
+
+class RouteSums:
+    """Per route: the worst error and summed times over the shapes given,
+    each weighted by its calls."""
+
+    KEYS = ("ms", "eager", "plain", "lib", "conv", "old", "bound")
+
+    def __init__(self):
+        self.err = defaultdict(float)
+        self.sums = defaultdict(lambda: defaultdict(float))
+        self.by = defaultdict(lambda: defaultdict(float))
+        self.calls = defaultdict(int)
+
+    def add(self, r, calls):
+        route = r["route"]
+        self.err[route] = max(self.err[route], r["err"])
+        if r["ms"] is None or calls == 0:
+            return
+        self.calls[route] += calls
+        for key in self.KEYS:
+            if r.get(key) is not None:
+                self.sums[route][key] += calls * r[key]
+        self.by[route][r["bound_by"]] += calls * r["bound"]
+
+    def bound_by(self, route):
+        by = self.by[route]
+        return max(by, key=by.get) if by else None
+
+    def line(self, route):
+        s = self.sums[route]
+        extra = "".join(f", {name} {s[key]:.4f}" for key, name in (
+            ("lib", "SDPA"), ("conv", "conv alone"), ("old", "CUDA-core "
+                                                      "kernel, same inputs"))
+            if key in s)
+        return (f"device ms: kernel {s['ms']:.4f} (eager {s['eager']:.4f}), "
+                f"plain {s['plain']:.4f}{extra}, bound {s['bound']:.5f} "
+                f"({self.bound_by(route)})")
 
 
 def check_attention(cfg, dev):
+    """Every attention the serving path runs, f32 and bf16, against the
+    plain version; the bf16 calls of one UNet step at B=16 summed."""
     import torch
 
     from ns2vc_tpu_torch.ops.attention import split_heads
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    worst, ms_step, plain_step = 0.0, 0.0, 0.0
+    sums, step = RouteSums(), RouteSums()
     for name, b, h, tq, tk, d, valid, calls, layout in attention_cases(cfg):
         c = h * d
         for dtype in (torch.float32, torch.bfloat16):
@@ -275,56 +512,71 @@ def check_attention(cfg, dev):
             if valid is not None:
                 bias = torch.zeros(b, tk, device=dev)
                 bias[:, valid:] = -1e4
-            err, tol, ms, pms = k1_case(q, k, v, bias)
+            r = k1_case(q, k, v, bias)
             say(f"K1 {name:20s} {str(dtype)[6:]:8s} B={b} H={h} Tq={tq} "
-                f"Tk={tk} D={d} max_abs_err={err:.3e} (tol {tol:g}) "
-                f"kernel_ms={ms:.4f} plain_ms={pms:.4f} [{CARD}]")
-            if not err <= tol:
-                fail(f"K1 {name} {dtype}: error {err} > {tol}")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-            else:
-                ms_step += calls * ms
-                plain_step += calls * pms
-    # a batch row whose keys are all masked stays finite
-    q = torch.randn(2, 4, 37, 32, generator=g, device=dev)
-    k = torch.randn(2, 4, 50, 32, generator=g, device=dev)
-    for fill in (-1e4, -1e30):
-        bias = torch.zeros(2, 50, device=dev)
-        bias[1] = fill
-        out = flash_attention(q, k, k, bias)
-        torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            fail(f"K1 fully masked row (bias {fill}) is not finite")
-    say("K1 fully masked batch rows: finite")
-    say(f"K1 one UNet step at B={B} bf16: kernel {ms_step:.4f} ms, plain "
-        f"{plain_step:.4f} ms [{CARD}]")
-    return worst
+                f"Tk={tk} D={d} {r['route']} max_abs_err={r['err']:.3e} "
+                f"(tol {r['tol']:g}) kernel_ms={r['ms']:.4f} eager_ms="
+                f"{r['eager']:.4f} plain_ms="
+                f"{r['plain']:.4f} sdpa_ms={r['lib']:.4f} old_kernel_ms="
+                f"{fmt(r['old'])} bound_ms={r['bound']:.5f} ({r['bound_by']}) "
+                f"[{CARD}]")
+            if not r["err"] <= r["tol"]:
+                fail(f"K1 {name} {dtype}: error {r['err']} > {r['tol']}")
+            sums.add(r, 1)
+            if dtype == torch.bfloat16:
+                step.add(r, calls)
+    qkv = torch.randn(B, T_PAD, 3 * 256, device=dev).bfloat16()
+    q, k, v = (split_heads(x, 8) for x in qkv.split(256, dim=-1))
+    say(f"K1 SDPA backend at the bf16 encoder self-attention shapes: "
+        f"{sdpa_backend(q, k, v, None, 32 ** -0.5)}; with a key bias: "
+        f"{sdpa_backend(q, k, v, torch.zeros(B, T_PAD, device=dev), 32 ** -0.5)}")
+    # a batch row whose keys are all masked stays finite, on both routes
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(2, 4, 37, 32, generator=g, device=dev).to(dtype)
+        k = torch.randn(2, 4, 50, 32, generator=g, device=dev).to(dtype)
+        for fill in (-1e4, -1e30):
+            bias = torch.zeros(2, 50, device=dev)
+            bias[1] = fill
+            out = flash_attention(q, k, k, bias)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out.float()).all():
+                fail(f"K1 fully masked row ({dtype}, bias {fill}) is not "
+                     f"finite")
+    say("K1 fully masked batch rows: finite (f32 and bf16)")
+    for route in step.sums:
+        say(f"K1 one UNet step at B={B} bf16 ({step.calls[route]} calls, "
+            f"{route}): {step.line(route)} [{CARD}]")
+    return sums
 
 
 def check_resnet(unet, dev):
+    """Both epilogues of every resnet block and the output tail at the
+    serving bucket, f32 and bf16, against the plain version; the bf16 calls
+    of one UNet step at B=16 summed."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     cases = resnet_cases(unet) + [("ragged_T", 437, 128, 128, True)]
-    worst, ms_step, plain_step = 0.0, 0.0, 0.0
+    sums, step = RouteSums(), RouteSums()
     for name, t, c, co, film in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            err, tol, ms, pms = k2_case(B, t, c, co, film, dtype, g, dev)
+            r = k2_case(B, t, c, co, film, dtype, g, dev)
             say(f"K2 {name:18s} {str(dtype)[6:]:8s} B={B} T={t} C={c} "
-                f"Co={co} film={int(film)} max_abs_err={err:.3e} "
-                f"(tol {tol:.3g}) kernel_ms={ms:.4f} plain_ms={pms:.4f} "
-                f"[{CARD}]")
-            if not err <= tol:
-                fail(f"K2 {name} {dtype}: error {err} > {tol}")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-            elif name != "ragged_T":
-                ms_step += ms
-                plain_step += pms
-    say(f"K2 one UNet step at B={B} bf16: kernel {ms_step:.4f} ms, plain "
-        f"{plain_step:.4f} ms [{CARD}]")
-    return worst
+                f"Co={co} film={int(film)} {r['route']} max_abs_err="
+                f"{r['err']:.3e} (tol {r['tol']:.3g}) kernel_ms={r['ms']:.4f} "
+                f"eager_ms={r['eager']:.4f} "
+                f"plain_ms={r['plain']:.4f} conv_alone_ms={r['conv']:.4f} "
+                f"old_kernel_ms={fmt(r['old'])} bound_ms={r['bound']:.5f} "
+                f"({r['bound_by']}) [{CARD}]")
+            if not r["err"] <= r["tol"]:
+                fail(f"K2 {name} {dtype}: error {r['err']} > {r['tol']}")
+            sums.add(r, 1)
+            if dtype == torch.bfloat16 and name != "ragged_T":
+                step.add(r, 1)
+    for route in step.sums:
+        say(f"K2 one UNet step at B={B} bf16 ({step.calls[route]} calls, "
+            f"{route}): {step.line(route)} [{CARD}]")
+    return sums
 
 
 class PathCalls:
@@ -368,14 +620,19 @@ class PathCalls:
 
 def check_path_calls(calls: PathCalls, dev):
     """Every K1 and K2 geometry of a recorded run against its plain
-    version, in f32 and in bf16, on random inputs laid out as the run's
-    (K1: the same strides and key bias). Each geometry is timed in the
-    dtype the run gave it. Returns per kernel (the worst f32 error, the
-    run's summed kernel and plain time (each geometry's time x its
-    calls), the calls)."""
+    version, in f32 and in bf16 (each through the route its dtype takes),
+    on random inputs laid out as the run's (K1: the same strides and key
+    bias). K1 geometries are timed in the dtype the run gave them; K2's in
+    both dtypes, since the f32 CLI run takes the same geometries through
+    the f32 route. Returns a RouteSums of the run's calls."""
+    from unittest import mock
+
     import torch
 
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    sums = RouteSums()
 
     def k1(key, dtype, timed):
         geo, _, scale, _ = key
@@ -394,33 +651,42 @@ def check_path_calls(calls: PathCalls, dev):
 
     def k2_label(key):
         (bsz, t, c), _, co = key
-        return f"B={bsz} T={t} C={c} Co={co}"
-    out = {}
-    for name, groups, run, label in (
-            ("flash_attention", calls.k1, k1, k1_label),
-            ("affine_silu_conv1d", calls.k2, k2, k2_label)):
-        worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+        return f"B={bsz} T={t} C={c} Co={co} split={fr.plan_tc(bsz, t, c, co)}"
+    for name, groups, run, label, timed_in in (
+            ("K1", calls.k1, k1, k1_label, lambda d, d0: d == d0),
+            ("K2", calls.k2, k2, k2_label, lambda d, d0: True)):
         for key, n in groups.items():
-            errs, dtype0 = [], key[1]
+            parts = []
             for dtype in (torch.float32, torch.bfloat16):
-                err, tol, ms, pms = run(key, dtype, dtype == dtype0)
-                if not err <= tol:
+                r = run(key, dtype, timed_in(dtype, key[1]))
+                if not r["err"] <= r["tol"]:
                     fail(f"{name} CLI geometry {label(key)} {dtype}: error "
-                         f"{err} > {tol}")
-                errs.append(err)
-                if dtype == dtype0:
-                    ms_sum += n * ms
-                    plain_sum += n * pms
-                    times = f"kernel_ms={ms:.4f} plain_ms={pms:.4f}"
-            worst = max(worst, errs[0])
-            say(f"{name} CLI {label(key)} x{n} {str(dtype0)[6:]}: err f32 "
-                f"{errs[0]:.2e} bf16 {errs[1]:.2e}; {times}")
-        n = sum(groups.values())
-        out[name] = (worst, ms_sum, plain_sum, n)
-        say(f"{name} over the CLI run's {n} calls: worst f32 error "
-            f"{worst:.3e}; kernel {ms_sum:.2f} ms, plain {plain_sum:.2f} ms "
-            f"[{CARD}]")
-    return out
+                         f"{r['err']} > {r['tol']}")
+                sums.add(r, n)
+                parts.append(f"{str(dtype)[6:]} {r['route']} err "
+                             f"{r['err']:.2e}" + ("" if r["ms"] is None else
+                                                  f" ms={r['ms']:.4f} plain="
+                                                  f"{r['plain']:.4f} bound="
+                                                  f"{r['bound']:.5f}"))
+            say(f"{name} CLI {label(key)} x{n} (run in {str(key[1])[6:]}): "
+                + "; ".join(parts))
+    for route in sorted(sums.sums):
+        say(f"{route} over the CLI run's {sums.calls[route]} calls: worst "
+            f"error {sums.err[route]:.3e}; {sums.line(route)} [{CARD}]")
+    # K2's channel split against none, on the CLI run's bf16 geometries
+    split_ms = unsplit_ms = 0.0
+    for key, n in calls.k2.items():
+        (bsz, t, c), _, co = key
+        if fr.plan_tc(bsz, t, c, co)[0] == 1:
+            continue
+        split_ms += n * k2(key, torch.bfloat16, True)["ms"]
+        with mock.patch.object(fr, "plan_tc",
+                               lambda b_, t_, c_, co_: (1, -(-c_ // 32))):
+            unsplit_ms += n * k2(key, torch.bfloat16, True)["ms"]
+    say(f"affine_silu_conv1d_tc channel split on the CLI run's split "
+        f"geometries: planned {split_ms:.2f} ms, unsplit {unsplit_ms:.2f} ms "
+        f"[{CARD}]")
+    return sums
 
 
 def check_full_model(cfg, sd, vsd, dev):
@@ -485,12 +751,43 @@ def check_full_model(cfg, sd, vsd, dev):
         f"max(1, max|wav|)={wav_scale:.3g}")
 
 
+def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
+                     top: int = 8) -> None:
+    """One call of fn() under torch.profiler: device time by kernel, and
+    the device's busy share of the same call timed without the profiler.
+    Only device activity is recorded: with the host's ops as well, sorting
+    the events took ~50 s per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        by[e.key] = (us / 1e3, e.count)
+    total = sum(ms for ms, _ in by.values())
+    if total == 0:
+        say(f"profile {label}: the profiler recorded no device time")
+        return
+    say(f"profile {label}: {total:.1f} ms of kernel time in a call of "
+        f"{wall_ms_unprofiled:.1f} ms unprofiled: device busy "
+        f"{100 * total / wall_ms_unprofiled:.0f} % [{CARD}]")
+    for name, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:top]:
+        say(f"  {ms:8.1f} ms {100 * ms / total:5.1f} % x{n:<6d} {name[:90]}")
+
+
 def check_serving(cfg, sd, vsd, dev):
     import torch
 
     from ns2vc_tpu_torch.infer.svc import Svc
-    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
-    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
 
     svc = Svc(config=cfg, params=sd, vocos_params=vsd,
               compute_dtype="bfloat16", device=dev)
@@ -514,16 +811,18 @@ def check_serving(cfg, sd, vsd, dev):
                              or not np.isfinite(o).all() for o in outs):
         fail("serving warm-up (float32): wrong count, shape, dtype or "
              "non-finite output")
-    flash_attention.launches = affine_silu_conv1d.launches = 0
+    reset_launches()
     outs, ms = run("pcm16")
-    counts = {"flash_attention": flash_attention.launches,
-              "affine_silu_conv1d": affine_silu_conv1d.launches}
+    counts = route_counts()
     if len(outs) != B or any(o.shape != (n_samples,) or o.dtype != np.int16
                              for o in outs):
         fail("serving (pcm16): wrong count, shape or dtype")
     n_levels = len(cfg.diffusion_encoder.block_out_channels)
-    want = {"flash_attention": 14 + STEPS * 32,
-            "affine_silu_conv1d": STEPS * 45}
+    # bf16: everything on the tensor-core routes; the two pooling calls
+    # (D = 100 and 4) stage their tiles with element loads
+    want = {"flash_attention": 0, "flash_attention_tc": 14 + STEPS * 32,
+            "flash_attention_tc_narrow": 2, "affine_silu_conv1d": 0,
+            "affine_silu_conv1d_tc": STEPS * 45}
     if n_levels != 4 or counts != want:
         fail(f"launch counts {counts}, expected {want}")
     audio_s = B * n_samples / cfg.data.sampling_rate
@@ -547,7 +846,8 @@ def check_serving(cfg, sd, vsd, dev):
         f"{single_ms[1]:.1f} ms = "
         f"{n_samples / cfg.data.sampling_rate / (single_ms[1] / 1e3):.2f}x "
         f"real time [{CARD}]")
-    return svc, clips, refer
+    walls = {"batch": ms, "single": single_ms[1]}
+    return svc, clips, refer, walls
 
 
 # -- slice 2: front end, samplers, overlap, MicroBatcher, wav in -> wav out ---
@@ -584,7 +884,6 @@ def check_front_end(dev, cv_sd, crepe_sd):
     from ns2vc_tpu_torch.audio.resample import resample
     from ns2vc_tpu_torch.features.contentvec import ContentVec
     from ns2vc_tpu_torch.features.crepe import WINDOW, Crepe
-    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
 
     cpu = torch.device("cpu")
     x44 = torch.from_numpy(tone(17 * 44100, 44100, SEED + 3))
@@ -625,12 +924,13 @@ def check_front_end(dev, cv_sd, crepe_sd):
             cr.load_state_dict(crepe_sd)
             models[d.type] = (cv.to(d).eval(), cr.to(d).eval())
         wav16 = resample(x44[: 4 * 44100], 44100, 16000)[None]
-        flash_attention.launches = 0
+        reset_launches()
         compare("ContentVec 768x12, 4 s",
                 lambda d: models[d.type][0](wav16.to(d)), CONTENTVEC_ATOL)
-        if flash_attention.launches != 12:
-            fail(f"ContentVec launched K1 {flash_attention.launches} times, "
-                 f"expected 12 (one per layer)")
+        n = route_counts()["flash_attention"]
+        if n != 12:
+            fail(f"ContentVec launched K1's f32 route {n} times, expected 12 "
+                 f"(one per layer)")
         x16 = F.pad(resample(x44[: 2 * 44100], 44100, 16000),
                     (WINDOW // 2, WINDOW // 2))
         frames = x16.unfold(0, WINDOW, 171)   # hop 256 at 24 kHz -> 16 kHz
@@ -806,12 +1106,8 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
     from ns2vc_tpu_torch.features.contentvec import ContentVec
     from ns2vc_tpu_torch.infer.cli import main as cli_main
     from ns2vc_tpu_torch.models.vocos import Vocos
-    from ns2vc_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain,
-    )
-    from ns2vc_tpu_torch.ops.fused_resnet import (
-        affine_silu_conv1d, affine_silu_conv1d_plain,
-    )
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_plain
+    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_plain
 
     sr = 44100
     src = np.concatenate([tone(int(6.0 * sr), sr, SEED + 7, 200.0),
@@ -870,13 +1166,12 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                         (Vocos, "forward", "Vocos")):
                     patches.append(mock.patch.object(
                         obj, attr, stages.wrap(name, getattr(obj, attr))))
-            flash_attention.launches = affine_silu_conv1d.launches = 0
+            reset_launches()
             with contextlib.ExitStack() as stack:
                 for p in patches:
                     stack.enter_context(p)
                 _, ms = wall_ms(lambda: cli_main(argv + extra))
-            counts = {"flash_attention": flash_attention.launches,
-                      "affine_silu_conv1d": affine_silu_conv1d.launches}
+            counts = route_counts()
             wav, out_sr = read_wav(out_path)
             if out_sr != cfg.data.sampling_rate or not np.isfinite(
                     wav).all() or abs(len(wav) - want_len) > hop:
@@ -888,14 +1183,19 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
 
         path_calls = PathCalls()
         counts, calls, ms, _ = run([], patches=path_calls.patches())
-        want = {"flash_attention": 12 * calls["contentvec"]
-                + calls["batches"] * (14 + 32 * CLI_STEPS),
-                "affine_silu_conv1d": calls["batches"] * 45 * CLI_STEPS}
+        # ContentVec runs in f32 (the CUDA-core route), the UNet, encoders
+        # and pooling in bf16 (the tensor-core routes)
+        want = {"flash_attention": 12 * calls["contentvec"],
+                "flash_attention_tc": calls["batches"] * (14 + 32 * CLI_STEPS),
+                "flash_attention_tc_narrow": 2 * calls["batches"],
+                "affine_silu_conv1d": 0,
+                "affine_silu_conv1d_tc": calls["batches"] * 45 * CLI_STEPS}
         if counts != want or calls["contentvec"] < 3:
             fail(f"CLI launch counts {counts} for {calls}, expected {want}")
-        recorded = {"flash_attention": sum(path_calls.k1.values()),
-                    "affine_silu_conv1d": sum(path_calls.k2.values())}
-        if recorded != counts:
+        recorded = (sum(path_calls.k1.values()), sum(path_calls.k2.values()))
+        if recorded != (counts["flash_attention"]
+                        + counts["flash_attention_tc"],
+                        counts["affine_silu_conv1d_tc"]):
             fail(f"CLI: {recorded} wrapper calls recorded, {counts} "
                  f"launches counted")
         say(f"wav in -> wav out, CLI unipc {CLI_STEPS} steps bf16: 20.0 s "
@@ -924,9 +1224,15 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                                   flash_attention_plain),
                 mock.patch.object(fused_resnet, "affine_silu_conv1d",
                                   affine_silu_conv1d_plain)])
-        if min(k_counts.values()) == 0 or max(p_counts.values()) != 0:
-            fail(f"CLI f32: launches {k_counts} through the kernels, "
-                 f"{p_counts} through the plain versions")
+        f32_want = {"flash_attention": counts["flash_attention"]
+                    + counts["flash_attention_tc"],
+                    "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
+                    "affine_silu_conv1d": counts["affine_silu_conv1d_tc"],
+                    "affine_silu_conv1d_tc": 0}
+        if k_counts != f32_want or max(p_counts.values()) != 0:
+            fail(f"CLI f32: launches {k_counts} through the kernels "
+                 f"(expected {f32_want}), {p_counts} through the plain "
+                 f"versions")
         scale = max(1.0, float(np.abs(p_wav).max()))
         err = float(np.abs(k_wav - p_wav).max()) if k_wav.shape == \
             p_wav.shape else float("inf")
@@ -938,7 +1244,7 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
         if not err <= CLI_WAV_ATOL * scale:
             fail(f"CLI f32: kernels vs plain versions differ by {err} > "
                  f"{CLI_WAV_ATOL} x {scale}")
-    return counts, path_calls
+    return counts, k_counts, path_calls
 
 
 def main() -> int:
@@ -949,7 +1255,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from ns2vc_tpu.config import Config
+        from ns2vc_tpu_torch.config import Config
         from ns2vc_tpu_torch.convert import init_params, init_vocos_params
         from ns2vc_tpu_torch.ops import _build
     except ImportError as e:
@@ -982,35 +1288,70 @@ def main() -> int:
         from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
         unet = NaturalSpeech2(cfg).diff_model.unet
 
-    with no_tf32():
-        k1_err = check_attention(cfg, dev)
-        k2_err = check_resnet(unet, dev)
-        check_full_model(cfg, sd, vsd, dev)
-    # the timed phases first; the CPU references of the front end last
-    svc, clips, refer = check_serving(cfg, sd, vsd, dev)
-    check_samplers(svc, clips, refer, cfg.data.hop_length,
-                   cfg.data.sampling_rate)
-    check_overlap(svc, refer)
-    check_microbatcher(svc, refer, cfg.data.hop_length)
-    del svc
+    seconds = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t_start = time.perf_counter()
+        yield
+        seconds[name] = round(time.perf_counter() - t_start, 1)
+
+    # the end-to-end timings first, in a process that has run nothing but
+    # the build; then the kernels at every shape (their many CUDA-graph
+    # captures), the CPU references of the front end, and the profiles
+    with phase("serving"):
+        svc, clips, refer, walls = check_serving(cfg, sd, vsd, dev)
+        check_samplers(svc, clips, refer, cfg.data.hop_length,
+                       cfg.data.sampling_rate)
+        check_overlap(svc, refer)
+        check_microbatcher(svc, refer, cfg.data.hop_length)
     cv_sd, crepe_sd = front_end_weights()
-    counts, path_calls = check_cli(cfg, sd, vsd, cv_sd, crepe_sd)
+    with phase("CLI runs"):
+        counts, f32_counts, path_calls = check_cli(cfg, sd, vsd, cv_sd,
+                                                   crepe_sd)
     with no_tf32():
-        on_path = check_path_calls(path_calls, dev)
-    check_front_end(dev, cv_sd, crepe_sd)
+        with phase("K1 shapes"):
+            k1_step = check_attention(cfg, dev)
+        with phase("K2 shapes"):
+            k2_step = check_resnet(unet, dev)
+        with phase("full model"):
+            check_full_model(cfg, sd, vsd, dev)
+        with phase("CLI geometries"):
+            on_path = check_path_calls(path_calls, dev)
+    with phase("front end"):
+        check_front_end(dev, cv_sd, crepe_sd)
+    # last: the profiler slows the launches of whatever runs after it
+    with phase("profiles"):
+        device_breakdown(lambda: svc.infer_batch(
+            clips, refer, sampling_timesteps=STEPS, order=2,
+            output="pcm16"), walls["batch"], f"serving B={B}")
+        device_breakdown(lambda: svc.infer_from_features(
+            clips[0], refer, sampling_timesteps=STEPS, order=2),
+            walls["single"], "single request B=1")
+    say(f"seconds per phase: {seconds}")
 
     kernels = []
-    for name, worst, source, replaces in (
-            ("flash_attention", k1_err, "flash_attention.cu",
-             "ns2vc_tpu/ops/pallas_attention.py:92"),
-            ("affine_silu_conv1d", k2_err, "gn_silu_conv1d.cu",
-             "ns2vc_tpu/ops/pallas_resnet.py:71")):
-        err, ms, plain_ms, _ = on_path[name]
+    for route, (source, replaces) in ROUTES.items():
+        # the bf16 CLI run takes no f32 resnet call: that route's launches
+        # are the f32 CLI run's (through the kernels, TF32 off)
+        f32_only = route == "affine_silu_conv1d"
+        launches = (f32_counts if f32_only else counts)[route]
+        if launches == 0 or on_path.calls[route] == 0:
+            fail(f"{route}: {launches} launches on its CLI run, "
+                 f"{on_path.calls[route]} calls timed")
+        s = on_path.sums[route]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": route, "route": "cuda",
             "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": counts[name], "max_abs_err": max(worst, err),
-            "ms": ms, "plain_ms": plain_ms})
+            "launches": launches,
+            "launches_from": "cli_f32" if f32_only else "cli_bf16",
+            "max_abs_err": max(k1_step.err[route], k2_step.err[route],
+                               on_path.err[route]),
+            "ms": s["ms"], "eager_ms": s["eager"], "plain_ms": s["plain"],
+            "bound_ms": s["bound"],
+            "bound_by": on_path.bound_by(route),
+            "library_ms": s["lib"] if "lib" in s else None,
+            **({"conv_alone_ms": s["conv"]} if "conv" in s else {})})
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

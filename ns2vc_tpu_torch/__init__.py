@@ -1,9 +1,10 @@
 """ns2vc_tpu_torch: the PyTorch/CUDA port of ns2vc_tpu for one NVIDIA H100.
 
 `ns2vc_tpu/` (JAX) is the reference the port is held against and stays as
-it is. This first slice is the voice-conversion serving path: content
-features + a reference mel -> encoders -> cross-attention K/V precompute ->
-UniPC over the UNet -> Vocos -> 24 kHz waveform (optionally int16 PCM).
+it is. The port converts wav in to wav out: the front end (resampling,
+log-mel, F0, ContentVec), then content features + a reference mel ->
+encoders -> cross-attention K/V precompute -> a sampler over the UNet ->
+Vocos -> 24 kHz waveform (optionally int16 PCM).
 
 Layer map:
     infer/      Svc: bucketed, masked batch serving
@@ -11,12 +12,20 @@ Layer map:
     diffusion/  noise schedule + UniPC sampler
     ops/        masking, attention, and the two hand-written CUDA kernels
                 (csrc/): flash attention (K1) and the fused
-                GroupNorm -> SiLU -> conv-k3 resnet epilogue (K2)
+                GroupNorm -> SiLU -> conv-k3 resnet epilogue (K2), each
+                with a bf16 tensor-core route and an f32 CUDA-core route
+    audio/, features/  resampling, log-mel, host F0 and slicing,
+                ContentVec, CREPE
+    native/     the C++ DIO F0 tracker (ctypes)
     convert.py  JAX (flax) parameter trees -> state dicts; seeded init
+    config.py, utils/  configuration, reference-checkpoint converter, wav I/O
 
 Importing the package builds nothing: the kernels are compiled by nvcc at
-their first CUDA call (ops/_build.py). It imports no JAX; the one module of
-`ns2vc_tpu` it uses is the dataclass-only `ns2vc_tpu.config`.
+their first CUDA call (ops/_build.py), the host DIO library by g++ at its
+first call (native/). It imports no JAX and nothing of `ns2vc_tpu`: the
+numpy-only modules it shares with the JAX package (config, the reference
+checkpoint converter, the F0 trackers, the Slicer, wav I/O, the DIO) are
+copies of its own, each naming the file it mirrors.
 """
 
 __version__ = "0.1.0"

@@ -19,8 +19,8 @@ The mapping is strict: a leaf that no port parameter takes, a port
 parameter that no leaf fills, or a shape that disagrees raises.
 
 `load_checkpoint` reads a `.pt` file into the port's NaturalSpeech2 state
-dict: the reference NS2VC `model-N.pt` through the JAX package's jax-free
-converter (`ns2vc_tpu.utils.convert_reference`) and `from_flax`, or a port
+dict: the reference NS2VC `model-N.pt` through the port's copy of the JAX
+package's converter (`utils/convert_reference.py`) and `from_flax`, or a port
 state dict saved with `torch.save`.
 
 `init_params` draws a state dict from a `torch.Generator` in flax's
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ns2vc_tpu.config import Config
+from ns2vc_tpu_torch.config import Config
 from ns2vc_tpu_torch.features.contentvec import ContentVec
 from ns2vc_tpu_torch.features.crepe import BatchNorm, Crepe
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
@@ -150,7 +150,7 @@ def load_checkpoint(path: str, cfg: Config) -> dict:
             f"port state dict saved with torch.save")
     data = torch.load(path, map_location="cpu")
     if "model" in data:
-        from ns2vc_tpu.utils.convert_reference import natural_speech2
+        from ns2vc_tpu_torch.utils.convert_reference import natural_speech2
 
         return from_flax(natural_speech2(data["model"]), cfg)
     return data

@@ -20,4 +20,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+constexpr int kMaxDevices = 64;
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes` once per device
+// (the attribute is per device): `done` is the calling launcher's own
+// static table, so later launches, and launches under CUDA graph capture,
+// make no runtime call for it.
+template <typename Kernel>
+cudaError_t allow_dynamic_smem(Kernel kernel, int bytes,
+                               bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 }  // namespace ns2vc

@@ -20,8 +20,9 @@
 // width DP in {16, 32, 64, 128} with zero-filled, bounds-checked loads.
 // q/k/v/o are read and written through (batch, head, seq) strides with a
 // unit stride on the head dim, so the caller passes the (B, T, H*D)
-// projections without a transpose copy. Tensor-core MMA, TMA and warp
-// specialisation are later work.
+// projections without a transpose copy. This is the f32 route (the
+// wrapper sends bf16 to flash_attention_tc.cu, the tensor-core kernel);
+// TF32 tensor cores would break the f32 bound of 2e-5.
 #include <math_constants.h>
 
 #include <cstdint>
@@ -194,9 +195,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, void* o, int B, int H, int Tq, int Tk,
                    int D, const int64_t* s, float scale, cudaStream_t stream) {
   const size_t smem = flash_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+  static bool smem_set[kMaxDevices] = {};
+  cudaError_t err =
+      allow_dynamic_smem(flash_fwd_kernel<T, DP>, int(smem), smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(

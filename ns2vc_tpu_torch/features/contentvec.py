@@ -175,7 +175,7 @@ def contentvec_from_fairseq(sd, strict: bool = True) -> dict:
     """fairseq HubertModel state dict (checkpoint['model']) -> this
     module's state dict. With `strict`, a source key neither converted nor
     training-only (`label_embs_concat`, `mask_emb`) raises."""
-    from ns2vc_tpu.utils.convert_reference import (
+    from ns2vc_tpu_torch.utils.convert_reference import (
         TrackedStateDict, assert_fully_consumed,
     )
 

@@ -130,7 +130,7 @@ def crepe_from_torchcrepe(sd, strict: bool = True) -> dict:
     """torchcrepe state dict -> this module's state dict: conv weights
     (O, 1|I, K, 1) lose their trailing axis; a key neither converted nor a
     BatchNorm `num_batches_tracked` counter raises under `strict`."""
-    from ns2vc_tpu.utils.convert_reference import (
+    from ns2vc_tpu_torch.utils.convert_reference import (
         TrackedStateDict, assert_fully_consumed,
     )
 

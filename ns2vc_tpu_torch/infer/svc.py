@@ -38,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ns2vc_tpu.config import Config, load_config
+from ns2vc_tpu_torch.config import Config, load_config
 from ns2vc_tpu_torch.audio.host import (
     compute_f0_ac, compute_f0_dio, interpolate_f0, read_wav, repeat_expand_2d,
 )

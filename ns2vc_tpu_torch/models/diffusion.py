@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ns2vc_tpu.config import Config
+from ns2vc_tpu_torch.config import Config
 from ns2vc_tpu_torch.diffusion.samplers import sample
 from ns2vc_tpu_torch.diffusion.schedule import NoiseSchedule
 from ns2vc_tpu_torch.models.encoders import (

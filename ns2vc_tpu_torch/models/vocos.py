@@ -130,7 +130,7 @@ def vocos_from_public(sd, strict: bool = True) -> dict:
     every other parameter keeps its name. Under `strict` a key neither
     converted nor a buffer recomputed here (the feature extractor's mel
     filterbank and windows, the iSTFT window) raises."""
-    from ns2vc_tpu.utils.convert_reference import (
+    from ns2vc_tpu_torch.utils.convert_reference import (
         TrackedStateDict, assert_fully_consumed,
     )
 

@@ -43,6 +43,9 @@ _SIGNATURES = {
     "ns2vc_flash_attention_fwd":
         [_P] * 5 + [_I] * 6 + [_I64] * 12 + [ctypes.c_float, _P],
     "ns2vc_affine_silu_conv1d": [_P] * 6 + [_I] * 5 + [_P],
+    "ns2vc_flash_attention_tc_fwd":
+        [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float, _I, _P],
+    "ns2vc_affine_silu_conv1d_tc": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 
@@ -141,6 +144,16 @@ def check(err: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Every row of t (unit stride on the last axis) starts on a 16-byte
+    boundary and holds whole 16-byte chunks: the kernels may stage it with
+    16-byte cp.async copies."""
+    per = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] % per == 0
+            and all(s % per == 0 for s, n in zip(t.stride()[:-1], t.shape)
+                    if n > 1))
 
 
 def require_current_device(*tensors: torch.Tensor) -> None:

@@ -2,9 +2,9 @@
 
 `multihead_attention` is the projected attention used by the encoder layers,
 the attention pooling and the UNet attention blocks. Every call goes through
-`ops/flash_attention.py::flash_attention`: the CUDA kernel for a CUDA tensor,
-its plain version for a CPU tensor. The JAX package's XLA fusion experiments
-and their environment knobs are not carried over.
+`ops/flash_attention.py::flash_attention`: a CUDA kernel (chosen by dtype)
+for a CUDA tensor, its plain version for a CPU tensor. The JAX package's
+XLA fusion experiments and their environment knobs are not carried over.
 """
 
 from __future__ import annotations

@@ -1,16 +1,33 @@
 """Flash attention forward with an additive key bias (kernel K1).
 
 Replaces `ns2vc_tpu/ops/pallas_attention.py::flash_attention`, the Pallas
-TPU kernel. The CUDA kernel is `csrc/flash_attention.cu`; its source note
-says what bounds it on the H100 and how its design answers that.
+TPU kernel, with two hand-written CUDA kernels; their source notes say what
+bounds each on the H100 and how its design answers that.
 
-`flash_attention` dispatches on the device of its inputs and on nothing
-else: a CPU tensor runs `flash_attention_plain`, a CUDA tensor launches the
-kernel or raises. The kernel reads q/k/v through their (batch, head, seq)
-strides, so the (B, H, T, D) views that `ops/attention.py::split_heads`
-makes of the (B, T, H*D) projections go in without a transpose copy, and
-the output is written as a (B, Tq, H, D) buffer whose (B, H, Tq, D) view is
-returned, so `merge_heads` is a free reshape.
+`flash_attention` routes by `attention_route(device, dtype, head_dim)` and
+on nothing else:
+
+    cpu                       -> `flash_attention_plain`
+    cuda, bf16, D even <= 112 -> "tc": `csrc/flash_attention_tc.cu`, tensor
+                                 cores (mma.sync bf16 -> f32), 16-byte
+                                 cp.async tiles; where a row is not made of
+                                 aligned 16-byte chunks (D = 4 or 100, odd
+                                 strides) the same kernel stages its tiles
+                                 with element loads, counted apart as
+                                 "tc_narrow"
+    cuda, f32                 -> "simt": `csrc/flash_attention.cu`, f32
+                                 CUDA cores (TF32 tensor cores would break
+                                 the f32 bound of 2e-5); it also takes the
+                                 bf16 calls the tensor-core kernel does not
+                                 (odd D, D > 112), which no caller makes
+
+A CUDA tensor launches one of the kernels or raises. `flash_attention.
+launches` counts every launch, `flash_attention.route_launches` each route's.
+The kernels read q/k/v through their (batch, head, seq) strides, so the
+(B, H, T, D) views that `ops/attention.py::split_heads` makes of the
+(B, T, H*D) projections go in without a transpose copy, and the output is
+written as a (B, Tq, H, D) buffer whose (B, H, Tq, D) view is returned, so
+`merge_heads` is a free reshape.
 """
 
 from __future__ import annotations
@@ -19,7 +36,23 @@ import torch
 
 from ns2vc_tpu_torch.ops import _build
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128      # the f32 kernel's widest padded head
+TC_MAX_HEAD_DIM = 112   # the tensor-core kernel's widest padded head
+
+
+def attention_route(device: torch.device | str, dtype: torch.dtype,
+                    head_dim: int) -> str:
+    """'plain' (CPU), 'tc' (bf16 tensor-core kernel) or 'simt' (f32
+    kernel); raises for a device that is neither."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {device}")
+    if dtype == torch.bfloat16 and head_dim % 2 == 0 \
+            and head_dim <= TC_MAX_HEAD_DIM:
+        return "tc"
+    return "simt"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,10 +77,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, Tq, D), k/v (B, H, Tk, D), bias (B, Tk) -> (B, H, Tq, D)
     in q's dtype. On CUDA: f32 or bf16, D <= 128, unit stride on D."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if q.device.type == "cpu":
+    route = attention_route(q.device, q.dtype, q.shape[-1])
+    if route == "plain":
         return flash_attention_plain(q, k, v, bias, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d):
@@ -75,14 +107,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     o = out.permute(0, 2, 1, 3)  # (B, H, Tq, D) view
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    bias_ptr = None if bias is None else bias.data_ptr()
+    vec = route == "tc" and all(_build.aligned16(t) for t in (q, k, v))
+    if route == "tc" and not vec:
+        route = "tc_narrow"
     flash_attention.launches += 1
-    err = lib.ns2vc_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), o.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], b, h, tq, tk, d, *strides, float(scale),
-        _build.stream_of(q))
-    _build.check(err, "flash_attention")
+    flash_attention.route_launches[route] += 1
+    if route == "simt":
+        err = lib.ns2vc_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
+            _build.DTYPE_CODES[q.dtype], b, h, tq, tk, d, *strides,
+            float(scale), _build.stream_of(q))
+    else:
+        err = lib.ns2vc_flash_attention_tc_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
+            b, h, tq, tk, d, *strides, float(scale), int(vec),
+            _build.stream_of(q))
+    _build.check(err, f"flash_attention ({route})")
     return o
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"simt": 0, "tc": 0, "tc_narrow": 0}
+
+
+def reset_launches() -> None:
+    flash_attention.launches = 0
+    for key in flash_attention.route_launches:
+        flash_attention.route_launches[key] = 0

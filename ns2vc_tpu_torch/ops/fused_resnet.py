@@ -9,19 +9,93 @@ channel) affine, so the epilogue is
 
 `gn_silu_conv1d` computes the statistics and the fold as plain f32 tensor
 reductions (as the JAX wrapper leaves them to XLA) and keeps a and b in f32
-(the JAX wrapper rounds them to x's dtype). `affine_silu_conv1d` dispatches
-on the device of x and on nothing else: a CPU tensor runs
-`affine_silu_conv1d_plain`, a CUDA tensor launches `csrc/gn_silu_conv1d.cu`
-or raises. The CUDA source note says what bounds the kernel on the H100 and
+(the JAX wrapper rounds them to x's dtype). `affine_silu_conv1d` routes by
+`resnet_route(device, dtype)` and on nothing else:
+
+    cpu        -> `affine_silu_conv1d_plain`
+    cuda, bf16 -> "tc": `csrc/gn_silu_conv1d_tc.cu`, an implicit GEMM on the
+                  tensor cores (mma.sync bf16 -> f32) over weights packed
+                  once per weight tensor by `pack_conv_weight` (kept while
+                  the tensor lives, keyed by its storage and version),
+                  split over the input channels by `plan_tc` when the
+                  output tiles alone would not fill the card
+    cuda, f32  -> "simt": `csrc/gn_silu_conv1d.cu`, f32 CUDA cores
+
+A CUDA tensor launches one of the kernels or raises. `affine_silu_conv1d.
+launches` counts every launch, `affine_silu_conv1d.route_launches` each
+route's. The CUDA source notes say what bounds each kernel on the H100 and
 how its design answers that.
 """
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
 from ns2vc_tpu_torch.ops import _build
+
+# the tensor-core kernel's tile: frames, output channels, input channels per
+# chunk (csrc/gn_silu_conv1d_tc.cu kBM, kBN, kBK)
+TC_BM, TC_BN, TC_BK = 64, 64, 32
+H100_SMS = 132
+
+
+def resnet_route(device: torch.device | str, dtype: torch.dtype) -> str:
+    """'plain' (CPU), 'tc' (bf16 tensor-core kernel) or 'simt' (the f32
+    kernel, which also takes any dtype the checks below refuse); raises for
+    a device that is neither CPU nor CUDA."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"affine_silu_conv1d: unsupported device {device}")
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def plan_tc(bsz: int, t: int, c: int, co: int) -> tuple[int, int]:
+    """(splits, chunks per split) of the tensor-core kernel's channel loop
+    over its 32-channel chunks: the fewest splits whose (T, Co, B) output
+    tiles times splits reach one block per SM of the H100 (one split when
+    the tiles alone do), or one chunk per split where even that falls
+    short. The chunks are dealt evenly and no split is left empty."""
+    tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
+    n_chunks = -(-c // TC_BK)
+    for want in range(1, n_chunks + 1):
+        cps = -(-n_chunks // want)
+        splits = -(-n_chunks // cps)   # no empty split
+        if tiles * splits >= H100_SMS:
+            return splits, cps
+    return n_chunks, 1
+
+
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """torch Conv1d weight (Co, C, 3) -> the tensor-core kernel's (3, Co_pad,
+    C_pad) bf16, contiguous along C, zero past (Co, C), Co_pad and C_pad
+    rounded up to TC_BN and TC_BK: tap k's (Co, C) matrix multiplies the
+    frames shifted by k - 1."""
+    co, c, _ = w.shape
+    packed = torch.zeros((3, -(-co // TC_BN) * TC_BN, -(-c // TC_BK) * TC_BK),
+                         dtype=torch.bfloat16, device=w.device)
+    packed[:, :co, :c] = w.detach().permute(2, 0, 1)
+    return packed
+
+
+_PACKED: dict[int, tuple] = {}   # id(w) -> (key, packed), while w lives
+
+
+def packed_weight(w: torch.Tensor) -> torch.Tensor:
+    """`pack_conv_weight(w)`, computed once per weight tensor and kept while
+    the tensor lives; recomputed when its storage or version (an in-place
+    update) changes."""
+    key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape))
+    hit = _PACKED.get(id(w))
+    if hit is None or hit[0] != key:
+        if hit is None:
+            weakref.finalize(w, _PACKED.pop, id(w), None)
+        hit = _PACKED[id(w)] = (key, pack_conv_weight(w))
+    return hit[1]
 
 
 def affine_silu_conv1d_plain(x: torch.Tensor, a: torch.Tensor,
@@ -38,10 +112,9 @@ def affine_silu_conv1d(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                        w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """y = conv1d_k3_SAME(silu(x * a + b), w) + bias. On CUDA: x, w, bias
     contiguous and of one dtype (f32 or bf16); a, b contiguous f32."""
-    if x.device.type == "cpu":
+    route = resnet_route(x.device, x.dtype)
+    if route == "plain":
         return affine_silu_conv1d_plain(x, a, b, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"affine_silu_conv1d: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"affine_silu_conv1d: x must be (B, T, C), got "
                          f"{tuple(x.shape)}")
@@ -70,15 +143,36 @@ def affine_silu_conv1d(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     lib = _build.library()
     y = torch.empty((bsz, t, co), dtype=x.dtype, device=x.device)
     affine_silu_conv1d.launches += 1
-    err = lib.ns2vc_affine_silu_conv1d(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), _build.DTYPE_CODES[x.dtype],
-        bsz, t, c, co, _build.stream_of(x))
-    _build.check(err, "affine_silu_conv1d")
+    affine_silu_conv1d.route_launches[route] += 1
+    if route == "simt":
+        err = lib.ns2vc_affine_silu_conv1d(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), _build.DTYPE_CODES[x.dtype],
+            bsz, t, c, co, _build.stream_of(x))
+    else:
+        wp = packed_weight(w)
+        splits, cps = plan_tc(bsz, t, c, co)   # bsz * splits < 132 * 132
+        ws = None if splits == 1 else torch.empty(
+            (splits, bsz, t, co), dtype=torch.float32, device=x.device)
+        vec = all(_build.aligned16(v) for v in (x, a, b))
+        err = lib.ns2vc_affine_silu_conv1d_tc(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), wp.data_ptr(),
+            bias.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), bsz, t, c, co,
+            wp.shape[2], wp.shape[1], cps, splits, int(vec),
+            _build.stream_of(x))
+    _build.check(err, f"affine_silu_conv1d ({route})")
     return y
 
 
 affine_silu_conv1d.launches = 0
+affine_silu_conv1d.route_launches = {"simt": 0, "tc": 0}
+
+
+def reset_launches() -> None:
+    affine_silu_conv1d.launches = 0
+    for key in affine_silu_conv1d.route_launches:
+        affine_silu_conv1d.route_launches[key] = 0
 
 
 def group_norm_affine(x: torch.Tensor, gamma: torch.Tensor,

@@ -14,7 +14,9 @@ the probabilities to bf16 before the PV product, the kernel keeps f32) and
 1e-2 of the output's scale for K2 (one bf16 rounding of f32 sums taken in
 another order); UNet card vs CPU 5e-4 (the JAX suite's UNet bound).
 K1 also runs at ContentVec's shapes, (1, 12, T, 64) in f32 with T up to
-3000 keys (one unbroken 60 s segment). The Svc readback test checks that
+3000 keys (one unbroken 60 s segment). bf16 goes to the tensor-core
+kernels (K1 "tc" / "tc_narrow", K2 "tc"), f32 to the CUDA-core ones
+("simt"); each test checks the route its call took. The Svc readback test checks that
 batch N's `finish()` waits on its own CUDA event only: it returns while
 batch N+1, whose device work ends in a spin kernel, is still running.
 """
@@ -24,10 +26,10 @@ import torch
 
 from ns2vc_tpu_torch.ops.attention import split_heads
 from ns2vc_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain,
+    attention_route, flash_attention, flash_attention_plain,
 )
 from ns2vc_tpu_torch.ops.fused_resnet import (
-    affine_silu_conv1d, affine_silu_conv1d_plain, gn_silu_conv1d,
+    affine_silu_conv1d, affine_silu_conv1d_plain, gn_silu_conv1d, plan_tc,
 )
 
 pytestmark = pytest.mark.cuda
@@ -69,8 +71,12 @@ def test_flash_attention_matches_plain(dev, dtype, atol, b, h, tq, tk, d,
         bias = torch.zeros(b, tk, device=dev)
         bias[-1, valid:] = -1e4
     n0 = flash_attention.launches
+    routes0 = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, bias)
     assert flash_attention.launches == n0 + 1
+    route = attention_route(dev, dtype, d)
+    route = "tc_narrow" if route == "tc" and d % 8 else route
+    assert flash_attention.route_launches[route] == routes0[route] + 1
     want = flash_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
@@ -97,15 +103,47 @@ def test_flash_attention_at_contentvec_shapes(dev, t, masked):
     assert (got - want).abs().max().item() <= 2e-5
 
 
-def test_flash_attention_fully_masked_row_is_finite(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_row_is_finite(dev, dtype):
     g = _gen(dev, 1)
-    q = torch.randn(2, 2, 40, 32, generator=g, device=dev)
+    q = torch.randn(2, 2, 40, 32, generator=g, device=dev).to(dtype)
     bias = torch.zeros(2, 70, device=dev)
     bias[1] = -1e30
     out = flash_attention(q, q[:, :, :1].expand(2, 2, 70, 32).contiguous(),
                           q[:, :, :1].expand(2, 2, 70, 32).contiguous(), bias)
     torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("d", [4, 16, 32, 48, 64, 100])
+@pytest.mark.parametrize("b,h,tq,tk,valid", [
+    (2, 8, 1, 1, None),        # T = 1
+    (2, 4, 77, 130, 101),      # ragged tiles on both axes, key padding
+    (1, 2, 64, 64, 0),         # every key of the last row masked (-1e4)
+])
+def test_flash_attention_tc_head_widths(dev, d, b, h, tq, tk, valid):
+    """The bf16 tensor-core kernel at every head width the path gives it
+    (D = 4 and 100 take element loads) on strided views of one packed
+    (B, T, 3C) projection, against the plain version."""
+    g = _gen(dev, 4)
+    c = h * d
+    qkv = torch.randn(b, max(tq, tk), 3 * c, generator=g,
+                      device=dev).bfloat16()
+    q, k, v = qkv.split(c, dim=-1)
+    q, k, v = (split_heads(x[:, :n], h) for x, n in ((q, tq), (k, tk),
+                                                     (v, tk)))
+    bias = None
+    if valid is not None:
+        bias = torch.zeros(b, tk, device=dev)
+        bias[-1, valid:] = -1e4
+    route = "tc" if d % 8 == 0 else "tc_narrow"
+    n0 = flash_attention.route_launches[route]
+    got = flash_attention(q, k, v, bias)
+    assert flash_attention.route_launches[route] == n0 + 1
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2
 
 
 def test_flash_attention_refuses_what_it_cannot_take(dev):
@@ -141,8 +179,11 @@ def test_gn_silu_conv1d_matches_plain(dev, dtype, b, t, c, co, film):
         s = 0.2 * torch.randn(b, c, generator=g, device=dev)
         sh = 0.2 * torch.randn(b, c, generator=g, device=dev)
     n0 = affine_silu_conv1d.launches
+    route = "simt" if dtype == torch.float32 else "tc"
+    r0 = affine_silu_conv1d.route_launches[route]
     got = gn_silu_conv1d(x, gamma, beta, w, bias, 8, 1e-5, s, sh)
     assert affine_silu_conv1d.launches == n0 + 1
+    assert affine_silu_conv1d.route_launches[route] == r0 + 1
     want = gn_silu_conv1d(x.cpu(), gamma.cpu(), beta.cpu(), w.cpu(),
                           bias.cpu(), 8, 1e-5,
                           None if s is None else s.cpu(),
@@ -152,6 +193,40 @@ def test_gn_silu_conv1d_matches_plain(dev, dtype, b, t, c, co, film):
     tol = 1e-4 if dtype == torch.float32 else \
         1e-2 * max(1.0, want.float().abs().max().item())
     assert got.dtype == dtype and err <= tol
+
+
+@pytest.mark.parametrize("b,t,c,co", [
+    (1, 1, 128, 128),     # T = 1
+    (2, 100, 200, 136),   # T, C and Co not multiples of the tile
+    (1, 56, 1024, 512),   # split over 32 channel chunks
+    (16, 56, 1024, 512),  # split in two
+    (16, 448, 128, 100),  # the output tail, no split
+    (3, 37, 20, 40),      # C % 8 != 0: element loads
+])
+def test_affine_silu_conv1d_tc(dev, b, t, c, co):
+    """The bf16 tensor-core kernel, with and without its channel split,
+    against the plain version on the same bf16 inputs."""
+    g = _gen(dev, 5)
+    x = torch.randn(b, t, c, generator=g, device=dev).bfloat16()
+    a = 1 + 0.2 * torch.randn(b, c, generator=g, device=dev)
+    off = 0.2 * torch.randn(b, c, generator=g, device=dev)
+    w = (torch.randn(co, c, 3, generator=g, device=dev)
+         / (3 * c) ** 0.5).bfloat16()
+    bias = (0.1 * torch.randn(co, generator=g, device=dev)).bfloat16()
+    n0 = affine_silu_conv1d.route_launches["tc"]
+    got = affine_silu_conv1d(x, a, off, w, bias)
+    assert affine_silu_conv1d.route_launches["tc"] == n0 + 1
+    want = affine_silu_conv1d_plain(x, a, off, w, bias)
+    torch.cuda.synchronize()
+    assert plan_tc(b, t, c, co)[0] >= 1
+    tol = 1e-2 * max(1.0, want.float().abs().max().item())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    w.mul_(0.5)    # an in-place update repacks the weights
+    want = affine_silu_conv1d_plain(x, a, off, w, bias)
+    got = affine_silu_conv1d(x, a, off, w, bias)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 def test_affine_silu_conv1d_refuses_what_it_cannot_take(dev):
@@ -193,7 +268,7 @@ def test_unet_on_card_matches_cpu(dev):
 
 def _small_svc(device):
     """A Svc of a narrow configuration with seeded weights."""
-    from ns2vc_tpu.config import (
+    from ns2vc_tpu_torch.config import (
         Config, DiffusionEncoderConfig, EncoderConfig,
     )
     from ns2vc_tpu_torch.convert import init_params, init_vocos_params

@@ -460,11 +460,11 @@ def test_slice_inference_plan_and_assembly_match_jax(tiny_pair, tmp_path,
 
 def test_load_checkpoint_reads_reference_and_port_files(tiny_pair, tmp_path,
                                                        monkeypatch):
-    """A reference model-N.pt goes through the JAX package's reference
+    """A reference model-N.pt goes through the port's copy of the reference
     converter and `from_flax`; a port state dict loads as saved; an orbax
     directory and an F0-predictor configuration raise."""
-    from ns2vc_tpu.utils import convert_reference
     from ns2vc_tpu_torch.convert import load_checkpoint
+    from ns2vc_tpu_torch.utils import convert_reference
 
     _, svc, _, params, *_ = tiny_pair
     cfg = svc.cfg

@@ -1,0 +1,113 @@
+"""The port stands alone: nothing of `ns2vc_tpu`, JAX or flax is imported
+or loaded by path by any module of `ns2vc_tpu_torch/` or by
+`chip_smoke.py`.
+
+Two checks: every source file's imports, read with `ast` (one case per
+file); and a copy of the package and the smoke script alone in an empty
+directory, imported and run (config, the AC and numpy DIO F0 trackers, the
+Slicer) in a fresh interpreter that refuses to import `ns2vc_tpu`, `jax`
+or `flax`.
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in
+                 (ROOT / "ns2vc_tpu_torch").rglob("*.py")
+                 if "_build" not in p.parts) + ["chip_smoke.py"]
+FORBIDDEN = ("ns2vc_tpu", "jax", "jaxlib", "flax")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("rel", SOURCES)
+def test_source_imports_nothing_of_the_jax_package(rel):
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Attribute) and \
+                node.attr == "spec_from_file_location":
+            bad.append("importlib.util.spec_from_file_location")
+        elif isinstance(node, ast.Name) and node.id == "spec_from_file_location":
+            bad.append("spec_from_file_location")
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str) and \
+                _forbidden(node.args[0].value):
+            bad.append(node.args[0].value)
+    assert not bad, f"{rel}: {bad}"
+
+
+def test_sources_cover_the_package():
+    assert "ns2vc_tpu_torch/config.py" in SOURCES
+    assert "ns2vc_tpu_torch/native/__init__.py" in SOURCES
+    assert len(SOURCES) >= 35
+
+
+_ALONE = """
+import importlib.abc, pathlib, sys
+here = pathlib.Path.cwd().resolve()
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in {forbidden!r}:
+            raise ImportError(f'{{name}} is refused: the port stands alone')
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+import ns2vc_tpu_torch, chip_smoke
+import ns2vc_tpu_torch.convert, ns2vc_tpu_torch.infer.cli
+import ns2vc_tpu_torch.infer.serve, ns2vc_tpu_torch.ops.fused_resnet
+from ns2vc_tpu_torch.audio.host import (
+    Slicer, compute_f0_ac, compute_f0_dio, interpolate_f0)
+from ns2vc_tpu_torch.config import Config, load_config
+assert pathlib.Path(ns2vc_tpu_torch.__file__).resolve().is_relative_to(here)
+assert pathlib.Path(chip_smoke.__file__).resolve().is_relative_to(here)
+cfg = Config()
+assert cfg.data.hop_length == 256 and load_config(None) == cfg
+sr = 24000
+t = np.arange(sr) / sr
+x = 0.3 * np.sin(2 * np.pi * 200 * t)
+x = np.concatenate([x, np.zeros(sr // 2), x]).astype(np.float32)
+ac = compute_f0_ac(x, sr, 256)
+dio = compute_f0_dio(x, sampling_rate=sr, hop_length=256, use_native=False)
+for f0 in (ac, dio):
+    assert abs(np.median(f0[f0 > 0]) - 200) < 5, np.median(f0[f0 > 0])
+f0i, uv = interpolate_f0(dio)
+assert (f0i > 0).all() and uv.sum() > 0
+chunks = Slicer(sr=sr, threshold=-40.0, min_length=500, min_interval=300,
+                hop_size=20, max_sil_kept=500).slice(x)
+assert len(chunks) >= 2, chunks
+print('alone ok')
+"""
+
+
+def test_package_and_smoke_run_alone(tmp_path):
+    """ns2vc_tpu_torch/ and chip_smoke.py copied alone into an empty
+    directory import and run with ns2vc_tpu, jax and flax refused."""
+    shutil.copytree(ROOT / "ns2vc_tpu_torch", tmp_path / "ns2vc_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _ALONE.format(forbidden=set(FORBIDDEN))],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("alone ok")

@@ -167,3 +167,196 @@ def test_fully_masked_rows_are_finite():
     bias = np.full((2, 12), -1e30, np.float32)
     out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v, bias)))
     assert torch.isfinite(out).all()
+
+
+# -- the tensor-core routes' Python: weight packing, planner, routing --------
+
+@pytest.mark.parametrize("b,t,c,co", [
+    (2, 9, 24, 40),       # C and Co no multiple of the tile
+    (1, 5, 128, 100),     # the UNet output tail's Co
+    (3, 70, 96, 136),
+])
+def test_packed_weights_give_conv1d(b, t, c, co):
+    """The packed (3, Co_pad, C_pad) weights, used as the kernel uses them
+    (tap k multiplies the frames shifted by k - 1, zero padded), give
+    F.conv1d's k=3 SAME product."""
+    import torch.nn.functional as F
+
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        TC_BK, TC_BN, pack_conv_weight,
+    )
+
+    r = np.random.default_rng(b * t)
+    h = torch.from_numpy(r.standard_normal((b, t, c)).astype(np.float32))
+    w = torch.from_numpy(r.standard_normal((co, c, 3)).astype(np.float32))
+    packed = pack_conv_weight(w)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.shape == (3, -(-co // TC_BN) * TC_BN, -(-c // TC_BK) * TC_BK)
+    assert not packed[:, co:].any() and not packed[:, :, c:].any()
+    wb = w.bfloat16().float()
+    hp = torch.nn.functional.pad(h, (0, packed.shape[2] - c, 1, 1))
+    got = sum(hp[:, k:k + t] @ packed[k].float().T for k in range(3))[..., :co]
+    want = F.conv1d(h.transpose(1, 2), wb, padding=1).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+
+
+def _full_resnet_cases():
+    import chip_smoke
+    from ns2vc_tpu_torch.config import Config
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+
+    with torch.device("meta"):
+        unet = NaturalSpeech2(Config()).diff_model.unet
+    return chip_smoke.resnet_cases(unet)
+
+
+@pytest.mark.parametrize("bsz", [1, 2, 16])
+def test_planner_fills_the_card(bsz):
+    """Every K2 geometry of the serving bucket at B in {1, 2, 16}: the
+    split plan deals every 32-channel chunk to exactly one non-empty
+    split, and gives at least 132 blocks wherever tiles x chunks allow."""
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        H100_SMS, TC_BK, TC_BM, TC_BN, plan_tc,
+    )
+
+    cases = _full_resnet_cases()
+    assert len(cases) == 45
+    for t_div in (1, 2):          # the bucket and a half-length one
+        for name, t, c, co, _ in cases:
+            t //= t_div
+            splits, cps = plan_tc(bsz, t, c, co)
+            n_chunks = -(-c // TC_BK)
+            tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
+            assert (splits - 1) * cps < n_chunks <= splits * cps, name
+            if tiles * n_chunks >= H100_SMS:
+                assert tiles * splits >= H100_SMS, (name, bsz, t)
+            else:
+                assert splits == n_chunks, (name, bsz, t)
+            if tiles >= H100_SMS:
+                assert splits == 1, (name, bsz, t)
+
+
+def test_route_tables():
+    from ns2vc_tpu_torch.ops.flash_attention import attention_route
+    from ns2vc_tpu_torch.ops.fused_resnet import resnet_route
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (4, 16, 32, 48, 64, 100, 112, 128):
+            assert attention_route("cpu", dtype, d) == "plain"
+            got = attention_route("cuda", dtype, d)
+            assert got == ("tc" if dtype == torch.bfloat16 and d <= 112
+                           else "simt"), (dtype, d)
+        assert resnet_route("cpu", dtype) == "plain"
+        assert resnet_route(torch.device("cuda", 0), dtype) == (
+            "tc" if dtype == torch.bfloat16 else "simt")
+    assert attention_route("cuda", torch.bfloat16, 6) == "tc"
+    assert attention_route("cuda", torch.bfloat16, 7) == "simt"   # odd D
+    for route in (attention_route, lambda dev, dt, d=0: resnet_route(dev, dt)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            route("meta", torch.bfloat16, 16)
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each entry point's
+    arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+
+@pytest.fixture
+def card_routes(monkeypatch):
+    """The wrappers as they run for a CUDA tensor, on CPU tensors: the
+    route tables answer as for 'cuda', the library is a recorder, and the
+    plain versions raise if reached."""
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
+    lib = _FakeLib()
+    a_route, r_route = fa.attention_route, fr.resnet_route
+    monkeypatch.setattr(fa, "attention_route",
+                        lambda dev, dt, d: a_route("cuda", dt, d))
+    monkeypatch.setattr(fr, "resnet_route", lambda dev, dt: r_route("cuda", dt))
+
+    def reached(*a, **k):
+        raise AssertionError("a card-routed call reached the plain version")
+    monkeypatch.setattr(fa, "flash_attention_plain", reached)
+    monkeypatch.setattr(fr, "affine_silu_conv1d_plain", reached)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "require_current_device", lambda *t: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    return lib
+
+
+@pytest.mark.parametrize("dtype,d,layout,route", [
+    (torch.bfloat16, 32, "packed", "tc"),
+    (torch.bfloat16, 48, "separate", "tc"),
+    (torch.bfloat16, 100, "packed", "tc_narrow"),   # rows of 200 bytes
+    (torch.bfloat16, 4, "separate", "tc_narrow"),
+    (torch.bfloat16, 128, "separate", "simt"),      # wider than 112
+    (torch.float32, 64, "packed", "simt"),
+])
+def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
+                                             route):
+    from ns2vc_tpu_torch.ops.attention import split_heads
+
+    b, h, t = 2, 2, 9
+    c = h * d
+    if layout == "packed":
+        q, k, v = torch.zeros(b, t, 3 * c, dtype=dtype).split(c, dim=-1)
+    else:
+        q, k, v = (torch.zeros(b, t, c, dtype=dtype) for _ in range(3))
+    q, k, v = (split_heads(x, h) for x in (q, k, v))
+    n0, r0 = flash_attention.launches, dict(flash_attention.route_launches)
+    out = flash_attention(q, k, v, torch.zeros(b, t))
+    assert out.shape == (b, h, t, d) and out.dtype == dtype
+    assert flash_attention.launches == n0 + 1
+    assert {key: flash_attention.route_launches[key] - r0[key]
+            for key in r0} == {key: int(key == route) for key in r0}
+    (name, args), = card_routes.calls
+    if route == "simt":
+        assert name == "ns2vc_flash_attention_fwd"
+    else:
+        assert name == "ns2vc_flash_attention_tc_fwd"
+        assert args[-2] == int(route == "tc")    # 16-byte cp.async tiles
+
+
+@pytest.mark.parametrize("dtype,bsz,t,c,co", [
+    (torch.bfloat16, 16, 448, 256, 128),   # enough tiles: no split
+    (torch.bfloat16, 1, 56, 1024, 512),    # split over every chunk
+    (torch.bfloat16, 2, 37, 20, 100),      # C % 8 != 0: element loads
+    (torch.float32, 1, 56, 512, 512),
+])
+def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        TC_BK, TC_BN, pack_conv_weight, plan_tc,
+    )
+
+    x = torch.zeros(bsz, t, c, dtype=dtype)
+    a = torch.ones(bsz, c)
+    w, bias = torch.randn(co, c, 3).to(dtype), torch.zeros(co, dtype=dtype)
+    r0 = dict(affine_silu_conv1d.route_launches)
+    y = affine_silu_conv1d(x, a, a, w, bias)
+    assert y.shape == (bsz, t, co) and y.dtype == dtype
+    route = "tc" if dtype == torch.bfloat16 else "simt"
+    assert affine_silu_conv1d.route_launches[route] == r0[route] + 1
+    (name, args), = card_routes.calls
+    if route == "simt":
+        assert name == "ns2vc_affine_silu_conv1d"
+        return
+    assert name == "ns2vc_affine_silu_conv1d_tc"
+    splits, cps = plan_tc(bsz, t, c, co)
+    cp, cop = -(-c // TC_BK) * TC_BK, -(-co // TC_BN) * TC_BN
+    assert args[7:] == (bsz, t, c, co, cp, cop, cps, splits,
+                        int(c % 8 == 0), 0)
+    assert (args[6] is None) == (splits == 1)    # the f32 workspace
+    # the packed weights are made once per weight tensor
+    affine_silu_conv1d(x, a, a, w, bias)
+    assert card_routes.calls[1][1][3] == args[3]
+    assert pack_conv_weight(w).shape == (3, cop, cp)

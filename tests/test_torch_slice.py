@@ -171,10 +171,10 @@ def test_svc_batches_buckets_and_trims():
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the port (its CLI, feature models, serving and the by-path
-    host DSP) adds no jax/flax module and no ns2vc_tpu module beyond the
-    dataclass-only config, and builds no kernel; a host F0 call after that
-    still leaves JAX out of sys.modules."""
+    """Importing the port (its CLI, feature models, serving, the host DSP
+    and the native DIO) and `chip_smoke` adds no jax/flax module and no
+    module of `ns2vc_tpu`, and builds no kernel; a host F0 call after that
+    still leaves JAX and `ns2vc_tpu` out of sys.modules."""
     code = """
 import sys
 import numpy as np
@@ -184,19 +184,22 @@ import ns2vc_tpu_torch.convert, ns2vc_tpu_torch.infer.svc
 import ns2vc_tpu_torch.infer.cli, ns2vc_tpu_torch.infer.serve
 import ns2vc_tpu_torch.features.contentvec, ns2vc_tpu_torch.features.crepe
 import ns2vc_tpu_torch.ops.flash_attention, ns2vc_tpu_torch.ops.fused_resnet
+import ns2vc_tpu_torch.native, ns2vc_tpu_torch.utils.convert_reference
+import chip_smoke
 from ns2vc_tpu_torch.audio import host
 from ns2vc_tpu_torch.ops import _build
-new = set(sys.modules) - before
-bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax')
-             or (m.startswith('ns2vc_tpu.') and m != 'ns2vc_tpu.config'))
-assert not bad, bad
+
+def bad():
+    return sorted(m for m in set(sys.modules) - before
+                  if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ns2vc_tpu'))
+assert not bad(), bad()
 assert _build._lib is None
 t = np.arange(24000) / 24000
 f0 = host.compute_f0_ac(np.sin(2 * np.pi * 200 * t), 24000, 256)
 assert abs(np.median(f0[f0 > 0]) - 200) < 5
 host.compute_f0_dio(np.sin(2 * np.pi * 200 * t), sampling_rate=24000,
                     hop_length=256)
-assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]
+assert not bad(), bad()
 print('ok')
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
