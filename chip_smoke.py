@@ -22,6 +22,23 @@ JAX or of the JAX package.
 Parity phases run with TF32 off; the serving and CLI phases run with
 PyTorch's defaults.
 
+Training (after the CLI runs): 12 synthesized wavs through the port's
+preprocess on the card (ContentVec through K1's f32 route), then
+`Config()` at full width trained through the `Trainer` at 32 x 272 in bf16
+with remat dots: launches and backward calls of one step, counted with
+the counts set to 0 just before it (each K1 / K2 call of the forward
+launches again in the recomputation, and has one backward); step time and
+peak memory for remat dots, off and all; the loss on one fixed batch over
+30 steps; the loader-fed loop; every K1 / K2 geometry of a step, forward
+and backward through the autograd Functions, against autograd through the
+plain versions, with the torch backward's device time and bound; card vs
+CPU gradients at B=2 x 272 in f32 and bf16 vs f32 cosines; a checkpoint
+round trip and one request served from it. One training step is profiled
+with the serving calls at the end. A JSON line {"training": {...}} holds
+these numbers, and each route's entry in the kernels line gains the
+training step's launches, backward calls, forward and backward device
+times and bounds.
+
 The main path is the wav-in -> wav-out CLI run (unipc, bf16): its launch
 counts are read around it, and every K1 / K2 call it makes is recorded by
 geometry (shape, strides, key bias, dtype), and each geometry is then held
@@ -1247,6 +1264,624 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
     return counts, k_counts, path_calls
 
 
+# -- slice 4: training -------------------------------------------------------
+
+TRAIN_B, TRAIN_T = 32, 272    # the training batch: 32 x 272 content / refer
+TRAIN_WARMUP, TRAIN_TIMED = 3, 12
+LOSS_STEPS = 30               # steps on one fixed batch, fixed t and noise
+# f32, TF32 off, card vs CPU: each tensor's gradient within GRAD_RTOL of
+# max(1e-3, max|g_cpu|), the bound the CPU tests hold the port's gradients
+# to against jax.grad
+GRAD_RTOL = 1e-4
+GRAD_COSINE = 0.99            # bf16 kernels vs f32 plain, per tensor
+BF16_COSINE_GAP = 5e-3        # the kernels' allowance below plain bf16
+K1_GRAD_BF16 = 3e-2           # bf16 backward vs plain autograd, of
+K2_GRAD_BF16 = 3e-2           # max(1, max|grad|)
+TRAIN_WAVS = 12
+
+
+def k1_backward_bound(q, k, bias):
+    """dQ, dK, dV of one attention: five products of B*H*Tq*Tk*D (S
+    recomputed, dV, dP, dQ, dK); q, k, v, dO read, dq, dk, dv written."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    nbytes = q.element_size() * (3 * b * h * tq * d + 4 * b * h * tk * d)
+    return bound(10.0 * b * h * tq * tk * d,
+                 nbytes + (0 if bias is None else 4 * b * tk), q.dtype)
+
+
+def k2_backward_bound(bsz, t, c, co, dtype):
+    """dx and dw of the k=3 conv (2 x 6 B T C Co); x, dy, w read, dx, dw,
+    da, db, dbias written."""
+    es = 2 if str(dtype) == "torch.bfloat16" else 4
+    nbytes = es * (2 * bsz * t * c + bsz * t * co + 6 * co * c + co) \
+        + 16 * bsz * c
+    return bound(12.0 * bsz * t * c * co, nbytes, dtype)
+
+
+def backward_calls() -> dict:
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
+    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
+
+    k1, k2 = flash_attention.backward_calls, affine_silu_conv1d.backward_calls
+    return {"flash_attention": k1["simt"],
+            "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
+            "affine_silu_conv1d": k2["simt"],
+            "affine_silu_conv1d_tc": k2["tc"]}
+
+
+def median_step_ms(trainer, batches, warmup, timed, **kw):
+    """Median wall ms of `timed` train steps on device-resident batches,
+    each synchronised, after `warmup` steps; the peak memory (GB) of the
+    timed steps; the last step's metrics."""
+    import torch
+
+    for i in range(warmup):
+        trainer.train_step(batches[i % len(batches)], **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(timed):
+        t0 = time.perf_counter()
+        m = trainer.train_step(batches[i % len(batches)], **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+        fail(f"training: non-finite loss {m['loss']} or grad norm "
+             f"{m['grad_norm']}")
+    return float(np.median(times)), peak, m
+
+
+def check_preprocess(tmp, cfg, cv_sd, dev):
+    """Synthesized 44.1 kHz tone wavs -> the port's preprocess on the card
+    (resampling, log-mel and the full-width seeded ContentVec through K1's
+    f32 route on the card, DIO in a process pool). Returns the processed
+    dir and the launches."""
+    from ns2vc_tpu_torch.audio.host import read_wav, write_wav
+    from ns2vc_tpu_torch.data.preprocess import preprocess_dataset
+    from ns2vc_tpu_torch.features.contentvec import (
+        content_frames, contentvec_from_state_dict,
+    )
+
+    sr = 44100
+    raw = os.path.join(tmp, "raw")
+    for i in range(TRAIN_WAVS):
+        os.makedirs(os.path.join(raw, f"spk{i % 3}"), exist_ok=True)
+        write_wav(os.path.join(raw, f"spk{i % 3}", f"{i}.wav"),
+                  tone(int((4.5 + 0.25 * i) * sr), sr, SEED + 20 + i,
+                       140.0 + 15 * i), sr)
+    cv = contentvec_from_state_dict(cv_sd, heads=12)
+    reset_launches()
+    outs, ms = wall_ms(lambda: preprocess_dataset(
+        raw, cfg, num_workers=4, contentvec=cv, device=dev))
+    counts = route_counts()
+    if len(outs) != TRAIN_WAVS or counts["flash_attention"] == 0:
+        fail(f"preprocess: {len(outs)} outputs, launches {counts}")
+    for out in outs:
+        wav, out_sr = read_wav(out)
+        spec = np.load(out.replace(".wav", "") + ".spec.npy")
+        f0 = np.load(out + ".f0.npy")
+        soft = np.load(out + ".soft.npy")
+        n16 = -(-len(wav) * 16000 // 24000)
+        if out_sr != 24000 or spec.shape[:2] != (1, 100) \
+                or abs(spec.shape[2] - len(f0)) > 2 \
+                or soft.shape[:2] != (1, 256) \
+                or abs(soft.shape[2] - content_frames(n16)) > 1 \
+                or not all(np.isfinite(a).all() for a in (spec, f0, soft)) \
+                or (f0 > 0).mean() < 0.5:
+            fail(f"preprocess: {out}: wav {len(wav)} at {out_sr}, spec "
+                 f"{spec.shape}, f0 {f0.shape} voiced {(f0 > 0).mean():.2f}, "
+                 f"soft {soft.shape}")
+    say(f"preprocess on the card: {TRAIN_WAVS} wavs (4.5-7.25 s at 44.1 kHz)"
+        f" -> 24 kHz wav, f0, (1, 100, T) log-mel, (1, 256, T50) ContentVec "
+        f"(full width, f32); {ms:.0f} ms; launches {counts} [{CARD}]")
+    return raw + "_processed", counts
+
+
+def training_config(processed, logs):
+    import dataclasses
+
+    from ns2vc_tpu_torch.config import Config
+
+    base = Config()
+    return dataclasses.replace(
+        base,
+        train=dataclasses.replace(
+            base.train, train_batch_size=TRAIN_B, num_workers=4,
+            use_ema=True, log_every=5, save_and_sample_every=10 ** 9,
+            logs_folder=logs),
+        data=dataclasses.replace(base.data, training_files=processed,
+                                 val_files=processed))
+
+
+def check_train_geometries(calls, dev):
+    """Every K1 / K2 geometry of one bf16 training step (remat off: one
+    call per backward), forward and backward through the Function against
+    autograd through the plain version, on random inputs laid out as the
+    step's; the forward timed as in the serving phases, the torch
+    backward timed as a CUDA graph. Returns per route {fwd_ms, bwd_ms,
+    bwd_bound, bwd_by, err, plain_ms, lib_ms, bound} summed over the
+    step's calls."""
+    from unittest import mock
+
+    import torch
+
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_plain,
+    )
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d_backward, gn_silu_conv1d, group_norm_affine,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    out = defaultdict(lambda: defaultdict(float))
+    worst = defaultdict(float)
+
+    def add(route, key, value, n):
+        out[route][key] += n * value
+
+    for key, n in calls.k1.items():
+        geo, dtype, scale, _ = key
+        bias = calls.bias[key]
+        bufs = [torch.randn(size, generator=g, device=dev).to(dtype)
+                .requires_grad_() for _, _, _, size in geo]
+        views = [b_.as_strided(shape, stride, offset)
+                 for b_, (shape, stride, offset, _) in zip(bufs, geo)]
+        q, k, v = views
+        s = q.shape[-1] ** -0.5 if scale is None else scale
+        do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        o = flash_attention(q, k, v, bias, scale)
+        o.backward(do)
+        got = [b_.grad for b_ in bufs]
+        ref = [b_.detach().requires_grad_() for b_ in bufs]
+        flash_attention_plain(*(r_.as_strided(shape, stride, offset)
+                                for r_, (shape, stride, offset, _)
+                                in zip(ref, geo)), bias, scale).backward(do)
+        err = max((a.float() - b_.grad.float()).abs().max().item()
+                  / max(1.0, b_.grad.float().abs().max().item())
+                  for a, b_ in zip(got, ref))
+        route = k1_route(dtype, q.shape[-1])
+        worst[route] = max(worst[route], err)
+        if not err <= K1_GRAD_BF16:
+            fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: error "
+                 f"{err} > {K1_GRAD_BF16} of max(1, max|grad|)")
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        r = k1_case(qd, kd, vd, bias, scale)
+        add(route, "fwd_ms", r["ms"], n)
+        add(route, "plain_ms", r["plain"], n)
+        add(route, "lib_ms", r["lib"], n)
+        add(route, "bound", r["bound"], n)
+        add(route, "bwd_ms", graph_ms(lambda: flash_attention_backward(
+            qd, kd, vd, bias, s, do)), n)
+        bb, by = k1_backward_bound(qd, kd, bias)
+        add(route, "bwd_bound", bb, n)
+        out[route]["bwd_by_" + by] += n * bb
+        out[route]["calls"] += n
+
+    for key, n in calls.k2.items():
+        (bsz, t, c), dtype, co = key
+        x = torch.randn(bsz, t, c, generator=g, device=dev).to(dtype)
+        gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+        beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+        w = (torch.randn(co, c, 3, generator=g, device=dev)
+             / (3 * c) ** 0.5).to(dtype)
+        bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
+        film = [(0.2 * torch.randn(bsz, c, generator=g, device=dev))
+                .to(dtype) for _ in range(2)]
+        dy = torch.randn(bsz, t, co, generator=g, device=dev).to(dtype)
+
+        def run():
+            args = [a.detach().requires_grad_()
+                    for a in (x, gamma, beta, w, bias, *film)]
+            gn_silu_conv1d(*args[:5], 8, 1e-5, film_scale=args[5],
+                           film_shift=args[6]).backward(dy)
+            return [a.grad for a in args]
+        got = run()
+        with mock.patch.object(fr, "affine_silu_conv1d",
+                               fr.affine_silu_conv1d_plain):
+            want = run()
+        err = max((a.float() - b_.float()).abs().max().item()
+                  / max(1.0, b_.float().abs().max().item())
+                  for a, b_ in zip(got, want))
+        route = k2_route(dtype)
+        worst[route] = max(worst[route], err)
+        if not err <= K2_GRAD_BF16:
+            fail(f"K2 backward B={bsz} T={t} C={c} Co={co}: error {err} > "
+                 f"{K2_GRAD_BF16} of max(1, max|grad|)")
+        r = k2_case(bsz, t, c, co, True, dtype, g, dev)
+        add(route, "fwd_ms", r["ms"], n)
+        add(route, "plain_ms", r["plain"], n)
+        add(route, "conv_ms", r["conv"], n)
+        add(route, "bound", r["bound"], n)
+        a, b = group_norm_affine(x, gamma, beta, 8, 1e-5, *film)
+        add(route, "bwd_ms", graph_ms(lambda: affine_silu_conv1d_backward(
+            x, a, b, w, bias, dy)), n)
+        bb, by = k2_backward_bound(bsz, t, c, co, dtype)
+        add(route, "bwd_bound", bb, n)
+        out[route]["bwd_by_" + by] += n * bb
+        out[route]["calls"] += n
+    for route, d in out.items():
+        d["err"] = worst[route]
+        by = {k[7:]: v for k, v in d.items() if k.startswith("bwd_by_")}
+        d["bwd_by"] = max(by, key=by.get)
+        say(f"{route} at the training step's {int(d['calls'])} calls (B="
+            f"{TRAIN_B}, bf16): backward vs plain autograd worst "
+            f"{d['err']:.3e} of max(1, max|grad|); device ms per step: "
+            f"forward {d['fwd_ms']:.4f} (plain {d['plain_ms']:.4f}"
+            + (f", SDPA {d['lib_ms']:.4f}" if d.get("lib_ms") else "")
+            + (f", conv alone {d['conv_ms']:.4f}" if d.get("conv_ms") else "")
+            + f", bound {d['bound']:.5f}), torch backward {d['bwd_ms']:.4f} "
+            f"(bound {d['bwd_bound']:.5f}, {d['bwd_by']}) [{CARD}]")
+    return out
+
+
+def check_grads(cfg, sd, batch, dev):
+    """One step's gradients at full width, B=2 x 272, p_dropout 0, remat
+    dots: f32 on the card (the f32 kernels, TF32 off) against f32 on the
+    CPU (the plain versions), each tensor within GRAD_RTOL of max(1e-3,
+    max|g|); then the bf16 step on the card (tensor-core kernels) against
+    the CPU's f32 gradients, cosine >= GRAD_COSINE per tensor, leaving out
+    the tensors whose f32 gradient the card does not reproduce to cosine
+    0.999 (zero in exact arithmetic: their values are rounding noise)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    import ns2vc_tpu_torch.ops.attention as attention
+    import ns2vc_tpu_torch.ops.fused_resnet as fused_resnet
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_plain
+    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_plain
+    from ns2vc_tpu_torch.utils.precision import cast_floating, parameters_as
+
+    enc = dataclasses.replace(cfg.phoneme_encoder, p_dropout=0.0)
+    cfg0 = dataclasses.replace(cfg, phoneme_encoder=enc,
+                               prompt_encoder=dataclasses.replace(
+                                   cfg.prompt_encoder, p_dropout=0.0))
+    gen = torch.Generator().manual_seed(SEED + 31)
+    t = torch.randint(0, 1000, (2,), generator=gen)
+    noise = torch.randn(2, TRAIN_T, 100, generator=gen)
+    small = {k: v[:2].float() if v.is_floating_point() else v[:2]
+             for k, v in batch.items()}
+
+    def grads(device, dtype=torch.float32):
+        model = NaturalSpeech2(cfg0, remat=True, remat_policy="dots")
+        model.load_state_dict(sd)
+        model.to(device).train()
+        b = {k: v.to(device) for k, v in small.items()}
+        cast = {}
+        if dtype != torch.float32:
+            cast = cast_floating(dict(model.named_parameters()), dtype)
+            b = cast_floating(b, dtype)
+        with parameters_as(model, cast):
+            loss, _ = model(b, t=t.to(device), noise=noise.to(device))
+            loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu().double()
+                             for n, p in model.named_parameters()}
+
+    with no_tf32():
+        (l_card, g_card), ms = wall_ms(lambda: grads(dev))
+        l_cpu, g_cpu = grads(torch.device("cpu"))
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        err = (g_card[name] - want).abs().max().item() / max(
+            1e-3, want.abs().max().item())
+        if not np.isfinite(err) or err > GRAD_RTOL:
+            fail(f"card vs CPU gradient {name}: {err:.3e} of max(1e-3, "
+                 f"max|g|) > {GRAD_RTOL}")
+        if err >= worst:
+            worst, worst_name = err, name
+    say(f"training gradients at full width, f32 (TF32 off), B=2 x "
+        f"{TRAIN_T}, card (f32 kernels) vs CPU (plain): loss {l_card:.6f} vs "
+        f"{l_cpu:.6f}; {len(g_cpu)} tensors, worst {worst_name} {worst:.3e} "
+        f"of max(1e-3, max|g|) (tol {GRAD_RTOL:g}); card step {ms:.0f} ms")
+
+    def cosine(a, b):
+        return (a.flatten() @ b.flatten()).item() / max(
+            a.norm().item() * b.norm().item(), 1e-300)
+    l_bf16, g_bf16 = grads(dev, torch.bfloat16)
+    # the same bf16 step through the plain versions: bf16's own rounding
+    with mock.patch.object(attention, "flash_attention",
+                           flash_attention_plain), \
+            mock.patch.object(fused_resnet, "affine_silu_conv1d",
+                              affine_silu_conv1d_plain):
+        _, g_plain = grads(dev, torch.bfloat16)
+    noise_floor = sorted(n for n in g_cpu
+                         if cosine(g_card[n], g_cpu[n]) < 0.999)
+    cos = {n: cosine(g_bf16[n], g_cpu[n]) for n in g_cpu
+           if n not in noise_floor}
+    cos_plain = {n: cosine(g_plain[n], g_cpu[n]) for n in cos}
+    low = min(cos, key=cos.get)
+    gap = max(cos, key=lambda n: cos_plain[n] - cos[n])
+    say(f"training gradients, bf16 through the tensor-core kernels vs f32 "
+        f"plain (CPU): loss {l_bf16:.6f} vs {l_cpu:.6f}; worst cosine "
+        f"{cos[low]:.5f} ({low}; bf16 through the plain versions "
+        f"{cos_plain[low]:.5f}) over {len(cos)} tensors; largest loss of "
+        f"cosine to the kernels {cos_plain[gap] - cos[gap]:.2e} ({gap}); "
+        f"left out as rounding noise (f32 card vs CPU cosine < 0.999): "
+        f"{noise_floor}")
+    # a tensor passes at GRAD_COSINE, or where bf16 itself (the plain
+    # versions in bf16) does not reach it, within BF16_COSINE_GAP of that
+    bad = [n for n in cos if not (cos[n] >= GRAD_COSINE or
+                                  cos[n] >= cos_plain[n] - BF16_COSINE_GAP)]
+    if bad or len(noise_floor) > 8:
+        fail(f"bf16 gradients: {[(n, cos[n], cos_plain[n]) for n in bad]} "
+             f"below {GRAD_COSINE} and the plain bf16 cosine, or "
+             f"{len(noise_floor)} tensors at the noise floor")
+    return {"grad_f32_worst": worst, "grad_f32_worst_tensor": worst_name,
+            "grad_bf16_cosine": cos[low], "grad_bf16_worst_tensor": low,
+            "grad_bf16_plain_cosine": cos_plain[low],
+            "grad_bf16_below_target": sorted(
+                n for n in cos if cos[n] < GRAD_COSINE),
+            "grad_noise_floor": noise_floor}
+
+
+def check_training(vsd, cv_sd, dev, tmp):
+    """Preprocess on the card, then train Config() at full width, B=32 x
+    272, bf16, remat dots through the Trainer: launches and backward calls
+    per step, step time and peak memory for remat dots / off / all, the
+    loss on one fixed batch over LOSS_STEPS steps, the trainer's own loop
+    with its loader, card vs CPU gradients, every K1 / K2 training geometry
+    forward and backward, a checkpoint round trip, and one request served
+    from the checkpoint."""
+    from unittest import mock
+
+    import torch
+
+    from ns2vc_tpu_torch.convert import load_checkpoint
+    from ns2vc_tpu_torch.infer.svc import Svc
+    from ns2vc_tpu_torch.models.unet import ResnetBlock1D
+    from ns2vc_tpu_torch.ops import fused_resnet as fr
+    from ns2vc_tpu_torch.train.trainer import Trainer
+
+    res = {}
+    base = training_config(tmp, os.path.join(tmp, "logs"))
+    processed, res["preprocess_launches"] = check_preprocess(tmp, base, cv_sd,
+                                                             dev)
+    cfg = training_config(processed, os.path.join(tmp, "logs"))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, logs_folder=os.path.join(tmp, "run"),
+                      vocos_params=vsd, device=dev)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    loader = trainer.loader()
+    batches = [trainer.device_batch(next(loader)) for _ in range(4)]
+    b0 = batches[0]
+    if tuple(b0["c"].shape) != (TRAIN_B, TRAIN_T, 256) or \
+            b0["c"].dtype != torch.bfloat16 or \
+            tuple(b0["refer"].shape) != (TRAIN_B, TRAIN_T, 100):
+        fail(f"training batch: c {tuple(b0['c'].shape)} {b0['c'].dtype}, "
+             f"refer {tuple(b0['refer'].shape)}")
+    say(f"trainer: Config() at full width, {n_params / 1e6:.1f} M "
+        f"parameters (f32 masters, bf16 forward), batch {TRAIN_B} x "
+        f"{TRAIN_T}, set up in {time.perf_counter() - t0:.1f} s")
+    unet = trainer.model.diff_model.unet
+
+    # launches and backward calls of one step (remat dots)
+    trainer.train_step(b0)
+    torch.cuda.synchronize()
+    reset_launches()
+    packs = []
+    pack = fr.pack_conv_weight
+    with mock.patch.object(fr, "pack_conv_weight",
+                           lambda w: packs.append(1) or pack(w)):
+        trainer.train_step(batches[1])
+    torch.cuda.synchronize()
+    launches, bwd = route_counts(), backward_calls()
+    # the step's fresh bf16 weights are packed once each; the recomputed
+    # forward finds them in the cache
+    if len(packs) != 45:
+        fail(f"training step packed K2 weights {len(packs)} times, not 45")
+    want = {"flash_attention": 0, "flash_attention_tc": 46 + 32,
+            "flash_attention_tc_narrow": 2, "affine_silu_conv1d": 0,
+            "affine_silu_conv1d_tc": 45 + 44}
+    want_bwd = {"flash_attention": 0, "flash_attention_tc": 46,
+                "affine_silu_conv1d": 0, "affine_silu_conv1d_tc": 45}
+    if launches != want or bwd != want_bwd:
+        fail(f"training step launches {launches} (expected {want}), "
+             f"backward calls {bwd} (expected {want_bwd})")
+    res["launches"], res["backward"] = launches, bwd
+    say(f"training step (remat dots): launches {launches}; backward calls "
+        f"{bwd}; K2 weights packed {len(packs)} times")
+
+    # step time and peak memory per remat policy
+    res["remat"] = {}
+    for name in ("dots", "off", "all"):
+        unet.remat, unet.remat_policy = name != "off", \
+            "all" if name == "off" else name
+        torch.cuda.empty_cache()
+        ms, peak, m = median_step_ms(trainer, batches, TRAIN_WARMUP,
+                                     TRAIN_TIMED)
+        res["remat"][name] = (ms, peak)
+        say(f"training step remat {name:4s}: median {ms:.2f} ms of "
+            f"{TRAIN_TIMED} (after {TRAIN_WARMUP} warm-up), peak memory "
+            f"{peak:.2f} GB, loss {m['loss'].item():.4f} [{CARD}]")
+    unet.remat, unet.remat_policy = True, "dots"
+    res["step_ms"], res["peak_gb"] = res["remat"]["dots"]
+
+    # the K2 weight repack a fresh bf16 copy of the parameters costs
+    wb = [w.detach().bfloat16() for m in unet.modules()
+          if isinstance(m, ResnetBlock1D) for w in (m.conv1.weight,
+                                                    m.conv2.weight)]
+    wb.append(unet.conv_out.weight.detach().bfloat16())
+    res["repack_ms"] = graph_ms(lambda: [fr.pack_conv_weight(w) for w in wb],
+                                iters=3)
+    say(f"K2 weight repack per step ({len(wb)} packs of fresh bf16 copies): "
+        f"{res['repack_ms']:.3f} ms device [{CARD}]")
+
+    # the loss on one fixed batch, fixed t and noise
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    t_fix = torch.randint(0, 1000, (TRAIN_B,), generator=gen, device=dev)
+    n_fix = torch.randn(TRAIN_B, TRAIN_T, 100, generator=gen, device=dev)
+    losses = [trainer.train_step(b0, t=t_fix, noise=n_fix)["loss"].item()
+              for _ in range(LOSS_STEPS)]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    say(f"loss on one fixed batch over {LOSS_STEPS} steps: first five "
+        f"{first:.4f}, last five {last:.4f} ({losses[0]:.4f} -> "
+        f"{losses[-1]:.4f})")
+    if not (np.isfinite(losses).all() and last < first):
+        fail(f"training loss did not fall on a fixed batch: {losses}")
+    res["loss_first"], res["loss_last"] = float(first), float(last)
+
+    # the trainer's own loop: loader-fed, logging
+    t1 = time.perf_counter()
+    n0 = trainer.step
+    trainer.train(num_steps=n0 + 10)
+    res["loop_steps_per_s"] = 10 / (time.perf_counter() - t1)
+    say(f"Trainer.train: 10 loader-fed steps at {res['loop_steps_per_s']:.2f}"
+        f" steps/s (with its final checkpoint) [{CARD}]")
+
+    # every K1 / K2 geometry of the step (remat off: one call each)
+    calls = PathCalls()
+    unet.remat = False
+    with contextlib.ExitStack() as stack:
+        for p in calls.patches():
+            stack.enter_context(p)
+        trainer.train_step(b0)
+    unet.remat = True
+    torch.cuda.synchronize()
+    with no_tf32():
+        res["geometries"] = check_train_geometries(calls, dev)
+
+    res.update(check_grads(cfg, {k: v.detach().cpu() for k, v in
+                                 trainer.model.state_dict().items()},
+                           b0, dev))
+
+    # checkpoint round trip and one request served from it
+    path = trainer.save()
+    ema = load_checkpoint(path, cfg)
+    again = Trainer(cfg, logs_folder=os.path.join(tmp, "run"), device=dev)
+    again.load(path=path)
+    if again.step != trainer.step or any(
+            not torch.equal(v, again.model.state_dict()[k])
+            for k, v in trainer.model.state_dict().items()) or any(
+            not torch.equal(v.cpu(), ema[k])
+            for k, v in trainer.state.ema_params.items()):
+        fail("checkpoint round trip: step, parameters or EMA differ")
+    again.close()
+    del again
+    svc = Svc(path, config=cfg, vocos_params=vsd, compute_dtype="bfloat16",
+              contentvec_ckpt="", device=dev)
+    r = np.random.default_rng(SEED + 33)
+    wav = svc.infer_from_features(
+        (0.1 * r.standard_normal((T_CLIP, 256))).astype(np.float32),
+        r.standard_normal((TP_REFER, 100)).astype(np.float32),
+        sampling_timesteps=CLI_STEPS)
+    if wav.shape != (T_CLIP * cfg.data.hop_length,) or \
+            not np.isfinite(wav).all():
+        fail(f"serving from the trained checkpoint: {wav.shape}")
+    sample = trainer.sample_eval(torch.Generator(device=dev).manual_seed(1))
+    if sample is None or not np.isfinite(sample[0]).all() or \
+            sample[1] is None or not np.isfinite(sample[1]).all():
+        fail("Trainer.sample_eval: no eval sample, or not finite")
+    say(f"checkpoint {os.path.basename(path)} (step {trainer.step}) round "
+        f"trip: parameters, optimizer state and EMA restored; Svc served one "
+        f"{T_CLIP}-frame request from its EMA parameters, finite; eval "
+        f"sample mel {sample[0].shape}")
+    del svc
+    return trainer, batches, res
+
+
+def training_profile(trainer, batch, step_ms):
+    """One training step under torch.profiler (host and device activity):
+    device time by kernel, grouped, with K1's and K2's torch backward and
+    the GroupNorm statistics attributed through record_function ranges;
+    the busy share against the unprofiled median step."""
+    from unittest import mock
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
+    def ranged(label, fn):
+        def f(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return f
+    ranges = {"K1 torch backward": (fa, "flash_attention_backward"),
+              "K2 torch backward": (fr, "affine_silu_conv1d_backward"),
+              "GroupNorm statistics (forward)": (fr, "group_norm_affine")}
+    with contextlib.ExitStack() as stack:
+        for label, (mod, name) in ranges.items():
+            stack.enter_context(mock.patch.object(
+                mod, name, ranged(label, getattr(mod, name))))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+    kernels, host = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            host[e.key] = (getattr(e, "self_cpu_time_total", 0) / 1e3,
+                           e.count)
+        # a range's span on the device timeline is not kernel time
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        prev = kernels.get(e.key, (0.0, 0))
+        kernels[e.key] = (prev[0] + dev_us / 1e3, prev[1] + e.count)
+    def kernel_us(ev):   # kernels launched under a host event, nested
+        return sum(k.duration for k in ev.kernels) + sum(
+            kernel_us(c) for c in ev.cpu_children)
+    annotated = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in ranges:
+            annotated[ev.name][0] += kernel_us(ev) / 1e3
+            annotated[ev.name][1] += 1
+    total = sum(ms for ms, _ in kernels.values())
+    if total == 0:
+        say("training profile: the profiler recorded no device time")
+        return {}
+    groups = (("K1 forward (flash_fwd*)", ("flash_fwd",)),
+              ("K2 forward (affine_silu_conv_k3*, split reduce)",
+               ("affine_silu_conv", "split_k_reduce")),
+              ("GroupNorm/var_mean statistics (Welford reduce)",
+               ("welford", "Welford")),
+              ("cuDNN convolutions", ("cudnn", "conv", "dgrad", "wgrad",
+                                      "fprop", "implicit")),
+              ("cuBLAS / CUTLASS GEMMs", ("gemm", "nvjet", "cutlass",
+                                          "xmma", "sm90_", "Kernel2")),
+              ("softmax", ("softmax",)),
+              ("optimizer (foreach)", ("multi_tensor", "foreach")),
+              ("dtype copies", ("copy",)),
+              ("reductions", ("reduce",)),
+              ("elementwise", ("elementwise", "vectorized")))
+    grouped = defaultdict(float)
+    for name, (ms, _) in kernels.items():
+        label = next((lab for lab, keys in groups
+                      if any(k in name for k in keys)), "other")
+        grouped[label] += ms
+    say(f"profile training step (B={TRAIN_B} x {TRAIN_T}, bf16, remat dots):"
+        f" {total:.1f} ms of kernel time in a step of {step_ms:.1f} ms "
+        f"unprofiled: device busy {100 * total / step_ms:.0f} % [{CARD}]")
+    for label, ms in sorted(grouped.items(), key=lambda kv: -kv[1]):
+        say(f"  {ms:8.2f} ms {100 * ms / total:5.1f} %  {label}")
+    for label, (ms, n) in annotated.items():
+        say(f"  {label}: {ms:.2f} ms of kernel time over {n} calls (the "
+            f"kernels launched under its range)")
+    for name, (ms, n) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        say(f"  {ms:8.2f} ms {100 * ms / total:5.1f} % x{n:<5d} {name[:90]}")
+    launches = sum(n for _, n in kernels.values())
+    say(f"  {launches} kernels on the card; host (profiled, self time) "
+        f"{sum(ms for ms, _ in host.values()):.1f} ms, most in: " + ", ".join(
+            f"{k} {ms:.1f} ms x{n}" for k, (ms, n) in sorted(
+                host.items(), key=lambda kv: -kv[1][0])[:8]))
+    return {"kernel_ms": total, "busy": total / step_ms,
+            "kernels_launched": launches,
+            "groups": dict(grouped),
+            "ranges": {k: v[0] for k, v in annotated.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -1309,6 +1944,13 @@ def main() -> int:
     with phase("CLI runs"):
         counts, f32_counts, path_calls = check_cli(cfg, sd, vsd, cv_sd,
                                                    crepe_sd)
+    # training: the features, the trainer and its loader live in train_tmp
+    # until the training profile at the end
+    train_tmp = tempfile.TemporaryDirectory()
+    with phase("training"):
+        trainer, train_batches, train = check_training(vsd, cv_sd, dev,
+                                                       train_tmp.name)
+        torch.cuda.empty_cache()
     with no_tf32():
         with phase("K1 shapes"):
             k1_step = check_attention(cfg, dev)
@@ -1328,6 +1970,10 @@ def main() -> int:
         device_breakdown(lambda: svc.infer_from_features(
             clips[0], refer, sampling_timesteps=STEPS, order=2),
             walls["single"], "single request B=1")
+        train["profile"] = training_profile(trainer, train_batches[0],
+                                            train["step_ms"])
+    trainer.close()
+    train_tmp.cleanup()
     say(f"seconds per phase: {seconds}")
 
     kernels = []
@@ -1340,6 +1986,13 @@ def main() -> int:
             fail(f"{route}: {launches} launches on its CLI run, "
                  f"{on_path.calls[route]} calls timed")
         s = on_path.sums[route]
+        geo = train["geometries"].get(route, {})
+        t_launch, t_bwd = train["launches"][route], train["backward"][route]
+        pre = train["preprocess_launches"][route]
+        if (t_launch if route.endswith("_tc") else
+                pre if route == "flash_attention" else 1) == 0:
+            fail(f"{route}: {t_launch} launches per training step, {pre} in "
+                 f"the preprocess run")
         kernels.append({
             "name": route, "route": "cuda",
             "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -1351,7 +2004,20 @@ def main() -> int:
             "bound_ms": s["bound"],
             "bound_by": on_path.bound_by(route),
             "library_ms": s["lib"] if "lib" in s else None,
-            **({"conv_alone_ms": s["conv"]} if "conv" in s else {})})
+            **({"conv_alone_ms": s["conv"]} if "conv" in s else {}),
+            "train_launches_per_step": t_launch,
+            "train_backward_calls_per_step": t_bwd,
+            "preprocess_launches": pre,
+            "train_ms": geo.get("fwd_ms"), "train_plain_ms": geo.get(
+                "plain_ms"), "train_library_ms": geo.get("lib_ms"),
+            "train_bound_ms": geo.get("bound"),
+            "train_backward_ms": geo.get("bwd_ms"),
+            "train_backward_bound_ms": geo.get("bwd_bound"),
+            "train_backward_bound_by": geo.get("bwd_by"),
+            "train_backward_max_err": geo.get("err")})
+    print(json.dumps({"training": {
+        k: v for k, v in train.items()
+        if k not in ("geometries", "launches", "backward")}}))
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

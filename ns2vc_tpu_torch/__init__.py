@@ -6,8 +6,14 @@ log-mel, F0, ContentVec), then content features + a reference mel ->
 encoders -> cross-attention K/V precompute -> a sampler over the UNet ->
 Vocos -> 24 kHz waveform (optionally int16 PCM).
 
+It also trains on one card: wav dir -> data/preprocess -> features ->
+data/dataset loader -> train/trainer (bf16 forward on f32 masters through
+both kernels' autograd Functions, AdamW, EMA) -> checkpoints Svc serves.
+
 Layer map:
     infer/      Svc: bucketed, masked batch serving
+    data/, train/  preprocess, the training data loader, the trainer and
+                its CLI
     models/     encoders, UNet1D denoiser, diffusion core, Vocos
     diffusion/  noise schedule + UniPC sampler
     ops/        masking, attention, and the two hand-written CUDA kernels

@@ -1,5 +1,6 @@
 """Polyphase windowed-sinc resampling as one strided conv1d (counterpart of
-ns2vc_tpu/audio/resample.py: `sinc_resample_kernel`, `resample`).
+ns2vc_tpu/audio/resample.py: `sinc_resample_kernel`, `resample`,
+`resample_np`).
 
 torchaudio's Resample defaults (sinc interpolation, hann window,
 lowpass_filter_width 6, rolloff 0.99). The kernel bank is built on the host
@@ -46,6 +47,23 @@ def _kernel(orig_freq: int, new_freq: int):
     kernel, width = sinc_resample_kernel(orig_freq, new_freq)
     return torch.from_numpy(kernel[:, None, :]), width, orig_freq // gcd, \
         new_freq // gcd
+
+
+def resample_np(wav: np.ndarray, orig_freq: int, new_freq: int
+                ) -> np.ndarray:
+    """numpy twin of `resample` for a 1-D waveform (the same kernel bank, a
+    host matmul; ns2vc_tpu/audio/resample.py:112-124), for device-free
+    callers such as the data loader's forked workers."""
+    if orig_freq == new_freq:
+        return wav
+    kernel, width, orig, new = _kernel(orig_freq, new_freq)
+    kernel = kernel[:, 0, :].numpy()
+    length = wav.shape[-1]
+    x = np.pad(np.asarray(wav, np.float32), (width, width + orig))
+    frames = np.lib.stride_tricks.sliding_window_view(
+        x, kernel.shape[1])[::orig]
+    y = (frames @ kernel.T).reshape(-1)   # (n_pos, new) -> interleaved
+    return y[: -(-new * length // orig)]
 
 
 def resample(wav: torch.Tensor, orig_freq: int, new_freq: int

@@ -19,9 +19,10 @@ The mapping is strict: a leaf that no port parameter takes, a port
 parameter that no leaf fills, or a shape that disagrees raises.
 
 `load_checkpoint` reads a `.pt` file into the port's NaturalSpeech2 state
-dict: the reference NS2VC `model-N.pt` through the port's copy of the JAX
-package's converter (`utils/convert_reference.py`) and `from_flax`, or a port
-state dict saved with `torch.save`.
+dict: a checkpoint of the port's trainer (tagged `TRAINER_FORMAT`; its EMA
+parameters when present), the reference NS2VC `model-N.pt` through the
+port's copy of the JAX package's converter (`utils/convert_reference.py`)
+and `from_flax`, or a port state dict saved with `torch.save`.
 
 `init_params` draws a state dict from a `torch.Generator` in flax's
 initialiser families (lecun-normal kernels, zero biases, unit norms, the
@@ -139,16 +140,25 @@ def crepe_from_flax(variables: dict, model: str = "full") -> dict:
     return from_flax_tree(tree, _skeleton(lambda: Crepe(model)))
 
 
-def load_checkpoint(path: str, cfg: Config) -> dict:
-    """A `.pt` file -> the port's NaturalSpeech2 state dict: a reference
-    `model-N.pt` ({'step', 'model'}) or a port state dict. Orbax
-    checkpoint directories are not read by the port."""
+TRAINER_FORMAT = "ns2vc_tpu_torch.trainer"   # the trainer's checkpoints
+
+
+def load_checkpoint(path: str, cfg: Config, use_ema: bool = True) -> dict:
+    """A `.pt` file -> the port's NaturalSpeech2 state dict: a checkpoint
+    of the port's trainer (its EMA parameters when it holds them and
+    `use_ema`, else its parameters), a reference `model-N.pt` ({'step',
+    'model'}) or a port state dict. Orbax checkpoint directories are not
+    read by the port."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: orbax checkpoints of the JAX package "
-            f"are not read by the port; pass a reference model-N.pt or a "
-            f"port state dict saved with torch.save")
+            f"are not read by the port; pass a reference model-N.pt, a "
+            f"checkpoint of the port's trainer or a port state dict saved "
+            f"with torch.save")
     data = torch.load(path, map_location="cpu")
+    if data.get("format") == TRAINER_FORMAT:
+        ema = data.get("ema_params")
+        return ema if use_ema and ema is not None else data["params"]
     if "model" in data:
         from ns2vc_tpu_torch.utils.convert_reference import natural_speech2
 

@@ -86,9 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--solver_order", type=int, default=2, choices=[1, 2, 3],
                    help="multistep order for dpmsolver/unipc")
     p.add_argument("--no_ema", action="store_true", default=False,
-                   help="accepted for the JAX CLI's flag set; the port "
-                        "reads no orbax checkpoint, so there are no EMA "
-                        "weights to choose between")
+                   help="deploy a trainer checkpoint's raw parameters "
+                        "instead of its EMA parameters")
     p.add_argument("-wf", "--wav_format", type=str, default="wav")
     p.add_argument("--raw_dir", type=str, default="raw")
     p.add_argument("--out_dir", type=str, default="output")
@@ -110,7 +109,8 @@ def main(argv=None) -> int:
     svc = Svc(args.model_path, args.config_path,
               contentvec_ckpt=args.contentvec_ckpt,
               vocos_ckpt=args.vocos_ckpt, crepe_ckpt=args.crepe_ckpt,
-              compute_dtype=args.compute_dtype, device=args.device)
+              compute_dtype=args.compute_dtype, device=args.device,
+              use_ema_params=not args.no_ema)
     os.makedirs(args.out_dir, exist_ok=True)
 
     trans = args.trans * len(args.clean_names) if len(args.trans) == 1 \

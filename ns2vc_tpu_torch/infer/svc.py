@@ -91,13 +91,16 @@ class Svc:
                  vocos_params: Optional[dict] = None,
                  crepe_params: Optional[dict] = None,
                  compute_dtype: str | torch.dtype | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 use_ema_params: bool = True):
         """The JAX Svc's keywords, with port state dicts for `params`,
         `contentvec_params`, `vocos_params` and `crepe_params` (see
         ns2vc_tpu_torch.convert). `net_g_path` is a reference `model-N.pt`
         or a port state dict saved with torch.save; the checkpoint paths
         are the public fairseq contentvec, charactr/vocos and torchcrepe
-        files. `compute_dtype` 'bfloat16' or 'float32' (default)."""
+        files. `compute_dtype` 'bfloat16' or 'float32' (default). A
+        checkpoint of the port's trainer deploys its EMA parameters when it
+        holds them, unless `use_ema_params` is False."""
         from ns2vc_tpu_torch.convert import load_checkpoint
         from ns2vc_tpu_torch.features.contentvec import (
             contentvec_from_state_dict, load_contentvec,
@@ -113,7 +116,8 @@ class Svc:
         if params is None:
             if net_g_path is None:
                 raise ValueError("Svc needs either `net_g_path` or `params`")
-            params = load_checkpoint(net_g_path, self.cfg)
+            params = load_checkpoint(net_g_path, self.cfg,
+                                     use_ema=use_ema_params)
         self.model = NaturalSpeech2(self.cfg)
         self.model.load_state_dict(params)
         self.model.to(self.device, self.compute_dtype).eval()

@@ -1,17 +1,19 @@
-"""NaturalSpeech2-style diffusion VC core, inference subset (counterpart of
+"""NaturalSpeech2-style diffusion VC core (counterpart of
 ns2vc_tpu/models/diffusion.py): PreModel, DiffusionEncoder,
-`NaturalSpeech2.encode` / `.denoise` / `.precompute_conditioning`, and
-`generate_mel`.
+`NaturalSpeech2.forward` (the training objective), `.encode` / `.denoise`
+/ `.precompute_conditioning`, and `generate_mel`.
 
 Batch convention (fixed shapes, mask-disciplined):
     c      (B, T, 256)   contentvec, frame-expanded
     refer  (B, Tp, 100)  reference log-mel (the prompt)
+    spec   (B, T, 100)   target log-mel (training)
     lengths, refer_lengths (B,)
-The F0-predictor branch and the training objective are later slices.
+The F0-predictor branch is a later slice.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,18 +42,19 @@ class PreModel(nn.Module):
             pe.p_dropout, pe.n_heads, pe.ffn_kernel,
             g_channels=pr.in_channels)
 
-    def forward(self, c, refer, c_mask, refer_mask):
+    def forward(self, c, refer, c_mask, refer_mask, generator=None):
         # the reference pools the *padded* refer mel without a mask
         g = self.ref_enc(refer)
-        prompt = self.prompt_encoder(refer, refer_mask)
-        content = self.phoneme_encoder(c, c_mask, g)
+        prompt = self.prompt_encoder(refer, refer_mask, generator)
+        content = self.phoneme_encoder(c, c_mask, g, generator)
         return content, prompt
 
 
 class DiffusionEncoder(nn.Module):
     """Concat noisy mel + content -> conditional UNet."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, remat: bool = False,
+                 remat_policy: str = "all"):
         super().__init__()
         d = cfg.diffusion_encoder
         self.unet = UNet1DConditionModel(
@@ -62,7 +65,8 @@ class DiffusionEncoder(nn.Module):
             norm_num_groups=d.norm_num_groups,
             cross_attention_dim=d.hidden_channels,
             num_attention_heads=d.n_heads,
-            addition_embed_heads=d.addition_embed_heads)
+            addition_embed_heads=d.addition_embed_heads,
+            remat=remat, remat_policy=remat_policy)
 
     def forward(self, x, content, prompt, prompt_mask, t, cross_kv=None,
                 aug_emb=None):
@@ -72,19 +76,70 @@ class DiffusionEncoder(nn.Module):
 
 
 class NaturalSpeech2(nn.Module):
-    """Diffusion core: `encode` = step-invariant conditioning, `denoise` =
-    one x0 prediction, `precompute_conditioning` = the pooled-prompt
-    embedding and every cross-attention K/V."""
+    """Diffusion core: `forward` = the training loss, `encode` =
+    step-invariant conditioning, `denoise` = one x0 prediction,
+    `precompute_conditioning` = the pooled-prompt embedding and every
+    cross-attention K/V. `remat` / `remat_policy` apply to the UNet's
+    blocks in training (see models/unet.py)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, remat: bool = False,
+                 remat_policy: str = "all"):
         super().__init__()
         if cfg.f0_predictor.enabled:
             raise NotImplementedError(
                 "the F0-predictor branch is not ported yet")
         self.cfg = cfg
         self.pre_model = PreModel(cfg)
-        self.diff_model = DiffusionEncoder(cfg)
+        self.diff_model = DiffusionEncoder(cfg, remat, remat_policy)
         self.schedule = NoiseSchedule(cfg.train.timesteps)
+
+    def forward(self, batch: dict, generator: torch.Generator | None = None,
+                t: torch.Tensor | None = None,
+                noise: torch.Tensor | None = None):
+        """Training objective (JAX models/diffusion.py:180-229): SNR-
+        weighted MSE on x0 over masked mels -> (loss, aux). `t` (B,) ints in
+        [0, timesteps) and `noise` (B, T, 100) are drawn from `generator`
+        on spec's device unless given; the generator also drives the
+        encoders' dropout in training mode. The noise is masked; the
+        schedule's sqrt(acp) and sqrt(1 - acp) are cast to spec's dtype;
+        the MSE is f32 over every frame, padded ones included."""
+        spec = batch["spec"]
+        b, t_len, _ = spec.shape
+        dev = spec.device
+        c_mask = sequence_mask(batch["lengths"], t_len)
+        refer_mask = sequence_mask(batch["refer_lengths"],
+                                   batch["refer"].shape[1])
+        x_mask = c_mask[..., None].to(spec.dtype)
+        x_start = spec * x_mask
+        if t is None:
+            t = torch.randint(0, self.schedule.num_timesteps, (b,),
+                              generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=dev, dtype=spec.dtype)
+        t = t.to(dev, torch.long)
+        noise = noise.to(dev, spec.dtype) * x_mask
+        content, prompt = self.pre_model(batch["c"], batch["refer"], c_mask,
+                                         refer_mask, generator)
+
+        def coef(arr):
+            return torch.as_tensor(arr, dtype=spec.dtype,
+                                   device=dev)[t][:, None, None]
+        x_t = (coef(self.schedule.sqrt_alphas_cumprod) * x_start
+               + coef(self.schedule.sqrt_one_minus_alphas_cumprod) * noise)
+        model_out = self.diff_model(x_t, content, prompt, refer_mask,
+                                    t.float())
+        # the loss in f32 whatever the compute dtype
+        model_out, x_start = model_out.float(), x_start.float()
+        loss = ((model_out - x_start) ** 2).reshape(b, -1).mean(dim=-1)
+        snr = self.schedule.snr
+        if self.cfg.train.min_snr_loss_weight:
+            snr = np.minimum(snr, self.cfg.train.min_snr_gamma)
+        weight = torch.as_tensor(snr, dtype=torch.float32, device=dev)[t]
+        loss_diff = (loss * weight).mean()
+        aux = {"loss_diff": loss_diff, "loss_f0": 0.0, "pred": model_out,
+               "target": x_start}
+        return loss_diff, aux
 
     def encode(self, c, refer, c_mask, refer_mask):
         return self.pre_model(c, refer, c_mask, refer_mask)

@@ -4,7 +4,14 @@ attention pooling and TextTimeEmbedding.
 
 Submodule names follow the flax parameter tree, including flax's automatic
 names (`LayerNorm_0`, `Conv_0`, `layers_{i}`), so `convert.py` maps a JAX
-checkpoint by path. Inference only: dropout is the identity.
+checkpoint by path.
+
+Dropout sits where flax applies it on this path (after the ConvFFN ReLU and
+on both EncSALayer residual branches, at `p_dropout`), is active only under
+`module.train()`, scales the kept values by 1/(1-p) as flax does, and draws
+its mask from the `generator` passed down the forward: in training mode with
+p > 0 and no generator it raises rather than use the global RNG. The masks
+are not JAX's: the generators differ.
 """
 
 from __future__ import annotations
@@ -19,6 +26,21 @@ from ns2vc_tpu_torch.ops.attention import multihead_attention
 from ns2vc_tpu_torch.ops.masking import apply_mask, mask_to_bias
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as the JAX package sets it
+
+
+class Dropout(nn.Dropout):
+    """flax's inverted dropout (keep with probability 1-p, kept values
+    x / (1-p)) with the mask drawn from an explicit generator."""
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout in training mode needs a generator")
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+            1.0 - self.p, generator=generator)
+        return torch.where(keep.bool(), x / (1.0 - self.p), 0.0).to(x.dtype)
 
 
 class LNConv(nn.Module):
@@ -58,37 +80,42 @@ class MultiheadSelfAttention(nn.Module):
 
 
 class ConvFFN(nn.Module):
-    """conv(C -> 4C, k, SAME) * k^-0.5 -> relu -> dense."""
+    """conv(C -> 4C, k, SAME) * k^-0.5 -> relu -> dropout -> dense."""
 
-    def __init__(self, channels: int, kernel_size: int = 9):
+    def __init__(self, channels: int, kernel_size: int = 9,
+                 dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
         self.ffn_1 = Conv1d(channels, 4 * channels, kernel_size)
         self.ffn_2 = nn.Linear(4 * channels, channels)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.ffn_1(x)
         if self.kernel_size > 1:
             h = h * self.kernel_size ** -0.5
-        return self.ffn_2(torch.relu(h))
+        return self.ffn_2(self.dropout(torch.relu(h), generator))
 
 
 class EncSALayer(nn.Module):
     """Pre-LN self-attention + conv-FFN block, masked after each residual."""
 
     def __init__(self, channels: int, num_heads: int = 8,
-                 ffn_kernel: int = 9):
+                 ffn_kernel: int = 9, dropout: float = 0.0):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(channels, eps=LN_EPS)
         self.self_attn = MultiheadSelfAttention(channels, num_heads)
         self.layer_norm2 = nn.LayerNorm(channels, eps=LN_EPS)
-        self.ffn = ConvFFN(channels, ffn_kernel)
+        self.ffn = ConvFFN(channels, ffn_kernel, dropout)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.self_attn(self.layer_norm1(x), key_mask=mask)
-        x = apply_mask(x + h, mask)
-        h = self.ffn(self.layer_norm2(x))
-        return apply_mask(x + h, mask)
+        x = apply_mask(x + self.dropout(h, generator), mask)
+        h = self.ffn(self.layer_norm2(x), generator)
+        return apply_mask(x + self.dropout(h, generator), mask)
 
 
 class _EncoderStack(nn.Module):
@@ -102,15 +129,16 @@ class _EncoderStack(nn.Module):
         self.pre = LNConv(in_channels, hidden_channels, 1, p_dropout)
         for i in range(n_layers):
             self.add_module(f"layers_{i}", EncSALayer(hidden_channels, n_heads,
-                                                      ffn_kernel))
+                                                      ffn_kernel, p_dropout))
         self.out_proj = LNConv(hidden_channels, out_channels, 1, p_dropout)
         self.layer_norm = (nn.LayerNorm(out_channels, eps=LN_EPS)
                            if last_ln else None)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = apply_mask(self.pre(x, mask), mask)
         for i in range(self.n_layers):
-            x = getattr(self, f"layers_{i}")(x, mask)
+            x = getattr(self, f"layers_{i}")(x, mask, generator)
         x = self.out_proj(x, mask)
         if self.layer_norm is not None:
             x = apply_mask(self.layer_norm(x), mask)
@@ -132,9 +160,9 @@ class PhoneEncoder(nn.Module):
                                    n_layers, p_dropout, n_heads, ffn_kernel,
                                    last_ln)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                g: torch.Tensor) -> torch.Tensor:
-        return self.stack(x + self.spk_proj(g)[:, None, :], mask)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.stack(x + self.spk_proj(g)[:, None, :], mask, generator)
 
 
 class PromptEncoder(nn.Module):
@@ -149,8 +177,9 @@ class PromptEncoder(nn.Module):
                                    n_layers, p_dropout, n_heads, ffn_kernel,
                                    last_ln)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self.stack(x, mask)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.stack(x, mask, generator)
 
 
 class AttentionPooling(nn.Module):

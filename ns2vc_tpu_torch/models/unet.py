@@ -14,6 +14,17 @@ the output tail GN -> SiLU -> conv_out, go through K2
 (`ops/fused_resnet.py`). Submodule names follow the flax parameter tree; the
 one difference is self-attention's fused `to_qkv` (C -> 3C) weight, which
 `convert.py` builds from flax's to_q/to_k/to_v kernels.
+
+Remat (JAX unet.py:423-480): with `remat` set, each Transformer1D and
+ResnetBlock1D call of a forward that records a graph runs under
+`torch.utils.checkpoint` (non-reentrant). Policy "all" keeps only the
+block's inputs and recomputes the rest in the backward pass; "dots" also
+keeps the outputs of the matrix products without batch dimensions
+(`aten.mm` / `aten.addmm`: the Linear layers), the counterpart of
+`jax.checkpoint_policies.dots_with_no_batch_dims_saveable`. Under either
+policy K1's and K2's outputs are recomputed: their kernels launch again in
+the backward pass, as the convolutions and the batched attention products
+do, which the JAX policy does not save either.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ns2vc_tpu_torch.models.encoders import TextTimeEmbedding
 from ns2vc_tpu_torch.models.layers import Conv1d, GroupNorm
@@ -206,18 +218,43 @@ class Upsample1D(nn.Module):
         return self.conv(x.repeat_interleave(2, dim=1))
 
 
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+REMAT_POLICIES = {"all": {}, "dots": {"context_fn": _dots_context}}
+
+
 class UNet1DConditionModel(nn.Module):
     """sample (B, T, in_channels) with T % 2^(levels-1) == 0, timesteps (B,),
     encoder_hidden_states (B, Tp, cross_attention_dim),
-    encoder_attention_mask (B, Tp) bool (True = keep) -> (B, T, out)."""
+    encoder_attention_mask (B, Tp) bool (True = keep) -> (B, T, out).
+    `remat` / `remat_policy` ("all" | "dots") as TrainConfig's."""
 
     def __init__(self, in_channels: int = 356, out_channels: int = 100,
                  block_out_channels: tuple = (128, 256, 384, 512),
                  layers_per_block: int = 2, norm_num_groups: int = 8,
                  norm_eps: float = 1e-5, cross_attention_dim: int = 256,
                  num_attention_heads: int = 8, addition_embed_heads: int = 64,
-                 freq_shift: float = 0.0, flip_sin_to_cos: bool = True):
+                 freq_shift: float = 0.0, flip_sin_to_cos: bool = True,
+                 remat: bool = False, remat_policy: str = "all"):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of "
+                             f"{sorted(REMAT_POLICIES)}")
+        self.remat, self.remat_policy = remat, remat_policy
         chans = tuple(block_out_channels)
         self.chans, self.layers_per_block = chans, layers_per_block
         self.groups, self.norm_eps = norm_num_groups, norm_eps
@@ -306,16 +343,24 @@ class UNet1DConditionModel(nn.Module):
 
         kv_iter = iter(cross_kv) if cross_kv is not None else None
 
+        def block(name, *args, **kwargs):
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(getattr(self, name), *args,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False,
+                                  **REMAT_POLICIES[self.remat_policy],
+                                  **kwargs)
+            return getattr(self, name)(*args, **kwargs)
+
         def attn(name, h):
             kv = next(kv_iter) if kv_iter is not None else None
-            return getattr(self, name)(h, encoder_hidden_states, context_bias,
-                                       kv=kv)
+            return block(name, h, encoder_hidden_states, context_bias, kv=kv)
 
         h = self.conv_in(sample)
         skips = [h]
         for i in range(n_levels):
             for j in range(self.layers_per_block):
-                h = getattr(self, f"down_{i}_resnet_{j}")(h, emb)
+                h = block(f"down_{i}_resnet_{j}", h, emb)
                 if i < n_levels - 1:
                     h = attn(f"down_{i}_attn_{j}", h)
                 skips.append(h)
@@ -323,14 +368,14 @@ class UNet1DConditionModel(nn.Module):
                 h = getattr(self, f"down_{i}_downsample")(h)
                 skips.append(h)
 
-        h = self.mid_resnet_0(h, emb)
+        h = block("mid_resnet_0", h, emb)
         h = attn("mid_attn_0", h)
-        h = self.mid_resnet_1(h, emb)
+        h = block("mid_resnet_1", h, emb)
 
         for i in range(n_levels):
             for j in range(self.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=-1)
-                h = getattr(self, f"up_{i}_resnet_{j}")(h, emb)
+                h = block(f"up_{i}_resnet_{j}", h, emb)
                 if i > 0:
                     h = attn(f"up_{i}_attn_{j}", h)
             if i < n_levels - 1:

@@ -28,6 +28,15 @@ The kernels read q/k/v through their (batch, head, seq) strides, so the
 (B, T, H*D) projections go in without a transpose copy, and the output is
 written as a (B, Tq, H, D) buffer whose (B, H, Tq, D) view is returned, so
 `merge_heads` is a free reshape.
+
+Training: when grad is enabled and q, k or v requires it, a CUDA call goes
+through an autograd Function whose forward is the same launch and whose
+backward is `flash_attention_backward`, written out in torch ops (the JAX
+package differentiates XLA's attention; it has no backward kernel either).
+No gradient flows to the key bias (a mask) or to the scale. Each backward
+adds one to `flash_attention.backward_calls[route]`, the route its forward
+took. Serving, the samplers and CUDA graph capture, which run without
+grad, launch directly.
 """
 
 from __future__ import annotations
@@ -64,22 +73,86 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which accumulates in f32. q (B, H, Tq, D), k/v (B, H, Tk, D), bias
     (B, Tk) additive (0 keep / -1e4 drop)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    acc = _acc_dtype(q)
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if bias is not None:
-        logits = logits + bias.float()[:, None, None, :]
+        logits = logits + bias.to(acc)[:, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs.float(), v.float()).to(v.dtype)
+    return torch.matmul(probs.to(acc), v.to(acc)).to(v.dtype)
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 accumulation, f64 for f64 inputs (the gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, bias: torch.Tensor | None,
+                             scale: float, do: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of o = softmax(q.k^T * scale + bias) . v, given o's
+    gradient do (any strides), in f32 (f64 for f64 inputs) and cast to each
+    input's dtype. P is recomputed as the plain version makes it; dV takes
+    P rounded to v's dtype, as the plain version's PV product does:
+        dV = P^T dO,  dP = dO V^T,  dS = P * (dP - rowsum(P * dP)),
+        dQ = dS K scale,  dK = dS^T Q scale.
+    rowsum(P * dP) equals rowsum(dO * O) in exact arithmetic; taken from
+    the f32 P and dP it makes each row of dS sum to zero, whereas a bf16 O
+    carries its rounding into every element of the row, which a component
+    the keys share turns into dQ's largest error."""
+    acc = _acc_dtype(q)
+    qf, kf, vf, dof = q.to(acc), k.to(acc), v.to(acc), do.to(acc)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.to(acc)[:, None, None, :]
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.matmul(p.to(v.dtype).to(acc).transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The kernel's launch under autograd; backward in torch ops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        o, route = _launch(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale, ctx.route = scale, route
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        flash_attention.backward_calls[ctx.route] += 1
+        dq, dk, dv = flash_attention_backward(q, k, v, bias, ctx.scale, do)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """q (B, H, Tq, D), k/v (B, H, Tk, D), bias (B, Tk) -> (B, H, Tq, D)
-    in q's dtype. On CUDA: f32 or bf16, D <= 128, unit stride on D."""
+    in q's dtype. On CUDA: f32 or bf16, D <= 128, unit stride on D;
+    differentiable in q, k and v."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    route = attention_route(q.device, q.dtype, q.shape[-1])
-    if route == "plain":
+    if attention_route(q.device, q.dtype, q.shape[-1]) == "plain":
         return flash_attention_plain(q, k, v, bias, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttentionFn.apply(q, k, v, bias, scale)
+    return _launch(q, k, v, bias, scale)[0]
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: torch.Tensor | None, scale: float
+            ) -> tuple[torch.Tensor, str]:
+    """Check the inputs and launch the kernel of their route: (o, route)."""
+    route = attention_route(q.device, q.dtype, q.shape[-1])
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d):
@@ -124,14 +197,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, tq, tk, d, *strides, float(scale), int(vec),
             _build.stream_of(q))
     _build.check(err, f"flash_attention ({route})")
-    return o
+    return o, route
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = {"simt": 0, "tc": 0, "tc_narrow": 0}
+flash_attention.backward_calls = {"simt": 0, "tc": 0, "tc_narrow": 0}
 
 
 def reset_launches() -> None:
     flash_attention.launches = 0
-    for key in flash_attention.route_launches:
-        flash_attention.route_launches[key] = 0
+    for counts in (flash_attention.route_launches,
+                   flash_attention.backward_calls):
+        for key in counts:
+            counts[key] = 0

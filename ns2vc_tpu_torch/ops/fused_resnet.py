@@ -25,6 +25,16 @@ A CUDA tensor launches one of the kernels or raises. `affine_silu_conv1d.
 launches` counts every launch, `affine_silu_conv1d.route_launches` each
 route's. The CUDA source notes say what bounds each kernel on the H100 and
 how its design answers that.
+
+Training: when grad is enabled and an input requires it, a CUDA call goes
+through an autograd Function whose forward is the same launch and whose
+backward is `affine_silu_conv1d_backward`, written out in f32 torch ops
+(the activation is recomputed, the conv's input and weight gradients are
+one `convolution_backward`). Each backward adds one to
+`affine_silu_conv1d.backward_calls[route]`. The packed bf16 weights are
+made from `w.detach()`: w's gradient comes from the backward, never
+through the packed copy. `group_norm_affine` is torch ops, so autograd
+carries the GroupNorm and FiLM gradients through a and b.
 """
 
 from __future__ import annotations
@@ -102,19 +112,71 @@ def affine_silu_conv1d_plain(x: torch.Tensor, a: torch.Tensor,
                              b: torch.Tensor, w: torch.Tensor,
                              bias: torch.Tensor) -> torch.Tensor:
     """x (B, T, C), a/b (B, C) f32, w (Co, C, 3) torch Conv1d layout,
-    bias (Co,) -> (B, T, Co) in x's dtype; computed in f32."""
-    h = F.silu(x.float() * a[:, None, :] + b[:, None, :])
-    y = F.conv1d(h.transpose(1, 2), w.float(), bias.float(), padding=1)
+    bias (Co,) -> (B, T, Co) in x's dtype; computed in f32 (f64 for f64
+    inputs)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    h = F.silu(x.to(acc) * a.to(acc)[:, None, :] + b.to(acc)[:, None, :])
+    y = F.conv1d(h.transpose(1, 2), w.to(acc), bias.to(acc), padding=1)
     return y.transpose(1, 2).to(x.dtype)
+
+
+def affine_silu_conv1d_backward(x: torch.Tensor, a: torch.Tensor,
+                                b: torch.Tensor, w: torch.Tensor,
+                                bias: torch.Tensor, dy: torch.Tensor):
+    """(dx, da, db, dw, dbias) of y = conv1d_k3_SAME(silu(x * a + b), w) +
+    bias given dy (B, T, Co), in f32 (f64 for f64 inputs), each cast to its
+    input's dtype:
+        z = x a + b,  s = sigmoid(z),  h = z s
+        dbias = sum dy;  dw, dh = the k=3 conv's weight and input gradients
+        dz = dh s (1 + z (1 - s));  dx = dz a,  da = sum_T dz x,
+        db = sum_T dz."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc)
+    z = xf * a.to(acc)[:, None, :] + b.to(acc)[:, None, :]
+    s = torch.sigmoid(z)
+    h = z * s
+    dh, dw, dbias = torch.ops.aten.convolution_backward(
+        dy.to(acc).transpose(1, 2), h.transpose(1, 2), w.to(acc),
+        [w.shape[0]], [1], [1], [1], False, [0], 1, [True, True, True])
+    dz = dh.transpose(1, 2) * (s * (1.0 + z * (1.0 - s)))
+    return ((dz * a.to(acc)[:, None, :]).to(x.dtype),
+            (dz * xf).sum(dim=1).to(a.dtype), dz.sum(dim=1).to(b.dtype),
+            dw.to(w.dtype), dbias.to(bias.dtype))
+
+
+class _AffineSiluConv1dFn(torch.autograd.Function):
+    """The kernel's launch under autograd; backward in f32 torch ops."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w, bias):
+        y, route = _launch(x, a, b, w, bias)
+        ctx.save_for_backward(x, a, b, w, bias)
+        ctx.route = route
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        affine_silu_conv1d.backward_calls[ctx.route] += 1
+        return affine_silu_conv1d_backward(*ctx.saved_tensors, dy)
 
 
 def affine_silu_conv1d(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                        w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """y = conv1d_k3_SAME(silu(x * a + b), w) + bias. On CUDA: x, w, bias
-    contiguous and of one dtype (f32 or bf16); a, b contiguous f32."""
-    route = resnet_route(x.device, x.dtype)
-    if route == "plain":
+    contiguous and of one dtype (f32 or bf16); a, b contiguous f32;
+    differentiable in every input."""
+    if resnet_route(x.device, x.dtype) == "plain":
         return affine_silu_conv1d_plain(x, a, b, w, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, a, b, w, bias)):
+        return _AffineSiluConv1dFn.apply(x, a, b, w, bias)
+    return _launch(x, a, b, w, bias)[0]
+
+
+def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            w: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, str]:
+    """Check the inputs and launch the kernel of their route: (y, route)."""
+    route = resnet_route(x.device, x.dtype)
     if x.dim() != 3:
         raise ValueError(f"affine_silu_conv1d: x must be (B, T, C), got "
                          f"{tuple(x.shape)}")
@@ -162,17 +224,20 @@ def affine_silu_conv1d(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             wp.shape[2], wp.shape[1], cps, splits, int(vec),
             _build.stream_of(x))
     _build.check(err, f"affine_silu_conv1d ({route})")
-    return y
+    return y, route
 
 
 affine_silu_conv1d.launches = 0
 affine_silu_conv1d.route_launches = {"simt": 0, "tc": 0}
+affine_silu_conv1d.backward_calls = {"simt": 0, "tc": 0}
 
 
 def reset_launches() -> None:
     affine_silu_conv1d.launches = 0
-    for key in affine_silu_conv1d.route_launches:
-        affine_silu_conv1d.route_launches[key] = 0
+    for counts in (affine_silu_conv1d.route_launches,
+                   affine_silu_conv1d.backward_calls):
+        for key in counts:
+            counts[key] = 0
 
 
 def group_norm_affine(x: torch.Tensor, gamma: torch.Tensor,

@@ -1,0 +1,533 @@
+"""Training on one card (counterpart of ns2vc_tpu/train/trainer.py).
+
+The train step keeps f32 master parameters and runs the forward on bf16
+copies of them when `compute_dtype` is bfloat16 (`utils/precision.py`), so
+K1 and K2 take their tensor-core kernels; autograd carries the gradients
+through the casts, through K1's and K2's autograd Functions and, with
+`remat`, through the checkpointed UNet blocks. Per step:
+
+- gradient accumulation: the batch is split into `accum` micro-batches,
+  each with its own draws of t, noise and dropout masks from the step's
+  generator; loss and gradients are averaged over them;
+- the global gradient norm is taken before clipping and logged;
+- clipping by global norm with optax's rule (g * max_norm / |g| only when
+  |g| >= max_norm, no epsilon);
+- AdamW with the config's lr, betas and eps and optax's default weight
+  decay 1e-4 (the JAX package's `optax.adamw` gets none and uses its
+  default; torch's default would be 1e-2);
+- EMA of the updated parameters at (step + 1) % ema_update_every == 0.
+
+The step's generator is seeded from (seed, step), as the JAX step folds the
+step into its key, so a resumed run draws what the uninterrupted run would
+have drawn.
+
+`Trainer` drives it: the data loader, the step, the stdout line
+`step N loss ... grad_norm ... steps/s ...`, scalars as JSON lines in the
+run dir's `scalars.jsonl` (and `train.log`), a UniPC eval sample from the
+EMA parameters when present (mel as .npy, waveform as .wav), and
+checkpoints `ckpt/model-N.pt` (step, parameters, optimizer state, EMA, the
+config; the newest `keep_ckpts` kept) that `convert.load_checkpoint`, and
+so `Svc`, reads. It runs on `cuda` unless given `device="cpu"`, and raises
+without a card.
+
+Not ported, because they answer the TPU's runtime: the AOT step cache, the
+packed one-buffer host-to-device transfer (`pack_h2d`), the persistent
+compile cache and the xplane profile window. Data parallelism over several
+processes (the JAX mesh, `synced_data_loader`) is a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import time
+from collections import deque
+from datetime import datetime
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ns2vc_tpu_torch.config import Config, load_config, save_config
+from ns2vc_tpu_torch.convert import TRAINER_FORMAT, init_module_
+from ns2vc_tpu_torch.data.dataset import (
+    BucketedCollator, EvalDataset, FixedShapeCollator, VCDataset, data_loader,
+)
+from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2, generate_mel
+from ns2vc_tpu_torch.utils.precision import (
+    cast_floating, parameters_as, resolve_dtype,
+)
+
+# optax.adamw's default weight decay, which the JAX trainer uses
+ADAMW_WEIGHT_DECAY = 1e-4
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
+    """AdamW as the JAX package's `optax.adamw(lr, b1, b2, eps)`: the
+    config's lr, betas and eps, weight decay 1e-4. Clipping is the train
+    step's (`clip_by_global_norm`)."""
+    t = cfg.train
+    return torch.optim.AdamW(params, lr=t.train_lr,
+                             betas=tuple(t.adam_betas), eps=t.eps,
+                             weight_decay=ADAMW_WEIGHT_DECAY)
+
+
+def global_norm(tensors: list) -> torch.Tensor:
+    """sqrt(sum of squares) over every tensor, in f32 (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [n.float() for n in torch._foreach_norm(tensors)]))
+
+
+def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: grads unchanged while their
+    global norm is below `max_norm`, else scaled by max_norm / norm. No
+    host synchronisation. Returns the norm before clipping."""
+    norm = global_norm(grads)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a train step changes: the model's (master) parameters, the
+    optimizer's state, the step count and the EMA parameters (a {name:
+    tensor} dict, or None without EMA)."""
+    model: NaturalSpeech2
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    ema_params: Optional[dict] = None
+
+
+def init_ema(model: NaturalSpeech2) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _split(x: torch.Tensor | None, accum: int) -> list:
+    return [None] * accum if x is None else list(x.chunk(accum))
+
+
+def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
+                    torch.float32, ema_decay: float = 0.0,
+                    ema_every: int = 1, max_norm: float = 1.0):
+    """train_step(state, batch, generator=None, t=None, noise=None) ->
+    metrics, updating `state` in place. `batch` holds tensors with leading
+    dim B = accum * micro-batch on the model's device (floats in f32 or
+    the compute dtype); `t` (B,) and `noise` (B, T, 100), when given,
+    replace the draws from `generator`. metrics: loss and grad_norm (0-d
+    tensors, no host synchronisation) and, with accum 1, pred and
+    target."""
+    def train_step(state: TrainState, batch: dict,
+                   generator: torch.Generator | None = None,
+                   t: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None) -> dict:
+        model = state.model
+        model.train()
+        params = [p for p in model.parameters() if p.requires_grad]
+        state.optimizer.zero_grad(set_to_none=True)
+        micro = [dict(zip(batch, vals)) for vals in zip(
+            *(v.chunk(accum) for v in batch.values()))]
+        loss_sum, aux = 0.0, {}
+        for mb, mt, mn in zip(micro, _split(t, accum), _split(noise, accum)):
+            if compute_dtype != torch.float32:
+                cast = cast_floating(dict(model.named_parameters()),
+                                     compute_dtype)
+                mb = cast_floating(mb, compute_dtype)
+            else:
+                cast = {}
+            # the backward stays inside: remat recomputes with the casts
+            with parameters_as(model, cast):
+                loss, aux = model(mb, generator, t=mt, noise=mn)
+                loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        grads = [p.grad for p in params]
+        if accum > 1:
+            torch._foreach_div_(grads, float(accum))
+        grad_norm = clip_by_global_norm(grads, max_norm)
+        state.optimizer.step()
+        if ema_decay > 0.0 and state.ema_params is not None \
+                and (state.step + 1) % ema_every == 0:
+            names = [n for n, p in model.named_parameters()
+                     if p.requires_grad]
+            ema = [state.ema_params[n] for n in names]
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, [p.detach() for p in params],
+                                alpha=1.0 - ema_decay)
+        state.step += 1
+        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm}
+        if accum == 1:
+            metrics["pred"], metrics["target"] = aux["pred"], aux["target"]
+        return metrics
+
+    return train_step
+
+
+def host_transform(batch: dict, cfg: Config) -> dict:
+    """Drop the fields the step never reads: the waveform always, f0 and uv
+    while the F0 predictor is off. Floats stay f32 (the compute-dtype cast
+    happens on the device, in `to_device`)."""
+    drop = {"wav"}
+    if not cfg.f0_predictor.enabled:
+        drop |= {"f0", "uv"}
+    return {k: v for k, v in batch.items() if k not in drop}
+
+
+def to_device(batch: dict, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> dict:
+    """numpy batch -> tensors on `device` (pinned, non-blocking copies from
+    the host on CUDA), floats cast to `dtype` there."""
+    out = {}
+    for k, v in batch.items():
+        x = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            x = x.pin_memory().to(device, non_blocking=True)
+        if x.is_floating_point():
+            x = x.to(dtype)
+        out[k] = x
+    return out
+
+
+def dummy_batch(cfg: Config,
+                geometry: tuple[int, int] | None = None) -> dict:
+    """Zero batch (numpy) at the default or a given (t_c, t_r) geometry."""
+    t = cfg.train
+    b = max(t.train_batch_size, 1)
+    tc, tr = geometry or (t.max_content_frames, t.max_refer_frames)
+    return {
+        "c": np.zeros((b, tc, cfg.phoneme_encoder.in_channels), np.float32),
+        "refer": np.zeros((b, tr, cfg.prompt_encoder.in_channels),
+                          np.float32),
+        "spec": np.zeros((b, tc, cfg.diffusion_encoder.in_channels),
+                         np.float32),
+        "f0": np.zeros((b, tc), np.float32),
+        "uv": np.zeros((b, tc), np.float32),
+        "wav": np.zeros((b, 8), np.float32),
+        "lengths": np.full((b,), tc, np.int32),
+        "refer_lengths": np.full((b,), tr, np.int32),
+    }
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The step generator's seed: a function of the run seed and the step
+    only, so a resumed run draws what the uninterrupted one would have."""
+    return (seed * 0x9E3779B1 + step * 0x85EBCA77 + 1) & 0x7FFFFFFFFFFF
+
+
+class Trainer:
+    """End-to-end training driver (reference Trainer, model.py:748-946) on
+    one card: `train()` steps, logs, samples and checkpoints."""
+
+    def __init__(self, cfg: Config | str | None = None,
+                 logs_folder: Optional[str] = None,
+                 vocos_params: Optional[dict] = None,
+                 device: str | torch.device = "cuda"):
+        from ns2vc_tpu_torch.infer.svc import resolve_device
+
+        if isinstance(cfg, str):
+            cfg = load_config(cfg)
+        self.cfg = cfg or Config()
+        t = self.cfg.train
+        self.device = resolve_device(device)
+        self.compute_dtype = resolve_dtype(t.compute_dtype)
+
+        self.logs_folder = logs_folder or os.path.join(
+            t.logs_folder, datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
+        os.makedirs(self.logs_folder, exist_ok=True)
+        self._stamp_git_hash()
+        save_config(self.cfg, os.path.join(self.logs_folder, "config.json"))
+
+        model = NaturalSpeech2(self.cfg, remat=t.remat,
+                               remat_policy=t.remat_policy)
+        init_module_(model, torch.Generator().manual_seed(t.seed))
+        model.to(self.device)
+        self.state = TrainState(
+            model=model, optimizer=make_optimizer(self.cfg,
+                                                  model.parameters()),
+            ema_params=init_ema(model) if t.use_ema else None)
+        self.accum = t.gradient_accumulate_every
+        self._step_fn = make_train_step(
+            self.accum, self.compute_dtype,
+            ema_decay=t.ema_decay if t.use_ema else 0.0,
+            ema_every=t.ema_update_every, max_norm=t.grad_clip_norm)
+        self.generator = torch.Generator(self.device)
+
+        if t.length_buckets:
+            self._collator = BucketedCollator(
+                self.cfg, t.length_buckets,
+                refer_buckets=t.refer_length_buckets, include_wav=False)
+        elif t.refer_length_buckets:
+            raise ValueError(
+                "refer_length_buckets is set but length_buckets is empty: "
+                "refer-axis buckets only apply on top of content bucketing; "
+                "set train.length_buckets too.")
+        else:
+            self._collator = FixedShapeCollator(self.cfg, include_wav=False)
+        self.ds = VCDataset(self.cfg.data.training_files, self.cfg,
+                            all_in_mem=t.all_in_mem, seed=t.seed,
+                            load_audio=False)
+        if t.num_workers < 0:   # auto: serial on a host of <= 2 CPUs
+            n_workers = 0 if (os.cpu_count() or 1) <= 2 else 8
+        else:
+            n_workers = t.num_workers
+        self.num_workers = n_workers
+        self.dl = None   # made at the first step
+        try:
+            self.eval_ds = EvalDataset(self.cfg.data.val_files, self.cfg)
+            if len(self.eval_ds) == 0:
+                self.eval_ds = None
+        except Exception:
+            self.eval_ds = None
+        self.vocos = None
+        if vocos_params is not None:
+            from ns2vc_tpu_torch.models.vocos import vocos_from_state_dict
+
+            self.vocos = vocos_from_state_dict(vocos_params,
+                                               self.cfg.data.hop_length)
+            self.vocos.load_state_dict(vocos_params)
+            self.vocos.to(self.device).eval()
+        self._eval_model = None
+
+    # ------------------------------------------------------------------
+
+    def _stamp_git_hash(self):
+        """Record the source revision in the run dir."""
+        try:
+            h = subprocess.run(["git", "rev-parse", "HEAD"],
+                               capture_output=True, text=True,
+                               cwd=os.path.dirname(os.path.abspath(__file__)),
+                               timeout=5).stdout.strip()
+        except Exception:
+            h = ""
+        if h:
+            path = os.path.join(self.logs_folder, "githash")
+            if os.path.exists(path):
+                with open(path) as f:
+                    old = f.read().strip()
+                if old and old != h:
+                    print(f"warning: git hash changed ({old[:8]} -> {h[:8]})")
+            with open(path, "w") as f:
+                f.write(h)
+
+    @property
+    def model(self) -> NaturalSpeech2:
+        return self.state.model
+
+    @property
+    def step(self) -> int:
+        return self.state.step
+
+    def loader(self):
+        """The training batch iterator (made once, at first use)."""
+        if self.dl is None:
+            t = self.cfg.train
+            self.dl = data_loader(self.ds, self._collator, t.train_batch_size,
+                                  seed=t.seed, num_workers=self.num_workers)
+        return self.dl
+
+    def close(self) -> None:
+        """Stop the loader's worker processes."""
+        if self.dl is not None:
+            self.dl.close()
+            self.dl = None
+
+    def device_batch(self, batch: dict) -> dict:
+        return to_device(host_transform(batch, self.cfg), self.device,
+                         self.compute_dtype)
+
+    def train_step(self, batch: dict, t: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None) -> dict:
+        """One optimizer step on a device batch, with the step's generator
+        (or the given t and noise)."""
+        self.generator.manual_seed(step_seed(self.cfg.train.seed, self.step))
+        return self._step_fn(self.state, batch, self.generator, t, noise)
+
+    # -- checkpointing ---------------------------------------------------
+
+    @property
+    def ckpt_dir(self) -> str:
+        return os.path.join(self.logs_folder, "ckpt")
+
+    def save(self, milestone: Optional[int] = None) -> str:
+        """ckpt/model-N.pt: step, parameters, optimizer state, EMA and the
+        config, on the CPU; then only the newest `keep_ckpts` are kept."""
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        n = milestone if milestone is not None else self.step
+
+        def cpu(sd):
+            return None if sd is None else {
+                k: v.detach().cpu() for k, v in sd.items()}
+        payload = {
+            "format": TRAINER_FORMAT, "step": self.step,
+            "params": cpu(self.model.state_dict()),
+            "opt_state": self.state.optimizer.state_dict(),
+            "ema_params": cpu(self.state.ema_params),
+            "config": dataclasses.asdict(self.cfg)}
+        path = os.path.join(self.ckpt_dir, f"model-{n}.pt")
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        self._collect_garbage()
+        return path
+
+    def _collect_garbage(self) -> None:
+        keep = self.cfg.train.keep_ckpts
+        if keep <= 0:
+            return
+        found = []
+        for name in os.listdir(self.ckpt_dir):
+            if name.startswith("model-") and name.endswith(".pt"):
+                try:
+                    found.append((int(name[6:-3]), name))
+                except ValueError:
+                    continue
+        for _, name in sorted(found)[:-keep]:
+            os.remove(os.path.join(self.ckpt_dir, name))
+
+    def load(self, step: Optional[int] = None, path: Optional[str] = None):
+        """Resume from a checkpoint of this trainer: `path`, else
+        ckpt/model-`step`.pt, else the newest in ckpt/. Restores the
+        parameters, optimizer state, EMA (when this run keeps one) and
+        step."""
+        from ns2vc_tpu_torch.utils.checkpoints import latest_checkpoint_path
+
+        if path is None:
+            path = (os.path.join(self.ckpt_dir, f"model-{step}.pt")
+                    if step is not None
+                    else latest_checkpoint_path(self.ckpt_dir))
+        if path is None or not os.path.exists(path):
+            raise FileNotFoundError(f"no checkpoint to resume from in "
+                                    f"{self.ckpt_dir}")
+        data = torch.load(path, map_location="cpu")
+        if data.get("format") != TRAINER_FORMAT:
+            raise ValueError(f"{path} is not a checkpoint of this trainer; "
+                             f"use load_torch for a reference model-N.pt")
+        self.model.load_state_dict(data["params"])
+        self.state.optimizer.load_state_dict(data["opt_state"])
+        if self.state.ema_params is not None:
+            src = data["ema_params"] or data["params"]
+            for k, v in self.state.ema_params.items():
+                v.copy_(src[k])
+        self.state.step = int(data["step"])
+        return path
+
+    def load_torch(self, model_path: str):
+        """Warm start from a reference `model-N.pt` (through the port's
+        reference converter): parameters and step; the optimizer starts
+        fresh and the EMA, when kept, from the loaded parameters."""
+        from ns2vc_tpu_torch.convert import load_checkpoint
+
+        data = torch.load(model_path, map_location="cpu")
+        if "model" not in data:
+            raise ValueError(f"{model_path} is not a reference model-N.pt")
+        self.model.load_state_dict(load_checkpoint(model_path, self.cfg))
+        if self.state.ema_params is not None:
+            self.state.ema_params = init_ema(self.model)
+        self.state.step = int(data.get("step", 0))
+
+    # -- eval sampling -----------------------------------------------------
+
+    def sample_eval(self, generator: torch.Generator | None = None):
+        """Sample one eval item (reference model.py:905-938) with UniPC, 30
+        steps, from the EMA parameters when kept: (mel (T, 100), waveform or
+        None, gt spec, refer spec, gt audio, refer audio), numpy; None
+        without an eval set."""
+        if self.eval_ds is None:
+            return None
+        c, f0, spec, audio, uv, c_r, f0_r, spec_r, audio_r, uv_r = \
+            self.eval_ds[self.step % len(self.eval_ds)]
+        t_len, tr_len = c.shape[0], spec_r.shape[0]
+        t_pad = max(64, -(-t_len // 64) * 64)
+        tr_pad = max(64, -(-tr_len // 64) * 64)
+        c_in = np.zeros((1, t_pad, c.shape[1]), np.float32)
+        c_in[0, :t_len] = c
+        refer_in = np.zeros((1, tr_pad, spec_r.shape[1]), np.float32)
+        refer_in[0, :tr_len] = spec_r
+        if self._eval_model is None:
+            self._eval_model = NaturalSpeech2(self.cfg).to(
+                self.device, self.compute_dtype).eval()
+        self._eval_model.load_state_dict(
+            self.state.ema_params if self.state.ema_params is not None
+            else self.model.state_dict())
+        dev = self.device
+        mel = generate_mel(
+            self._eval_model, torch.from_numpy(c_in).to(dev),
+            torch.from_numpy(refer_in).to(dev),
+            torch.tensor([t_len], device=dev),
+            torch.tensor([tr_len], device=dev),
+            generator=generator, method="unipc", steps=30)
+        wav = None
+        if self.vocos is not None:
+            with torch.no_grad():
+                wav = self.vocos(mel)[0, : t_len * self.cfg.data.hop_length]
+            wav = wav.float().cpu().numpy()
+        return (mel[0, :t_len].cpu().numpy(), wav, spec, spec_r, audio,
+                audio_r)
+
+    def _write_eval(self, result, step: int) -> dict:
+        from ns2vc_tpu_torch.utils.wavio import write_wav
+
+        mel, wav, gt_spec, refer_spec, gt_audio, refer_audio = result
+        out_dir = os.path.join(self.logs_folder, "eval")
+        os.makedirs(out_dir, exist_ok=True)
+        files = {}
+        for name, arr in (("gen_mel", mel), ("gt_mel", gt_spec)):
+            files[name] = os.path.join(out_dir, f"{name}-{step}.npy")
+            np.save(files[name], np.asarray(arr))
+        sr = self.cfg.data.sampling_rate
+        for name, arr in (("gt_audio", gt_audio),
+                          ("refer_audio", refer_audio), ("gen_audio", wav)):
+            if arr is not None and np.size(arr):
+                files[name] = os.path.join(out_dir, f"{name}-{step}.wav")
+                write_wav(files[name], np.reshape(arr, (-1,)), sr)
+        if wav is not None:
+            milestone = step // self.cfg.train.save_and_sample_every
+            write_wav(os.path.join(self.logs_folder,
+                                   f"sample-{milestone}.wav"), wav, sr)
+        return files
+
+    # -- main loop ---------------------------------------------------------
+
+    def _log(self, record: dict) -> None:
+        with open(os.path.join(self.logs_folder, "scalars.jsonl"), "a") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def train(self, num_steps: Optional[int] = None):
+        from ns2vc_tpu_torch.utils.logger import get_logger
+
+        t = self.cfg.train
+        total = num_steps if num_steps is not None else t.train_num_steps
+        logger = get_logger(self.logs_folder)
+        eval_gen = torch.Generator(self.device)
+        loader = self.loader()
+        batches = deque(self.device_batch(next(loader))
+                        for _ in range(max(1, t.prefetch_depth)))
+        t0 = time.time()
+        while self.step < total:
+            batches.append(self.device_batch(next(loader)))
+            batch = batches.popleft()
+            metrics = self.train_step(batch)
+            step = self.step
+            if step % t.log_every == 0:
+                loss = float(metrics["loss"])
+                gn = float(metrics["grad_norm"])
+                sps = t.log_every / max(time.time() - t0, 1e-9)
+                t0 = time.time()
+                print(f"step {step} loss {loss:.4f} grad_norm {gn:.3f} "
+                      f"steps/s {sps:.2f}", flush=True)
+                logger.info(f"Losses: [{loss}, 0], step: {step}")
+                self._log({"step": step, "loss/diff": loss, "loss/all": loss,
+                           "loss/grad": gn, "perf/steps_per_sec": sps,
+                           "perf/content_frames": int(batch["c"].shape[1]),
+                           "perf/refer_frames": int(batch["refer"].shape[1])})
+            if step != 0 and step % t.save_and_sample_every == 0:
+                eval_gen.manual_seed(step_seed(t.seed + 1, step))
+                result = self.sample_eval(eval_gen)
+                if result is not None:
+                    self._log({"step": step,
+                               **self._write_eval(result, step)})
+                self.save()
+        # a final checkpoint, so a short or interrupted run is never lost
+        self.save()
+        print("training complete", flush=True)

@@ -340,3 +340,135 @@ def test_svc_dispatch_from_another_thread(dev):
     assert next(iter(svc._refer_cache.values())).device == last
     for a, b in zip(got[0], want):
         np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+# -- training: K1 and K2 under autograd ---------------------------------------
+#
+# With grad on, each wrapper goes through its autograd Function: the forward
+# launches the kernel (counted in `launches`), the backward is written out
+# in torch ops (counted in `backward_calls[route]`). Gradients against
+# autograd through the plain versions: 1e-4 in f32; in bf16, 3e-2 of
+# max(1, max|grad|) (the kernels' bf16 outputs enter the backward).
+
+def _grad_tol(dtype, want):
+    if dtype == torch.float32:
+        return 1e-4
+    return 3e-2 * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_launches_the_kernel(dev, dtype):
+    from ns2vc_tpu_torch.ops.attention import merge_heads
+
+    g = _gen(dev, 7)
+    b, h, t, d = 4, 8, 136, 32
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(dtype)
+    bias = torch.zeros(b, t, device=dev)
+    bias[-1, 100:] = -1e4
+    dout = torch.randn(b, t, h * d, generator=g, device=dev).to(dtype)
+
+    def run(fn):
+        x = qkv.detach().requires_grad_()
+        q, k, v = (split_heads(y, h) for y in x.split(h * d, dim=-1))
+        out = merge_heads(fn(q, k, v, bias))
+        out.backward(dout)
+        return out, x.grad
+    route = attention_route(dev, dtype, d)
+    n0, b0 = flash_attention.launches, dict(flash_attention.backward_calls)
+    out, got = run(flash_attention)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1 and out.grad_fn is not None
+    assert flash_attention.backward_calls[route] == b0[route] + 1
+    _, want = run(flash_attention_plain)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _grad_tol(dtype, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet_function_launches_the_kernel(dev, dtype, monkeypatch):
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
+    g = _gen(dev, 8)
+    b, t, c, co = 4, 136, 128, 256
+    x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    w = (torch.randn(co, c, 3, generator=g, device=dev) / 20).to(dtype)
+    bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
+    film = [(0.2 * torch.randn(b, c, generator=g, device=dev)).to(dtype)
+            for _ in range(2)]
+    dy = torch.randn(b, t, co, generator=g, device=dev).to(dtype)
+
+    def run():
+        args = [a.detach().requires_grad_()
+                for a in (x, gamma, beta, w, bias, *film)]
+        y = gn_silu_conv1d(*args[:5], 8, 1e-5, film_scale=args[5],
+                           film_shift=args[6])
+        y.backward(dy)
+        return y, [a.grad for a in args]
+    route = "tc" if dtype == torch.bfloat16 else "simt"
+    n0, b0 = affine_silu_conv1d.launches, dict(
+        affine_silu_conv1d.backward_calls)
+    y, got = run()
+    torch.cuda.synchronize()
+    assert affine_silu_conv1d.launches == n0 + 1 and y.grad_fn is not None
+    assert affine_silu_conv1d.backward_calls[route] == b0[route] + 1
+    monkeypatch.setattr(fr, "affine_silu_conv1d", affine_silu_conv1d_plain)
+    _, want = run()
+    for name, a, e in zip(("x", "gamma", "beta", "w", "bias", "scale",
+                           "shift"), got, want):
+        assert a.dtype == e.dtype and torch.isfinite(a.float()).all(), name
+        assert (a.float() - e.float()).abs().max().item() <= \
+            _grad_tol(dtype, e), name
+
+
+@pytest.mark.parametrize("remat_policy", [None, "dots"])
+def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
+    """One bf16 train step of a small model: every K1 / K2 call of the
+    forward launches its tensor-core kernel (again in the backward pass
+    under remat), each has one backward, and the f32 masters get finite
+    gradients."""
+    from ns2vc_tpu_torch.config import (
+        Config, DiffusionEncoderConfig, EncoderConfig,
+    )
+    from ns2vc_tpu_torch.convert import init_module_
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+    from ns2vc_tpu_torch.ops import flash_attention as fa, fused_resnet
+    from ns2vc_tpu_torch.train.trainer import (
+        TrainState, make_optimizer, make_train_step,
+    )
+
+    cfg = Config(phoneme_encoder=EncoderConfig(n_layers=1),
+                 prompt_encoder=EncoderConfig(in_channels=100, n_layers=1),
+                 diffusion_encoder=DiffusionEncoderConfig(
+                     block_out_channels=(64, 128)))
+    model = NaturalSpeech2(cfg, remat=remat_policy is not None,
+                           remat_policy=remat_policy or "all")
+    init_module_(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    state = TrainState(model, make_optimizer(cfg, model.parameters()))
+    step = make_train_step(compute_dtype=torch.bfloat16)
+    g = _gen(dev, 9)
+    batch = {"c": torch.randn(4, 64, 256, generator=g, device=dev),
+             "refer": torch.randn(4, 48, 100, generator=g, device=dev),
+             "spec": torch.randn(4, 64, 100, generator=g, device=dev),
+             "lengths": torch.tensor([64, 50, 33, 64], device=dev),
+             "refer_lengths": torch.tensor([48, 20, 48, 31], device=dev)}
+    fa.reset_launches()
+    fused_resnet.reset_launches()
+    m = step(state, batch, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    k1, k2 = fa.flash_attention, fused_resnet.affine_silu_conv1d
+    # two levels: 12 UNet attentions, 2 encoder layers and 2 pooling calls
+    # (D = 100 and 4: element loads); 24 resnet epilogues and the tail
+    again = (12, 24) if remat_policy else (0, 0)
+    assert k1.route_launches == {"simt": 0, "tc": 14 + again[0],
+                                 "tc_narrow": 2}
+    assert k1.backward_calls == {"simt": 0, "tc": 14, "tc_narrow": 2}
+    assert k2.route_launches == {"simt": 0, "tc": 25 + again[1]}
+    assert k2.backward_calls == {"simt": 0, "tc": 25}
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32 and torch.isfinite(p.grad).all(), \
+            name

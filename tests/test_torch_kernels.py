@@ -6,6 +6,9 @@ numpy inputs, in f32. Tolerances are the JAX suite's own
 (tests/test_pallas_attention.py, tests/test_pallas_resnet.py).
 """
 
+import contextlib
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -360,3 +363,212 @@ def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
     affine_silu_conv1d(x, a, a, w, bias)
     assert card_routes.calls[1][1][3] == args[3]
     assert pack_conv_weight(w).shape == (3, cop, cp)
+
+
+# -- K1 and K2 under autograd -------------------------------------------------
+#
+# The backward of each kernel is written out in torch ops
+# (`flash_attention_backward`, `affine_silu_conv1d_backward`) and reached
+# through an autograd Function whose forward is the kernel's launch. Here the
+# launch is replaced by the plain version on the CPU (`kernels_on_cpu`), so
+# the Functions, their saved tensors and their backward run as on a card.
+# Tolerances: 1e-5 in f32, 1e-6 in f64, against torch.autograd through the
+# plain versions; gradcheck in f64.
+
+GRAD_ATOL = {torch.float32: 1e-5, torch.float64: 1e-6}
+
+
+@contextlib.contextmanager
+def kernels_on_cpu():
+    """The wrappers as they run for CUDA tensors, with each kernel's launch
+    replaced by its plain version (counted as a 'tc' launch)."""
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
+    def a_launch(q, k, v, bias, scale):
+        fa.flash_attention.launches += 1
+        fa.flash_attention.route_launches["tc"] += 1
+        return fa.flash_attention_plain(q, k, v, bias, scale), "tc"
+
+    def r_launch(x, a, b, w, bias):
+        fr.affine_silu_conv1d.launches += 1
+        fr.affine_silu_conv1d.route_launches["tc"] += 1
+        return fr.affine_silu_conv1d_plain(x, a, b, w, bias), "tc"
+    with mock.patch.object(fa, "attention_route", lambda *a: "tc"), \
+            mock.patch.object(fa, "_launch", a_launch), \
+            mock.patch.object(fr, "resnet_route", lambda *a: "tc"), \
+            mock.patch.object(fr, "_launch", r_launch):
+        yield
+
+
+def _grads(fn, inputs, dout):
+    inputs = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*inputs)
+    out.backward(dout)
+    return out.detach(), [x.grad for x in inputs]
+
+
+def _heads(r, b, h, tq, tk, d, dtype):
+    """q, k, v as split_heads views: q/k/v of one packed (B, T, 3C)
+    projection for self-attention, separate projections otherwise."""
+    from ns2vc_tpu_torch.ops.attention import split_heads
+
+    c = h * d
+    if tq == tk:
+        qkv = torch.from_numpy(r.standard_normal((b, tq, 3 * c))).to(dtype)
+        return [split_heads(x, h) for x in qkv.split(c, dim=-1)]
+    return [split_heads(torch.from_numpy(r.standard_normal((b, t, c)))
+                        .to(dtype), h) for t in (tq, tk, tk)]
+
+
+ATTN_GRAD_CASES = [
+    (2, 4, 37, 37, 16, [37, 0]),     # self; batch row 1 fully masked
+    (2, 2, 9, 13, 8, [13, 5]),       # cross with key padding
+    (2, 1, 1, 17, 100, None),        # pooling: Tq = 1, D = 100
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,h,tq,tk,d,lengths", ATTN_GRAD_CASES)
+def test_flash_attention_backward_matches_autograd(dtype, b, h, tq, tk, d,
+                                                   lengths):
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_backward
+
+    r = np.random.default_rng(11)
+    q, k, v = _heads(r, b, h, tq, tk, d, dtype)
+    bias = None
+    if lengths is not None:
+        keep = torch.arange(tk)[None, :] < torch.tensor(lengths)[:, None]
+        bias = (1.0 - keep.float()) * -1e4
+    scale = d ** -0.5
+    # dO laid out (B, Tq, H, D): a non-contiguous (B, H, Tq, D) view
+    do = torch.from_numpy(r.standard_normal((b, tq, h, d))).to(dtype) \
+        .transpose(1, 2)
+    o, want = _grads(lambda q_, k_, v_: flash_attention_plain(
+        q_, k_, v_, bias, scale), (q, k, v), do)
+    got = flash_attention_backward(q, k, v, bias, scale, do)
+    for name, g, w in zip("qkv", got, want):
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                   atol=GRAD_ATOL[dtype], err_msg=f"d{name}")
+    # through the autograd Function, from (B, T, C) projections and back
+    with kernels_on_cpu():
+        calls = dict(flash_attention.backward_calls)
+        _, fn = _grads(lambda q_, k_, v_: flash_attention(q_, k_, v_, bias,
+                                                          scale), (q, k, v),
+                       do)
+        assert flash_attention.backward_calls["tc"] == calls["tc"] + 1
+    for name, g, w in zip("qkv", fn, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                   atol=GRAD_ATOL[dtype], err_msg=f"d{name}")
+
+
+def test_flash_attention_backward_keeps_dq_with_a_shared_key_component():
+    """bf16 keys and values that share a component (as projections of
+    normalised features do): dq stays within bf16 rounding of the f64
+    gradient. A dS whose rows are corrected by rowsum(dO * O) with O
+    rounded to bf16 loses dq here (cosine 0.62)."""
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_backward
+
+    r = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(0.3 * r.standard_normal((2, 4, 64, 16))
+                                + off).bfloat16()
+               for off in (0.0, 3.0, 3.0))
+    do = torch.from_numpy(r.standard_normal((2, 4, 64, 16))).bfloat16()
+    want = _grads(lambda q_, k_, v_: flash_attention_plain(q_, k_, v_),
+                  [x.double() for x in (q, k, v)], do.double())[1][0]
+    dq = flash_attention_backward(q, k, v, None, 0.25, do)[0].double()
+    cos = (dq.flatten() @ want.flatten()) / (dq.norm() * want.norm())
+    assert cos.item() > 0.9999
+
+
+def test_flash_attention_function_gradcheck():
+    r = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(r.standard_normal((2, 2, t, 4)))
+               .requires_grad_() for t in (5, 7, 7))
+    bias = torch.zeros(2, 7, dtype=torch.float64)
+    bias[0, 4:] = -1e4
+    bias[1] = -1e4                 # a fully masked row
+    with kernels_on_cpu():
+        assert torch.autograd.gradcheck(
+            lambda q_, k_, v_: flash_attention(q_, k_, v_, bias),
+            (q, k, v), eps=1e-6, atol=1e-6)
+
+
+def test_serving_calls_launch_directly():
+    """Without grad, or with no input requiring it, the wrapper launches
+    directly: no graph, no backward."""
+    r = np.random.default_rng(13)
+    q, k, v = _heads(r, 1, 2, 6, 6, 4, torch.float32)
+    with kernels_on_cpu():
+        assert flash_attention(q, k, v).grad_fn is None
+        q.requires_grad_()
+        with torch.no_grad():
+            assert flash_attention(q, k, v).grad_fn is None
+        assert flash_attention(q, k, v).grad_fn is not None
+
+
+def _k2_inputs(r, dtype, b=2, t=11, c=16, co=5):
+    x = torch.from_numpy(r.standard_normal((b, t, c))).to(dtype)
+    a = torch.from_numpy(1 + 0.3 * r.standard_normal((b, c))).to(dtype)
+    b_ = torch.from_numpy(0.3 * r.standard_normal((b, c))).to(dtype)
+    w = torch.from_numpy(r.standard_normal((co, c, 3)) / 7).to(dtype)
+    bias = torch.from_numpy(0.1 * r.standard_normal(co)).to(dtype)
+    return x, a, b_, w, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_affine_silu_conv1d_backward_matches_autograd(dtype):
+    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_backward
+
+    r = np.random.default_rng(14)
+    inputs = _k2_inputs(r, dtype)
+    # dy laid out (Co, B, T): non-contiguous as (B, T, Co)
+    dy = torch.from_numpy(r.standard_normal((5, 2, 11))).to(dtype) \
+        .permute(1, 2, 0)
+    _, want = _grads(affine_silu_conv1d_plain, inputs, dy)
+    got = affine_silu_conv1d_backward(*inputs, dy)
+    for name, g, w in zip(("x", "a", "b", "w", "bias"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                   atol=GRAD_ATOL[dtype], err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gn_silu_conv1d_with_film_grads_through_the_function(dtype):
+    """GroupNorm + FiLM (torch ops) -> K2's Function: every input's
+    gradient equals autograd through the plain version."""
+    r = np.random.default_rng(15)
+    b, t, c, co = 2, 9, 16, 8
+    x = torch.from_numpy(r.standard_normal((b, t, c))).to(dtype)
+    gamma = torch.from_numpy(1 + 0.1 * r.standard_normal(c)).to(dtype)
+    beta = torch.from_numpy(0.1 * r.standard_normal(c)).to(dtype)
+    w = torch.from_numpy(r.standard_normal((co, c, 3)) / 7).to(dtype)
+    bias = torch.from_numpy(0.1 * r.standard_normal(co)).to(dtype)
+    scale = torch.from_numpy(0.2 * r.standard_normal((b, c))).to(dtype)
+    shift = torch.from_numpy(0.2 * r.standard_normal((b, c))).to(dtype)
+    dy = torch.from_numpy(r.standard_normal((b, t, co))).to(dtype)
+
+    def fn(x_, g_, be_, w_, bi_, s_, sh_):
+        return gn_silu_conv1d(x_, g_, be_, w_, bi_, 8, 1e-5, film_scale=s_,
+                              film_shift=sh_)
+    args = (x, gamma, beta, w, bias, scale, shift)
+    _, want = _grads(fn, args, dy)
+    with kernels_on_cpu():
+        calls = dict(affine_silu_conv1d.backward_calls)
+        _, got = _grads(fn, args, dy)
+        assert affine_silu_conv1d.backward_calls["tc"] == calls["tc"] + 1
+    # f32: GroupNorm's statistics are taken in f32 on both sides
+    for name, g, w_ in zip(("x", "gamma", "beta", "w", "bias", "scale",
+                            "shift"), got, want):
+        np.testing.assert_allclose(g.numpy(), w_.numpy(),
+                                   atol=GRAD_ATOL[dtype], err_msg=f"d{name}")
+
+
+def test_affine_silu_conv1d_function_gradcheck():
+    r = np.random.default_rng(16)
+    inputs = [t.requires_grad_() for t in _k2_inputs(r, torch.float64, b=2,
+                                                     t=5, c=6, co=3)]
+    with kernels_on_cpu():
+        assert torch.autograd.gradcheck(affine_silu_conv1d, inputs, eps=1e-6,
+                                        atol=1e-6)

@@ -171,8 +171,9 @@ def test_svc_batches_buckets_and_trims():
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the port (its CLI, feature models, serving, the host DSP
-    and the native DIO) and `chip_smoke` adds no jax/flax module and no
+    """Importing the port (its CLIs, feature models, serving, training, the
+    data pipeline, the host DSP and the native DIO) and `chip_smoke` adds
+    no jax/flax module and no
     module of `ns2vc_tpu`, and builds no kernel; a host F0 call after that
     still leaves JAX and `ns2vc_tpu` out of sys.modules."""
     code = """
@@ -185,6 +186,8 @@ import ns2vc_tpu_torch.infer.cli, ns2vc_tpu_torch.infer.serve
 import ns2vc_tpu_torch.features.contentvec, ns2vc_tpu_torch.features.crepe
 import ns2vc_tpu_torch.ops.flash_attention, ns2vc_tpu_torch.ops.fused_resnet
 import ns2vc_tpu_torch.native, ns2vc_tpu_torch.utils.convert_reference
+import ns2vc_tpu_torch.data.dataset, ns2vc_tpu_torch.data.preprocess
+import ns2vc_tpu_torch.train.trainer, ns2vc_tpu_torch.train.cli
 import chip_smoke
 from ns2vc_tpu_torch.audio import host
 from ns2vc_tpu_torch.ops import _build
