@@ -39,6 +39,26 @@ these numbers, and each route's entry in the kernels line gains the
 training step's launches, backward calls, forward and backward device
 times and bounds.
 
+F0 predictor (after training): `Config()` with the F0 predictor (seed-0
+weights, synthesized contours with unvoiced stretches) served through
+`Svc.infer_batch` at B=16 x 400 with auto_predict_f0 off and on, beside the
+f0-off model's call (K1 launches +10 each: the port runs the predictor on
+every call), and at B=1; the CLI with -a on its checkpoint; the PreModel
+(content with the F0 embedding, the prediction) and generate_mel card vs
+CPU in f32; the prediction in bf16 against f32; K1 at the predictor's
+cross-attention geometry; training through the `Trainer` at 32 x 272 (+10
+K1 launches and backward calls per step, step time and peak memory beside
+the f0-off step, loss_f0 on a fixed batch, card vs CPU gradients of the
+predictor, a checkpoint served). Model modules: the encoder op registry's
+15 layers at C=256, T=400, B=4 card (f32, bf16) vs CPU with each call's
+attention route, K1 at D=128 in bf16 (the CUDA-core kernel), a
+classifier-free-guidance UniPC sample through `model_wrapper`, a
+LoRA-merged model against a hand merge, and streaming attention and
+`ConvFFN.step` against their full-sequence versions. JSON lines
+{"f0_predictor": ...} and {"model_modules": ...} hold their numbers, and
+each K1 route's entry in the kernels line gains the F0 serving call's
+launches and its device time at the predictor's (and D = 128's) geometry.
+
 The main path is the wav-in -> wav-out CLI run (unipc, bf16): its launch
 counts are read around it, and every K1 / K2 call it makes is recorded by
 geometry (shape, strides, key bias, dtype), and each geometry is then held
@@ -1273,6 +1293,9 @@ LOSS_STEPS = 30               # steps on one fixed batch, fixed t and noise
 # max(1e-3, max|g_cpu|), the bound the CPU tests hold the port's gradients
 # to against jax.grad
 GRAD_RTOL = 1e-4
+# the F0 prenet's LayerNorm over one channel normalises x - mean(x) = 0:
+# the gradient of its scale is zero in exact arithmetic
+PRENET_LN_SCALE = "pre_model.f0_predictor.f0_prenet.LayerNorm_0.weight"
 GRAD_COSINE = 0.99            # bf16 kernels vs f32 plain, per tensor
 BF16_COSINE_GAP = 5e-3        # the kernels' allowance below plain bf16
 K1_GRAD_BF16 = 3e-2           # bf16 backward vs plain autograd, of
@@ -1517,14 +1540,52 @@ def check_train_geometries(calls, dev):
     return out
 
 
+@contextlib.contextmanager
+def relu_gates(gates: list, replay: list | None = None):
+    """`torch.relu` that records each call's gate (h > 0) into `gates`, or,
+    with `replay`, takes the recorded gate of the same call in place of its
+    own (h * gate: the gradient flows where the recording run's did) and
+    appends to `replay` how many of its own gates differ. A pre-activation
+    within rounding of 0 opens the gate on one device and closes it on
+    another; under loss_f0, an L1 that gives every frame an equal share,
+    each such element moves a parameter's gradient by about one frame's
+    share (~1/(B*T) of its max), so two f32 runs of the same step agree to
+    ~1e-6 on one gate pattern and to ~1e-3 across two
+    (scripts/torch_f0_grad_precision.py)."""
+    from unittest import mock
+
+    import torch
+
+    relu = torch.relu
+
+    def recording(h):
+        gates.append((h > 0).cpu())
+        return relu(h)
+
+    def replaying(h):
+        if len(replay) == len(gates) or gates[len(replay)].shape != h.shape:
+            fail(f"relu gates: call {len(replay)} takes {tuple(h.shape)}, "
+                 f"the recording made {len(gates)} calls")
+        gate = gates[len(replay)].to(h.device)
+        replay.append(int(((h > 0) != gate).sum()))
+        return h * gate.to(h.dtype)
+    with mock.patch.object(torch, "relu",
+                           recording if replay is None else replaying):
+        yield
+    if replay is not None and len(replay) != len(gates):
+        fail(f"relu gates: the replay made {len(replay)} calls, the "
+             f"recording {len(gates)}")
+
+
 def check_grads(cfg, sd, batch, dev):
     """One step's gradients at full width, B=2 x 272, p_dropout 0, remat
     dots: f32 on the card (the f32 kernels, TF32 off) against f32 on the
-    CPU (the plain versions), each tensor within GRAD_RTOL of max(1e-3,
-    max|g|); then the bf16 step on the card (tensor-core kernels) against
-    the CPU's f32 gradients, cosine >= GRAD_COSINE per tensor, leaving out
-    the tensors whose f32 gradient the card does not reproduce to cosine
-    0.999 (zero in exact arithmetic: their values are rounding noise)."""
+    CPU (the plain versions, on the card run's ReLU gates: `relu_gates`),
+    each tensor within GRAD_RTOL of max(1e-3, max|g|); then the bf16 step
+    on the card (tensor-core kernels) against the CPU's f32 gradients,
+    cosine >= GRAD_COSINE per tensor, leaving out the tensors whose f32
+    gradient the card does not reproduce to cosine 0.999 (zero in exact
+    arithmetic: their values are rounding noise)."""
     import dataclasses
     from unittest import mock
 
@@ -1562,9 +1623,12 @@ def check_grads(cfg, sd, batch, dev):
         return loss.item(), {n: p.grad.detach().cpu().double()
                              for n, p in model.named_parameters()}
 
+    gates, replay = [], []
     with no_tf32():
-        (l_card, g_card), ms = wall_ms(lambda: grads(dev))
-        l_cpu, g_cpu = grads(torch.device("cpu"))
+        with relu_gates(gates):
+            (l_card, g_card), ms = wall_ms(lambda: grads(dev))
+        with relu_gates(gates, replay):
+            l_cpu, g_cpu = grads(torch.device("cpu"))
     worst, worst_name = 0.0, None
     for name, want in g_cpu.items():
         err = (g_card[name] - want).abs().max().item() / max(
@@ -1575,9 +1639,11 @@ def check_grads(cfg, sd, batch, dev):
         if err >= worst:
             worst, worst_name = err, name
     say(f"training gradients at full width, f32 (TF32 off), B=2 x "
-        f"{TRAIN_T}, card (f32 kernels) vs CPU (plain): loss {l_card:.6f} vs "
-        f"{l_cpu:.6f}; {len(g_cpu)} tensors, worst {worst_name} {worst:.3e} "
-        f"of max(1e-3, max|g|) (tol {GRAD_RTOL:g}); card step {ms:.0f} ms")
+        f"{TRAIN_T}, card (f32 kernels) vs CPU (plain) on the card's ReLU "
+        f"gates: loss {l_card:.6f} vs {l_cpu:.6f}; {len(g_cpu)} tensors, "
+        f"worst {worst_name} {worst:.3e} of max(1e-3, max|g|) (tol "
+        f"{GRAD_RTOL:g}); gates the CPU would set otherwise: {sum(replay)} "
+        f"of {sum(g.numel() for g in gates)}; card step {ms:.0f} ms")
 
     def cosine(a, b):
         return (a.flatten() @ b.flatten()).item() / max(
@@ -1784,7 +1850,7 @@ def check_training(vsd, cv_sd, dev, tmp):
     return trainer, batches, res
 
 
-def training_profile(trainer, batch, step_ms):
+def training_profile(trainer, batch, step_ms, title=""):
     """One training step under torch.profiler (host and device activity):
     device time by kernel, grouped, with K1's and K2's torch backward and
     the GroupNorm statistics attributed through record_function ranges;
@@ -1860,8 +1926,8 @@ def training_profile(trainer, batch, step_ms):
         label = next((lab for lab, keys in groups
                       if any(k in name for k in keys)), "other")
         grouped[label] += ms
-    say(f"profile training step (B={TRAIN_B} x {TRAIN_T}, bf16, remat dots):"
-        f" {total:.1f} ms of kernel time in a step of {step_ms:.1f} ms "
+    say(f"profile training step {title + ' ' if title else ''}(B={TRAIN_B} x "
+        f"{TRAIN_T}, bf16, remat dots): {total:.1f} ms of kernel time in a step of {step_ms:.1f} ms "
         f"unprofiled: device busy {100 * total / step_ms:.0f} % [{CARD}]")
     for label, ms in sorted(grouped.items(), key=lambda kv: -kv[1]):
         say(f"  {ms:8.2f} ms {100 * ms / total:5.1f} %  {label}")
@@ -1880,6 +1946,770 @@ def training_profile(trainer, batch, step_ms):
             "kernels_launched": launches,
             "groups": dict(grouped),
             "ranges": {k: v[0] for k, v in annotated.items()}}
+
+
+# -- slice 5: the F0-predictor configuration and the other model modules ------
+
+F0_MEL_STEPS = 4              # card vs CPU sampler steps, f32
+F0_CLI_STEPS = 10             # the -a CLI run
+ENC_ATOL = 2e-5               # the JAX suite's encoder bound, f32 card vs CPU
+# bf16 vs f32 of the same predictor call: |p16 - p32| / |p32| over every
+# frame (relative RMS). bf16 keeps 8 bits; its inputs (the bf16 encoders'
+# content) already differ by ~1 %, and the 30 conv and 10 attention
+# residual layers each add a relative rounding of ~2^-9 to a LayerNorm'd
+# stream
+PRED_BF16_RTOL = 5e-2
+MODULE_C, MODULE_T, MODULE_B = 256, 400, 4
+MODULE_F32_ATOL = 1e-4        # one layer, f32 (TF32 off), card vs CPU
+MODULE_BF16_RTOL = 5e-2       # one layer in bf16 vs f32 CPU, of max(1, |y|)
+LORA_ATOL = 1e-5              # one denoise through LoRA-merged weights
+STREAM_FRAMES = 32
+
+
+def f0_config():
+    import dataclasses
+
+    from ns2vc_tpu_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(cfg, f0_predictor=dataclasses.replace(
+        cfg.f0_predictor, enabled=True))
+
+
+def contours(n: int, t: int, seed: int):
+    """n F0 contours (Hz) of t frames, a vibrato around 110-230 Hz with two
+    unvoiced stretches each, and their voicing."""
+    r = np.random.default_rng(seed)
+    f0s, uvs = [], []
+    k = np.arange(t)
+    for _ in range(n):
+        f0 = 110 + 120 * r.random() + 25 * np.sin(2 * np.pi * k / 80
+                                                   + r.random() * 6)
+        for _ in range(2):
+            a = int(r.integers(0, t - 40))
+            f0[a:a + int(r.integers(10, 40))] = 0.0
+        f0s.append(f0.astype(np.float32))
+        uvs.append((f0 > 0).astype(np.float32))
+    return f0s, uvs
+
+
+def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
+    """Svc.infer_batch (B=16, pcm16) with the predictor, auto_predict_f0
+    off and on, beside the f0-off model's call, in turns (off, auto off,
+    auto on, auto on, auto off, off: the host's drift falls on both
+    sides); K1 launches +10 each (the port runs the predictor on every
+    call), counted in each of the first calls; then B=1, in turns."""
+    import torch
+
+    def run(svc, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = svc.infer_batch(clips, refer, sampling_timesteps=STEPS,
+                               order=2, output="pcm16", **kw)
+        torch.cuda.synchronize()
+        return outs, (time.perf_counter() - t0) * 1e3
+    n_samples = clips[0].shape[0] * svc_f.hop_size
+    run(svc_f, f0s=f0s, uvs=uvs)                      # warm-up
+    calls = {"off": (svc_off, {}),
+             "auto0": (svc_f, dict(f0s=f0s, uvs=uvs, auto_predict_f0=False)),
+             "auto1": (svc_f, dict(f0s=f0s, uvs=uvs, auto_predict_f0=True))}
+    times, counts = defaultdict(list), {}
+    for name in ("off", "auto0", "auto1", "auto1", "auto0", "off"):
+        reset_launches()
+        outs, ms = run(calls[name][0], **calls[name][1])
+        times[name].append(ms)
+        counts.setdefault(name, route_counts())
+        if len(outs) != B or any(o.shape != (n_samples,) or o.dtype !=
+                                 np.int16 for o in outs):
+            fail(f"f0 serving {name}: wrong count, shape or dtype")
+    off = counts["off"]
+    want = dict(off, flash_attention_tc=off["flash_attention_tc"] + 10)
+    for name in ("auto0", "auto1"):
+        if counts[name] != want:
+            fail(f"f0 serving {name}: launches {counts[name]}, expected the "
+                 f"f0-off call's {off} + 10 K1")
+    res = {f"{k}_ms": v for k, v in times.items()}
+    res["launches"] = counts["auto1"]
+    say(f"f0 predictor serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} "
+        f"bf16 pcm16, ms in turns: f0-off model {times['off']}, "
+        f"auto_predict_f0 off {times['auto0']}, on {times['auto1']}; "
+        f"launches {counts['auto1']} (f0 off {off}) [{CARD}]")
+    single = defaultdict(list)
+    for name, svc, kw in (("off", svc_off, {}),
+                          ("f0", svc_f, dict(f0=f0s[0], uv=uvs[0],
+                                             auto_predict_f0=True)),
+                          ("f0", svc_f, dict(f0=f0s[0], uv=uvs[0],
+                                             auto_predict_f0=True)),
+                          ("off", svc_off, {})):
+        w, ms = wall_ms(lambda: svc.infer_from_features(
+            clips[0], refer, sampling_timesteps=STEPS, order=2, **kw))
+        if w.shape != (n_samples,) or not np.isfinite(w).all():
+            fail(f"f0 single request ({name}): {w.shape}, not finite")
+        single[name].append(ms)
+    res["single_ms"], res["single_off_ms"] = single["f0"], single["off"]
+    say(f"f0 predictor single request B=1 steps={STEPS} bf16, ms in turns: "
+        f"{single['f0']} (f0-off model {single['off']}) [{CARD}]")
+    return res
+
+
+def f0_card_vs_cpu(cfg_f, sd_f, dev):
+    """f32, TF32 off, B=2 x 64, Tp 48: the PreModel's content (with the F0
+    embedding) at ENC_ATOL and its prediction lf0_pred at ENC_ATOL of
+    max(1, max|lf0_pred|) (its values reach ~2, 40 layers deep), and
+    generate_mel (F0_MEL_STEPS UniPC steps from one x_T) at MODEL_ATOL, card
+    (kernels) vs CPU (plain), both with the given contour; the coarse bins
+    of the predicted contour; and the prediction on the card with K1
+    replaced by its plain version (which part of the error is K1's)."""
+    from unittest import mock
+
+    import torch
+
+    import ns2vc_tpu_torch.ops.attention as attention
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2, generate_mel
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_plain
+    from ns2vc_tpu_torch.ops.masking import sequence_mask
+    from ns2vc_tpu_torch.ops.sequence import f0_to_coarse
+
+    r = np.random.default_rng(SEED + 41)
+    b, t, tp = 2, 64, 48
+    f0s, uvs = contours(b, t, SEED + 42)
+    inputs = {"c": 0.1 * r.standard_normal((b, t, 256)),
+              "refer": r.standard_normal((b, tp, 100)),
+              "x_T": r.standard_normal((b, t, 100)),
+              "f0": np.stack(f0s), "uv": np.stack(uvs)}
+    lengths, refer_lengths = torch.tensor([64, 45]), torch.tensor([48, 30])
+    outs = {}
+    for where in ("cuda", "cpu"):
+        device = dev if where == "cuda" else torch.device("cpu")
+        model = NaturalSpeech2(cfg_f)
+        model.load_state_dict(sd_f)
+        model.to(device).eval()
+        c, refer, x_T, f0, uv = (torch.tensor(inputs[k], dtype=torch.float32,
+                                              device=device)
+                                 for k in ("c", "refer", "x_T", "f0", "uv"))
+        ln, rl = lengths.to(device), refer_lengths.to(device)
+        with torch.no_grad():
+            content, _, _, pred = model.pre_model(
+                c, refer, sequence_mask(ln, t), sequence_mask(rl, tp),
+                f0=f0, uv=uv, auto_predict_f0=False)
+        mel = generate_mel(model, c, refer, ln, rl, x_T=x_T,
+                           steps=F0_MEL_STEPS, f0=f0, uv=uv,
+                           auto_predict_f0=False)
+        outs[where] = {"content": content.cpu(), "lf0_pred": pred.cpu(),
+                       "mel": mel.cpu()}
+        if where == "cuda":
+            with mock.patch.object(attention, "flash_attention",
+                                   flash_attention_plain), torch.no_grad():
+                pred_plain = model.pre_model(
+                    c, refer, sequence_mask(ln, t), sequence_mask(rl, tp),
+                    f0=f0, uv=uv, auto_predict_f0=False)[3].cpu()
+    errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
+            for k in outs["cpu"]}
+    errs["lf0_pred_plain_k1"] = (pred_plain
+                                 - outs["cpu"]["lf0_pred"]).abs().max().item()
+    pred_scale = max(1.0, outs["cpu"]["lf0_pred"].abs().max().item())
+    bins = (f0_to_coarse(700.0 * (10.0 ** (outs[w]["lf0_pred"][..., 0]
+                                           * 500.0 / 2595.0) - 1.0))
+            for w in ("cuda", "cpu"))
+    same_bins = (next(bins) == next(bins)).float().mean().item()
+    say(f"f0 predictor f32 card vs CPU (B=2 T=64, TF32 off): content "
+        f"{errs['content']:.3e} (tol {ENC_ATOL:g}), lf0_pred "
+        f"{errs['lf0_pred']:.3e} (tol {ENC_ATOL:g} x max(1, max|lf0_pred|)="
+        f"{pred_scale:.3g}; with K1's plain version on the card "
+        f"{errs['lf0_pred_plain_k1']:.3e}), mel after {F0_MEL_STEPS} UniPC "
+        f"steps {errs['mel']:.3e} (tol {MODEL_ATOL:g}); predicted coarse F0 "
+        f"bins equal on {100 * same_bins:.1f} % of frames")
+    for key, tol in (("content", ENC_ATOL),
+                     ("lf0_pred", ENC_ATOL * pred_scale),
+                     ("mel", MODEL_ATOL)):
+        if not all(torch.isfinite(outs[w][key]).all() for w in outs) or \
+                not errs[key] <= tol:
+            fail(f"f0 predictor card vs CPU: {key} error {errs[key]} > {tol}")
+    return errs
+
+
+def f0_bf16_vs_f32(cfg_f, sd_f, dev):
+    """The predictor's output at the serving shapes (B=16 x 448 over a
+    320-frame prompt) in bf16 against the same call in f32 on the card."""
+    import torch
+
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+    from ns2vc_tpu_torch.ops.masking import sequence_mask
+
+    r = np.random.default_rng(SEED + 43)
+    f0s, uvs = contours(B, T_PAD, SEED + 44)
+    c = torch.tensor(0.1 * r.standard_normal((B, T_PAD, 256)),
+                     dtype=torch.float32, device=dev)
+    refer = torch.tensor(r.standard_normal((B, TP_PAD, 100)),
+                         dtype=torch.float32, device=dev)
+    f0 = torch.tensor(np.stack(f0s), device=dev)
+    uv = torch.tensor(np.stack(uvs), device=dev)
+    cm = sequence_mask(torch.full((B,), T_CLIP, device=dev), T_PAD)
+    rm = sequence_mask(torch.full((B,), TP_REFER, device=dev), TP_PAD)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = NaturalSpeech2(cfg_f)
+        model.load_state_dict(sd_f)
+        model.to(dev, dtype).eval()
+        with no_tf32(), torch.no_grad():
+            content, _, _, pred = model.pre_model(
+                c.to(dtype), refer.to(dtype), cm, rm, f0=f0, uv=uv,
+                auto_predict_f0=True)
+        outs[dtype] = (content.float(), pred.float())
+        del model
+    (c32, p32), (c16, p16) = outs[torch.float32], outs[torch.bfloat16]
+    rel = ((p16 - p32).norm() / p32.norm()).item()
+    err = (p16 - p32).abs().max().item()
+    scale = p32.abs().max().item()
+    say(f"f0 predictor bf16 vs f32 on the card (B={B} T={T_PAD} Tp={TP_PAD}):"
+        f" lf0_pred relative RMS error {rel:.3e} (tol {PRED_BF16_RTOL:g}), "
+        f"max_abs_err {err:.3e} at max|f32| {scale:.3f}; content max_abs_err "
+        f"{(c16 - c32).abs().max().item():.3e}")
+    if not rel <= PRED_BF16_RTOL:
+        fail(f"f0 predictor bf16 vs f32: relative RMS {rel} > "
+             f"{PRED_BF16_RTOL}")
+    return {"pred_bf16_rel_rms": rel, "pred_bf16_max_abs_err": err,
+            "pred_scale": scale}
+
+
+def f0_k1_geometry(dev):
+    """K1 at the predictor's cross-attention: q of B=16 x 448 frames, k/v
+    of the 320-frame prompt bucket with 272 valid keys, 8 heads of 32, each
+    a head view of its (B, T, 256) projection; bf16 and f32."""
+    import torch
+
+    from ns2vc_tpu_torch.ops.attention import split_heads
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 45)
+    bias = torch.zeros(B, TP_PAD, device=dev)
+    bias[:, TP_REFER:] = -1e4
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (split_heads(torch.randn(B, n, 256, generator=g,
+                                           device=dev).to(dtype), 8)
+                   for n in (T_PAD, TP_PAD, TP_PAD))
+        r = k1_case(q, k, v, bias)
+        say(f"K1 f0_predictor_cross {str(dtype)[6:]:8s} B={B} H=8 Tq={T_PAD} "
+            f"Tk={TP_PAD} D=32 {r['route']} max_abs_err={r['err']:.3e} (tol "
+            f"{r['tol']:g}) kernel_ms={r['ms']:.4f} plain_ms={r['plain']:.4f} "
+            f"sdpa_ms={r['lib']:.4f} bound_ms={r['bound']:.5f} "
+            f"({r['bound_by']}) [{CARD}]")
+        if not r["err"] <= r["tol"]:
+            fail(f"K1 f0 predictor geometry {dtype}: {r['err']} > {r['tol']}")
+        out[r["route"]] = r
+    return out
+
+
+def _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd):
+    """The CLI with -a on a checkpoint that has the predictor (-c its
+    config): a finite waveform of the source's length; the launches."""
+    from unittest import mock
+
+    import ns2vc_tpu_torch.infer.svc as svc_mod
+    from ns2vc_tpu_torch.audio.host import read_wav, write_wav
+    from ns2vc_tpu_torch.config import save_config
+    from ns2vc_tpu_torch.features.contentvec import ContentVec
+    from ns2vc_tpu_torch.infer.cli import main as cli_main
+
+    sr = 44100
+    src = np.concatenate([tone(int(5.0 * sr), sr, SEED + 46, 190.0),
+                          np.zeros(sr, np.float32),
+                          tone(int(3.0 * sr), sr, SEED + 47, 230.0)])
+    want_len = -(-len(src) * cfg_f.data.sampling_rate // sr)
+    calls = defaultdict(int)
+
+    def counted(name, fn):
+        def f(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return f
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_checkpoints(tmp, sd_f, vsd, cv_sd, crepe_sd)
+        save_config(cfg_f, os.path.join(tmp, "config.json"))
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(raw)
+        write_wav(os.path.join(raw, "src.wav"), src, sr)
+        write_wav(os.path.join(raw, "ref.wav"),
+                  tone(3 * sr, sr, SEED + 48, 150.0), sr)
+        argv = ["-m", paths["model"], "-c", os.path.join(tmp, "config.json"),
+                "-n", "src.wav", "-r", "ref.wav", "-a",
+                "--contentvec_ckpt", paths["cv"], "--vocos_ckpt",
+                paths["vocos"], "--raw_dir", raw, "--out_dir",
+                os.path.join(tmp, "out"), "--compute_dtype", "bfloat16",
+                "--sampling_timesteps", str(F0_CLI_STEPS)]
+        reset_launches()
+        with mock.patch.object(ContentVec, "forward", counted(
+                "contentvec", ContentVec.forward)), \
+                mock.patch.object(svc_mod.Svc, "_run", counted(
+                    "batches", svc_mod.Svc._run)):
+            _, ms = wall_ms(lambda: cli_main(argv))
+        counts = route_counts()
+        wav, out_sr = read_wav(os.path.join(tmp, "out", "src_auto_ref.wav"))
+    want = {"flash_attention": 12 * calls["contentvec"],
+            "flash_attention_tc": calls["batches"] * (14 + 10
+                                                      + 32 * F0_CLI_STEPS),
+            "flash_attention_tc_narrow": 2 * calls["batches"],
+            "affine_silu_conv1d": 0,
+            "affine_silu_conv1d_tc": calls["batches"] * 45 * F0_CLI_STEPS}
+    if out_sr != cfg_f.data.sampling_rate or not np.isfinite(wav).all() or \
+            abs(len(wav) - want_len) > cfg_f.data.hop_length or counts != want:
+        fail(f"f0 CLI -a: {len(wav)} samples at {out_sr} Hz (expected "
+             f"{want_len}), launches {counts} (expected {want})")
+    say(f"wav in -> wav out, CLI -a (F0 predictor), unipc {F0_CLI_STEPS} "
+        f"steps bf16: 9.0 s source -> {len(wav)} samples at 24 kHz, finite; "
+        f"{ms:.0f} ms; {dict(calls)}; launches {counts} [{CARD}]")
+    return ms
+
+
+def check_f0_grads(cfg_f, sd_f, batch, dev):
+    """One step's f32 gradients at full width, B=2 x 272, dropout off,
+    fixed t, noise and F0 scale: card (f32 kernels, TF32 off) vs CPU
+    (plain) for the predictor's and the F0 embedding's parameters, each
+    within GRAD_RTOL of max(1e-3, max|g_cpu|). The CPU run takes the card
+    run's ReLU gates (`relu_gates`), so both differentiate the same
+    piecewise-linear function; the pre-activations whose gate differs on
+    the CPU are counted and reported. The F0 prenet's LayerNorm scale is
+    left out and reported: its gradient is zero in exact arithmetic (the
+    normalised one-channel input is 0), and the CPU's f32 LayerNorm leaves
+    up to ~4e-6 of noise there (scripts/torch_f0_grad_precision.py)."""
+    import dataclasses
+
+    import torch
+
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+
+    cfg0 = dataclasses.replace(
+        cfg_f, phoneme_encoder=dataclasses.replace(cfg_f.phoneme_encoder,
+                                                   p_dropout=0.0),
+        prompt_encoder=dataclasses.replace(cfg_f.prompt_encoder,
+                                           p_dropout=0.0),
+        f0_predictor=dataclasses.replace(cfg_f.f0_predictor, p_dropout=0.0))
+    gen = torch.Generator().manual_seed(SEED + 49)
+    t = torch.randint(0, 1000, (2,), generator=gen)
+    noise = torch.randn(2, TRAIN_T, 100, generator=gen)
+    factor = 0.8 + 0.4 * torch.rand(2, generator=gen)
+    small = {k: v[:2].float() if v.is_floating_point() else v[:2]
+             for k, v in batch.items()}
+
+    def grads(device):
+        model = NaturalSpeech2(cfg0, remat=True, remat_policy="dots")
+        model.load_state_dict(sd_f)
+        model.to(device).train()
+        b = {k: v.to(device) for k, v in small.items()}
+        loss, aux = model(b, t=t.to(device), noise=noise.to(device),
+                          f0_factor=factor.to(device))
+        loss.backward()
+        return aux["loss_f0"].item(), {
+            n: p.grad.detach().cpu().double()
+            for n, p in model.named_parameters()
+            if n.startswith(("pre_model.f0_predictor.", "pre_model.f0_emb."))}
+    gates, replay = [], []
+    with no_tf32():
+        with relu_gates(gates):
+            (lf_card, g_card), ms = wall_ms(lambda: grads(dev))
+        with relu_gates(gates, replay):
+            lf_cpu, g_cpu = grads(torch.device("cpu"))
+    noise = (g_card.pop(PRENET_LN_SCALE).abs().max().item(),
+             g_cpu.pop(PRENET_LN_SCALE).abs().max().item())
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        err = (g_card[name] - want).abs().max().item() / max(
+            1e-3, want.abs().max().item())
+        if not np.isfinite(err) or err > GRAD_RTOL:
+            fail(f"f0 card vs CPU gradient {name}: {err:.3e} of max(1e-3, "
+                 f"max|g|) > {GRAD_RTOL}")
+        if err >= worst:
+            worst, worst_name = err, name
+    say(f"f0 predictor gradients at full width, f32 (TF32 off), B=2 x "
+        f"{TRAIN_T}, card vs CPU on the card's ReLU gates: loss_f0 "
+        f"{lf_card:.6f} vs {lf_cpu:.6f}; {len(g_cpu)} tensors of the "
+        f"predictor and f0_emb, worst {worst_name} {worst:.3e} of max(1e-3, "
+        f"max|g|) (tol {GRAD_RTOL:g}); gates the CPU's own pre-activations "
+        f"would set otherwise: {sum(replay)} of "
+        f"{sum(g.numel() for g in gates)} in {len(gates)} relu calls; left "
+        f"out, zero in exact arithmetic: f0_prenet.LayerNorm_0.weight, max|g| "
+        f"card {noise[0]:.2e}, CPU {noise[1]:.2e}; card step {ms:.0f} ms")
+    return worst
+
+
+def f0_training(off, trainer_off, batches_off, vsd, dev, tmp):
+    """Config() with the predictor through the Trainer at 32 x 272, bf16,
+    remat dots: card vs CPU gradients at the initial weights, launches and
+    backward calls per step (+10 K1 each against
+    the f0-off step's counts `off`), step time and peak memory in turns
+    with the f0-off trainer (off, f0, off: both trainers stay resident, so
+    each peak includes the other's parameters and optimizer state),
+    loss_f0 over LOSS_STEPS steps on one fixed batch, and a checkpoint
+    served by Svc. Returns the results, the
+    trainer and its batches (for the profile at the end)."""
+    import dataclasses
+
+    import torch
+
+    from ns2vc_tpu_torch.infer.svc import Svc
+    from ns2vc_tpu_torch.train.trainer import Trainer
+
+    # a serial loader: the same batches in every run (spawned workers hand
+    # them out in the order they finish); the steps here are timed on
+    # device-resident batches
+    cfg = dataclasses.replace(
+        trainer_off.cfg,
+        train=dataclasses.replace(trainer_off.cfg.train, num_workers=0),
+        f0_predictor=dataclasses.replace(trainer_off.cfg.f0_predictor,
+                                         enabled=True))
+    res = {}
+    trainer = Trainer(cfg, logs_folder=os.path.join(tmp, "run_f0"),
+                      vocos_params=vsd, device=dev)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    loader = trainer.loader()
+    batches = [trainer.device_batch(next(loader)) for _ in range(4)]
+    b0 = batches[0]
+    if "f0" not in b0 or tuple(b0["f0"].shape) != (TRAIN_B, TRAIN_T):
+        fail(f"f0 training batch: {sorted(b0)}")
+    res["grad_f32_worst"] = check_f0_grads(
+        cfg, {k: v.detach().cpu() for k, v in
+              trainer.model.state_dict().items()}, b0, dev)
+    trainer.train_step(b0)
+    torch.cuda.synchronize()
+    reset_launches()
+    trainer.train_step(batches[1])
+    torch.cuda.synchronize()
+    launches, bwd = route_counts(), backward_calls()
+    want = dict(off["launches"], flash_attention_tc=off["launches"][
+        "flash_attention_tc"] + 10)
+    want_bwd = dict(off["backward"], flash_attention_tc=off["backward"][
+        "flash_attention_tc"] + 10)
+    if launches != want or bwd != want_bwd:
+        fail(f"f0 training step launches {launches} (expected {want}), "
+             f"backward calls {bwd} (expected {want_bwd})")
+    res["launches"], res["backward"] = launches, bwd
+    turns = []
+    for tr, bs in ((trainer_off, batches_off), (trainer, batches),
+                   (trainer_off, batches_off)):
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        ms, peak, m_ = median_step_ms(tr, bs, TRAIN_WARMUP, TRAIN_TIMED)
+        turns.append((ms, peak, resident))
+        if tr is trainer:
+            m = m_
+    (off1, _, _), (ms, peak, resident), (off2, off_peak, off_res) = turns
+    res.update(step_ms=ms, peak_gb=peak, resident_gb=resident,
+               off_step_ms=[off1, off2], off_peak_gb=off_peak,
+               off_resident_gb=off_res)
+    say(f"f0 predictor training: Config() + predictor, {n_params / 1e6:.1f} "
+        f"M parameters, {TRAIN_B} x {TRAIN_T} bf16 remat dots, in turns with "
+        f"the f0-off trainer: median {ms:.2f} ms (f0 off {off1:.2f} before, "
+        f"{off2:.2f} after), peak {peak:.2f} GB over {resident:.2f} GB "
+        f"resident (f0 off {off_peak:.2f} over {off_res:.2f}); launches "
+        f"{launches}, backward calls {bwd}; loss_diff "
+        f"{m['loss_diff'].item():.4f} loss_f0 {m['loss_f0'].item():.4f} "
+        f"[{CARD}]")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    t_fix = torch.randint(0, 1000, (TRAIN_B,), generator=gen, device=dev)
+    n_fix = torch.randn(TRAIN_B, TRAIN_T, 100, generator=gen, device=dev)
+    losses = [trainer.train_step(b0, t=t_fix, noise=n_fix)["loss_f0"].item()
+              for _ in range(LOSS_STEPS)]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    say(f"loss_f0 on one fixed batch over {LOSS_STEPS} steps: first five "
+        f"{first:.4f}, last five {last:.4f}")
+    if not (np.isfinite(losses).all() and last < first):
+        fail(f"loss_f0 did not fall on a fixed batch: {losses}")
+    res["loss_f0_first"], res["loss_f0_last"] = float(first), float(last)
+    path = trainer.save()
+    svc = Svc(path, config=cfg, vocos_params=vsd, compute_dtype="bfloat16",
+              contentvec_ckpt="", device=dev)
+    r = np.random.default_rng(SEED + 51)
+    f0s, uvs = contours(1, T_CLIP, SEED + 52)
+    wav = svc.infer_from_features(
+        (0.1 * r.standard_normal((T_CLIP, 256))).astype(np.float32),
+        r.standard_normal((TP_REFER, 100)).astype(np.float32),
+        sampling_timesteps=CLI_STEPS, f0=f0s[0], uv=uvs[0],
+        auto_predict_f0=True)
+    if wav.shape != (T_CLIP * cfg.data.hop_length,) or \
+            not np.isfinite(wav).all():
+        fail(f"serving the f0 checkpoint: {wav.shape}")
+    say(f"f0 checkpoint {os.path.basename(path)}: Svc served one {T_CLIP}-"
+        f"frame request with auto_predict_f0 from its EMA parameters, finite")
+    return res, trainer, batches
+
+
+def check_f0_predictor(sd_off_svc, clips, refer, vsd, cv_sd, crepe_sd,
+                       train_off, trainer_off, batches_off, dev, tmp):
+    """The F0-predictor configuration at full width (seed-0 weights):
+    serving, card vs CPU, bf16 vs f32, K1 at its geometry, the CLI with -a,
+    and training. Returns the results and the f0 trainer with its
+    batches."""
+    import torch
+
+    from ns2vc_tpu_torch.convert import init_params
+    from ns2vc_tpu_torch.infer.svc import Svc
+
+    cfg_f = f0_config()
+    sd_f = init_params(cfg_f, torch.Generator().manual_seed(SEED))
+    n_pred = sum(v.numel() for k, v in sd_f.items()
+                 if k.startswith(("pre_model.f0_predictor.",
+                                  "pre_model.f0_emb.")))
+    say(f"F0-predictor configuration: {n_pred / 1e6:.2f} M parameters in the "
+        f"predictor and F0 embedding, "
+        f"{sum(v.numel() for v in sd_f.values()) / 1e6:.1f} M in all")
+    svc_f = Svc(config=cfg_f, params=sd_f, vocos_params=vsd,
+                compute_dtype="bfloat16", device=dev)
+    f0s, uvs = contours(B, T_CLIP, SEED + 40)
+    res = {"serving": f0_serving(svc_f, sd_off_svc, clips, refer, f0s, uvs)}
+    del svc_f
+    torch.cuda.empty_cache()
+    res["cli_ms"] = _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd)
+    with no_tf32():
+        res["card_vs_cpu"] = f0_card_vs_cpu(cfg_f, sd_f, dev)
+    res.update(f0_bf16_vs_f32(cfg_f, sd_f, dev))
+    with no_tf32():
+        res["k1"] = f0_k1_geometry(dev)
+    res["training"], trainer, batches = f0_training(
+        train_off, trainer_off, batches_off, vsd, dev, tmp)
+    return res, trainer, batches
+
+
+def module_routes() -> dict:
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
+
+    return dict(route_counts(), plain=flash_attention.route_launches["plain"])
+
+
+def check_op_registry(dev):
+    """Ids 1-15 (13 also with its Gaussian bias) at C=256, T=400, B=4 with
+    padded items: card f32 (TF32 off) and bf16 against the CPU in f32, the
+    route of each call counted; K1 at ids 14/15's D = 128 timed."""
+    import torch
+
+    from ns2vc_tpu_torch.convert import init_module_
+    from ns2vc_tpu_torch.models.op_registry import OPERATIONS_ENCODER
+    from ns2vc_tpu_torch.ops.attention import split_heads
+
+    r = np.random.default_rng(SEED + 60)
+    x = torch.tensor(r.standard_normal((MODULE_B, MODULE_T, MODULE_C)),
+                     dtype=torch.float32)
+    lengths = torch.tensor([MODULE_T - (i % 2) * MODULE_T // 4
+                            for i in range(MODULE_B)])
+    mask = torch.arange(MODULE_T)[None] < lengths[:, None]
+    cases = [(i, {}) for i in range(1, 16)] + [(13, {"g_bias": True,
+                                                     "tao": 3.0})]
+    attention_ids = {8: 8, 9: 4, 10: 8, 14: 2, 15: 2}   # id -> heads
+    worst = {}
+    for op_id, kw in cases:
+        name = f"{op_id}{'+gaus' if kw else ''}"
+        layer = init_module_(OPERATIONS_ENCODER[op_id](MODULE_C, 0.0, **kw),
+                             torch.Generator().manual_seed(op_id)).eval()
+        with torch.no_grad():
+            want = layer(x, mask)
+        parts = []
+        for dtype in (torch.float32, torch.bfloat16):
+            layer.to(dev, dtype)
+            reset_launches()
+            with no_tf32(), torch.no_grad():
+                got = layer(x.to(dev, dtype), mask.to(dev)).float().cpu()
+            torch.cuda.synchronize()
+            routes = {k: v for k, v in module_routes().items() if v}
+            err = (got - want).abs().max().item()
+            tol = MODULE_F32_ATOL if dtype == torch.float32 else \
+                MODULE_BF16_RTOL * max(1.0, want.abs().max().item())
+            if op_id in attention_ids:
+                want_routes = {k1_route(dtype,
+                                        MODULE_C // attention_ids[op_id]): 1}
+            elif op_id in (11, 13):
+                want_routes = {"plain": 1}
+            else:
+                want_routes = {}
+            if not torch.isfinite(got).all() or not err <= tol or \
+                    routes != want_routes:
+                fail(f"op {name} {dtype}: error {err} (tol {tol}), routes "
+                     f"{routes} (expected {want_routes})")
+            worst[(name, str(dtype)[6:])] = err
+            parts.append(f"{str(dtype)[6:]} err {err:.2e} (tol {tol:.2g}) "
+                         f"routes {routes or 'none'}")
+        say(f"op registry id {name:7s} C={MODULE_C} T={MODULE_T} B={MODULE_B}"
+            f": " + "; ".join(parts))
+    # K1 at ids 14 / 15: two heads of 128, self-attention, key padding
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    bias = torch.where(mask, 0.0, -1e4).to(dev)
+    d128 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(MODULE_B, MODULE_T, 3 * MODULE_C, generator=g,
+                          device=dev).to(dtype)
+        q, k, v = (split_heads(t_, 2) for t_ in qkv.split(MODULE_C, dim=-1))
+        with no_tf32():
+            rr = k1_case(q, k, v, bias)
+        say(f"K1 op_registry_d128 {str(dtype)[6:]:8s} B={MODULE_B} H=2 "
+            f"Tq=Tk={MODULE_T} D=128 {rr['route']} max_abs_err="
+            f"{rr['err']:.3e} (tol {rr['tol']:g}) kernel_ms={rr['ms']:.4f} "
+            f"plain_ms={rr['plain']:.4f} sdpa_ms={rr['lib']:.4f} bound_ms="
+            f"{rr['bound']:.5f} ({rr['bound_by']}) [{CARD}]")
+        if not rr["err"] <= rr["tol"]:
+            fail(f"K1 D=128 {dtype}: {rr['err']} > {rr['tol']}")
+        d128[str(dtype)[6:]] = rr
+    return worst, d128
+
+
+def check_cfg_sample(cfg, sd, dev):
+    """A classifier-free-guidance UniPC sample, B=16 x 400, 10 steps, bf16:
+    model_wrapper over the denoiser with the encoded prompt as the
+    condition and zeros as the unconditional one, one UNet call per step on
+    the doubled batch (no precomputed K/V: the condition changes)."""
+    import torch
+
+    from ns2vc_tpu_torch.diffusion.samplers import unipc_sample
+    from ns2vc_tpu_torch.diffusion.wrappers import model_wrapper
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+    from ns2vc_tpu_torch.ops.masking import sequence_mask
+
+    steps = 10
+    model = NaturalSpeech2(cfg)
+    model.load_state_dict(sd)
+    model.to(dev, torch.bfloat16).eval()
+    r = np.random.default_rng(SEED + 62)
+    c = torch.tensor(0.1 * r.standard_normal((B, T_PAD, 256)),
+                     dtype=torch.bfloat16, device=dev)
+    refer = torch.tensor(r.standard_normal((B, TP_PAD, 100)),
+                         dtype=torch.bfloat16, device=dev)
+    cm = sequence_mask(torch.full((B,), T_CLIP, device=dev), T_PAD)
+    rm = sequence_mask(torch.full((B,), TP_REFER, device=dev), TP_PAD)
+    with torch.no_grad():
+        content, prompt = model.encode(c, refer, cm, rm)
+
+    def net(x, t, cond):
+        n = x.shape[0] // content.shape[0]
+        return model.denoise(x, content.repeat(n, 1, 1), cond,
+                             rm.repeat(n, 1), t)
+    x0_fn = model_wrapper(net, model.schedule, model_type="x_start",
+                          guidance_type="classifier-free", condition=prompt,
+                          unconditional_condition=torch.zeros_like(prompt),
+                          guidance_scale=2.0)
+    x_T = torch.randn(B, T_PAD, 100, device=dev, dtype=torch.bfloat16)
+    reset_launches()
+    with torch.no_grad():
+        mel, ms = wall_ms(lambda: unipc_sample(x0_fn, x_T, model.schedule,
+                                               steps))
+    counts = route_counts()
+    # per UNet call: 32 attentions + the pooled add_embedding (D = 4)
+    want = {"flash_attention": 0, "flash_attention_tc": steps * 33,
+            "flash_attention_tc_narrow": steps, "affine_silu_conv1d": 0,
+            "affine_silu_conv1d_tc": steps * 45}
+    if not torch.isfinite(mel.float()).all() or counts != want:
+        fail(f"CFG sample: finite {torch.isfinite(mel.float()).all()}, "
+             f"launches {counts} (expected {want})")
+    say(f"classifier-free guidance UniPC sample B={B} T={T_PAD} steps={steps}"
+        f" bf16 (scale 2, doubled batch {2 * B}): finite, {ms:.1f} ms; "
+        f"launches {counts} [{CARD}]")
+    return ms
+
+
+def check_lora_merge(cfg, sd, dev):
+    """LoRA (rank 4, nonzero up factors) merged by apply_lora against the
+    same deltas merged by hand in f64: one f32 denoise on the card."""
+    import torch
+
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+    from ns2vc_tpu_torch.models.lora import (
+        apply_lora, count_lora_params, init_lora,
+    )
+    from ns2vc_tpu_torch.ops.masking import sequence_mask
+
+    g = torch.Generator().manual_seed(SEED + 63)
+    lora = init_lora(sd, g, rank=4)
+    for ab in lora.values():
+        ab["up"] = 0.05 * torch.randn(ab["up"].shape, generator=g)
+    merged = apply_lora(sd, lora)
+    hand = {k: v.double().clone() for k, v in sd.items()}
+    for name, ab in lora.items():
+        delta = (ab["down"].double() @ ab["up"].double()).T
+        if name in hand:
+            hand[name] += delta
+            continue
+        mod, part, _ = name.rsplit(".", 2)
+        i, rows = ("to_q", "to_k", "to_v").index(part), delta.shape[0]
+        hand[f"{mod}.to_qkv.weight"][i * rows:(i + 1) * rows] += delta
+    hand = {k: v.float() for k, v in hand.items()}
+    r = np.random.default_rng(SEED + 64)
+    b, t, tp = 2, 64, 48
+    c, refer, x = (torch.tensor(r.standard_normal(s), dtype=torch.float32,
+                                device=dev)
+                   for s in ((b, t, 256), (b, tp, 100), (b, t, 100)))
+    rm = sequence_mask(torch.tensor([48, 30], device=dev), tp)
+    cm = sequence_mask(torch.tensor([64, 50], device=dev), t)
+    ts = torch.tensor([500.0, 20.0], device=dev)
+    outs = {}
+    for name, weights in (("merged", merged), ("hand", hand), ("base", sd)):
+        model = NaturalSpeech2(cfg)
+        model.load_state_dict(weights)
+        model.to(dev).eval()
+        with no_tf32(), torch.no_grad():
+            content, prompt = model.encode(c, refer, cm, rm)
+            outs[name] = model.denoise(x, content, prompt, rm, ts).cpu()
+    err = (outs["merged"] - outs["hand"]).abs().max().item()
+    moved = (outs["merged"] - outs["base"]).abs().max().item()
+    say(f"LoRA rank 4 over {len(lora)} weights ({count_lora_params(lora)} "
+        f"parameters): merged vs merged by hand, one f32 denoise on the card,"
+        f" max_abs_err {err:.3e} (tol {LORA_ATOL:g}); the adapter moves the "
+        f"output by {moved:.3e}")
+    if not err <= LORA_ATOL or not moved > 100 * LORA_ATOL:
+        fail(f"LoRA merge: {err} against the hand merge, moved {moved}")
+    return err
+
+
+def check_streaming(dev):
+    """STREAM_FRAMES frames of streaming attention (K1, the fill index as
+    a key bias) against the causal full attention (the plain route), and
+    ConvFFN.step against the LEFT-padded layer, f32 on the card."""
+    import torch
+
+    from ns2vc_tpu_torch.convert import init_module_
+    from ns2vc_tpu_torch.models.encoders import ConvFFN
+    from ns2vc_tpu_torch.ops.attention import (
+        init_kv_cache, multihead_attention, streaming_attention,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 65)
+    n, heads = STREAM_FRAMES, 8
+    q, k, v = (torch.randn(MODULE_B, n, MODULE_C, generator=g, device=dev)
+               for _ in range(3))
+    causal = torch.triu(torch.full((n, n), -1e4, device=dev), 1)[None, None]
+    cache = init_kv_cache(MODULE_B, heads, MODULE_C // heads, n, device=dev)
+    reset_launches()
+    with no_tf32(), torch.no_grad():
+        outs = []
+        for i in range(n):
+            o, cache = streaming_attention(q[:, i:i + 1], k[:, i:i + 1],
+                                           v[:, i:i + 1], cache, heads)
+            outs.append(o)
+        stream_counts = module_routes()
+        full = multihead_attention(q, k, v, heads, bias=causal)
+        att_err = (torch.cat(outs, 1) - full).abs().max().item()
+        ffn = init_module_(ConvFFN(MODULE_C, 9, padding="LEFT"),
+                           torch.Generator().manual_seed(SEED + 66))
+        ffn.to(dev).eval()
+        buf = ffn.init_buffer(MODULE_B, device=dev)
+        ys = []
+        for i in range(n):
+            y, buf = ffn.step(q[:, i:i + 1], buf)
+            ys.append(y)
+        ffn_err = (torch.cat(ys, 1) - ffn(q)).abs().max().item()
+    say(f"streaming: {n} frames of streaming_attention (B={MODULE_B}, "
+        f"{heads} heads, C={MODULE_C}) vs causal full attention "
+        f"{att_err:.3e}, ConvFFN.step vs the LEFT-padded layer {ffn_err:.3e}"
+        f" (tol {ENC_ATOL:g}); streaming launches {stream_counts}")
+    if not (att_err <= ENC_ATOL and ffn_err <= ENC_ATOL) or \
+            stream_counts["flash_attention"] != n or stream_counts["plain"]:
+        fail(f"streaming: attention {att_err}, ConvFFN {ffn_err}, launches "
+             f"{stream_counts}")
+    return att_err, ffn_err
+
+
+def check_model_modules(cfg, sd, dev):
+    res = {}
+    res["op_registry_worst"], res["d128"] = check_op_registry(dev)
+    res["cfg_sample_ms"] = check_cfg_sample(cfg, sd, dev)
+    res["lora_err"] = check_lora_merge(cfg, sd, dev)
+    res["stream_errs"] = check_streaming(dev)
+    return res
 
 
 def main() -> int:
@@ -1951,6 +2781,14 @@ def main() -> int:
         trainer, train_batches, train = check_training(vsd, cv_sd, dev,
                                                        train_tmp.name)
         torch.cuda.empty_cache()
+    with phase("f0 predictor"):
+        f0, f0_trainer, f0_batches = check_f0_predictor(
+            svc, clips, refer, vsd, cv_sd, crepe_sd, train, trainer,
+            train_batches, dev, train_tmp.name)
+        torch.cuda.empty_cache()
+    with phase("model modules"):
+        modules = check_model_modules(cfg, sd, dev)
+        torch.cuda.empty_cache()
     with no_tf32():
         with phase("K1 shapes"):
             k1_step = check_attention(cfg, dev)
@@ -1972,9 +2810,14 @@ def main() -> int:
             walls["single"], "single request B=1")
         train["profile"] = training_profile(trainer, train_batches[0],
                                             train["step_ms"])
+        f0["training"]["profile"] = training_profile(
+            f0_trainer, f0_batches[0], f0["training"]["step_ms"],
+            "with the F0 predictor")
     trainer.close()
+    f0_trainer.close()
     train_tmp.cleanup()
-    say(f"seconds per phase: {seconds}")
+    say(f"seconds per phase: {seconds}; total "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for route, (source, replaces) in ROUTES.items():
@@ -1993,13 +2836,31 @@ def main() -> int:
                 pre if route == "flash_attention" else 1) == 0:
             fail(f"{route}: {t_launch} launches per training step, {pre} in "
                  f"the preprocess run")
+        # this slice's paths: the F0 predictor's serving call
+        # (auto_predict_f0, counted), its cross-attention geometry and the
+        # op registry's D = 128 (timed)
+        f0_k1 = f0["k1"].get(route)
+        d128 = next((r for r in modules["d128"].values()
+                     if r["route"] == route), None)
+        extra_err = [r["err"] for r in (f0_k1, *modules["d128"].values())
+                     if r is not None and r["route"] == route]
+        slice5 = {"f0_serving_launches": f0["serving"]["launches"].get(
+            route, 0)}
+        for prefix, r in (("f0_predictor", f0_k1), ("d128", d128)):
+            if r is not None:
+                slice5.update({f"{prefix}_ms": r["ms"],
+                               f"{prefix}_plain_ms": r["plain"],
+                               f"{prefix}_bound_ms": r["bound"],
+                               f"{prefix}_bound_by": r["bound_by"],
+                               f"{prefix}_library_ms": r["lib"],
+                               f"{prefix}_max_abs_err": r["err"]})
         kernels.append({
             "name": route, "route": "cuda",
             "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches,
             "launches_from": "cli_f32" if f32_only else "cli_bf16",
             "max_abs_err": max(k1_step.err[route], k2_step.err[route],
-                               on_path.err[route]),
+                               on_path.err[route], *extra_err),
             "ms": s["ms"], "eager_ms": s["eager"], "plain_ms": s["plain"],
             "bound_ms": s["bound"],
             "bound_by": on_path.bound_by(route),
@@ -2014,7 +2875,19 @@ def main() -> int:
             "train_backward_ms": geo.get("bwd_ms"),
             "train_backward_bound_ms": geo.get("bwd_bound"),
             "train_backward_bound_by": geo.get("bwd_by"),
-            "train_backward_max_err": geo.get("err")})
+            "train_backward_max_err": geo.get("err"), **slice5})
+    print(json.dumps({"f0_predictor": {
+        "serving": f0["serving"], "cli_ms": f0["cli_ms"],
+        "card_vs_cpu": f0["card_vs_cpu"],
+        **{k: f0[k] for k in ("pred_bf16_rel_rms", "pred_bf16_max_abs_err",
+                              "pred_scale")},
+        "training": f0["training"]}}))
+    print(json.dumps({"model_modules": {
+        "op_registry_worst": {f"{k[0]} {k[1]}": v for k, v in
+                              modules["op_registry_worst"].items()},
+        "cfg_sample_ms": modules["cfg_sample_ms"],
+        "lora_err": modules["lora_err"],
+        "stream_errs": modules["stream_errs"]}}))
     print(json.dumps({"training": {
         k: v for k, v in train.items()
         if k not in ("geometries", "launches", "backward")}}))

@@ -12,8 +12,14 @@ rules:
     depthwise kernel (K, 1, C)        -> Conv1d weight (C, 1, K)
     DenseGeneral in_proj (C, 3, C)    -> Linear weight (3C, C)
     norm scale                        -> weight
+    weight-norm conv_v (K, Cin, Cout) -> conv_v (Cout, Cin, K)
+    Embed embedding                   -> nn.Embedding weight
     UNet self-attention to_q/to_k/to_v kernels -> one fused to_qkv weight
-    bias, positional_embedding, gamma -> as they are
+    OptimizedLSTMCell_0 / _1 (the forward and reverse cells of a BiLSTM):
+        input kernels ii/if/ig/io     -> weight_ih (4C, C), gates i, f, g, o
+        hidden kernels hi/hf/hg/ho    -> weight_hh, their biases -> bias_hh
+        (flax's input kernels have no bias: bias_ih is zero)
+    bias, positional_embedding, gamma, conv_g, conv_b, tao -> as they are
 
 The mapping is strict: a leaf that no port parameter takes, a port
 parameter that no leaf fills, or a shape that disagrees raises.
@@ -44,10 +50,13 @@ from ns2vc_tpu_torch.config import Config
 from ns2vc_tpu_torch.features.contentvec import ContentVec
 from ns2vc_tpu_torch.features.crepe import BatchNorm, Crepe
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
-from ns2vc_tpu_torch.models.encoders import AttentionPooling, LNConv
+from ns2vc_tpu_torch.models.encoders import (
+    AttentionPooling, LNConv, WNConvResidual,
+)
 from ns2vc_tpu_torch.models.vocos import ConvNeXtBlock, Vocos
 
 _QKV = ("to_q", "to_k", "to_v")
+_LSTM_GATES = ("i", "f", "g", "o")    # torch's order of the four gates
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict:
@@ -70,9 +79,31 @@ def _leaf(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
         elif arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)
         name = "weight"
-    elif name == "scale":
+    elif name == "conv_v":
+        arr = arr.transpose(2, 1, 0)
+    elif name in ("scale", "embedding"):
         name = "weight"
     return ".".join(mods + [name]), arr
+
+
+def _lstm(flat: dict, base: tuple) -> dict:
+    """Pop the two flax cells of the BiLSTM at `base` and build nn.LSTM's
+    parameters (names relative to the LSTM module)."""
+    out = {}
+    for suffix, cell in (("_l0", "OptimizedLSTMCell_0"),
+                         ("_l0_reverse", "OptimizedLSTMCell_1")):
+        def take(src, leaf):
+            parts = [flat.pop(base + (cell, src + g, leaf), None)
+                     for g in _LSTM_GATES]
+            if any(p is None for p in parts):
+                raise ValueError(f"from_flax: missing {'/'.join(base)}/"
+                                 f"{cell}/{src}i|f|g|o/{leaf}")
+            return np.concatenate(parts, axis=-1)
+        out[f"weight_ih{suffix}"] = take("i", "kernel").T
+        out[f"weight_hh{suffix}"] = take("h", "kernel").T
+        out[f"bias_hh{suffix}"] = take("h", "bias")
+        out[f"bias_ih{suffix}"] = np.zeros_like(out[f"bias_hh{suffix}"])
+    return out
 
 
 def from_flax_tree(tree: dict, module: nn.Module) -> dict:
@@ -91,6 +122,11 @@ def from_flax_tree(tree: dict, module: nn.Module) -> dict:
                 raise ValueError(f"from_flax: missing {'/'.join(base)}/"
                                  f"to_q|to_k|to_v kernels for {key}")
             sd[key] = np.concatenate(parts, axis=1).T
+    for key in expected:
+        if key.rsplit(".", 2)[-2:] == ["lstm", "weight_ih_l0"]:
+            mod = key[:-len(".weight_ih_l0")]
+            for name, arr in _lstm(flat, tuple(mod.split(".")[:-1])).items():
+                sd[f"{mod}.{name}"] = arr
     for path, arr in flat.items():
         key, arr = _leaf(path, arr)
         if key not in expected:
@@ -198,8 +234,23 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            # flax Embed: variance scaling 1 over the embedding count
+            m.weight.copy_(_lecun_normal(m.weight.shape, m.weight.shape[0],
+                                         generator))
+        elif isinstance(m, nn.LSTM):
+            for name, p in m.named_parameters():
+                if name.startswith("weight"):
+                    p.copy_(_lecun_normal(p.shape, p.shape[1], generator))
+                else:
+                    p.zero_()
     for m in module.modules():
-        if isinstance(m, LNConv):
+        if isinstance(m, WNConvResidual):
+            m.conv_v.copy_(_normal(m.conv_v.shape, m.init_std, generator))
+            m.conv_g.copy_(torch.linalg.vector_norm(m.conv_v.flatten(1),
+                                                    dim=1))
+            m.conv_b.zero_()
+        elif isinstance(m, LNConv):
             m.Conv_0.weight.copy_(_normal(m.Conv_0.weight.shape, m.init_std,
                                           generator))
         elif isinstance(m, AttentionPooling):

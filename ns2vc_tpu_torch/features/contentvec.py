@@ -102,7 +102,7 @@ class TransformerLayer(nn.Module):
                 key_bias: torch.Tensor | None = None) -> torch.Tensor:
         attn = multihead_attention(self.q_proj(x), self.k_proj(x),
                                    self.v_proj(x), self.heads,
-                                   key_bias=key_bias)
+                                   bias=key_bias)
         x = self.self_attn_layer_norm(x + self.out_proj(attn))
         h = self.fc2(F.gelu(self.fc1(x)))
         return self.final_layer_norm(x + h)
@@ -136,7 +136,7 @@ class ContentVec(nn.Module):
         if lengths is not None:
             pos = torch.arange(x.shape[1], device=x.device)
             mask = pos[None, :] < content_frames(lengths)[:, None]
-            key_bias = mask_to_bias(mask).contiguous()
+            key_bias = mask_to_bias(mask)[:, None, None, :]
             x = x * mask[..., None].to(x.dtype)
         x = self.encoder_layer_norm(x + self.pos_conv(x))
         for i in range(self.output_layer):

@@ -52,9 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--trans", type=int, nargs="+", default=[0])
     p.add_argument("-a", "--auto_predict_f0", action="store_true",
                    default=False,
-                   help="predict F0 from content instead of the source "
-                        "pitch (only meaningful for f0_predictor-enabled "
-                        "checkpoints, which the port does not load yet)")
+                   help="condition on the F0 the model's predictor makes "
+                        "from content and the reference instead of the "
+                        "source pitch (checkpoints with f0_predictor "
+                        "enabled; others ignore it)")
     p.add_argument("-fmp", "--f0_mean_pooling", action="store_true",
                    default=False,
                    help="use CREPE F0 with mean-pooling decode (needs "

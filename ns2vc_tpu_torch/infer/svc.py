@@ -23,9 +23,14 @@ The device is 'cuda' unless `device` says otherwise, resolved to an indexed
 card at construction; every device call runs with that card current, so a
 thread whose own current device differs (the MicroBatcher's worker) reaches
 the same card and stream. Without a card the constructor raises instead of
-running on the CPU. The F0-predictor branch
-is not ported: a checkpoint with `f0_predictor.enabled` raises, so f0/uv
-arguments are accepted for API parity and condition nothing.
+running on the CPU.
+
+A checkpoint with `f0_predictor.enabled` is conditioned on the source F0:
+every inference call must pass f0 (and uv; without uv the frames count as
+unvoiced), else ValueError, as in the JAX Svc; `auto_predict_f0` makes the
+F0 embedding take the predicted contour instead of the given one. f0/uv are
+uploaded in f32 whatever the compute dtype. Without the predictor, f0/uv
+are ignored.
 """
 
 from __future__ import annotations
@@ -263,7 +268,9 @@ class Svc:
     @torch.no_grad()
     def _run(self, c_in: np.ndarray, r_dev: torch.Tensor, t_lens, tp_len: int,
              sample_method: str, steps: int, order: int, seed: int,
-             output: str) -> torch.Tensor:
+             output: str, f0_in: Optional[np.ndarray] = None,
+             uv_in: Optional[np.ndarray] = None,
+             auto_predict_f0: bool = False) -> torch.Tensor:
         """generate_mel + Vocos (+ pcm16), enqueued on the device: the
         padded (B, T_pad * hop) waveform."""
         n = c_in.shape[0]
@@ -272,7 +279,10 @@ class Svc:
             self.model, self._upload(c_in),  r_dev,
             self._upload(np.asarray(t_lens, np.int64)),
             self._upload(np.full((n,), tp_len, np.int64)), generator=gen,
-            method=sample_method, steps=steps, order=order)
+            method=sample_method, steps=steps, order=order,
+            f0=None if f0_in is None else self._upload(f0_in),
+            uv=None if uv_in is None else self._upload(uv_in),
+            auto_predict_f0=auto_predict_f0)
         wav = self.vocos(mel)
         return to_pcm16(wav) if output == "pcm16" else wav
 
@@ -347,11 +357,28 @@ class Svc:
             raise RuntimeError("vocos checkpoint missing — cannot vocode")
         if f0s is not None and len(f0s) != len(clips):
             raise ValueError(f"{len(f0s)} f0 arrays for {len(clips)} clips")
+        use_f0 = self.cfg.f0_predictor.enabled
+        if use_f0 and f0s is None:
+            raise ValueError(
+                "this checkpoint has f0_predictor.enabled: pass per-clip f0s "
+                "(and uvs), e.g. from Svc.compute_features, on every "
+                "inference call; auto_predict_f0 only switches the embedding "
+                "to the predicted contour, the predictor still reads the "
+                "source f0")
         t_lens = [c.shape[0] for c in clips]
         n, t_pad, hop = len(clips), _bucket(max(t_lens)), self.hop_size
         c_in = np.zeros((n, t_pad, clips[0].shape[1]), np.float32)
         for i, c in enumerate(clips):
             c_in[i, : t_lens[i]] = c
+        f0_in = uv_in = None
+        if use_f0:
+            f0_in = np.zeros((n, t_pad), np.float32)
+            uv_in = np.zeros((n, t_pad), np.float32)
+            for i in range(n):
+                m = min(t_lens[i], len(f0s[i]))
+                f0_in[i, :m] = f0s[i][:m]
+                if uvs is not None and uvs[i] is not None:
+                    uv_in[i, :m] = uvs[i][:m]
         dtype = torch.int16 if output == "pcm16" else torch.float32
         on_card = self.device.type == "cuda"
         done = None
@@ -365,7 +392,7 @@ class Svc:
                                        cache_key=refer_cache_key)
             wav = self._run(c_in, r_dev, t_lens, refer_mel.shape[0],
                             sample_method, sampling_timesteps, order, seed,
-                            output)
+                            output, f0_in, uv_in, auto_predict_f0)
             host.copy_(wav, non_blocking=on_card)
             if on_card:
                 done = torch.cuda.Event()

@@ -6,9 +6,17 @@ ns2vc_tpu/models/diffusion.py): PreModel, DiffusionEncoder,
 Batch convention (fixed shapes, mask-disciplined):
     c      (B, T, 256)   contentvec, frame-expanded
     refer  (B, Tp, 100)  reference log-mel (the prompt)
+    f0, uv (B, T)        F0 (Hz) and voicing, read when the F0 predictor is on
     spec   (B, T, 100)   target log-mel (training)
     lengths, refer_lengths (B,)
-The F0-predictor branch is a later slice.
+
+With `cfg.f0_predictor.enabled` the PreModel holds the F0 predictor and a
+256-bin F0 embedding added to the content: the embedding takes the given
+F0, or the predicted one when the model is in eval mode and
+`auto_predict_f0`. The training loss adds the L1 of the predicted against
+the true log-mel F0 (`loss_f0`). Serving runs the predictor on every call,
+also when its output goes unused (`auto_predict_f0` False); the JAX
+program drops that work in XLA.
 """
 
 from __future__ import annotations
@@ -21,18 +29,20 @@ from ns2vc_tpu_torch.config import Config
 from ns2vc_tpu_torch.diffusion.samplers import sample
 from ns2vc_tpu_torch.diffusion.schedule import NoiseSchedule
 from ns2vc_tpu_torch.models.encoders import (
-    PhoneEncoder, PromptEncoder, TextTimeEmbedding,
+    F0Predictor, PhoneEncoder, PromptEncoder, TextTimeEmbedding,
 )
 from ns2vc_tpu_torch.models.unet import UNet1DConditionModel
 from ns2vc_tpu_torch.ops.masking import sequence_mask
+from ns2vc_tpu_torch.ops.sequence import F0_BIN, f0_to_coarse, normalize_f0
 
 
 class PreModel(nn.Module):
-    """Speaker pooling + prompt/content encoders."""
+    """Speaker pooling + prompt/content encoders, and with the F0
+    predictor on, the predictor and the F0 embedding."""
 
     def __init__(self, cfg: Config):
         super().__init__()
-        pe, pr = cfg.phoneme_encoder, cfg.prompt_encoder
+        pe, pr, fp = cfg.phoneme_encoder, cfg.prompt_encoder, cfg.f0_predictor
         self.ref_enc = TextTimeEmbedding(pr.in_channels, pr.in_channels, 1)
         self.prompt_encoder = PromptEncoder(
             pr.in_channels, pr.hidden_channels, pr.out_channels, pr.n_layers,
@@ -41,13 +51,39 @@ class PreModel(nn.Module):
             pe.in_channels, pe.hidden_channels, pe.out_channels, pe.n_layers,
             pe.p_dropout, pe.n_heads, pe.ffn_kernel,
             g_channels=pr.in_channels)
+        self.f0_predictor = self.f0_emb = None
+        if fp.enabled:
+            self.f0_predictor = F0Predictor(
+                fp.in_channels, fp.hidden_channels, fp.out_channels,
+                fp.attention_layers, fp.n_heads, fp.p_dropout)
+            self.f0_emb = nn.Embedding(F0_BIN, pe.out_channels)
 
-    def forward(self, c, refer, c_mask, refer_mask, generator=None):
+    def forward(self, c, refer, c_mask, refer_mask, generator=None, f0=None,
+                uv=None, f0_factor=None, auto_predict_f0=True):
+        """(content, prompt, lf0, lf0_pred); lf0 (B, T, 1) is the log-mel
+        F0 target and lf0_pred the prediction, both None unless the
+        predictor is on and f0 (B, T) is given. uv defaults to f0 > 0. The
+        normalised contour's scale is `f0_factor` (B,), else drawn from
+        `generator` in training mode, else 1."""
         # the reference pools the *padded* refer mel without a mask
         g = self.ref_enc(refer)
         prompt = self.prompt_encoder(refer, refer_mask, generator)
         content = self.phoneme_encoder(c, c_mask, g, generator)
-        return content, prompt
+        lf0 = lf0_pred = None
+        if self.f0_predictor is not None and f0 is not None:
+            lf0 = 2595.0 * torch.log10(1.0 + f0[..., None] / 700.0) / 500.0
+            norm_lf0 = normalize_f0(
+                lf0, uv if uv is not None else (f0 > 0).to(lf0.dtype),
+                f0_factor, generator if self.training else None)
+            lf0_pred = self.f0_predictor(content, prompt, norm_lf0, c_mask,
+                                         refer_mask, generator)
+            if not self.training and auto_predict_f0:
+                f0_for_emb = 700.0 * (10.0 ** (lf0_pred[..., 0].to(f0.dtype)
+                                               * 500.0 / 2595.0) - 1.0)
+            else:
+                f0_for_emb = f0
+            content = content + self.f0_emb(f0_to_coarse(f0_for_emb))
+        return content, prompt, lf0, lf0_pred
 
 
 class DiffusionEncoder(nn.Module):
@@ -85,9 +121,6 @@ class NaturalSpeech2(nn.Module):
     def __init__(self, cfg: Config, remat: bool = False,
                  remat_policy: str = "all"):
         super().__init__()
-        if cfg.f0_predictor.enabled:
-            raise NotImplementedError(
-                "the F0-predictor branch is not ported yet")
         self.cfg = cfg
         self.pre_model = PreModel(cfg)
         self.diff_model = DiffusionEncoder(cfg, remat, remat_policy)
@@ -95,14 +128,17 @@ class NaturalSpeech2(nn.Module):
 
     def forward(self, batch: dict, generator: torch.Generator | None = None,
                 t: torch.Tensor | None = None,
-                noise: torch.Tensor | None = None):
+                noise: torch.Tensor | None = None,
+                f0_factor: torch.Tensor | None = None):
         """Training objective (JAX models/diffusion.py:180-229): SNR-
-        weighted MSE on x0 over masked mels -> (loss, aux). `t` (B,) ints in
-        [0, timesteps) and `noise` (B, T, 100) are drawn from `generator`
-        on spec's device unless given; the generator also drives the
-        encoders' dropout in training mode. The noise is masked; the
-        schedule's sqrt(acp) and sqrt(1 - acp) are cast to spec's dtype;
-        the MSE is f32 over every frame, padded ones included."""
+        weighted MSE on x0 over masked mels, plus with the F0 predictor the
+        f32 L1 of its prediction against the log-mel F0 -> (loss, aux).
+        `t` (B,) ints in [0, timesteps) and `noise` (B, T, 100) are drawn
+        from `generator` on spec's device unless given; the generator also
+        drives dropout and the F0 contour's scale (`f0_factor` (B,) when
+        given) in training mode. The noise is masked; the schedule's
+        sqrt(acp) and sqrt(1 - acp) are cast to spec's dtype; the MSE is f32
+        over every frame, padded ones included."""
         spec = batch["spec"]
         b, t_len, _ = spec.shape
         dev = spec.device
@@ -119,8 +155,10 @@ class NaturalSpeech2(nn.Module):
                                 device=dev, dtype=spec.dtype)
         t = t.to(dev, torch.long)
         noise = noise.to(dev, spec.dtype) * x_mask
-        content, prompt = self.pre_model(batch["c"], batch["refer"], c_mask,
-                                         refer_mask, generator)
+        content, prompt, lf0, lf0_pred = self.pre_model(
+            batch["c"], batch["refer"], c_mask, refer_mask, generator,
+            f0=batch.get("f0"), uv=batch.get("uv"), f0_factor=f0_factor,
+            auto_predict_f0=False)
 
         def coef(arr):
             return torch.as_tensor(arr, dtype=spec.dtype,
@@ -137,12 +175,18 @@ class NaturalSpeech2(nn.Module):
             snr = np.minimum(snr, self.cfg.train.min_snr_gamma)
         weight = torch.as_tensor(snr, dtype=torch.float32, device=dev)[t]
         loss_diff = (loss * weight).mean()
-        aux = {"loss_diff": loss_diff, "loss_f0": 0.0, "pred": model_out,
+        loss_f0 = 0.0
+        if lf0_pred is not None:
+            loss_f0 = (lf0_pred.float() - lf0.float()).abs().mean()
+        aux = {"loss_diff": loss_diff, "loss_f0": loss_f0, "pred": model_out,
                "target": x_start}
-        return loss_diff, aux
+        return loss_diff + loss_f0, aux
 
-    def encode(self, c, refer, c_mask, refer_mask):
-        return self.pre_model(c, refer, c_mask, refer_mask)
+    def encode(self, c, refer, c_mask, refer_mask, f0=None, uv=None,
+               auto_predict_f0=True):
+        """The step-invariant conditioning (content, prompt)."""
+        return self.pre_model(c, refer, c_mask, refer_mask, f0=f0, uv=uv,
+                              auto_predict_f0=auto_predict_f0)[:2]
 
     def denoise(self, x, content, prompt, prompt_mask, t, cross_kv=None,
                 aug_emb=None):
@@ -160,20 +204,24 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
                  x_T: torch.Tensor | None = None,
                  generator: torch.Generator | None = None,
                  method: str = "unipc", steps: int | None = None,
-                 order: int = 2, noise=None) -> torch.Tensor:
+                 order: int = 2, noise=None, f0: torch.Tensor | None = None,
+                 uv: torch.Tensor | None = None,
+                 auto_predict_f0: bool = True) -> torch.Tensor:
     """Encode the conditioning once, run the sampler (`method` 'ddpm',
     'ddim', 'dpmsolver' or 'unipc', the JAX package's default steps when
     `steps` is None), return the (B, T, 100) log-mel in f32. The model
-    runs in the dtype of its parameters; c and refer are cast to it. `x_T`
-    (B, T, 100) is the initial noise; without it the noise is drawn from
-    `generator` on the model's device, which also feeds DDPM's and DDIM's
-    per-step draws unless `noise` gives them."""
+    runs in the dtype of its parameters; c and refer are cast to it, f0 and
+    uv (B, T) stay in theirs (f32: the coarse F0 bins are taken there).
+    `x_T` (B, T, 100) is the initial noise; without it the noise is drawn
+    from `generator` on the model's device, which also feeds DDPM's and
+    DDIM's per-step draws unless `noise` gives them."""
     dtype = next(model.parameters()).dtype
     c, refer = c.to(dtype), refer.to(dtype)
     t_len = c.shape[1]
     c_mask = sequence_mask(lengths, t_len)
     refer_mask = sequence_mask(refer_lengths, refer.shape[1])
-    content, prompt = model.encode(c, refer, c_mask, refer_mask)
+    content, prompt = model.encode(c, refer, c_mask, refer_mask, f0=f0,
+                                   uv=uv, auto_predict_f0=auto_predict_f0)
     aug_emb, cross_kv = model.precompute_conditioning(prompt)
 
     def x0_fn(x, t):

@@ -1,17 +1,18 @@
-"""Conditioning encoders (counterpart of ns2vc_tpu/models/encoders.py, the
-serving-path subset): content (PhoneEncoder), reference-mel (PromptEncoder),
-attention pooling and TextTimeEmbedding.
+"""Conditioning encoders (counterpart of ns2vc_tpu/models/encoders.py):
+content (PhoneEncoder), reference-mel (PromptEncoder), attention pooling and
+TextTimeEmbedding, and the F0 predictor with its weight-normed conv layers
+and cross-attention.
 
 Submodule names follow the flax parameter tree, including flax's automatic
 names (`LayerNorm_0`, `Conv_0`, `layers_{i}`), so `convert.py` maps a JAX
 checkpoint by path.
 
-Dropout sits where flax applies it on this path (after the ConvFFN ReLU and
-on both EncSALayer residual branches, at `p_dropout`), is active only under
-`module.train()`, scales the kept values by 1/(1-p) as flax does, and draws
-its mask from the `generator` passed down the forward: in training mode with
-p > 0 and no generator it raises rather than use the global RNG. The masks
-are not JAX's: the generators differ.
+Dropout sits where flax applies it (after the ConvFFN ReLU, on both
+EncSALayer residual branches, after each WNConvResidual's ReLU), is active
+only under `module.train()`, scales the kept values by 1/(1-p) as flax does,
+and draws its mask from the `generator` passed down the forward: in training
+mode with p > 0 and no generator it raises rather than use the global RNG.
+The masks are not JAX's: the generators differ.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ns2vc_tpu_torch.models.layers import Conv1d
@@ -74,28 +76,59 @@ class MultiheadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
         q, k, v = self.in_proj(x).split(self.channels, dim=-1)
-        bias = None if key_mask is None else mask_to_bias(key_mask)
-        out = multihead_attention(q, k, v, self.num_heads, key_bias=bias)
+        bias = None if key_mask is None else \
+            mask_to_bias(key_mask)[:, None, None, :]
+        out = multihead_attention(q, k, v, self.num_heads, bias=bias)
         return self.out_proj(out)
 
 
 class ConvFFN(nn.Module):
-    """conv(C -> 4C, k, SAME) * k^-0.5 -> relu -> dropout -> dense."""
+    """conv(C -> 4C, k) * k^-0.5 -> relu -> dropout -> dense. `padding`
+    "SAME" or "LEFT" (causal: k-1 zeros before the first frame).
+
+    `step` is the streaming form of the LEFT-padded layer: one frame
+    against an explicit (B, k-1, C) buffer of the previous inputs (zeros at
+    the start, which is the causal pad), frame for frame the full
+    sequence's output."""
 
     def __init__(self, channels: int, kernel_size: int = 9,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, padding: str = "SAME"):
         super().__init__()
-        self.kernel_size = kernel_size
-        self.ffn_1 = Conv1d(channels, 4 * channels, kernel_size)
+        if padding not in ("SAME", "LEFT"):
+            raise ValueError(f"padding must be 'SAME' or 'LEFT', got "
+                             f"{padding!r}")
+        self.channels, self.kernel_size = channels, kernel_size
+        self.causal = padding == "LEFT"
+        self.ffn_1 = Conv1d(channels, 4 * channels, kernel_size,
+                            padding=0 if self.causal else None)
         self.ffn_2 = nn.Linear(4 * channels, channels)
         self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        h = self.ffn_1(x)
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         if self.kernel_size > 1:
             h = h * self.kernel_size ** -0.5
-        return self.ffn_2(self.dropout(torch.relu(h), generator))
+        return torch.relu(h)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.causal:
+            x = F.pad(x, (0, 0, self.kernel_size - 1, 0))
+        h = self._head(self.ffn_1(x))
+        return self.ffn_2(self.dropout(h, generator))
+
+    def init_buffer(self, batch: int, dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+        """(B, k-1, C) zeros: the causal pad the first steps see."""
+        return torch.zeros((batch, self.kernel_size - 1, self.channels),
+                           dtype=dtype, device=device)
+
+    def step(self, x_new: torch.Tensor, buffer: torch.Tensor):
+        """x_new (B, 1, C), buffer (B, k-1, C) -> (y (B, 1, C), the next
+        buffer). Inference only: no dropout."""
+        window = torch.cat([buffer, x_new], dim=1)
+        h = F.conv1d(window.transpose(1, 2), self.ffn_1.weight,
+                     self.ffn_1.bias).transpose(1, 2)
+        return self.ffn_2(self._head(h)), window[:, 1:]
 
 
 class EncSALayer(nn.Module):
@@ -217,3 +250,106 @@ class TextTimeEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm2(self.proj(self.pool(self.norm1(x))))
+
+
+class WNConvResidual(nn.Module):
+    """mask -> LN -> weight-normed conv (SAME) -> ReLU -> dropout, plus the
+    residual. The weight is computed in the forward from `conv_v` (Cout,
+    Cin, K) and `conv_g` (Cout,), normed per output channel over (Cin, K),
+    so training differentiates through the norm as JAX does."""
+
+    def __init__(self, channels: int, kernel_size: int = 5,
+                 dropout: float = 0.5):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.layer_norm = nn.LayerNorm(channels, eps=LN_EPS)
+        self.conv_v = nn.Parameter(torch.zeros(channels, channels,
+                                               kernel_size))
+        self.conv_g = nn.Parameter(torch.ones(channels))
+        self.conv_b = nn.Parameter(torch.zeros(channels))
+        self.dropout = Dropout(dropout)
+        self.init_std = math.sqrt(4 * (1.0 - dropout)
+                                  / (kernel_size * channels))
+
+    def weight(self) -> torch.Tensor:
+        v = self.conv_v
+        norm = torch.linalg.vector_norm(v.flatten(1), dim=1)
+        return v * (self.conv_g / norm)[:, None, None]
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.layer_norm(apply_mask(x, mask))
+        h = F.conv1d(h.transpose(1, 2), self.weight().to(h.dtype),
+                     self.conv_b.to(h.dtype),
+                     padding=(self.kernel_size - 1) // 2).transpose(1, 2)
+        return self.dropout(torch.relu(h), generator) + x
+
+
+class CrossAttention(nn.Module):
+    """Multi-head cross-attention without biases; the memory's padding is
+    a key-padding bias, so on a card the attention is K1."""
+
+    def __init__(self, channels: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(channels, channels, bias=False)
+        self.k_proj = nn.Linear(channels, channels, bias=False)
+        self.v_proj = nn.Linear(channels, channels, bias=False)
+        self.out_proj = nn.Linear(channels, channels, bias=False)
+
+    def forward(self, x: torch.Tensor, mem: torch.Tensor,
+                mem_mask: torch.Tensor | None = None) -> torch.Tensor:
+        bias = None if mem_mask is None else \
+            mask_to_bias(mem_mask)[:, None, None, :]
+        out = multihead_attention(self.q_proj(x), self.k_proj(mem),
+                                  self.v_proj(mem), self.num_heads, bias=bias)
+        return self.out_proj(out)
+
+
+class F0Predictor(nn.Module):
+    """Prompt-conditioned F0 predictor: content (B, T, C) and prompt (B, Tp,
+    C), both detached, and the normalised log-F0 (B, T, 1) -> (B, T, out).
+    `attention_layers` x [3 WNConvResidual -> LN -> + cross-attention into
+    the prompt].
+
+    Two behaviours are the JAX package's on purpose. `f0_prenet` is an
+    LNConv over one channel: its LayerNorm outputs its bias whatever the
+    contour, so the prediction depends on content, prompt and masks only.
+    And the whole predictor runs in the dtype of its input x, so under bf16
+    serving every attention call is K1 in bf16; JAX promotes its trunk to
+    f32 there (the f0 input is f32), which the port does not copy because
+    K1 takes q, k and v in one dtype."""
+
+    def __init__(self, in_channels: int = 256, hidden_channels: int = 256,
+                 out_channels: int = 1, attention_layers: int = 10,
+                 n_heads: int = 8, p_dropout: float = 0.5):
+        super().__init__()
+        self.attention_layers = attention_layers
+        self.pre = LNConv(in_channels, hidden_channels, 5, p_dropout)
+        self.f0_prenet = LNConv(1, hidden_channels, 3, p_dropout)
+        for i in range(attention_layers):
+            for j in range(3):
+                self.add_module(f"conv_{i}_{j}", WNConvResidual(
+                    hidden_channels, 5, p_dropout))
+            self.add_module(f"norm_{i}", nn.LayerNorm(hidden_channels,
+                                                      eps=LN_EPS))
+            self.add_module(f"attn_{i}", CrossAttention(hidden_channels,
+                                                        n_heads))
+        self.proj = LNConv(hidden_channels, out_channels, 5, p_dropout)
+
+    def forward(self, x: torch.Tensor, prompt: torch.Tensor,
+                norm_f0: torch.Tensor, x_mask: torch.Tensor,
+                prompt_mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x, prompt = x.detach(), prompt.detach()
+        x = self.pre(x, x_mask)
+        x = apply_mask(x + self.f0_prenet(norm_f0.to(x.dtype), x_mask),
+                       x_mask)
+        prompt = apply_mask(prompt, prompt_mask)
+        for i in range(self.attention_layers):
+            for j in range(3):
+                x = getattr(self, f"conv_{i}_{j}")(x, x_mask, generator)
+            x = getattr(self, f"norm_{i}")(x)
+            x = x + getattr(self, f"attn_{i}")(x, prompt, prompt_mask)
+        x = self.proj(apply_mask(x, x_mask), x_mask)
+        return apply_mask(x, x_mask)

@@ -102,7 +102,7 @@ class Attention(nn.Module):
         else:
             q = self.to_q(x)
             k, v = self.compute_kv(context) if kv is None else kv
-        out = multihead_attention(q, k, v, self.heads, key_bias=key_bias,
+        out = multihead_attention(q, k, v, self.heads, bias=key_bias,
                                   scale=self.dim_head ** -0.5)
         return self.to_out_0(out)
 
@@ -163,6 +163,39 @@ class Transformer1D(nn.Module):
         h = self.proj_in(self.norm(x))
         h = self.blocks_0(h, context, context_bias, kv=kv)
         return self.proj_out(h) + x
+
+
+class DualTransformer1D(nn.Module):
+    """Two Transformer1D experts, each cross-attending to its own slice of
+    the condition tokens (slices of `condition_lengths`, expert chosen by
+    `transformer_index_for_condition`), mixed as
+    mix * (T_a(x) - x) + (1 - mix) * (T_b(x) - x) + x. A (B, 1, 1, Tk) key
+    bias is sliced with the tokens. No configuration of the JAX package
+    builds it inside the UNet."""
+
+    def __init__(self, channels: int, heads: int, cross_attention_dim: int,
+                 norm_num_groups: int = 8,
+                 condition_lengths: tuple = (77, 257),
+                 transformer_index_for_condition: tuple = (1, 0),
+                 mix_ratio: float = 0.5):
+        super().__init__()
+        self.condition_lengths = tuple(condition_lengths)
+        self.index = tuple(transformer_index_for_condition)
+        self.mix_ratio = mix_ratio
+        for i in range(2):
+            self.add_module(f"transformers_{i}", Transformer1D(
+                channels, heads, cross_attention_dim, norm_num_groups))
+
+    def forward(self, x, context, context_bias=None):
+        encoded, start = [], 0
+        for i, n in enumerate(self.condition_lengths):
+            cbias = (None if context_bias is None
+                     else context_bias[..., start:start + n])
+            expert = getattr(self, f"transformers_{self.index[i]}")
+            encoded.append(expert(x, context[:, start:start + n], cbias) - x)
+            start += n
+        return (encoded[0] * self.mix_ratio
+                + encoded[1] * (1 - self.mix_ratio) + x)
 
 
 class ResnetBlock1D(nn.Module):
@@ -331,7 +364,8 @@ class UNet1DConditionModel(nn.Module):
             raise ValueError(f"T={sample.shape[1]} must be divisible by "
                              f"{2 ** (n_levels - 1)}")
         context_bias = (None if encoder_attention_mask is None
-                        else mask_to_bias(encoder_attention_mask))
+                        else mask_to_bias(encoder_attention_mask)[
+                            :, None, None, :])
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
         t_emb = get_timestep_embedding(timesteps, chans[0],

@@ -19,10 +19,14 @@ on nothing else:
                                  CUDA cores (TF32 tensor cores would break
                                  the f32 bound of 2e-5); it also takes the
                                  bf16 calls the tensor-core kernel does not
-                                 (odd D, D > 112), which no caller makes
+                                 (odd D, D > 112): the encoder op
+                                 registry's two-head layers at C = 256
+                                 (ids 14, 15) run D = 128 there
 
 A CUDA tensor launches one of the kernels or raises. `flash_attention.
-launches` counts every launch, `flash_attention.route_launches` each route's.
+launches` counts every launch, `flash_attention.route_launches` each route's;
+its "plain" entry counts the calls `ops/attention.py` sends to the plain
+version by their bias or head dim (no kernel launches for those).
 The kernels read q/k/v through their (batch, head, seq) strides, so the
 (B, H, T, D) views that `ops/attention.py::split_heads` makes of the
 (B, T, H*D) projections go in without a transpose copy, and the output is
@@ -71,12 +75,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     core (ops/attention.py::scaled_dot_product_attention): logits and
     softmax in f32, probabilities cast to v's dtype before the PV product,
     which accumulates in f32. q (B, H, Tq, D), k/v (B, H, Tk, D), bias
-    (B, Tk) additive (0 keep / -1e4 drop)."""
+    additive (0 keep / -1e4 drop): the kernel's (B, Tk) key bias, or any
+    bias that broadcasts against (B, H, Tq, Tk) (the plain route of
+    `ops/attention.py`)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     acc = _acc_dtype(q)
     logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if bias is not None:
-        logits = logits + bias.to(acc)[:, None, None, :]
+        logits = logits + (bias.to(acc)[:, None, None, :] if bias.dim() == 2
+                           else bias.to(acc))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs.to(acc), v.to(acc)).to(v.dtype)
 
@@ -201,7 +208,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = {"simt": 0, "tc": 0, "tc_narrow": 0}
+flash_attention.route_launches = {"simt": 0, "tc": 0, "tc_narrow": 0,
+                                  "plain": 0}
 flash_attention.backward_calls = {"simt": 0, "tc": 0, "tc_narrow": 0}
 
 

@@ -117,9 +117,9 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
     metrics, updating `state` in place. `batch` holds tensors with leading
     dim B = accum * micro-batch on the model's device (floats in f32 or
     the compute dtype); `t` (B,) and `noise` (B, T, 100), when given,
-    replace the draws from `generator`. metrics: loss and grad_norm (0-d
-    tensors, no host synchronisation) and, with accum 1, pred and
-    target."""
+    replace the draws from `generator`. metrics: loss, its terms loss_diff
+    and loss_f0 (0 without the F0 predictor) and grad_norm (0-d tensors, no
+    host synchronisation) and, with accum 1, pred and target."""
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None,
                    t: torch.Tensor | None = None,
@@ -131,6 +131,7 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
         micro = [dict(zip(batch, vals)) for vals in zip(
             *(v.chunk(accum) for v in batch.values()))]
         loss_sum, aux = 0.0, {}
+        terms = {"loss_diff": 0.0, "loss_f0": 0.0}
         for mb, mt, mn in zip(micro, _split(t, accum), _split(noise, accum)):
             if compute_dtype != torch.float32:
                 cast = cast_floating(dict(model.named_parameters()),
@@ -143,6 +144,8 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
                 loss, aux = model(mb, generator, t=mt, noise=mn)
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
+            for key in terms:
+                terms[key] = terms[key] + torch.as_tensor(aux[key]).detach()
         grads = [p.grad for p in params]
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
@@ -157,7 +160,8 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
             torch._foreach_add_(ema, [p.detach() for p in params],
                                 alpha=1.0 - ema_decay)
         state.step += 1
-        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm}
+        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm,
+                   **{k: v / accum for k, v in terms.items()}}
         if accum == 1:
             metrics["pred"], metrics["target"] = aux["pred"], aux["target"]
         return metrics
@@ -444,6 +448,15 @@ class Trainer:
         c_in[0, :t_len] = c
         refer_in = np.zeros((1, tr_pad, spec_r.shape[1]), np.float32)
         refer_in[0, :tr_len] = spec_r
+        f0_dev = uv_dev = None
+        if self.cfg.f0_predictor.enabled:
+            f0_in = np.zeros((1, t_pad), np.float32)
+            uv_in = np.zeros((1, t_pad), np.float32)
+            m = min(t_len, np.size(f0))
+            f0_in[0, :m] = np.reshape(f0, (-1,))[:m]
+            uv_in[0, :m] = np.reshape(uv, (-1,))[:m]
+            f0_dev = torch.from_numpy(f0_in).to(self.device)
+            uv_dev = torch.from_numpy(uv_in).to(self.device)
         if self._eval_model is None:
             self._eval_model = NaturalSpeech2(self.cfg).to(
                 self.device, self.compute_dtype).eval()
@@ -456,7 +469,8 @@ class Trainer:
             torch.from_numpy(refer_in).to(dev),
             torch.tensor([t_len], device=dev),
             torch.tensor([tr_len], device=dev),
-            generator=generator, method="unipc", steps=30)
+            generator=generator, method="unipc", steps=30, f0=f0_dev,
+            uv=uv_dev)
         wav = None
         if self.vocos is not None:
             with torch.no_grad():
@@ -511,13 +525,19 @@ class Trainer:
             step = self.step
             if step % t.log_every == 0:
                 loss = float(metrics["loss"])
+                diff, lf0 = (float(metrics[k]) for k in ("loss_diff",
+                                                         "loss_f0"))
                 gn = float(metrics["grad_norm"])
                 sps = t.log_every / max(time.time() - t0, 1e-9)
                 t0 = time.time()
                 print(f"step {step} loss {loss:.4f} grad_norm {gn:.3f} "
-                      f"steps/s {sps:.2f}", flush=True)
-                logger.info(f"Losses: [{loss}, 0], step: {step}")
-                self._log({"step": step, "loss/diff": loss, "loss/all": loss,
+                      f"steps/s {sps:.2f}"
+                      + (f" loss_f0 {lf0:.4f}"
+                         if self.cfg.f0_predictor.enabled else ""),
+                      flush=True)
+                logger.info(f"Losses: [{diff}, {lf0}], step: {step}")
+                self._log({"step": step, "loss/diff": diff, "loss/f0": lf0,
+                           "loss/all": loss,
                            "loss/grad": gn, "perf/steps_per_sec": sps,
                            "perf/content_frames": int(batch["c"].shape[1]),
                            "perf/refer_frames": int(batch["refer"].shape[1])})

@@ -14,9 +14,14 @@ the probabilities to bf16 before the PV product, the kernel keeps f32) and
 1e-2 of the output's scale for K2 (one bf16 rounding of f32 sums taken in
 another order); UNet card vs CPU 5e-4 (the JAX suite's UNet bound).
 K1 also runs at ContentVec's shapes, (1, 12, T, 64) in f32 with T up to
-3000 keys (one unbroken 60 s segment). bf16 goes to the tensor-core
-kernels (K1 "tc" / "tc_narrow", K2 "tc"), f32 to the CUDA-core ones
-("simt"); each test checks the route its call took. The Svc readback test checks that
+3000 keys (one unbroken 60 s segment), at the F0 predictor's cross-attention
+(B=16, 8 heads of 32, 448 queries over a 320-key prompt) and at the op
+registry's D = 128 (bf16 there takes the CUDA-core kernel).
+`multihead_attention` sends key-padding calls at D <= 128 to the kernel and
+full-bias or D > 128 calls to the plain route, counted as such. bf16 goes
+to the tensor-core kernels (K1 "tc" / "tc_narrow", K2 "tc"), f32 to the
+CUDA-core ones ("simt"); each test checks the route its call took. The Svc
+readback test checks that
 batch N's `finish()` waits on its own CUDA event only: it returns while
 batch N+1, whose device work ends in a spin kernel, is still running.
 """
@@ -56,6 +61,8 @@ def _gen(dev, seed=0):
     (3, 1, 1, 161, 100, None),     # ref_enc pooling
     (2, 64, 1, 161, 4, None),      # add_embedding pooling
     (1, 2, 130, 65, 128, 64),      # widest head dim, ragged tiles
+    (16, 8, 448, 320, 32, 272),    # F0 predictor cross-attention, B=16
+    (4, 2, 400, 400, 128, 300),    # op registry ids 14/15 at C = 256
 ])
 def test_flash_attention_matches_plain(dev, dtype, atol, b, h, tq, tk, d,
                                        valid):
@@ -465,10 +472,40 @@ def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
     # (D = 100 and 4: element loads); 24 resnet epilogues and the tail
     again = (12, 24) if remat_policy else (0, 0)
     assert k1.route_launches == {"simt": 0, "tc": 14 + again[0],
-                                 "tc_narrow": 2}
+                                 "tc_narrow": 2, "plain": 0}
     assert k1.backward_calls == {"simt": 0, "tc": 14, "tc_narrow": 2}
     assert k2.route_launches == {"simt": 0, "tc": 25 + again[1]}
     assert k2.backward_calls == {"simt": 0, "tc": 25}
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32 and torch.isfinite(p.grad).all(), \
             name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multihead_attention_routes_on_the_card(dev, dtype):
+    """Key padding at D <= 128: one kernel launch; a bias along the
+    queries, or D = 256: the plain route, no launch."""
+    from ns2vc_tpu_torch.ops.attention import multihead_attention
+
+    g = _gen(dev, 9)
+    cases = [(8, 256, "padding"), (2, 256, "padding"), (1, 256, "padding"),
+             (8, 256, "full")]
+    for heads, c, kind in cases:
+        q, k, v = (torch.randn(2, 40, c, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        if kind == "padding":
+            bias = torch.zeros(2, 1, 1, 40, device=dev)
+            bias[1, ..., 30:] = -1e4
+        else:
+            bias = torch.randn(1, 1, 40, 40, generator=g, device=dev)
+        n0, p0 = flash_attention.launches, flash_attention.route_launches[
+            "plain"]
+        got = multihead_attention(q, k, v, heads, bias=bias)
+        kernel = kind == "padding" and c // heads <= 128
+        assert flash_attention.launches - n0 == int(kernel)
+        assert flash_attention.route_launches["plain"] - p0 == int(not kernel)
+        want = multihead_attention(q.cpu().float(), k.cpu().float(),
+                                   v.cpu().float(), heads, bias=bias.cpu())
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        assert (got.float().cpu() - want).abs().max().item() <= tol

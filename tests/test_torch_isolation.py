@@ -59,7 +59,10 @@ def test_sources_cover_the_package():
     assert "ns2vc_tpu_torch/native/__init__.py" in SOURCES
     assert "ns2vc_tpu_torch/train/trainer.py" in SOURCES
     assert "ns2vc_tpu_torch/data/preprocess.py" in SOURCES
-    assert len(SOURCES) >= 43
+    for rel in ("ops/sequence.py", "diffusion/wrappers.py", "models/lora.py",
+                "models/op_registry.py"):
+        assert f"ns2vc_tpu_torch/{rel}" in SOURCES
+    assert len(SOURCES) >= 47
 
 
 _ALONE = """
@@ -80,6 +83,8 @@ import ns2vc_tpu_torch.infer.serve, ns2vc_tpu_torch.ops.fused_resnet
 import ns2vc_tpu_torch.data.dataset, ns2vc_tpu_torch.data.preprocess
 import ns2vc_tpu_torch.train.trainer, ns2vc_tpu_torch.train.cli
 import ns2vc_tpu_torch.utils.checkpoints, ns2vc_tpu_torch.utils.logger
+import ns2vc_tpu_torch.ops.sequence, ns2vc_tpu_torch.diffusion.wrappers
+import ns2vc_tpu_torch.models.lora, ns2vc_tpu_torch.models.op_registry
 from ns2vc_tpu_torch.audio.host import (
     Slicer, compute_f0_ac, compute_f0_dio, interpolate_f0)
 from ns2vc_tpu_torch.config import Config, load_config

@@ -77,7 +77,7 @@ def test_multihead_attention_heads_roundtrip():
     q, k, v = qkv.split(heads * d, dim=-1)
     bias = torch.zeros(b, t)
     bias[1, 6:] = -1e4
-    got = multihead_attention(q, k, v, heads, key_bias=bias)
+    got = multihead_attention(q, k, v, heads, bias=bias[:, None, None, :])
     per_head = [flash_attention_plain(
         q[..., i * d:(i + 1) * d][:, None], k[..., i * d:(i + 1) * d][:, None],
         v[..., i * d:(i + 1) * d][:, None], bias)[:, 0] for i in range(heads)]

@@ -188,6 +188,8 @@ import ns2vc_tpu_torch.ops.flash_attention, ns2vc_tpu_torch.ops.fused_resnet
 import ns2vc_tpu_torch.native, ns2vc_tpu_torch.utils.convert_reference
 import ns2vc_tpu_torch.data.dataset, ns2vc_tpu_torch.data.preprocess
 import ns2vc_tpu_torch.train.trainer, ns2vc_tpu_torch.train.cli
+import ns2vc_tpu_torch.ops.sequence, ns2vc_tpu_torch.diffusion.wrappers
+import ns2vc_tpu_torch.models.lora, ns2vc_tpu_torch.models.op_registry
 import chip_smoke
 from ns2vc_tpu_torch.audio import host
 from ns2vc_tpu_torch.ops import _build

@@ -526,9 +526,18 @@ def test_the_default_device_refuses_without_a_card(tmp_path, monkeypatch):
 
 
 def test_f0_predictor_config_raises(tmp_path):
+    """A Trainer with the F0 predictor keeps f0/uv in its batches; a
+    checkpoint trained without the predictor does not load into it (the
+    port's loading is strict)."""
     cfg = _trainer_config(str(tmp_path))
+    plain = ttrainer.Trainer(cfg, logs_folder=str(tmp_path / "plain"),
+                             device="cpu")
+    path = plain.save()
     cfg = dataclasses.replace(cfg, f0_predictor=dataclasses.replace(
-        cfg.f0_predictor, enabled=True))
-    with pytest.raises(NotImplementedError, match="F0-predictor"):
-        ttrainer.Trainer(cfg, logs_folder=str(tmp_path / "run"),
-                         device="cpu")
+        cfg.f0_predictor, enabled=True, attention_layers=1))
+    tr = ttrainer.Trainer(cfg, logs_folder=str(tmp_path / "run"),
+                          device="cpu")
+    assert {"f0", "uv"} <= set(tr.device_batch(next(tr.loader())))
+    tr.close()
+    with pytest.raises(RuntimeError, match="f0_predictor"):
+        tr.load(path=path)
