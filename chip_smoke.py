@@ -42,22 +42,26 @@ times and bounds.
 F0 predictor (after training): `Config()` with the F0 predictor (seed-0
 weights, synthesized contours with unvoiced stretches) served through
 `Svc.infer_batch` at B=16 x 400 with auto_predict_f0 off and on, beside the
-f0-off model's call (K1 launches +10 each: the port runs the predictor on
-every call), and at B=1; the CLI with -a on its checkpoint; the PreModel
+f0-off model's call (launches: auto off as the f0-off call, the predictor
+skipped; auto on +10 K1 on the f32 route, the predictor's f32 trunk), and
+at B=1; the CLI with -a on its checkpoint; the PreModel
 (content with the F0 embedding, the prediction) and generate_mel card vs
 CPU in f32; the prediction in bf16 against f32; K1 at the predictor's
 cross-attention geometry; training through the `Trainer` at 32 x 272 (+10
-K1 launches and backward calls per step, step time and peak memory beside
+f32 K1 launches and backward calls per step, step time and peak memory beside
 the f0-off step, loss_f0 on a fixed batch, card vs CPU gradients of the
 predictor, a checkpoint served). Model modules: the encoder op registry's
 15 layers at C=256, T=400, B=4 card (f32, bf16) vs CPU with each call's
-attention route, K1 at D=128 in bf16 (the CUDA-core kernel), a
+attention route, K1 at D=128 in f32 and bf16 (each call's route checked), a
 classifier-free-guidance UniPC sample through `model_wrapper`, a
 LoRA-merged model against a hand merge, and streaming attention and
 `ConvFFN.step` against their full-sequence versions. JSON lines
 {"f0_predictor": ...} and {"model_modules": ...} hold their numbers, and
 each K1 route's entry in the kernels line gains the F0 serving call's
 launches and its device time at the predictor's (and D = 128's) geometry.
+Each route's entry also gains one B=16 UNet step's calls of it (the f32
+routes' at Svc's default f32 serving, whose call at B=16 x 400 is timed
+after the bf16 serving calls and profiled at the end).
 
 The main path is the wav-in -> wav-out CLI run (unipc, bf16): its launch
 counts are read around it, and every K1 / K2 call it makes is recorded by
@@ -67,8 +71,9 @@ with TF32 off runs once through the kernels and once through their plain
 versions, and the two waveforms are compared.
 
 Each kernel has two routes, chosen by dtype in its wrapper: bf16 goes to
-the tensor-core kernel (`flash_attention_tc`, `affine_silu_conv1d_tc`), f32
-to the CUDA-core one (`flash_attention`, `affine_silu_conv1d`). Every
+the bf16 tensor-core kernel (`flash_attention_tc`, `affine_silu_conv1d_tc`),
+f32 to the 3xTF32 tensor-core one (`flash_attention_f32tc`,
+`affine_silu_conv1d_f32tc`: three TF32 passes per product). Every
 route is held against the plain version at the B=16 serving shapes and at
 every geometry the CLI run recorded, in its own dtype's tolerance.
 
@@ -84,7 +89,8 @@ calls, summed, and eager_ms, the same with the calls made back to back
 from Python (which at most of these shapes times the host's launches);
 bound_ms, the same sum of each geometry's least time on an H100 SXM: the
 larger of its FLOPs over the peak rate of its type (989 TFLOP/s bf16
-tensor cores, 67 TFLOP/s f32) and its bytes (each input read once, each
+tensor cores; f32 at f32 accuracy, 3 TF32 passes at 494.7 TFLOP/s) and its
+bytes (each input read once, each
 output written once) over 3.35 TB/s, with bound_by the term that bounds
 the most of that sum;
 library_ms, the same sum for one PyTorch call of the same function
@@ -114,7 +120,8 @@ SEED = 0
 
 # f32 (TF32 off): the kernels and the plain versions sum in other orders
 ATTN_F32_ATOL = 2e-5       # the JAX suite's bound for the Pallas kernel
-RESNET_F32_ATOL = 1e-4     # sums of up to 3*1024 products of O(1) terms
+RESNET_F32_ATOL = 3e-5     # the JAX suite's bound: sums of up to 3*1024
+                           # products of O(1) terms, 3xTF32 on the card
 # bf16: K1's plain version rounds the probabilities to bf16 before the PV
 # product and the kernel keeps them f32 (the JAX suite's bf16 bound is
 # 0.03); K2's two sides differ in summation order before one bf16 rounding
@@ -133,16 +140,20 @@ CLI_STEPS = 30             # the CLI's default sampling_timesteps
 # error (MODEL_ATOL's bound) forward, and ContentVec's into the content
 CLI_WAV_ATOL = 1e-3
 CARD = ""                  # nvidia-smi's name and power limit, set in main
-# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for bound_ms
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for bound_ms. The
+# f32 routes are held to f32 accuracy, which the card reaches at most
+# through three TF32 tensor-core passes (3xTF32) at 494.7 TFLOP/s: the
+# least time of an f32 product is 3 x its FLOPs at that rate (the f32 CUDA
+# cores' 67 TFLOP/s is slower)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 ROUTES = {   # route -> (kernel source, the TPU kernel it replaces)
-    "flash_attention": ("flash_attention.cu",
-                        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "flash_attention_f32tc": ("flash_attention.cu",
+                              "ns2vc_tpu/ops/pallas_attention.py:92"),
     "flash_attention_tc": ("flash_attention_tc.cu",
                            "ns2vc_tpu/ops/pallas_attention.py:92"),
-    "affine_silu_conv1d": ("gn_silu_conv1d.cu",
-                           "ns2vc_tpu/ops/pallas_resnet.py:71"),
+    "affine_silu_conv1d_f32tc": ("gn_silu_conv1d.cu",
+                                 "ns2vc_tpu/ops/pallas_resnet.py:71"),
     "affine_silu_conv1d_tc": ("gn_silu_conv1d_tc.cu",
                               "ns2vc_tpu/ops/pallas_resnet.py:71"),
 }
@@ -263,18 +274,16 @@ def k2_bound(bsz, t, c, co, dtype):
     return bound(6.0 * bsz * t * c * co, nbytes, dtype)
 
 
-def k1_route(dtype, d) -> str:
+def k1_route(dtype) -> str:
     from ns2vc_tpu_torch.ops.flash_attention import attention_route
 
-    return {"tc": "flash_attention_tc", "simt": "flash_attention"}[
-        attention_route("cuda", dtype, d)]
+    return f"flash_attention_{attention_route('cuda', dtype)}"
 
 
 def k2_route(dtype) -> str:
     from ns2vc_tpu_torch.ops.fused_resnet import resnet_route
 
-    return {"tc": "affine_silu_conv1d_tc", "simt": "affine_silu_conv1d"}[
-        resnet_route("cuda", dtype)]
+    return f"affine_silu_conv1d_{resnet_route('cuda', dtype)}"
 
 
 def sdpa_call(q, k, v, bias, scale):
@@ -302,20 +311,6 @@ def sdpa_backend(q, k, v, bias, scale) -> str:
         return f"unknown ({type(e).__name__})"
 
 
-def forced_simt(module: str):
-    """Patch a wrapper's route table to send every CUDA call to the
-    CUDA-core kernel: the old kernel timed on the same bf16 inputs as the
-    tensor-core one, for the same-call comparison only."""
-    from unittest import mock
-
-    import ns2vc_tpu_torch.ops.flash_attention as fa
-    import ns2vc_tpu_torch.ops.fused_resnet as fr
-
-    mod, name = {"k1": (fa, "attention_route"),
-                 "k2": (fr, "resnet_route")}[module]
-    return mock.patch.object(mod, name, lambda *a: "simt")
-
-
 def reset_launches() -> None:
     from ns2vc_tpu_torch.ops import flash_attention, fused_resnet
 
@@ -329,10 +324,10 @@ def route_counts() -> dict:
     from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
 
     k1, k2 = flash_attention.route_launches, affine_silu_conv1d.route_launches
-    return {"flash_attention": k1["simt"],
+    return {"flash_attention_f32tc": k1["f32tc"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
             "flash_attention_tc_narrow": k1["tc_narrow"],
-            "affine_silu_conv1d": k2["simt"],
+            "affine_silu_conv1d_f32tc": k2["f32tc"],
             "affine_silu_conv1d_tc": k2["tc"]}
 
 
@@ -399,10 +394,8 @@ def resnet_cases(unet):
 def k1_case(q, k, v, bias, scale=None, timed=True):
     """K1 against its plain version on one input set, through the route its
     dtype takes. Returns a dict: route, err, tol, bound, bound_by, and when
-    timed the device times (graph_ms) ms, plain, lib (SDPA), old (the
-    CUDA-core kernel on the same bf16 inputs, for the tensor-core route),
-    and eager, the kernel's eager time_ms; the times None when not
-    timed."""
+    timed the device times (graph_ms) ms, plain, lib (SDPA), and eager, the
+    kernel's eager time_ms; the times None when not timed."""
     import torch
 
     from ns2vc_tpu_torch.ops.flash_attention import (
@@ -412,10 +405,10 @@ def k1_case(q, k, v, bias, scale=None, timed=True):
     got = flash_attention(q, k, v, bias, scale)
     want = flash_attention_plain(q, k, v, bias, scale)
     torch.cuda.synchronize()
-    r = {"route": k1_route(q.dtype, q.shape[-1]),
+    r = {"route": k1_route(q.dtype),
          "err": (got.float() - want.float()).abs().max().item(),
          "tol": ATTN_F32_ATOL if q.dtype == torch.float32 else ATTN_BF16_ATOL,
-         "ms": None, "plain": None, "lib": None, "old": None, "eager": None}
+         "ms": None, "plain": None, "lib": None, "eager": None}
     r["bound"], r["bound_by"] = k1_bound(q, k, bias)
     if timed:
         s = q.shape[-1] ** -0.5 if scale is None else scale
@@ -424,10 +417,6 @@ def k1_case(q, k, v, bias, scale=None, timed=True):
         r["plain"] = graph_ms(lambda: flash_attention_plain(q, k, v, bias,
                                                             scale))
         r["lib"] = graph_ms(sdpa_call(q, k, v, bias, s))
-        if r["route"] == "flash_attention_tc":
-            with forced_simt("k1"):
-                r["old"] = graph_ms(lambda: flash_attention(q, k, v, bias,
-                                                            scale))
     return r
 
 
@@ -436,8 +425,7 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     affine folded from a GroupNorm (with FiLM if `film`), through the route
     its dtype takes. Returns a dict: route, err, tol, bound, bound_by, and
     when timed the device times (graph_ms) ms, plain, conv (cuDNN's conv1d
-    of the pre-activated input alone), old (the CUDA-core kernel on the same
-    bf16 inputs, for the tensor-core route), and eager, the kernel's eager
+    of the pre-activated input alone), and eager, the kernel's eager
     time_ms; the times None when not timed."""
     import torch
     import torch.nn.functional as F
@@ -462,7 +450,7 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     torch.cuda.synchronize()
     r = {"route": k2_route(dtype),
          "err": (got.float() - want.float()).abs().max().item(),
-         "ms": None, "plain": None, "conv": None, "old": None, "eager": None}
+         "ms": None, "plain": None, "conv": None, "eager": None}
     if dtype == torch.float32:
         r["tol"] = RESNET_F32_ATOL
     else:
@@ -476,22 +464,14 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
         h = F.silu(x.float() * a[:, None, :] + b[:, None, :]).to(
             dtype).transpose(1, 2).contiguous()
         r["conv"] = graph_ms(lambda: F.conv1d(h, w, bias, padding=1))
-        if r["route"] == "affine_silu_conv1d_tc":
-            with forced_simt("k2"):
-                r["old"] = graph_ms(lambda: affine_silu_conv1d(x, a, b, w,
-                                                               bias))
     return r
-
-
-def fmt(v, spec=".4f"):
-    return "n/a" if v is None else format(v, spec)
 
 
 class RouteSums:
     """Per route: the worst error and summed times over the shapes given,
     each weighted by its calls."""
 
-    KEYS = ("ms", "eager", "plain", "lib", "conv", "old", "bound")
+    KEYS = ("ms", "eager", "plain", "lib", "conv", "bound")
 
     def __init__(self):
         self.err = defaultdict(float)
@@ -517,9 +497,7 @@ class RouteSums:
     def line(self, route):
         s = self.sums[route]
         extra = "".join(f", {name} {s[key]:.4f}" for key, name in (
-            ("lib", "SDPA"), ("conv", "conv alone"), ("old", "CUDA-core "
-                                                      "kernel, same inputs"))
-            if key in s)
+            ("lib", "SDPA"), ("conv", "conv alone")) if key in s)
         return (f"device ms: kernel {s['ms']:.4f} (eager {s['eager']:.4f}), "
                 f"plain {s['plain']:.4f}{extra}, bound {s['bound']:.5f} "
                 f"({self.bound_by(route)})")
@@ -527,7 +505,9 @@ class RouteSums:
 
 def check_attention(cfg, dev):
     """Every attention the serving path runs, f32 and bf16, against the
-    plain version; the bf16 calls of one UNet step at B=16 summed."""
+    plain version; the calls of one UNet step at B=16 summed per route (bf16
+    serving takes the tensor-core route, f32 serving, `Svc`'s default, the
+    3xTF32 one). Returns (every shape's sums, the step's)."""
     import torch
 
     from ns2vc_tpu_torch.ops.attention import split_heads
@@ -554,14 +534,12 @@ def check_attention(cfg, dev):
                 f"Tk={tk} D={d} {r['route']} max_abs_err={r['err']:.3e} "
                 f"(tol {r['tol']:g}) kernel_ms={r['ms']:.4f} eager_ms="
                 f"{r['eager']:.4f} plain_ms="
-                f"{r['plain']:.4f} sdpa_ms={r['lib']:.4f} old_kernel_ms="
-                f"{fmt(r['old'])} bound_ms={r['bound']:.5f} ({r['bound_by']}) "
-                f"[{CARD}]")
+                f"{r['plain']:.4f} sdpa_ms={r['lib']:.4f} bound_ms="
+                f"{r['bound']:.5f} ({r['bound_by']}) [{CARD}]")
             if not r["err"] <= r["tol"]:
                 fail(f"K1 {name} {dtype}: error {r['err']} > {r['tol']}")
             sums.add(r, 1)
-            if dtype == torch.bfloat16:
-                step.add(r, calls)
+            step.add(r, calls)
     qkv = torch.randn(B, T_PAD, 3 * 256, device=dev).bfloat16()
     q, k, v = (split_heads(x, 8) for x in qkv.split(256, dim=-1))
     say(f"K1 SDPA backend at the bf16 encoder self-attention shapes: "
@@ -581,15 +559,16 @@ def check_attention(cfg, dev):
                      f"finite")
     say("K1 fully masked batch rows: finite (f32 and bf16)")
     for route in step.sums:
-        say(f"K1 one UNet step at B={B} bf16 ({step.calls[route]} calls, "
+        say(f"K1 one UNet step at B={B} ({step.calls[route]} calls, "
             f"{route}): {step.line(route)} [{CARD}]")
-    return sums
+    return sums, step
 
 
 def check_resnet(unet, dev):
     """Both epilogues of every resnet block and the output tail at the
-    serving bucket, f32 and bf16, against the plain version; the bf16 calls
-    of one UNet step at B=16 summed."""
+    serving bucket, f32 and bf16, against the plain version; the calls of
+    one UNet step at B=16 summed per route. Returns (every shape's sums,
+    the step's)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -603,17 +582,16 @@ def check_resnet(unet, dev):
                 f"{r['err']:.3e} (tol {r['tol']:.3g}) kernel_ms={r['ms']:.4f} "
                 f"eager_ms={r['eager']:.4f} "
                 f"plain_ms={r['plain']:.4f} conv_alone_ms={r['conv']:.4f} "
-                f"old_kernel_ms={fmt(r['old'])} bound_ms={r['bound']:.5f} "
-                f"({r['bound_by']}) [{CARD}]")
+                f"bound_ms={r['bound']:.5f} ({r['bound_by']}) [{CARD}]")
             if not r["err"] <= r["tol"]:
                 fail(f"K2 {name} {dtype}: error {r['err']} > {r['tol']}")
             sums.add(r, 1)
-            if dtype == torch.bfloat16 and name != "ragged_T":
+            if name != "ragged_T":
                 step.add(r, 1)
     for route in step.sums:
-        say(f"K2 one UNet step at B={B} bf16 ({step.calls[route]} calls, "
+        say(f"K2 one UNet step at B={B} ({step.calls[route]} calls, "
             f"{route}): {step.line(route)} [{CARD}]")
-    return sums
+    return sums, step
 
 
 class PathCalls:
@@ -718,7 +696,7 @@ def check_path_calls(calls: PathCalls, dev):
             continue
         split_ms += n * k2(key, torch.bfloat16, True)["ms"]
         with mock.patch.object(fr, "plan_tc",
-                               lambda b_, t_, c_, co_: (1, -(-c_ // 32))):
+                               lambda b_, t_, c_, co_, bk: (1, -(-c_ // bk))):
             unsplit_ms += n * k2(key, torch.bfloat16, True)["ms"]
     say(f"affine_silu_conv1d_tc channel split on the CLI run's split "
         f"geometries: planned {split_ms:.2f} ms, unsplit {unsplit_ms:.2f} ms "
@@ -789,11 +767,11 @@ def check_full_model(cfg, sd, vsd, dev):
 
 
 def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
-                     top: int = 8) -> None:
+                     top: int = 8) -> dict:
     """One call of fn() under torch.profiler: device time by kernel, and
     the device's busy share of the same call timed without the profiler.
     Only device activity is recorded: with the host's ops as well, sorting
-    the events took ~50 s per call."""
+    the events took ~50 s per call. Returns {kernel name: (ms, count)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -813,12 +791,31 @@ def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
     total = sum(ms for ms, _ in by.values())
     if total == 0:
         say(f"profile {label}: the profiler recorded no device time")
-        return
+        return by
     say(f"profile {label}: {total:.1f} ms of kernel time in a call of "
         f"{wall_ms_unprofiled:.1f} ms unprofiled: device busy "
         f"{100 * total / wall_ms_unprofiled:.0f} % [{CARD}]")
     for name, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:top]:
         say(f"  {ms:8.1f} ms {100 * ms / total:5.1f} % x{n:<6d} {name[:90]}")
+    return by
+
+
+def f32_serving_profile(fn, wall_ms_unprofiled: float) -> dict:
+    """One f32 serving call under torch.profiler: its kernel time, and
+    K1's and K2's share of it (each kernel's launches and its merge or
+    reduce kernel's)."""
+    by = device_breakdown(fn, wall_ms_unprofiled, f"serving B={B} f32")
+    out = {"wall_ms": wall_ms_unprofiled,
+           "kernel_ms": sum(ms for ms, _ in by.values())}
+    for key, names in (("k1_ms", ("flash_fwd_f32tc", "split_kv_merge")),
+                       ("k2_ms", ("affine_silu_conv_k3_f32tc",
+                                  "split_k_reduce_f32"))):
+        out[key] = sum(ms for name, (ms, _) in by.items()
+                       if any(n in name for n in names))
+    say(f"profile serving B={B} f32: K1 {out['k1_ms']:.1f} ms, K2 "
+        f"{out['k2_ms']:.1f} ms of {out['kernel_ms']:.1f} ms kernel time "
+        f"[{CARD}]")
+    return out
 
 
 def check_serving(cfg, sd, vsd, dev):
@@ -850,15 +847,15 @@ def check_serving(cfg, sd, vsd, dev):
              "non-finite output")
     reset_launches()
     outs, ms = run("pcm16")
-    counts = route_counts()
+    counts = bf16_counts = route_counts()
     if len(outs) != B or any(o.shape != (n_samples,) or o.dtype != np.int16
                              for o in outs):
         fail("serving (pcm16): wrong count, shape or dtype")
     n_levels = len(cfg.diffusion_encoder.block_out_channels)
     # bf16: everything on the tensor-core routes; the two pooling calls
     # (D = 100 and 4) stage their tiles with element loads
-    want = {"flash_attention": 0, "flash_attention_tc": 14 + STEPS * 32,
-            "flash_attention_tc_narrow": 2, "affine_silu_conv1d": 0,
+    want = {"flash_attention_f32tc": 0, "flash_attention_tc": 14 + STEPS * 32,
+            "flash_attention_tc_narrow": 2, "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_tc": STEPS * 45}
     if n_levels != 4 or counts != want:
         fail(f"launch counts {counts}, expected {want}")
@@ -884,7 +881,31 @@ def check_serving(cfg, sd, vsd, dev):
         f"{n_samples / cfg.data.sampling_rate / (single_ms[1] / 1e3):.2f}x "
         f"real time [{CARD}]")
     walls = {"batch": ms, "single": single_ms[1]}
-    return svc, clips, refer, walls
+    # Svc's default dtype, f32: every K1 / K2 call on the 3xTF32 routes
+    svc32 = Svc(config=cfg, params=sd, vocos_params=vsd, device=dev)
+    run32 = lambda: svc32.infer_batch(clips, refer, sampling_timesteps=STEPS,
+                                      order=2, output="pcm16")   # noqa: E731
+    _, warm32 = wall_ms(run32)
+    reset_launches()
+    outs, walls["batch_f32"] = wall_ms(run32)
+    counts = route_counts()
+    want = {"flash_attention_f32tc": 14 + STEPS * 32,
+            "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
+            "affine_silu_conv1d_f32tc": STEPS * 45,
+            "affine_silu_conv1d_tc": 0}
+    if counts != want or len(outs) != B or any(
+            o.shape != (n_samples,) or o.dtype != np.int16 for o in outs):
+        fail(f"serving f32: launches {counts} (expected {want}), or wrong "
+             f"count, shape or dtype")
+    # each route's launches in the serving call of its dtype
+    served = {r: (counts if r.endswith("f32tc") else bf16_counts)[r]
+              for r in counts}
+    say(f"serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} f32 (Svc's "
+        f"default dtype) pcm16: warm-up {warm32:.1f} ms, call "
+        f"{walls['batch_f32']:.1f} ms = "
+        f"{audio_s / (walls['batch_f32'] / 1e3):.2f}x real time; launches "
+        f"{counts} [{CARD}]")
+    return svc, svc32, clips, refer, walls, served
 
 
 # -- slice 2: front end, samplers, overlap, MicroBatcher, wav in -> wav out ---
@@ -964,7 +985,7 @@ def check_front_end(dev, cv_sd, crepe_sd):
         reset_launches()
         compare("ContentVec 768x12, 4 s",
                 lambda d: models[d.type][0](wav16.to(d)), CONTENTVEC_ATOL)
-        n = route_counts()["flash_attention"]
+        n = route_counts()["flash_attention_f32tc"]
         if n != 12:
             fail(f"ContentVec launched K1's f32 route {n} times, expected 12 "
                  f"(one per layer)")
@@ -1220,17 +1241,17 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
 
         path_calls = PathCalls()
         counts, calls, ms, _ = run([], patches=path_calls.patches())
-        # ContentVec runs in f32 (the CUDA-core route), the UNet, encoders
-        # and pooling in bf16 (the tensor-core routes)
-        want = {"flash_attention": 12 * calls["contentvec"],
+        # ContentVec runs in f32 (the 3xTF32 route), the UNet, encoders and
+        # pooling in bf16 (the bf16 tensor-core routes)
+        want = {"flash_attention_f32tc": 12 * calls["contentvec"],
                 "flash_attention_tc": calls["batches"] * (14 + 32 * CLI_STEPS),
                 "flash_attention_tc_narrow": 2 * calls["batches"],
-                "affine_silu_conv1d": 0,
+                "affine_silu_conv1d_f32tc": 0,
                 "affine_silu_conv1d_tc": calls["batches"] * 45 * CLI_STEPS}
         if counts != want or calls["contentvec"] < 3:
             fail(f"CLI launch counts {counts} for {calls}, expected {want}")
         recorded = (sum(path_calls.k1.values()), sum(path_calls.k2.values()))
-        if recorded != (counts["flash_attention"]
+        if recorded != (counts["flash_attention_f32tc"]
                         + counts["flash_attention_tc"],
                         counts["affine_silu_conv1d_tc"]):
             fail(f"CLI: {recorded} wrapper calls recorded, {counts} "
@@ -1261,10 +1282,10 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                                   flash_attention_plain),
                 mock.patch.object(fused_resnet, "affine_silu_conv1d",
                                   affine_silu_conv1d_plain)])
-        f32_want = {"flash_attention": counts["flash_attention"]
+        f32_want = {"flash_attention_f32tc": counts["flash_attention_f32tc"]
                     + counts["flash_attention_tc"],
                     "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
-                    "affine_silu_conv1d": counts["affine_silu_conv1d_tc"],
+                    "affine_silu_conv1d_f32tc": counts["affine_silu_conv1d_tc"],
                     "affine_silu_conv1d_tc": 0}
         if k_counts != f32_want or max(p_counts.values()) != 0:
             fail(f"CLI f32: launches {k_counts} through the kernels "
@@ -1327,9 +1348,9 @@ def backward_calls() -> dict:
     from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
 
     k1, k2 = flash_attention.backward_calls, affine_silu_conv1d.backward_calls
-    return {"flash_attention": k1["simt"],
+    return {"flash_attention_f32tc": k1["f32tc"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
-            "affine_silu_conv1d": k2["simt"],
+            "affine_silu_conv1d_f32tc": k2["f32tc"],
             "affine_silu_conv1d_tc": k2["tc"]}
 
 
@@ -1379,7 +1400,7 @@ def check_preprocess(tmp, cfg, cv_sd, dev):
     outs, ms = wall_ms(lambda: preprocess_dataset(
         raw, cfg, num_workers=4, contentvec=cv, device=dev))
     counts = route_counts()
-    if len(outs) != TRAIN_WAVS or counts["flash_attention"] == 0:
+    if len(outs) != TRAIN_WAVS or counts["flash_attention_f32tc"] == 0:
         fail(f"preprocess: {len(outs)} outputs, launches {counts}")
     for out in outs:
         wav, out_sr = read_wav(out)
@@ -1465,7 +1486,7 @@ def check_train_geometries(calls, dev):
         err = max((a.float() - b_.grad.float()).abs().max().item()
                   / max(1.0, b_.grad.float().abs().max().item())
                   for a, b_ in zip(got, ref))
-        route = k1_route(dtype, q.shape[-1])
+        route = k1_route(dtype)
         worst[route] = max(worst[route], err)
         if not err <= K1_GRAD_BF16:
             fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: error "
@@ -1740,11 +1761,11 @@ def check_training(vsd, cv_sd, dev, tmp):
     # forward finds them in the cache
     if len(packs) != 45:
         fail(f"training step packed K2 weights {len(packs)} times, not 45")
-    want = {"flash_attention": 0, "flash_attention_tc": 46 + 32,
-            "flash_attention_tc_narrow": 2, "affine_silu_conv1d": 0,
+    want = {"flash_attention_f32tc": 0, "flash_attention_tc": 46 + 32,
+            "flash_attention_tc_narrow": 2, "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_tc": 45 + 44}
-    want_bwd = {"flash_attention": 0, "flash_attention_tc": 46,
-                "affine_silu_conv1d": 0, "affine_silu_conv1d_tc": 45}
+    want_bwd = {"flash_attention_f32tc": 0, "flash_attention_tc": 46,
+                "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_tc": 45}
     if launches != want or bwd != want_bwd:
         fail(f"training step launches {launches} (expected {want}), "
              f"backward calls {bwd} (expected {want_bwd})")
@@ -1997,8 +2018,10 @@ def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
     """Svc.infer_batch (B=16, pcm16) with the predictor, auto_predict_f0
     off and on, beside the f0-off model's call, in turns (off, auto off,
     auto on, auto on, auto off, off: the host's drift falls on both
-    sides); K1 launches +10 each (the port runs the predictor on every
-    call), counted in each of the first calls; then B=1, in turns."""
+    sides), counted in each of the first calls: auto off launches what the
+    f0-off model launches (the predictor's output would go unused, so it
+    does not run), auto on 10 more K1 calls, on the f32 route (the
+    predictor's f32 trunk under the bf16 model); then B=1, in turns."""
     import torch
 
     def run(svc, **kw):
@@ -2023,17 +2046,19 @@ def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
                                  np.int16 for o in outs):
             fail(f"f0 serving {name}: wrong count, shape or dtype")
     off = counts["off"]
-    want = dict(off, flash_attention_tc=off["flash_attention_tc"] + 10)
+    want = {"auto0": off, "auto1": dict(
+        off, flash_attention_f32tc=off["flash_attention_f32tc"] + 10)}
     for name in ("auto0", "auto1"):
-        if counts[name] != want:
-            fail(f"f0 serving {name}: launches {counts[name]}, expected the "
-                 f"f0-off call's {off} + 10 K1")
+        if counts[name] != want[name]:
+            fail(f"f0 serving {name}: launches {counts[name]}, expected "
+                 f"{want[name]} (the f0-off call's {off})")
     res = {f"{k}_ms": v for k, v in times.items()}
-    res["launches"] = counts["auto1"]
+    res["launches"], res["launches_auto0"] = counts["auto1"], counts["auto0"]
     say(f"f0 predictor serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} "
         f"bf16 pcm16, ms in turns: f0-off model {times['off']}, "
         f"auto_predict_f0 off {times['auto0']}, on {times['auto1']}; "
-        f"launches {counts['auto1']} (f0 off {off}) [{CARD}]")
+        f"launches {counts['auto1']} (auto off {counts['auto0']}, f0 off "
+        f"{off}) [{CARD}]")
     single = defaultdict(list)
     for name, svc, kw in (("off", svc_off, {}),
                           ("f0", svc_f, dict(f0=f0s[0], uv=uvs[0],
@@ -2162,7 +2187,8 @@ def f0_bf16_vs_f32(cfg_f, sd_f, dev):
     err = (p16 - p32).abs().max().item()
     scale = p32.abs().max().item()
     say(f"f0 predictor bf16 vs f32 on the card (B={B} T={T_PAD} Tp={TP_PAD}):"
-        f" lf0_pred relative RMS error {rel:.3e} (tol {PRED_BF16_RTOL:g}), "
+        f" lf0_pred relative RMS error {rel:.3e} (tol {PRED_BF16_RTOL:g}; "
+        f"4.28e-2 with the predictor's trunk in bf16), "
         f"max_abs_err {err:.3e} at max|f32| {scale:.3f}; content max_abs_err "
         f"{(c16 - c32).abs().max().item():.3e}")
     if not rel <= PRED_BF16_RTOL:
@@ -2245,11 +2271,11 @@ def _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd):
             _, ms = wall_ms(lambda: cli_main(argv))
         counts = route_counts()
         wav, out_sr = read_wav(os.path.join(tmp, "out", "src_auto_ref.wav"))
-    want = {"flash_attention": 12 * calls["contentvec"],
-            "flash_attention_tc": calls["batches"] * (14 + 10
-                                                      + 32 * F0_CLI_STEPS),
+    want = {"flash_attention_f32tc": 12 * calls["contentvec"]
+            + 10 * calls["batches"],
+            "flash_attention_tc": calls["batches"] * (14 + 32 * F0_CLI_STEPS),
             "flash_attention_tc_narrow": 2 * calls["batches"],
-            "affine_silu_conv1d": 0,
+            "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_tc": calls["batches"] * 45 * F0_CLI_STEPS}
     if out_sr != cfg_f.data.sampling_rate or not np.isfinite(wav).all() or \
             abs(len(wav) - want_len) > cfg_f.data.hop_length or counts != want:
@@ -2375,10 +2401,12 @@ def f0_training(off, trainer_off, batches_off, vsd, dev, tmp):
     trainer.train_step(batches[1])
     torch.cuda.synchronize()
     launches, bwd = route_counts(), backward_calls()
-    want = dict(off["launches"], flash_attention_tc=off["launches"][
-        "flash_attention_tc"] + 10)
-    want_bwd = dict(off["backward"], flash_attention_tc=off["backward"][
-        "flash_attention_tc"] + 10)
+    # the predictor's 10 cross-attentions take K1's f32 route (its f32
+    # trunk under the bf16 step), each once, not recomputed
+    want = dict(off["launches"], flash_attention_f32tc=off["launches"][
+        "flash_attention_f32tc"] + 10)
+    want_bwd = dict(off["backward"], flash_attention_f32tc=off["backward"][
+        "flash_attention_f32tc"] + 10)
     if launches != want or bwd != want_bwd:
         fail(f"f0 training step launches {launches} (expected {want}), "
              f"backward calls {bwd} (expected {want_bwd})")
@@ -2484,6 +2512,7 @@ def check_op_registry(dev):
     from ns2vc_tpu_torch.convert import init_module_
     from ns2vc_tpu_torch.models.op_registry import OPERATIONS_ENCODER
     from ns2vc_tpu_torch.ops.attention import split_heads
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention
 
     r = np.random.default_rng(SEED + 60)
     x = torch.tensor(r.standard_normal((MODULE_B, MODULE_T, MODULE_C)),
@@ -2513,8 +2542,7 @@ def check_op_registry(dev):
             tol = MODULE_F32_ATOL if dtype == torch.float32 else \
                 MODULE_BF16_RTOL * max(1.0, want.abs().max().item())
             if op_id in attention_ids:
-                want_routes = {k1_route(dtype,
-                                        MODULE_C // attention_ids[op_id]): 1}
+                want_routes = {k1_route(dtype): 1}
             elif op_id in (11, 13):
                 want_routes = {"plain": 1}
             else:
@@ -2536,6 +2564,13 @@ def check_op_registry(dev):
         qkv = torch.randn(MODULE_B, MODULE_T, 3 * MODULE_C, generator=g,
                           device=dev).to(dtype)
         q, k, v = (split_heads(t_, 2) for t_ in qkv.split(MODULE_C, dim=-1))
+        reset_launches()
+        flash_attention(q, k, v, bias)
+        routes = {k: n for k, n in route_counts().items() if n}
+        want_routes = ({"flash_attention_tc": 1} if dtype == torch.bfloat16
+                       else {"flash_attention_f32tc": 1})
+        if routes != want_routes:
+            fail(f"K1 D=128 {dtype}: routes {routes}, expected {want_routes}")
         with no_tf32():
             rr = k1_case(q, k, v, bias)
         say(f"K1 op_registry_d128 {str(dtype)[6:]:8s} B={MODULE_B} H=2 "
@@ -2590,8 +2625,8 @@ def check_cfg_sample(cfg, sd, dev):
                                                steps))
     counts = route_counts()
     # per UNet call: 32 attentions + the pooled add_embedding (D = 4)
-    want = {"flash_attention": 0, "flash_attention_tc": steps * 33,
-            "flash_attention_tc_narrow": steps, "affine_silu_conv1d": 0,
+    want = {"flash_attention_f32tc": 0, "flash_attention_tc": steps * 33,
+            "flash_attention_tc_narrow": steps, "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_tc": steps * 45}
     if not torch.isfinite(mel.float()).all() or counts != want:
         fail(f"CFG sample: finite {torch.isfinite(mel.float()).all()}, "
@@ -2697,7 +2732,7 @@ def check_streaming(dev):
         f"{att_err:.3e}, ConvFFN.step vs the LEFT-padded layer {ffn_err:.3e}"
         f" (tol {ENC_ATOL:g}); streaming launches {stream_counts}")
     if not (att_err <= ENC_ATOL and ffn_err <= ENC_ATOL) or \
-            stream_counts["flash_attention"] != n or stream_counts["plain"]:
+            stream_counts["flash_attention_f32tc"] != n or stream_counts["plain"]:
         fail(f"streaming: attention {att_err}, ConvFFN {ffn_err}, launches "
              f"{stream_counts}")
     return att_err, ffn_err
@@ -2765,7 +2800,8 @@ def main() -> int:
     # the build; then the kernels at every shape (their many CUDA-graph
     # captures), the CPU references of the front end, and the profiles
     with phase("serving"):
-        svc, clips, refer, walls = check_serving(cfg, sd, vsd, dev)
+        svc, svc32, clips, refer, walls, served = check_serving(
+            cfg, sd, vsd, dev)
         check_samplers(svc, clips, refer, cfg.data.hop_length,
                        cfg.data.sampling_rate)
         check_overlap(svc, refer)
@@ -2791,9 +2827,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     with no_tf32():
         with phase("K1 shapes"):
-            k1_step = check_attention(cfg, dev)
+            k1_all, k1_step = check_attention(cfg, dev)
         with phase("K2 shapes"):
-            k2_step = check_resnet(unet, dev)
+            k2_all, k2_step = check_resnet(unet, dev)
         with phase("full model"):
             check_full_model(cfg, sd, vsd, dev)
         with phase("CLI geometries"):
@@ -2808,6 +2844,9 @@ def main() -> int:
         device_breakdown(lambda: svc.infer_from_features(
             clips[0], refer, sampling_timesteps=STEPS, order=2),
             walls["single"], "single request B=1")
+        f32_serving = f32_serving_profile(lambda: svc32.infer_batch(
+            clips, refer, sampling_timesteps=STEPS, order=2,
+            output="pcm16"), walls["batch_f32"])
         train["profile"] = training_profile(trainer, train_batches[0],
                                             train["step_ms"])
         f0["training"]["profile"] = training_profile(
@@ -2823,7 +2862,7 @@ def main() -> int:
     for route, (source, replaces) in ROUTES.items():
         # the bf16 CLI run takes no f32 resnet call: that route's launches
         # are the f32 CLI run's (through the kernels, TF32 off)
-        f32_only = route == "affine_silu_conv1d"
+        f32_only = route == "affine_silu_conv1d_f32tc"
         launches = (f32_counts if f32_only else counts)[route]
         if launches == 0 or on_path.calls[route] == 0:
             fail(f"{route}: {launches} launches on its CLI run, "
@@ -2833,7 +2872,7 @@ def main() -> int:
         t_launch, t_bwd = train["launches"][route], train["backward"][route]
         pre = train["preprocess_launches"][route]
         if (t_launch if route.endswith("_tc") else
-                pre if route == "flash_attention" else 1) == 0:
+                pre if route == "flash_attention_f32tc" else 1) == 0:
             fail(f"{route}: {t_launch} launches per training step, {pre} in "
                  f"the preprocess run")
         # this slice's paths: the F0 predictor's serving call
@@ -2854,12 +2893,26 @@ def main() -> int:
                                f"{prefix}_bound_by": r["bound_by"],
                                f"{prefix}_library_ms": r["lib"],
                                f"{prefix}_max_abs_err": r["err"]})
+        # this slice's: the route's launches in the B=16 serving call of
+        # its dtype (f32 for the 3xTF32 routes: Svc's default), the summed
+        # times of one UNet step's calls, and the f32 serving call
+        st = (k1_step if route.startswith("flash") else k2_step)
+        ss = st.sums.get(route, {})
+        slice6 = {"serving_launches": served[route],
+                  **{f"serving_step_{name}": ss.get(key) for key, name in (
+                      ("ms", "ms"), ("plain", "plain_ms"),
+                      ("bound", "bound_ms"), ("lib", "library_ms"),
+                      ("conv", "conv_alone_ms"))},
+                  "serving_step_bound_by": st.bound_by(route)}
+        if route.endswith("f32tc"):
+            slice6["f32_serving_profiled_ms"] = f32_serving[
+                "k1_ms" if route.startswith("flash") else "k2_ms"]
         kernels.append({
             "name": route, "route": "cuda",
             "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches,
             "launches_from": "cli_f32" if f32_only else "cli_bf16",
-            "max_abs_err": max(k1_step.err[route], k2_step.err[route],
+            "max_abs_err": max(k1_all.err[route], k2_all.err[route],
                                on_path.err[route], *extra_err),
             "ms": s["ms"], "eager_ms": s["eager"], "plain_ms": s["plain"],
             "bound_ms": s["bound"],
@@ -2875,7 +2928,7 @@ def main() -> int:
             "train_backward_ms": geo.get("bwd_ms"),
             "train_backward_bound_ms": geo.get("bwd_bound"),
             "train_backward_bound_by": geo.get("bwd_by"),
-            "train_backward_max_err": geo.get("err"), **slice5})
+            "train_backward_max_err": geo.get("err"), **slice5, **slice6})
     print(json.dumps({"f0_predictor": {
         "serving": f0["serving"], "cli_ms": f0["cli_ms"],
         "card_vs_cpu": f0["card_vs_cpu"],

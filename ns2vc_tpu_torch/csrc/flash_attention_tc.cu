@@ -2,14 +2,13 @@
 //     o = softmax(q.k^T * scale + key_bias) . v
 //
 // Replaces: ns2vc_tpu/ops/pallas_attention.py::flash_attention (the Pallas
-// TPU kernel `_flash_kernel`) for bf16 inputs; f32 calls stay on
-// flash_attention.cu (TF32 tensor cores would break its f32 bound).
+// TPU kernel `_flash_kernel`) for bf16 inputs; f32 calls go to
+// flash_attention.cu (three TF32 passes: one would break the f32 bound).
 //
 // What bounds it on the H100: at the UNet's shapes (B*H = 128, T <= 448,
 // head dim 16..64) one call moves a few MB and does a few GFLOP, so the
-// bound is device memory (q, k, v read once, o written once); the f32
-// CUDA-core kernel ran at ~2.6 % of it, limited by shared-memory loads
-// feeding scalar FMAs.
+// bound is device memory (q, k, v read once, o written once); a kernel of
+// scalar FMAs fed from shared memory reached ~2.6 % of it.
 // What the design does about it (FlashAttention-2): one block of 4 warps
 // per (64-query tile, batch*head); each warp owns 16 query rows whose Q
 // fragments stay in registers for the whole key loop. Key/value tiles of 64
@@ -24,12 +23,14 @@
 // is floored at 1e-30, so a fully masked row stays finite (and, as the plain
 // version, uniform over its keys when every bias is equal). Rows are padded
 // by 16 bytes in shared memory, so ldmatrix reads are free of bank
-// conflicts. The head dim is templated at DP in {16, 32, 48, 64, 112}
-// (D = 4 -> 16, 100 -> 112). q/k/v are read through (batch, head, seq)
-// strides, so the packed (B, T, 3C) projection goes in without a copy; when
-// a row is not made of aligned 16-byte chunks (D = 4 or 100, or odd
-// strides) the caller passes vec = 0 and the tiles are staged with element
-// loads instead of cp.async. Later work: wgmma, TMA, warp specialisation.
+// conflicts. The head dim is templated at DP in {16, 32, 48, 64, 112, 128}
+// (D = 4 -> 16, 100 -> 112; 128 for the encoder op registry's two-head
+// layers). q/k/v are read through (batch, head, seq) strides, so the packed
+// (B, T, 3C) projection goes in without a copy; when a row is not made of
+// aligned 16-byte chunks (D = 4, 100 or odd, or odd strides) the caller
+// passes vec = 0, the tiles are staged with element loads instead of
+// cp.async and the output is written element by element. Later work:
+// wgmma, TMA, warp specialisation.
 #include <math_constants.h>
 
 #include <cstdint>
@@ -247,10 +248,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* orow = ob + t * o_st;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn) {
-      const int d = dn * 8 + (lane & 3) * 2;  // D is even: d < D => d+1 < D
-      if (d < D)
-        *reinterpret_cast<uint32_t*>(orow + d) =
-            pack_bf16x2(acc[dn][2 * i] * inv[i], acc[dn][2 * i + 1] * inv[i]);
+      const int d = dn * 8 + (lane & 3) * 2;
+      const float v0 = acc[dn][2 * i] * inv[i], v1 = acc[dn][2 * i + 1] * inv[i];
+      if (vec) {  // D % 8 == 0: d < D => d + 1 < D; o rows 16-byte aligned
+        if (d < D) *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16x2(v0, v1);
+      } else {
+        if (d < D) orow[d] = __float2bfloat16(v0);
+        if (d + 1 < D) orow[d + 1] = __float2bfloat16(v1);
+      }
     }
   }
 }
@@ -278,10 +283,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace ns2vc
 
 // bf16 q/k/v/o as (B, H, T, D) views given by element strides (batch, head,
-// seq) with unit stride on D; o 4-byte aligned; bias (B, Tk) f32 contiguous
-// or null. The caller guarantees D even and 2 <= D <= 112, Tq >= 1,
-// Tk >= 1, B*H <= 65535, and, when vec != 0, that q/k/v and their strides
-// are 16-byte aligned and D is a multiple of 8.
+// seq) with unit stride on D; bias (B, Tk) f32 contiguous or null. The
+// caller guarantees 1 <= D <= 128, Tq >= 1, Tk >= 1, B*H <= 65535, and,
+// when vec != 0, that q/k/v/o and their strides are 16-byte aligned and D is
+// a multiple of 8.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int ns2vc_flash_attention_tc_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
@@ -301,5 +306,6 @@ extern "C" int ns2vc_flash_attention_tc_fwd(
   if (D <= 48) return launch<48>(q, k, v, bf, o, B, H, Tq, Tk, D, s, scale, vec, st);
   if (D <= 64) return launch<64>(q, k, v, bf, o, B, H, Tq, Tk, D, s, scale, vec, st);
   if (D <= 112) return launch<112>(q, k, v, bf, o, B, H, Tq, Tk, D, s, scale, vec, st);
+  if (D <= 128) return launch<128>(q, k, v, bf, o, B, H, Tq, Tk, D, s, scale, vec, st);
   return int(cudaErrorInvalidValue);
 }

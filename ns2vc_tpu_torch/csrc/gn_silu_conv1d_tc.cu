@@ -10,9 +10,8 @@
 // What bounds it on the H100: an implicit GEMM of M = frames, N = Co,
 // K = 3 C, 2 B T C Co 3 FLOPs over x and w read once: at the UNet's widths
 // (C, Co of 128..1024) it is compute-bound on the bf16 tensor cores, with
-// device memory close behind (71 GFLOP and ~0.2 GB per B=16 step). The f32
-// CUDA-core kernel ran at ~12 TFLOP/s; at B <= 2 its grid filled a few of
-// the 132 SMs.
+// device memory close behind (71 GFLOP and ~0.2 GB per B=16 step); at
+// B <= 2 the output tiles alone fill a few of the 132 SMs.
 // What the design does about it: one block of 4 warps (2 x 2, 32 x 32 each)
 // per (64-frame, 64-channel) output tile walks the input channels in chunks
 // of 32. Per chunk, the frames [t0-1, t0+64] of x and the matching slab of

@@ -14,9 +14,12 @@ With `cfg.f0_predictor.enabled` the PreModel holds the F0 predictor and a
 256-bin F0 embedding added to the content: the embedding takes the given
 F0, or the predicted one when the model is in eval mode and
 `auto_predict_f0`. The training loss adds the L1 of the predicted against
-the true log-mel F0 (`loss_f0`). Serving runs the predictor on every call,
-also when its output goes unused (`auto_predict_f0` False); the JAX
-program drops that work in XLA.
+the true log-mel F0 (`loss_f0`). In eval with `auto_predict_f0` False the
+paths that discard the prediction (`encode`, `generate_mel`, and so the
+serving API) skip the predictor, as XLA drops that work from the JAX
+program; training, and a caller of `PreModel` that takes `lf0_pred`, run
+it. Under a bf16 model the predictor runs in f32, as JAX's promotion has
+it (see `models/encoders.py::F0Predictor`): `lf0_pred` is f32.
 """
 
 from __future__ import annotations
@@ -59,12 +62,15 @@ class PreModel(nn.Module):
             self.f0_emb = nn.Embedding(F0_BIN, pe.out_channels)
 
     def forward(self, c, refer, c_mask, refer_mask, generator=None, f0=None,
-                uv=None, f0_factor=None, auto_predict_f0=True):
+                uv=None, f0_factor=None, auto_predict_f0=True,
+                want_prediction=True):
         """(content, prompt, lf0, lf0_pred); lf0 (B, T, 1) is the log-mel
         F0 target and lf0_pred the prediction, both None unless the
         predictor is on and f0 (B, T) is given. uv defaults to f0 > 0. The
         normalised contour's scale is `f0_factor` (B,), else drawn from
-        `generator` in training mode, else 1."""
+        `generator` in training mode, else 1. With `want_prediction` False,
+        in eval and without `auto_predict_f0`, nothing reads the prediction:
+        the predictor does not run and lf0_pred is None."""
         # the reference pools the *padded* refer mel without a mask
         g = self.ref_enc(refer)
         prompt = self.prompt_encoder(refer, refer_mask, generator)
@@ -72,13 +78,14 @@ class PreModel(nn.Module):
         lf0 = lf0_pred = None
         if self.f0_predictor is not None and f0 is not None:
             lf0 = 2595.0 * torch.log10(1.0 + f0[..., None] / 700.0) / 500.0
-            norm_lf0 = normalize_f0(
-                lf0, uv if uv is not None else (f0 > 0).to(lf0.dtype),
-                f0_factor, generator if self.training else None)
-            lf0_pred = self.f0_predictor(content, prompt, norm_lf0, c_mask,
-                                         refer_mask, generator)
+            if self.training or auto_predict_f0 or want_prediction:
+                norm_lf0 = normalize_f0(
+                    lf0, uv if uv is not None else (f0 > 0).to(lf0.dtype),
+                    f0_factor, generator if self.training else None)
+                lf0_pred = self.f0_predictor(content, prompt, norm_lf0,
+                                             c_mask, refer_mask, generator)
             if not self.training and auto_predict_f0:
-                f0_for_emb = 700.0 * (10.0 ** (lf0_pred[..., 0].to(f0.dtype)
+                f0_for_emb = 700.0 * (10.0 ** (lf0_pred[..., 0]
                                                * 500.0 / 2595.0) - 1.0)
             else:
                 f0_for_emb = f0
@@ -184,9 +191,11 @@ class NaturalSpeech2(nn.Module):
 
     def encode(self, c, refer, c_mask, refer_mask, f0=None, uv=None,
                auto_predict_f0=True):
-        """The step-invariant conditioning (content, prompt)."""
+        """The step-invariant conditioning (content, prompt); in eval
+        without `auto_predict_f0` the F0 predictor does not run."""
         return self.pre_model(c, refer, c_mask, refer_mask, f0=f0, uv=uv,
-                              auto_predict_f0=auto_predict_f0)[:2]
+                              auto_predict_f0=auto_predict_f0,
+                              want_prediction=False)[:2]
 
     def denoise(self, x, content, prompt, prompt_mask, t, cross_kv=None,
                 aug_emb=None):

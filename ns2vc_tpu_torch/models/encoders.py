@@ -13,6 +13,12 @@ only under `module.train()`, scales the kept values by 1/(1-p) as flax does,
 and draws its mask from the `generator` passed down the forward: in training
 mode with p > 0 and no generator it raises rather than use the global RNG.
 The masks are not JAX's: the generators differ.
+
+The F0 predictor's layers take flax's dtype promotion: a layer whose dtype
+is unset computes in the common type of its input and its parameters, so
+under a bf16 model the predictor's trunk, fed the f32 normalised F0, runs
+in f32 (`LayerNorm`, `Linear` and `LNConv` here promote; the other modules'
+inputs and parameters share one dtype, where promotion changes nothing).
 """
 
 from __future__ import annotations
@@ -28,6 +34,31 @@ from ns2vc_tpu_torch.ops.attention import multihead_attention
 from ns2vc_tpu_torch.ops.masking import apply_mask, mask_to_bias
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as the JAX package sets it
+
+
+def _promoted(x: torch.Tensor, *params: torch.Tensor | None):
+    """x and the parameters cast to their common type (flax's promotion
+    of a layer whose dtype is unset); None stays None."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return [None if t is None else t.to(dt) for t in (x, *params)]
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm in the common type of its input and parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = _promoted(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
+class Linear(nn.Linear):
+    """nn.Linear in the common type of its input and parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*_promoted(x, self.weight, self.bias))
 
 
 class Dropout(nn.Dropout):
@@ -46,13 +77,14 @@ class Dropout(nn.Dropout):
 
 
 class LNConv(nn.Module):
-    """LayerNorm then conv; padded frames are zeroed before the norm.
-    `init_std` is the encoders' conv init N(0, sqrt(4(1-p)/(k c_in)))."""
+    """LayerNorm then conv, in the common type of the input and the
+    parameters; padded frames are zeroed before the norm. `init_std` is the
+    encoders' conv init N(0, sqrt(4(1-p)/(k c_in)))."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, dropout: float = 0.0):
         super().__init__()
-        self.LayerNorm_0 = nn.LayerNorm(in_channels, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(in_channels, eps=LN_EPS)
         self.Conv_0 = Conv1d(in_channels, out_channels, kernel_size)
         self.init_std = math.sqrt(4 * (1.0 - dropout)
                                   / (kernel_size * in_channels))
@@ -61,7 +93,10 @@ class LNConv(nn.Module):
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         if mask is not None:
             x = apply_mask(x, mask)
-        return self.Conv_0(self.LayerNorm_0(x))
+        h, w, b = _promoted(self.LayerNorm_0(x), self.Conv_0.weight,
+                            self.Conv_0.bias)
+        return F.conv1d(h.transpose(1, 2), w, b,
+                        padding=self.Conv_0.padding).transpose(1, 2)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -262,7 +297,7 @@ class WNConvResidual(nn.Module):
                  dropout: float = 0.5):
         super().__init__()
         self.kernel_size = kernel_size
-        self.layer_norm = nn.LayerNorm(channels, eps=LN_EPS)
+        self.layer_norm = LayerNorm(channels, eps=LN_EPS)
         self.conv_v = nn.Parameter(torch.zeros(channels, channels,
                                                kernel_size))
         self.conv_g = nn.Parameter(torch.ones(channels))
@@ -287,15 +322,21 @@ class WNConvResidual(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head cross-attention without biases; the memory's padding is
-    a key-padding bias, so on a card the attention is K1."""
+    a key-padding bias, so on a card the attention is K1. Each projection
+    promotes: an f32 x with a bf16 memory and parameters gives an f32 q and
+    bf16 k, v, and the attention's output and `out_proj` are bf16. The
+    memory has `mem_channels` (default `channels`), projected to
+    `channels` as flax's Dense infers its input width."""
 
-    def __init__(self, channels: int, num_heads: int):
+    def __init__(self, channels: int, num_heads: int,
+                 mem_channels: int | None = None):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(channels, channels, bias=False)
-        self.k_proj = nn.Linear(channels, channels, bias=False)
-        self.v_proj = nn.Linear(channels, channels, bias=False)
-        self.out_proj = nn.Linear(channels, channels, bias=False)
+        mem_channels = mem_channels or channels
+        self.q_proj = Linear(channels, channels, bias=False)
+        self.k_proj = Linear(mem_channels, channels, bias=False)
+        self.v_proj = Linear(mem_channels, channels, bias=False)
+        self.out_proj = Linear(channels, channels, bias=False)
 
     def forward(self, x: torch.Tensor, mem: torch.Tensor,
                 mem_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -308,17 +349,24 @@ class CrossAttention(nn.Module):
 
 class F0Predictor(nn.Module):
     """Prompt-conditioned F0 predictor: content (B, T, C) and prompt (B, Tp,
-    C), both detached, and the normalised log-F0 (B, T, 1) -> (B, T, out).
+    C), both detached, C = `in_channels`, and the normalised log-F0
+    (B, T, 1) -> (B, T, out).
     `attention_layers` x [3 WNConvResidual -> LN -> + cross-attention into
     the prompt].
 
     Two behaviours are the JAX package's on purpose. `f0_prenet` is an
     LNConv over one channel: its LayerNorm outputs its bias whatever the
     contour, so the prediction depends on content, prompt and masks only.
-    And the whole predictor runs in the dtype of its input x, so under bf16
-    serving every attention call is K1 in bf16; JAX promotes its trunk to
-    f32 there (the f0 input is f32), which the port does not copy because
-    K1 takes q, k and v in one dtype."""
+    And the predictor's dtypes follow flax's promotion: under a bf16 model,
+    `pre` runs in bf16 on the bf16 content, `f0_prenet` takes the f32
+    `norm_f0` (f32 whatever f0's dtype, see `ops/sequence.py::
+    normalize_f0`) with its parameters upcast, and from there the trunk is
+    f32: the weight-normed convs, the LayerNorms, `q_proj`, `proj` and the
+    output. `k_proj`/`v_proj` of the bf16 prompt stay bf16, the attention
+    takes q in f32 with k, v in bf16 and returns bf16 (on a card K1's f32
+    route over the exactly upcast k, v, without the plain version's bf16
+    rounding of the probabilities), and `out_proj` runs in bf16 before its
+    output joins the f32 trunk."""
 
     def __init__(self, in_channels: int = 256, hidden_channels: int = 256,
                  out_channels: int = 1, attention_layers: int = 10,
@@ -331,10 +379,10 @@ class F0Predictor(nn.Module):
             for j in range(3):
                 self.add_module(f"conv_{i}_{j}", WNConvResidual(
                     hidden_channels, 5, p_dropout))
-            self.add_module(f"norm_{i}", nn.LayerNorm(hidden_channels,
-                                                      eps=LN_EPS))
-            self.add_module(f"attn_{i}", CrossAttention(hidden_channels,
-                                                        n_heads))
+            self.add_module(f"norm_{i}", LayerNorm(hidden_channels,
+                                                   eps=LN_EPS))
+            self.add_module(f"attn_{i}", CrossAttention(
+                hidden_channels, n_heads, in_channels))
         self.proj = LNConv(hidden_channels, out_channels, 5, p_dropout)
 
     def forward(self, x: torch.Tensor, prompt: torch.Tensor,
@@ -343,8 +391,7 @@ class F0Predictor(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x, prompt = x.detach(), prompt.detach()
         x = self.pre(x, x_mask)
-        x = apply_mask(x + self.f0_prenet(norm_f0.to(x.dtype), x_mask),
-                       x_mask)
+        x = apply_mask(x + self.f0_prenet(norm_f0, x_mask), x_mask)
         prompt = apply_mask(prompt, prompt_mask)
         for i in range(self.attention_layers):
             for j in range(3):

@@ -33,19 +33,23 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtypes the kernels take: f32 (the 3xTF32 kernels) and bf16
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+H100_SMS = 132   # the card the kernels' split planners fill
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "ns2vc_flash_attention_fwd":
-        [_P] * 5 + [_I] * 6 + [_I64] * 12 + [ctypes.c_float, _P],
-    "ns2vc_affine_silu_conv1d": [_P] * 6 + [_I] * 5 + [_P],
     "ns2vc_flash_attention_tc_fwd":
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float, _I, _P],
-    "ns2vc_affine_silu_conv1d_tc": [_P] * 7 + [_I] * 9 + [_P],
+    "ns2vc_flash_attention_f32tc_fwd":
+        [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 3
+        + [_P] * 3,
+} | {
+    name: [_P] * 7 + [_I] * 9 + [_P]
+    for name in ("ns2vc_affine_silu_conv1d_f32tc",
+                 "ns2vc_affine_silu_conv1d_tc")
 }
 
 

@@ -4,24 +4,28 @@ Replaces `ns2vc_tpu/ops/pallas_attention.py::flash_attention`, the Pallas
 TPU kernel, with two hand-written CUDA kernels; their source notes say what
 bounds each on the H100 and how its design answers that.
 
-`flash_attention` routes by `attention_route(device, dtype, head_dim)` and
-on nothing else:
+`flash_attention` routes by `attention_route(device, dtype)` and on
+nothing else:
 
-    cpu                       -> `flash_attention_plain`
-    cuda, bf16, D even <= 112 -> "tc": `csrc/flash_attention_tc.cu`, tensor
-                                 cores (mma.sync bf16 -> f32), 16-byte
-                                 cp.async tiles; where a row is not made of
-                                 aligned 16-byte chunks (D = 4 or 100, odd
-                                 strides) the same kernel stages its tiles
-                                 with element loads, counted apart as
-                                 "tc_narrow"
-    cuda, f32                 -> "simt": `csrc/flash_attention.cu`, f32
-                                 CUDA cores (TF32 tensor cores would break
-                                 the f32 bound of 2e-5); it also takes the
-                                 bf16 calls the tensor-core kernel does not
-                                 (odd D, D > 112): the encoder op
-                                 registry's two-head layers at C = 256
-                                 (ids 14, 15) run D = 128 there
+    cpu        -> `flash_attention_plain`
+    cuda, bf16 -> "tc": `csrc/flash_attention_tc.cu`, tensor cores
+                  (mma.sync bf16 -> f32), 16-byte cp.async tiles, D <= 128;
+                  where a row is not made of aligned 16-byte chunks (D = 4,
+                  100 or odd, odd strides) the same kernel stages its tiles
+                  with element loads, counted apart as "tc_narrow"
+    cuda, f32  -> "f32tc": `csrc/flash_attention.cu`, TF32 tensor cores in
+                  three passes (3xTF32: each operand's TF32 big and small
+                  halves), at f32 accuracy, D <= 128; where its 64-query
+                  blocks would leave SMs idle, `plan_f32tc` splits the key
+                  tiles over more blocks, merged by a second kernel
+
+q in f32 with k and v in bf16 (the F0 predictor's cross-attention under a
+bf16 model: its trunk is f32, its prompt bf16, as flax promotes them) is
+the JAX package's mixed attention: f32 logits and softmax, the
+probabilities rounded to v's dtype, the output in v's dtype. The plain
+version computes exactly that; on a card k and v are cast to f32 (exact)
+and the call takes the f32 route, its output cast to bf16, so the card
+skips the one rounding of the probabilities to bf16 before the PV product.
 
 A CUDA tensor launches one of the kernels or raises. `flash_attention.
 launches` counts every launch, `flash_attention.route_launches` each route's;
@@ -49,23 +53,34 @@ import torch
 
 from ns2vc_tpu_torch.ops import _build
 
-MAX_HEAD_DIM = 128      # the f32 kernel's widest padded head
-TC_MAX_HEAD_DIM = 112   # the tensor-core kernel's widest padded head
+MAX_HEAD_DIM = 128      # both kernels' widest padded head
 
 
-def attention_route(device: torch.device | str, dtype: torch.dtype,
-                    head_dim: int) -> str:
-    """'plain' (CPU), 'tc' (bf16 tensor-core kernel) or 'simt' (f32
-    kernel); raises for a device that is neither."""
+def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
+    """(splits, key tiles per split) of the f32 kernel for B*H = bh: one
+    split when its 64-query blocks give every SM of the H100 one, else as
+    many as the SMs hold resident blocks (two at D <= 64, one above: their
+    shared memory), each over the same number of key tiles (64 keys, 32 at
+    D > 64), none empty."""
+    tiles = -(-tk // (64 if d <= 64 else 32))
+    blocks = -(-tq // 64) * bh
+    if blocks >= _build.H100_SMS:
+        return 1, tiles
+    want = max(1, (2 if d <= 64 else 1) * _build.H100_SMS // blocks)
+    per = -(-tiles // min(want, tiles))
+    return -(-tiles // per), per
+
+
+def attention_route(device: torch.device | str, dtype: torch.dtype) -> str:
+    """'plain' (CPU), 'tc' (bf16 kernel) or 'f32tc' (the 3xTF32 kernel,
+    which takes f32; `_launch` refuses any other dtype); raises for a device
+    that is neither."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise ValueError(f"flash_attention: unsupported device {device}")
-    if dtype == torch.bfloat16 and head_dim % 2 == 0 \
-            and head_dim <= TC_MAX_HEAD_DIM:
-        return "tc"
-    return "simt"
+    return "tc" if dtype == torch.bfloat16 else "f32tc"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,7 +92,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which accumulates in f32. q (B, H, Tq, D), k/v (B, H, Tk, D), bias
     additive (0 keep / -1e4 drop): the kernel's (B, Tk) key bias, or any
     bias that broadcasts against (B, H, Tq, Tk) (the plain route of
-    `ops/attention.py`)."""
+    `ops/attention.py`). q may be f32 with k and v bf16: the output is in
+    v's dtype."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     acc = _acc_dtype(q)
     logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
@@ -144,11 +160,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """q (B, H, Tq, D), k/v (B, H, Tk, D), bias (B, Tk) -> (B, H, Tq, D)
-    in q's dtype. On CUDA: f32 or bf16, D <= 128, unit stride on D;
-    differentiable in q, k and v."""
+    in v's dtype. On CUDA: f32 or bf16, all alike or q f32 with k and v
+    bf16, D <= 128, unit stride on D; differentiable in q, k and v."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if attention_route(q.device, q.dtype, q.shape[-1]) == "plain":
+    if attention_route(q.device, q.dtype) == "plain":
         return flash_attention_plain(q, k, v, bias, scale)
+    if q.dtype == torch.float32 and k.dtype == v.dtype == torch.bfloat16:
+        # exact upcasts; autograd takes their gradients back to bf16
+        return flash_attention(q, k.float(), v.float(), bias,
+                               scale).to(v.dtype)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttentionFn.apply(q, k, v, bias, scale)
@@ -159,16 +179,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: torch.Tensor | None, scale: float
             ) -> tuple[torch.Tensor, str]:
     """Check the inputs and launch the kernel of their route: (o, route)."""
-    route = attention_route(q.device, q.dtype, q.shape[-1])
+    route = attention_route(q.device, q.dtype)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in _build.KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; the kernel takes f32 or bf16, all alike")
+                         f"{v.dtype}; the kernels take f32 or bf16, all "
+                         f"alike, or q f32 with k and v bf16")
     if not 1 <= d <= MAX_HEAD_DIM or tq < 1 or tk < 1 or b * h > 65535:
         raise ValueError(f"flash_attention: unsupported shape B*H={b * h} "
                          f"Tq={tq} Tk={tk} D={d}")
@@ -188,29 +209,31 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = out.permute(0, 2, 1, 3)  # (B, H, Tq, D) view
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     bias_ptr = None if bias is None else bias.data_ptr()
-    vec = route == "tc" and all(_build.aligned16(t) for t in (q, k, v))
+    vec = all(_build.aligned16(t) for t in (q, k, v))
     if route == "tc" and not vec:
         route = "tc_narrow"
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
-    if route == "simt":
-        err = lib.ns2vc_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
-            _build.DTYPE_CODES[q.dtype], b, h, tq, tk, d, *strides,
-            float(scale), _build.stream_of(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
+            b, h, tq, tk, d, *strides, float(scale), int(vec))
+    if route == "f32tc":
+        splits, per = plan_f32tc(b * h, tq, tk, d)
+        ws = [None, None] if splits == 1 else [
+            torch.empty((splits, b * h * tq, n), dtype=torch.float32,
+                        device=q.device) for n in (d, 2)]
+        err = lib.ns2vc_flash_attention_f32tc_fwd(
+            *args, per, splits, *(None if w is None else w.data_ptr()
+                                  for w in ws), _build.stream_of(q))
     else:
-        err = lib.ns2vc_flash_attention_tc_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
-            b, h, tq, tk, d, *strides, float(scale), int(vec),
-            _build.stream_of(q))
+        err = lib.ns2vc_flash_attention_tc_fwd(*args, _build.stream_of(q))
     _build.check(err, f"flash_attention ({route})")
     return o, route
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = {"simt": 0, "tc": 0, "tc_narrow": 0,
+flash_attention.route_launches = {"f32tc": 0, "tc": 0, "tc_narrow": 0,
                                   "plain": 0}
-flash_attention.backward_calls = {"simt": 0, "tc": 0, "tc_narrow": 0}
+flash_attention.backward_calls = {"f32tc": 0, "tc": 0, "tc_narrow": 0}
 
 
 def reset_launches() -> None:

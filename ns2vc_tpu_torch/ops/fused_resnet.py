@@ -14,13 +14,15 @@ reductions (as the JAX wrapper leaves them to XLA) and keeps a and b in f32
 
     cpu        -> `affine_silu_conv1d_plain`
     cuda, bf16 -> "tc": `csrc/gn_silu_conv1d_tc.cu`, an implicit GEMM on the
-                  tensor cores (mma.sync bf16 -> f32) over weights packed
-                  once per weight tensor by `pack_conv_weight` (kept while
-                  the tensor lives, keyed by its storage and version),
-                  split over the input channels by `plan_tc` when the
-                  output tiles alone would not fill the card
-    cuda, f32  -> "simt": `csrc/gn_silu_conv1d.cu`, f32 CUDA cores
+                  tensor cores (mma.sync bf16 -> f32)
+    cuda, f32  -> "f32tc": `csrc/gn_silu_conv1d.cu`, the same implicit GEMM
+                  on TF32 tensor cores in three passes (3xTF32: each
+                  operand's TF32 big and small halves), at f32 accuracy
 
+Both run over weights packed once per weight tensor by `pack_conv_weight`
+(kept while the tensor lives, keyed by its storage and version; f32
+weights packed as their big and small TF32 planes), split over the input
+channels by `plan_tc` when the output tiles alone would not fill the card.
 A CUDA tensor launches one of the kernels or raises. `affine_silu_conv1d.
 launches` counts every launch, `affine_silu_conv1d.route_launches` each
 route's. The CUDA source notes say what bounds each kernel on the H100 and
@@ -31,7 +33,7 @@ through an autograd Function whose forward is the same launch and whose
 backward is `affine_silu_conv1d_backward`, written out in f32 torch ops
 (the activation is recomputed, the conv's input and weight gradients are
 one `convolution_backward`). Each backward adds one to
-`affine_silu_conv1d.backward_calls[route]`. The packed bf16 weights are
+`affine_silu_conv1d.backward_calls[route]`. The packed weights are
 made from `w.detach()`: w's gradient comes from the backward, never
 through the packed copy. `group_norm_affine` is torch ops, so autograd
 carries the GroupNorm and FiLM gradients through a and b.
@@ -46,49 +48,72 @@ import torch.nn.functional as F
 
 from ns2vc_tpu_torch.ops import _build
 
-# the tensor-core kernel's tile: frames, output channels, input channels per
-# chunk (csrc/gn_silu_conv1d_tc.cu kBM, kBN, kBK)
+# the kernels' tile: frames, output channels, input channels per chunk
+# (csrc/gn_silu_conv1d_tc.cu kBM, kBN, kBK; gn_silu_conv1d.cu takes chunks
+# of F32_BK)
 TC_BM, TC_BN, TC_BK = 64, 64, 32
-H100_SMS = 132
+F32_BK = 16
 
 
 def resnet_route(device: torch.device | str, dtype: torch.dtype) -> str:
-    """'plain' (CPU), 'tc' (bf16 tensor-core kernel) or 'simt' (the f32
-    kernel, which also takes any dtype the checks below refuse); raises for
-    a device that is neither CPU nor CUDA."""
+    """'plain' (CPU), 'tc' (bf16 kernel) or 'f32tc' (the 3xTF32 kernel,
+    which takes f32; the checks below refuse any other dtype); raises for a
+    device that is neither CPU nor CUDA."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise ValueError(f"affine_silu_conv1d: unsupported device {device}")
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    return "tc" if dtype == torch.bfloat16 else "f32tc"
 
 
-def plan_tc(bsz: int, t: int, c: int, co: int) -> tuple[int, int]:
-    """(splits, chunks per split) of the tensor-core kernel's channel loop
-    over its 32-channel chunks: the fewest splits whose (T, Co, B) output
-    tiles times splits reach one block per SM of the H100 (one split when
-    the tiles alone do), or one chunk per split where even that falls
-    short. The chunks are dealt evenly and no split is left empty."""
+def chunk_width(dtype: torch.dtype) -> int:
+    """Input channels per chunk of the kernel that takes `dtype`."""
+    return TC_BK if dtype == torch.bfloat16 else F32_BK
+
+
+def plan_tc(bsz: int, t: int, c: int, co: int,
+            bk: int = TC_BK) -> tuple[int, int]:
+    """(splits, chunks per split) of a kernel's channel loop over its
+    `bk`-channel chunks: the fewest splits whose (T, Co, B) output tiles
+    times splits reach one block per SM of the H100 (one split when the
+    tiles alone do), or one chunk per split where even that falls short.
+    The chunks are dealt evenly and no split is left empty."""
     tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
-    n_chunks = -(-c // TC_BK)
+    n_chunks = -(-c // bk)
     for want in range(1, n_chunks + 1):
         cps = -(-n_chunks // want)
         splits = -(-n_chunks // cps)   # no empty split
-        if tiles * splits >= H100_SMS:
+        if tiles * splits >= _build.H100_SMS:
             return splits, cps
     return n_chunks, 1
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 stored mantissa bits), ties away
+    from zero, as f32: the rounding of `cvt.rna.tf32.f32`."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """torch Conv1d weight (Co, C, 3) -> the tensor-core kernel's (3, Co_pad,
-    C_pad) bf16, contiguous along C, zero past (Co, C), Co_pad and C_pad
-    rounded up to TC_BN and TC_BK: tap k's (Co, C) matrix multiplies the
-    frames shifted by k - 1."""
+    """torch Conv1d weight (Co, C, 3) -> the kernels' packed layout,
+    contiguous along C, zero past (Co, C), Co_pad and C_pad rounded up to
+    TC_BN and the chunk width: tap k's (Co, C) matrix multiplies the frames
+    shifted by k - 1. bf16: (3, Co_pad, C_pad). f32: (2, 3, Co_pad, C_pad),
+    the big and small TF32 halves of 3xTF32 (big = w rounded to TF32, small
+    = the exact remainder rounded again), so the kernel splits no weight."""
     co, c, _ = w.shape
-    packed = torch.zeros((3, -(-co // TC_BN) * TC_BN, -(-c // TC_BK) * TC_BK),
-                         dtype=torch.bfloat16, device=w.device)
-    packed[:, :co, :c] = w.detach().permute(2, 0, 1)
+    bk = chunk_width(w.dtype)
+    shape = (3, -(-co // TC_BN) * TC_BN, -(-c // bk) * bk)
+    taps = w.detach().permute(2, 0, 1)
+    if w.dtype == torch.bfloat16:
+        packed = torch.zeros(shape, dtype=torch.bfloat16, device=w.device)
+        packed[:, :co, :c] = taps
+        return packed
+    packed = torch.zeros((2, *shape), dtype=torch.float32, device=w.device)
+    big = tf32_round(taps.float().contiguous())
+    packed[0, :, :co, :c] = big
+    packed[1, :, :co, :c] = tf32_round(taps.float() - big)
     return packed
 
 
@@ -188,7 +213,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             f"affine_silu_conv1d: shapes x {tuple(x.shape)} a "
             f"{tuple(a.shape)} b {tuple(b.shape)} w {tuple(w.shape)} bias "
             f"{tuple(bias.shape)}")
-    if x.dtype not in _build.DTYPE_CODES or w.dtype != x.dtype \
+    if x.dtype not in _build.KERNEL_DTYPES or w.dtype != x.dtype \
             or bias.dtype != x.dtype:
         raise ValueError(f"affine_silu_conv1d: dtypes x {x.dtype} w {w.dtype}"
                          f" bias {bias.dtype}; f32 or bf16, all alike")
@@ -206,30 +231,25 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y = torch.empty((bsz, t, co), dtype=x.dtype, device=x.device)
     affine_silu_conv1d.launches += 1
     affine_silu_conv1d.route_launches[route] += 1
-    if route == "simt":
-        err = lib.ns2vc_affine_silu_conv1d(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-            bias.data_ptr(), y.data_ptr(), _build.DTYPE_CODES[x.dtype],
-            bsz, t, c, co, _build.stream_of(x))
-    else:
-        wp = packed_weight(w)
-        splits, cps = plan_tc(bsz, t, c, co)   # bsz * splits < 132 * 132
-        ws = None if splits == 1 else torch.empty(
-            (splits, bsz, t, co), dtype=torch.float32, device=x.device)
-        vec = all(_build.aligned16(v) for v in (x, a, b))
-        err = lib.ns2vc_affine_silu_conv1d_tc(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), wp.data_ptr(),
-            bias.data_ptr(), y.data_ptr(),
-            None if ws is None else ws.data_ptr(), bsz, t, c, co,
-            wp.shape[2], wp.shape[1], cps, splits, int(vec),
-            _build.stream_of(x))
+    wp = packed_weight(w)
+    splits, cps = plan_tc(bsz, t, c, co, chunk_width(x.dtype))
+    ws = None if splits == 1 else torch.empty(     # bsz * splits < 132 * 132
+        (splits, bsz, t, co), dtype=torch.float32, device=x.device)
+    vec = all(_build.aligned16(v) for v in (x, a, b))
+    fn = (lib.ns2vc_affine_silu_conv1d_tc if route == "tc"
+          else lib.ns2vc_affine_silu_conv1d_f32tc)
+    err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), wp.data_ptr(),
+             bias.data_ptr(), y.data_ptr(),
+             None if ws is None else ws.data_ptr(), bsz, t, c, co,
+             wp.shape[-1], wp.shape[-2], cps, splits, int(vec),
+             _build.stream_of(x))
     _build.check(err, f"affine_silu_conv1d ({route})")
     return y, route
 
 
 affine_silu_conv1d.launches = 0
-affine_silu_conv1d.route_launches = {"simt": 0, "tc": 0}
-affine_silu_conv1d.backward_calls = {"simt": 0, "tc": 0}
+affine_silu_conv1d.route_launches = {"f32tc": 0, "tc": 0}
+affine_silu_conv1d.backward_calls = {"f32tc": 0, "tc": 0}
 
 
 def reset_launches() -> None:

@@ -134,14 +134,18 @@ def normalize_f0(f0: torch.Tensor, uv: torch.Tensor,
                  generator: torch.Generator | None = None) -> torch.Tensor:
     """Masked mean-centring of f0 (B, T, 1) over the voiced frames of uv
     (B, T), times a per-item scale: `factor` (B,) when given, else drawn
-    uniform in [0.8, 1.2) from `generator` when given, else 1."""
+    uniform in [0.8, 1.2) from `generator` when given, else 1. The centring
+    runs in f0's dtype and the product in f32 (f64 for f64 inputs), as the
+    JAX package multiplies by an f32 factor (or an f32 1) whatever f0's
+    dtype: a bf16 f0 gives an f32 result."""
     uv_sum = uv.sum(dim=1, keepdim=True)
     uv_sum = torch.where(uv_sum == 0, torch.full_like(uv_sum, 9999.0), uv_sum)
     means = (f0[..., 0] * uv).sum(dim=1, keepdim=True) / uv_sum
     if factor is None and generator is not None:
         factor = 0.8 + 0.4 * torch.rand((f0.shape[0],), generator=generator,
                                         device=f0.device)
-    centred = f0 - means[..., None]
+    acc = torch.promote_types(f0.dtype, torch.float32)
+    centred = (f0 - means[..., None]).to(acc)
     if factor is None:
         return centred
-    return centred * factor.to(f0.dtype).reshape(-1, 1, 1)
+    return centred * factor.to(acc).reshape(-1, 1, 1)

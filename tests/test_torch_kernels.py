@@ -7,6 +7,7 @@ numpy inputs, in f32. Tolerances are the JAX suite's own
 """
 
 import contextlib
+import itertools
 from unittest import mock
 
 import numpy as np
@@ -180,27 +181,39 @@ def test_fully_masked_rows_are_finite():
     (3, 70, 96, 136),
 ])
 def test_packed_weights_give_conv1d(b, t, c, co):
-    """The packed (3, Co_pad, C_pad) weights, used as the kernel uses them
-    (tap k multiplies the frames shifted by k - 1, zero padded), give
-    F.conv1d's k=3 SAME product."""
+    """The packed weights, used as the kernels use them (tap k multiplies
+    the frames shifted by k - 1, zero padded), give F.conv1d's k=3 SAME
+    product: bf16 (3, Co_pad, C_pad); f32 (2, 3, Co_pad, C_pad), TF32 big
+    and small halves (the low 13 bits of each zero) that sum to w within
+    2^-22 of |w|."""
     import torch.nn.functional as F
 
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        TC_BK, TC_BN, pack_conv_weight,
+        F32_BK, TC_BK, TC_BN, pack_conv_weight,
     )
 
     r = np.random.default_rng(b * t)
     h = torch.from_numpy(r.standard_normal((b, t, c)).astype(np.float32))
     w = torch.from_numpy(r.standard_normal((co, c, 3)).astype(np.float32))
-    packed = pack_conv_weight(w)
+    cop = -(-co // TC_BN) * TC_BN
+    packed = pack_conv_weight(w.bfloat16())
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    assert packed.shape == (3, -(-co // TC_BN) * TC_BN, -(-c // TC_BK) * TC_BK)
+    assert packed.shape == (3, cop, -(-c // TC_BK) * TC_BK)
     assert not packed[:, co:].any() and not packed[:, :, c:].any()
-    wb = w.bfloat16().float()
-    hp = torch.nn.functional.pad(h, (0, packed.shape[2] - c, 1, 1))
-    got = sum(hp[:, k:k + t] @ packed[k].float().T for k in range(3))[..., :co]
-    want = F.conv1d(h.transpose(1, 2), wb, padding=1).transpose(1, 2)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+    planes = pack_conv_weight(w)
+    assert planes.dtype == torch.float32 and planes.is_contiguous()
+    assert planes.shape == (2, 3, cop, -(-c // F32_BK) * F32_BK)
+    assert not planes[:, :, co:].any() and not planes[:, :, :, c:].any()
+    assert not (planes.view(torch.int32) & 0x1FFF).any()
+    joined = planes[0] + planes[1]
+    taps = w.permute(2, 0, 1)
+    assert ((joined[:, :co, :c] - taps).abs()
+            <= 2.0 ** -22 * taps.abs()).all()
+    for wk, pk in ((w.bfloat16().float(), packed.float()), (w, joined)):
+        hp = torch.nn.functional.pad(h, (0, pk.shape[2] - c, 1, 1))
+        got = sum(hp[:, k:k + t] @ pk[k].T for k in range(3))[..., :co]
+        want = F.conv1d(h.transpose(1, 2), wk, padding=1).transpose(1, 2)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
 
 
 def _full_resnet_cases():
@@ -216,19 +229,21 @@ def _full_resnet_cases():
 @pytest.mark.parametrize("bsz", [1, 2, 16])
 def test_planner_fills_the_card(bsz):
     """Every K2 geometry of the serving bucket at B in {1, 2, 16}: the
-    split plan deals every 32-channel chunk to exactly one non-empty
-    split, and gives at least 132 blocks wherever tiles x chunks allow."""
+    split plan deals every chunk (32 channels in bf16, 16 in f32) to
+    exactly one non-empty split, and gives at least 132 blocks wherever
+    tiles x chunks allow."""
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        H100_SMS, TC_BK, TC_BM, TC_BN, plan_tc,
+        F32_BK, TC_BK, TC_BM, TC_BN, plan_tc,
     )
+    from ns2vc_tpu_torch.ops._build import H100_SMS
 
     cases = _full_resnet_cases()
     assert len(cases) == 45
-    for t_div in (1, 2):          # the bucket and a half-length one
-        for name, t, c, co, _ in cases:
+    for t_div, bk in itertools.product((1, 2), (TC_BK, F32_BK)):
+        for name, t, c, co, _ in cases:   # the bucket and a half-length one
             t //= t_div
-            splits, cps = plan_tc(bsz, t, c, co)
-            n_chunks = -(-c // TC_BK)
+            splits, cps = plan_tc(bsz, t, c, co, bk)
+            n_chunks = -(-c // bk)
             tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
             assert (splits - 1) * cps < n_chunks <= splits * cps, name
             if tiles * n_chunks >= H100_SMS:
@@ -239,24 +254,39 @@ def test_planner_fills_the_card(bsz):
                 assert splits == 1, (name, bsz, t)
 
 
+@pytest.mark.parametrize("bh,tq,tk,d,want", [
+    (12, 400, 400, 64, (3, 3)),       # ContentVec, 20 s: 84 blocks
+    (8, 400, 400, 128, (2, 7)),       # op registry ids 14/15: 32-key tiles
+    (12, 3000, 3000, 64, (1, 47)),    # 564 blocks fill the card
+    (128, 448, 448, 16, (1, 7)),      # the UNet's level 0 at B=16
+    (12, 50, 50, 64, (1, 1)),         # one key tile
+])
+def test_f32_attention_planner(bh, tq, tk, d, want):
+    """The f32 kernel's key split: none once 64-query blocks fill the
+    H100's SMs, else as many as its resident blocks allow, over equal runs
+    of key tiles that cover every tile and leave no split empty."""
+    from ns2vc_tpu_torch.ops.flash_attention import plan_f32tc
+
+    splits, per = plan_f32tc(bh, tq, tk, d)
+    tiles = -(-tk // (64 if d <= 64 else 32))
+    assert (splits, per) == want
+    assert (splits - 1) * per < tiles <= splits * per
+
+
 def test_route_tables():
     from ns2vc_tpu_torch.ops.flash_attention import attention_route
     from ns2vc_tpu_torch.ops.fused_resnet import resnet_route
 
+    # the route follows the dtype alone: bf16 -> the bf16 tensor-core
+    # kernels, f32 (and any dtype the launch then refuses) -> 3xTF32
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in (4, 16, 32, 48, 64, 100, 112, 128):
-            assert attention_route("cpu", dtype, d) == "plain"
-            got = attention_route("cuda", dtype, d)
-            assert got == ("tc" if dtype == torch.bfloat16 and d <= 112
-                           else "simt"), (dtype, d)
-        assert resnet_route("cpu", dtype) == "plain"
-        assert resnet_route(torch.device("cuda", 0), dtype) == (
-            "tc" if dtype == torch.bfloat16 else "simt")
-    assert attention_route("cuda", torch.bfloat16, 6) == "tc"
-    assert attention_route("cuda", torch.bfloat16, 7) == "simt"   # odd D
-    for route in (attention_route, lambda dev, dt, d=0: resnet_route(dev, dt)):
+        for route in (attention_route, resnet_route):
+            assert route("cpu", dtype) == "plain"
+            assert route(torch.device("cuda", 0), dtype) == (
+                "tc" if dtype == torch.bfloat16 else "f32tc")
+    for route in (attention_route, resnet_route):
         with pytest.raises(ValueError, match="unsupported device"):
-            route("meta", torch.bfloat16, 16)
+            route("meta", torch.bfloat16)
 
 
 class _FakeLib:
@@ -284,7 +314,7 @@ def card_routes(monkeypatch):
     lib = _FakeLib()
     a_route, r_route = fa.attention_route, fr.resnet_route
     monkeypatch.setattr(fa, "attention_route",
-                        lambda dev, dt, d: a_route("cuda", dt, d))
+                        lambda dev, dt: a_route("cuda", dt))
     monkeypatch.setattr(fr, "resnet_route", lambda dev, dt: r_route("cuda", dt))
 
     def reached(*a, **k):
@@ -302,8 +332,8 @@ def card_routes(monkeypatch):
     (torch.bfloat16, 48, "separate", "tc"),
     (torch.bfloat16, 100, "packed", "tc_narrow"),   # rows of 200 bytes
     (torch.bfloat16, 4, "separate", "tc_narrow"),
-    (torch.bfloat16, 128, "separate", "simt"),      # wider than 112
-    (torch.float32, 64, "packed", "simt"),
+    (torch.bfloat16, 128, "separate", "tc"),        # the widest head
+    (torch.float32, 64, "packed", "f32tc"),
 ])
 def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
                                              route):
@@ -323,11 +353,11 @@ def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
     assert {key: flash_attention.route_launches[key] - r0[key]
             for key in r0} == {key: int(key == route) for key in r0}
     (name, args), = card_routes.calls
-    if route == "simt":
-        assert name == "ns2vc_flash_attention_fwd"
-    else:
-        assert name == "ns2vc_flash_attention_tc_fwd"
-        assert args[-2] == int(route == "tc")    # 16-byte cp.async tiles
+    assert name == ("ns2vc_flash_attention_f32tc_fwd" if route == "f32tc"
+                    else "ns2vc_flash_attention_tc_fwd")
+    assert args[23] == int(route != "tc_narrow")    # 16-byte cp.async tiles
+    if route == "f32tc":    # one split of its one key tile: no workspace
+        assert args[24:28] == (1, 1, None, None)
 
 
 @pytest.mark.parametrize("dtype,bsz,t,c,co", [
@@ -338,7 +368,7 @@ def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
 ])
 def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        TC_BK, TC_BN, pack_conv_weight, plan_tc,
+        TC_BN, chunk_width, pack_conv_weight, plan_tc,
     )
 
     x = torch.zeros(bsz, t, c, dtype=dtype)
@@ -347,22 +377,22 @@ def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
     r0 = dict(affine_silu_conv1d.route_launches)
     y = affine_silu_conv1d(x, a, a, w, bias)
     assert y.shape == (bsz, t, co) and y.dtype == dtype
-    route = "tc" if dtype == torch.bfloat16 else "simt"
+    route = "tc" if dtype == torch.bfloat16 else "f32tc"
     assert affine_silu_conv1d.route_launches[route] == r0[route] + 1
     (name, args), = card_routes.calls
-    if route == "simt":
-        assert name == "ns2vc_affine_silu_conv1d"
-        return
-    assert name == "ns2vc_affine_silu_conv1d_tc"
-    splits, cps = plan_tc(bsz, t, c, co)
-    cp, cop = -(-c // TC_BK) * TC_BK, -(-co // TC_BN) * TC_BN
-    assert args[7:] == (bsz, t, c, co, cp, cop, cps, splits,
-                        int(c % 8 == 0), 0)
+    assert name == ("ns2vc_affine_silu_conv1d_tc" if route == "tc"
+                    else "ns2vc_affine_silu_conv1d_f32tc")
+    bk = chunk_width(dtype)
+    splits, cps = plan_tc(bsz, t, c, co, bk)
+    cp, cop = -(-c // bk) * bk, -(-co // TC_BN) * TC_BN
+    aligned = c % (16 // x.element_size()) == 0   # 16-byte rows of x
+    assert args[7:] == (bsz, t, c, co, cp, cop, cps, splits, int(aligned),
+                        0)
     assert (args[6] is None) == (splits == 1)    # the f32 workspace
     # the packed weights are made once per weight tensor
     affine_silu_conv1d(x, a, a, w, bias)
     assert card_routes.calls[1][1][3] == args[3]
-    assert pack_conv_weight(w).shape == (3, cop, cp)
+    assert pack_conv_weight(w).shape[-2:] == (cop, cp)
 
 
 # -- K1 and K2 under autograd -------------------------------------------------
