@@ -63,6 +63,18 @@ Each route's entry also gains one B=16 UNet step's calls of it (the f32
 routes' at Svc's default f32 serving, whose call at B=16 x 400 is timed
 after the bf16 serving calls and profiled at the end).
 
+NSF-HiFiGAN (after the model modules): the community 44.1 kHz generator at
+full width (seed-0 weights written in the reference checkpoint's
+weight-normed layout with its config.json) converts a synthesized 10 s
+48 kHz clip through scripts/torch_reconstruct_nsf.py's main(), twice (ms
+per stage: read and resample, log-mel, host DIO, load, generator; no K1 or
+K2 launch); the generator alone at B=1 and B=4 x 10 s with PyTorch's TF32
+defaults and without TF32 beside its work counted from the code (FLOPs
+and convolution activations, and their times at the H100's peaks); and
+card vs CPU in f32 without TF32: the generator on 2 s (1e-4), both
+discriminators and the three GAN losses at 2 x 8192 (1e-4 relative). A
+JSON line {"nsf_hifigan": {...}} holds these numbers.
+
 The main path is the wav-in -> wav-out CLI run (unipc, bf16): its launch
 counts are read around it, and every K1 / K2 call it makes is recorded by
 geometry (shape, strides, key bias, dtype), and each geometry is then held
@@ -145,7 +157,8 @@ CARD = ""                  # nvidia-smi's name and power limit, set in main
 # through three TF32 tensor-core passes (3xTF32) at 494.7 TFLOP/s: the
 # least time of an f32 product is 3 x its FLOPs at that rate (the f32 CUDA
 # cores' 67 TFLOP/s is slower)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
+PEAK_TF32 = 494.7e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": PEAK_TF32 / 3}
 PEAK_BYTES = 3.35e12
 ROUTES = {   # route -> (kernel source, the TPU kernel it replaces)
     "flash_attention_f32tc": ("flash_attention.cu",
@@ -2747,6 +2760,320 @@ def check_model_modules(cfg, sd, dev):
     return res
 
 
+# -- slice 7: the NSF-HiFiGAN vocoder ----------------------------------------
+
+NSF_SECONDS = 10.0           # the reconstruct clip and the timed generator
+NSF_IN_SR = 48000            # the clip's rate: the resampler runs
+NSF_BATCHES = (1, 4)         # the generator alone, B x 10 s
+NSF_CHECK_SECONDS = 2.0      # full-width generator, card vs CPU
+NSF_WAV_ATOL = 1e-4          # f32, TF32 off: cuDNN vs CPU convolutions
+                             # summed in other orders over 5 stages
+NSF_DISC_B, NSF_DISC_T = 2, 8192
+NSF_DISC_RTOL = 1e-4         # of each tensor's max |CPU|, and each loss
+PEAK_F32_CORES = 67e12       # the f32 CUDA cores (no TF32)
+
+
+def nsf_config() -> dict:
+    """The reference `config.json` of the community 44.1 kHz NSF-HiFiGAN,
+    the JAX generator's defaults (128 mels, 512 channels, rates (8, 8, 2,
+    2, 2), ResBlock1 (3, 7, 11) x (1, 3, 5))."""
+    return {"sampling_rate": 44100, "num_mels": 128, "n_fft": 2048,
+            "hop_size": 512, "win_size": 2048, "fmin": 40, "fmax": 16000,
+            "upsample_rates": [8, 8, 2, 2, 2],
+            "upsample_kernel_sizes": [16, 16, 4, 4, 4],
+            "upsample_initial_channel": 512, "resblock": "1",
+            "resblock_kernel_sizes": [3, 7, 11],
+            "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+
+
+def nsf_work(gen, mel, f0) -> tuple[float, float]:
+    """FLOPs and activation bytes of one generator call, counted from the
+    layers this call runs (forward hooks): a Conv1d 2 * out * (Cin/g) * K,
+    a ConvTranspose1d 2 * in * Cout * K, a Linear 2 * out * in; bytes are
+    each layer's f32 input read once and output written once (the
+    elementwise LeakyReLU, sums and tanh between them not counted)."""
+    import torch
+    from torch import nn
+
+    flops, nbytes = [0.0], [0.0]
+
+    def hook(m, inputs, out):
+        x = inputs[0]
+        if isinstance(m, nn.ConvTranspose1d):
+            flops[0] += 2.0 * x.numel() * m.out_channels * m.kernel_size[0]
+        elif isinstance(m, nn.Conv1d):
+            flops[0] += 2.0 * out.numel() * m.weight.shape[1] * \
+                m.kernel_size[0]
+        else:
+            flops[0] += 2.0 * out.numel() * m.in_features
+        nbytes[0] += 4.0 * (x.numel() + out.numel())
+
+    handles = [m.register_forward_hook(hook) for m in gen.modules()
+               if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            gen(mel, f0)
+    finally:
+        for h in handles:
+            h.remove()
+    return flops[0], nbytes[0]
+
+
+def nsf_f32_sines(f0, rand_ini, upp: int, sr: int):
+    """The JAX module's sines, the phase summed in f32
+    (ns2vc_tpu/models/nsf_hifigan.py:56-79), on f0's device: the port sums
+    it in f64 (`sine_source`), and this is why."""
+    import torch
+
+    from ns2vc_tpu_torch.models.nsf_hifigan import HARMONIC_NUM, _mod1_cumsum
+
+    h = torch.arange(1, HARMONIC_NUM + 2, dtype=torch.float32,
+                     device=f0.device)
+    rad = torch.remainder(f0.float()[..., None] * h / sr, 1.0)
+    rad = torch.cat([rad[:, :1] + rand_ini.to(f0.device)[:, None],
+                     rad[:, 1:]], dim=1)
+    phase = _mod1_cumsum(rad.repeat_interleave(upp, dim=1))
+    return torch.sin(phase * (2 * np.pi)) * 0.1
+
+
+def nsf_clip(sr: int) -> np.ndarray:
+    """NSF_SECONDS of voiced tones with unvoiced gaps at `sr` (at 10 s:
+    3 s, 1 s silent, 3 s, 0.5 s silent, 2.5 s)."""
+    n = int(NSF_SECONDS * sr)
+    parts = [tone(int(0.3 * n), sr, SEED + 70, 220.0),
+             np.zeros(int(0.1 * n), np.float32),
+             tone(int(0.3 * n), sr, SEED + 71, 180.0),
+             np.zeros(int(0.05 * n), np.float32)]
+    n -= sum(len(x) for x in parts)
+    return np.concatenate(parts + [tone(n, sr, SEED + 72, 260.0)])
+
+
+def nsf_files(tmp, sd, cfg) -> tuple[dict, int]:
+    """The reconstruct script's inputs in `tmp`: the generator in the
+    reference layout (weight_g / weight_v on the weight-normed convs) as
+    {'generator': ...}, its config.json and the clip at NSF_IN_SR."""
+    import torch
+
+    from ns2vc_tpu_torch.models.nsf_hifigan import nsf_hifigan_to_reference
+    from ns2vc_tpu_torch.utils.wavio import write_wav
+
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("ckpt", "model"), ("config", "config.json"), ("wav", "in.wav"),
+        ("out", "recon.wav"))}
+    torch.save({"generator": nsf_hifigan_to_reference(sd, cfg)},
+               paths["ckpt"])
+    with open(paths["config"], "w") as f:
+        json.dump(cfg, f)
+    clip = nsf_clip(NSF_IN_SR)
+    write_wav(paths["wav"], clip, NSF_IN_SR)
+    return paths, len(clip)
+
+
+def nsf_reconstruct(paths):
+    """wav in -> wav out through scripts/torch_reconstruct_nsf.py's main():
+    launch counts, ms per stage, wall ms, the waveform it returned, and
+    the file it wrote with its rate."""
+    from unittest import mock
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_reconstruct_nsf as recon
+    from ns2vc_tpu_torch.models.nsf_hifigan import NSFHiFiGANGenerator
+    from ns2vc_tpu_torch.utils.wavio import read_wav
+
+    stages = Stages()
+    patches = [mock.patch.object(obj, attr, stages.wrap(
+        name, getattr(obj, attr))) for obj, attr, name in (
+            (recon, "read_wav", "read and resample"),
+            (recon, "resample", "read and resample"),
+            (recon, "log_mel_spectrogram", "log-mel"),
+            (recon, "compute_f0_dio", "DIO (host)"),
+            (recon, "interpolate_f0", "DIO (host)"),
+            (recon, "load_nsf_hifigan", "load"),
+            (NSFHiFiGANGenerator, "forward", "generator"),
+            (recon, "write_wav", "write"))]
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        out, ms = wall_ms(lambda: recon.main([
+            "--wav", paths["wav"], "--ckpt", paths["ckpt"], "--config",
+            paths["config"], "--out", paths["out"]]))
+    counts = module_routes()
+    wav, out_sr = read_wav(paths["out"])
+    return counts, dict(stages.ms), ms, out, wav, out_sr
+
+
+def check_nsf_hifigan(dev):
+    """The NSF-HiFiGAN vocoder at full width (the community 44.1 kHz
+    configuration, seed-0 weights): wav in -> wav out through the
+    reconstruct script's main() (no K1 / K2 launch), the generator alone
+    at B=1 and B=4 x 10 s with PyTorch's TF32 defaults and without TF32,
+    its work counted from the code, and card vs CPU in f32 without TF32:
+    the generator on 2 s, both discriminators and the three losses."""
+    import torch
+
+    from ns2vc_tpu_torch.convert import init_module_, init_nsf_hifigan_params
+    from ns2vc_tpu_torch.models.nsf_hifigan import (
+        HARMONIC_NUM, MultiPeriodDiscriminator, MultiScaleDiscriminator,
+        NSFHiFiGANGenerator, discriminator_loss, feature_loss,
+        generator_kwargs, generator_loss, initial_phase, sine_source,
+    )
+
+    t_start = time.perf_counter()
+    cfg = nsf_config()
+    sr, hop = cfg["sampling_rate"], int(np.prod(cfg["upsample_rates"]))
+    sd = init_nsf_hifigan_params(torch.Generator().manual_seed(SEED + 73),
+                                 **generator_kwargs(cfg))
+    gen = NSFHiFiGANGenerator(**generator_kwargs(cfg))
+    gen.load_state_dict(sd)
+    gen.to(dev).eval()
+    n_params = sum(p.numel() for p in gen.parameters())
+    res = {"params": n_params}
+
+    # the generator alone, B x 10 s of frames
+    frames = int(NSF_SECONDS * sr) // hop
+    r = np.random.default_rng(SEED + 74)
+    mel_all = torch.from_numpy(r.standard_normal(
+        (max(NSF_BATCHES), frames, cfg["num_mels"])).astype(np.float32) - 4)
+    f0_all = torch.from_numpy(r.uniform(
+        100.0, 400.0, (max(NSF_BATCHES), frames)).astype(np.float32))
+    f0_all[:, frames // 3: frames // 2] = 0.0
+    mel_all, f0_all = mel_all.to(dev), f0_all.to(dev)
+    flops, act_bytes = nsf_work(gen, mel_all[:1], f0_all[:1])
+    res["work_b1"] = {"flops": flops, "activation_bytes": act_bytes,
+                      "tf32_ms": flops / PEAK_TF32 * 1e3,
+                      "tf32x3_ms": 3 * flops / PEAK_TF32 * 1e3,
+                      "f32_cuda_cores_ms": flops / PEAK_F32_CORES * 1e3,
+                      "activation_bytes_ms": act_bytes / PEAK_BYTES * 1e3}
+    gen_ms = {}
+    with torch.no_grad():
+        for b in NSF_BATCHES:
+            mel, f0 = mel_all[:b], f0_all[:b]
+            for label, ctx in (("tf32_defaults", contextlib.nullcontext),
+                               ("tf32_off", no_tf32)):
+                with ctx():
+                    gen_ms[f"b{b}_{label}"] = time_ms(
+                        lambda: gen(mel, f0), warmup=2, iters=5)
+    res["generator_ms"] = gen_ms
+    res["x_real_time"] = {k: int(k[1:k.index("_")]) * NSF_SECONDS * 1e3 / v
+                          for k, v in gen_ms.items()}
+    w = res["work_b1"]
+    say(f"NSF-HiFiGAN generator, {n_params / 1e6:.2f} M parameters, "
+        f"{frames} frames ({NSF_SECONDS:g} s at {sr} Hz), ms per call: "
+        + ", ".join(f"{k} {v:.2f} ({res['x_real_time'][k]:.0f}x real time)"
+                    for k, v in gen_ms.items())
+        + f"; work per B=1 call {flops / 1e12:.3f} TFLOP, convolution "
+        f"activations {act_bytes / 1e9:.2f} GB; bound at B=1: TF32 "
+        f"{w['tf32_ms']:.3f} ms, 3xTF32 {w['tf32x3_ms']:.3f}, f32 CUDA cores "
+        f"{w['f32_cuda_cores_ms']:.3f}, activations at 3.35 TB/s "
+        f"{w['activation_bytes_ms']:.3f} [{CARD}]")
+
+    # wav in -> wav out through the entry point, twice: the first call
+    # meets a frame count this process has not run
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, n_in = nsf_files(tmp, sd, cfg)
+        want_frames = -(-n_in * sr // NSF_IN_SR) // hop + 1
+        res["reconstruct"] = {}
+        for run in ("first", "second"):
+            counts, stages, wall, out, wav, out_sr = nsf_reconstruct(paths)
+            if len(out) != want_frames * hop or len(wav) != len(out) or \
+                    out_sr != sr or not np.isfinite(out).all() or \
+                    np.abs(out).max() > 1.0 or any(counts.values()):
+                fail(f"NSF reconstruct: {len(out)} samples ({len(wav)} "
+                     f"written at {out_sr} Hz), expected {want_frames} "
+                     f"frames x {hop}, finite, |wav| <= 1 (max "
+                     f"{np.abs(out).max()}); K1/K2 launches {counts} "
+                     f"(expected none)")
+            res["reconstruct"][run] = {
+                "frames": want_frames, "samples": len(out),
+                "stages_ms": stages, "wall_ms": wall,
+                "x_real_time": NSF_SECONDS * 1e3 / wall, "launches": counts}
+            parts = ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+            say(f"NSF reconstruct, {run} call (scripts/torch_reconstruct_"
+                f"nsf.py main): {NSF_SECONDS:g} s at {NSF_IN_SR} Hz -> "
+                f"{len(out)} samples = {want_frames} frames x {hop} at {sr} "
+                f"Hz, finite, max|wav| {np.abs(out).max():.3f}; ms per stage "
+                f"(synchronised): {parts}; total {wall:.0f} ms = "
+                f"{NSF_SECONDS * 1e3 / wall:.2f}x real time; K1/K2 launches "
+                f"{counts} [{CARD}]")
+
+    # card vs CPU, f32 without TF32
+    cpu = torch.device("cpu")
+    n_check = int(NSF_CHECK_SECONDS * sr) // hop
+    rand_ini = initial_phase(1, HARMONIC_NUM + 1,
+                             torch.Generator().manual_seed(SEED + 75))
+    gen_cpu = NSFHiFiGANGenerator(**generator_kwargs(cfg))
+    gen_cpu.load_state_dict(sd)
+    mel, f0 = mel_all[:1, :n_check], f0_all[:1, :n_check]
+    with no_tf32(), torch.no_grad():
+        got = gen(mel, f0, rand_ini=rand_ini).cpu()
+        want = gen_cpu.eval()(mel.cpu(), f0.cpu(), rand_ini=rand_ini)
+    wav_err = (got - want).abs().max().item()
+    with torch.no_grad():
+        exact = sine_source(f0.cpu(), hop, sr, HARMONIC_NUM,
+                            rand_ini=rand_ini)
+        sines = {"f64_card_vs_cpu": sine_source(
+                     f0, hop, sr, HARMONIC_NUM, rand_ini=rand_ini).cpu()
+                 - exact,
+                 "f32_card_vs_f64": nsf_f32_sines(
+                     f0, rand_ini, hop, sr).cpu() - exact,
+                 "f32_cpu_vs_f64": nsf_f32_sines(
+                     f0.cpu(), rand_ini, hop, sr) - exact}
+    sines = {k: v.abs().max().item() for k, v in sines.items()}
+
+    g = torch.Generator().manual_seed(SEED + 76)
+    y = torch.from_numpy(nsf_clip(sr)[None, :NSF_DISC_T].repeat(
+        NSF_DISC_B, 0))
+    y_hat = 0.5 * y + 0.1 * torch.randn(y.shape, generator=g)
+    disc_err, loss_err = 0.0, 0.0
+    for disc in (MultiPeriodDiscriminator(), MultiScaleDiscriminator()):
+        init_module_(disc, g)
+        with torch.no_grad():
+            want = list(disc.eval()(y, y_hat))
+            with no_tf32():
+                got = [_nested_cpu(o) for o in disc.to(dev)(
+                    y.to(dev), y_hat.to(dev))]
+        for a, b in zip(_flat(got), _flat(want)):
+            scale = max(b.abs().max().item(), 1e-30)
+            disc_err = max(disc_err, (a - b).abs().max().item() / scale)
+        for loss, args in ((discriminator_loss, (0, 1)),
+                           (generator_loss, (1,)), (feature_loss, (2, 3))):
+            a = loss(*(got[i] for i in args)).item()
+            b = loss(*(want[i] for i in args)).item()
+            loss_err = max(loss_err, abs(a - b) / abs(b))
+        disc.cpu()
+    res["card_vs_cpu"] = {"wav_max_abs_err": wav_err,
+                          "disc_max_rel_err": disc_err,
+                          "loss_max_rel_err": loss_err,
+                          "sines_max_abs_err": sines}
+    say(f"NSF-HiFiGAN card vs CPU, f32, TF32 off: generator on "
+        f"{NSF_CHECK_SECONDS:g} s ({n_check} frames) max_abs_err "
+        f"{wav_err:.3e} (tol {NSF_WAV_ATOL:g}); MPD + MSD at "
+        f"{NSF_DISC_B} x {NSF_DISC_T}: outputs and feature maps "
+        f"{disc_err:.3e} of each max, losses {loss_err:.3e} relative (tol "
+        f"{NSF_DISC_RTOL:g}); the sines with the phase summed in f64 (the "
+        f"port) card vs CPU {sines['f64_card_vs_cpu']:.3e}, summed in f32 "
+        f"(the JAX module) against them: card "
+        f"{sines['f32_card_vs_f64']:.3e}, CPU {sines['f32_cpu_vs_f64']:.3e} "
+        f"[{CARD}]")
+    if not (wav_err <= NSF_WAV_ATOL and disc_err <= NSF_DISC_RTOL
+            and loss_err <= NSF_DISC_RTOL):
+        fail(f"NSF-HiFiGAN card vs CPU: waveform {wav_err}, "
+             f"discriminators {disc_err}, losses {loss_err}")
+    res["seconds"] = round(time.perf_counter() - t_start, 1)
+    res["card"] = CARD
+    return res
+
+
+def _nested_cpu(x):
+    return [_nested_cpu(v) for v in x] if isinstance(x, list) else x.cpu()
+
+
+def _flat(x):
+    return [t for v in x for t in _flat(v)] if isinstance(x, list) else [x]
+
+
 def main() -> int:
     import torch
 
@@ -2824,6 +3151,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("model modules"):
         modules = check_model_modules(cfg, sd, dev)
+        torch.cuda.empty_cache()
+    with phase("nsf hifigan"):
+        nsf = check_nsf_hifigan(dev)
         torch.cuda.empty_cache()
     with no_tf32():
         with phase("K1 shapes"):
@@ -2941,6 +3271,7 @@ def main() -> int:
         "cfg_sample_ms": modules["cfg_sample_ms"],
         "lora_err": modules["lora_err"],
         "stream_errs": modules["stream_errs"]}}))
+    print(json.dumps({"nsf_hifigan": nsf}))
     print(json.dumps({"training": {
         k: v for k, v in train.items()
         if k not in ("geometries", "launches", "backward")}}))

@@ -10,18 +10,26 @@ It also trains on one card: wav dir -> data/preprocess -> features ->
 data/dataset loader -> train/trainer (bf16 forward on f32 masters through
 both kernels' autograd Functions, AdamW, EMA) -> checkpoints Svc serves.
 
-Layer map:
-    infer/      Svc: bucketed, masked batch serving
+It also reconstructs 44.1 kHz audio from a log-mel and its F0 through the
+NSF-HiFiGAN vocoder (models/nsf_hifigan.py, loaded from the reference
+checkpoint; scripts/torch_reconstruct_nsf.py).
+
+Layer map (each subpackage exports the JAX package's public names, but
+`parallel`, which the port does not have yet):
+    infer/      Svc: bucketed, masked batch serving, RealTimeVC, the
+                MicroBatcher and the CLI
     data/, train/  preprocess, the training data loader, the trainer and
                 its CLI
-    models/     encoders, UNet1D denoiser, diffusion core, Vocos
-    diffusion/  noise schedule + UniPC sampler
+    models/     encoders, UNet1D denoiser, diffusion core, the vocoders
+                (Vocos; NSF-HiFiGAN with its discriminators and GAN
+                losses), LoRA, the encoder op registry
+    diffusion/  noise schedule, the samplers, the model wrapper
     ops/        masking, attention, and the two hand-written CUDA kernels
                 (csrc/): flash attention (K1) and the fused
                 GroupNorm -> SiLU -> conv-k3 resnet epilogue (K2), each
-                with a bf16 tensor-core route and an f32 CUDA-core route
-    audio/, features/  resampling, log-mel, host F0 and slicing,
-                ContentVec, CREPE
+                with a bf16 tensor-core route and an f32 3xTF32 route
+    audio/, features/  resampling, STFT / log-mel / iSTFT, host F0 and
+                slicing, ContentVec, CREPE
     native/     the C++ DIO F0 tracker (ctypes)
     convert.py  JAX (flax) parameter trees -> state dicts; seeded init
     config.py, utils/  configuration, reference-checkpoint converter, wav I/O

@@ -1,5 +1,5 @@
-"""STFT, log-mel and the iSTFT pieces of the Vocos head (counterpart of
-ns2vc_tpu/audio/mel.py).
+"""STFT, log-mel, the inverse STFT and the overlap-add of the Vocos head
+(counterpart of ns2vc_tpu/audio/mel.py).
 
 Log-mel semantics are torchaudio's MelSpectrogram(sample_rate=24000,
 n_fft=1024, hop_length=256, n_mels=100, center=True, power=1) followed by
@@ -49,13 +49,19 @@ def hann_window(win_length: int) -> np.ndarray:
         np.float32)
 
 
+def _pad_window(window: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """torch centre-pads a window shorter than n_fft to n_fft."""
+    if window.shape[-1] < n_fft:
+        lpad = (n_fft - window.shape[-1]) // 2
+        window = F.pad(window, (lpad, n_fft - window.shape[-1] - lpad))
+    return window
+
+
 def stft(x: torch.Tensor, window: torch.Tensor, n_fft: int = 1024,
          hop: int = 256, center: bool = True) -> torch.Tensor:
     """Complex STFT of (..., L) -> (..., 1 + L//hop, n_fft//2 + 1); center
     pads n_fft//2 per side by reflection (torch.stft semantics)."""
-    if window.shape[-1] < n_fft:  # torch centre-pads the window to n_fft
-        lpad = (n_fft - window.shape[-1]) // 2
-        window = F.pad(window, (lpad, n_fft - window.shape[-1] - lpad))
+    window = _pad_window(window, n_fft)
     x = x.float()
     if center:
         shape = x.shape
@@ -116,3 +122,24 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     for i in range(k):
         out[..., i:i + num_frames, :] += split[..., i, :]
     return out.reshape(frames.shape[:-2] + (out_blocks * hop,))
+
+
+def istft(spec: torch.Tensor, window: torch.Tensor, n_fft: int = 1024,
+          hop: int = 256, center: bool = True,
+          length: int | None = None) -> torch.Tensor:
+    """Inverse STFT with torch.istft's semantics: (..., T, n_fft//2 + 1)
+    complex -> (..., samples) f32. Each frame's irfft times the window
+    (centre-padded to n_fft), overlap-added, divided by the overlap-added
+    squared window floored at 1e-11; center drops n_fft//2 samples at the
+    start and, unless `length` is given, at the end; `length` cuts the
+    result to that many samples."""
+    window = _pad_window(window, n_fft).to(spec.device, torch.float32)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
+    sig = overlap_add(frames, hop)
+    env = overlap_add((window * window).expand(frames.shape[-2:]), hop)
+    sig = sig / env.clamp(min=1e-11)
+    if center:
+        sig = sig[..., n_fft // 2:]
+        if length is None:
+            return sig[..., : sig.shape[-1] - n_fft // 2]
+    return sig if length is None else sig[..., :length]

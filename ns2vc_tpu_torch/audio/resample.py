@@ -1,6 +1,6 @@
 """Polyphase windowed-sinc resampling as one strided conv1d (counterpart of
-ns2vc_tpu/audio/resample.py: `sinc_resample_kernel`, `resample`,
-`resample_np`).
+ns2vc_tpu/audio/resample.py: `sinc_resample_kernel`, `Resampler`,
+`resample`, `resample_np`).
 
 torchaudio's Resample defaults (sinc interpolation, hann window,
 lowpass_filter_width 6, rolloff 0.99). The kernel bank is built on the host
@@ -41,12 +41,35 @@ def sinc_resample_kernel(orig_freq: int, new_freq: int,
     return kernel.astype(np.float32), width
 
 
+class Resampler:
+    """Fixed-rate-pair resampler, (..., L) -> (..., ceil(L * new / orig))
+    in f32 on the waveform's device; the kernel bank is built once, on the
+    host. `resample` is this class's call, cached per rate pair."""
+
+    def __init__(self, orig_freq: int, new_freq: int,
+                 lowpass_filter_width: int = 6, rolloff: float = 0.99):
+        self.orig_freq, self.new_freq = orig_freq, new_freq
+        gcd = math.gcd(orig_freq, new_freq)
+        self.orig, self.new = orig_freq // gcd, new_freq // gcd
+        kernel, self.width = sinc_resample_kernel(
+            orig_freq, new_freq, lowpass_filter_width, rolloff)
+        self.kernel = torch.from_numpy(kernel[:, None, :])   # (new, 1, W)
+
+    def __call__(self, wav: torch.Tensor) -> torch.Tensor:
+        if self.orig == self.new:
+            return wav
+        length = wav.shape[-1]
+        x = wav.reshape(-1, 1, length).float()
+        x = F.pad(x, (self.width, self.width + self.orig))
+        y = F.conv1d(x, self.kernel.to(x.device), stride=self.orig)
+        y = y.transpose(1, 2).reshape(x.shape[0], -1)      # (B, T' * new)
+        target = -(-self.new * length // self.orig)
+        return y[:, :target].reshape(wav.shape[:-1] + (target,))
+
+
 @functools.lru_cache(maxsize=16)
-def _kernel(orig_freq: int, new_freq: int):
-    gcd = math.gcd(orig_freq, new_freq)
-    kernel, width = sinc_resample_kernel(orig_freq, new_freq)
-    return torch.from_numpy(kernel[:, None, :]), width, orig_freq // gcd, \
-        new_freq // gcd
+def _get_resampler(orig_freq: int, new_freq: int) -> Resampler:
+    return Resampler(orig_freq, new_freq)
 
 
 def resample_np(wav: np.ndarray, orig_freq: int, new_freq: int
@@ -56,14 +79,14 @@ def resample_np(wav: np.ndarray, orig_freq: int, new_freq: int
     callers such as the data loader's forked workers."""
     if orig_freq == new_freq:
         return wav
-    kernel, width, orig, new = _kernel(orig_freq, new_freq)
-    kernel = kernel[:, 0, :].numpy()
+    r = _get_resampler(orig_freq, new_freq)
+    kernel = r.kernel[:, 0, :].numpy()
     length = wav.shape[-1]
-    x = np.pad(np.asarray(wav, np.float32), (width, width + orig))
+    x = np.pad(np.asarray(wav, np.float32), (r.width, r.width + r.orig))
     frames = np.lib.stride_tricks.sliding_window_view(
-        x, kernel.shape[1])[::orig]
+        x, kernel.shape[1])[::r.orig]
     y = (frames @ kernel.T).reshape(-1)   # (n_pos, new) -> interleaved
-    return y[: -(-new * length // orig)]
+    return y[: -(-r.new * length // r.orig)]
 
 
 def resample(wav: torch.Tensor, orig_freq: int, new_freq: int
@@ -71,11 +94,4 @@ def resample(wav: torch.Tensor, orig_freq: int, new_freq: int
     """(..., L) -> (..., ceil(L * new / orig)) in f32, on wav's device."""
     if orig_freq == new_freq:
         return wav
-    kernel, width, orig, new = _kernel(orig_freq, new_freq)
-    length = wav.shape[-1]
-    x = wav.reshape(-1, 1, length).float()
-    x = F.pad(x, (width, width + orig))
-    y = F.conv1d(x, kernel.to(x.device), stride=orig)        # (B, new, T')
-    y = y.transpose(1, 2).reshape(x.shape[0], -1)
-    target = -(-new * length // orig)
-    return y[:, :target].reshape(wav.shape[:-1] + (target,))
+    return _get_resampler(orig_freq, new_freq)(wav)

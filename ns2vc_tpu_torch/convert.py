@@ -3,12 +3,13 @@
 `from_flax` maps the JAX package's parameter tree (nested dicts of numpy
 arrays, as `NaturalSpeech2.init` makes them) onto the port's modules, whose
 submodule names follow the flax paths; `vocos_from_flax`,
-`contentvec_from_flax` and `crepe_from_flax` do the same for the other
-models (CREPE's `batch_stats` become BatchNorm running statistics). Leaf
-rules:
+`contentvec_from_flax`, `crepe_from_flax`, `nsf_hifigan_from_flax`,
+`mpd_from_flax` and `msd_from_flax` do the same for the other models
+(CREPE's `batch_stats` become BatchNorm running statistics). Leaf rules:
 
     Dense kernel (in, out)            -> Linear weight (out, in)
     Conv kernel (K, Cin/g, Cout)      -> Conv1d weight (Cout, Cin/g, K)
+    Conv kernel (KH, KW, Cin, Cout)   -> Conv2d weight (Cout, Cin, KH, KW)
     depthwise kernel (K, 1, C)        -> Conv1d weight (C, 1, K)
     DenseGeneral in_proj (C, 3, C)    -> Linear weight (3C, C)
     norm scale                        -> weight
@@ -20,6 +21,10 @@ rules:
         hidden kernels hi/hf/hg/ho    -> weight_hh, their biases -> bias_hh
         (flax's input kernels have no bias: bias_ih is zero)
     bias, positional_embedding, gamma, conv_g, conv_b, tao -> as they are
+    NSF-HiFiGAN's ups_{i} kernel (K, In, Out), flipped for correlation
+                                      -> ConvTranspose1d weight (In, Out, K)
+    its raw noise_convs_{i}_kernel / _bias (K, 1, C) -> the Conv1d
+                                      noise_convs_{i}'s weight / bias
 
 The mapping is strict: a leaf that no port parameter takes, a port
 parameter that no leaf fills, or a shape that disagrees raises.
@@ -33,8 +38,9 @@ and `from_flax`, or a port state dict saved with `torch.save`.
 `init_params` draws a state dict from a `torch.Generator` in flax's
 initialiser families (lecun-normal kernels, zero biases, unit norms, the
 encoders' conv init, normal(embed^-0.5) pooling positions, Vocos layer
-scale 1/num_layers), so activations at full width sit on the JAX model's
-scale. The values are not those `jax.random` would give.
+scale 1/num_layers; NSF-HiFiGAN's upsampling and strided noise kernels
+normal(0.01)), so activations at full width sit on the JAX model's scale.
+The values are not those `jax.random` would give.
 """
 
 from __future__ import annotations
@@ -52,6 +58,9 @@ from ns2vc_tpu_torch.features.crepe import BatchNorm, Crepe
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
 from ns2vc_tpu_torch.models.encoders import (
     AttentionPooling, LNConv, WNConvResidual,
+)
+from ns2vc_tpu_torch.models.nsf_hifigan import (
+    MultiPeriodDiscriminator, MultiScaleDiscriminator, NSFHiFiGANGenerator,
 )
 from ns2vc_tpu_torch.models.vocos import ConvNeXtBlock, Vocos
 
@@ -78,6 +87,8 @@ def _leaf(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
             arr = arr.T
         elif arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)
+        elif arr.ndim == 4:                            # Conv 2D, HWIO
+            arr = arr.transpose(3, 2, 0, 1)
         name = "weight"
     elif name == "conv_v":
         arr = arr.transpose(2, 1, 0)
@@ -106,13 +117,15 @@ def _lstm(flat: dict, base: tuple) -> dict:
     return out
 
 
-def from_flax_tree(tree: dict, module: nn.Module) -> dict:
-    """Strictly map a flax parameter tree onto `module`'s state dict keys."""
+def from_flax_tree(tree: dict, module: nn.Module,
+                   mapped: dict | None = None) -> dict:
+    """Strictly map a flax parameter tree onto `module`'s state dict keys;
+    `mapped` holds port keys already mapped by a model's own rules."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = _flatten(tree)
     expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
-    sd = {}
+    sd = dict(mapped or {})
     # fused self-attention projections: concat (C, inner) kernels along out
     for key in expected:
         if key.endswith(".to_qkv.weight"):
@@ -138,6 +151,8 @@ def from_flax_tree(tree: dict, module: nn.Module) -> dict:
         raise ValueError(f"from_flax: port parameters not assigned: "
                          f"{missing[:8]}{' ...' if len(missing) > 8 else ''}")
     for key, arr in sd.items():
+        if key not in expected:
+            raise ValueError(f"from_flax: {key} is no port parameter")
         if tuple(arr.shape) != expected[key]:
             raise ValueError(f"from_flax: {key} has shape {tuple(arr.shape)}, "
                              f"the port expects {expected[key]}")
@@ -174,6 +189,45 @@ def crepe_from_flax(variables: dict, model: str = "full") -> dict:
     for name, st in variables["batch_stats"].items():
         tree[name].update(running_mean=st["mean"], running_var=st["var"])
     return from_flax_tree(tree, _skeleton(lambda: Crepe(model)))
+
+
+def nsf_hifigan_from_flax(params_np: dict, **generator_kwargs) -> dict:
+    """NSFHiFiGANGenerator flax params -> the port's state dict;
+    `generator_kwargs` are its hyperparameters (defaults: 44.1 kHz). The
+    upsampling kernels and the raw strided noise-conv parameters take
+    their own rules (module docstring)."""
+    tree = dict(params_np.get("params", params_np))
+    mapped = {}
+    for name in list(tree):
+        if name.startswith("ups_"):
+            leaves = dict(tree.pop(name))
+            kernel = np.asarray(leaves.pop("kernel"))
+            mapped[f"{name}.weight"] = np.ascontiguousarray(
+                kernel[::-1].transpose(1, 2, 0))
+            mapped[f"{name}.bias"] = np.asarray(leaves.pop("bias"))
+            if leaves:
+                raise ValueError(f"from_flax: {name}/{list(leaves)} has no "
+                                 f"port parameter")
+        elif name.startswith("noise_convs_") and name.endswith("_kernel"):
+            mapped[f"{name[:-len('_kernel')]}.weight"] = np.asarray(
+                tree.pop(name)).transpose(2, 1, 0)
+        elif name.startswith("noise_convs_") and name.endswith("_bias"):
+            mapped[f"{name[:-len('_bias')]}.bias"] = np.asarray(
+                tree.pop(name))
+    return from_flax_tree(tree, _skeleton(
+        lambda: NSFHiFiGANGenerator(**generator_kwargs)), mapped)
+
+
+def mpd_from_flax(params_np: dict, **kw) -> dict:
+    """MultiPeriodDiscriminator flax params -> the port's state dict."""
+    return from_flax_tree(params_np,
+                          _skeleton(lambda: MultiPeriodDiscriminator(**kw)))
+
+
+def msd_from_flax(params_np: dict, **kw) -> dict:
+    """MultiScaleDiscriminator flax params -> the port's state dict."""
+    return from_flax_tree(params_np,
+                          _skeleton(lambda: MultiScaleDiscriminator(**kw)))
 
 
 TRAINER_FORMAT = "ns2vc_tpu_torch.trainer"   # the trainer's checkpoints
@@ -225,9 +279,9 @@ def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
 def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise `module` (on the CPU, f32) in place, flax-style."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             w = m.weight
-            fan_in = w.shape[1] * (w.shape[2] if w.dim() == 3 else 1)
+            fan_in = math.prod(w.shape[1:])
             w.copy_(_lecun_normal(w.shape, fan_in, generator))
             if m.bias is not None:
                 m.bias.zero_()
@@ -282,3 +336,19 @@ def init_crepe_params(generator: torch.Generator, model: str = "full"
                       ) -> dict:
     """A seeded Crepe state dict (CPU, f32; unit BatchNorm statistics)."""
     return init_module_(Crepe(model), generator).state_dict()
+
+
+def init_nsf_hifigan_params(generator: torch.Generator,
+                            **generator_kwargs) -> dict:
+    """A seeded NSFHiFiGANGenerator state dict (CPU, f32): lecun-normal
+    Conv and Dense kernels, normal(0.01) upsampling and strided noise-conv
+    kernels (flax's inits there), zero biases."""
+    gen = init_module_(NSFHiFiGANGenerator(**generator_kwargs), generator)
+    with torch.no_grad():
+        for name, m in gen.named_modules():
+            if isinstance(m, nn.ConvTranspose1d) or (
+                    name.startswith("noise_convs_")
+                    and isinstance(m, nn.Conv1d)):
+                m.weight.copy_(_normal(m.weight.shape, 0.01, generator))
+                m.bias.zero_()
+    return gen.state_dict()

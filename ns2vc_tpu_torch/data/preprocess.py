@@ -65,6 +65,16 @@ def _host_stage(out: str, wav24: np.ndarray, cfg: Config) -> None:
     np.save(out + ".f0.npy", f0)
 
 
+def _save_spec(out: str, wav24: torch.Tensor, cfg: Config) -> None:
+    """The (1, n_mels, T) log-mel of the 24 kHz wav, beside it."""
+    from ns2vc_tpu_torch.audio.mel import log_mel_spectrogram
+
+    spec = log_mel_spectrogram(wav24, cfg.data.sampling_rate,
+                               cfg.data.n_fft, cfg.data.hop_length,
+                               cfg.data.n_mels)
+    np.save(out.replace(".wav", "") + ".spec.npy", spec.cpu().numpy()[None])
+
+
 def _pool(num_workers: int, n: int):
     """A spawned process pool for the host stages (the caller holds CUDA
     and its threads, which a fork would copy), or None to run them in this
@@ -85,7 +95,6 @@ def preprocess_dataset(in_dir: str, cfg: Optional[Config] = None,
     """Process every wav (and flac) under in_dir; returns the output wav
     paths. `contentvec` (a ContentVec module) may be given instead of
     `contentvec_ckpt`; without either no `.soft.npy` is written."""
-    from ns2vc_tpu_torch.audio.mel import log_mel_spectrogram
     from ns2vc_tpu_torch.audio.resample import resample
     from ns2vc_tpu_torch.features.contentvec import content_frames
     from ns2vc_tpu_torch.infer.svc import resolve_device
@@ -133,11 +142,7 @@ def preprocess_dataset(in_dir: str, cfg: Optional[Config] = None,
 
     with torch.no_grad():
         for out, _, wav24 in staged:
-            spec = log_mel_spectrogram(
-                wav24, cfg.data.sampling_rate, cfg.data.n_fft,
-                cfg.data.hop_length, cfg.data.n_mels)
-            np.save(out.replace(".wav", "") + ".spec.npy",
-                    spec.cpu().numpy()[None])
+            _save_spec(out, wav24, cfg)
         if contentvec is None:
             return outs
         by_bucket: dict[int, list] = {}
@@ -161,6 +166,36 @@ def preprocess_dataset(in_dir: str, cfg: Optional[Config] = None,
                     np.save(staged[idx][0] + ".soft.npy",
                             feats[row: row + 1, :t].transpose(0, 2, 1))
     return outs
+
+
+def process_one(filename: str, in_dir: str, cfg: Config,
+                contentvec=None, device: str | torch.device = "cuda"
+                ) -> Optional[str]:
+    """One file through the whole pipeline, unbatched (reference
+    process_one, preprocess.py:26-60): the 24 kHz wav, its F0 and log-mel,
+    and with a ContentVec module its `.soft.npy`, as `preprocess_dataset`
+    writes them; the output wav path, or None for an unreadable file.
+    Prefer `preprocess_dataset` for throughput."""
+    from ns2vc_tpu_torch.audio.resample import resample
+    from ns2vc_tpu_torch.infer.svc import resolve_device
+
+    dev = resolve_device(device)
+    item = _read(filename)
+    if item is None:
+        return None
+    wav, sr = item
+    out = _out_path(filename, in_dir)
+    x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(dev)
+    with torch.no_grad():
+        wav24 = resample(x, sr, cfg.data.sampling_rate)
+        _host_stage(out, wav24.cpu().numpy(), cfg)
+        _save_spec(out, wav24, cfg)
+        if contentvec is not None:
+            contentvec = contentvec.to(dev, torch.float32).eval()
+            feats = contentvec(resample(x, sr, cfg.data.content_sr)[None])
+            np.save(out + ".soft.npy",
+                    feats.float().cpu().numpy().transpose(0, 2, 1))
+    return out
 
 
 def main(argv=None):

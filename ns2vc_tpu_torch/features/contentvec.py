@@ -200,6 +200,11 @@ def contentvec_from_fairseq(sd, strict: bool = True) -> dict:
     return out
 
 
+# the JAX package's name (features/contentvec.py:149); it returns this
+# module's state dict, not flax params
+convert_fairseq_hubert = contentvec_from_fairseq
+
+
 def contentvec_to_fairseq(sd: dict) -> dict:
     """This module's state dict -> the fairseq HubertModel layout that
     `contentvec_from_fairseq` reads, pos_conv split into a weight norm whose

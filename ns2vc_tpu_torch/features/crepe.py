@@ -154,6 +154,11 @@ def crepe_from_torchcrepe(sd, strict: bool = True) -> dict:
     return out
 
 
+# the JAX package's name (features/crepe.py:116); it returns this module's
+# state dict and reads 'full' or 'tiny' off the keys
+convert_torchcrepe = crepe_from_torchcrepe
+
+
 def crepe_to_torchcrepe(sd: dict) -> dict:
     """This module's state dict -> the torchcrepe layout that
     `crepe_from_torchcrepe` reads: conv weights gain their trailing axis,

@@ -503,6 +503,13 @@ class Svc:
                                                retain=lgr)[:length])
         return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
 
+    def clear_empty(self):
+        """Return the card's cached memory blocks to the driver (the
+        reference's clear_empty, infer_tool.py:246-249); nothing on the
+        CPU."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def unload_model(self):
         self.model = None
         self._refer_cache.clear()

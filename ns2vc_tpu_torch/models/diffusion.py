@@ -207,6 +207,22 @@ class NaturalSpeech2(nn.Module):
         return self.diff_model.unet.precompute(prompt)
 
 
+def make_x0_fn(model: NaturalSpeech2, content: torch.Tensor,
+               prompt: torch.Tensor, prompt_mask: torch.Tensor,
+               cached: tuple | None = None):
+    """Bind the step-invariant conditioning into a sampler's x0 function
+    x0_fn(x, t) (reference model.py:632/667); `cached` = (aug_emb,
+    cross_kv) from `precompute_conditioning` also hoists the prompt's
+    pooled embedding and cross-attention K/V out of every step. The JAX
+    signature without `params`: the module holds its weights."""
+    aug_emb, cross_kv = cached if cached is not None else (None, None)
+
+    def x0_fn(x, t):
+        return model.denoise(x, content, prompt, prompt_mask, t,
+                             cross_kv=cross_kv, aug_emb=aug_emb)
+    return x0_fn
+
+
 @torch.no_grad()
 def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
                  lengths: torch.Tensor, refer_lengths: torch.Tensor,
@@ -231,11 +247,8 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
     refer_mask = sequence_mask(refer_lengths, refer.shape[1])
     content, prompt = model.encode(c, refer, c_mask, refer_mask, f0=f0,
                                    uv=uv, auto_predict_f0=auto_predict_f0)
-    aug_emb, cross_kv = model.precompute_conditioning(prompt)
-
-    def x0_fn(x, t):
-        return model.denoise(x, content, prompt, refer_mask, t,
-                             cross_kv=cross_kv, aug_emb=aug_emb)
+    x0_fn = make_x0_fn(model, content, prompt, refer_mask,
+                       cached=model.precompute_conditioning(prompt))
 
     shape = (c.shape[0], t_len, model.cfg.diffusion_encoder.out_channels)
     if x_T is None:

@@ -148,6 +148,11 @@ def vocos_from_public(sd, strict: bool = True) -> dict:
     return out
 
 
+# the JAX package's name (models/vocos.py:120); it returns this module's
+# state dict, not flax params
+convert_vocos_state_dict = vocos_from_public
+
+
 def vocos_to_public(sd: dict) -> dict:
     """This module's state dict -> the public charactr/vocos layout that
     `vocos_from_public` reads (without the buffers it recomputes)."""

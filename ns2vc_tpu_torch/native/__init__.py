@@ -19,6 +19,8 @@ import subprocess
 
 import numpy as np
 
+__all__ = ["build", "available", "dio", "stonemask"]
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 # the port's gitignored build directory, shared with ops/_build.py
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")

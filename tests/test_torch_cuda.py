@@ -321,6 +321,35 @@ def test_unet_on_card_matches_cpu(dev):
     assert (got.cpu() - want).abs().max().item() <= 5e-4
 
 
+@pytest.mark.parametrize("resblock", ["1", "2"])
+def test_nsf_hifigan_on_card_matches_cpu(dev, resblock):
+    """The small NSF-HiFiGAN generator of tests/test_torch_nsf_hifigan.py,
+    card vs CPU in f32 without TF32, the same initial phases (a CPU draw):
+    2e-5, the conv-stack bound of that file."""
+    from ns2vc_tpu_torch.convert import init_nsf_hifigan_params
+    from ns2vc_tpu_torch.models.nsf_hifigan import (
+        NSFHiFiGANGenerator, initial_phase,
+    )
+
+    kw = dict(num_mels=8, upsample_initial_channel=16, upsample_rates=(2, 2),
+              upsample_kernel_sizes=(4, 4), resblock=resblock,
+              resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),),
+              sampling_rate=8000)
+    gen = NSFHiFiGANGenerator(**kw)
+    gen.load_state_dict(init_nsf_hifigan_params(
+        torch.Generator().manual_seed(0), **kw))
+    g = torch.Generator().manual_seed(1)
+    mel = torch.randn(2, 12, 8, generator=g)
+    f0 = 80.0 + 500.0 * torch.rand(2, 12, generator=g)
+    f0[:, 4:6] = 0.0
+    rand_ini = initial_phase(2, 9, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = gen.eval()(mel, f0, rand_ini=rand_ini)
+        got = gen.to(dev)(mel.to(dev), f0.to(dev), rand_ini=rand_ini)
+    assert got.shape == want.shape == (2, 48) and got.device == dev
+    assert (got.cpu() - want).abs().max().item() <= 2e-5
+
+
 def _small_svc(device):
     """A Svc of a narrow configuration with seeded weights."""
     from ns2vc_tpu_torch.config import (

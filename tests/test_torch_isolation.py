@@ -1,12 +1,13 @@
 """The port stands alone: nothing of `ns2vc_tpu`, JAX or flax is imported
-or loaded by path by any module of `ns2vc_tpu_torch/` or by
-`chip_smoke.py`.
+or loaded by path by any module of `ns2vc_tpu_torch/`, by `chip_smoke.py`
+or by the port's scripts (`scripts/torch_*.py`).
 
 Two checks: every source file's imports, read with `ast` (one case per
-file); and a copy of the package and the smoke script alone in an empty
-directory, imported and run (config, the AC and numpy DIO F0 trackers, the
-Slicer) in a fresh interpreter that refuses to import `ns2vc_tpu`, `jax`
-or `flax`.
+file); and a copy of the package, the smoke script and the port's scripts
+alone in an empty directory, imported (every subpackage, with every public
+name resolved, building nothing) and run (config, the AC and numpy DIO F0
+trackers, the Slicer) in a fresh interpreter that refuses to import
+`ns2vc_tpu`, `jax` or `flax`.
 """
 
 import ast
@@ -21,7 +22,11 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in
                  (ROOT / "ns2vc_tpu_torch").rglob("*.py")
-                 if "_build" not in p.parts) + ["chip_smoke.py"]
+                 if "_build" not in p.parts) + ["chip_smoke.py"] + sorted(
+    p.relative_to(ROOT).as_posix() for p in
+    (ROOT / "scripts").glob("torch_*.py"))
+SUBPACKAGES = sorted(p.parent.name for p in
+                     (ROOT / "ns2vc_tpu_torch").glob("*/__init__.py"))
 FORBIDDEN = ("ns2vc_tpu", "jax", "jaxlib", "flax")
 
 
@@ -60,9 +65,13 @@ def test_sources_cover_the_package():
     assert "ns2vc_tpu_torch/train/trainer.py" in SOURCES
     assert "ns2vc_tpu_torch/data/preprocess.py" in SOURCES
     for rel in ("ops/sequence.py", "diffusion/wrappers.py", "models/lora.py",
-                "models/op_registry.py"):
+                "models/op_registry.py", "models/nsf_hifigan.py"):
         assert f"ns2vc_tpu_torch/{rel}" in SOURCES
-    assert len(SOURCES) >= 47
+    for script in ("torch_reconstruct_nsf.py", "torch_f32_routes.py",
+                   "torch_f0_grad_precision.py"):
+        assert f"scripts/{script}" in SOURCES
+    assert len(SOURCES) >= 51
+    assert len(SUBPACKAGES) == 10
 
 
 _ALONE = """
@@ -76,8 +85,17 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+import importlib
 import numpy as np
 import ns2vc_tpu_torch, chip_smoke
+for pkg in {subpackages!r}:
+    mod = importlib.import_module(f'ns2vc_tpu_torch.{{pkg}}')
+    for name in mod.__all__:
+        getattr(mod, name)
+sys.path.insert(0, str(here / 'scripts'))
+import torch_reconstruct_nsf
+import ns2vc_tpu_torch.models.nsf_hifigan
+assert not (here / 'ns2vc_tpu_torch' / '_build').exists(), 'import built'
 import ns2vc_tpu_torch.convert, ns2vc_tpu_torch.infer.cli
 import ns2vc_tpu_torch.infer.serve, ns2vc_tpu_torch.ops.fused_resnet
 import ns2vc_tpu_torch.data.dataset, ns2vc_tpu_torch.data.preprocess
@@ -110,14 +128,20 @@ print('alone ok')
 
 
 def test_package_and_smoke_run_alone(tmp_path):
-    """ns2vc_tpu_torch/ and chip_smoke.py copied alone into an empty
-    directory import and run with ns2vc_tpu, jax and flax refused."""
+    """ns2vc_tpu_torch/, chip_smoke.py and scripts/torch_*.py copied alone
+    into an empty directory import and run with ns2vc_tpu, jax and flax
+    refused; importing every subpackage and resolving its names builds
+    nothing."""
     shutil.copytree(ROOT / "ns2vc_tpu_torch", tmp_path / "ns2vc_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    (tmp_path / "scripts").mkdir()
+    for script in (ROOT / "scripts").glob("torch_*.py"):
+        shutil.copy(script, tmp_path / "scripts")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
-        [sys.executable, "-c", _ALONE.format(forbidden=set(FORBIDDEN))],
+        [sys.executable, "-c", _ALONE.format(forbidden=set(FORBIDDEN),
+                                             subpackages=SUBPACKAGES)],
         capture_output=True, text=True, timeout=300, cwd=tmp_path, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("alone ok")
