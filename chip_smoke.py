@@ -32,8 +32,11 @@ peak memory for remat dots, off and all; the loss on one fixed batch over
 30 steps; the loader-fed loop; every K1 / K2 geometry of a step, forward
 and backward through the autograd Functions, against autograd through the
 plain versions, with the torch backward's device time and bound; card vs
-CPU gradients at B=2 x 272 in f32 and bf16 vs f32 cosines; a checkpoint
-round trip and one request served from it. One training step is profiled
+CPU gradients at B=2 x 272 in f32 and bf16 vs f32 cosines, with a witness
+of how far bf16's own rounding moves those cosines (`bf16_witness`; the
+phase's batches come in the same order in every run: a serial loader,
+then the synced loader for the loop, so the gradients are taken at the
+same state every time); a checkpoint round trip and one request served from it. One training step is profiled
 with the serving calls at the end. A JSON line {"training": {...}} holds
 these numbers, and each route's entry in the kernels line gains the
 training step's launches, backward calls, forward and backward device
@@ -74,6 +77,26 @@ and convolution activations, and their times at the H100's peaks); and
 card vs CPU in f32 without TF32: the generator on 2 s (1e-4), both
 discriminators and the three GAN losses at 2 x 8192 (1e-4 relative). A
 JSON line {"nsf_hifigan": {...}} holds these numbers.
+
+Data parallel (after NSF-HiFiGAN): the Trainer over torch.distributed, its
+ranks started as subprocesses of this script (`--data-parallel-worker`)
+through NS2VC_COORDINATOR. First one process over NCCL at full width
+(Config(), 32 x 272, bf16, remat dots, the synced loader, serial, on the
+training phase's features): launches and backward calls of one step, which must be
+the single-process step's, its all-reduces (one, of every gradient and
+the loss terms in f32), the median step of 12 after 3 warm-up beside the
+training phase's single-process step, the all-reduce alone. Then two ranks
+on the one card over gloo (NCCL takes one rank per device; gloo reduces
+a host copy) at reduced depth (encoders 1 layer, UNet levels 128 and 256),
+f32 without TF32 (both kernels' f32 routes), dropout 0, batch 4 per rank,
+content buckets 192 and 272: after 3 steps the ranks' parameters and first
+gradients are bitwise equal; one process on the concatenated batches (the
+same t and noise: the step's generator at the global batch's shape) gives
+the same losses (rtol 2e-5), grad norms (2e-4) and first gradients (rtol
+1e-3, atol 1e-7: JAX's tolerances for this comparison); both ranks run the
+same bucket geometries; rank 0 saves, both resume at the saved step with
+equal parameters and train on. A JSON line {"data_parallel": {...}} holds
+these numbers.
 
 The main path is the wav-in -> wav-out CLI run (unipc, bf16): its launch
 counts are read around it, and every K1 / K2 call it makes is recorded by
@@ -1611,7 +1634,7 @@ def relu_gates(gates: list, replay: list | None = None):
              f"recording {len(gates)}")
 
 
-def check_grads(cfg, sd, batch, dev):
+def check_grads(cfg, sd, batch, dev, states=()):
     """One step's gradients at full width, B=2 x 272, p_dropout 0, remat
     dots: f32 on the card (the f32 kernels, TF32 off) against f32 on the
     CPU (the plain versions, on the card run's ReLU gates: `relu_gates`),
@@ -1619,7 +1642,10 @@ def check_grads(cfg, sd, batch, dev):
     on the card (tensor-core kernels) against the CPU's f32 gradients,
     cosine >= GRAD_COSINE per tensor, leaving out the tensors whose f32
     gradient the card does not reproduce to cosine 0.999 (zero in exact
-    arithmetic: their values are rounding noise)."""
+    arithmetic: their values are rounding noise). Before the bf16 check
+    decides, `bf16_witness` measures how far bf16's own rounding moves
+    these cosines at this state and at `states` (state dicts of the same
+    model), and prints it."""
     import dataclasses
     from unittest import mock
 
@@ -1641,12 +1667,20 @@ def check_grads(cfg, sd, batch, dev):
     noise = torch.randn(2, TRAIN_T, 100, generator=gen)
     small = {k: v[:2].float() if v.is_floating_point() else v[:2]
              for k, v in batch.items()}
+    models, loaded = {}, {}
 
-    def grads(device, dtype=torch.float32):
-        model = NaturalSpeech2(cfg0, remat=True, remat_policy="dots")
-        model.load_state_dict(sd)
-        model.to(device).train()
-        b = {k: v.to(device) for k, v in small.items()}
+    def grads(device, dtype=torch.float32, rows=small, t=t, noise=noise,
+              state=sd):
+        model = models.get(device.type)
+        if model is None:
+            model = NaturalSpeech2(cfg0, remat=True, remat_policy="dots")
+            model.to(device).train()
+            models[device.type] = model
+        if loaded.get(device.type) is not state:
+            model.load_state_dict(state)
+            loaded[device.type] = state
+        model.zero_grad(set_to_none=True)
+        b = {k: v.to(device) for k, v in rows.items()}
         cast = {}
         if dtype != torch.float32:
             cast = cast_floating(dict(model.named_parameters()), dtype)
@@ -1663,6 +1697,7 @@ def check_grads(cfg, sd, batch, dev):
             (l_card, g_card), ms = wall_ms(lambda: grads(dev))
         with relu_gates(gates, replay):
             l_cpu, g_cpu = grads(torch.device("cpu"))
+    models.pop("cpu"), loaded.pop("cpu")
     worst, worst_name = 0.0, None
     for name, want in g_cpu.items():
         err = (g_card[name] - want).abs().max().item() / max(
@@ -1679,16 +1714,30 @@ def check_grads(cfg, sd, batch, dev):
         f"{GRAD_RTOL:g}); gates the CPU would set otherwise: {sum(replay)} "
         f"of {sum(g.numel() for g in gates)}; card step {ms:.0f} ms")
 
-    def cosine(a, b):
-        return (a.flatten() @ b.flatten()).item() / max(
-            a.norm().item() * b.norm().item(), 1e-300)
+    def plain_grads(rows=small, t=t, noise=noise, state=sd, k1=True,
+                    k2=True, k1_where=None):
+        """bf16 grads with K1 (only the calls `k1_where(q)` picks, when
+        given) and / or K2 through their plain versions."""
+        k1_fn = flash_attention_plain
+        if k1_where is not None:
+            kern = attention.flash_attention
+
+            def k1_fn(q, *a, **kw):
+                return (flash_attention_plain if k1_where(q) else kern)(
+                    q, *a, **kw)
+        with contextlib.ExitStack() as stack:
+            if k1:
+                stack.enter_context(mock.patch.object(
+                    attention, "flash_attention", k1_fn))
+            if k2:
+                stack.enter_context(mock.patch.object(
+                    fused_resnet, "affine_silu_conv1d",
+                    affine_silu_conv1d_plain))
+            return grads(dev, torch.bfloat16, rows, t, noise, state)[1]
+
     l_bf16, g_bf16 = grads(dev, torch.bfloat16)
     # the same bf16 step through the plain versions: bf16's own rounding
-    with mock.patch.object(attention, "flash_attention",
-                           flash_attention_plain), \
-            mock.patch.object(fused_resnet, "affine_silu_conv1d",
-                              affine_silu_conv1d_plain):
-        _, g_plain = grads(dev, torch.bfloat16)
+    g_plain = plain_grads()
     noise_floor = sorted(n for n in g_cpu
                          if cosine(g_card[n], g_cpu[n]) < 0.999)
     cos = {n: cosine(g_bf16[n], g_cpu[n]) for n in g_cpu
@@ -1707,6 +1756,9 @@ def check_grads(cfg, sd, batch, dev):
     # versions in bf16) does not reach it, within BF16_COSINE_GAP of that
     bad = [n for n in cos if not (cos[n] >= GRAD_COSINE or
                                   cos[n] >= cos_plain[n] - BF16_COSINE_GAP)]
+    witness = bf16_witness(grads, plain_grads, batch, g_card, cos,
+                           cos_plain, states, dev)
+    models.clear()
     if bad or len(noise_floor) > 8:
         fail(f"bf16 gradients: {[(n, cos[n], cos_plain[n]) for n in bad]} "
              f"below {GRAD_COSINE} and the plain bf16 cosine, or "
@@ -1716,7 +1768,230 @@ def check_grads(cfg, sd, batch, dev):
             "grad_bf16_plain_cosine": cos_plain[low],
             "grad_bf16_below_target": sorted(
                 n for n in cos if cos[n] < GRAD_COSINE),
-            "grad_noise_floor": noise_floor}
+            "grad_noise_floor": noise_floor, "bf16_witness": witness}
+
+
+def cosine(a, b) -> float:
+    return (a.flatten() @ b.flatten()).item() / max(
+        a.norm().item() * b.norm().item(), 1e-300)
+
+
+POOL = ".pool."               # the two attention pools' tensors
+WITNESS_DRAWS = 3             # further draws of rows, t and noise
+WITNESS_STATES = 4            # further states: other batch orders
+WITNESS_STEPS = 10            # steps from the pre-loop state to each
+
+
+def bf16_witness(grads, plain_grads, batch, g_card, cos, cos_plain, states,
+                 dev) -> dict:
+    """How much bf16's own rounding moves the per-tensor cosines of the
+    bf16 gradients, so that a gap between the kernels' and the plain
+    versions' bf16 cosines can be read against it. Four bf16 steps of
+    the checked draw, each rounding differently: through the kernels
+    (twice: is the step repeatable?), the plain versions, K1 plain (K2's
+    kernel) and K2 plain (K1's kernel); and:
+
+    - at the checked state: the pools' K1 calls alone plain, and every
+      K1 call but the pools' plain; WITNESS_DRAWS further draws (other
+      rows of the batch, other t and noise) through the kernels and the
+      plain versions, each against its own f32 card reference (TF32 off);
+    - at each of `states` (the state before the loader-fed loop, trained
+      on by WITNESS_STEPS steps of batches in another order, as an
+      unordered loader would hand them out): the checked draw through
+      the four routes against the state's f32 card reference;
+    - at the checked state, WITNESS_DRAWS draws of the batch's first two
+      rows with the prompt cut to the shortest the loader makes (133
+      frames, zero-padded to the geometry) through the four routes;
+    - per case the worst cosine over the pools' tensors and over all, and
+      how many tensors the check's rule fails with the kernels tested
+      against the plain versions, and with the two swapped;
+    - K1 alone on the inputs and output gradient the bf16 step gives each
+      pool's attention (one query; the speaker pool 1 head of 100, the
+      UNet's 64 heads of 4): forward and backward through the kernel and
+      through the plain version, each against f64, relative max error
+      and cosine.
+
+    Prints every number and returns them; decides nothing."""
+    from unittest import mock
+
+    import torch
+
+    import ns2vc_tpu_torch.ops.attention as attention
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    names = list(cos)
+    pools = [n for n in names if POOL in n]
+    out = {"pools": {n: [cos[n], cos_plain[n]] for n in pools}}
+
+    def summary(routes: dict) -> dict:
+        """Worst pool and overall cosine per route, and the rule's fails
+        kernels-vs-plain and plain-vs-kernels."""
+        res = {r: [min(c[n] for n in pools), min(c.values())]
+               for r, c in routes.items()}
+        ck, cp = routes["kernels"], routes["plain"]
+        for key, (a, b) in (("fails", (ck, cp)), ("fails_swapped",
+                                                  (cp, ck))):
+            res[key] = sum(1 for n in names if not (
+                a[n] >= GRAD_COSINE or a[n] >= b[n] - BF16_COSINE_GAP))
+        return res
+
+    def cosines(g, ref):
+        return {n: cosine(g[n], ref[n]) for n in names}
+
+    def four(ref, **kw):
+        return {"kernels": cosines(grads(dev, torch.bfloat16, **kw)[1], ref),
+                "plain": cosines(plain_grads(**kw), ref),
+                "K1 plain": cosines(plain_grads(k2=False, **kw), ref),
+                "K2 plain": cosines(plain_grads(k1=False, **kw), ref)}
+
+    def line(res):
+        return " ".join(f"{r} {v[0]:.4f}/{v[1]:.4f}" for r, v in res.items()
+                        if isinstance(v, list)) + \
+            f"; rule fails {res['fails']}, swapped {res['fails_swapped']}"
+
+    routes = four(g_card)
+    routes["kernels"], routes["plain"] = cos, cos_plain
+    routes["kernels again"] = cosines(grads(dev, torch.bfloat16)[1], g_card)
+    routes["pools' K1 plain"] = cosines(plain_grads(
+        k2=False, k1_where=lambda q: q.shape[2] == 1), g_card)
+    routes["K1 plain but the pools'"] = cosines(plain_grads(
+        k2=False, k1_where=lambda q: q.shape[2] != 1), g_card)
+    out["checked"] = summary(routes)
+    say("bf16 witness, the checked state and draw (worst cosine over the "
+        "pools' tensors / over all, per route): " + line(out["checked"]))
+
+    out["draws"] = []
+    n_rows = batch["c"].shape[0]
+    for j in range(WITNESS_DRAWS):
+        gen = torch.Generator().manual_seed(SEED + 101 + j)
+        pick = torch.randperm(n_rows, generator=gen)[:2]
+        rows = {k: (v[pick].float() if v.is_floating_point() else v[pick])
+                for k, v in batch.items()}
+        t = torch.randint(0, 1000, (2,), generator=gen)
+        noise = torch.randn(2, TRAIN_T, 100, generator=gen)
+        with no_tf32():
+            ref = grads(dev, torch.float32, rows, t, noise)[1]
+        out["draws"].append(summary({
+            "kernels": cosines(grads(dev, torch.bfloat16, rows, t,
+                                     noise)[1], ref),
+            "plain": cosines(plain_grads(rows, t, noise), ref)}))
+        say(f"bf16 witness, draw {j} (t {t.tolist()}): "
+            + line(out["draws"][-1]))
+
+    # the shortest prompt the loader cuts (a third of a 400-frame crop):
+    # the speaker pool pools the padded mel without a mask, so most of its
+    # keys are then one padded row
+    short = 400 // 3
+    rows = {k: (v[:2].float() if v.is_floating_point() else v[:2]).clone()
+            for k, v in batch.items()}
+    rows["refer"][:, short:] = 0.0
+    rows["refer_lengths"] = rows["refer_lengths"].clamp(max=short)
+    out["short_prompt"] = []
+    for j in range(WITNESS_DRAWS):
+        gen = torch.Generator().manual_seed(SEED + 201 + j)
+        t = torch.randint(0, 1000, (2,), generator=gen)
+        noise = torch.randn(2, TRAIN_T, 100, generator=gen)
+        with no_tf32():
+            ref = grads(dev, torch.float32, rows, t, noise)[1]
+        out["short_prompt"].append(summary(four(ref, rows=rows, t=t,
+                                                noise=noise)))
+        say(f"bf16 witness, a {short}-frame prompt, draw {j} (t "
+            f"{t.tolist()}): " + line(out["short_prompt"][-1]))
+
+    out["states"] = []
+    for j, state in enumerate(states):
+        with no_tf32():
+            ref = grads(dev, torch.float32, state=state)[1]
+        res = summary(four(ref, state=state))
+        out["states"].append(res)
+        say(f"bf16 witness, state {j} (other batch order): " + line(res))
+
+    # K1 alone at each pool's call
+    seen = []
+    kern = attention.flash_attention
+
+    def capture(q, k, v, bias=None, scale=None):
+        o = kern(q, k, v, bias, scale)
+        if q.shape[2] == 1 and o.requires_grad:
+            call = {"q": q.detach().clone(), "k": k.detach().clone(),
+                    "v": v.detach().clone(), "bias": bias, "scale": scale}
+            seen.append(call)
+            o.register_hook(lambda g: call.setdefault("do",
+                                                      g.detach().clone()))
+        return o
+    with mock.patch.object(attention, "flash_attention", capture):
+        grads(dev, torch.bfloat16)
+
+    def run(call, fn, dtype):
+        xs = [call[x].to(dtype).clone().requires_grad_()
+              for x in ("q", "k", "v")]
+        o = fn(*xs, call["bias"], call["scale"])
+        o.backward(call["do"].to(dtype))
+        return [o.detach().double()] + [x.grad.double() for x in xs]
+    out["k1_pools"] = []
+    for call in seen:
+        want = run(call, flash_attention_plain, torch.float64)
+        k1 = {"q": list(call["q"].shape), "k": list(call["k"].shape)}
+        for name, fn in (("kernel", kern), ("plain", flash_attention_plain)):
+            got = run(call, fn, torch.bfloat16)
+            k1[name] = {part: [((g - w).abs().max()
+                                / w.abs().max()).item(), cosine(g, w)]
+                        for part, g, w in zip(("o", "dq", "dk", "dv"), got,
+                                              want)}
+        out["k1_pools"].append(k1)
+        say(f"bf16 witness, K1 alone at a pool's call (q {tuple(k1['q'])}, "
+            f"k/v {tuple(k1['k'])}, bf16, its own dO) vs f64, relative max "
+            f"error / cosine: " + "; ".join(
+                f"{name} " + ", ".join(f"{p} {e:.2e}/{c:.6f}"
+                                       for p, (e, c) in k1[name].items())
+                for name in ("kernel", "plain")))
+    return out
+
+
+def witness_states(trainer, cfg, snap: dict) -> list:
+    """WITNESS_STATES state dicts (on the CPU) for `bf16_witness`: the
+    trainer restored to `snap` (`snapshot`) and trained WITNESS_STEPS
+    steps on batches in another order each (the synced loader with
+    another seed, serial); the trainer is left as it was found."""
+    from ns2vc_tpu_torch.data.dataset import synced_data_loader
+
+    here = snapshot(trainer)
+    states = []
+    for j in range(WITNESS_STATES):
+        restore(trainer, snap)
+        loader = synced_data_loader(
+            trainer.ds, trainer._collator, TRAIN_B,
+            seed=cfg.train.seed + 1 + j, shard_index=0, shard_count=1)
+        for _ in range(WITNESS_STEPS):
+            trainer.train_step(trainer.device_batch(next(loader)))
+        loader.close()
+        states.append({k: v.detach().to("cpu", copy=True) for k, v in
+                       trainer.model.state_dict().items()})
+    restore(trainer, here)
+    return states
+
+
+def snapshot(trainer) -> dict:
+    """A copy of what a train step changes: parameters, optimizer state,
+    EMA and step."""
+    import copy
+
+    return {"model": {k: v.detach().clone() for k, v in
+                      trainer.model.state_dict().items()},
+            "opt": copy.deepcopy(trainer.state.optimizer.state_dict()),
+            "ema": {k: v.clone() for k, v in
+                    (trainer.state.ema_params or {}).items()},
+            "step": trainer.state.step}
+
+
+def restore(trainer, snap: dict) -> None:
+    import copy
+
+    trainer.model.load_state_dict(snap["model"])
+    trainer.state.optimizer.load_state_dict(copy.deepcopy(snap["opt"]))
+    for k, v in snap["ema"].items():
+        trainer.state.ema_params[k].copy_(v)
+    trainer.state.step = snap["step"]
 
 
 def check_training(vsd, cv_sd, dev, tmp):
@@ -1724,14 +1999,15 @@ def check_training(vsd, cv_sd, dev, tmp):
     272, bf16, remat dots through the Trainer: launches and backward calls
     per step, step time and peak memory for remat dots / off / all, the
     loss on one fixed batch over LOSS_STEPS steps, the trainer's own loop
-    with its loader, card vs CPU gradients, every K1 / K2 training geometry
-    forward and backward, a checkpoint round trip, and one request served
+    with a loader, every K1 / K2 training geometry forward and backward,
+    card vs CPU gradients, a checkpoint round trip, and one request served
     from the checkpoint."""
     from unittest import mock
 
     import torch
 
     from ns2vc_tpu_torch.convert import load_checkpoint
+    from ns2vc_tpu_torch.data.dataset import data_loader, synced_data_loader
     from ns2vc_tpu_torch.infer.svc import Svc
     from ns2vc_tpu_torch.models.unet import ResnetBlock1D
     from ns2vc_tpu_torch.ops import fused_resnet as fr
@@ -1746,8 +2022,18 @@ def check_training(vsd, cv_sd, dev, tmp):
     trainer = Trainer(cfg, logs_folder=os.path.join(tmp, "run"),
                       vocos_params=vsd, device=dev)
     n_params = sum(p.numel() for p in trainer.model.parameters())
-    loader = trainer.loader()
-    batches = [trainer.device_batch(next(loader)) for _ in range(4)]
+    # every batch of this phase comes in the same order in every run, so
+    # the state the gradient checks see at its end is the same: the timed
+    # steps' from a serial loader, the loop's from the synced loader
+    # (spawned workers, re-sequenced; the trainer's data_loader hands its
+    # workers' batches out in the order they finish)
+    serial = data_loader(trainer.ds, trainer._collator, TRAIN_B,
+                         seed=cfg.train.seed)
+    batches = [trainer.device_batch(next(serial)) for _ in range(4)]
+    serial.close()
+    trainer.dl = synced_data_loader(
+        trainer.ds, trainer._collator, TRAIN_B, seed=cfg.train.seed,
+        num_workers=trainer.num_workers, shard_index=0, shard_count=1)
     b0 = batches[0]
     if tuple(b0["c"].shape) != (TRAIN_B, TRAIN_T, 256) or \
             b0["c"].dtype != torch.bfloat16 or \
@@ -1826,12 +2112,14 @@ def check_training(vsd, cv_sd, dev, tmp):
     res["loss_first"], res["loss_last"] = float(first), float(last)
 
     # the trainer's own loop: loader-fed, logging
+    before_loop = snapshot(trainer)
     t1 = time.perf_counter()
     n0 = trainer.step
     trainer.train(num_steps=n0 + 10)
     res["loop_steps_per_s"] = 10 / (time.perf_counter() - t1)
     say(f"Trainer.train: 10 loader-fed steps at {res['loop_steps_per_s']:.2f}"
-        f" steps/s (with its final checkpoint) [{CARD}]")
+        f" steps/s (synced loader, {trainer.num_workers} workers; with its "
+        f"final checkpoint) [{CARD}]")
 
     # every K1 / K2 geometry of the step (remat off: one call each)
     calls = PathCalls()
@@ -1845,9 +2133,11 @@ def check_training(vsd, cv_sd, dev, tmp):
     with no_tf32():
         res["geometries"] = check_train_geometries(calls, dev)
 
+    states = witness_states(trainer, cfg, before_loop)
+    del before_loop
     res.update(check_grads(cfg, {k: v.detach().cpu() for k, v in
                                  trainer.model.state_dict().items()},
-                           b0, dev))
+                           b0, dev, states))
 
     # checkpoint round trip and one request served from it
     path = trainer.save()
@@ -3066,6 +3356,387 @@ def check_nsf_hifigan(dev):
     return res
 
 
+
+# -- data parallel ------------------------------------------------------------
+
+DP_B = 4                      # per process in the 2-rank run (global 8)
+DP_BUCKETS = (192, 272)       # content buckets: both occur on the features
+DP_STEPS, DP_TIMED = 3, 5     # compared steps, then timed steps
+DP_TURN_STEPS = 4             # per turn of the world-size-1 A/B
+DP_LOSS_RTOL, DP_NORM_RTOL = 2e-5, 2e-4   # JAX's own (tests/test_parallel.py)
+DP_GRAD_RTOL, DP_GRAD_ATOL = 1e-3, 1e-7
+DP_TIMEOUT = 300
+DP_WORKER = [sys.executable, os.path.abspath(__file__),
+             "--data-parallel-worker"]
+
+
+def dp_config(processed, logs):
+    """The 2-rank run's configuration: Config()'s widths at reduced depth
+    (encoders 1 layer of 6, UNet levels 128 and 256 of the four), f32,
+    dropout 0, content buckets, EMA on, the loader serial."""
+    import dataclasses
+
+    base = training_config(processed, logs)
+
+    def enc(e):
+        return dataclasses.replace(e, n_layers=1, p_dropout=0.0)
+    return dataclasses.replace(
+        base,
+        train=dataclasses.replace(
+            base.train, train_batch_size=DP_B, compute_dtype="float32",
+            length_buckets=DP_BUCKETS, num_workers=0, keep_ckpts=2,
+            log_every=1),
+        phoneme_encoder=enc(base.phoneme_encoder),
+        prompt_encoder=enc(base.prompt_encoder),
+        diffusion_encoder=dataclasses.replace(
+            base.diffusion_encoder, block_out_channels=(128, 256),
+            p_dropout=0.0))
+
+
+def params_digest(model) -> str:
+    """sha256 of every parameter's bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def data_parallel_worker(job_dir: str) -> int:
+    """One rank of the data-parallel phase (`chip_smoke.py
+    --data-parallel-worker DIR`): joins the group NS2VC_COORDINATOR /
+    NS2VC_NUM_PROCESSES / NS2VC_PROCESS_ID describe, trains DIR/config.json
+    through the Trainer (synced loader, all-reduce) as DIR/job.json says,
+    and writes DIR/result_rank{r}.json. Mode "full": launches, backward
+    calls and all-reduces of one step, then the median step. Mode "steps":
+    DP_STEPS steps (losses, grad norms, geometries; the gradients of the
+    first and the parameters after the last written for the comparison),
+    DP_TIMED timed steps, a save, a resume on every rank and 2 more steps
+    through Trainer.train."""
+    import torch
+    import torch.distributed as dist
+
+    from ns2vc_tpu_torch.config import load_config
+    from ns2vc_tpu_torch.parallel import mesh
+    from ns2vc_tpu_torch.train.trainer import Trainer, make_train_step
+
+    with open(os.path.join(job_dir, "job.json")) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+    if job.get("f32"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if not mesh.maybe_initialize_distributed(dev, job["backend"]):
+        fail("data parallel worker: no process group in the environment")
+    rank, n = mesh.world()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = load_config(os.path.join(job_dir, "config.json"))
+    out = {"rank": rank, "world": n, "backend": dist.get_backend()}
+    tr = Trainer(cfg, logs_folder=os.path.join(job_dir, "run"), device=dev)
+    out["n_params"] = sum(p.numel() for p in tr.model.parameters())
+    loader = tr.loader()
+    grads = None
+    if job["mode"] == "full":
+        batches = [tr.device_batch(next(loader)) for _ in range(4)]
+        out["batch"] = list(batches[0]["c"].shape)
+        tr.train_step(batches[0])
+        sync()
+        reset_launches()
+        calls, nbytes = mesh.all_reduce_mean.calls, mesh.all_reduce_mean.bytes
+        tr.train_step(batches[1])
+        sync()
+        out["launches"], out["backward"] = route_counts(), backward_calls()
+        out["all_reduce_calls"] = mesh.all_reduce_mean.calls - calls
+        out["all_reduce_bytes"] = mesh.all_reduce_mean.bytes - nbytes
+        ms, peak, m = median_step_ms(tr, batches, TRAIN_WARMUP, TRAIN_TIMED)
+        out.update(step_ms=ms, peak_gb=peak, loss=m["loss"].item(),
+                   grad_norm=m["grad_norm"].item())
+        # in turns in this process: the group's step and the step of one
+        # process without a group (no all-reduce, one process's draws)
+        t = cfg.train
+        group_fn = tr._step_fn
+        alone_fn = make_train_step(
+            tr.accum, tr.compute_dtype,
+            ema_decay=t.ema_decay if t.use_ema else 0.0,
+            ema_every=t.ema_update_every, max_norm=t.grad_clip_norm)
+        out["turns_ms"] = {"group": [], "alone": []}
+        for name in ("group", "alone", "alone", "group"):
+            tr._step_fn, tr.distributed = (group_fn, True) \
+                if name == "group" else (alone_fn, False)
+            out["turns_ms"][name].append(median_step_ms(
+                tr, batches, 1, DP_TURN_STEPS)[0])
+        tr._step_fn, tr.distributed = group_fn, True
+    else:
+        out["losses"], out["norms"], out["geoms"] = [], [], []
+        for i in range(DP_STEPS):
+            b = tr.device_batch(next(loader))
+            out["geoms"].append([b["c"].shape[1], b["refer"].shape[1]])
+            m = tr.train_step(b)
+            out["losses"].append(m["loss"].item())
+            out["norms"].append(m["grad_norm"].item())
+            if i == 0:
+                torch.save({k: p.grad.detach().cpu() for k, p in
+                            tr.model.named_parameters()},
+                           os.path.join(job_dir, f"grads_rank{rank}.pt"))
+        torch.save({k: v.detach().cpu() for k, v in
+                    tr.model.state_dict().items()},
+                   os.path.join(job_dir, f"params_rank{rank}.pt"))
+        times = []
+        for _ in range(DP_TIMED):
+            b = tr.device_batch(next(loader))
+            out["geoms"].append([b["c"].shape[1], b["refer"].shape[1]])
+            sync()
+            t0 = time.perf_counter()
+            m = tr.train_step(b)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(m["loss"].item())
+        out["step_ms"] = float(np.median(times))
+        path = tr.save()
+        out["saved"] = os.path.basename(path)
+        out["digest"] = params_digest(tr.model)
+        tr.close()
+        again = Trainer(cfg, logs_folder=os.path.join(job_dir, "run"),
+                        device=dev)
+        again.load()
+        out["resumed_step"] = again.step
+        out["digest_resumed"] = params_digest(again.model)
+        out["geoms_after"] = []
+        step = again.train_step
+
+        def recorded(b, *args, **kw):
+            out["geoms_after"].append([b["c"].shape[1], b["refer"].shape[1]])
+            return step(b, *args, **kw)
+        again.train_step = recorded
+        again.train(num_steps=again.step + 2)
+        out["step_after"] = again.step
+        out["digest_after"] = params_digest(again.model)
+        tr = again
+    # the all-reduce alone, on a gradient buffer of the step's size
+    flat = mesh.flat_gradients(list(tr.model.parameters()), extra=3)
+    calls = mesh.all_reduce_mean.calls
+    if dev.type == "cuda":
+        out["all_reduce_ms"] = time_ms(lambda: mesh.all_reduce_mean(flat),
+                                       warmup=2, iters=5)
+    else:
+        t0 = time.perf_counter()
+        mesh.all_reduce_mean(flat)
+        out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3
+    mesh.all_reduce_mean.calls = calls
+    digests = [None] * n
+    dist.all_gather_object(digests, params_digest(tr.model))
+    out["digests"] = digests
+    tr.close()
+    with open(os.path.join(job_dir, f"result_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_data_parallel(job_dir: str, cfg, job: dict, n: int) -> list:
+    """Run n worker processes of data_parallel_worker on job_dir (this
+    script, with NS2VC_COORDINATOR on a free localhost port) and return
+    their results; fails on a worker's failure or timeout, and leaves no
+    worker running."""
+    import socket
+
+    from ns2vc_tpu_torch.config import save_config
+
+    os.makedirs(job_dir, exist_ok=True)
+    save_config(cfg, os.path.join(job_dir, "config.json"))
+    with open(os.path.join(job_dir, "job.json"), "w") as f:
+        json.dump(job, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "NS2VC_COORDINATOR": f"localhost:{port}",
+           "NS2VC_NUM_PROCESSES": str(n)}
+    env.pop("NS2VC_DISTRIBUTED", None)
+    procs, logs = [], []
+    try:
+        for r in range(n):
+            logs.append(open(os.path.join(job_dir, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [*DP_WORKER, job_dir],
+                env={**env, "NS2VC_PROCESS_ID": str(r)}, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(job_dir, f"rank{r}.log")) as f:
+                say(f"  rank {r} of {n} (exit {procs[r].returncode}):\n"
+                    + f.read()[-3000:])
+        fail(f"data parallel ({job['mode']}): ranks {bad} of {n} failed")
+    results = []
+    for r in range(n):
+        with open(os.path.join(job_dir, f"result_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def check_data_parallel(processed, train, dev, tmp) -> dict:
+    """The Trainer over torch.distributed: a group of one process over
+    NCCL at full width (the synced loader, the all-reduce; its step beside
+    the single-process step of the training phase, the same launches and
+    backward calls), then two ranks on the one card over gloo (NCCL takes
+    one rank per device) at reduced depth in f32 without TF32: the ranks'
+    parameters bitwise equal, the step against one process on the
+    concatenated batch at JAX's tolerances, the same bucket geometries on
+    both ranks, a save by rank 0 and a resume on both."""
+    import torch
+
+    from ns2vc_tpu_torch.data.dataset import synced_data_loader
+    from ns2vc_tpu_torch.train.trainer import Trainer
+
+    import dataclasses
+
+    res = {}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    # the loader serial: its workers would load on beside the timed steps,
+    # which the host bounds (the training phase times on device-resident
+    # batches with no loader running)
+    cfg = training_config(processed, os.path.join(tmp, "dp_logs"))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_workers=0))
+    (full,) = run_data_parallel(
+        os.path.join(tmp, "dp_full"), cfg,
+        {"mode": "full", "device": str(dev), "backend": backend}, 1)
+    if full["launches"] != train["launches"] or \
+            full["backward"] != train["backward"]:
+        fail(f"data parallel step: launches {full['launches']} and backward "
+             f"calls {full['backward']}, the single-process step's "
+             f"{train['launches']} and {train['backward']}")
+    want_bytes = 4 * (full["n_params"] + 3)
+    if full["all_reduce_calls"] != 1 or full["all_reduce_bytes"] != want_bytes \
+            or not np.isfinite([full["loss"], full["grad_norm"]]).all() \
+            or len(set(full["digests"])) != 1:
+        fail(f"data parallel step: {full['all_reduce_calls']} all-reduces of "
+             f"{full['all_reduce_bytes']} bytes (expected 1 of {want_bytes}), "
+             f"loss {full['loss']}, grad norm {full['grad_norm']}")
+    one_ms = train["remat"]["dots"][0]
+    say(f"data parallel, {full['world']} process over {full['backend']} at "
+        f"full width ({full['n_params'] / 1e6:.1f} M parameters, batch "
+        f"{full['batch'][0]} x {full['batch'][1]}, bf16, synced loader, "
+        f"serial): "
+        f"median step {full['step_ms']:.2f} ms of {TRAIN_TIMED} (after "
+        f"{TRAIN_WARMUP} warm-up) vs {one_ms:.2f} ms single-process, peak "
+        f"{full['peak_gb']:.2f} GB; {full['all_reduce_calls']} all-reduce of "
+        f"{full['all_reduce_bytes'] / 1e6:.1f} MB per step, "
+        f"{full['all_reduce_ms']:.3f} ms alone; in turns in its process "
+        f"(median of {DP_TURN_STEPS}) with the group "
+        f"{', '.join(f'{x:.2f}' for x in full['turns_ms']['group'])} ms, "
+        f"without {', '.join(f'{x:.2f}' for x in full['turns_ms']['alone'])}"
+        f" ms; launches per step "
+        f"{full['launches']}, backward calls {full['backward']} (the "
+        f"single-process step's) [{CARD}]")
+    res["world1"] = {k: full[k] for k in (
+        "backend", "n_params", "step_ms", "peak_gb", "all_reduce_calls",
+        "all_reduce_bytes", "all_reduce_ms", "turns_ms", "launches",
+        "backward")}
+    res["world1"]["single_process_step_ms"] = one_ms
+
+    job_dir = os.path.join(tmp, "dp_two")
+    cfg = dp_config(processed, os.path.join(tmp, "dp_logs"))
+    ranks = run_data_parallel(
+        job_dir, cfg, {"mode": "steps", "device": str(dev),
+                       "backend": "gloo", "f32": True}, 2)
+    r0, r1 = ranks
+    for key in ("geoms", "losses", "digest", "saved", "resumed_step",
+                "digest_resumed", "step_after", "geoms_after",
+                "digest_after", "digests"):
+        if r0[key] != r1[key]:
+            fail(f"data parallel, 2 ranks: {key} differs: {r0[key]} vs "
+                 f"{r1[key]}")
+    p0, p1 = (torch.load(os.path.join(job_dir, f"params_rank{r}.pt"))
+              for r in range(2))
+    g0, g1 = (torch.load(os.path.join(job_dir, f"grads_rank{r}.pt"))
+              for r in range(2))
+    if any(not torch.equal(v, p1[k]) for k, v in p0.items()) or any(
+            not torch.equal(v, g1[k]) for k, v in g0.items()):
+        fail("data parallel, 2 ranks: parameters or gradients not bitwise "
+             "equal")
+    steps_done = DP_STEPS + DP_TIMED
+    geoms = {tuple(g) for g in r0["geoms"]}
+    if r0["resumed_step"] != steps_done or r0["step_after"] != steps_done \
+            + 2 or r0["digest_resumed"] != r0["digest"] or len(
+                {g[0] for g in geoms}) < 2:
+        fail(f"data parallel, 2 ranks: resumed at {r0['resumed_step']}, "
+             f"ended at {r0['step_after']} (expected {steps_done} and "
+             f"{steps_done + 2}); geometries {sorted(geoms)}")
+
+    # one process on the concatenated batches, the same t and noise: the
+    # step's generator at the global batch's shape is the 2-rank draw
+    with no_tf32():
+        one = Trainer(cfg, logs_folder=os.path.join(tmp, "dp_one"),
+                      device=dev)
+        batches = synced_data_loader(one.ds, one._collator, 2 * DP_B,
+                                     seed=cfg.train.seed, shard_index=0,
+                                     shard_count=1)
+        worst = {}
+        for i in range(DP_STEPS):
+            b = one.device_batch(next(batches))
+            if [b["c"].shape[1], b["refer"].shape[1]] != r0["geoms"][i]:
+                fail(f"data parallel: step {i} geometry "
+                     f"{tuple(b['c'].shape)} vs the ranks' {r0['geoms'][i]}")
+            m = one.train_step(b)
+            loss, norm = m["loss"].item(), m["grad_norm"].item()
+            worst[f"loss_rel_{i}"] = abs(r0["losses"][i] - loss) / abs(loss)
+            worst[f"norm_rel_{i}"] = abs(r0["norms"][i] - norm) / abs(norm)
+            if worst[f"loss_rel_{i}"] > DP_LOSS_RTOL or \
+                    worst[f"norm_rel_{i}"] > DP_NORM_RTOL:
+                fail(f"data parallel vs one process, step {i}: loss "
+                     f"{r0['losses'][i]} vs {loss}, grad norm "
+                     f"{r0['norms'][i]} vs {norm}")
+            if i == 0:   # each error over its allowance, at most 1
+                ratio = 0.0
+                for k, p in one.model.named_parameters():
+                    want = p.grad.detach().cpu()
+                    r = ((g0[k] - want).abs() / (
+                        DP_GRAD_ATOL + DP_GRAD_RTOL * want.abs())).max()
+                    ratio = max(ratio, r.item())
+                    if r.item() > 1.0:
+                        fail(f"data parallel vs one process: gradient {k} "
+                             f"{r.item():.3g} times rtol {DP_GRAD_RTOL} / "
+                             f"atol {DP_GRAD_ATOL}")
+                worst["grad_tolerance_used"] = ratio
+        one.close()
+        del one
+    say(f"data parallel, 2 ranks on one card over gloo (f32, TF32 off, "
+        f"{r0['n_params'] / 1e6:.1f} M parameters, batch {DP_B} per rank, "
+        f"buckets {sorted(geoms)}): parameters and gradients bitwise equal "
+        f"across ranks; vs one process on the concatenated batch: loss "
+        f"{max(v for k, v in worst.items() if k.startswith('loss')):.2e} "
+        f"(rtol {DP_LOSS_RTOL}), grad norm "
+        f"{max(v for k, v in worst.items() if k.startswith('norm')):.2e} "
+        f"(rtol {DP_NORM_RTOL}) over {DP_STEPS} steps, every gradient of the "
+        f"first within rtol {DP_GRAD_RTOL} / atol {DP_GRAD_ATOL} (at most "
+        f"{worst['grad_tolerance_used']:.3f} of it); median step "
+        f"{r0['step_ms']:.2f} ms, all-reduce alone {r0['all_reduce_ms']:.3f} "
+        f"ms through the host; rank 0 saved {r0['saved']}, both resumed at "
+        f"step {r0['resumed_step']} and went on to {r0['step_after']} on the "
+        f"same geometries [{CARD}]")
+    res["two_ranks"] = {"backend": r0["backend"], "n_params": r0["n_params"],
+                        "step_ms": r0["step_ms"],
+                        "all_reduce_ms": r0["all_reduce_ms"],
+                        "geometries": sorted(geoms), **worst}
+    res["seconds"] = round(time.perf_counter() - t0, 1)
+    return res
+
+
 def _nested_cpu(x):
     return [_nested_cpu(v) for v in x] if isinstance(x, list) else x.cpu()
 
@@ -3154,6 +3825,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("nsf hifigan"):
         nsf = check_nsf_hifigan(dev)
+        torch.cuda.empty_cache()
+    with phase("data parallel"):
+        dp = check_data_parallel(os.path.join(train_tmp.name,
+                                              "raw_processed"),
+                                 train, dev, train_tmp.name)
         torch.cuda.empty_cache()
     with no_tf32():
         with phase("K1 shapes"):
@@ -3272,6 +3948,7 @@ def main() -> int:
         "lora_err": modules["lora_err"],
         "stream_errs": modules["stream_errs"]}}))
     print(json.dumps({"nsf_hifigan": nsf}))
+    print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"training": {
         k: v for k, v in train.items()
         if k not in ("geometries", "launches", "backward")}}))
@@ -3284,4 +3961,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--data-parallel-worker":
+        sys.exit(data_parallel_worker(sys.argv[2]))
     sys.exit(main())

@@ -6,20 +6,24 @@ log-mel, F0, ContentVec), then content features + a reference mel ->
 encoders -> cross-attention K/V precompute -> a sampler over the UNet ->
 Vocos -> 24 kHz waveform (optionally int16 PCM).
 
-It also trains on one card: wav dir -> data/preprocess -> features ->
-data/dataset loader -> train/trainer (bf16 forward on f32 masters through
-both kernels' autograd Functions, AdamW, EMA) -> checkpoints Svc serves.
+It also trains, on one card or data-parallel over torch.distributed (one
+card per process): wav dir -> data/preprocess -> features -> data/dataset
+loader (synced across processes) -> train/trainer (bf16 forward on f32
+masters through both kernels' autograd Functions, one gradient
+all-reduce per step, AdamW, EMA, spectrogram images) -> checkpoints Svc
+serves. scripts/orbax_to_torch.py brings a JAX run's checkpoint over.
 
 It also reconstructs 44.1 kHz audio from a log-mel and its F0 through the
 NSF-HiFiGAN vocoder (models/nsf_hifigan.py, loaded from the reference
 checkpoint; scripts/torch_reconstruct_nsf.py).
 
-Layer map (each subpackage exports the JAX package's public names, but
-`parallel`, which the port does not have yet):
+Layer map (each subpackage exports the JAX package's public names):
     infer/      Svc: bucketed, masked batch serving, RealTimeVC, the
                 MicroBatcher and the CLI
-    data/, train/  preprocess, the training data loader, the trainer and
-                its CLI
+    data/, train/  preprocess, the training data loader (and its schedule
+                synced across processes), the trainer and its CLI
+    parallel/   the process group, the ('data', 'model') mesh, the batch
+                layout, the all-reduce and the parameter placements
     models/     encoders, UNet1D denoiser, diffusion core, the vocoders
                 (Vocos; NSF-HiFiGAN with its discriminators and GAN
                 losses), LoRA, the encoder op registry
@@ -32,7 +36,8 @@ Layer map (each subpackage exports the JAX package's public names, but
                 slicing, ContentVec, CREPE
     native/     the C++ DIO F0 tracker (ctypes)
     convert.py  JAX (flax) parameter trees -> state dicts; seeded init
-    config.py, utils/  configuration, reference-checkpoint converter, wav I/O
+    config.py, utils/  configuration, reference-checkpoint converter, wav I/O,
+                checkpoint mixing, plotting
 
 Importing the package builds nothing: the kernels are compiled by nvcc at
 their first CUDA call (ops/_build.py), the host DIO library by g++ at its

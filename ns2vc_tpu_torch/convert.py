@@ -233,16 +233,37 @@ def msd_from_flax(params_np: dict, **kw) -> dict:
 TRAINER_FORMAT = "ns2vc_tpu_torch.trainer"   # the trainer's checkpoints
 
 
+def save_trainer_checkpoint(path: str, cfg: Config, params: dict,
+                            step: int = 0, opt_state: dict | None = None,
+                            ema_params: dict | None = None) -> str:
+    """Write a checkpoint in the layout of the port's trainer: the step,
+    the parameters (a state dict on the CPU), the optimizer's state dict
+    (None: the trainer resumes with a fresh AdamW), the EMA parameters
+    (None: none kept) and the config. `load_checkpoint` (so `Svc`) and
+    `Trainer.load` read it. The file appears whole or not at all."""
+    import dataclasses
+
+    payload = {"format": TRAINER_FORMAT, "step": int(step),
+               "params": params, "opt_state": opt_state,
+               "ema_params": ema_params,
+               "config": dataclasses.asdict(cfg)}
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
 def load_checkpoint(path: str, cfg: Config, use_ema: bool = True) -> dict:
     """A `.pt` file -> the port's NaturalSpeech2 state dict: a checkpoint
     of the port's trainer (its EMA parameters when it holds them and
     `use_ema`, else its parameters), a reference `model-N.pt` ({'step',
-    'model'}) or a port state dict. Orbax checkpoint directories are not
-    read by the port."""
+    'model'}) or a port state dict. Orbax checkpoint directories of the
+    JAX package are not read here: `scripts/orbax_to_torch.py` turns one
+    into a checkpoint of the port's trainer."""
     if os.path.isdir(path):
         raise ValueError(
-            f"{path} is a directory: orbax checkpoints of the JAX package "
-            f"are not read by the port; pass a reference model-N.pt, a "
+            f"{path} is a directory: the port does not read orbax "
+            f"checkpoints of the JAX package; convert the JAX run with "
+            f"scripts/orbax_to_torch.py, or pass a reference model-N.pt, a "
             f"checkpoint of the port's trainer or a port state dict saved "
             f"with torch.save")
     data = torch.load(path, map_location="cpu")

@@ -18,10 +18,12 @@ Items are time-major (T, C) in memory, flipped once at load from the
 on-disk (C, T) layout; the batch dict keeps (B, T, C). Batches are
 collated in f32: the trainer casts them to its compute dtype on the device.
 
-Nothing here touches CUDA, and the loader's worker processes are spawned
-fresh: they never hold the caller's CUDA state. `synced_data_loader` (the
-multi-host schedule) is not ported: it waits for data parallelism over
-several processes.
+Nothing here touches CUDA or imports torch, and the loader's worker
+processes are spawned fresh: they never hold the caller's CUDA state.
+
+Several processes (data parallelism) read through `synced_data_loader`:
+every rank walks the same schedule of global batches, derived from the run
+seed and the feature files' headers alone, and loads its own rows of each.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import glob
 import os
 import queue
 import random
+import sys
 import threading
 from typing import Iterator, Optional
 
@@ -68,6 +71,23 @@ def _fast_npy_load(path: str) -> np.ndarray:
         data = np.fromfile(f, dtype=dtype,
                            count=int(np.prod(shape, dtype=np.int64)))
     return data.reshape(shape)
+
+
+def _npy_shape(path: str) -> Optional[tuple]:
+    """Header-only shape of a .npy file (no data read); None when the file
+    is missing or not a plain npy (the reference's .pt artifacts)."""
+    info = _NPY_HEADERS.get(path)
+    if info is not None:
+        return info[2]
+    try:
+        with open(path, "rb") as f:
+            version = np.lib.format.read_magic(f)
+            shape, _, _ = getattr(
+                np.lib.format,
+                f"read_array_header_{version[0]}_{version[1]}")(f)
+        return shape
+    except Exception:
+        return None
 
 
 def _load_feature(path_no_ext: str, suffix: str) -> np.ndarray:
@@ -182,6 +202,35 @@ class VCDataset:
         item = (self.cache[index] if self.all_in_mem
                 else self.get_audio(self.audiopaths[index]))
         return self.random_slice(*item)
+
+    def item_frames(self, index: int) -> int:
+        """Aligned frame count of item `index` from the feature files'
+        headers only: get_audio truncates every field to min(len(f0), spec
+        frames), so the synced schedule knows each item's length, and
+        through slice_plan its post-slice geometry, without reading the
+        data. Falls back to a full load for .pt artifacts."""
+        if not hasattr(self, "_frames_cache"):
+            self._frames_cache: dict[int, int] = {}
+        n = self._frames_cache.get(index)
+        if n is not None:
+            return n
+        path = self.audiopaths[index]
+        f0_shape = _npy_shape(path + ".f0.npy")
+        spec_shape = _npy_shape(path.replace(".wav", "") + ".spec.npy")
+        if f0_shape is not None and spec_shape is not None:
+            n = min(int(f0_shape[-1]), int(spec_shape[-1]))
+        else:   # .pt artifacts: load once, keep the answer
+            n = self.get_audio(path)[2].shape[0]
+        self._frames_cache[index] = n
+        return n
+
+    def get_sliced(self, index: int, rng: random.Random):
+        """Load item `index` and slice it with an explicit rng (the synced
+        loader seeds one per schedule position, so the realized geometry is
+        the one the schedule predicted on every rank)."""
+        item = (self.cache[index] if self.all_in_mem
+                else self.get_audio(self.audiopaths[index]))
+        return self.random_slice(*item, rng=rng)
 
 
 class EvalDataset(VCDataset):
@@ -330,8 +379,195 @@ class _Batcher:
         return self.collator(buf[: self.n])
 
 
-def _process_worker(dataset, collator, batch_size, idx_q, out_q, wseed,
-                    transform=None):
+def _item_seed(seed: int, epoch: int, pos: int) -> int:
+    """Per-scheduled-item rng seed, the same on every rank: a function of
+    the run seed and the item's (epoch, position) in the shared shuffled
+    order only."""
+    return (seed * 0x9E3779B1 + epoch * 0x85EBCA77 + pos * 0xC2B2AE35) \
+        & 0x7FFFFFFF
+
+
+def synced_schedule(dataset: "VCDataset", collator, global_batch: int,
+                    seed: int = 0) -> Iterator[tuple]:
+    """The same schedule on every rank: an infinite stream of (geometry,
+    [(index, item_seed), ...]) global batches, `geometry` the (content,
+    refer) bucket pair (None unbucketed) and `global_batch` entries of it.
+
+    It depends only on the seed (epoch shuffle, per-item slice rng), the
+    feature files' lengths (`item_frames`, headers only) and the
+    collator's bucket edges: slice_plan(frames, Random(item_seed)) predicts
+    each item's post-slice lengths, and the load replays that plan through
+    get_sliced. So the ranks agree on the geometry of every step (the
+    gradient all-reduce always meets tensors of one size) and on which
+    items form each batch (their rows stay disjoint). The JAX package's
+    schedule is the same arithmetic, so the two give the same stream."""
+    rng = random.Random(seed)
+    bucketed = hasattr(collator, "bucket_of_lengths")
+    bufs: dict = {}
+    epoch = -1
+    order: list[int] = []
+    pos = 0
+    while True:
+        if not order:
+            epoch += 1
+            pos = 0
+            order = list(range(len(dataset)))
+            rng.shuffle(order)
+        idx = order.pop()
+        iseed = _item_seed(seed, epoch, pos)
+        pos += 1
+        plan = VCDataset.slice_plan(dataset.item_frames(idx),
+                                    random.Random(iseed))
+        if plan is None:
+            continue
+        _, u, v, total = plan
+        geom = (collator.bucket_of_lengths(total - (v - u), v - u)
+                if bucketed else None)
+        buf = bufs.setdefault(geom, [])
+        buf.append((idx, iseed))
+        if len(buf) == global_batch:
+            bufs[geom] = []
+            yield geom, buf
+
+
+def _load_scheduled_batch(dataset, collator, entries, geometry,
+                          transform=None):
+    """Load and collate one rank's entries of a scheduled batch, checking
+    the realized slice geometry against the schedule's prediction (a drift
+    would send the ranks different shapes: fail loudly instead)."""
+    items = []
+    for idx, iseed in entries:
+        item = dataset.get_sliced(idx, random.Random(iseed))
+        assert item is not None, \
+            f"schedule predicted a valid slice for item {idx} " \
+            f"but the load produced none (stale feature files?)"
+        items.append(item)
+    if geometry is not None:
+        realized = [collator.bucket_of(it) for it in items]
+        assert all(r == geometry for r in realized), (
+            f"slice-geometry drift: schedule said {geometry}, "
+            f"load realized {sorted(set(realized))}")
+    batch = collator(items, geometry=geometry)
+    return transform(batch) if transform else batch
+
+
+def _synced_worker(dataset, collator, transform, work_q, out_q):
+    """Process-pool worker of synced_data_loader: pulls (seq, geometry,
+    entries) work units, pushes (seq, batch)."""
+    try:
+        while True:
+            seq, geom, entries = work_q.get()
+            out_q.put((seq, _load_scheduled_batch(
+                dataset, collator, entries, geom, transform)))
+    except Exception:
+        import traceback
+
+        out_q.put(("__error__", traceback.format_exc()))
+
+
+def _worker_pool(work: Iterator, worker, args: list, in_size: int,
+                 out_size: int) -> Iterator:
+    """Spawned worker processes, one per entry of `args`, each running
+    worker(*args[i], in_q, out_q): a feeder thread puts the items of
+    `work` into in_q, and this yields what the workers put into out_q, in
+    the order they finish; a worker's ("__error__", traceback) raises.
+    The processes are spawned, not forked, since the caller holds CUDA and
+    its threads. Closing the iterator stops the feeder and the workers."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    in_q = ctx.Queue(maxsize=in_size)
+    out_q = ctx.Queue(maxsize=out_size)
+    procs = [ctx.Process(target=worker, args=(*a, in_q, out_q), daemon=True)
+             for a in args]
+    for p in procs:
+        p.start()
+    stop = threading.Event()
+
+    def feeder():
+        for item in work:
+            while not stop.is_set():
+                try:
+                    in_q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            if stop.is_set():
+                return
+
+    threading.Thread(target=feeder, daemon=True).start()
+    try:
+        while True:
+            got = out_q.get()
+            if isinstance(got, tuple) and got[0] == "__error__":
+                raise RuntimeError(f"data worker failed:\n{got[1]}")
+            yield got
+    finally:
+        stop.set()
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join(timeout=5)
+
+
+def _process_group() -> tuple[int, int]:
+    """(rank, world size) of torch.distributed's group when the caller has
+    one, else (0, 1); torch is not imported here (the workers stay
+    torch-free)."""
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def synced_data_loader(dataset: VCDataset, collator, batch_size: int,
+                       seed: int = 0, num_workers: int = 0,
+                       shard_index: int | None = None,
+                       shard_count: int | None = None,
+                       transform=None) -> Iterator:
+    """Batch iterator over the synced_schedule for several processes: every
+    rank walks the same (geometry, entries) stream, and rank `shard_index`
+    loads entries[i * B:(i + 1) * B] of each global batch. `batch_size` is
+    per process, as in `data_loader`; the global batch is batch_size *
+    shard_count items of one geometry. shard_index / shard_count default
+    to torch.distributed's rank and world size (0 and 1 without a group).
+    Yields what `transform` yields, in schedule order: with workers
+    (spawned, as `data_loader`'s), results are re-sequenced, so every rank
+    emits batch k at step k. Closing the iterator stops the workers."""
+    if shard_index is None or shard_count is None:
+        shard_index, shard_count = _process_group()
+    schedule = synced_schedule(dataset, collator, batch_size * shard_count,
+                               seed=seed)
+
+    def my_slice(entries):
+        return entries[shard_index * batch_size:
+                       (shard_index + 1) * batch_size]
+
+    if num_workers <= 0:
+        for geom, entries in schedule:
+            yield _load_scheduled_batch(dataset, collator, my_slice(entries),
+                                        geom, transform)
+        return
+
+    work = ((seq, geom, my_slice(entries))
+            for seq, (geom, entries) in enumerate(schedule))
+    results = _worker_pool(work, _synced_worker,
+                           [(dataset, collator, transform)] * num_workers,
+                           num_workers * 4, num_workers * 4)
+    pending: dict = {}
+    next_seq = 0
+    try:
+        for seq, batch in results:
+            pending[seq] = batch
+            while next_seq in pending:
+                yield pending.pop(next_seq)
+                next_seq += 1
+    finally:
+        results.close()
+
+
+def _process_worker(dataset, collator, batch_size, wseed, transform, idx_q,
+                    out_q):
     """Process-pool worker: pulls index chunks, loads and collates whole
     batches, pushes finished batch dicts (after `transform`, if any)."""
     dataset.rng = random.Random(wseed)  # de-correlate random_slice crops
@@ -361,8 +597,8 @@ def data_loader(dataset: VCDataset, collator: FixedShapeCollator,
     forked, since the caller holds CUDA and its threads: each gets the
     dataset, collator and `transform` pickled, and runs `transform` on
     each collated batch. Closing the iterator (or dropping it) stops its
-    worker processes. The JAX loader's per-host sharding waits for data
-    parallelism."""
+    worker processes. Several processes read through
+    `synced_data_loader` instead."""
     rng = random.Random(seed)
     order: list[int] = []
 
@@ -390,43 +626,15 @@ def data_loader(dataset: VCDataset, collator: FixedShapeCollator,
             yield make_batch()
 
     if use_processes:
-        import multiprocessing
-
-        ctx = multiprocessing.get_context("spawn")
-        idx_q = ctx.Queue(maxsize=num_workers * 4)
-        out_q = ctx.Queue(maxsize=max(2, num_workers * 2))
-        procs = [ctx.Process(
-            target=_process_worker,
-            args=(dataset, collator, batch_size, idx_q, out_q,
-                  seed * 7919 + 1000 + w, transform),
-            daemon=True) for w in range(num_workers)]
-        for p in procs:
-            p.start()
-        stop = threading.Event()
-
-        def feeder():  # index handout is trivial: one feeder thread
-            while not stop.is_set():
-                chunk = [next_index() for _ in range(batch_size)]
-                while not stop.is_set():
-                    try:
-                        idx_q.put(chunk, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
-
-        threading.Thread(target=feeder, daemon=True).start()
-        try:
+        def chunks():   # index handout is trivial: the feeder thread's
             while True:
-                batch = out_q.get()
-                if isinstance(batch, tuple) and batch[0] == "__error__":
-                    raise RuntimeError(f"data worker failed:\n{batch[1]}")
-                yield batch
-        finally:
-            stop.set()
-            for p in procs:
-                p.terminate()
-            for p in procs:
-                p.join(timeout=5)
+                yield [next_index() for _ in range(batch_size)]
+
+        yield from _worker_pool(
+            chunks(), _process_worker,
+            [(dataset, collator, batch_size, seed * 7919 + 1000 + w,
+              transform) for w in range(num_workers)],
+            num_workers * 4, max(2, num_workers * 2))
         return
 
     q: queue.Queue = queue.Queue(maxsize=max(2, num_workers * 2))

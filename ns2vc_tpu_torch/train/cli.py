@@ -5,6 +5,13 @@
 
 Runs on the card unless `-d cpu` is given, and exits non-zero when the
 device asked for is not there.
+
+Several processes train one model with data parallelism when the
+environment describes their group (`parallel/mesh.py`): each runs this
+command with NS2VC_COORDINATOR=host:port, NS2VC_NUM_PROCESSES=n and its
+own NS2VC_PROCESS_ID, or under torchrun with NS2VC_DISTRIBUTED=1. Each
+process takes its own card; `train_batch_size` is per process, so the
+global batch is n times it.
 """
 
 from __future__ import annotations
@@ -31,18 +38,24 @@ def main(argv=None):
                          f"requested but no CUDA device is available; pass "
                          f"-d cpu to run on the CPU")
 
+    from ns2vc_tpu_torch.parallel.mesh import maybe_initialize_distributed
     from ns2vc_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(args.config, logs_folder=args.logs_folder,
-                      device=args.device)
+    grouped = maybe_initialize_distributed(args.device)
     try:
-        if args.warm_start:
-            trainer.load_torch(args.warm_start)
-        elif args.resume:
-            trainer.load()
-        trainer.train()
+        trainer = Trainer(args.config, logs_folder=args.logs_folder,
+                          device=args.device)
+        try:
+            if args.warm_start:
+                trainer.load_torch(args.warm_start)
+            elif args.resume:
+                trainer.load()
+            trainer.train()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if grouped:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Training on one card (counterpart of ns2vc_tpu/train/trainer.py).
+"""Training on one card, or on several with data parallelism
+(counterpart of ns2vc_tpu/train/trainer.py).
 
 The train step keeps f32 master parameters and runs the forward on bf16
 copies of them when `compute_dtype` is bfloat16 (`utils/precision.py`), so
@@ -9,6 +10,9 @@ through the casts, through K1's and K2's autograd Functions and, with
 - gradient accumulation: the batch is split into `accum` micro-batches,
   each with its own draws of t, noise and dropout masks from the step's
   generator; loss and gradients are averaged over them;
+- in a process group, one all-reduce averages the gradients (and the loss
+  terms) over the ranks: they live in one flat buffer
+  (`parallel.mesh.flat_gradients`, `all_reduce_mean`);
 - the global gradient norm is taken before clipping and logged;
 - clipping by global norm with optax's rule (g * max_norm / |g| only when
   |g| >= max_norm, no epsilon);
@@ -21,10 +25,31 @@ The step's generator is seeded from (seed, step), as the JAX step folds the
 step into its key, so a resumed run draws what the uninterrupted run would
 have drawn.
 
+Data parallelism (a process group is up: `parallel.mesh.
+maybe_initialize_distributed`, which `train/cli.py` calls) follows the JAX
+package's 'data' mesh axis. `train_batch_size` is per process, so the
+global batch is that times the world size; every rank reads its rows of
+the same global batches through `synced_data_loader`; rank 0's parameters
+are broadcast at init; t, noise (and the F0 contour's scale) are drawn
+from the step's generator at the global batch's shape and each rank takes
+its rows, as JAX draws from one key over the global batch, so a step of n
+ranks on n slices is the step of one process on their concatenation;
+dropout masks are per rank, from (step seed, rank) (with dropout > 0 the
+masks, and the F0 scale one process draws after them, are not that
+process's: `_global_draws`). Clipping, AdamW and
+the EMA then run alike on every rank. Rank 0 writes the checkpoints and
+every rank meets it after each; every rank reads one on resume. Eval
+samples, `train.log`, `scalars.jsonl` and images come from rank 0 only. A
+group of one process takes this path too (the synced loader, the
+all-reduce). The 'model' axis (tensor parallelism) is not applied yet.
+
 `Trainer` drives it: the data loader, the step, the stdout line
 `step N loss ... grad_norm ... steps/s ...`, scalars as JSON lines in the
-run dir's `scalars.jsonl` (and `train.log`), a UniPC eval sample from the
-EMA parameters when present (mel as .npy, waveform as .wav), and
+run dir's `scalars.jsonl` (and `train.log`), spectrogram images as PNGs
+under `images/` (the JAX trainer's TensorBoard images `all/spec` and
+`all/spec_pred` at log steps with accumulation 1, `gen/mel` and `gt/mel`
+at eval; none, said once, without matplotlib), a UniPC eval sample from
+the EMA parameters when present (mel as .npy, waveform as .wav), and
 checkpoints `ckpt/model-N.pt` (step, parameters, optimizer state, EMA, the
 config; the newest `keep_ckpts` kept) that `convert.load_checkpoint`, and
 so `Svc`, reads. It runs on `cuda` unless given `device="cpu"`, and raises
@@ -32,13 +57,14 @@ without a card.
 
 Not ported, because they answer the TPU's runtime: the AOT step cache, the
 packed one-buffer host-to-device transfer (`pack_h2d`), the persistent
-compile cache and the xplane profile window. Data parallelism over several
-processes (the JAX mesh, `synced_data_loader`) is a later slice.
+compile cache, the compile barrier of the multi-host step and the xplane
+profile window.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -49,13 +75,21 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ns2vc_tpu_torch.config import Config, load_config, save_config
-from ns2vc_tpu_torch.convert import TRAINER_FORMAT, init_module_
+from ns2vc_tpu_torch.convert import (
+    TRAINER_FORMAT, init_module_, save_trainer_checkpoint,
+)
 from ns2vc_tpu_torch.data.dataset import (
     BucketedCollator, EvalDataset, FixedShapeCollator, VCDataset, data_loader,
 )
+from ns2vc_tpu_torch.data.dataset import synced_data_loader
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2, generate_mel
+from ns2vc_tpu_torch.parallel.mesh import (
+    all_reduce_mean, batch_sharding, broadcast_, flat_gradients,
+    host_barrier, make_mesh, put_local_batch, world,
+)
 from ns2vc_tpu_torch.utils.precision import (
     cast_floating, parameters_as, resolve_dtype,
 )
@@ -112,27 +146,44 @@ def _split(x: torch.Tensor | None, accum: int) -> list:
 
 def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
                     torch.float32, ema_decay: float = 0.0,
-                    ema_every: int = 1, max_norm: float = 1.0):
-    """train_step(state, batch, generator=None, t=None, noise=None) ->
-    metrics, updating `state` in place. `batch` holds tensors with leading
-    dim B = accum * micro-batch on the model's device (floats in f32 or
-    the compute dtype); `t` (B,) and `noise` (B, T, 100), when given,
-    replace the draws from `generator`. metrics: loss, its terms loss_diff
-    and loss_f0 (0 without the F0 predictor) and grad_norm (0-d tensors, no
-    host synchronisation) and, with accum 1, pred and target."""
+                    ema_every: int = 1, max_norm: float = 1.0,
+                    data_parallel: bool = False):
+    """train_step(state, batch, generator=None, t=None, noise=None,
+    f0_factor=None) -> metrics, updating `state` in place. `batch` holds
+    tensors with leading dim B = accum * micro-batch on the model's device
+    (floats in f32 or the compute dtype); `t` (B,), `noise` (B, T, 100) and
+    `f0_factor` (B,), when given, replace the draws from `generator`.
+    With `data_parallel`, the gradients live in one flat f32 buffer
+    (`parallel.mesh.flat_gradients`, with three slots for the loss terms)
+    that one all-reduce averages over the process group after
+    accumulation and before clipping, so every rank clips, steps and logs
+    the global batch's. metrics: loss, its terms loss_diff and loss_f0 (0
+    without the F0 predictor) and grad_norm (0-d tensors, no host
+    synchronisation) and, with accum 1, pred and target (this rank's
+    rows)."""
+    flat = None
+
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None,
                    t: torch.Tensor | None = None,
-                   noise: torch.Tensor | None = None) -> dict:
+                   noise: torch.Tensor | None = None,
+                   f0_factor: torch.Tensor | None = None) -> dict:
+        nonlocal flat
         model = state.model
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
-        state.optimizer.zero_grad(set_to_none=True)
+        if data_parallel:
+            flat = flat_gradients(params, flat, extra=3)
+            flat.zero_()
+        else:
+            state.optimizer.zero_grad(set_to_none=True)
         micro = [dict(zip(batch, vals)) for vals in zip(
             *(v.chunk(accum) for v in batch.values()))]
         loss_sum, aux = 0.0, {}
         terms = {"loss_diff": 0.0, "loss_f0": 0.0}
-        for mb, mt, mn in zip(micro, _split(t, accum), _split(noise, accum)):
+        for mb, mt, mn, mf in zip(micro, _split(t, accum),
+                                  _split(noise, accum),
+                                  _split(f0_factor, accum)):
             if compute_dtype != torch.float32:
                 cast = cast_floating(dict(model.named_parameters()),
                                      compute_dtype)
@@ -141,7 +192,8 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
                 cast = {}
             # the backward stays inside: remat recomputes with the casts
             with parameters_as(model, cast):
-                loss, aux = model(mb, generator, t=mt, noise=mn)
+                loss, aux = model(mb, generator, t=mt, noise=mn,
+                                  f0_factor=mf)
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
             for key in terms:
@@ -149,6 +201,13 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
         grads = [p.grad for p in params]
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
+        if data_parallel:
+            flat[-3:] = torch.stack([
+                torch.as_tensor(x, dtype=torch.float32, device=flat.device)
+                for x in (loss_sum, terms["loss_diff"], terms["loss_f0"])])
+            all_reduce_mean(flat)
+            loss_sum, loss_diff, loss_f0 = flat[-3:].clone()
+            terms = {"loss_diff": loss_diff, "loss_f0": loss_f0}
         grad_norm = clip_by_global_norm(grads, max_norm)
         state.optimizer.step()
         if ema_decay > 0.0 and state.ema_params is not None \
@@ -172,26 +231,11 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
 def host_transform(batch: dict, cfg: Config) -> dict:
     """Drop the fields the step never reads: the waveform always, f0 and uv
     while the F0 predictor is off. Floats stay f32 (the compute-dtype cast
-    happens on the device, in `to_device`)."""
+    happens on the device, in `put_local_batch`)."""
     drop = {"wav"}
     if not cfg.f0_predictor.enabled:
         drop |= {"f0", "uv"}
     return {k: v for k, v in batch.items() if k not in drop}
-
-
-def to_device(batch: dict, device: torch.device,
-              dtype: torch.dtype = torch.float32) -> dict:
-    """numpy batch -> tensors on `device` (pinned, non-blocking copies from
-    the host on CUDA), floats cast to `dtype` there."""
-    out = {}
-    for k, v in batch.items():
-        x = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            x = x.pin_memory().to(device, non_blocking=True)
-        if x.is_floating_point():
-            x = x.to(dtype)
-        out[k] = x
-    return out
 
 
 def dummy_batch(cfg: Config,
@@ -220,9 +264,16 @@ def step_seed(seed: int, step: int) -> int:
     return (seed * 0x9E3779B1 + step * 0x85EBCA77 + 1) & 0x7FFFFFFFFFFF
 
 
+def rank_seed(step_seed_: int, rank: int) -> int:
+    """The dropout generator's seed of rank `rank` > 0 in a step (rank 0
+    draws its masks from the step's generator itself)."""
+    return (step_seed_ * 0xC2B2AE35 + rank) & 0x7FFFFFFFFFFF
+
+
 class Trainer:
     """End-to-end training driver (reference Trainer, model.py:748-946) on
-    one card: `train()` steps, logs, samples and checkpoints."""
+    one card, or one card per rank of a process group: `train()` steps,
+    logs, samples and checkpoints."""
 
     def __init__(self, cfg: Config | str | None = None,
                  logs_folder: Optional[str] = None,
@@ -236,17 +287,35 @@ class Trainer:
         t = self.cfg.train
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(t.compute_dtype)
+        if self.cfg.parallel.model_parallel_size > 1:
+            raise NotImplementedError(
+                "model_parallel_size > 1: the port does not place parameters "
+                "over the 'model' axis yet (ROADMAP Queue 1); "
+                "parallel.param_shardings gives the placements")
+        self.rank, self.n_proc = world()
+        self.distributed = dist.is_available() and dist.is_initialized()
+        self.is_main = self.rank == 0
+        self.mesh = make_mesh()
 
-        self.logs_folder = logs_folder or os.path.join(
-            t.logs_folder, datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
+        if self.n_proc > 1:
+            # every rank derives the same run dir without talking
+            default_name = os.path.join(t.logs_folder, f"run-s{t.seed}")
+        else:
+            default_name = os.path.join(
+                t.logs_folder, datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
+        self.logs_folder = logs_folder or default_name
         os.makedirs(self.logs_folder, exist_ok=True)
-        self._stamp_git_hash()
-        save_config(self.cfg, os.path.join(self.logs_folder, "config.json"))
+        if self.is_main:
+            self._stamp_git_hash()
+            save_config(self.cfg,
+                        os.path.join(self.logs_folder, "config.json"))
 
         model = NaturalSpeech2(self.cfg, remat=t.remat,
                                remat_policy=t.remat_policy)
         init_module_(model, torch.Generator().manual_seed(t.seed))
         model.to(self.device)
+        if self.distributed:
+            broadcast_(list(model.parameters()))
         self.state = TrainState(
             model=model, optimizer=make_optimizer(self.cfg,
                                                   model.parameters()),
@@ -255,8 +324,10 @@ class Trainer:
         self._step_fn = make_train_step(
             self.accum, self.compute_dtype,
             ema_decay=t.ema_decay if t.use_ema else 0.0,
-            ema_every=t.ema_update_every, max_norm=t.grad_clip_norm)
+            ema_every=t.ema_update_every, max_norm=t.grad_clip_norm,
+            data_parallel=self.distributed)
         self.generator = torch.Generator(self.device)
+        self._rank_generator = torch.Generator(self.device)
 
         if t.length_buckets:
             self._collator = BucketedCollator(
@@ -293,6 +364,7 @@ class Trainer:
             self.vocos.load_state_dict(vocos_params)
             self.vocos.to(self.device).eval()
         self._eval_model = None
+        self._plots = None   # whether matplotlib is here, at the first image
 
     # ------------------------------------------------------------------
 
@@ -327,8 +399,9 @@ class Trainer:
         """The training batch iterator (made once, at first use)."""
         if self.dl is None:
             t = self.cfg.train
-            self.dl = data_loader(self.ds, self._collator, t.train_batch_size,
-                                  seed=t.seed, num_workers=self.num_workers)
+            make = synced_data_loader if self.distributed else data_loader
+            self.dl = make(self.ds, self._collator, t.train_batch_size,
+                           seed=t.seed, num_workers=self.num_workers)
         return self.dl
 
     def close(self) -> None:
@@ -338,15 +411,47 @@ class Trainer:
             self.dl = None
 
     def device_batch(self, batch: dict) -> dict:
-        return to_device(host_transform(batch, self.cfg), self.device,
-                         self.compute_dtype)
+        return put_local_batch(host_transform(batch, self.cfg), self.device,
+                               self.compute_dtype)
 
     def train_step(self, batch: dict, t: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None) -> dict:
         """One optimizer step on a device batch, with the step's generator
-        (or the given t and noise)."""
-        self.generator.manual_seed(step_seed(self.cfg.train.seed, self.step))
-        return self._step_fn(self.state, batch, self.generator, t, noise)
+        (or the given t and noise). In a process group, `batch` is this
+        rank's rows and t and noise, when given, are the global batch's."""
+        seed = step_seed(self.cfg.train.seed, self.step)
+        self.generator.manual_seed(seed)
+        if not self.distributed:
+            return self._step_fn(self.state, batch, self.generator, t, noise)
+        t, noise, f0_factor = self._global_draws(batch, t, noise)
+        drop = self.generator if self.rank == 0 else \
+            self._rank_generator.manual_seed(rank_seed(seed, self.rank))
+        return self._step_fn(self.state, batch, drop, t, noise, f0_factor)
+
+    def _global_draws(self, batch: dict, t, noise):
+        """This rank's rows of t, noise and (with the F0 predictor) the
+        contour's scale, drawn from the step's generator at the global
+        batch's shape. One process draws t and noise first too, but the
+        scale after the encoders' dropout masks: with dropout 0 (no mask
+        drawn) the draws are the single-process step's on the whole batch;
+        with dropout > 0 the masks (per rank) and the scales differ from
+        it, each still drawn from its distribution."""
+        spec = batch["spec"]
+        n = spec.shape[0] * self.n_proc
+        gen, dev = self.generator, spec.device
+        if t is None:
+            t = torch.randint(0, self.model.schedule.num_timesteps, (n,),
+                              generator=gen, device=dev)
+        if noise is None:
+            noise = torch.randn((n, *spec.shape[1:]), generator=gen,
+                                device=dev, dtype=spec.dtype)
+        f0_factor = None
+        if self.cfg.f0_predictor.enabled:
+            f0_factor = 0.8 + 0.4 * torch.rand((n,), generator=gen,
+                                               device=dev)
+        rows = batch_sharding(self.mesh).rows(n)
+        return (t[rows], noise[rows],
+                None if f0_factor is None else f0_factor[rows])
 
     # -- checkpointing ---------------------------------------------------
 
@@ -356,24 +461,26 @@ class Trainer:
 
     def save(self, milestone: Optional[int] = None) -> str:
         """ckpt/model-N.pt: step, parameters, optimizer state, EMA and the
-        config, on the CPU; then only the newest `keep_ckpts` are kept."""
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        config, on the CPU; then only the newest `keep_ckpts` are kept. In a
+        process group rank 0 writes (every rank holds the same state) and
+        every rank meets it here afterwards."""
         n = milestone if milestone is not None else self.step
+        path = os.path.join(self.ckpt_dir, f"model-{n}.pt")
+        if self.is_main:
+            self._write_checkpoint(path)
+        host_barrier(f"ns2vc-saved-{n}")
+        return path
+
+    def _write_checkpoint(self, path: str) -> None:
+        os.makedirs(self.ckpt_dir, exist_ok=True)
 
         def cpu(sd):
             return None if sd is None else {
                 k: v.detach().cpu() for k, v in sd.items()}
-        payload = {
-            "format": TRAINER_FORMAT, "step": self.step,
-            "params": cpu(self.model.state_dict()),
-            "opt_state": self.state.optimizer.state_dict(),
-            "ema_params": cpu(self.state.ema_params),
-            "config": dataclasses.asdict(self.cfg)}
-        path = os.path.join(self.ckpt_dir, f"model-{n}.pt")
-        torch.save(payload, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        save_trainer_checkpoint(
+            path, self.cfg, cpu(self.model.state_dict()), self.step,
+            self.state.optimizer.state_dict(), cpu(self.state.ema_params))
         self._collect_garbage()
-        return path
 
     def _collect_garbage(self) -> None:
         keep = self.cfg.train.keep_ckpts
@@ -392,8 +499,10 @@ class Trainer:
     def load(self, step: Optional[int] = None, path: Optional[str] = None):
         """Resume from a checkpoint of this trainer: `path`, else
         ckpt/model-`step`.pt, else the newest in ckpt/. Restores the
-        parameters, optimizer state, EMA (when this run keeps one) and
-        step."""
+        parameters, optimizer state (a fresh AdamW where the file holds
+        none), EMA (when this run keeps one) and step. Every rank of a
+        process group reads it, and none goes on (to a save whose garbage
+        collection could remove it) until all have."""
         from ns2vc_tpu_torch.utils.checkpoints import latest_checkpoint_path
 
         if path is None:
@@ -408,12 +517,14 @@ class Trainer:
             raise ValueError(f"{path} is not a checkpoint of this trainer; "
                              f"use load_torch for a reference model-N.pt")
         self.model.load_state_dict(data["params"])
-        self.state.optimizer.load_state_dict(data["opt_state"])
+        if data["opt_state"] is not None:
+            self.state.optimizer.load_state_dict(data["opt_state"])
         if self.state.ema_params is not None:
             src = data["ema_params"] or data["params"]
             for k, v in self.state.ema_params.items():
                 v.copy_(src[k])
         self.state.step = int(data["step"])
+        host_barrier(f"ns2vc-loaded-{self.state.step}")
         return path
 
     def load_torch(self, model_path: str):
@@ -436,8 +547,9 @@ class Trainer:
         """Sample one eval item (reference model.py:905-938) with UniPC, 30
         steps, from the EMA parameters when kept: (mel (T, 100), waveform or
         None, gt spec, refer spec, gt audio, refer audio), numpy; None
-        without an eval set."""
-        if self.eval_ds is None:
+        without an eval set, and on every rank but 0 (the others go on to
+        the next step's all-reduce and wait there)."""
+        if self.eval_ds is None or not self.is_main:
             return None
         c, f0, spec, audio, uv, c_r, f0_r, spec_r, audio_r, uv_r = \
             self.eval_ds[self.step % len(self.eval_ds)]
@@ -499,7 +611,39 @@ class Trainer:
             milestone = step // self.cfg.train.save_and_sample_every
             write_wav(os.path.join(self.logs_folder,
                                    f"sample-{milestone}.wav"), wav, sr)
+        files.update(self._images(step, {"gen/mel": mel, "gt/mel": gt_spec}))
         return files
+
+    def _images(self, step: int, specs: dict) -> dict:
+        """images/<tag>-<step>.png of each (T, C) spectrogram in `specs`
+        ({tag: array}), as the JAX trainer's TensorBoard images; {} without
+        matplotlib."""
+        if not self._can_plot():
+            return {}
+        from ns2vc_tpu_torch.utils.plotting import (
+            plot_spectrogram_to_numpy, write_png,
+        )
+
+        out_dir = os.path.join(self.logs_folder, "images")
+        os.makedirs(out_dir, exist_ok=True)
+        return {tag: write_png(
+            os.path.join(out_dir, f"{tag.replace('/', '_')}-{step}.png"),
+            plot_spectrogram_to_numpy(np.asarray(spec, np.float32).T))
+            for tag, spec in specs.items()}
+
+    def _can_plot(self) -> bool:
+        """Whether matplotlib is here; without it, said once on stdout
+        and in train.log."""
+        if self._plots is None:
+            self._plots = importlib.util.find_spec("matplotlib") is not None
+            if not self._plots:
+                from ns2vc_tpu_torch.utils.logger import get_logger
+
+                msg = ("matplotlib is not installed: the trainer writes no "
+                       "spectrogram images")
+                print(msg, flush=True)
+                get_logger(self.logs_folder).info(msg)
+        return self._plots
 
     # -- main loop ---------------------------------------------------------
 
@@ -512,7 +656,7 @@ class Trainer:
 
         t = self.cfg.train
         total = num_steps if num_steps is not None else t.train_num_steps
-        logger = get_logger(self.logs_folder)
+        logger = get_logger(self.logs_folder) if self.is_main else None
         eval_gen = torch.Generator(self.device)
         loader = self.loader()
         batches = deque(self.device_batch(next(loader))
@@ -523,7 +667,7 @@ class Trainer:
             batch = batches.popleft()
             metrics = self.train_step(batch)
             step = self.step
-            if step % t.log_every == 0:
+            if step % t.log_every == 0 and self.is_main:
                 loss = float(metrics["loss"])
                 diff, lf0 = (float(metrics[k]) for k in ("loss_diff",
                                                          "loss_f0"))
@@ -541,6 +685,10 @@ class Trainer:
                            "loss/grad": gn, "perf/steps_per_sec": sps,
                            "perf/content_frames": int(batch["c"].shape[1]),
                            "perf/refer_frames": int(batch["refer"].shape[1])})
+                if "pred" in metrics:   # this rank's first example
+                    self._images(step, {
+                        "all/spec": metrics["target"][0].detach().cpu(),
+                        "all/spec_pred": metrics["pred"][0].detach().cpu()})
             if step != 0 and step % t.save_and_sample_every == 0:
                 eval_gen.manual_seed(step_seed(t.seed + 1, step))
                 result = self.sample_eval(eval_gen)

@@ -1,10 +1,12 @@
 # The port's copy of ns2vc_tpu/utils/convert_reference.py: the port imports nothing of the JAX package.
 """Convert reference (adelacvg/NS2VC, PyTorch) weights to this framework.
 
-The port keeps what it calls: `TrackedStateDict` and
-`assert_fully_consumed` (its strict public-layout loaders) and
+The port keeps every converter of the JAX module: `TrackedStateDict` and
+`assert_fully_consumed` (its strict public-layout loaders),
 `natural_speech2` with the helpers it reaches, whose flax-layout tree
-`convert.from_flax` turns into the port's state dict.
+`convert.from_flax` turns into the port's state dict, the helpers of the
+reference's other modules (`mha_cross`, `new_conv_ffn`,
+`dual_transformer_1d`) and `load_reference_checkpoint`.
 
 Two uses:
 1. parity tests: instantiate a reference torch module with random weights,
@@ -124,6 +126,19 @@ def mha_self(sd, p):
     }
 
 
+def mha_cross(sd, p):
+    """Packed qkv split into separate projections for CrossAttention."""
+    w = _np(sd[f"{p}.in_proj_weight"])
+    c = w.shape[1]
+    wq, wk, wv = w[:c], w[c : 2 * c], w[2 * c :]
+    return {
+        "q_proj": {"kernel": wq.T},
+        "k_proj": {"kernel": wk.T},
+        "v_proj": {"kernel": wv.T},
+        "out_proj": {"kernel": _np(sd[f"{p}.out_proj.weight"]).T},
+    }
+
+
 def conv_ffn(sd, p, kernel_size=9):
     """reference TransformerFFNLayer (operations.py:644-692): k shifted
     Linears (bias on tap 0 only) == one SAME conv."""
@@ -141,6 +156,15 @@ def conv_ffn(sd, p, kernel_size=9):
         "ffn_1": {"kernel": kernel, "bias": _np(sd[f"{p}.ffn_1.0.bias"])},
         "ffn_2": linear(sd, f"{p}.ffn_2"),
     }
+
+
+def new_conv_ffn(sd, p):
+    """reference NewTransformerFFNLayer (operations.py:725-781): a true
+    Conv1d -> Linear. With padding='LEFT' the conv sits inside an
+    nn.Sequential behind a ConstantPad1d, so its params live at
+    `ffn_1.1.*`; SAME keeps them at `ffn_1.*`. No tap-0 quirk here."""
+    c1 = f"{p}.ffn_1" if f"{p}.ffn_1.weight" in sd else f"{p}.ffn_1.1"
+    return {"ffn_1": conv1d(sd, c1), "ffn_2": linear(sd, f"{p}.ffn_2")}
 
 
 def enc_sa_layer(sd, p, kernel_size=9):
@@ -246,6 +270,16 @@ def transformer_1d(sd, p):
     }
 
 
+def dual_transformer_1d(sd, p):
+    """reference unet1d/dual_transformer_1d.py:21-155 (two Transformer2DModel
+    children under .transformers.{0,1})."""
+    pre = f"{p}.transformers" if p else "transformers"
+    return {
+        "transformers_0": transformer_1d(sd, f"{pre}.0"),
+        "transformers_1": transformer_1d(sd, f"{pre}.1"),
+    }
+
+
 def resnet_block(sd, p):
     """reference unet1d/resnet.py:461-640 (scale_shift)."""
     out = {
@@ -340,3 +374,11 @@ def natural_speech2(sd, n_encoder_layers=6, strict=True):
         assert_fully_consumed(sd, ignore=_NS2_BUFFER_IGNORE,
                               context="natural_speech2")
     return params
+
+
+def load_reference_checkpoint(path: str):
+    """torch.load a reference `model-{N}.pt` -> (flax params, step)."""
+    import torch
+
+    data = torch.load(path, map_location="cpu")
+    return natural_speech2(data["model"]), int(data.get("step", 0))

@@ -70,8 +70,12 @@ def test_sources_cover_the_package():
     for script in ("torch_reconstruct_nsf.py", "torch_f32_routes.py",
                    "torch_f0_grad_precision.py"):
         assert f"scripts/{script}" in SOURCES
-    assert len(SOURCES) >= 51
-    assert len(SUBPACKAGES) == 10
+    for rel in ("parallel/mesh.py", "utils/plotting.py"):
+        assert f"ns2vc_tpu_torch/{rel}" in SOURCES
+    for script in ("torch_convert_checkpoint.py", "torch_mix_models.py"):
+        assert f"scripts/{script}" in SOURCES
+    assert len(SOURCES) >= 56
+    assert len(SUBPACKAGES) == 11
 
 
 _ALONE = """
@@ -93,7 +97,7 @@ for pkg in {subpackages!r}:
     for name in mod.__all__:
         getattr(mod, name)
 sys.path.insert(0, str(here / 'scripts'))
-import torch_reconstruct_nsf
+import torch_reconstruct_nsf, torch_convert_checkpoint, torch_mix_models
 import ns2vc_tpu_torch.models.nsf_hifigan
 assert not (here / 'ns2vc_tpu_torch' / '_build').exists(), 'import built'
 import ns2vc_tpu_torch.convert, ns2vc_tpu_torch.infer.cli
@@ -103,6 +107,7 @@ import ns2vc_tpu_torch.train.trainer, ns2vc_tpu_torch.train.cli
 import ns2vc_tpu_torch.utils.checkpoints, ns2vc_tpu_torch.utils.logger
 import ns2vc_tpu_torch.ops.sequence, ns2vc_tpu_torch.diffusion.wrappers
 import ns2vc_tpu_torch.models.lora, ns2vc_tpu_torch.models.op_registry
+import ns2vc_tpu_torch.parallel.mesh, ns2vc_tpu_torch.utils.plotting
 from ns2vc_tpu_torch.audio.host import (
     Slicer, compute_f0_ac, compute_f0_dio, interpolate_f0)
 from ns2vc_tpu_torch.config import Config, load_config

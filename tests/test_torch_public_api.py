@@ -4,8 +4,7 @@ counterparts.
 
 - Every JAX subpackage's `__all__` (its public functions where it has no
   `__all__`: `native`), read with `ast`, is the port subpackage's
-  `__all__`, and every name resolves. `parallel` is the one exemption,
-  until data parallelism lands (ROADMAP Queue 1 item 4).
+  `__all__`, and every name resolves; none is exempt.
 - `istft` against JAX's `istft` and `torch.istft` (1e-5: one irfft and an
   overlap-add in f32); `Resampler` against the port's `resample`
   (bit-equal: one implementation) and JAX's `Resampler` (1e-5, the resample
@@ -28,8 +27,7 @@ import torch
 import jax.numpy as jnp
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-EXEMPT = {"parallel": "ROADMAP Queue 1 item 4: data parallelism over "
-                      "torch.distributed"}
+EXEMPT: dict = {}    # subpackage -> why the port lacks its names
 SUBPACKAGES = sorted(p.parent.name for p in
                      (ROOT / "ns2vc_tpu").glob("*/__init__.py"))
 ISTFT_ATOL = 1e-5
@@ -62,14 +60,6 @@ def test_port_subpackage_carries_the_jax_names(pkg):
     assert sorted(mod.__all__) == sorted(want)
     for name in want:
         assert getattr(mod, name) is not None, f"{pkg}.{name}"
-
-
-def test_parallel_is_the_written_exemption():
-    assert not (ROOT / "ns2vc_tpu_torch" / "parallel").exists(), (
-        "the port has parallel/: drop its exemption")
-    assert "data parallelism" in EXEMPT["parallel"]
-    roadmap = (ROOT / "ROADMAP.md").read_text()
-    assert "Data parallelism" in roadmap and "`parallel`" in roadmap
 
 
 def test_converter_names_are_the_ports_converters():

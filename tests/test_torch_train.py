@@ -329,8 +329,8 @@ def test_dummy_batch_and_host_transform_match_jax():
     batch = ttrainer.dummy_batch(cfg)
     jbatch = jtrainer.host_transform(batch, jcfg)    # f32 compute dtype
     assert sorted(ttrainer.host_transform(batch, cfg)) == sorted(jbatch)
-    dev = ttrainer.to_device(ttrainer.host_transform(batch, cfg),
-                             torch.device("cpu"), torch.bfloat16)
+    dev = ttrainer.put_local_batch(ttrainer.host_transform(batch, cfg),
+                                   torch.device("cpu"), torch.bfloat16)
     assert dev["c"].dtype == torch.bfloat16
     assert dev["lengths"].dtype == torch.int32
 
