@@ -1634,7 +1634,7 @@ def relu_gates(gates: list, replay: list | None = None):
              f"recording {len(gates)}")
 
 
-def check_grads(cfg, sd, batch, dev, states=()):
+def check_grads(cfg, sd, batch, dev, states=(), provenance=None):
     """One step's gradients at full width, B=2 x 272, p_dropout 0, remat
     dots: f32 on the card (the f32 kernels, TF32 off) against f32 on the
     CPU (the plain versions, on the card run's ReLU gates: `relu_gates`),
@@ -1645,7 +1645,9 @@ def check_grads(cfg, sd, batch, dev, states=()):
     arithmetic: their values are rounding noise). Before the bf16 check
     decides, `bf16_witness` measures how far bf16's own rounding moves
     these cosines at this state and at `states` (state dicts of the same
-    model), and prints it."""
+    model), and prints it. When the bf16 check fails, `provenance(sd)`
+    (the steps, batches and seeds that made the state, and its hash) is
+    printed before the script exits, so that the state can be rebuilt."""
     import dataclasses
     from unittest import mock
 
@@ -1760,6 +1762,8 @@ def check_grads(cfg, sd, batch, dev, states=()):
                            cos_plain, states, dev)
     models.clear()
     if bad or len(noise_floor) > 8:
+        if provenance is not None:
+            say("bf16 gradient check state: " + json.dumps(provenance(sd)))
         fail(f"bf16 gradients: {[(n, cos[n], cos_plain[n]) for n in bad]} "
              f"below {GRAD_COSINE} and the plain bf16 cosine, or "
              f"{len(noise_floor)} tensors at the noise floor")
@@ -2007,7 +2011,9 @@ def check_training(vsd, cv_sd, dev, tmp):
     import torch
 
     from ns2vc_tpu_torch.convert import load_checkpoint
-    from ns2vc_tpu_torch.data.dataset import data_loader, synced_data_loader
+    from ns2vc_tpu_torch.data.dataset import (
+        data_loader, synced_data_loader, synced_schedule,
+    )
     from ns2vc_tpu_torch.infer.svc import Svc
     from ns2vc_tpu_torch.models.unet import ResnetBlock1D
     from ns2vc_tpu_torch.ops import fused_resnet as fr
@@ -2029,8 +2035,22 @@ def check_training(vsd, cv_sd, dev, tmp):
     # workers' batches out in the order they finish)
     serial = data_loader(trainer.ds, trainer._collator, TRAIN_B,
                          seed=cfg.train.seed)
-    batches = [trainer.device_batch(next(serial)) for _ in range(4)]
+    serial_items = []
+    getitem = type(trainer.ds).__getitem__
+    with mock.patch.object(type(trainer.ds), "__getitem__",
+                           lambda ds, i: serial_items.append(i)
+                           or getitem(ds, i)):
+        batches = [trainer.device_batch(next(serial)) for _ in range(4)]
     serial.close()
+    # each step that makes the state the gradient checks see: its number,
+    # its batch (by object), and whether t and noise were given
+    steps_log = []
+    step_fn = trainer.train_step
+
+    def logged(b, *args, **kw):
+        steps_log.append((trainer.step, id(b), "t" in kw))
+        return step_fn(b, *args, **kw)
+    trainer.train_step = logged
     trainer.dl = synced_data_loader(
         trainer.ds, trainer._collator, TRAIN_B, seed=cfg.train.seed,
         num_workers=trainer.num_workers, shard_index=0, shard_count=1)
@@ -2133,11 +2153,39 @@ def check_training(vsd, cv_sd, dev, tmp):
     with no_tf32():
         res["geometries"] = check_train_geometries(calls, dev)
 
+    made_by = list(steps_log)
+    del trainer.train_step
     states = witness_states(trainer, cfg, before_loop)
     del before_loop
+
+    def provenance(sd):
+        import hashlib
+        import itertools
+
+        from ns2vc_tpu_torch.train.trainer import step_seed
+
+        labels = {id(b): f"serial batch {i}" for i, b in enumerate(batches)}
+        sched = itertools.islice(synced_schedule(
+            trainer.ds, trainer._collator, TRAIN_B, seed=cfg.train.seed),
+            max(1, cfg.train.prefetch_depth) + 10)
+        h = hashlib.sha256()
+        for k in sorted(sd):
+            h.update(k.encode())
+            h.update(sd[k].float().numpy().tobytes())
+        return {
+            "steps": [{"step": n, "seed": step_seed(cfg.train.seed, n),
+                       "batch": labels.get(i, "loader"),
+                       "t_noise": f"fixed (seed {SEED + 32})" if fixed
+                       else "drawn"} for n, i, fixed in made_by],
+            "serial_batches": [serial_items[i * TRAIN_B:(i + 1) * TRAIN_B]
+                               for i in range(len(batches))],
+            "loader_schedule": [[list(geom) if geom else None,
+                                 [list(e) for e in entries]]
+                                for geom, entries in sched],
+            "state_sha256": h.hexdigest()}
     res.update(check_grads(cfg, {k: v.detach().cpu() for k, v in
                                  trainer.model.state_dict().items()},
-                           b0, dev, states))
+                           b0, dev, states, provenance))
 
     # checkpoint round trip and one request served from it
     path = trainer.save()
@@ -3534,11 +3582,12 @@ def data_parallel_worker(job_dir: str) -> int:
     return 0
 
 
-def run_data_parallel(job_dir: str, cfg, job: dict, n: int) -> list:
-    """Run n worker processes of data_parallel_worker on job_dir (this
-    script, with NS2VC_COORDINATOR on a free localhost port) and return
-    their results; fails on a worker's failure or timeout, and leaves no
-    worker running."""
+def run_data_parallel(job_dir: str, cfg, job: dict, n: int,
+                      cmd: list | None = None) -> list:
+    """Run n worker processes of data_parallel_worker (or `cmd`, another
+    worker of this script) on job_dir (this script, with NS2VC_COORDINATOR
+    on a free localhost port) and return their results; fails on a
+    worker's failure or timeout, and leaves no worker running."""
     import socket
 
     from ns2vc_tpu_torch.config import save_config
@@ -3558,7 +3607,7 @@ def run_data_parallel(job_dir: str, cfg, job: dict, n: int) -> list:
         for r in range(n):
             logs.append(open(os.path.join(job_dir, f"rank{r}.log"), "w"))
             procs.append(subprocess.Popen(
-                [*DP_WORKER, job_dir],
+                [*(cmd or DP_WORKER), job_dir],
                 env={**env, "NS2VC_PROCESS_ID": str(r)}, stdout=logs[-1],
                 stderr=subprocess.STDOUT))
         deadline = time.monotonic() + DP_TIMEOUT
@@ -3737,6 +3786,355 @@ def check_data_parallel(processed, train, dev, tmp) -> dict:
     return res
 
 
+# -- tensor parallel ----------------------------------------------------------
+
+MP_B, MP_T, MP_TR = 2, 192, 128   # the compared step's batch (data 1 x model 2)
+MP_TIMED = 5                      # timed steps after the compared one
+MP_GEN_STEPS = 3                  # DDIM steps of the compared sampling
+MP_MEL_ATOL, MP_MEL_RTOL = 2e-5, 1e-5   # JAX's (tests/test_parallel.py)
+MP_WORKER = [sys.executable, os.path.abspath(__file__),
+             "--tensor-parallel-worker"]
+
+
+def mp_config(logs, model_parallel: int = 2, dtype: str = "float32"):
+    """The tensor-parallel phase's configuration: Config()'s widths (UNet
+    levels 128/256/384/512, encoders and time embedding 256 wide) at
+    reduced depth (encoders 1 layer of 6, 1 resnet per UNet block of 2),
+    dropout as Config() has it, remat dots, EMA on."""
+    import dataclasses
+
+    from ns2vc_tpu_torch.config import Config, ParallelConfig
+
+    base = Config()
+
+    def enc(e):
+        return dataclasses.replace(e, n_layers=1)
+    return dataclasses.replace(
+        base,
+        train=dataclasses.replace(
+            base.train, train_batch_size=MP_B, compute_dtype=dtype,
+            num_workers=0, use_ema=True, logs_folder=logs),
+        parallel=ParallelConfig(model_parallel_size=model_parallel),
+        phoneme_encoder=enc(base.phoneme_encoder),
+        prompt_encoder=enc(base.prompt_encoder),
+        diffusion_encoder=dataclasses.replace(base.diffusion_encoder,
+                                              layers_per_block=1))
+
+
+def mp_case(path: str) -> dict:
+    """The phase's seeded inputs (CPU tensors): a global batch, t, noise,
+    and the sampler's x_T."""
+    import torch
+
+    r = np.random.default_rng(SEED + 90)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((scale * r.standard_normal(shape)).astype(
+            np.float32))
+    case = {"batch": {"c": f32(MP_B, MP_T, 256, scale=0.5),
+                      "refer": f32(MP_B, MP_TR, 100),
+                      "spec": f32(MP_B, MP_T, 100),
+                      "lengths": torch.tensor([MP_T, MP_T - 40],
+                                              dtype=torch.int32),
+                      "refer_lengths": torch.tensor([MP_TR, MP_TR - 30],
+                                                    dtype=torch.int32)},
+            "t": torch.from_numpy(r.integers(0, 1000, MP_B)),
+            "noise": f32(MP_B, MP_T, 100), "x_T": f32(MP_B, MP_T, 100)}
+    torch.save(case, path)
+    return case
+
+
+def mp_step(tr, case, dev, calls=None) -> dict:
+    """The compared step of a Trainer on its rows of the case's batch:
+    loss, grad norm, launches and backward calls, the collectives' counts,
+    and the gradients (full tensors, on the CPU)."""
+    import contextlib as ctx
+
+    import torch
+
+    from ns2vc_tpu_torch.parallel import mesh
+
+    batch = tr.device_batch(mesh.shard_batch(case["batch"], tr.mesh))
+    reset_launches()
+    mesh.reset_counters()
+    with ctx.ExitStack() as stack:
+        for p in (calls.patches() if calls is not None else ()):
+            stack.enter_context(p)
+        m = tr.train_step(batch, t=case["t"].to(dev),
+                          noise=case["noise"].to(dev))
+        torch.cuda.synchronize()
+    out = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "launches": route_counts(), "backward": backward_calls(),
+           "collectives": mesh.counters()}
+    grads = {k: p.grad for k, p in tr.model.named_parameters()}
+    out["grads"] = {k: v.detach().to("cpu", copy=True) for k, v in
+                    mesh.gather_state(grads, tr.placements, tr.mesh).items()}
+    times = []
+    for i in range(1 + MP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch, t=case["t"].to(dev),
+                      noise=case["noise"].to(dev))
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = float(np.median(times))
+    return out
+
+
+def mp_generate(model, case, dev, mesh=None):
+    from ns2vc_tpu_torch.models.diffusion import generate_mel
+
+    b = case["batch"]
+    return generate_mel(
+        model, *(b[k].to(dev) for k in ("c", "refer", "lengths",
+                                        "refer_lengths")),
+        x_T=case["x_T"].to(dev), method="ddim", steps=MP_GEN_STEPS,
+        mesh=mesh).cpu()
+
+
+def tensor_parallel_worker(job_dir: str) -> int:
+    """One rank of the tensor-parallel phase (`chip_smoke.py
+    --tensor-parallel-worker DIR`): joins the group NS2VC_COORDINATOR /
+    NS2VC_NUM_PROCESSES / NS2VC_PROCESS_ID describe (gloo), builds the
+    Trainer of DIR/config.json at its model axis, takes the compared step
+    and MP_TIMED timed steps on DIR/case.pt (f32, TF32 off), samples it
+    with DDIM over the mesh, saves a checkpoint, holds every K1 / K2
+    geometry the step and the sampling recorded against the plain versions
+    (rank 0), takes one bf16 step, and writes DIR/result_rank{r}.json (and
+    rank 0 the gradients and the sample)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from ns2vc_tpu_torch.config import load_config
+    from ns2vc_tpu_torch.parallel import mesh
+    from ns2vc_tpu_torch.train.trainer import Trainer
+
+    with open(os.path.join(job_dir, "job.json")) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not mesh.maybe_initialize_distributed(dev, job["backend"]):
+        fail("tensor parallel worker: no process group in the environment")
+    rank, n = mesh.world()
+    cfg = load_config(os.path.join(job_dir, "config.json"))
+    case = torch.load(os.path.join(job_dir, "case.pt"))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, logs_folder=os.path.join(job_dir, "run"), device=dev)
+    out = {"rank": rank, "world": n, "backend": dist.get_backend(),
+           "mesh": tr.mesh.shape, "setup_s": time.perf_counter() - t0,
+           "n_params_local": sum(p.numel() for p in tr.model.parameters()),
+           "n_split": sum(1 for pl in tr.placements.values() if pl.axis)}
+    calls = PathCalls()
+    step = mp_step(tr, case, dev, calls)
+    grads = step.pop("grads")
+    out.update(step)
+    out["replicated_digest"] = params_digest(torch.nn.ParameterList(
+        [p for k, p in tr.model.named_parameters()
+         if not tr.placements[k].axis]))
+    tr.model.eval()
+    with contextlib.ExitStack() as stack:
+        for p in calls.patches():
+            stack.enter_context(p)
+        mel = mp_generate(tr.model, case, dev, tr.mesh)
+    out["path"] = tr.save()
+    full = mesh.gather_parameters(tr.model, tr.placements, tr.mesh)
+    out["digest_gathered"] = params_digest(torch.nn.ParameterList(
+        [torch.nn.Parameter(v) for v in full.values()]))
+    if rank == 0:
+        torch.save({"grads": grads, "mel": mel},
+                   os.path.join(job_dir, "rank0.pt"))
+        # every geometry of the split step and sampling, untimed, against
+        # the plain versions in both dtypes
+        g = torch.Generator(device=dev).manual_seed(SEED + 91)
+        worst, k2_co = {}, set()
+        for key in calls.k1:
+            geo, _, scale, _ = key
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.randn(size, generator=g, device=dev)
+                           .to(dtype).as_strided(shape, stride, offset)
+                           for shape, stride, offset, size in geo)
+                r = k1_case(q, k, v, calls.bias[key], scale, timed=False)
+                if not r["err"] <= r["tol"]:
+                    fail(f"tensor parallel K1 {geo[0][0]} {dtype}: error "
+                         f"{r['err']} > {r['tol']}")
+                worst[r["route"]] = max(worst.get(r["route"], 0.0), r["err"])
+        for (bsz, t, c), _, co in calls.k2:
+            k2_co.add(co)
+            for dtype in (torch.float32, torch.bfloat16):
+                r = k2_case(bsz, t, c, co, True, dtype, g, dev, timed=False)
+                if not r["err"] <= r["tol"]:
+                    fail(f"tensor parallel K2 B={bsz} T={t} C={c} Co={co} "
+                         f"{dtype}: error {r['err']} > {r['tol']}")
+                worst[r["route"]] = max(worst.get(r["route"], 0.0), r["err"])
+        out["geometries"] = {"k1": len(calls.k1), "k2": len(calls.k2),
+                             "k2_co": sorted(k2_co), "worst_err": worst}
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    # the bf16 step: the tensor-core routes under the split
+    cfg16 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="bfloat16"))
+    tr = Trainer(cfg16, logs_folder=os.path.join(job_dir, "run16"),
+                 device=dev)
+    batch = tr.device_batch(mesh.shard_batch(case["batch"], tr.mesh))
+    reset_launches()
+    m = tr.train_step(batch, t=case["t"].to(dev),
+                      noise=case["noise"].to(dev))
+    torch.cuda.synchronize()
+    out["bf16"] = {"loss": m["loss"].item(),
+                   "grad_norm": m["grad_norm"].item(),
+                   "launches": route_counts(),
+                   "replicated_digest": params_digest(
+                       torch.nn.ParameterList(
+                           [p for k, p in tr.model.named_parameters()
+                            if not tr.placements[k].axis]))}
+    tr.close()
+    with open(os.path.join(job_dir, f"result_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_tensor_parallel(dev, tmp) -> dict:
+    """The 'model' axis: two gloo ranks on the one card (NCCL takes one
+    rank per device; NCCL between cards is not run here) laid out data 1 x
+    model 2, at Config()'s widths and reduced depth, f32 with TF32 off:
+    the split step against one process on the same batch and draws (JAX's
+    tolerances for a mesh against one device), the replicas' bits, K1 and
+    K2 launches per rank against one process's (K2 at the local Co),
+    `generate_mel` over the mesh against one process, a save at mp=2 that
+    one process resumes, every recorded geometry against the plain
+    versions, and one bf16 step through the tensor-core routes."""
+    import dataclasses
+
+    import torch
+
+    from ns2vc_tpu_torch.config import ParallelConfig
+    from ns2vc_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    job_dir = os.path.join(tmp, "mp_two")
+    os.makedirs(job_dir, exist_ok=True)
+    cfg = mp_config(os.path.join(tmp, "mp_logs"))
+    case = mp_case(os.path.join(job_dir, "case.pt"))
+    ranks = run_data_parallel(job_dir, cfg, {"device": str(dev),
+                                             "backend": "gloo",
+                                             "mode": "tensor parallel"}, 2,
+                              MP_WORKER)
+    r0, r1 = ranks
+    saved = torch.load(os.path.join(job_dir, "rank0.pt"))
+    for key in ("loss", "grad_norm", "launches", "backward", "collectives",
+                "replicated_digest", "digest_gathered", "path"):
+        if r0[key] != r1[key]:
+            fail(f"tensor parallel: {key} differs between the ranks: "
+                 f"{r0[key]} vs {r1[key]}")
+    if r0["bf16"]["replicated_digest"] != r1["bf16"]["replicated_digest"] \
+            or not np.isfinite([r0["bf16"]["loss"],
+                                r0["bf16"]["grad_norm"]]).all() \
+            or r0["bf16"]["launches"]["affine_silu_conv1d_tc"] == 0 \
+            or r0["bf16"]["launches"]["flash_attention_tc"] == 0:
+        fail(f"tensor parallel bf16 step: {r0['bf16']} vs {r1['bf16']}")
+    k2_co = r0["geometries"]["k2_co"]
+    if not {128, 192, 256} <= set(k2_co):
+        fail(f"tensor parallel: K2 took Co {k2_co}; the split resnet convs "
+             f"give 128, 192 and 256")
+
+    res = {"mesh": r0["mesh"], "backend": r0["backend"]}
+    with no_tf32():
+        one_cfg = dataclasses.replace(cfg, parallel=ParallelConfig())
+        one = Trainer(one_cfg, logs_folder=os.path.join(tmp, "mp_one"),
+                      device=dev)
+        n_params = sum(p.numel() for p in one.model.parameters())
+        step = mp_step(one, case, dev)
+        worst = {"loss_rel": abs(r0["loss"] - step["loss"]) / abs(
+            step["loss"]), "norm_rel": abs(r0["grad_norm"] - step[
+                "grad_norm"]) / abs(step["grad_norm"])}
+        if worst["loss_rel"] > DP_LOSS_RTOL or \
+                worst["norm_rel"] > DP_NORM_RTOL:
+            fail(f"tensor parallel vs one process: loss {r0['loss']} vs "
+                 f"{step['loss']}, grad norm {r0['grad_norm']} vs "
+                 f"{step['grad_norm']}")
+        ratio = 0.0
+        for k, want in step["grads"].items():
+            r = ((saved["grads"][k] - want).abs() / (
+                DP_GRAD_ATOL + DP_GRAD_RTOL * want.abs())).max().item()
+            ratio = max(ratio, r)
+            if r > 1.0:
+                fail(f"tensor parallel vs one process: gradient {k} {r:.3g} "
+                     f"times rtol {DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}")
+        worst["grad_tolerance_used"] = ratio
+        if r0["launches"] != step["launches"] or \
+                r0["backward"] != step["backward"]:
+            fail(f"tensor parallel: launches {r0['launches']} and backward "
+                 f"calls {r0['backward']} per rank, one process "
+                 f"{step['launches']} and {step['backward']}")
+        one.close()
+        # the mp=2 checkpoint resumed by one process, and its sample
+        again = Trainer(one_cfg, logs_folder=os.path.join(tmp, "mp_one"),
+                        device=dev)
+        again.load(path=r0["path"])
+        if params_digest(again.model) != r0["digest_gathered"]:
+            fail("tensor parallel: the mp=2 checkpoint resumed at mp=1 is "
+                 "not the ranks' gathered parameters")
+        again.model.eval()
+        mel = mp_generate(again.model, case, dev)
+        mel_err = (saved["mel"] - mel).abs().max().item()
+        if not torch.allclose(saved["mel"], mel, atol=MP_MEL_ATOL,
+                              rtol=MP_MEL_RTOL) or not torch.isfinite(
+                                  mel).all():
+            fail(f"tensor parallel generate_mel vs one process: max error "
+                 f"{mel_err}")
+        resumed_step = again.step
+        again.close()
+        del one, again
+    torch.cuda.empty_cache()
+    coll = r0["collectives"]
+    say(f"tensor parallel, data 1 x model 2: 2 ranks on one card over gloo "
+        f"(host copies; NCCL between cards is not run on a one-card "
+        f"machine), Config() widths at reduced depth (encoders 1 layer of "
+        f"6, 1 resnet per UNet block of 2; {n_params / 1e6:.1f} M "
+        f"parameters, {r0['n_params_local'] / 1e6:.1f} M per rank, "
+        f"{r0['n_split']} split), batch {MP_B} x {MP_T}, f32, TF32 off, "
+        f"dropout on: vs one process loss {worst['loss_rel']:.2e} (rtol "
+        f"{DP_LOSS_RTOL}), grad norm {worst['norm_rel']:.2e} (rtol "
+        f"{DP_NORM_RTOL}), every gradient within rtol {DP_GRAD_RTOL} / atol "
+        f"{DP_GRAD_ATOL} (at most {ratio:.3f} of it); replicated parameters "
+        f"bitwise equal across ranks; launches per rank {r0['launches']} = "
+        f"one process's, K2 at local Co {k2_co}; per step "
+        f"{coll['all_gather']['calls']} all-gathers "
+        f"({coll['all_gather']['bytes'] / 1e6:.1f} MB), "
+        f"{coll['all_reduce_sum']['calls']} all-reduce sums "
+        f"({coll['all_reduce_sum']['bytes'] / 1e6:.1f} MB), "
+        f"{coll['all_reduce_mean']['calls']} all-reduce means "
+        f"({coll['all_reduce_mean']['bytes'] / 1e6:.1f} MB); median step "
+        f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms per rank (gloo "
+        f"through host copies on one card, not NCCL) vs "
+        f"{step['step_ms']:.1f} ms in one process; generate_mel DDIM "
+        f"{MP_GEN_STEPS} steps over the mesh vs one process max error "
+        f"{mel_err:.2e} (atol {MP_MEL_ATOL}, rtol {MP_MEL_RTOL}); saved at "
+        f"mp=2, resumed at mp=1 at step {resumed_step}; "
+        f"{r0['geometries']['k1']} K1 and {r0['geometries']['k2']} K2 "
+        f"geometries against the plain versions, worst "
+        f"{r0['geometries']['worst_err']}; bf16 step loss "
+        f"{r0['bf16']['loss']:.4f}, launches {r0['bf16']['launches']} "
+        f"[{CARD}]")
+    res.update(worst, n_params=n_params,
+               n_params_per_rank=r0["n_params_local"], n_split=r0["n_split"],
+               launches_per_rank=r0["launches"],
+               backward_per_rank=r0["backward"], k2_co=k2_co,
+               collectives_per_step=coll, step_ms_per_rank=[
+                   r0["step_ms"], r1["step_ms"]],
+               step_ms_one_process=step["step_ms"], mel_max_err=mel_err,
+               geometries=r0["geometries"], bf16=r0["bf16"],
+               setup_s=r0["setup_s"],
+               seconds=round(time.perf_counter() - t0, 1), card=CARD)
+    return res
+
+
 def _nested_cpu(x):
     return [_nested_cpu(v) for v in x] if isinstance(x, list) else x.cpu()
 
@@ -3831,6 +4229,8 @@ def main() -> int:
                                               "raw_processed"),
                                  train, dev, train_tmp.name)
         torch.cuda.empty_cache()
+    with phase("tensor parallel"):
+        tp = check_tensor_parallel(dev, train_tmp.name)
     with no_tf32():
         with phase("K1 shapes"):
             k1_all, k1_step = check_attention(cfg, dev)
@@ -3934,7 +4334,9 @@ def main() -> int:
             "train_backward_ms": geo.get("bwd_ms"),
             "train_backward_bound_ms": geo.get("bwd_bound"),
             "train_backward_bound_by": geo.get("bwd_by"),
-            "train_backward_max_err": geo.get("err"), **slice5, **slice6})
+            "train_backward_max_err": geo.get("err"),
+            "tensor_parallel_launches_per_rank_step": tp[
+                "launches_per_rank"][route], **slice5, **slice6})
     print(json.dumps({"f0_predictor": {
         "serving": f0["serving"], "cli_ms": f0["cli_ms"],
         "card_vs_cpu": f0["card_vs_cpu"],
@@ -3949,6 +4351,7 @@ def main() -> int:
         "stream_errs": modules["stream_errs"]}}))
     print(json.dumps({"nsf_hifigan": nsf}))
     print(json.dumps({"data_parallel": dp}))
+    print(json.dumps({"tensor_parallel": tp}))
     print(json.dumps({"training": {
         k: v for k, v in train.items()
         if k not in ("geometries", "launches", "backward")}}))
@@ -3963,4 +4366,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--data-parallel-worker":
         sys.exit(data_parallel_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tensor-parallel-worker":
+        sys.exit(tensor_parallel_worker(sys.argv[2]))
     sys.exit(main())

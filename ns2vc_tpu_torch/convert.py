@@ -29,6 +29,10 @@ submodule names follow the flax paths; `vocos_from_flax`,
 The mapping is strict: a leaf that no port parameter takes, a port
 parameter that no leaf fills, or a shape that disagrees raises.
 
+`from_flax_sharded` gives one rank's state dict of the model split over a
+mesh's 'model' axis (`from_flax`, then the rank's blocks of what
+`parallel.mesh.param_shardings` splits).
+
 `load_checkpoint` reads a `.pt` file into the port's NaturalSpeech2 state
 dict: a checkpoint of the port's trainer (tagged `TRAINER_FORMAT`; its EMA
 parameters when present), the reference NS2VC `model-N.pt` through the
@@ -63,6 +67,7 @@ from ns2vc_tpu_torch.models.nsf_hifigan import (
     MultiPeriodDiscriminator, MultiScaleDiscriminator, NSFHiFiGANGenerator,
 )
 from ns2vc_tpu_torch.models.vocos import ConvNeXtBlock, Vocos
+from ns2vc_tpu_torch.parallel.mesh import param_shardings, shard_state
 
 _QKV = ("to_q", "to_k", "to_v")
 _LSTM_GATES = ("i", "f", "g", "o")    # torch's order of the four gates
@@ -167,6 +172,16 @@ def _skeleton(factory):
 def from_flax(params_np: dict, cfg: Config) -> dict:
     """NaturalSpeech2 flax params -> the port's NaturalSpeech2 state dict."""
     return from_flax_tree(params_np, _skeleton(lambda: NaturalSpeech2(cfg)))
+
+
+def from_flax_sharded(params_np: dict, cfg: Config, mesh) -> dict:
+    """NaturalSpeech2 flax params -> one rank's state dict of the port's
+    model split over `mesh`'s model axis: `from_flax`, then the rank's
+    block of every parameter `param_shardings` splits (the state dict of
+    a model after `parallel.mesh.shard_parameters`)."""
+    skeleton = _skeleton(lambda: NaturalSpeech2(cfg))
+    return shard_state(from_flax_tree(params_np, skeleton),
+                       param_shardings(skeleton, mesh), mesh)
 
 
 def vocos_from_flax(params_np: dict, **vocos_kwargs) -> dict:

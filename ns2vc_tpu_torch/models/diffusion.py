@@ -37,6 +37,9 @@ from ns2vc_tpu_torch.models.encoders import (
 from ns2vc_tpu_torch.models.unet import UNet1DConditionModel
 from ns2vc_tpu_torch.ops.masking import sequence_mask
 from ns2vc_tpu_torch.ops.sequence import F0_BIN, f0_to_coarse, normalize_f0
+from ns2vc_tpu_torch.parallel.mesh import (
+    all_gather, batch_sharding, mesh_groups,
+)
 
 
 class PreModel(nn.Module):
@@ -231,7 +234,8 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
                  method: str = "unipc", steps: int | None = None,
                  order: int = 2, noise=None, f0: torch.Tensor | None = None,
                  uv: torch.Tensor | None = None,
-                 auto_predict_f0: bool = True) -> torch.Tensor:
+                 auto_predict_f0: bool = True, mesh=None,
+                 gather: bool = True) -> torch.Tensor:
     """Encode the conditioning once, run the sampler (`method` 'ddpm',
     'ddim', 'dpmsolver' or 'unipc', the JAX package's default steps when
     `steps` is None), return the (B, T, 100) log-mel in f32. The model
@@ -239,8 +243,23 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
     uv (B, T) stay in theirs (f32: the coarse F0 bins are taken there).
     `x_T` (B, T, 100) is the initial noise; without it the noise is drawn
     from `generator` on the model's device, which also feeds DDPM's and
-    DDIM's per-step draws unless `noise` gives them."""
+    DDIM's per-step draws unless `noise` gives them.
+
+    Over a `parallel.mesh.Mesh` (every rank calls it with the whole batch;
+    the model split over the mesh's model axis by `shard_parameters`, or
+    not), each data index samples its contiguous rows of the batch
+    (`BatchSharding.rows`) on its model group, and the caller gets the
+    whole batch back (`gather`, one all-gather over the data group) or its
+    rows. `x_T` drawn here is drawn at the whole batch's shape and sliced,
+    as one process draws it; `noise` (each step's whole batch) is sliced
+    alike; without it DDPM's per-step draws are each data group's own."""
+    rows = None if mesh is None else batch_sharding(mesh).rows(c.shape[0])
     dtype = next(model.parameters()).dtype
+    shape = (c.shape[0], c.shape[1], model.cfg.diffusion_encoder.out_channels)
+    if rows is not None:
+        c, refer, lengths, refer_lengths = (
+            v[rows] for v in (c, refer, lengths, refer_lengths))
+        f0, uv = (None if v is None else v[rows] for v in (f0, uv))
     c, refer = c.to(dtype), refer.to(dtype)
     t_len = c.shape[1]
     c_mask = sequence_mask(lengths, t_len)
@@ -250,12 +269,17 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
     x0_fn = make_x0_fn(model, content, prompt, refer_mask,
                        cached=model.precompute_conditioning(prompt))
 
-    shape = (c.shape[0], t_len, model.cfg.diffusion_encoder.out_channels)
     if x_T is None:
         x_T = torch.randn(shape, generator=generator, device=c.device,
                           dtype=dtype)
     elif tuple(x_T.shape) != shape:
         raise ValueError(f"x_T shape {tuple(x_T.shape)}, expected {shape}")
+    if rows is not None:
+        x_T = x_T[rows]
+        noise = None if noise is None else [n[rows] for n in noise]
     mel = sample(method, x0_fn, x_T.to(c.device, dtype), model.schedule,
                  steps, generator=generator, order=order, noise=noise)
-    return mel.float()
+    mel = mel.float()
+    if rows is not None and gather and mesh.shape["data"] > 1:
+        mel = torch.cat(all_gather(mel, mesh_groups(mesh)[1]))
+    return mel

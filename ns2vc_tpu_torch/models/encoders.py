@@ -93,10 +93,7 @@ class LNConv(nn.Module):
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         if mask is not None:
             x = apply_mask(x, mask)
-        h, w, b = _promoted(self.LayerNorm_0(x), self.Conv_0.weight,
-                            self.Conv_0.bias)
-        return F.conv1d(h.transpose(1, 2), w, b,
-                        padding=self.Conv_0.padding).transpose(1, 2)
+        return self.Conv_0(self.LayerNorm_0(x))
 
 
 class MultiheadSelfAttention(nn.Module):

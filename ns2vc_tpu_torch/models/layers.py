@@ -11,7 +11,9 @@ from torch import nn
 
 
 class Conv1d(nn.Conv1d):
-    """nn.Conv1d on (B, T, C). `padding` defaults to SAME for odd kernels."""
+    """nn.Conv1d on (B, T, C), in the common type of the input and the
+    parameters (flax's promotion). `padding` defaults to SAME for odd
+    kernels."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, stride: int = 1, padding: int | None = None,
@@ -21,7 +23,10 @@ class Conv1d(nn.Conv1d):
                          else padding, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.transpose(1, 2).to(dt),
+                                  self.weight.to(dt), b).transpose(1, 2)
 
 
 class GroupNorm(nn.GroupNorm):

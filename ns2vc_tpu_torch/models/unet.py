@@ -15,6 +15,10 @@ the output tail GN -> SiLU -> conv_out, go through K2
 one difference is self-attention's fused `to_qkv` (C -> 3C) weight, which
 `convert.py` builds from flax's to_q/to_k/to_v kernels.
 
+Under tensor parallelism (`parallel/tensor.py`) the wide Linear and Conv1d
+layers hold their block of output features and gather them; a resnet's
+split convs run K2 at the local output width.
+
 Remat (JAX unet.py:423-480): with `remat` set, each Transformer1D and
 ResnetBlock1D call of a forward that records a graph runs under
 `torch.utils.checkpoint` (non-reentrant). Policy "all" keeps only the
@@ -41,6 +45,7 @@ from ns2vc_tpu_torch.models.layers import Conv1d, GroupNorm
 from ns2vc_tpu_torch.ops.attention import multihead_attention
 from ns2vc_tpu_torch.ops.fused_resnet import gn_silu_conv1d
 from ns2vc_tpu_torch.ops.masking import mask_to_bias
+from ns2vc_tpu_torch.parallel.tensor import column_parallel
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -201,7 +206,8 @@ class DualTransformer1D(nn.Module):
 class ResnetBlock1D(nn.Module):
     """GN -> SiLU -> conv(k3) -> GN -> FiLM(temb) -> SiLU -> conv(k3)
     + 1x1 shortcut. Both epilogues run as K2; norm1/conv1/norm2/conv2 hold
-    the parameters in torch's GroupNorm / Conv1d layout."""
+    the parameters in torch's GroupNorm / Conv1d layout (a conv split over
+    the model axis holds its block of output channels)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int, groups: int = 8, eps: float = 1e-5):
@@ -217,16 +223,25 @@ class ResnetBlock1D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         scale, shift = self.time_emb_proj(F.silu(temb)).chunk(2, dim=-1)
-        x = x.contiguous()
-        h = gn_silu_conv1d(x, self.norm1.weight, self.norm1.bias,
-                           self.conv1.weight, self.conv1.bias, self.groups,
-                           self.eps)
-        h = gn_silu_conv1d(h, self.norm2.weight, self.norm2.bias,
-                           self.conv2.weight, self.conv2.bias, self.groups,
-                           self.eps, film_scale=scale, film_shift=shift)
+        h = self._epilogue(self.norm1, self.conv1, x.contiguous())
+        h = self._epilogue(self.norm2, self.conv2, h, scale, shift)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+    def _epilogue(self, norm, conv, x, *film):
+        """K2 of `norm` and `conv` on x, with FiLM (scale, shift) when
+        given. A conv split over the model axis (`parallel/tensor.py`)
+        takes its block of output channels and gathers them."""
+        split = getattr(conv, "split", None)
+
+        def local(x, gamma, beta, bias, *film):
+            if split is not None:
+                bias = split.local(bias)
+            return gn_silu_conv1d(x, gamma, beta, conv.weight, bias,
+                                  self.groups, self.eps, *film)
+        return column_parallel(split, local, x, norm.weight, norm.bias,
+                               conv.bias, *film)
 
 
 class Downsample1D(nn.Module):

@@ -1,5 +1,6 @@
-"""Data parallelism over torch.distributed: the process group, the
-('data', 'model') mesh, the batch layout and the parameter placements
+"""Data and tensor parallelism over torch.distributed: the process group,
+the ('data', 'model') mesh and its groups, the batch layout, the parameter
+placements and the column-parallel layers that apply them
 (counterpart of ns2vc_tpu/parallel)."""
 
 from ns2vc_tpu_torch.parallel.mesh import (

@@ -9,10 +9,16 @@ r holds rows [r * B, (r + 1) * B) of the global batch (the layout of
 gradients with one all-reduce per step (`all_reduce_mean`), which is the
 collective GSPMD inserts for the JAX step.
 
-The 'model' axis is described (`make_mesh`, `param_shardings`, with the
-JAX package's rule) but not applied: placing parameters over it waits for
-a later slice (ROADMAP Queue 1), and the trainer refuses
-`model_parallel_size > 1`.
+The 'model' axis splits parameters column-parallel, where the JAX
+package's rule (`param_shardings`) says: rank r sits at data index
+r // mp and model index r % mp; the ranks of one data index form its model
+group, the ranks of one model index its data group (`mesh_groups`).
+`shard_parameters` leaves each rank its block of every split parameter and
+puts the column-parallel layers of `parallel/tensor.py` in their modules'
+places; `gather_parameters` / `gather_state` give the full tensors back
+(one all-gather over the model group), `shard_state` takes a rank's blocks
+of a full state dict. Where GSPMD places the collectives for the JAX
+program, the port gathers each split layer's output features.
 
 The cluster is set up from the environment, with the JAX package's names:
 - NS2VC_COORDINATOR=host:port with NS2VC_NUM_PROCESSES and
@@ -178,10 +184,10 @@ def host_barrier(name: str, timeout_ms: int = 3_600_000) -> None:
         dist.barrier(device_ids=[torch.cuda.current_device()])
 
 
-def _collective(flat: torch.Tensor, op) -> None:
+def _collective(flat: torch.Tensor, op, group=None) -> None:
     """Run `op` on `flat` in place; under gloo a card's buffer goes
     through a host copy (gloo reduces host memory)."""
-    if flat.is_cuda and dist.get_backend() == "gloo":
+    if flat.is_cuda and dist.get_backend(group) == "gloo":
         host = flat.cpu()
         op(host)
         flat.copy_(host)
@@ -210,13 +216,14 @@ def flat_gradients(params: list, flat: torch.Tensor | None = None,
     return flat
 
 
-def all_reduce_mean(flat: torch.Tensor) -> None:
-    """Average a flat f32 buffer over the process group in place: one
-    all-reduce (sum), divided by the world size; every rank ends with the
-    same bits. Adds one to `all_reduce_mean.calls` and the buffer's bytes
-    to `all_reduce_mean.bytes` per call."""
-    n = dist.get_world_size()
-    _collective(flat, lambda buf: dist.all_reduce(buf, op=dist.ReduceOp.SUM))
+def all_reduce_mean(flat: torch.Tensor, group=None) -> None:
+    """Average a flat f32 buffer over `group` (the whole process group by
+    default) in place: one all-reduce (sum), divided by the group's size;
+    every rank ends with the same bits. Adds one to `all_reduce_mean.calls`
+    and the buffer's bytes to `all_reduce_mean.bytes` per call."""
+    n = dist.get_world_size(group)
+    _collective(flat, lambda buf: dist.all_reduce(
+        buf, op=dist.ReduceOp.SUM, group=group), group)
     flat.div_(n)
     all_reduce_mean.calls += 1
     all_reduce_mean.bytes += flat.numel() * flat.element_size()
@@ -224,6 +231,54 @@ def all_reduce_mean(flat: torch.Tensor) -> None:
 
 all_reduce_mean.calls = 0
 all_reduce_mean.bytes = 0
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> None:
+    """Sum a contiguous tensor over `group` in place (`all_reduce_sum.calls`
+    and `.bytes` count each call and its buffer)."""
+    _collective(x, lambda buf: dist.all_reduce(
+        buf, op=dist.ReduceOp.SUM, group=group), group)
+    all_reduce_sum.calls += 1
+    all_reduce_sum.bytes += x.numel() * x.element_size()
+
+
+all_reduce_sum.calls = 0
+all_reduce_sum.bytes = 0
+
+
+def all_gather(x: torch.Tensor, group) -> list:
+    """Every rank's `x` (one shape on all), in the group's rank order, on
+    x's device (`all_gather.calls` and `.bytes`, the gathered bytes, count
+    each call). Under gloo a card's tensor goes through a host copy."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        host = x.cpu()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        parts = [p.to(x.device) for p in parts]
+    else:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+    all_gather.calls += 1
+    all_gather.bytes += n * x.numel() * x.element_size()
+    return parts
+
+
+all_gather.calls = 0
+all_gather.bytes = 0
+
+
+def reset_counters() -> None:
+    """Zero the collectives' counters."""
+    for fn in (all_reduce_mean, all_reduce_sum, all_gather):
+        fn.calls = fn.bytes = 0
+
+
+def counters() -> dict:
+    """{collective: {"calls": n, "bytes": n}} so far."""
+    return {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes}
+            for fn in (all_reduce_mean, all_reduce_sum, all_gather)}
 
 
 def broadcast_(tensors: list, src: int = 0) -> None:
@@ -287,3 +342,122 @@ def param_shardings(model: nn.Module, mesh: Mesh,
             out[key] = _placement(_output_features(name, module, pname),
                                   tuple(p.shape), model_size, model_axis)
     return out
+
+
+# -- the model axis -------------------------------------------------------------
+
+_GROUPS: dict = {}   # (data size, model size) -> every rank's groups
+
+
+def mesh_groups(mesh: Mesh) -> tuple:
+    """(model group, data group) of this rank: the torch.distributed
+    groups of the ranks that share its data index and of those that share
+    its model index. Every rank of the process group makes every group, in
+    one order, the first time any of them asks for a mesh of this shape
+    (torch makes a group collectively). (None, None) without a process
+    group, and at a model axis of one, where no model group is needed and
+    the data group is the whole process group (torch's default, None)."""
+    dp, mp = (mesh.shape[a] for a in mesh.axis_names)
+    if mp == 1 or not (dist.is_available() and dist.is_initialized()):
+        return None, None
+    if dp * mp != dist.get_world_size():
+        raise ValueError(f"a {dp} x {mp} mesh over "
+                         f"{dist.get_world_size()} processes")
+    if (dp, mp) not in _GROUPS:
+        model = [dist.new_group([d * mp + m for m in range(mp)])
+                 for d in range(dp)]
+        data = [dist.new_group([d * mp + m for d in range(dp)])
+                for m in range(mp)]
+        _GROUPS[dp, mp] = (model, data)
+    model, data = _GROUPS[dp, mp]
+    return (model[mesh.index(mesh.axis_names[0])],
+            data[mesh.index(mesh.axis_names[1])])
+
+
+def _blocks(t: torch.Tensor, placement: Placement) -> torch.Tensor:
+    """t with the placement's dim moved first and split into its blocks:
+    (blocks, features per block, ...)."""
+    x = t.movedim(placement.dim, 0)
+    return x.reshape(placement.blocks, x.shape[0] // placement.blocks,
+                     *x.shape[1:])
+
+
+def shard_tensor(full: torch.Tensor, placement: Placement, index: int,
+                 size: int) -> torch.Tensor:
+    """Model rank `index`'s block (of `size`) of a full tensor: itself
+    when replicated, else its slice of each block along the dim."""
+    if placement.axis is None:
+        return full
+    x = _blocks(full, placement)
+    per = x.shape[1] // size
+    x = x[:, index * per:(index + 1) * per]
+    return x.reshape(-1, *x.shape[2:]).movedim(0, placement.dim).contiguous()
+
+
+def unshard_tensor(parts: list, placement: Placement) -> torch.Tensor:
+    """The full tensor from every model rank's block, in rank order (the
+    inverse of `shard_tensor`)."""
+    if placement.axis is None:
+        return parts[0]
+    x = torch.stack([_blocks(p, placement) for p in parts], dim=1)
+    return x.reshape(-1, *x.shape[3:]).movedim(0, placement.dim).contiguous()
+
+
+def shard_state(state: dict, placements: dict, mesh: Mesh,
+                model_axis: str = "model") -> dict:
+    """This rank's blocks of a full {name: tensor} dict (names that
+    `placements` does not hold stay as they are)."""
+    index, size = mesh.index(model_axis), mesh.shape[model_axis]
+    return {k: shard_tensor(v, placements.get(k, REPLICATED), index, size)
+            for k, v in state.items()}
+
+
+def gather_state(state: dict, placements: dict, mesh: Mesh,
+                 model_axis: str = "model") -> dict:
+    """The full tensors of this rank's {name: block} dict: the split ones
+    in one all-gather of their concatenation over the model group, which
+    every rank of the group calls alike; the replicated ones as they
+    are."""
+    split = [k for k in state
+             if placements.get(k, REPLICATED).axis is not None]
+    out = dict(state)
+    if not split or mesh.shape[model_axis] == 1:
+        return out
+    group, _ = mesh_groups(mesh)
+    flat = torch.cat([state[k].detach().reshape(-1) for k in split])
+    parts = all_gather(flat, group)
+    sizes = [state[k].numel() for k in split]
+    for i, k in enumerate(split):
+        blocks = [p.split(sizes)[i].view_as(state[k]) for p in parts]
+        out[k] = unshard_tensor(blocks, placements[k])
+    return out
+
+
+def shard_parameters(model: nn.Module, placements: dict, mesh: Mesh,
+                     model_axis: str = "model") -> nn.Module:
+    """Split `model` over the mesh's model axis, in place: every parameter
+    whose placement is on `model_axis` becomes this rank's block of it
+    (each block of a fused parameter split alike), and its layer computes
+    this rank's output features and gathers them over the model group
+    (`parallel/tensor.py`). Every rank of the group holds the same full
+    parameters before the call. A no-op at a model axis of one."""
+    from ns2vc_tpu_torch.parallel.tensor import split_layer
+
+    size = mesh.shape[model_axis]
+    if size == 1:
+        return model
+    group, _ = mesh_groups(mesh)
+    for name, pl in placements.items():
+        if pl.axis == model_axis:
+            owner, _, attr = name.rpartition(".")
+            split_layer(model, owner, attr, pl, group, mesh.index(model_axis),
+                        size)
+    return model
+
+
+def gather_parameters(model: nn.Module, placements: dict, mesh: Mesh,
+                      model_axis: str = "model") -> dict:
+    """{name: full tensor} of a model split by `shard_parameters` (every
+    rank of the model group calls it)."""
+    return gather_state({k: p.detach() for k, p in model.named_parameters()},
+                        placements, mesh, model_axis)

@@ -10,8 +10,10 @@ Several processes train one model with data parallelism when the
 environment describes their group (`parallel/mesh.py`): each runs this
 command with NS2VC_COORDINATOR=host:port, NS2VC_NUM_PROCESSES=n and its
 own NS2VC_PROCESS_ID, or under torchrun with NS2VC_DISTRIBUTED=1. Each
-process takes its own card; `train_batch_size` is per process, so the
-global batch is n times it.
+process takes its own card. With `parallel.model_parallel_size` = mp > 1
+the processes form (n / mp) data groups of mp, each splitting the model
+over its mp ranks (tensor parallelism); `train_batch_size` is per data
+group, so the global batch is n / mp times it.
 """
 
 from __future__ import annotations

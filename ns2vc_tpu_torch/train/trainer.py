@@ -34,14 +34,32 @@ are broadcast at init; t, noise (and the F0 contour's scale) are drawn
 from the step's generator at the global batch's shape and each rank takes
 its rows, as JAX draws from one key over the global batch, so a step of n
 ranks on n slices is the step of one process on their concatenation;
-dropout masks are per rank, from (step seed, rank) (with dropout > 0 the
-masks, and the F0 scale one process draws after them, are not that
-process's: `_global_draws`). Clipping, AdamW and
-the EMA then run alike on every rank. Rank 0 writes the checkpoints and
-every rank meets it after each; every rank reads one on resume. Eval
-samples, `train.log`, `scalars.jsonl` and images come from rank 0 only. A
-group of one process takes this path too (the synced loader, the
-all-reduce). The 'model' axis (tensor parallelism) is not applied yet.
+dropout masks are per data index, from (step seed, data index) (with
+dropout > 0 the masks, and the F0 scale one process draws after them, are
+not that process's: `_global_draws`). Clipping, AdamW and the EMA then run
+alike on every rank. Rank 0 writes the checkpoints and every rank meets it
+after each; every rank reads one on resume. `train.log`, `scalars.jsonl`
+and images come from rank 0 only. A group of one process takes this path
+too (the synced loader, the all-reduce).
+
+Tensor parallelism (`parallel.model_parallel_size` = mp > 1) follows the
+JAX package's 'model' axis: the ranks sit on a (world / mp) x mp mesh
+(`parallel.mesh.make_mesh`, which raises when mp does not divide the
+world), and each rank holds its block of every parameter
+`param_shardings` splits, and so its blocks of the AdamW moments and the
+EMA (`shard_parameters`; the layers gather their output features,
+`parallel/tensor.py`). The ranks of one model group read the same rows
+(the loader shards by data index, `train_batch_size` per data index) and
+draw the same dropout masks (by data index), so their activations agree.
+The split blocks' gradients are averaged over the data group; the
+replicated gradients and the loss terms over every rank (alike on the
+ranks of a model group, so this is the data group's mean, and it keeps
+the replicas' bits equal whatever order a kernel sums in). The global norm
+sums each split block's squares once, over the model group. Checkpoints
+hold full tensors (parameters, moments, EMA), gathered before rank 0
+writes and split again by every rank that reads, so a run resumes at any
+mp. Eval samples come from the ranks of data index 0, through the split
+`generate_mel`, and rank 0 writes them.
 
 `Trainer` drives it: the data loader, the step, the stdout line
 `step N loss ... grad_norm ... steps/s ...`, scalars as JSON lines in the
@@ -87,8 +105,9 @@ from ns2vc_tpu_torch.data.dataset import (
 from ns2vc_tpu_torch.data.dataset import synced_data_loader
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2, generate_mel
 from ns2vc_tpu_torch.parallel.mesh import (
-    all_reduce_mean, batch_sharding, broadcast_, flat_gradients,
-    host_barrier, make_mesh, put_local_batch, world,
+    all_reduce_mean, all_reduce_sum, batch_sharding, broadcast_,
+    flat_gradients, gather_state, host_barrier, make_mesh, mesh_groups,
+    param_shardings, put_local_batch, shard_parameters, shard_state, world,
 )
 from ns2vc_tpu_torch.utils.precision import (
     cast_floating, parameters_as, resolve_dtype,
@@ -108,20 +127,32 @@ def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
                              weight_decay=ADAMW_WEIGHT_DECAY)
 
 
-def global_norm(tensors: list) -> torch.Tensor:
-    """sqrt(sum of squares) over every tensor, in f32 (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(
+def global_norm(tensors: list, split: list = (),
+                group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over every tensor, in f32 (optax.global_norm).
+    `split` holds this rank's blocks of tensors split over the model
+    `group`: their squares are summed over the group (one all-reduce), so
+    each block counts once, as the norm of the global arrays does."""
+    norm = torch.linalg.vector_norm(torch.stack(
         [n.float() for n in torch._foreach_norm(tensors)]))
+    if not split:
+        return norm
+    sq = torch.stack([n.float() for n in torch._foreach_norm(split)]
+                     ).square().sum().reshape(1)
+    all_reduce_sum(sq, group)
+    return torch.sqrt(norm.square() + sq[0])
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm in place: grads unchanged while their
-    global norm is below `max_norm`, else scaled by max_norm / norm. No
-    host synchronisation. Returns the norm before clipping."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: list, max_norm: float, split: list = (),
+                        group=None) -> torch.Tensor:
+    """optax.clip_by_global_norm in place over `grads` and `split` (see
+    `global_norm`): unchanged while their global norm is below `max_norm`,
+    else scaled by max_norm / norm. No host synchronisation. Returns the
+    norm before clipping."""
+    norm = global_norm(grads, split, group)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_(list(grads) + list(split), scale)
     return norm
 
 
@@ -147,7 +178,9 @@ def _split(x: torch.Tensor | None, accum: int) -> list:
 def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
                     torch.float32, ema_decay: float = 0.0,
                     ema_every: int = 1, max_norm: float = 1.0,
-                    data_parallel: bool = False):
+                    data_parallel: bool = False,
+                    split_names: frozenset = frozenset(), model_group=None,
+                    data_group=None):
     """train_step(state, batch, generator=None, t=None, noise=None,
     f0_factor=None) -> metrics, updating `state` in place. `batch` holds
     tensors with leading dim B = accum * micro-batch on the model's device
@@ -157,10 +190,13 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
     (`parallel.mesh.flat_gradients`, with three slots for the loss terms)
     that one all-reduce averages over the process group after
     accumulation and before clipping, so every rank clips, steps and logs
-    the global batch's. metrics: loss, its terms loss_diff and loss_f0 (0
-    without the F0 predictor) and grad_norm (0-d tensors, no host
-    synchronisation) and, with accum 1, pred and target (this rank's
-    rows)."""
+    the global batch's. Under tensor parallelism `split_names` names the
+    parameters split over `model_group`: their gradients sit first in the
+    buffer and are averaged over `data_group` (when it has more than one
+    rank), the rest over every rank, and the norm counts each block once.
+    metrics: loss, its terms loss_diff and loss_f0 (0 without the F0
+    predictor) and grad_norm (0-d tensors, no host synchronisation) and,
+    with accum 1, pred and target (this rank's rows)."""
     flat = None
 
     def train_step(state: TrainState, batch: dict,
@@ -171,7 +207,10 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
         nonlocal flat
         model = state.model
         model.train()
-        params = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        split = [p for n, p in named if n in split_names]
+        params = split + [p for n, p in named if n not in split_names]
         if data_parallel:
             flat = flat_gradients(params, flat, extra=3)
             flat.zero_()
@@ -205,18 +244,20 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
             flat[-3:] = torch.stack([
                 torch.as_tensor(x, dtype=torch.float32, device=flat.device)
                 for x in (loss_sum, terms["loss_diff"], terms["loss_f0"])])
-            all_reduce_mean(flat)
+            n_split = sum(p.numel() for p in split)
+            if n_split and dist.get_world_size(data_group) > 1:
+                all_reduce_mean(flat[:n_split], data_group)
+            all_reduce_mean(flat[n_split:])
             loss_sum, loss_diff, loss_f0 = flat[-3:].clone()
             terms = {"loss_diff": loss_diff, "loss_f0": loss_f0}
-        grad_norm = clip_by_global_norm(grads, max_norm)
+        grad_norm = clip_by_global_norm(grads[len(split):], max_norm,
+                                        grads[:len(split)], model_group)
         state.optimizer.step()
         if ema_decay > 0.0 and state.ema_params is not None \
                 and (state.step + 1) % ema_every == 0:
-            names = [n for n, p in model.named_parameters()
-                     if p.requires_grad]
-            ema = [state.ema_params[n] for n in names]
+            ema = [state.ema_params[n] for n, _ in named]
             torch._foreach_mul_(ema, ema_decay)
-            torch._foreach_add_(ema, [p.detach() for p in params],
+            torch._foreach_add_(ema, [p.detach() for _, p in named],
                                 alpha=1.0 - ema_decay)
         state.step += 1
         metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm,
@@ -264,10 +305,10 @@ def step_seed(seed: int, step: int) -> int:
     return (seed * 0x9E3779B1 + step * 0x85EBCA77 + 1) & 0x7FFFFFFFFFFF
 
 
-def rank_seed(step_seed_: int, rank: int) -> int:
-    """The dropout generator's seed of rank `rank` > 0 in a step (rank 0
-    draws its masks from the step's generator itself)."""
-    return (step_seed_ * 0xC2B2AE35 + rank) & 0x7FFFFFFFFFFF
+def rank_seed(step_seed_: int, index: int) -> int:
+    """The dropout generator's seed of data index `index` > 0 in a step
+    (data index 0 draws its masks from the step's generator itself)."""
+    return (step_seed_ * 0xC2B2AE35 + index) & 0x7FFFFFFFFFFF
 
 
 class Trainer:
@@ -287,15 +328,13 @@ class Trainer:
         t = self.cfg.train
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(t.compute_dtype)
-        if self.cfg.parallel.model_parallel_size > 1:
-            raise NotImplementedError(
-                "model_parallel_size > 1: the port does not place parameters "
-                "over the 'model' axis yet (ROADMAP Queue 1); "
-                "parallel.param_shardings gives the placements")
         self.rank, self.n_proc = world()
         self.distributed = dist.is_available() and dist.is_initialized()
         self.is_main = self.rank == 0
-        self.mesh = make_mesh()
+        self.mesh = make_mesh(self.cfg.parallel.model_parallel_size)
+        self.data_index = self.mesh.index("data")
+        self.data_size = self.mesh.shape["data"]
+        self.model_group, self.data_group = mesh_groups(self.mesh)
 
         if self.n_proc > 1:
             # every rank derives the same run dir without talking
@@ -316,6 +355,8 @@ class Trainer:
         model.to(self.device)
         if self.distributed:
             broadcast_(list(model.parameters()))
+        self.placements = param_shardings(model, self.mesh)
+        shard_parameters(model, self.placements, self.mesh)
         self.state = TrainState(
             model=model, optimizer=make_optimizer(self.cfg,
                                                   model.parameters()),
@@ -325,7 +366,10 @@ class Trainer:
             self.accum, self.compute_dtype,
             ema_decay=t.ema_decay if t.use_ema else 0.0,
             ema_every=t.ema_update_every, max_norm=t.grad_clip_norm,
-            data_parallel=self.distributed)
+            data_parallel=self.distributed,
+            split_names=frozenset(k for k, pl in self.placements.items()
+                                  if pl.axis is not None),
+            model_group=self.model_group, data_group=self.data_group)
         self.generator = torch.Generator(self.device)
         self._rank_generator = torch.Generator(self.device)
 
@@ -350,7 +394,9 @@ class Trainer:
         self.num_workers = n_workers
         self.dl = None   # made at the first step
         try:
-            self.eval_ds = EvalDataset(self.cfg.data.val_files, self.cfg)
+            # seeded: the ranks that sample together take one item
+            self.eval_ds = EvalDataset(self.cfg.data.val_files, self.cfg,
+                                       seed=t.seed)
             if len(self.eval_ds) == 0:
                 self.eval_ds = None
         except Exception:
@@ -399,9 +445,15 @@ class Trainer:
         """The training batch iterator (made once, at first use)."""
         if self.dl is None:
             t = self.cfg.train
-            make = synced_data_loader if self.distributed else data_loader
-            self.dl = make(self.ds, self._collator, t.train_batch_size,
-                           seed=t.seed, num_workers=self.num_workers)
+            if self.distributed:   # the model group reads one set of rows
+                self.dl = synced_data_loader(
+                    self.ds, self._collator, t.train_batch_size, seed=t.seed,
+                    num_workers=self.num_workers,
+                    shard_index=self.data_index, shard_count=self.data_size)
+            else:
+                self.dl = data_loader(self.ds, self._collator,
+                                      t.train_batch_size, seed=t.seed,
+                                      num_workers=self.num_workers)
         return self.dl
 
     def close(self) -> None:
@@ -418,14 +470,15 @@ class Trainer:
                    noise: torch.Tensor | None = None) -> dict:
         """One optimizer step on a device batch, with the step's generator
         (or the given t and noise). In a process group, `batch` is this
-        rank's rows and t and noise, when given, are the global batch's."""
+        rank's rows (its data index's) and t and noise, when given, are the
+        global batch's."""
         seed = step_seed(self.cfg.train.seed, self.step)
         self.generator.manual_seed(seed)
         if not self.distributed:
             return self._step_fn(self.state, batch, self.generator, t, noise)
         t, noise, f0_factor = self._global_draws(batch, t, noise)
-        drop = self.generator if self.rank == 0 else \
-            self._rank_generator.manual_seed(rank_seed(seed, self.rank))
+        drop = self.generator if self.data_index == 0 else \
+            self._rank_generator.manual_seed(rank_seed(seed, self.data_index))
         return self._step_fn(self.state, batch, drop, t, noise, f0_factor)
 
     def _global_draws(self, batch: dict, t, noise):
@@ -434,10 +487,10 @@ class Trainer:
         batch's shape. One process draws t and noise first too, but the
         scale after the encoders' dropout masks: with dropout 0 (no mask
         drawn) the draws are the single-process step's on the whole batch;
-        with dropout > 0 the masks (per rank) and the scales differ from
-        it, each still drawn from its distribution."""
+        with dropout > 0 the masks (per data index) and the scales differ
+        from it, each still drawn from its distribution."""
         spec = batch["spec"]
-        n = spec.shape[0] * self.n_proc
+        n = spec.shape[0] * self.data_size
         gen, dev = self.generator, spec.device
         if t is None:
             t = torch.randint(0, self.model.schedule.num_timesteps, (n,),
@@ -461,26 +514,54 @@ class Trainer:
 
     def save(self, milestone: Optional[int] = None) -> str:
         """ckpt/model-N.pt: step, parameters, optimizer state, EMA and the
-        config, on the CPU; then only the newest `keep_ckpts` are kept. In a
-        process group rank 0 writes (every rank holds the same state) and
-        every rank meets it here afterwards."""
+        config, on the CPU, as full tensors at any model axis; then only the
+        newest `keep_ckpts` are kept. In a process group every rank gathers
+        its model group's blocks, rank 0 writes, and every rank meets it
+        here afterwards."""
         n = milestone if milestone is not None else self.step
         path = os.path.join(self.ckpt_dir, f"model-{n}.pt")
+        params, opt_state, ema = self._full_state()
         if self.is_main:
-            self._write_checkpoint(path)
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+
+            def cpu(sd):
+                return None if sd is None else {
+                    k: v.detach().cpu() for k, v in sd.items()}
+            save_trainer_checkpoint(path, self.cfg, cpu(params), self.step,
+                                    opt_state, cpu(ema))
+            self._collect_garbage()
         host_barrier(f"ns2vc-saved-{n}")
         return path
 
-    def _write_checkpoint(self, path: str) -> None:
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+    def _optimizer_state(self, opt_state: dict, convert) -> dict:
+        """The optimizer state dict with its AdamW moments passed through
+        convert({key: tensor}, {key: Placement}), each split as its
+        parameter (a copy: the live state stays as it is). The optimizer
+        holds model.parameters() in order."""
+        names = [n for n, _ in self.model.named_parameters()]
+        pl = {(i, k): self.placements[names[i]]
+              for i, st in opt_state["state"].items()
+              for k, v in st.items() if v.dim()}
+        out = convert({k: opt_state["state"][k[0]][k[1]] for k in pl}, pl)
+        state = {i: {k: out.get((i, k), v) for k, v in st.items()}
+                 for i, st in opt_state["state"].items()}
+        return {**opt_state, "state": state}
 
-        def cpu(sd):
-            return None if sd is None else {
-                k: v.detach().cpu() for k, v in sd.items()}
-        save_trainer_checkpoint(
-            path, self.cfg, cpu(self.model.state_dict()), self.step,
-            self.state.optimizer.state_dict(), cpu(self.state.ema_params))
-        self._collect_garbage()
+    def _full_state(self):
+        """(parameters, optimizer state, EMA) as full tensors: at a model
+        axis over one, gathered over the model group (every rank calls
+        this)."""
+        params = self.model.state_dict()
+        opt = self.state.optimizer.state_dict()
+        ema = self.state.ema_params
+        if self.mesh.shape["model"] == 1:
+            return params, opt, ema
+
+        def gather(sd, pl):
+            return gather_state(sd, pl, self.mesh)
+        return (gather(params, self.placements),
+                self._optimizer_state(opt, gather),
+                None if ema is None else gather(ema, self.placements))
 
     def _collect_garbage(self) -> None:
         keep = self.cfg.train.keep_ckpts
@@ -501,8 +582,9 @@ class Trainer:
         ckpt/model-`step`.pt, else the newest in ckpt/. Restores the
         parameters, optimizer state (a fresh AdamW where the file holds
         none), EMA (when this run keeps one) and step. Every rank of a
-        process group reads it, and none goes on (to a save whose garbage
-        collection could remove it) until all have."""
+        process group reads it, keeps its blocks of the full tensors, and
+        none goes on (to a save whose garbage collection could remove it)
+        until all have."""
         from ns2vc_tpu_torch.utils.checkpoints import latest_checkpoint_path
 
         if path is None:
@@ -516,11 +598,13 @@ class Trainer:
         if data.get("format") != TRAINER_FORMAT:
             raise ValueError(f"{path} is not a checkpoint of this trainer; "
                              f"use load_torch for a reference model-N.pt")
-        self.model.load_state_dict(data["params"])
+        self.model.load_state_dict(self._local(data["params"]))
         if data["opt_state"] is not None:
-            self.state.optimizer.load_state_dict(data["opt_state"])
+            self.state.optimizer.load_state_dict(self._optimizer_state(
+                data["opt_state"],
+                lambda sd, pl: shard_state(sd, pl, self.mesh)))
         if self.state.ema_params is not None:
-            src = data["ema_params"] or data["params"]
+            src = self._local(data["ema_params"] or data["params"])
             for k, v in self.state.ema_params.items():
                 v.copy_(src[k])
         self.state.step = int(data["step"])
@@ -536,10 +620,15 @@ class Trainer:
         data = torch.load(model_path, map_location="cpu")
         if "model" not in data:
             raise ValueError(f"{model_path} is not a reference model-N.pt")
-        self.model.load_state_dict(load_checkpoint(model_path, self.cfg))
+        self.model.load_state_dict(self._local(load_checkpoint(model_path,
+                                                               self.cfg)))
         if self.state.ema_params is not None:
             self.state.ema_params = init_ema(self.model)
         self.state.step = int(data.get("step", 0))
+
+    def _local(self, full: dict) -> dict:
+        """This rank's blocks of a full state dict."""
+        return shard_state(full, self.placements, self.mesh)
 
     # -- eval sampling -----------------------------------------------------
 
@@ -547,9 +636,11 @@ class Trainer:
         """Sample one eval item (reference model.py:905-938) with UniPC, 30
         steps, from the EMA parameters when kept: (mel (T, 100), waveform or
         None, gt spec, refer spec, gt audio, refer audio), numpy; None
-        without an eval set, and on every rank but 0 (the others go on to
-        the next step's all-reduce and wait there)."""
-        if self.eval_ds is None or not self.is_main:
+        without an eval set, and on every rank but 0. The ranks of data
+        index 0 sample together (the model split over their model group,
+        `generator` seeded alike on each); the others go on to the next
+        step's all-reduce and wait there."""
+        if self.eval_ds is None or self.data_index != 0:
             return None
         c, f0, spec, audio, uv, c_r, f0_r, spec_r, audio_r, uv_r = \
             self.eval_ds[self.step % len(self.eval_ds)]
@@ -570,7 +661,8 @@ class Trainer:
             f0_dev = torch.from_numpy(f0_in).to(self.device)
             uv_dev = torch.from_numpy(uv_in).to(self.device)
         if self._eval_model is None:
-            self._eval_model = NaturalSpeech2(self.cfg).to(
+            self._eval_model = shard_parameters(
+                NaturalSpeech2(self.cfg), self.placements, self.mesh).to(
                 self.device, self.compute_dtype).eval()
         self._eval_model.load_state_dict(
             self.state.ema_params if self.state.ema_params is not None
@@ -583,6 +675,8 @@ class Trainer:
             torch.tensor([tr_len], device=dev),
             generator=generator, method="unipc", steps=30, f0=f0_dev,
             uv=uv_dev)
+        if not self.is_main:
+            return None
         wav = None
         if self.vocos is not None:
             with torch.no_grad():

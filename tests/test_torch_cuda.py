@@ -18,7 +18,9 @@ K1 also runs at ContentVec's shapes, (1, 12, T, 64) in f32 with T up to
 3000 keys (one unbroken 60 s segment), at the F0 predictor's cross-attention
 (B=16, 8 heads of 32, 448 queries over a 320-key prompt), at the op
 registry's D = 128, and with q in f32 and k, v in bf16 (the F0 predictor
-under a bf16 model). `multihead_attention` sends key-padding calls at
+under a bf16 model). K2 also runs at the local output widths of a conv
+split over the 'model' axis (Co = C_out / mp: 128, 192, 256 at mp=2, 64 and
+96 at mp=4) on a block of the whole conv's weight. `multihead_attention` sends key-padding calls at
 D <= 128 to the kernel and full-bias or D > 128 calls to the plain route,
 counted as such. bf16 goes to the bf16 tensor-core kernels (K1 "tc" /
 "tc_narrow", K2 "tc"), f32 to the 3xTF32 ones ("f32tc"); each test checks
@@ -282,6 +284,49 @@ def test_affine_silu_conv1d_tc(dev, dtype, b, t, c, co):
     got = affine_silu_conv1d(x, a, off, w, bias)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co", [
+    (256, 128), (384, 192), (512, 256),    # mp=2 at Config()'s levels
+    (1024, 256), (768, 192),               # the up path's skip concats
+    (256, 64), (384, 96),                  # mp=4
+])
+def test_gn_silu_conv1d_at_the_model_axis_widths(dev, dtype, c, co):
+    """K2 on one model rank's block of a split resnet conv: Co = C_out /
+    mp with x, a and b whole, the weight a contiguous block of rows of the
+    whole conv's (packed at its own width, Co padded to the tile), and
+    plan_tc dealing every channel chunk to a split at the training
+    geometry and at one B=16 serving step."""
+    from ns2vc_tpu_torch.ops.fused_resnet import TC_BN, packed_weight
+    from ns2vc_tpu_torch.parallel.mesh import Placement, shard_tensor
+
+    g = _gen(dev, 7)
+    whole = torch.randn(2 * co, c, 3, generator=g, device=dev) / (3 * c) ** 0.5
+    w = shard_tensor(whole.to(dtype), Placement("model"), 1, 2)
+    bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    for b, t in ((2, 272), (16, 448)):
+        x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+        s = 0.2 * torch.randn(b, c, generator=g, device=dev)
+        sh = 0.2 * torch.randn(b, c, generator=g, device=dev)
+        bk = chunk_width(dtype)
+        splits, cps = plan_tc(b, t, c, co, bk)
+        n_chunks = -(-c // bk)
+        assert splits * cps >= n_chunks > (splits - 1) * cps
+        route = "f32tc" if dtype == torch.float32 else "tc"
+        r0 = affine_silu_conv1d.route_launches[route]
+        got = gn_silu_conv1d(x, gamma, beta, w, bias, 8, 1e-5, s, sh)
+        assert affine_silu_conv1d.route_launches[route] == r0 + 1
+        want = gn_silu_conv1d(x.cpu(), gamma.cpu(), beta.cpu(), w.cpu(),
+                              bias.cpu(), 8, 1e-5, s.cpu(), sh.cpu())
+        torch.cuda.synchronize()
+        tol = 3e-5 if dtype == torch.float32 else \
+            1e-2 * max(1.0, want.float().abs().max().item())
+        assert got.dtype == dtype and got.shape == (b, t, co)
+        assert (got.float().cpu() - want.float()).abs().max().item() <= tol
+    assert packed_weight(w).shape[-2] == -(-co // TC_BN) * TC_BN
 
 
 def test_affine_silu_conv1d_refuses_what_it_cannot_take(dev):

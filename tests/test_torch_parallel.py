@@ -119,6 +119,12 @@ def test_param_shardings_match_jax_at_a_model_axis_of_two():
         want = 1.0 + torch.arange(w.shape[1], dtype=torch.float32)
         assert torch.equal(w, want[None, :, None].expand_as(w)), name
     assert split >= 10 and len(got) - split >= 100, (split, len(got))
+    # the weight-normed convs: flax names their kernel `conv_v`, which the
+    # JAX rule (`kernel` / `weight_v` leaves) does not split, and the
+    # marker above holds the port to replicating it too
+    for i in range(3):
+        name = f"pre_model.f0_predictor.conv_0_{i}.conv_v"
+        assert got[name] == tmesh.REPLICATED and (marked[name] == 0).all()
 
 
 def test_param_shardings_replicate_everything_at_mp1():
