@@ -106,11 +106,18 @@ with TF32 off runs once through the kernels and once through their plain
 versions, and the two waveforms are compared.
 
 Each kernel has two routes, chosen by dtype in its wrapper: bf16 goes to
-the bf16 tensor-core kernel (`flash_attention_tc`, `affine_silu_conv1d_tc`),
-f32 to the 3xTF32 tensor-core one (`flash_attention_f32tc`,
-`affine_silu_conv1d_f32tc`: three TF32 passes per product). Every
-route is held against the plain version at the B=16 serving shapes and at
-every geometry the CLI run recorded, in its own dtype's tolerance.
+the bf16 tensor-core kernel (`flash_attention_tc`, `affine_silu_conv1d_tc`:
+wgmma over TMA-fed weights, with its element-load sub-route
+`affine_silu_conv1d_tc_elem` for x that TMA cannot describe), f32 to the
+3xTF32 tensor-core one (`flash_attention_f32tc`,
+`affine_silu_conv1d_f32tc`: three TF32 passes per product). The GroupNorm
+statistics and fold before every K2 call are one kernel for both dtypes
+(`group_norm_affine`): at every K2 geometry it is held against
+`group_norm_affine_plain` within GN_RTOL and two launches must agree bit
+for bit, timed beside torch.var_mean over the f32 grouped view and its
+bound. Every route is held against the plain version at the B=16 serving
+shapes and at every geometry the CLI run recorded, in its own dtype's
+tolerance.
 
 Output: one line per phase result (every timing line ends with the card's
 name and power limit), then a JSON line {"kernels": [...]}, one entry per
@@ -131,8 +138,12 @@ the most of that sum;
 library_ms, the same sum for one PyTorch call of the same function
 (`F.scaled_dot_product_attention` with the additive key bias for K1; none
 for K2, whose affine -> SiLU -> conv has no single call: `conv_alone_ms`
-times cuDNN's conv1d of the pre-activated input beside it). Then the
-card's name and power limit, and last {"ok": true, "device": {...}}.
+times cuDNN's conv1d of the pre-activated input beside it; torch.var_mean
+alone for the statistics). The serving profiles at the end name K1's, K2's
+and the statistics kernel's share of each call, and the kernels of one
+B=16 UNet step's 45 epilogues are counted with the statistics as torch ops
+and through their kernel. Then the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -182,8 +193,12 @@ CARD = ""                  # nvidia-smi's name and power limit, set in main
 # cores' 67 TFLOP/s is slower)
 PEAK_TF32 = 494.7e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": PEAK_TF32 / 3}
+PEAK_F32_CORES = 67e12     # f32 outside the tensor cores (the statistics)
 PEAK_BYTES = 3.35e12
-ROUTES = {   # route -> (kernel source, the TPU kernel it replaces)
+# the GroupNorm statistics kernel against its plain version, f32 either way
+# (other summation orders): of max(1, max|a|, max|b|)
+GN_RTOL = 2e-5
+ROUTES = {   # route -> (kernel source, the TPU code it replaces)
     "flash_attention_f32tc": ("flash_attention.cu",
                               "ns2vc_tpu/ops/pallas_attention.py:92"),
     "flash_attention_tc": ("flash_attention_tc.cu",
@@ -192,6 +207,9 @@ ROUTES = {   # route -> (kernel source, the TPU kernel it replaces)
                                  "ns2vc_tpu/ops/pallas_resnet.py:71"),
     "affine_silu_conv1d_tc": ("gn_silu_conv1d_tc.cu",
                               "ns2vc_tpu/ops/pallas_resnet.py:71"),
+    # the XLA reductions of the Pallas kernel's wrapper (:121-132)
+    "group_norm_affine": ("group_norm_affine.cu",
+                          "ns2vc_tpu/ops/pallas_resnet.py:121"),
 }
 
 
@@ -310,6 +328,25 @@ def k2_bound(bsz, t, c, co, dtype):
     return bound(6.0 * bsz * t * c * co, nbytes, dtype)
 
 
+def gn_bound(bsz, t, c, dtype, pdtype, film):
+    """The statistics kernel's least time: x read once, gamma / beta (and
+    FiLM) read, a and b written; ~4 f32 operations per element of x on
+    the CUDA cores."""
+    es = 2 if str(dtype) == "torch.bfloat16" else 4
+    pe = 2 if str(pdtype) == "torch.bfloat16" else 4
+    nbytes = es * bsz * t * c + pe * (2 * c + (2 * bsz * c if film else 0)) \
+        + 8 * bsz * c
+    f, m = 4.0 * bsz * t * c / PEAK_F32_CORES, nbytes / PEAK_BYTES
+    return max(f, m) * 1e3, ("operations" if f >= m else "bytes")
+
+
+def gn_route(dtype) -> str:
+    """The statistics kernel's entry in the sums: bf16 x (the main path's)
+    under its kernels-line name, f32 x apart."""
+    return ("group_norm_affine" if str(dtype) == "torch.bfloat16"
+            else "group_norm_affine_f32")
+
+
 def k1_route(dtype) -> str:
     from ns2vc_tpu_torch.ops.flash_attention import attention_route
 
@@ -355,16 +392,21 @@ def reset_launches() -> None:
 
 
 def route_counts() -> dict:
-    """Launches per route since the last reset_launches()."""
+    """Launches per route since the last reset_launches() (a sub-route's
+    launches also count in its route's)."""
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention
-    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d, group_norm_affine,
+    )
 
     k1, k2 = flash_attention.route_launches, affine_silu_conv1d.route_launches
     return {"flash_attention_f32tc": k1["f32tc"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
             "flash_attention_tc_narrow": k1["tc_narrow"],
             "affine_silu_conv1d_f32tc": k2["f32tc"],
-            "affine_silu_conv1d_tc": k2["tc"]}
+            "affine_silu_conv1d_tc": k2["tc"] + k2["tc_elem"],
+            "affine_silu_conv1d_tc_elem": k2["tc_elem"],
+            "group_norm_affine": group_norm_affine.launches}
 
 
 # -- the path's shapes ------------------------------------------------------
@@ -462,12 +504,17 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     its dtype takes. Returns a dict: route, err, tol, bound, bound_by, and
     when timed the device times (graph_ms) ms, plain, conv (cuDNN's conv1d
     of the pre-activated input alone), and eager, the kernel's eager
-    time_ms; the times None when not timed."""
+    time_ms; the times None when not timed. Its "stats" entry holds the
+    same for the statistics kernel that folded the affine (err against
+    `group_norm_affine_plain`, lib: torch.var_mean over the f32 grouped
+    view alone); fails unless two launches give bitwise-equal a, b within
+    GN_RTOL of the plain version's."""
     import torch
     import torch.nn.functional as F
 
     from ns2vc_tpu_torch.ops.fused_resnet import (
         affine_silu_conv1d, affine_silu_conv1d_plain, group_norm_affine,
+        group_norm_affine_plain,
     )
 
     x = torch.randn(bsz, t, c, generator=g, device=dev).to(dtype)
@@ -480,11 +527,33 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     if film:
         s = 0.2 * torch.randn(bsz, c, generator=g, device=dev)
         sh = 0.2 * torch.randn(bsz, c, generator=g, device=dev)
-    a, b = group_norm_affine(x, gamma, beta, 8, 1e-5, s, sh)
+    stats_args = (x, gamma, beta, 8, 1e-5, s, sh)
+    a, b = group_norm_affine(*stats_args)
+    a2, b2 = group_norm_affine(*stats_args)
+    pa, pb = group_norm_affine_plain(*stats_args)
     got = affine_silu_conv1d(x, a, b, w, bias)
     want = affine_silu_conv1d_plain(x, a, b, w, bias)
     torch.cuda.synchronize()
-    r = {"route": k2_route(dtype),
+    st = {"route": gn_route(dtype),
+          "err": max((a - pa).abs().max().item(), (b - pb).abs().max().item()),
+          "tol": GN_RTOL * max(1.0, pa.abs().max().item(),
+                               pb.abs().max().item()),
+          "deterministic": torch.equal(a, a2) and torch.equal(b, b2),
+          "ms": None, "plain": None, "lib": None, "eager": None}
+    if not (st["deterministic"] and st["err"] <= st["tol"]):
+        fail(f"GroupNorm statistics B={bsz} T={t} C={c} film={int(film)} "
+             f"{dtype}: error {st['err']} (tol {st['tol']}), two launches "
+             f"bitwise equal: {st['deterministic']}")
+    st["bound"], st["bound_by"] = gn_bound(bsz, t, c, dtype, gamma.dtype,
+                                           film)
+    if timed:
+        xf = x.float().view(bsz, t, 8, c // 8)
+        st["ms"] = graph_ms(lambda: group_norm_affine(*stats_args))
+        st["eager"] = time_ms(lambda: group_norm_affine(*stats_args))
+        st["plain"] = graph_ms(lambda: group_norm_affine_plain(*stats_args))
+        st["lib"] = graph_ms(lambda: torch.var_mean(xf, dim=(1, 3),
+                                                    correction=0))
+    r = {"route": k2_route(dtype), "stats": st,
          "err": (got.float() - want.float()).abs().max().item(),
          "ms": None, "plain": None, "conv": None, "eager": None}
     if dtype == torch.float32:
@@ -532,8 +601,9 @@ class RouteSums:
 
     def line(self, route):
         s = self.sums[route]
+        lib = "var_mean" if route.startswith("group_norm") else "SDPA"
         extra = "".join(f", {name} {s[key]:.4f}" for key, name in (
-            ("lib", "SDPA"), ("conv", "conv alone")) if key in s)
+            ("lib", lib), ("conv", "conv alone")) if key in s)
         return (f"device ms: kernel {s['ms']:.4f} (eager {s['eager']:.4f}), "
                 f"plain {s['plain']:.4f}{extra}, bound {s['bound']:.5f} "
                 f"({self.bound_by(route)})")
@@ -621,9 +691,16 @@ def check_resnet(unet, dev):
                 f"bound_ms={r['bound']:.5f} ({r['bound_by']}) [{CARD}]")
             if not r["err"] <= r["tol"]:
                 fail(f"K2 {name} {dtype}: error {r['err']} > {r['tol']}")
-            sums.add(r, 1)
-            if name != "ragged_T":
-                step.add(r, 1)
+            st = r["stats"]
+            say(f"   GroupNorm statistics: max_abs_err={st['err']:.3e} (tol "
+                f"{st['tol']:.3g}), two launches bitwise equal; kernel_ms="
+                f"{st['ms']:.4f} eager_ms={st['eager']:.4f} plain_ms="
+                f"{st['plain']:.4f} var_mean_ms={st['lib']:.4f} bound_ms="
+                f"{st['bound']:.5f} ({st['bound_by']})")
+            for res in (r, st):
+                sums.add(res, 1)
+                if name != "ragged_T":
+                    step.add(res, 1)
     for route in step.sums:
         say(f"K2 one UNet step at B={B} ({step.calls[route]} calls, "
             f"{route}): {step.line(route)} [{CARD}]")
@@ -702,7 +779,8 @@ def check_path_calls(calls: PathCalls, dev):
 
     def k2_label(key):
         (bsz, t, c), _, co = key
-        return f"B={bsz} T={t} C={c} Co={co} split={fr.plan_tc(bsz, t, c, co)}"
+        return (f"B={bsz} T={t} C={c} Co={co} split bf16 "
+                f"{fr.plan_wgmma(bsz, t, c, co)} f32 {fr.plan_tc(bsz, t, c, co)}")
     for name, groups, run, label, timed_in in (
             ("K1", calls.k1, k1, k1_label, lambda d, d0: d == d0),
             ("K2", calls.k2, k2, k2_label, lambda d, d0: True)):
@@ -714,6 +792,8 @@ def check_path_calls(calls: PathCalls, dev):
                     fail(f"{name} CLI geometry {label(key)} {dtype}: error "
                          f"{r['err']} > {r['tol']}")
                 sums.add(r, n)
+                if "stats" in r:
+                    sums.add(r["stats"], n)
                 parts.append(f"{str(dtype)[6:]} {r['route']} err "
                              f"{r['err']:.2e}" + ("" if r["ms"] is None else
                                                   f" ms={r['ms']:.4f} plain="
@@ -728,11 +808,11 @@ def check_path_calls(calls: PathCalls, dev):
     split_ms = unsplit_ms = 0.0
     for key, n in calls.k2.items():
         (bsz, t, c), _, co = key
-        if fr.plan_tc(bsz, t, c, co)[0] == 1:
+        if fr.plan_wgmma(bsz, t, c, co)[0] == 1:
             continue
         split_ms += n * k2(key, torch.bfloat16, True)["ms"]
-        with mock.patch.object(fr, "plan_tc",
-                               lambda b_, t_, c_, co_, bk: (1, -(-c_ // bk))):
+        with mock.patch.object(fr, "plan_wgmma",
+                               lambda b_, t_, c_, co_: (1, -(-c_ // fr.TC_BK))):
             unsplit_ms += n * k2(key, torch.bfloat16, True)["ms"]
     say(f"affine_silu_conv1d_tc channel split on the CLI run's split "
         f"geometries: planned {split_ms:.2f} ms, unsplit {unsplit_ms:.2f} ms "
@@ -836,22 +916,73 @@ def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
     return by
 
 
-def f32_serving_profile(fn, wall_ms_unprofiled: float) -> dict:
-    """One f32 serving call under torch.profiler: its kernel time, and
-    K1's and K2's share of it (each kernel's launches and its merge or
-    reduce kernel's)."""
-    by = device_breakdown(fn, wall_ms_unprofiled, f"serving B={B} f32")
+def serving_profile(fn, wall_ms_unprofiled: float, label: str) -> dict:
+    """One serving call under torch.profiler: its kernel time, and the
+    share of K1 (flash_fwd_tc / flash_fwd_f32tc and its merge kernel), K2
+    (affine_silu_conv_k3_wgmma / _f32tc and the f32 route's split reduce)
+    and the GroupNorm statistics (group_norm_affine_kernel), each with its
+    launches."""
+    by = device_breakdown(fn, wall_ms_unprofiled, label)
     out = {"wall_ms": wall_ms_unprofiled,
            "kernel_ms": sum(ms for ms, _ in by.values())}
-    for key, names in (("k1_ms", ("flash_fwd_f32tc", "split_kv_merge")),
-                       ("k2_ms", ("affine_silu_conv_k3_f32tc",
-                                  "split_k_reduce_f32"))):
-        out[key] = sum(ms for name, (ms, _) in by.items()
-                       if any(n in name for n in names))
-    say(f"profile serving B={B} f32: K1 {out['k1_ms']:.1f} ms, K2 "
-        f"{out['k2_ms']:.1f} ms of {out['kernel_ms']:.1f} ms kernel time "
+    for key, names in (("k1", ("flash_fwd", "split_kv_merge")),
+                       ("k2", ("affine_silu_conv_k3", "split_k_reduce")),
+                       ("gn", ("group_norm_affine",))):
+        hits = [(ms, n) for name, (ms, n) in by.items()
+                if any(k in name for k in names)]
+        out[f"{key}_ms"] = sum(ms for ms, _ in hits)
+        out[f"{key}_launches"] = sum(n for _, n in hits)
+    say(f"profile {label}: K1 {out['k1_ms']:.1f} ms ({out['k1_launches']} "
+        f"kernels), K2 {out['k2_ms']:.1f} ms ({out['k2_launches']}), "
+        f"GroupNorm statistics (group_norm_affine_kernel) {out['gn_ms']:.1f} "
+        f"ms ({out['gn_launches']}) of {out['kernel_ms']:.1f} ms kernel time "
         f"[{CARD}]")
     return out
+
+
+def k2_step_kernels(unet, dev) -> dict:
+    """Device kernels of one B=16 bf16 UNet step's 45 resnet epilogues
+    (`gn_silu_conv1d` at the serving bucket), counted by torch.profiler:
+    with the statistics as torch ops (`group_norm_affine_plain`, the path
+    before the statistics kernel) and through the statistics kernel."""
+    from unittest import mock
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    calls = []
+    for _, t, c, co, film in resnet_cases(unet):
+        x = torch.randn(B, t, c, generator=g, device=dev).bfloat16()
+        w = (torch.randn(co, c, 3, generator=g, device=dev)
+             / (3 * c) ** 0.5).bfloat16()
+        p = [torch.randn(n, generator=g, device=dev).bfloat16()
+             for n in (c, c, co)]
+        f = (torch.randn(B, 2 * c, generator=g, device=dev).bfloat16()
+             .chunk(2, dim=-1) if film else (None, None))
+        calls.append((x, p[0], p[1], w, p[2], 8, 1e-5, *f))
+
+    def count():
+        for args in calls:      # warm: the packed weights and their maps
+            fr.gn_silu_conv1d(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for args in calls:
+                fr.gn_silu_conv1d(*args)
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    with mock.patch.object(fr, "group_norm_affine", fr.group_norm_affine_plain):
+        before = count()
+    after = count()
+    say(f"kernels per B={B} bf16 UNet step for its {len(calls)} resnet "
+        f"epilogues: {before} with the GroupNorm statistics as torch ops "
+        f"-> {after} with the statistics kernel ({before / len(calls):.1f} "
+        f"-> {after / len(calls):.1f} per K2 call)")
+    return {"torch_ops_statistics": before, "statistics_kernel": after}
 
 
 def check_serving(cfg, sd, vsd, dev):
@@ -892,7 +1023,8 @@ def check_serving(cfg, sd, vsd, dev):
     # (D = 100 and 4) stage their tiles with element loads
     want = {"flash_attention_f32tc": 0, "flash_attention_tc": 14 + STEPS * 32,
             "flash_attention_tc_narrow": 2, "affine_silu_conv1d_f32tc": 0,
-            "affine_silu_conv1d_tc": STEPS * 45}
+            "affine_silu_conv1d_tc": STEPS * 45,
+            "affine_silu_conv1d_tc_elem": 0, "group_norm_affine": STEPS * 45}
     if n_levels != 4 or counts != want:
         fail(f"launch counts {counts}, expected {want}")
     audio_s = B * n_samples / cfg.data.sampling_rate
@@ -928,14 +1060,21 @@ def check_serving(cfg, sd, vsd, dev):
     want = {"flash_attention_f32tc": 14 + STEPS * 32,
             "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
             "affine_silu_conv1d_f32tc": STEPS * 45,
-            "affine_silu_conv1d_tc": 0}
+            "affine_silu_conv1d_tc": 0, "affine_silu_conv1d_tc_elem": 0,
+            "group_norm_affine": STEPS * 45}
     if counts != want or len(outs) != B or any(
             o.shape != (n_samples,) or o.dtype != np.int16 for o in outs):
         fail(f"serving f32: launches {counts} (expected {want}), or wrong "
              f"count, shape or dtype")
-    # each route's launches in the serving call of its dtype
+    # each route's launches in the serving call of its dtype (the
+    # statistics kernel's in the bf16 call, the main path's)
     served = {r: (counts if r.endswith("f32tc") else bf16_counts)[r]
               for r in counts}
+    served["group_norm_affine_f32"] = counts["group_norm_affine"]
+    say(f"serving: kernels per K2 call (statistics + conv): "
+        f"{(bf16_counts['group_norm_affine'] + bf16_counts['affine_silu_conv1d_tc']) / (STEPS * 45):g} "
+        f"in bf16, {(counts['group_norm_affine'] + counts['affine_silu_conv1d_f32tc']) / (STEPS * 45):g} "
+        f"in f32")
     say(f"serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} f32 (Svc's "
         f"default dtype) pcm16: warm-up {warm32:.1f} ms, call "
         f"{walls['batch_f32']:.1f} ms = "
@@ -1283,7 +1422,9 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                 "flash_attention_tc": calls["batches"] * (14 + 32 * CLI_STEPS),
                 "flash_attention_tc_narrow": 2 * calls["batches"],
                 "affine_silu_conv1d_f32tc": 0,
-                "affine_silu_conv1d_tc": calls["batches"] * 45 * CLI_STEPS}
+                "affine_silu_conv1d_tc": calls["batches"] * 45 * CLI_STEPS,
+                "affine_silu_conv1d_tc_elem": 0,
+                "group_norm_affine": calls["batches"] * 45 * CLI_STEPS}
         if counts != want or calls["contentvec"] < 3:
             fail(f"CLI launch counts {counts} for {calls}, expected {want}")
         recorded = (sum(path_calls.k1.values()), sum(path_calls.k2.values()))
@@ -1317,12 +1458,15 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                 mock.patch.object(attention, "flash_attention",
                                   flash_attention_plain),
                 mock.patch.object(fused_resnet, "affine_silu_conv1d",
-                                  affine_silu_conv1d_plain)])
+                                  affine_silu_conv1d_plain),
+                mock.patch.object(fused_resnet, "group_norm_affine",
+                                  fused_resnet.group_norm_affine_plain)])
         f32_want = {"flash_attention_f32tc": counts["flash_attention_f32tc"]
                     + counts["flash_attention_tc"],
                     "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
                     "affine_silu_conv1d_f32tc": counts["affine_silu_conv1d_tc"],
-                    "affine_silu_conv1d_tc": 0}
+                    "affine_silu_conv1d_tc": 0, "affine_silu_conv1d_tc_elem": 0,
+                    "group_norm_affine": counts["group_norm_affine"]}
         if k_counts != f32_want or max(p_counts.values()) != 0:
             fail(f"CLI f32: launches {k_counts} through the kernels "
                  f"(expected {f32_want}), {p_counts} through the plain "
@@ -1370,6 +1514,14 @@ def k1_backward_bound(q, k, bias):
                  nbytes + (0 if bias is None else 4 * b * tk), q.dtype)
 
 
+def gn_backward_bound(bsz, t, c, dtype):
+    """The statistics' backward: x read and its gradient written once (the
+    parameters' are (C,) and (B, C)); ~8 f32 operations per element."""
+    es = 2 if str(dtype) == "torch.bfloat16" else 4
+    f, m = 8.0 * bsz * t * c / PEAK_F32_CORES, 2 * es * bsz * t * c / PEAK_BYTES
+    return max(f, m) * 1e3, ("operations" if f >= m else "bytes")
+
+
 def k2_backward_bound(bsz, t, c, co, dtype):
     """dx and dw of the k=3 conv (2 x 6 B T C Co); x, dy, w read, dx, dw,
     da, db, dbias written."""
@@ -1381,13 +1533,16 @@ def k2_backward_bound(bsz, t, c, co, dtype):
 
 def backward_calls() -> dict:
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention
-    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d, group_norm_affine,
+    )
 
     k1, k2 = flash_attention.backward_calls, affine_silu_conv1d.backward_calls
     return {"flash_attention_f32tc": k1["f32tc"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
             "affine_silu_conv1d_f32tc": k2["f32tc"],
-            "affine_silu_conv1d_tc": k2["tc"]}
+            "affine_silu_conv1d_tc": k2["tc"],
+            "group_norm_affine": group_norm_affine.backward_calls}
 
 
 def median_step_ms(trainer, batches, warmup, timed, **kw):
@@ -1493,6 +1648,7 @@ def check_train_geometries(calls, dev):
     )
     from ns2vc_tpu_torch.ops.fused_resnet import (
         affine_silu_conv1d_backward, gn_silu_conv1d, group_norm_affine,
+        group_norm_affine_plain,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
@@ -1560,7 +1716,9 @@ def check_train_geometries(calls, dev):
             return [a.grad for a in args]
         got = run()
         with mock.patch.object(fr, "affine_silu_conv1d",
-                               fr.affine_silu_conv1d_plain):
+                               fr.affine_silu_conv1d_plain), \
+                mock.patch.object(fr, "group_norm_affine",
+                                  group_norm_affine_plain):
             want = run()
         err = max((a.float() - b_.float()).abs().max().item()
                   / max(1.0, b_.float().abs().max().item())
@@ -1582,15 +1740,39 @@ def check_train_geometries(calls, dev):
         add(route, "bwd_bound", bb, n)
         out[route]["bwd_by_" + by] += n * bb
         out[route]["calls"] += n
+        # the statistics kernel: its backward recomputes the plain version
+        # under autograd (a, b's gradients of the K2 call)
+        st, st_route = r["stats"], gn_route(dtype)
+        worst[st_route] = max(worst[st_route], st["err"])
+        for key, value in (("fwd_ms", st["ms"]), ("plain_ms", st["plain"]),
+                           ("lib_ms", st["lib"]), ("bound", st["bound"])):
+            add(st_route, key, value, n)
+        leaves = [v.detach().requires_grad_() for v in (x, gamma, beta,
+                                                        *film)]
+        da, db = torch.randn_like(a), torch.randn_like(b)
+
+        def stats_backward():
+            return torch.autograd.grad(group_norm_affine_plain(
+                *leaves[:3], 8, 1e-5, *leaves[3:]), leaves, (da, db))
+        add(st_route, "bwd_ms", graph_ms(stats_backward), n)
+        bb, by = gn_backward_bound(bsz, t, c, dtype)
+        add(st_route, "bwd_bound", bb, n)
+        out[st_route]["bwd_by_" + by] += n * bb
+        out[st_route]["calls"] += n
     for route, d in out.items():
         d["err"] = worst[route]
         by = {k[7:]: v for k, v in d.items() if k.startswith("bwd_by_")}
         d["bwd_by"] = max(by, key=by.get)
+        stats = route.startswith("group_norm")
         say(f"{route} at the training step's {int(d['calls'])} calls (B="
-            f"{TRAIN_B}, bf16): backward vs plain autograd worst "
-            f"{d['err']:.3e} of max(1, max|grad|); device ms per step: "
+            f"{TRAIN_B}, bf16): "
+            + ("forward vs plain worst " if stats else
+               "backward vs plain autograd worst ")
+            + f"{d['err']:.3e}" + ("" if stats else " of max(1, max|grad|)")
+            + f"; device ms per step: "
             f"forward {d['fwd_ms']:.4f} (plain {d['plain_ms']:.4f}"
-            + (f", SDPA {d['lib_ms']:.4f}" if d.get("lib_ms") else "")
+            + (f", {'var_mean' if stats else 'SDPA'} {d['lib_ms']:.4f}"
+               if d.get("lib_ms") else "")
             + (f", conv alone {d['conv_ms']:.4f}" if d.get("conv_ms") else "")
             + f", bound {d['bound']:.5f}), torch backward {d['bwd_ms']:.4f} "
             f"(bound {d['bwd_bound']:.5f}, {d['bwd_by']}) [{CARD}]")
@@ -1735,6 +1917,9 @@ def check_grads(cfg, sd, batch, dev, states=(), provenance=None):
                 stack.enter_context(mock.patch.object(
                     fused_resnet, "affine_silu_conv1d",
                     affine_silu_conv1d_plain))
+                stack.enter_context(mock.patch.object(
+                    fused_resnet, "group_norm_affine",
+                    fused_resnet.group_norm_affine_plain))
             return grads(dev, torch.bfloat16, rows, t, noise, state)[1]
 
     l_bf16, g_bf16 = grads(dev, torch.bfloat16)
@@ -2082,9 +2267,11 @@ def check_training(vsd, cv_sd, dev, tmp):
         fail(f"training step packed K2 weights {len(packs)} times, not 45")
     want = {"flash_attention_f32tc": 0, "flash_attention_tc": 46 + 32,
             "flash_attention_tc_narrow": 2, "affine_silu_conv1d_f32tc": 0,
-            "affine_silu_conv1d_tc": 45 + 44}
+            "affine_silu_conv1d_tc": 45 + 44, "affine_silu_conv1d_tc_elem": 0,
+            "group_norm_affine": 45 + 44}
     want_bwd = {"flash_attention_f32tc": 0, "flash_attention_tc": 46,
-                "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_tc": 45}
+                "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_tc": 45,
+                "group_norm_affine": 45}
     if launches != want or bwd != want_bwd:
         fail(f"training step launches {launches} (expected {want}), "
              f"backward calls {bwd} (expected {want_bwd})")
@@ -2282,8 +2469,9 @@ def training_profile(trainer, batch, step_ms, title=""):
     groups = (("K1 forward (flash_fwd*)", ("flash_fwd",)),
               ("K2 forward (affine_silu_conv_k3*, split reduce)",
                ("affine_silu_conv", "split_k_reduce")),
-              ("GroupNorm/var_mean statistics (Welford reduce)",
-               ("welford", "Welford")),
+              ("GroupNorm statistics (group_norm_affine_kernel; the "
+               "backward's var_mean, Welford reduce)",
+               ("group_norm_affine", "welford", "Welford")),
               ("cuDNN convolutions", ("cudnn", "conv", "dgrad", "wgrad",
                                       "fprop", "implicit")),
               ("cuBLAS / CUTLASS GEMMs", ("gemm", "nvjet", "cutlass",
@@ -2627,7 +2815,9 @@ def _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd):
             "flash_attention_tc": calls["batches"] * (14 + 32 * F0_CLI_STEPS),
             "flash_attention_tc_narrow": 2 * calls["batches"],
             "affine_silu_conv1d_f32tc": 0,
-            "affine_silu_conv1d_tc": calls["batches"] * 45 * F0_CLI_STEPS}
+            "affine_silu_conv1d_tc": calls["batches"] * 45 * F0_CLI_STEPS,
+            "affine_silu_conv1d_tc_elem": 0,
+            "group_norm_affine": calls["batches"] * 45 * F0_CLI_STEPS}
     if out_sr != cfg_f.data.sampling_rate or not np.isfinite(wav).all() or \
             abs(len(wav) - want_len) > cfg_f.data.hop_length or counts != want:
         fail(f"f0 CLI -a: {len(wav)} samples at {out_sr} Hz (expected "
@@ -2978,7 +3168,8 @@ def check_cfg_sample(cfg, sd, dev):
     # per UNet call: 32 attentions + the pooled add_embedding (D = 4)
     want = {"flash_attention_f32tc": 0, "flash_attention_tc": steps * 33,
             "flash_attention_tc_narrow": steps, "affine_silu_conv1d_f32tc": 0,
-            "affine_silu_conv1d_tc": steps * 45}
+            "affine_silu_conv1d_tc": steps * 45, "affine_silu_conv1d_tc_elem": 0,
+            "group_norm_affine": steps * 45}
     if not torch.isfinite(mel.float()).all() or counts != want:
         fail(f"CFG sample: finite {torch.isfinite(mel.float()).all()}, "
              f"launches {counts} (expected {want})")
@@ -4244,15 +4435,16 @@ def main() -> int:
         check_front_end(dev, cv_sd, crepe_sd)
     # last: the profiler slows the launches of whatever runs after it
     with phase("profiles"):
-        device_breakdown(lambda: svc.infer_batch(
+        bf16_serving = serving_profile(lambda: svc.infer_batch(
             clips, refer, sampling_timesteps=STEPS, order=2,
             output="pcm16"), walls["batch"], f"serving B={B}")
-        device_breakdown(lambda: svc.infer_from_features(
+        single = serving_profile(lambda: svc.infer_from_features(
             clips[0], refer, sampling_timesteps=STEPS, order=2),
             walls["single"], "single request B=1")
-        f32_serving = f32_serving_profile(lambda: svc32.infer_batch(
+        f32_serving = serving_profile(lambda: svc32.infer_batch(
             clips, refer, sampling_timesteps=STEPS, order=2,
-            output="pcm16"), walls["batch_f32"])
+            output="pcm16"), walls["batch_f32"], f"serving B={B} f32")
+        step_kernels = k2_step_kernels(unet, dev)
         train["profile"] = training_profile(trainer, train_batches[0],
                                             train["step_ms"])
         f0["training"]["profile"] = training_profile(
@@ -4277,8 +4469,8 @@ def main() -> int:
         geo = train["geometries"].get(route, {})
         t_launch, t_bwd = train["launches"][route], train["backward"][route]
         pre = train["preprocess_launches"][route]
-        if (t_launch if route.endswith("_tc") else
-                pre if route == "flash_attention_f32tc" else 1) == 0:
+        if (t_launch if route.endswith("_tc") or route == "group_norm_affine"
+                else pre if route == "flash_attention_f32tc" else 1) == 0:
             fail(f"{route}: {t_launch} launches per training step, {pre} in "
                  f"the preprocess run")
         # this slice's paths: the F0 predictor's serving call
@@ -4313,6 +4505,22 @@ def main() -> int:
         if route.endswith("f32tc"):
             slice6["f32_serving_profiled_ms"] = f32_serving[
                 "k1_ms" if route.startswith("flash") else "k2_ms"]
+        # this slice's: the profiled serving calls, and the statistics
+        # kernel's f32 serving (Svc's default dtype) beside its bf16
+        profiled = {"flash": "k1_ms", "affine": "k2_ms", "group": "gn_ms"}[
+            route.split("_")[0]]
+        if not route.endswith("f32tc"):
+            slice6["serving_profiled_ms"] = bf16_serving[profiled]
+            slice6["single_profiled_ms"] = single[profiled]
+        if route == "group_norm_affine":
+            ss32 = k2_step.sums.get("group_norm_affine_f32", {})
+            slice6.update({
+                "f32_serving_launches": served["group_norm_affine_f32"],
+                "f32_serving_profiled_ms": f32_serving["gn_ms"],
+                **{f"f32_serving_step_{name}": ss32.get(key) for key, name in (
+                    ("ms", "ms"), ("plain", "plain_ms"),
+                    ("bound", "bound_ms"), ("lib", "library_ms"))},
+                "kernels_per_unet_step_k2": step_kernels})
         kernels.append({
             "name": route, "route": "cuda",
             "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,

@@ -32,6 +32,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# dlopen: hopper.cuh reaches libcuda's tensor-map encoder through it
+LINK_FLAGS = ("-ldl",)
 
 # the dtypes the kernels take: f32 (the 3xTF32 kernels) and bf16
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -46,10 +48,12 @@ _SIGNATURES = {
     "ns2vc_flash_attention_f32tc_fwd":
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 3
         + [_P] * 3,
-} | {
-    name: [_P] * 7 + [_I] * 9 + [_P]
-    for name in ("ns2vc_affine_silu_conv1d_f32tc",
-                 "ns2vc_affine_silu_conv1d_tc")
+    "ns2vc_affine_silu_conv1d_f32tc": [_P] * 7 + [_I] * 9 + [_P],
+    "ns2vc_affine_silu_conv1d_tc": [_P] * 6 + [_I] * 8 + [_P],
+    "ns2vc_encode_weight_map": [_P, _I, _I, _P],
+    "ns2vc_group_norm_affine":
+        [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [ctypes.c_float] + [_I] * 4
+        + [_P],
 }
 
 
@@ -82,7 +86,7 @@ def _nvcc() -> str:
 def build() -> BuildInfo:
     """Compile the kernels if this source hash has no library yet."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -107,7 +111,8 @@ def build() -> BuildInfo:
             failed = (proc.returncode, cmd)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if failed is None:
-        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs],
+               *LINK_FLAGS]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log += proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -141,6 +146,13 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
+    """Raise for a kernel entry point's nonzero return: a CUDA error, or
+    (negative) a tensor map that libcuda's encoder refused."""
+    if err < 0:
+        why = ("cuTensorMapEncodeTiled not found in libcuda.so.1"
+               if err == -1 else f"cuTensorMapEncodeTiled returned CUresult "
+               f"{-err - 1000}")
+        raise RuntimeError(f"{what}: {why}")
     if err != 0:
         msg = library().ns2vc_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -7,26 +7,35 @@ channel) affine, so the epilogue is
 
     y = conv1d_k3_SAME(silu(x * a + b), w) + bias,   a, b of shape (B, C).
 
-`gn_silu_conv1d` computes the statistics and the fold as plain f32 tensor
-reductions (as the JAX wrapper leaves them to XLA) and keeps a and b in f32
-(the JAX wrapper rounds them to x's dtype). `affine_silu_conv1d` routes by
+`group_norm_affine` computes the statistics and the fold in one kernel on a
+card (`csrc/group_norm_affine.cu`, for x in bf16 and in f32; the JAX wrapper
+leaves them to XLA) and keeps a and b in f32 (the JAX wrapper rounds them
+to x's dtype); a CPU tensor takes `group_norm_affine_plain`, the same
+arithmetic in torch ops. `affine_silu_conv1d` routes by
 `resnet_route(device, dtype)` and on nothing else:
 
     cpu        -> `affine_silu_conv1d_plain`
-    cuda, bf16 -> "tc": `csrc/gn_silu_conv1d_tc.cu`, an implicit GEMM on the
-                  tensor cores (mma.sync bf16 -> f32)
-    cuda, f32  -> "f32tc": `csrc/gn_silu_conv1d.cu`, the same implicit GEMM
-                  on TF32 tensor cores in three passes (3xTF32: each
-                  operand's TF32 big and small halves), at f32 accuracy
+    cuda, bf16 -> "tc": `csrc/gn_silu_conv1d_tc.cu`, an implicit GEMM on
+                  wgmma (bf16 -> f32) over TMA-fed weights in 64 x 128
+                  output tiles, split over the input channels by
+                  `plan_wgmma` into a cluster when the tiles alone would
+                  not fill the card; x through a TMA map, or ("tc_elem")
+                  by element loads when C % 8 != 0 or x, a, b are not
+                  16-byte aligned
+    cuda, f32  -> "f32tc": `csrc/gn_silu_conv1d.cu`, an implicit GEMM on
+                  TF32 tensor cores in three passes (3xTF32: each
+                  operand's TF32 big and small halves), at f32 accuracy,
+                  split by `plan_tc` with an f32 workspace
 
 Both run over weights packed once per weight tensor by `pack_conv_weight`
-(kept while the tensor lives, keyed by its storage and version; f32
-weights packed as their big and small TF32 planes), split over the input
-channels by `plan_tc` when the output tiles alone would not fill the card.
-A CUDA tensor launches one of the kernels or raises. `affine_silu_conv1d.
-launches` counts every launch, `affine_silu_conv1d.route_launches` each
-route's. The CUDA source notes say what bounds each kernel on the H100 and
-how its design answers that.
+(kept while the tensor lives, keyed by its storage and version, with the
+bf16 kernel's TMA map of them; f32 weights packed as their big and small
+TF32 planes). A CUDA tensor launches one of the kernels or raises.
+`affine_silu_conv1d.launches` counts every launch,
+`affine_silu_conv1d.route_launches` each route's ("tc_elem" apart from
+"tc"), `group_norm_affine.launches` the statistics kernel's. The CUDA
+source notes say what bounds each kernel on the H100 and how its design
+answers that.
 
 Training: when grad is enabled and an input requires it, a CUDA call goes
 through an autograd Function whose forward is the same launch and whose
@@ -35,12 +44,16 @@ backward is `affine_silu_conv1d_backward`, written out in f32 torch ops
 one `convolution_backward`). Each backward adds one to
 `affine_silu_conv1d.backward_calls[route]`. The packed weights are
 made from `w.detach()`: w's gradient comes from the backward, never
-through the packed copy. `group_norm_affine` is torch ops, so autograd
-carries the GroupNorm and FiLM gradients through a and b.
+through the packed copy. `group_norm_affine` goes through its own Function
+whose forward is the statistics kernel and whose backward re-runs
+`group_norm_affine_plain` under autograd (`group_norm_affine.
+backward_calls`), so the GroupNorm and FiLM gradients are the plain
+version's.
 """
 
 from __future__ import annotations
 
+import ctypes
 import weakref
 
 import torch
@@ -48,11 +61,12 @@ import torch.nn.functional as F
 
 from ns2vc_tpu_torch.ops import _build
 
-# the kernels' tile: frames, output channels, input channels per chunk
-# (csrc/gn_silu_conv1d_tc.cu kBM, kBN, kBK; gn_silu_conv1d.cu takes chunks
-# of F32_BK)
-TC_BM, TC_BN, TC_BK = 64, 64, 32
-F32_BK = 16
+# the kernels' tiles: frames, output channels, input channels per chunk
+# (csrc/gn_silu_conv1d_tc.cu kBM, kBN, kBK; csrc/gn_silu_conv1d.cu's)
+TC_BM, TC_BN, TC_BK = 64, 128, 64
+F32_BM, F32_BN, F32_BK = 64, 64, 16
+TC_MAX_SPLITS = 8         # the bf16 kernel's splits form one portable cluster
+GN_MAX_SPLITS = 8         # the statistics kernel's blocks per slab, likewise
 
 
 def resnet_route(device: torch.device | str, dtype: torch.dtype) -> str:
@@ -72,14 +86,19 @@ def chunk_width(dtype: torch.dtype) -> int:
     return TC_BK if dtype == torch.bfloat16 else F32_BK
 
 
+def tile_width(dtype: torch.dtype) -> int:
+    """Output channels per tile of the kernel that takes `dtype`."""
+    return TC_BN if dtype == torch.bfloat16 else F32_BN
+
+
 def plan_tc(bsz: int, t: int, c: int, co: int,
-            bk: int = TC_BK) -> tuple[int, int]:
-    """(splits, chunks per split) of a kernel's channel loop over its
+            bk: int = F32_BK) -> tuple[int, int]:
+    """(splits, chunks per split) of the f32 kernel's channel loop over its
     `bk`-channel chunks: the fewest splits whose (T, Co, B) output tiles
     times splits reach one block per SM of the H100 (one split when the
     tiles alone do), or one chunk per split where even that falls short.
     The chunks are dealt evenly and no split is left empty."""
-    tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
+    tiles = -(-t // F32_BM) * -(-co // F32_BN) * bsz
     n_chunks = -(-c // bk)
     for want in range(1, n_chunks + 1):
         cps = -(-n_chunks // want)
@@ -87,6 +106,39 @@ def plan_tc(bsz: int, t: int, c: int, co: int,
         if tiles * splits >= _build.H100_SMS:
             return splits, cps
     return n_chunks, 1
+
+
+def plan_wgmma(bsz: int, t: int, c: int, co: int) -> tuple[int, int]:
+    """(splits, chunks per split) of the bf16 kernel's channel loop over
+    its 64-channel chunks. The kernel holds one block per SM, so the
+    splits of a tile stay within one wave, and its two consumer
+    warpgroups take alternate chunks, so a split gets two or more: the
+    most splits, at most TC_MAX_SPLITS (one cluster) and at most half the
+    chunks, whose (T, Co, B) output tiles times splits fit on the H100's
+    SMs; one split when the tiles alone fill them. The chunks are dealt
+    evenly and no split is left empty."""
+    tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
+    n_chunks = -(-c // TC_BK)
+    want = max(1, min(TC_MAX_SPLITS, n_chunks // 2,
+                      _build.H100_SMS // tiles))
+    cps = -(-n_chunks // want)
+    return -(-n_chunks // cps), cps
+
+
+GN_THREADS, GN_LOADS = 512, 8   # the statistics kernel's block, loads in
+                                # flight per thread
+
+
+def gn_splits(t: int, c: int, groups: int, vec_width: int) -> int:
+    """Blocks per (batch, group) slab of the statistics kernel, one
+    cluster over equal runs of frames: as many as the slab's T * C / groups
+    values need for each block to read its share in one round of loads
+    (GN_LOADS vectors of `vec_width` values per thread), at most
+    GN_MAX_SPLITS and at most T. The kernel's time is the latency of its
+    rounds of loads, not the card's bandwidth."""
+    per_round = GN_THREADS * GN_LOADS * vec_width
+    want = -(-t * (c // groups) // per_round)
+    return max(1, min(GN_MAX_SPLITS, t, want))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -98,13 +150,15 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
     """torch Conv1d weight (Co, C, 3) -> the kernels' packed layout,
     contiguous along C, zero past (Co, C), Co_pad and C_pad rounded up to
-    TC_BN and the chunk width: tap k's (Co, C) matrix multiplies the frames
-    shifted by k - 1. bf16: (3, Co_pad, C_pad). f32: (2, 3, Co_pad, C_pad),
-    the big and small TF32 halves of 3xTF32 (big = w rounded to TF32, small
-    = the exact remainder rounded again), so the kernel splits no weight."""
+    the tile and chunk widths of the kernel of w's dtype: tap k's (Co, C)
+    matrix multiplies the frames shifted by k - 1. bf16: (3, Co_pad,
+    C_pad), Co_pad a multiple of 128 and C_pad of 64 (rows of 128 bytes for
+    TMA). f32: (2, 3, Co_pad, C_pad) in 64 x 16, the big and small TF32
+    halves of 3xTF32 (big = w rounded to TF32, small = the exact remainder
+    rounded again), so the kernel splits no weight."""
     co, c, _ = w.shape
-    bk = chunk_width(w.dtype)
-    shape = (3, -(-co // TC_BN) * TC_BN, -(-c // bk) * bk)
+    bk, bn = chunk_width(w.dtype), tile_width(w.dtype)
+    shape = (3, -(-co // bn) * bn, -(-c // bk) * bk)
     taps = w.detach().permute(2, 0, 1)
     if w.dtype == torch.bfloat16:
         packed = torch.zeros(shape, dtype=torch.bfloat16, device=w.device)
@@ -117,20 +171,48 @@ def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-_PACKED: dict[int, tuple] = {}   # id(w) -> (key, packed), while w lives
+class _Packed:
+    """One weight tensor's packing: its key, the packed tensor, and the
+    bf16 kernel's TMA map of it (128 bytes, encoded at first launch)."""
+
+    __slots__ = ("key", "tensor", "tmap")
+
+    def __init__(self, key, tensor):
+        self.key, self.tensor, self.tmap = key, tensor, None
+
+
+_PACKED: dict[int, _Packed] = {}   # id(w) -> its packing, while w lives
+
+
+def _packing(w: torch.Tensor) -> _Packed:
+    key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape))
+    hit = _PACKED.get(id(w))
+    if hit is None or hit.key != key:
+        if hit is None:
+            weakref.finalize(w, _PACKED.pop, id(w), None)
+        hit = _PACKED[id(w)] = _Packed(key, pack_conv_weight(w))
+    return hit
 
 
 def packed_weight(w: torch.Tensor) -> torch.Tensor:
     """`pack_conv_weight(w)`, computed once per weight tensor and kept while
     the tensor lives; recomputed when its storage or version (an in-place
     update) changes."""
-    key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape))
-    hit = _PACKED.get(id(w))
-    if hit is None or hit[0] != key:
-        if hit is None:
-            weakref.finalize(w, _PACKED.pop, id(w), None)
-        hit = _PACKED[id(w)] = (key, pack_conv_weight(w))
-    return hit[1]
+    return _packing(w).tensor
+
+
+def weight_map(w: torch.Tensor, lib) -> ctypes.Array:
+    """The bf16 kernel's TMA map of `packed_weight(w)`, encoded once per
+    packing (it holds the packed tensor's address)."""
+    hit = _packing(w)
+    if hit.tmap is None:
+        p = hit.tensor
+        tmap = ctypes.create_string_buffer(128)
+        _build.check(lib.ns2vc_encode_weight_map(
+            p.data_ptr(), p.shape[0] * p.shape[1], p.shape[2],
+            ctypes.addressof(tmap)), "affine_silu_conv1d weight map")
+        hit.tmap = tmap
+    return hit.tmap
 
 
 def affine_silu_conv1d_plain(x: torch.Tensor, a: torch.Tensor,
@@ -223,41 +305,62 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError("affine_silu_conv1d: inputs must be contiguous")
     if any(v.device != x.device for v in (a, b, w, bias)):
         raise ValueError("affine_silu_conv1d: inputs on different devices")
-    if min(bsz, t, c, co) < 1 or bsz > 65535:
+    splits, cps = (plan_wgmma(bsz, t, c, co) if route == "tc"
+                   else plan_tc(bsz, t, c, co, F32_BK))
+    if min(bsz, t, c, co) < 1 or bsz * splits > 65535:
         raise ValueError(f"affine_silu_conv1d: unsupported shape "
                          f"{tuple(x.shape)} -> {co}")
     _build.require_current_device(x)
     lib = _build.library()
     y = torch.empty((bsz, t, co), dtype=x.dtype, device=x.device)
-    affine_silu_conv1d.launches += 1
-    affine_silu_conv1d.route_launches[route] += 1
     wp = packed_weight(w)
-    splits, cps = plan_tc(bsz, t, c, co, chunk_width(x.dtype))
+    vec = all(_build.aligned16(v) for v in (x, a, b))
+    stream = _build.stream_of(x)
+    if route == "tc":
+        tmap = weight_map(w, lib)
+        sub = "tc" if vec else "tc_elem"
+        affine_silu_conv1d.launches += 1
+        affine_silu_conv1d.route_launches[sub] += 1
+        err = lib.ns2vc_affine_silu_conv1d_tc(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), ctypes.addressof(tmap),
+            bias.data_ptr(), y.data_ptr(), bsz, t, c, co, wp.shape[-2], cps,
+            splits, int(vec), stream)
+        _build.check(err, f"affine_silu_conv1d ({sub})")
+        return y, route
     ws = None if splits == 1 else torch.empty(     # bsz * splits < 132 * 132
         (splits, bsz, t, co), dtype=torch.float32, device=x.device)
-    vec = all(_build.aligned16(v) for v in (x, a, b))
-    fn = (lib.ns2vc_affine_silu_conv1d_tc if route == "tc"
-          else lib.ns2vc_affine_silu_conv1d_f32tc)
-    err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), wp.data_ptr(),
-             bias.data_ptr(), y.data_ptr(),
-             None if ws is None else ws.data_ptr(), bsz, t, c, co,
-             wp.shape[-1], wp.shape[-2], cps, splits, int(vec),
-             _build.stream_of(x))
+    affine_silu_conv1d.launches += 1
+    affine_silu_conv1d.route_launches[route] += 1
+    err = lib.ns2vc_affine_silu_conv1d_f32tc(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), wp.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),
+        bsz, t, c, co, wp.shape[-1], wp.shape[-2], cps, splits, int(vec),
+        stream)
     _build.check(err, f"affine_silu_conv1d ({route})")
     return y, route
 
 
 affine_silu_conv1d.launches = 0
-affine_silu_conv1d.route_launches = {"f32tc": 0, "tc": 0}
+affine_silu_conv1d.route_launches = {"f32tc": 0, "tc": 0, "tc_elem": 0}
 affine_silu_conv1d.backward_calls = {"f32tc": 0, "tc": 0}
 
 
 def reset_launches() -> None:
     affine_silu_conv1d.launches = 0
+    _gn_counts.launches = _gn_counts.backward_calls = 0
     for counts in (affine_silu_conv1d.route_launches,
                    affine_silu_conv1d.backward_calls):
         for key in counts:
             counts[key] = 0
+
+
+def gn_route(device: torch.device | str) -> str:
+    """'plain' (CPU) or 'cuda' (the statistics kernel, bf16 or f32 x);
+    raises for a device that is neither."""
+    kind = torch.device(device).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"group_norm_affine: unsupported device {device}")
+    return "plain" if kind == "cpu" else "cuda"
 
 
 def group_norm_affine(x: torch.Tensor, gamma: torch.Tensor,
@@ -266,7 +369,115 @@ def group_norm_affine(x: torch.Tensor, gamma: torch.Tensor,
                       film_shift: torch.Tensor | None = None):
     """GroupNorm(groups, eps) statistics of x (B, T, C) folded with
     gamma/beta and an optional FiLM (h*(1+scale)+shift, scale/shift (B, C))
-    into the per-(batch, channel) f32 affine (a, b)."""
+    into the per-(batch, channel) f32 affine (a, b). On CUDA: x contiguous
+    f32 or bf16; differentiable in every input."""
+    if gn_route(x.device) == "plain":
+        return group_norm_affine_plain(x, gamma, beta, groups, eps,
+                                       film_scale, film_shift)
+    film = (film_scale, film_shift)
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad for v in (x, gamma, beta, *film)):
+        return _GroupNormAffineFn.apply(x, gamma, beta, *film, groups, eps)
+    return _gn_launch(x, gamma, beta, groups, eps, *film)
+
+
+class _GroupNormAffineFn(torch.autograd.Function):
+    """The statistics kernel under autograd; backward through the plain
+    version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, film_scale, film_shift, groups, eps):
+        ctx.save_for_backward(x, gamma, beta, film_scale, film_shift)
+        ctx.groups, ctx.eps = groups, eps
+        return _gn_launch(x, gamma, beta, groups, eps, film_scale,
+                          film_shift)
+
+    @staticmethod
+    def backward(ctx, da, db):
+        _gn_counts.backward_calls += 1
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [None if v is None else v.detach().requires_grad_(n)
+                      for v, n in zip(ctx.saved_tensors, need)]
+            a, b = group_norm_affine_plain(*leaves[:3], ctx.groups, ctx.eps,
+                                           *leaves[3:])
+            wrt = [v for v, n in zip(leaves, need) if n and v is not None]
+            grads = iter(torch.autograd.grad((a, b), wrt, (da, db),
+                                             allow_unused=True))
+        return (*(next(grads) if n and v is not None else None
+                  for v, n in zip(leaves, need)), None, None)
+
+
+def _gn_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int, eps: float, film_scale: torch.Tensor | None,
+               film_shift: torch.Tensor | None):
+    """Check the inputs and launch the statistics kernel: (a, b)."""
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"group_norm_affine: x must be contiguous (B, T, C),"
+                         f" got {tuple(x.shape)} strides {x.stride()}")
+    bsz, t, c = x.shape
+    if x.dtype not in _build.KERNEL_DTYPES:
+        raise ValueError(f"group_norm_affine: x dtype {x.dtype}; f32 or bf16")
+    if (film_scale is None) != (film_shift is None):
+        raise ValueError("group_norm_affine: FiLM needs scale and shift")
+    params = [gamma, beta]
+    if film_scale is not None:
+        params += [film_scale, film_shift]
+    if groups < 1 or c % groups or min(bsz, t) < 1 or bsz > 65535 \
+            or groups > 65535 or gamma.shape != (c,) or beta.shape != (c,) \
+            or any(f.shape != (bsz, c) for f in params[2:]):
+        raise ValueError(
+            f"group_norm_affine: shapes x {tuple(x.shape)} groups {groups} "
+            f"gamma {tuple(gamma.shape)} beta {tuple(beta.shape)} film "
+            f"{[tuple(f.shape) for f in params[2:]]}")
+    if any(v.device != x.device for v in params):
+        raise ValueError("group_norm_affine: inputs on different devices")
+    # gamma, beta and FiLM in one dtype the kernel reads, FiLM rows of
+    # unit stride one common stride apart (a chunk of one projection)
+    if len({v.dtype for v in params}) > 1 \
+            or params[0].dtype not in _build.KERNEL_DTYPES:
+        params = [v.float() for v in params]
+    params[:2] = [v.contiguous() for v in params[:2]]
+    if len(params) == 4 and (params[2].stride(1) != 1
+                             or params[3].stride() != params[2].stride()):
+        params[2:] = [v.contiguous() for v in params[2:]]
+    film_stride = params[2].stride(0) if len(params) == 4 else 0
+    _build.require_current_device(x)
+    lib = _build.library()
+    a = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
+    b = torch.empty_like(a)
+    per = 16 // x.element_size()
+    vec = (c // groups) % per == 0 and x.data_ptr() % 16 == 0
+    splits = gn_splits(t, c, groups, per if vec else 1)
+    _gn_counts.launches += 1
+    err = lib.ns2vc_group_norm_affine(
+        x.data_ptr(), params[0].data_ptr(), params[1].data_ptr(),
+        *((params[2].data_ptr(), params[3].data_ptr()) if len(params) == 4
+          else (None, None)),
+        film_stride, a.data_ptr(), b.data_ptr(), bsz, t, c, groups,
+        float(eps), splits,
+        int(x.dtype == torch.bfloat16),
+        int(params[0].dtype == torch.bfloat16), int(vec),
+        _build.stream_of(x))
+    _build.check(err, "group_norm_affine")
+    return a, b
+
+
+group_norm_affine.launches = 0
+group_norm_affine.backward_calls = 0
+# the counters' owner, also while a caller wraps the module's public name
+# (a profiler's range, a test's recorder)
+_gn_counts = group_norm_affine
+
+
+def group_norm_affine_plain(x: torch.Tensor, gamma: torch.Tensor,
+                            beta: torch.Tensor, groups: int, eps: float,
+                            film_scale: torch.Tensor | None = None,
+                            film_shift: torch.Tensor | None = None):
+    """The statistics kernel's plain version (torch ops, any device): the
+    JAX wrapper's fold of GroupNorm(groups, eps)'s f32 mean and centred
+    variance of x (B, T, C) with gamma/beta and an optional FiLM into the
+    f32 affine (a, b), both (B, C)."""
     bsz, t, c = x.shape
     xg = x.float().reshape(bsz, t, groups, c // groups)
     var, mean = torch.var_mean(xg, dim=(1, 3), correction=0)   # (B, G)

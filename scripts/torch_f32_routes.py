@@ -21,7 +21,7 @@ each as the device time of 10 calls captured as a CUDA graph
 the f32 CUDA cores' 67 TFLOP/s bound. Then one `Svc.infer_batch` f32 call
 (50 UniPC steps, PyTorch's default TF32 settings, as served) after a
 warm-up call: its wall time, and under torch.profiler its device time by
-kernel (`chip_smoke.f32_serving_profile`).
+kernel (`chip_smoke.serving_profile`).
 
 It prints one line per geometry and a JSON line {"f32_routes": ...} last
 (also written to --out). Needs a CUDA device.
@@ -112,7 +112,7 @@ def svc_call(cfg, sd, vsd, dev):
            f"warm-up {warm:.1f} ms, call {wall:.1f} ms; launches {launches} "
            f"[{cs.CARD}]")
     return {"warmup_ms": warm, "launches": launches,
-            **cs.f32_serving_profile(call, wall)}
+            **cs.serving_profile(call, wall, f"serving B={cs.B} f32")}
 
 
 def main() -> int:

@@ -39,7 +39,8 @@ from ns2vc_tpu_torch.ops.flash_attention import (
 )
 from ns2vc_tpu_torch.ops.fused_resnet import (
     affine_silu_conv1d, affine_silu_conv1d_plain, chunk_width, gn_silu_conv1d,
-    plan_tc,
+    group_norm_affine, group_norm_affine_plain, plan_tc, plan_wgmma,
+    tile_width,
 )
 
 pytestmark = pytest.mark.cuda
@@ -268,13 +269,15 @@ def test_affine_silu_conv1d_tc(dev, dtype, b, t, c, co):
     w = (torch.randn(co, c, 3, generator=g, device=dev)
          / (3 * c) ** 0.5).to(dtype)
     bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
-    route = "tc" if dtype == torch.bfloat16 else "f32tc"
+    route = "f32tc" if dtype == torch.float32 else \
+        "tc" if c % 8 == 0 else "tc_elem"
     n0 = affine_silu_conv1d.route_launches[route]
     got = affine_silu_conv1d(x, a, off, w, bias)
     assert affine_silu_conv1d.route_launches[route] == n0 + 1
     want = affine_silu_conv1d_plain(x, a, off, w, bias)
     torch.cuda.synchronize()
-    assert plan_tc(b, t, c, co, chunk_width(dtype))[0] >= 1
+    assert (plan_wgmma(b, t, c, co) if dtype == torch.bfloat16
+            else plan_tc(b, t, c, co, chunk_width(dtype)))[0] >= 1
     tol = 3e-5 if dtype == torch.float32 else \
         1e-2 * max(1.0, want.float().abs().max().item())
     assert got.dtype == dtype and got.shape == want.shape
@@ -298,7 +301,7 @@ def test_gn_silu_conv1d_at_the_model_axis_widths(dev, dtype, c, co):
     whole conv's (packed at its own width, Co padded to the tile), and
     plan_tc dealing every channel chunk to a split at the training
     geometry and at one B=16 serving step."""
-    from ns2vc_tpu_torch.ops.fused_resnet import TC_BN, packed_weight
+    from ns2vc_tpu_torch.ops.fused_resnet import packed_weight
     from ns2vc_tpu_torch.parallel.mesh import Placement, shard_tensor
 
     g = _gen(dev, 7)
@@ -312,7 +315,8 @@ def test_gn_silu_conv1d_at_the_model_axis_widths(dev, dtype, c, co):
         s = 0.2 * torch.randn(b, c, generator=g, device=dev)
         sh = 0.2 * torch.randn(b, c, generator=g, device=dev)
         bk = chunk_width(dtype)
-        splits, cps = plan_tc(b, t, c, co, bk)
+        splits, cps = (plan_wgmma(b, t, c, co) if dtype == torch.bfloat16
+                       else plan_tc(b, t, c, co, bk))
         n_chunks = -(-c // bk)
         assert splits * cps >= n_chunks > (splits - 1) * cps
         route = "f32tc" if dtype == torch.float32 else "tc"
@@ -326,7 +330,120 @@ def test_gn_silu_conv1d_at_the_model_axis_widths(dev, dtype, c, co):
             1e-2 * max(1.0, want.float().abs().max().item())
         assert got.dtype == dtype and got.shape == (b, t, co)
         assert (got.float().cpu() - want.float()).abs().max().item() <= tol
-    assert packed_weight(w).shape[-2] == -(-co // TC_BN) * TC_BN
+    bn = tile_width(dtype)
+    assert packed_weight(w).shape[-2] == -(-co // bn) * bn
+
+
+def _unet_resnet_cases():
+    """(name, T, C, Co, film) of one UNet step's 45 resnet epilogues at the
+    448-frame serving bucket (`chip_smoke.resnet_cases`)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from ns2vc_tpu_torch.config import Config
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+
+    with torch.device("meta"):
+        unet = NaturalSpeech2(Config()).diff_model.unet
+    return chip_smoke.resnet_cases(unet)
+
+
+@pytest.mark.parametrize("bsz", [16, 1])
+def test_wgmma_conv_at_the_serving_geometries(dev, bsz):
+    """The bf16 wgmma kernel at every epilogue of one UNet step (T 448 to
+    56, C 128 to 1024, Co 100 to 512), at B=16 (split in two at the
+    deepest level) and B=1 (clusters of up to 8 splits), with the affine
+    from the statistics kernel, against the plain version."""
+    g = _gen(dev, 11)
+    for name, t, c, co, film in _unet_resnet_cases():
+        x = torch.randn(bsz, t, c, generator=g, device=dev).bfloat16()
+        w = (torch.randn(co, c, 3, generator=g, device=dev)
+             / (3 * c) ** 0.5).bfloat16()
+        bias = (0.1 * torch.randn(co, generator=g, device=dev)).bfloat16()
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        beta = 0.1 * torch.randn(c, generator=g, device=dev)
+        s = sh = None
+        if film:
+            s, sh = (0.2 * torch.randn(bsz, 2 * c, generator=g, device=dev)
+                     ).bfloat16().chunk(2, dim=-1)
+        n0 = affine_silu_conv1d.route_launches["tc"]
+        got = gn_silu_conv1d(x, gamma, beta, w, bias, 8, 1e-5, s, sh)
+        assert affine_silu_conv1d.route_launches["tc"] == n0 + 1
+        a, b = group_norm_affine_plain(x, gamma, beta, 8, 1e-5, s, sh)
+        want = affine_silu_conv1d_plain(x, a, b, w, bias)
+        torch.cuda.synchronize()
+        tol = 1e-2 * max(1.0, want.float().abs().max().item())
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (name, plan_wgmma(bsz, t, c, co), err, tol)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,film", [
+    (16, 448, 128, True),     # serving, level 0
+    (16, 56, 1024, False),    # serving, the deepest skip concat
+    (1, 832, 384, True),      # the CLI's longest B=1 bucket
+    (32, 272, 256, True),     # training
+    (2, 37, 16, True),        # two channels a group: element loads
+    (3, 5, 64, False),        # fewer frames than a cluster's blocks
+])
+def test_group_norm_affine_matches_plain(dev, xdtype, pdtype, b, t, c, film):
+    """The statistics kernel against its plain version: 2e-5 of max(1,
+    |a|, |b|) (f32 sums in other orders), and two launches bitwise equal."""
+    g = _gen(dev, 12)
+    x = (0.3 + 2 * torch.randn(b, t, c, generator=g, device=dev)).to(xdtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(pdtype)
+    beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(pdtype)
+    s = sh = None
+    if film:    # FiLM rows as a chunk of one projection, as on the path
+        s, sh = (0.2 * torch.randn(b, 2 * c, generator=g, device=dev)
+                 ).to(pdtype).chunk(2, dim=-1)
+    n0 = group_norm_affine.launches
+    a, off = group_norm_affine(x, gamma, beta, 8, 1e-5, s, sh)
+    a2, off2 = group_norm_affine(x, gamma, beta, 8, 1e-5, s, sh)
+    assert group_norm_affine.launches == n0 + 2
+    pa, pb = group_norm_affine_plain(x, gamma, beta, 8, 1e-5, s, sh)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a2) and torch.equal(off, off2)
+    tol = 2e-5 * max(1.0, pa.abs().max().item(), pb.abs().max().item())
+    assert a.dtype == off.dtype == torch.float32
+    assert (a - pa).abs().max().item() <= tol
+    assert (off - pb).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_affine_function_on_the_card(dev, dtype):
+    """Under autograd the statistics kernel runs forward and its backward
+    is the plain version's, recomputed: gradients of x, gamma, beta and
+    FiLM are autograd's through the plain version (to the rounding of the
+    same ops in another launch)."""
+    g = _gen(dev, 13)
+    b, t, c = 4, 136, 128
+    x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    proj = (0.2 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
+    da, db = (torch.randn(b, c, generator=g, device=dev) for _ in range(2))
+
+    def grads(fn):
+        leaves = [v.detach().requires_grad_() for v in (x, gamma, beta, proj)]
+        out = fn(*leaves[:3], 8, 1e-5, *leaves[3].chunk(2, dim=-1))
+        torch.autograd.backward(out, (da, db))
+        return [v.grad for v in leaves]
+    n0, b0 = group_norm_affine.launches, group_norm_affine.backward_calls
+    got = grads(group_norm_affine)
+    assert group_norm_affine.launches == n0 + 1
+    assert group_norm_affine.backward_calls == b0 + 1
+    want = grads(group_norm_affine_plain)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2   # the grads' dtype
+    for name, gv, wv in zip(("x", "gamma", "beta", "film"), got, want):
+        assert gv.dtype == wv.dtype, name
+        assert (gv.float() - wv.float()).abs().max().item() <= \
+            rtol * max(1.0, wv.float().abs().max().item()), name
 
 
 def test_affine_silu_conv1d_refuses_what_it_cannot_take(dev):

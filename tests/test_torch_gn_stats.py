@@ -1,0 +1,218 @@
+"""The GroupNorm statistics and fold of K2's wrapper against the JAX
+package's, and the autograd Function around the statistics kernel.
+
+`group_norm_affine_plain` (the kernel's plain version, what a CPU tensor
+gets) is held against the fold of `ns2vc_tpu/ops/pallas_resnet.py::
+gn_silu_conv1d` (its a, b: f32 mean and centred variance over (T, C / G),
+rsqrt, gamma / beta, FiLM) on the same numpy inputs, with x in f32 and in
+bf16: 2e-5 of max(1, |a|, |b|) (both sides take the statistics in f32, in
+other summation orders). The whole epilogue goes through the Pallas kernel
+in interpret mode, as tests/test_pallas_resnet.py runs it: f32 at the JAX
+suite's tolerances; bf16 with the port's a, b rounded to bf16 as the JAX
+wrapper rounds them, at K2's bf16 tolerance (1e-2 of max(1, max|y|): one
+bf16 rounding of f32 sums taken in another order). The Function's backward
+recomputes the plain version under autograd, so on the CPU (the launch
+replaced by the plain version) its gradients equal autograd's through the
+plain version exactly.
+"""
+
+import contextlib
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ns2vc_tpu.ops import pallas_resnet
+import ns2vc_tpu_torch.ops.fused_resnet as fr
+from ns2vc_tpu_torch.ops.fused_resnet import (
+    affine_silu_conv1d_plain, gn_splits, group_norm_affine,
+    group_norm_affine_plain,
+)
+
+STATS_RTOL = 2e-5                        # of max(1, |a|, |b|)
+RESNET_ATOL, RESNET_RTOL = 3e-5, 1e-4    # test_pallas_resnet.py
+RESNET_BF16_RTOL = 1e-2                  # of max(1, max|y|)
+
+
+def _inputs(b, t, c, co, film, seed):
+    r = np.random.default_rng(seed)
+    x = (0.5 + 2.0 * r.standard_normal((b, t, c))).astype(np.float32)
+    gamma = (1 + 0.1 * r.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * r.standard_normal(c)).astype(np.float32)
+    w = (r.standard_normal((3, c, co)) / np.sqrt(3 * c)).astype(np.float32)
+    bias = (0.1 * r.standard_normal(co)).astype(np.float32)
+    s = sh = None
+    if film:
+        s = (0.2 * r.standard_normal((b, c))).astype(np.float32)
+        sh = (0.2 * r.standard_normal((b, c))).astype(np.float32)
+    return x, gamma, beta, w, bias, s, sh
+
+
+def _jax_fold(x, gamma, beta, groups, eps, s, sh):
+    """a, b as ns2vc_tpu/ops/pallas_resnet.py:121-132 fold them (before
+    their cast to x's dtype)."""
+    bsz, t, c = x.shape
+    xg = x.astype(jnp.float32).reshape(bsz, t, groups, c // groups)
+    mean = xg.mean(axis=(1, 3))
+    var = xg.var(axis=(1, 3))
+    rstd = jax.lax.rsqrt(var + eps)
+    a = jnp.repeat(rstd, c // groups, axis=1) * gamma[None, :]
+    b = beta[None, :] - jnp.repeat(mean, c // groups, axis=1) * a
+    if s is not None:
+        a = a * (1.0 + s)
+        b = b * (1.0 + s) + sh
+    return np.asarray(a), np.asarray(b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,c,film", [
+    (2, 50, 128, False),
+    (2, 24, 256, True),
+    (1, 13, 64, True),    # T not a multiple of 8, eight channels a group
+    (3, 7, 16, False),    # two channels a group
+])
+def test_statistics_match_the_jax_fold(dtype, b, t, c, film):
+    x, gamma, beta, _, _, s, sh = _inputs(b, t, c, 8, film, seed=t + c)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    want_a, want_b = _jax_fold(xj, jnp.asarray(gamma), jnp.asarray(beta), 8,
+                               1e-5, None if s is None else jnp.asarray(s),
+                               None if sh is None else jnp.asarray(sh))
+    got_a, got_b = group_norm_affine_plain(
+        xt, torch.from_numpy(gamma), torch.from_numpy(beta), 8, 1e-5,
+        None if s is None else torch.from_numpy(s),
+        None if sh is None else torch.from_numpy(sh))
+    assert got_a.dtype == got_b.dtype == torch.float32
+    scale = max(1.0, np.abs(want_a).max(), np.abs(want_b).max())
+    np.testing.assert_allclose(got_a.numpy(), want_a, rtol=0,
+                               atol=STATS_RTOL * scale)
+    np.testing.assert_allclose(got_b.numpy(), want_b, rtol=0,
+                               atol=STATS_RTOL * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("film", [False, True])
+def test_epilogue_with_the_statistics_matches_pallas(dtype, film):
+    b, t, c, co = 2, 24, 128, 128
+    x, gamma, beta, w, bias, s, sh = _inputs(b, t, c, co, film, seed=3)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0))).to(tdt)
+    bt = torch.from_numpy(bias).to(tdt)
+    want = pallas_resnet.gn_silu_conv1d(
+        jnp.asarray(xt.float().numpy()).astype(jdt), jnp.asarray(gamma),
+        jnp.asarray(beta),
+        jnp.asarray(wt.float().numpy().transpose(2, 1, 0)).astype(jdt),
+        jnp.asarray(bt.float().numpy()).astype(jdt),
+        film_scale=None if s is None else jnp.asarray(s),
+        film_shift=None if sh is None else jnp.asarray(sh), interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    a, off = group_norm_affine_plain(
+        xt, torch.from_numpy(gamma), torch.from_numpy(beta), 8, 1e-5,
+        None if s is None else torch.from_numpy(s),
+        None if sh is None else torch.from_numpy(sh))
+    if dtype == "bfloat16":   # the JAX wrapper hands a, b over in x's dtype
+        a, off = a.bfloat16().float(), off.bfloat16().float()
+    got = affine_silu_conv1d_plain(xt, a, off, wt, bt).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=RESNET_ATOL,
+                                   rtol=RESNET_RTOL)
+    else:
+        tol = RESNET_BF16_RTOL * max(1.0, np.abs(want).max())
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+@contextlib.contextmanager
+def statistics_on_cpu():
+    """group_norm_affine as it runs for a CUDA tensor, its launch replaced
+    by the plain version (counted as a launch)."""
+    def launch(x, gamma, beta, groups, eps, s, sh):
+        group_norm_affine.launches += 1
+        return group_norm_affine_plain(x, gamma, beta, groups, eps, s, sh)
+    with mock.patch.object(fr, "gn_route", lambda dev: "cuda"), \
+            mock.patch.object(fr, "_gn_launch", launch):
+        yield
+
+
+@pytest.mark.parametrize("film", [None, "chunk"])
+def test_statistics_function_grads_are_the_plain_versions(film):
+    r = np.random.default_rng(21)
+    b, t, c = 2, 9, 16
+    x = torch.from_numpy(r.standard_normal((b, t, c)).astype(np.float32))
+    gamma = torch.from_numpy((1 + 0.1 * r.standard_normal(c))
+                             .astype(np.float32))
+    beta = torch.from_numpy((0.1 * r.standard_normal(c)).astype(np.float32))
+    proj = torch.from_numpy((0.2 * r.standard_normal((b, 2 * c)))
+                            .astype(np.float32))
+    da = torch.from_numpy(r.standard_normal((b, c)).astype(np.float32))
+    db = torch.from_numpy(r.standard_normal((b, c)).astype(np.float32))
+
+    def grads(fn):
+        leaves = [v.detach().requires_grad_() for v in (x, gamma, beta, proj)]
+        film_args = (leaves[3].chunk(2, dim=-1) if film else (None, None))
+        a, off = fn(*leaves[:3], 8, 1e-5, *film_args)
+        torch.autograd.backward((a, off), (da, db))
+        return a.detach(), off.detach(), [v.grad for v in leaves]
+
+    want = grads(group_norm_affine_plain)
+    with statistics_on_cpu():
+        n0, b0 = group_norm_affine.launches, group_norm_affine.backward_calls
+        got = grads(group_norm_affine)
+        assert group_norm_affine.launches == n0 + 1
+        assert group_norm_affine.backward_calls == b0 + 1
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)
+    for name, g, w in zip(("x", "gamma", "beta", "film"), got[2], want[2]):
+        if name == "film" and not film:
+            assert g is None and w is None
+            continue
+        assert torch.equal(g, w), name
+
+
+def test_statistics_without_grad_launch_directly():
+    x = torch.randn(1, 5, 16, requires_grad=True)
+    gamma, beta = torch.ones(16), torch.zeros(16)
+    with statistics_on_cpu():
+        b0 = group_norm_affine.backward_calls
+        with torch.no_grad():
+            a, _ = group_norm_affine(x, gamma, beta, 8, 1e-5)
+        assert a.grad_fn is None
+        a, _ = group_norm_affine(x.detach(), gamma, beta, 8, 1e-5)
+        assert a.grad_fn is None
+        assert group_norm_affine.backward_calls == b0
+
+
+def test_cpu_statistics_take_the_plain_version(monkeypatch):
+    from ns2vc_tpu_torch.ops import _build
+
+    def refuse():
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    x = torch.randn(2, 7, 32)
+    gamma, beta = torch.ones(32), torch.zeros(32)
+    n0 = group_norm_affine.launches
+    for got, want in zip(group_norm_affine(x, gamma, beta, 8, 1e-5),
+                         group_norm_affine_plain(x, gamma, beta, 8, 1e-5)):
+        assert torch.equal(got, want)
+    assert group_norm_affine.launches == n0
+    with pytest.raises(ValueError, match="unsupported device"):
+        group_norm_affine(x.to("meta"), gamma, beta, 8, 1e-5)
+
+
+@pytest.mark.parametrize("t,c,width,want", [
+    (448, 128, 8, 1),       # B=16 serving, bf16: one round of loads
+    (448, 384, 4, 2),       # f32 serving's widest level-0 slab
+    (832, 384, 8, 2),       # the CLI's longest B=1 bucket
+    (5, 16, 1, 1),          # two channels a group: element loads
+    (40000, 1024, 8, 8),    # at most one portable cluster
+    (2, 65536, 1, 2),       # never more blocks than frames
+])
+def test_statistics_split(t, c, width, want):
+    """Blocks per slab: the fewest whose shares each take one round of 8
+    loads per thread of 512."""
+    assert gn_splits(t, c, 8, width) == want

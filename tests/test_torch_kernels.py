@@ -183,26 +183,28 @@ def test_fully_masked_rows_are_finite():
 def test_packed_weights_give_conv1d(b, t, c, co):
     """The packed weights, used as the kernels use them (tap k multiplies
     the frames shifted by k - 1, zero padded), give F.conv1d's k=3 SAME
-    product: bf16 (3, Co_pad, C_pad); f32 (2, 3, Co_pad, C_pad), TF32 big
-    and small halves (the low 13 bits of each zero) that sum to w within
-    2^-22 of |w|."""
+    product: bf16 (3, Co_pad, C_pad) in the wgmma kernel's 128-wide output
+    tiles and 64-channel chunks (rows of 128 bytes for TMA); f32 (2, 3,
+    Co_pad, C_pad) in 64 x 16, TF32 big and small halves (the low 13 bits
+    of each zero) that sum to w within 2^-22 of |w|."""
     import torch.nn.functional as F
 
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        F32_BK, TC_BK, TC_BN, pack_conv_weight,
+        F32_BK, F32_BN, TC_BK, TC_BN, pack_conv_weight,
     )
 
     r = np.random.default_rng(b * t)
     h = torch.from_numpy(r.standard_normal((b, t, c)).astype(np.float32))
     w = torch.from_numpy(r.standard_normal((co, c, 3)).astype(np.float32))
-    cop = -(-co // TC_BN) * TC_BN
     packed = pack_conv_weight(w.bfloat16())
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    assert packed.shape == (3, cop, -(-c // TC_BK) * TC_BK)
+    assert packed.shape == (3, -(-co // TC_BN) * TC_BN, -(-c // TC_BK) * TC_BK)
+    assert packed.shape[2] * packed.element_size() % 128 == 0
     assert not packed[:, co:].any() and not packed[:, :, c:].any()
     planes = pack_conv_weight(w)
     assert planes.dtype == torch.float32 and planes.is_contiguous()
-    assert planes.shape == (2, 3, cop, -(-c // F32_BK) * F32_BK)
+    assert planes.shape == (2, 3, -(-co // F32_BN) * F32_BN,
+                            -(-c // F32_BK) * F32_BK)
     assert not planes[:, :, co:].any() and not planes[:, :, :, c:].any()
     assert not (planes.view(torch.int32) & 0x1FFF).any()
     joined = planes[0] + planes[1]
@@ -228,23 +230,28 @@ def _full_resnet_cases():
 
 @pytest.mark.parametrize("bsz", [1, 2, 16])
 def test_planner_fills_the_card(bsz):
-    """Every K2 geometry of the serving bucket at B in {1, 2, 16}: the
-    split plan deals every chunk (32 channels in bf16, 16 in f32) to
-    exactly one non-empty split, and gives at least 132 blocks wherever
-    tiles x chunks allow."""
+    """Every K2 geometry of the serving bucket at B in {1, 2, 16}: each
+    split plan deals every chunk to exactly one non-empty split. The f32
+    kernel's (`plan_tc`, 16-channel chunks, 64 x 64 tiles) gives at least
+    132 blocks wherever tiles x chunks allow. The bf16 wgmma kernel's
+    (`plan_wgmma`, 64-channel chunks, 64 x 128 tiles, one block per SM,
+    two consumer warpgroups on alternate chunks) splits into one cluster of
+    at most 8 of two chunks or more each and stays within one wave of 132
+    blocks: as many splits as that allows, none once the tiles fill it."""
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        F32_BK, TC_BK, TC_BM, TC_BN, plan_tc,
+        F32_BK, F32_BM, F32_BN, TC_BK, TC_BM, TC_BN, TC_MAX_SPLITS, plan_tc,
+        plan_wgmma,
     )
     from ns2vc_tpu_torch.ops._build import H100_SMS
 
     cases = _full_resnet_cases()
     assert len(cases) == 45
-    for t_div, bk in itertools.product((1, 2), (TC_BK, F32_BK)):
+    for t_div in (1, 2):
         for name, t, c, co, _ in cases:   # the bucket and a half-length one
             t //= t_div
-            splits, cps = plan_tc(bsz, t, c, co, bk)
-            n_chunks = -(-c // bk)
-            tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
+            splits, cps = plan_tc(bsz, t, c, co, F32_BK)
+            n_chunks = -(-c // F32_BK)
+            tiles = -(-t // F32_BM) * -(-co // F32_BN) * bsz
             assert (splits - 1) * cps < n_chunks <= splits * cps, name
             if tiles * n_chunks >= H100_SMS:
                 assert tiles * splits >= H100_SMS, (name, bsz, t)
@@ -252,6 +259,18 @@ def test_planner_fills_the_card(bsz):
                 assert splits == n_chunks, (name, bsz, t)
             if tiles >= H100_SMS:
                 assert splits == 1, (name, bsz, t)
+            splits, cps = plan_wgmma(bsz, t, c, co)
+            n_chunks = -(-c // TC_BK)
+            tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
+            assert (splits - 1) * cps < n_chunks <= splits * cps, name
+            assert splits <= TC_MAX_SPLITS, (name, bsz, t)
+            assert splits == 1 or cps >= 2, (name, bsz, t)
+            most = max(1, min(TC_MAX_SPLITS, n_chunks // 2,
+                              H100_SMS // tiles))
+            assert cps == -(-n_chunks // most), (name, bsz, t)
+            assert tiles * splits <= max(tiles, H100_SMS), (name, bsz, t)
+            if tiles >= H100_SMS // 2:
+                assert splits <= 1 + (tiles < H100_SMS), (name, bsz, t)
 
 
 @pytest.mark.parametrize("bh,tq,tk,d,want", [
@@ -316,11 +335,13 @@ def card_routes(monkeypatch):
     monkeypatch.setattr(fa, "attention_route",
                         lambda dev, dt: a_route("cuda", dt))
     monkeypatch.setattr(fr, "resnet_route", lambda dev, dt: r_route("cuda", dt))
+    monkeypatch.setattr(fr, "gn_route", lambda dev: "cuda")
 
     def reached(*a, **k):
         raise AssertionError("a card-routed call reached the plain version")
     monkeypatch.setattr(fa, "flash_attention_plain", reached)
     monkeypatch.setattr(fr, "affine_silu_conv1d_plain", reached)
+    monkeypatch.setattr(fr, "group_norm_affine_plain", reached)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "require_current_device", lambda *t: None)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
@@ -362,13 +383,18 @@ def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
 
 @pytest.mark.parametrize("dtype,bsz,t,c,co", [
     (torch.bfloat16, 16, 448, 256, 128),   # enough tiles: no split
-    (torch.bfloat16, 1, 56, 1024, 512),    # split over every chunk
+    (torch.bfloat16, 1, 56, 1024, 512),    # a cluster of 8 splits
     (torch.bfloat16, 2, 37, 20, 100),      # C % 8 != 0: element loads
     (torch.float32, 1, 56, 512, 512),
 ])
 def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
+    """The arguments each K2 entry point gets. bf16: the weights' TMA map
+    is encoded once per packing (wgmma tiles: Co padded to 128, C to 64)
+    and its address handed to every launch with `plan_wgmma`'s split; x,
+    a, b 16-byte aligned take TMA ("tc"), else element loads ("tc_elem").
+    f32: the packed planes and `plan_tc`'s split with its workspace."""
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        TC_BN, chunk_width, pack_conv_weight, plan_tc,
+        F32_BN, TC_BN, chunk_width, pack_conv_weight, plan_tc, plan_wgmma,
     )
 
     x = torch.zeros(bsz, t, c, dtype=dtype)
@@ -377,22 +403,115 @@ def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
     r0 = dict(affine_silu_conv1d.route_launches)
     y = affine_silu_conv1d(x, a, a, w, bias)
     assert y.shape == (bsz, t, co) and y.dtype == dtype
-    route = "tc" if dtype == torch.bfloat16 else "f32tc"
-    assert affine_silu_conv1d.route_launches[route] == r0[route] + 1
-    (name, args), = card_routes.calls
-    assert name == ("ns2vc_affine_silu_conv1d_tc" if route == "tc"
-                    else "ns2vc_affine_silu_conv1d_f32tc")
-    bk = chunk_width(dtype)
-    splits, cps = plan_tc(bsz, t, c, co, bk)
-    cp, cop = -(-c // bk) * bk, -(-co // TC_BN) * TC_BN
     aligned = c % (16 // x.element_size()) == 0   # 16-byte rows of x
-    assert args[7:] == (bsz, t, c, co, cp, cop, cps, splits, int(aligned),
-                        0)
-    assert (args[6] is None) == (splits == 1)    # the f32 workspace
-    # the packed weights are made once per weight tensor
-    affine_silu_conv1d(x, a, a, w, bias)
-    assert card_routes.calls[1][1][3] == args[3]
+    bk = chunk_width(dtype)
+    cp = -(-c // bk) * bk
+    if dtype == torch.bfloat16:
+        sub = "tc" if aligned else "tc_elem"
+        assert {k: affine_silu_conv1d.route_launches[k] - r0[k]
+                for k in r0} == {k: int(k == sub) for k in r0}
+        (enc, enc_args), (name, args) = card_routes.calls
+        cop = -(-co // TC_BN) * TC_BN
+        splits, cps = plan_wgmma(bsz, t, c, co)
+        assert enc == "ns2vc_encode_weight_map"
+        assert enc_args[1:3] == (3 * cop, cp) and enc_args[3] == args[3]
+        assert name == "ns2vc_affine_silu_conv1d_tc"
+        assert args[6:] == (bsz, t, c, co, cop, cps, splits, int(aligned), 0)
+        # the packed weights and their map are made once per weight tensor
+        affine_silu_conv1d(x, a, a, w, bias)
+        assert len(card_routes.calls) == 3
+        assert card_routes.calls[2][1][3] == args[3]
+    else:
+        assert affine_silu_conv1d.route_launches["f32tc"] == r0["f32tc"] + 1
+        (name, args), = card_routes.calls
+        assert name == "ns2vc_affine_silu_conv1d_f32tc"
+        splits, cps = plan_tc(bsz, t, c, co, bk)
+        cop = -(-co // F32_BN) * F32_BN
+        assert args[7:] == (bsz, t, c, co, cp, cop, cps, splits, int(aligned),
+                            0)
+        assert (args[6] is None) == (splits == 1)    # the f32 workspace
+        # the packed weights are made once per weight tensor
+        affine_silu_conv1d(x, a, a, w, bias)
+        assert card_routes.calls[1][1][3] == args[3]
     assert pack_conv_weight(w).shape[-2:] == (cop, cp)
+
+
+@pytest.mark.parametrize("xdt,pdt,bsz,t,c,film,vec", [
+    (torch.bfloat16, torch.bfloat16, 16, 448, 128, "chunk", 1),  # serving
+    (torch.float32, torch.float32, 1, 56, 1024, None, 1),        # f32 Svc
+    (torch.bfloat16, torch.float32, 2, 37, 16, "whole", 0),      # C / G = 2
+    (torch.float32, "mixed", 3, 5, 64, "chunk", 1),               # cast to f32
+])
+def test_group_norm_affine_routes_card_calls(card_routes, xdt, pdt, bsz, t,
+                                             c, film, vec):
+    """The statistics kernel's arguments: x's and the parameters' dtypes,
+    FiLM rows (a chunk of one projection keeps its row stride), the
+    16-byte loads when a group's channels come in whole vectors, and
+    `gn_splits`'s blocks per slab; gamma, beta and FiLM of mixed dtypes
+    go as f32."""
+    from ns2vc_tpu_torch.ops.fused_resnet import gn_splits, group_norm_affine
+
+    x = torch.zeros(bsz, t, c, dtype=xdt)
+    gamma, beta = (torch.ones(c, dtype=torch.float32 if pdt == "mixed"
+                              else pdt) for _ in range(2))
+    s = sh = None
+    if film is not None:
+        fdt = torch.bfloat16 if pdt == "mixed" else pdt
+        proj = torch.zeros(bsz, 2 * c, dtype=fdt)
+        s, sh = (proj.chunk(2, dim=-1) if film == "chunk"
+                 else (proj[:, :c].contiguous(), proj[:, c:].contiguous()))
+    n0 = group_norm_affine.launches
+    a, b = group_norm_affine(x, gamma, beta, 8, 1e-5, s, sh)
+    assert group_norm_affine.launches == n0 + 1
+    assert a.shape == b.shape == (bsz, c) and a.dtype == b.dtype == \
+        torch.float32
+    (name, args), = card_routes.calls
+    assert name == "ns2vc_group_norm_affine"
+    assert (args[3] is None) == (film is None) == (args[4] is None)
+    stride = {None: 0, "chunk": 2 * c, "whole": c}[film]
+    if pdt == "mixed":
+        stride = c      # the f32 copies are contiguous
+    p_bf16 = int(pdt == torch.bfloat16)
+    assert args[5] == stride and args[6:8] == (a.data_ptr(), b.data_ptr())
+    assert args[8:12] == (bsz, t, c, 8) and args[12] == pytest.approx(1e-5)
+    width = 16 // x.element_size() if vec else 1
+    assert args[13:] == (gn_splits(t, c, 8, width),
+                         int(xdt == torch.bfloat16), p_bf16, vec, 0)
+
+
+def test_statistics_count_while_their_name_is_wrapped(card_routes,
+                                                      monkeypatch):
+    """A wrapper around the module's `group_norm_affine` (as a profiler's
+    range puts one there) leaves the launch counted on the function."""
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+
+    counted = fr.group_norm_affine
+    monkeypatch.setattr(fr, "group_norm_affine",
+                        lambda *a, **k: counted(*a, **k))
+    n0 = counted.launches
+    x = torch.zeros(2, 9, 64, dtype=torch.bfloat16)
+    w, bias = torch.randn(64, 64, 3).bfloat16(), torch.zeros(64).bfloat16()
+    gn_silu_conv1d(x, torch.ones(64), torch.zeros(64), w, bias)
+    assert counted.launches == n0 + 1
+    assert [name for name, _ in card_routes.calls][0] == \
+        "ns2vc_group_norm_affine"
+
+
+def test_gn_silu_conv1d_feeds_the_statistics_to_the_conv(card_routes):
+    """gn_silu_conv1d on a card: one statistics launch, then the bf16 conv
+    on the a, b it wrote."""
+    bsz, t, c, co = 16, 56, 512, 512
+    x = torch.zeros(bsz, t, c, dtype=torch.bfloat16)
+    gamma, beta = torch.ones(c), torch.zeros(c)
+    w, bias = torch.randn(co, c, 3).bfloat16(), torch.zeros(co).bfloat16()
+    s, sh = torch.zeros(bsz, 2 * c).bfloat16().chunk(2, dim=-1)
+    gn_silu_conv1d(x, gamma, beta, w, bias, 8, 1e-5, s, sh)
+    names = [name for name, _ in card_routes.calls]
+    assert names == ["ns2vc_group_norm_affine", "ns2vc_encode_weight_map",
+                     "ns2vc_affine_silu_conv1d_tc"]
+    stats, conv = card_routes.calls[0][1], card_routes.calls[2][1]
+    assert conv[1:3] == stats[6:8]     # a, b
+    assert conv[11:13] == (4, 2)       # plan_wgmma: 64 tiles, 2 splits
 
 
 # -- K1 and K2 under autograd -------------------------------------------------
