@@ -106,7 +106,11 @@ with TF32 off runs once through the kernels and once through their plain
 versions, and the two waveforms are compared.
 
 Each kernel has two routes, chosen by dtype in its wrapper: bf16 goes to
-the bf16 tensor-core kernel (`flash_attention_tc`, `affine_silu_conv1d_tc`:
+the bf16 tensor-core kernels (`flash_attention_tc`: the wgmma kernel over
+TMA-fed K/V tiles, `flash_attention_tc_wgmma`, and for rows TMA cannot
+take the mma.sync kernel with element loads, `flash_attention_tc_narrow`;
+every K1 bf16 geometry also times the mma.sync kernel it replaced, in
+turns, and prints the exp floor; `affine_silu_conv1d_tc`:
 wgmma over TMA-fed weights, with its element-load sub-route
 `affine_silu_conv1d_tc_elem` for x that TMA cannot describe), f32 to the
 3xTF32 tensor-core one (`flash_attention_f32tc`,
@@ -186,6 +190,7 @@ CLI_STEPS = 30             # the CLI's default sampling_timesteps
 # error (MODEL_ATOL's bound) forward, and ContentVec's into the content
 CLI_WAV_ATOL = 1e-3
 CARD = ""                  # nvidia-smi's name and power limit, set in main
+SM_CLOCK_MHZ = 0.0         # nvidia-smi's clocks.max.sm, set in main
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for bound_ms. The
 # f32 routes are held to f32 accuracy, which the card reaches at most
 # through three TF32 tensor-core passes (3xTF32) at 494.7 TFLOP/s: the
@@ -201,8 +206,16 @@ GN_RTOL = 2e-5
 ROUTES = {   # route -> (kernel source, the TPU code it replaces)
     "flash_attention_f32tc": ("flash_attention.cu",
                               "ns2vc_tpu/ops/pallas_attention.py:92"),
-    "flash_attention_tc": ("flash_attention_tc.cu",
+    # the bf16 route as a whole (both sub-routes below), named by its main
+    # kernel's source
+    "flash_attention_tc": ("flash_attention_wgmma.cu",
                            "ns2vc_tpu/ops/pallas_attention.py:92"),
+    # its sub-routes: the wgmma kernel, and the mma.sync kernel with
+    # element loads for rows TMA cannot take
+    "flash_attention_tc_wgmma": ("flash_attention_wgmma.cu",
+                                 "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "flash_attention_tc_narrow": ("flash_attention_tc.cu",
+                                  "ns2vc_tpu/ops/pallas_attention.py:92"),
     "affine_silu_conv1d_f32tc": ("gn_silu_conv1d.cu",
                                  "ns2vc_tpu/ops/pallas_resnet.py:71"),
     "affine_silu_conv1d_tc": ("gn_silu_conv1d_tc.cu",
@@ -307,6 +320,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(out.stdout.strip().splitlines()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi clocks.max.sm: {out.returncode} {out.stdout!r} "
+             f"{out.stderr.strip()}")
+
+
+def exp_floor(q, k) -> float:
+    """The least time (ms) the H100's special-function units take for a K1
+    call's exponentials: one per score, 16 per SM and clock on 132 SMs at
+    the card's top SM clock (SM_CLOCK_MHZ)."""
+    b, h, tq, _ = q.shape
+    return b * h * tq * k.shape[2] / (132 * 16 * SM_CLOCK_MHZ * 1e6) * 1e3
+
+
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     """The least time (ms) an H100 SXM could take, and which term sets it."""
     f = flops / PEAK_FLOPS[str(dtype)[6:]]
@@ -402,11 +434,74 @@ def route_counts() -> dict:
     k1, k2 = flash_attention.route_launches, affine_silu_conv1d.route_launches
     return {"flash_attention_f32tc": k1["f32tc"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
+            "flash_attention_tc_wgmma": k1["tc"],
             "flash_attention_tc_narrow": k1["tc_narrow"],
             "affine_silu_conv1d_f32tc": k2["f32tc"],
             "affine_silu_conv1d_tc": k2["tc"] + k2["tc_elem"],
             "affine_silu_conv1d_tc_elem": k2["tc_elem"],
             "group_norm_affine": group_norm_affine.launches}
+
+
+def route_totals(counts: dict) -> dict:
+    """Launches per route without the count of K1's wgmma kernel, which
+    is the bf16 route's less its tc_narrow launches (`k1_split` predicts
+    both from a run's recorded calls); fails if they do not add up."""
+    tc, narrow = counts["flash_attention_tc"], counts.get(
+        "flash_attention_tc_narrow")
+    wgmma = counts["flash_attention_tc_wgmma"]
+    # backward_calls() does not count tc_narrow apart
+    if (wgmma > tc) if narrow is None else (wgmma + narrow != tc):
+        fail(f"K1 bf16 sub-routes do not add up to its {tc} launches: "
+             f"{counts}")
+    return {k: n for k, n in counts.items()
+            if k != "flash_attention_tc_wgmma"}
+
+
+def k1_split(calls) -> dict:
+    """The bf16 K1 launches per sub-route of the calls a PathCalls
+    recorded, as `_launch` routes them: q, k and v in whole aligned
+    16-byte rows (D % 8 == 0, offsets and strides of 8 elements) to the
+    wgmma kernel, the others to tc_narrow."""
+    import torch
+
+    out = {"flash_attention_tc_wgmma": 0, "flash_attention_tc_narrow": 0}
+    for (geo, dtype, _, _), n in calls.k1.items():
+        if dtype != torch.bfloat16:
+            continue
+        aligned = all(
+            shape[-1] % 8 == 0 and offset % 8 == 0
+            and all(s % 8 == 0 for s, m in zip(stride[:-1], shape) if m > 1)
+            for shape, stride, offset, _ in geo)
+        out["flash_attention_tc_wgmma" if aligned
+            else "flash_attention_tc_narrow"] += n
+    return out
+
+
+class MmaSyncLibrary:
+    """The kernel library with the wgmma kernel's entry answered by the
+    mma.sync kernel with 16-byte cp.async tiles (the same arguments, its
+    `vec` = 1 in place of the key tile): under `mma_sync_kernel()` the
+    wrapper's "tc" calls run the kernel the wgmma one replaced, at the
+    same Python cost."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def ns2vc_flash_attention_wgmma_fwd(self, *args):
+        return self.lib.ns2vc_flash_attention_tc_fwd(*args[:-2], 1, args[-1])
+
+
+def mma_sync_kernel():
+    """A context in which K1's bf16 "tc" calls launch the mma.sync kernel."""
+    from unittest import mock
+
+    from ns2vc_tpu_torch.ops import _build
+
+    proxy = MmaSyncLibrary(_build.library())
+    return mock.patch.object(_build, "library", lambda: proxy)
 
 
 # -- the path's shapes ------------------------------------------------------
@@ -469,29 +564,52 @@ def resnet_cases(unet):
 
 # -- phases -----------------------------------------------------------------
 
+K1_SUB = {"tc": "flash_attention_tc_wgmma",      # bf16 sub-route entries
+          "tc_narrow": "flash_attention_tc_narrow"}
+
+
 def k1_case(q, k, v, bias, scale=None, timed=True):
     """K1 against its plain version on one input set, through the route its
-    dtype takes. Returns a dict: route, err, tol, bound, bound_by, and when
-    timed the device times (graph_ms) ms, plain, lib (SDPA), and eager, the
-    kernel's eager time_ms; the times None when not timed."""
+    dtype takes. Returns a dict: route, sub (the bf16 sub-route, else
+    None), err, tol, bound, bound_by, and when timed exp (`exp_floor`) and
+    the device times (graph_ms) ms, plain, lib (SDPA), old (bf16: the
+    mma.sync kernel, in turns with the wgmma kernel where that one runs: old, new,
+    new, old), and eager, the kernel's eager time_ms; the times None when
+    not timed."""
     import torch
 
     from ns2vc_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain,
     )
 
+    before = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, bias, scale)
+    sub = next((key for key, n in flash_attention.route_launches.items()
+                if n != before[key]), None)
     want = flash_attention_plain(q, k, v, bias, scale)
     torch.cuda.synchronize()
-    r = {"route": k1_route(q.dtype),
+    r = {"route": k1_route(q.dtype), "sub": K1_SUB.get(sub),
          "err": (got.float() - want.float()).abs().max().item(),
          "tol": ATTN_F32_ATOL if q.dtype == torch.float32 else ATTN_BF16_ATOL,
-         "ms": None, "plain": None, "lib": None, "eager": None}
+         "ms": None, "plain": None, "lib": None, "eager": None,
+         "exp": exp_floor(q, k) if timed else None}
     r["bound"], r["bound_by"] = k1_bound(q, k, bias)
     if timed:
         s = q.shape[-1] ** -0.5 if scale is None else scale
-        r["ms"] = graph_ms(lambda: flash_attention(q, k, v, bias, scale))
-        r["eager"] = time_ms(lambda: flash_attention(q, k, v, bias, scale))
+        call = lambda: flash_attention(q, k, v, bias, scale)  # noqa: E731
+        if sub == "tc":
+            # against the mma.sync kernel (the one it replaced) in turns: old,
+            # new, new, old
+            with mma_sync_kernel():
+                t0 = graph_ms(call)
+            r["ms"] = (graph_ms(call) + graph_ms(call)) / 2
+            with mma_sync_kernel():
+                r["old"] = (t0 + graph_ms(call)) / 2
+        else:
+            r["ms"] = graph_ms(call)
+            if sub == "tc_narrow":     # the mma.sync kernel itself
+                r["old"] = r["ms"]
+        r["eager"] = time_ms(call)
         r["plain"] = graph_ms(lambda: flash_attention_plain(q, k, v, bias,
                                                             scale))
         r["lib"] = graph_ms(sdpa_call(q, k, v, bias, s))
@@ -576,7 +694,7 @@ class RouteSums:
     """Per route: the worst error and summed times over the shapes given,
     each weighted by its calls."""
 
-    KEYS = ("ms", "eager", "plain", "lib", "conv", "bound")
+    KEYS = ("ms", "eager", "plain", "lib", "conv", "bound", "exp", "old")
 
     def __init__(self):
         self.err = defaultdict(float)
@@ -585,15 +703,16 @@ class RouteSums:
         self.calls = defaultdict(int)
 
     def add(self, r, calls):
-        route = r["route"]
-        self.err[route] = max(self.err[route], r["err"])
-        if r["ms"] is None or calls == 0:
-            return
-        self.calls[route] += calls
-        for key in self.KEYS:
-            if r.get(key) is not None:
-                self.sums[route][key] += calls * r[key]
-        self.by[route][r["bound_by"]] += calls * r["bound"]
+        """Under the result's route, and its sub-route where it has one."""
+        for route in {r["route"], r.get("sub") or r["route"]}:
+            self.err[route] = max(self.err[route], r["err"])
+            if r["ms"] is None or calls == 0:
+                continue
+            self.calls[route] += calls
+            for key in self.KEYS:
+                if r.get(key) is not None:
+                    self.sums[route][key] += calls * r[key]
+            self.by[route][r["bound_by"]] += calls * r["bound"]
 
     def bound_by(self, route):
         by = self.by[route]
@@ -604,9 +723,11 @@ class RouteSums:
         lib = "var_mean" if route.startswith("group_norm") else "SDPA"
         extra = "".join(f", {name} {s[key]:.4f}" for key, name in (
             ("lib", lib), ("conv", "conv alone")) if key in s)
-        return (f"device ms: kernel {s['ms']:.4f} (eager {s['eager']:.4f}), "
-                f"plain {s['plain']:.4f}{extra}, bound {s['bound']:.5f} "
-                f"({self.bound_by(route)})")
+        exp = f", exp floor {s['exp']:.5f}" if "exp" in s else ""
+        old = f" (mma.sync kernel {s['old']:.4f})" if "old" in s else ""
+        return (f"device ms: kernel {s['ms']:.4f}{old} (eager "
+                f"{s['eager']:.4f}), plain {s['plain']:.4f}{extra}, bound "
+                f"{s['bound']:.5f} ({self.bound_by(route)}){exp}")
 
 
 def check_attention(cfg, dev):
@@ -637,11 +758,12 @@ def check_attention(cfg, dev):
                 bias[:, valid:] = -1e4
             r = k1_case(q, k, v, bias)
             say(f"K1 {name:20s} {str(dtype)[6:]:8s} B={b} H={h} Tq={tq} "
-                f"Tk={tk} D={d} {r['route']} max_abs_err={r['err']:.3e} "
-                f"(tol {r['tol']:g}) kernel_ms={r['ms']:.4f} eager_ms="
-                f"{r['eager']:.4f} plain_ms="
+                f"Tk={tk} D={d} {r['sub'] or r['route']} max_abs_err="
+                f"{r['err']:.3e} (tol {r['tol']:g}) kernel_ms={r['ms']:.4f} "
+                f"eager_ms={r['eager']:.4f} plain_ms="
                 f"{r['plain']:.4f} sdpa_ms={r['lib']:.4f} bound_ms="
-                f"{r['bound']:.5f} ({r['bound_by']}) [{CARD}]")
+                f"{r['bound']:.5f} ({r['bound_by']}) exp_floor_ms="
+                f"{r['exp']:.5f} [{CARD}]")
             if not r["err"] <= r["tol"]:
                 fail(f"K1 {name} {dtype}: error {r['err']} > {r['tol']}")
             sums.add(r, 1)
@@ -918,7 +1040,8 @@ def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
 
 def serving_profile(fn, wall_ms_unprofiled: float, label: str) -> dict:
     """One serving call under torch.profiler: its kernel time, and the
-    share of K1 (flash_fwd_tc / flash_fwd_f32tc and its merge kernel), K2
+    share of K1 (flash_fwd_wgmma / flash_fwd_tc / flash_fwd_f32tc and its
+    merge kernel; the two bf16 kernels also apart), K2
     (affine_silu_conv_k3_wgmma / _f32tc and the f32 route's split reduce)
     and the GroupNorm statistics (group_norm_affine_kernel), each with its
     launches."""
@@ -926,6 +1049,8 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str) -> dict:
     out = {"wall_ms": wall_ms_unprofiled,
            "kernel_ms": sum(ms for ms, _ in by.values())}
     for key, names in (("k1", ("flash_fwd", "split_kv_merge")),
+                       ("k1_wgmma", ("flash_fwd_wgmma",)),
+                       ("k1_tc", ("flash_fwd_tc_kernel",)),
                        ("k2", ("affine_silu_conv_k3", "split_k_reduce")),
                        ("gn", ("group_norm_affine",))):
         hits = [(ms, n) for name, (ms, n) in by.items()
@@ -933,7 +1058,10 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str) -> dict:
         out[f"{key}_ms"] = sum(ms for ms, _ in hits)
         out[f"{key}_launches"] = sum(n for _, n in hits)
     say(f"profile {label}: K1 {out['k1_ms']:.1f} ms ({out['k1_launches']} "
-        f"kernels), K2 {out['k2_ms']:.1f} ms ({out['k2_launches']}), "
+        f"kernels; wgmma {out['k1_wgmma_ms']:.1f} ms x"
+        f"{out['k1_wgmma_launches']}, mma.sync kernel {out['k1_tc_ms']:.1f}"
+        f" ms x{out['k1_tc_launches']}), K2 {out['k2_ms']:.1f} ms "
+        f"({out['k2_launches']}), "
         f"GroupNorm statistics (group_norm_affine_kernel) {out['gn_ms']:.1f} "
         f"ms ({out['gn_launches']}) of {out['kernel_ms']:.1f} ms kernel time "
         f"[{CARD}]")
@@ -1007,7 +1135,13 @@ def check_serving(cfg, sd, vsd, dev):
         torch.cuda.synchronize()
         return outs, (time.perf_counter() - t0) * 1e3
 
-    outs, warm_ms = run("float32")   # warm-up call, checked in f32
+    # warm-up call, checked in f32; its K1 calls recorded by geometry give
+    # the bf16 split (wgmma kernel / tc_narrow) of the timed call's launches
+    path = PathCalls()
+    with contextlib.ExitStack() as stack:
+        for patch in path.patches():
+            stack.enter_context(patch)
+        outs, warm_ms = run("float32")
     if len(outs) != B or any(o.shape != (n_samples,) or o.dtype != np.float32
                              or not np.isfinite(o).all() for o in outs):
         fail("serving warm-up (float32): wrong count, shape, dtype or "
@@ -1025,8 +1159,11 @@ def check_serving(cfg, sd, vsd, dev):
             "flash_attention_tc_narrow": 2, "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_tc": STEPS * 45,
             "affine_silu_conv1d_tc_elem": 0, "group_norm_affine": STEPS * 45}
-    if n_levels != 4 or counts != want:
-        fail(f"launch counts {counts}, expected {want}")
+    split = k1_split(path)
+    if n_levels != 4 or route_totals(counts) != want or any(
+            counts[k] != n for k, n in split.items()):
+        fail(f"launch counts {counts}, expected {want}, K1 bf16 split "
+             f"{split}")
     audio_s = B * n_samples / cfg.data.sampling_rate
     say(f"serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} bf16 pcm16: "
         f"{B} x int16 ({n_samples},) finite; warm-up {warm_ms:.1f} ms, "
@@ -1062,7 +1199,7 @@ def check_serving(cfg, sd, vsd, dev):
             "affine_silu_conv1d_f32tc": STEPS * 45,
             "affine_silu_conv1d_tc": 0, "affine_silu_conv1d_tc_elem": 0,
             "group_norm_affine": STEPS * 45}
-    if counts != want or len(outs) != B or any(
+    if route_totals(counts) != want or len(outs) != B or any(
             o.shape != (n_samples,) or o.dtype != np.int16 for o in outs):
         fail(f"serving f32: launches {counts} (expected {want}), or wrong "
              f"count, shape or dtype")
@@ -1425,8 +1562,11 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                 "affine_silu_conv1d_tc": calls["batches"] * 45 * CLI_STEPS,
                 "affine_silu_conv1d_tc_elem": 0,
                 "group_norm_affine": calls["batches"] * 45 * CLI_STEPS}
-        if counts != want or calls["contentvec"] < 3:
-            fail(f"CLI launch counts {counts} for {calls}, expected {want}")
+        split = k1_split(path_calls)
+        if route_totals(counts) != want or calls["contentvec"] < 3 or any(
+                counts[k] != n for k, n in split.items()):
+            fail(f"CLI launch counts {counts} for {calls}, expected {want}, "
+                 f"K1 bf16 split {split}")
         recorded = (sum(path_calls.k1.values()), sum(path_calls.k2.values()))
         if recorded != (counts["flash_attention_f32tc"]
                         + counts["flash_attention_tc"],
@@ -1467,7 +1607,7 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                     "affine_silu_conv1d_f32tc": counts["affine_silu_conv1d_tc"],
                     "affine_silu_conv1d_tc": 0, "affine_silu_conv1d_tc_elem": 0,
                     "group_norm_affine": counts["group_norm_affine"]}
-        if k_counts != f32_want or max(p_counts.values()) != 0:
+        if route_totals(k_counts) != f32_want or max(p_counts.values()) != 0:
             fail(f"CLI f32: launches {k_counts} through the kernels "
                  f"(expected {f32_want}), {p_counts} through the plain "
                  f"versions")
@@ -1540,6 +1680,7 @@ def backward_calls() -> dict:
     k1, k2 = flash_attention.backward_calls, affine_silu_conv1d.backward_calls
     return {"flash_attention_f32tc": k1["f32tc"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
+            "flash_attention_tc_wgmma": k1["tc"],
             "affine_silu_conv1d_f32tc": k2["f32tc"],
             "affine_silu_conv1d_tc": k2["tc"],
             "group_norm_affine": group_norm_affine.backward_calls}
@@ -1686,6 +1827,8 @@ def check_train_geometries(calls, dev):
         qd, kd, vd = (t.detach() for t in (q, k, v))
         r = k1_case(qd, kd, vd, bias, scale)
         add(route, "fwd_ms", r["ms"], n)
+        if r.get("old") is not None:
+            add(route, "old_fwd_ms", r["old"], n)
         add(route, "plain_ms", r["plain"], n)
         add(route, "lib_ms", r["lib"], n)
         add(route, "bound", r["bound"], n)
@@ -1774,6 +1917,8 @@ def check_train_geometries(calls, dev):
             + (f", {'var_mean' if stats else 'SDPA'} {d['lib_ms']:.4f}"
                if d.get("lib_ms") else "")
             + (f", conv alone {d['conv_ms']:.4f}" if d.get("conv_ms") else "")
+            + (f", mma.sync kernel {d['old_fwd_ms']:.4f}"
+               if d.get("old_fwd_ms") else "")
             + f", bound {d['bound']:.5f}), torch backward {d['bwd_ms']:.4f} "
             f"(bound {d['bwd_bound']:.5f}, {d['bwd_by']}) [{CARD}]")
     return out
@@ -2272,7 +2417,7 @@ def check_training(vsd, cv_sd, dev, tmp):
     want_bwd = {"flash_attention_f32tc": 0, "flash_attention_tc": 46,
                 "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_tc": 45,
                 "group_norm_affine": 45}
-    if launches != want or bwd != want_bwd:
+    if route_totals(launches) != want or route_totals(bwd) != want_bwd:
         fail(f"training step launches {launches} (expected {want}), "
              f"backward calls {bwd} (expected {want_bwd})")
     res["launches"], res["backward"] = launches, bwd
@@ -2819,7 +2964,8 @@ def _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd):
             "affine_silu_conv1d_tc_elem": 0,
             "group_norm_affine": calls["batches"] * 45 * F0_CLI_STEPS}
     if out_sr != cfg_f.data.sampling_rate or not np.isfinite(wav).all() or \
-            abs(len(wav) - want_len) > cfg_f.data.hop_length or counts != want:
+            abs(len(wav) - want_len) > cfg_f.data.hop_length or \
+            route_totals(counts) != want:
         fail(f"f0 CLI -a: {len(wav)} samples at {out_sr} Hz (expected "
              f"{want_len}), launches {counts} (expected {want})")
     say(f"wav in -> wav out, CLI -a (F0 predictor), unipc {F0_CLI_STEPS} "
@@ -3078,7 +3224,8 @@ def check_op_registry(dev):
             with no_tf32(), torch.no_grad():
                 got = layer(x.to(dev, dtype), mask.to(dev)).float().cpu()
             torch.cuda.synchronize()
-            routes = {k: v for k, v in module_routes().items() if v}
+            routes = {k: v for k, v in route_totals(module_routes()).items()
+                      if v}
             err = (got - want).abs().max().item()
             tol = MODULE_F32_ATOL if dtype == torch.float32 else \
                 MODULE_BF16_RTOL * max(1.0, want.abs().max().item())
@@ -3107,7 +3254,7 @@ def check_op_registry(dev):
         q, k, v = (split_heads(t_, 2) for t_ in qkv.split(MODULE_C, dim=-1))
         reset_launches()
         flash_attention(q, k, v, bias)
-        routes = {k: n for k, n in route_counts().items() if n}
+        routes = {k: n for k, n in route_totals(route_counts()).items() if n}
         want_routes = ({"flash_attention_tc": 1} if dtype == torch.bfloat16
                        else {"flash_attention_f32tc": 1})
         if routes != want_routes:
@@ -3170,7 +3317,7 @@ def check_cfg_sample(cfg, sd, dev):
             "flash_attention_tc_narrow": steps, "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_tc": steps * 45, "affine_silu_conv1d_tc_elem": 0,
             "group_norm_affine": steps * 45}
-    if not torch.isfinite(mel.float()).all() or counts != want:
+    if not torch.isfinite(mel.float()).all() or route_totals(counts) != want:
         fail(f"CFG sample: finite {torch.isfinite(mel.float()).all()}, "
              f"launches {counts} (expected {want})")
     say(f"classifier-free guidance UniPC sample B={B} T={T_PAD} steps={steps}"
@@ -4352,8 +4499,9 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    global CARD
+    global CARD, SM_CLOCK_MHZ
     CARD = card_line()
+    SM_CLOCK_MHZ = sm_clock_mhz()
     say(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; {CARD}")
@@ -4467,7 +4615,9 @@ def main() -> int:
                  f"{on_path.calls[route]} calls timed")
         s = on_path.sums[route]
         geo = train["geometries"].get(route, {})
-        t_launch, t_bwd = train["launches"][route], train["backward"][route]
+        # backward_calls() does not count tc_narrow apart
+        t_launch, t_bwd = train["launches"][route], train["backward"].get(
+            route)
         pre = train["preprocess_launches"][route]
         if (t_launch if route.endswith("_tc") or route == "group_norm_affine"
                 else pre if route == "flash_attention_f32tc" else 1) == 0:
@@ -4509,6 +4659,9 @@ def main() -> int:
         # kernel's f32 serving (Svc's default dtype) beside its bf16
         profiled = {"flash": "k1_ms", "affine": "k2_ms", "group": "gn_ms"}[
             route.split("_")[0]]
+        if route in K1_SUB.values():   # by kernel: wgmma, or mma.sync
+            profiled = ("k1_wgmma_ms" if route == "flash_attention_tc_wgmma"
+                        else "k1_tc_ms")
         if not route.endswith("f32tc"):
             slice6["serving_profiled_ms"] = bf16_serving[profiled]
             slice6["single_profiled_ms"] = single[profiled]
@@ -4533,6 +4686,11 @@ def main() -> int:
             "bound_by": on_path.bound_by(route),
             "library_ms": s["lib"] if "lib" in s else None,
             **({"conv_alone_ms": s["conv"]} if "conv" in s else {}),
+            # K1 bf16: the mma.sync kernel at the same calls, in turns
+            **({"mma_sync_kernel_ms": s["old"],
+                "serving_step_mma_sync_kernel_ms": k1_step.sums[route].get("old"),
+                "train_mma_sync_kernel_ms": geo.get("old_fwd_ms")}
+               if "old" in s else {}),
             "train_launches_per_step": t_launch,
             "train_backward_calls_per_step": t_bwd,
             "preprocess_launches": pre,

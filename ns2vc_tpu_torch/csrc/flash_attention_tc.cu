@@ -2,8 +2,15 @@
 //     o = softmax(q.k^T * scale + key_bias) . v
 //
 // Replaces: ns2vc_tpu/ops/pallas_attention.py::flash_attention (the Pallas
-// TPU kernel `_flash_kernel`) for bf16 inputs; f32 calls go to
-// flash_attention.cu (three TF32 passes: one would break the f32 bound).
+// TPU kernel `_flash_kernel`) for bf16 inputs whose rows are not whole
+// aligned 16-byte chunks (the wrapper's sub-route "tc_narrow": the pooling
+// attentions at D = 4 and 100, odd D or strides), with element loads;
+// every other bf16 call goes to flash_attention_wgmma.cu, which took its
+// place (TMA, wgmma, the softmax overlapped with the products),
+// and f32 calls to flash_attention.cu (three TF32 passes: one would break
+// the f32 bound). Its 16-byte cp.async path (vec != 0) is the baseline
+// that scripts/torch_k1_bf16_compare.py and chip_smoke.py time the wgmma
+// kernel against.
 //
 // What bounds it on the H100: at the UNet's shapes (B*H = 128, T <= 448,
 // head dim 16..64) one call moves a few MB and does a few GFLOP, so the
@@ -29,8 +36,7 @@
 // (B, T, 3C) projection goes in without a copy; when a row is not made of
 // aligned 16-byte chunks (D = 4, 100 or odd, or odd strides) the caller
 // passes vec = 0, the tiles are staged with element loads instead of
-// cp.async and the output is written element by element. Later work:
-// wgmma, TMA, warp specialisation.
+// cp.async and the output is written element by element.
 #include <math_constants.h>
 
 #include <cstdint>

@@ -236,8 +236,9 @@ affine_silu_conv_k3_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         for (int ks = 0; ks < kBK / 16; ++ks)
           wgmma_m64n128k16_rs(
               acc, af[k * 4 + ks],
-              wgmma_desc_sw128(stage(s) + kXBytes + (k0 + k) * kWTapBytes +
-                               ks * 32));
+              wgmma_desc<128>(stage(s) + kXBytes + (k0 + k) * kWTapBytes +
+                                  ks * 32,
+                              16, 1024));
       wgmma_commit();
       wgmma_wait<0>();
     };

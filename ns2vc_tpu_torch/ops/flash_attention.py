@@ -1,18 +1,21 @@
 """Flash attention forward with an additive key bias (kernel K1).
 
 Replaces `ns2vc_tpu/ops/pallas_attention.py::flash_attention`, the Pallas
-TPU kernel, with two hand-written CUDA kernels; their source notes say what
+TPU kernel, with hand-written CUDA kernels; their source notes say what
 bounds each on the H100 and how its design answers that.
 
-`flash_attention` routes by `attention_route(device, dtype)` and on
-nothing else:
+`flash_attention` routes by `attention_route(device, dtype)`, and a bf16
+call by its rows and `plan_wgmma_attention`:
 
     cpu        -> `flash_attention_plain`
-    cuda, bf16 -> "tc": `csrc/flash_attention_tc.cu`, tensor cores
-                  (mma.sync bf16 -> f32), 16-byte cp.async tiles, D <= 128;
-                  where a row is not made of aligned 16-byte chunks (D = 4,
-                  100 or odd, odd strides) the same kernel stages its tiles
-                  with element loads, counted apart as "tc_narrow"
+    cuda, bf16 -> "tc": `csrc/flash_attention_wgmma.cu`, TMA-fed K/V tiles,
+                  wgmma for Q.K^T and P.V, the softmax overlapped with them,
+                  D <= 128 in whole 16-byte chunks (D % 8 == 0, aligned
+                  strides), with the keys per tile `plan_wgmma_attention`
+                  gives; rows that are not whole aligned 16-byte chunks
+                  (D = 4, 100 or odd, odd strides) take the mma.sync
+                  kernel (`csrc/flash_attention_tc.cu`) with element
+                  loads, counted apart as "tc_narrow"
     cuda, f32  -> "f32tc": `csrc/flash_attention.cu`, TF32 tensor cores in
                   three passes (3xTF32: each operand's TF32 big and small
                   halves), at f32 accuracy, D <= 128; where its 64-query
@@ -28,9 +31,10 @@ and the call takes the f32 route, its output cast to bf16, so the card
 skips the one rounding of the probabilities to bf16 before the PV product.
 
 A CUDA tensor launches one of the kernels or raises. `flash_attention.
-launches` counts every launch, `flash_attention.route_launches` each route's;
-its "plain" entry counts the calls `ops/attention.py` sends to the plain
-version by their bias or head dim (no kernel launches for those).
+launches` counts every launch, `flash_attention.route_launches` each route's
+and sub-route's ("tc", "tc_narrow", "f32tc"); its "plain" entry
+counts the calls `ops/attention.py` sends to the plain version by their
+bias or head dim (no kernel launches for those).
 The kernels read q/k/v through their (batch, head, seq) strides, so the
 (B, H, T, D) views that `ops/attention.py::split_heads` makes of the
 (B, T, H*D) projections go in without a transpose copy, and the output is
@@ -69,6 +73,19 @@ def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
     want = max(1, (2 if d <= 64 else 1) * _build.H100_SMS // blocks)
     per = -(-tiles // min(want, tiles))
     return -(-tiles // per), per
+
+
+def plan_wgmma_attention(bh: int, tq: int, tk: int, d: int) -> int:
+    """Keys per tile (64 or 128) of the wgmma kernel for B*H = bh: 128
+    where its 64-query blocks are no more than the H100's SMs, the head is
+    at most 64 wide and the keys fill two tiles or more (a long key loop on
+    a grid with no second wave to hide each tile's fixed cost), else 64
+    (more blocks resident per SM: fewer registers, smaller stages). Chosen
+    on an H100 (PERF.md): the mma.sync kernel was slower at every geometry
+    timed, B=1's 8-56 blocks included, so no grid goes to it."""
+    blocks = -(-tq // 64) * bh
+    wide = d <= 64 and blocks <= _build.H100_SMS and tk > 128
+    return 128 if wide else 64
 
 
 def attention_route(device: torch.device | str, dtype: torch.dtype) -> str:
@@ -216,7 +233,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention.route_launches[route] += 1
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
             b, h, tq, tk, d, *strides, float(scale), int(vec))
-    if route == "f32tc":
+    if route == "tc":   # the key tile in vec's place
+        err = lib.ns2vc_flash_attention_wgmma_fwd(
+            *args[:-1], plan_wgmma_attention(b * h, tq, tk, d),
+            _build.stream_of(q))
+    elif route == "f32tc":
         splits, per = plan_f32tc(b * h, tq, tk, d)
         ws = [None, None] if splits == 1 else [
             torch.empty((splits, b * h * tq, n), dtype=torch.float32,

@@ -22,8 +22,9 @@ under a bf16 model). K2 also runs at the local output widths of a conv
 split over the 'model' axis (Co = C_out / mp: 128, 192, 256 at mp=2, 64 and
 96 at mp=4) on a block of the whole conv's weight. `multihead_attention` sends key-padding calls at
 D <= 128 to the kernel and full-bias or D > 128 calls to the plain route,
-counted as such. bf16 goes to the bf16 tensor-core kernels (K1 "tc" /
-"tc_narrow", K2 "tc"), f32 to the 3xTF32 ones ("f32tc"); each test checks
+counted as such. bf16 goes to the bf16 tensor-core kernels (K1 "tc", the
+wgmma kernel, at every head width up to 128 and both key tiles, and
+"tc_narrow"; K2 "tc"), f32 to the 3xTF32 ones ("f32tc"); each test checks
 the route its call took. The Svc
 readback test checks that
 batch N's `finish()` waits on its own CUDA event only: it returns while
@@ -34,6 +35,7 @@ import pytest
 import torch
 
 from ns2vc_tpu_torch.ops.attention import split_heads
+from ns2vc_tpu_torch.ops import _build
 from ns2vc_tpu_torch.ops.flash_attention import (
     attention_route, flash_attention, flash_attention_plain,
 )
@@ -59,6 +61,17 @@ def dev():
 
 def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _k1_route(q, k, v):
+    """The route counter a K1 call on these inputs moves, as the wrapper
+    picks it: bf16 rows of aligned 16-byte chunks take the wgmma kernel
+    ("tc"), other bf16 rows the mma.sync kernel with element loads
+    ("tc_narrow")."""
+    route = attention_route(q.device, q.dtype)
+    if route == "tc" and not all(_build.aligned16(t) for t in (q, k, v)):
+        return "tc_narrow"
+    return route
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
@@ -89,8 +102,7 @@ def test_flash_attention_matches_plain(dev, dtype, atol, b, h, tq, tk, d,
     routes0 = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, bias)
     assert flash_attention.launches == n0 + 1
-    route = attention_route(dev, dtype)
-    route = "tc_narrow" if route == "tc" and d % 8 else route
+    route = _k1_route(q, k, v)
     assert flash_attention.route_launches[route] == routes0[route] + 1
     want = flash_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
@@ -158,10 +170,8 @@ def test_flash_attention_tc_head_widths(dev, dtype, d, b, h, tq, tk, valid):
     if valid is not None:
         bias = torch.zeros(b, tk, device=dev)
         bias[-1, valid:] = -1e4
-    if dtype == torch.float32:
-        route, tol = "f32tc", 2e-5
-    else:
-        route, tol = ("tc" if d % 8 == 0 else "tc_narrow"), 3e-2
+    route = _k1_route(q, k, v)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
     n0 = flash_attention.route_launches[route]
     got = flash_attention(q, k, v, bias)
     assert flash_attention.route_launches[route] == n0 + 1
@@ -210,6 +220,69 @@ def test_flash_attention_refuses_what_it_cannot_take(dev):
     y = torch.zeros(1, 1, 8, 4, device=dev).transpose(-1, -2)
     with pytest.raises(ValueError, match="unit stride"):
         flash_attention(y, y, y)
+
+
+@pytest.mark.parametrize("d,key_tile", [
+    (d, kt) for d in (8, 16, 24, 32, 48, 64, 112, 128)
+    for kt in ((64, 128) if d <= 64 else (64,))])
+@pytest.mark.parametrize("layout,b,h,tq,tk,valid", [
+    ("self", 2, 8, 57, 57, None),       # one partial key tile, no bias
+    ("self", 2, 4, 272, 272, None),     # H = 4 (the 'model' axis)
+    ("cross", 2, 8, 112, 321, 272),     # the prompt bucket, masked tail
+    ("cross", 1, 4, 448, 448, 300),
+    ("self", 3, 4, 130, 130, 100),      # ragged q tiles, key padding
+])
+def test_wgmma_attention_matches_plain(dev, monkeypatch, key_tile, d,
+                                       layout, b, h, tq, tk, valid):
+    """The wgmma kernel at every head width it takes (D = 48 and the
+    others between 16, 32, 64 and 128 through a box wider than the head),
+    each key tile it has there (128 up to D = 64), on strided views of one
+    packed (B, T, 3C) projection (self) or of (B, T, C) projections
+    (cross), against the plain version; two launches are bitwise equal."""
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+
+    monkeypatch.setattr(fa, "plan_wgmma_attention", lambda *a: key_tile)
+    g = _gen(dev, 10)
+    c = h * d
+    if layout == "self":
+        q, k, v = torch.randn(b, tq, 3 * c, generator=g,
+                              device=dev).bfloat16().split(c, dim=-1)
+    else:
+        q = torch.randn(b, tq, c, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, tk, c, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+    q, k, v = (split_heads(x, h) for x in (q, k, v))
+    bias = None
+    if valid is not None:
+        bias = torch.zeros(b, tk, device=dev)
+        bias[-1, valid:] = -1e4
+    n0 = flash_attention.route_launches["tc"]
+    got = flash_attention(q, k, v, bias)
+    again = flash_attention(q, k, v, bias)
+    assert flash_attention.route_launches["tc"] == n0 + 2
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.parametrize("fill", [-1e4, -1e30])
+@pytest.mark.parametrize("d", [16, 48, 64])
+def test_wgmma_attention_fully_masked_rows(dev, fill, d):
+    """A batch row whose keys are all masked stays finite on the wgmma
+    kernel and, as the plain version, averages v uniformly."""
+    g = _gen(dev, 11)
+    q, k, v = (torch.randn(2, 4, t, d, generator=g, device=dev).bfloat16()
+               for t in (37, 150, 150))
+    bias = torch.zeros(2, 150, device=dev)
+    bias[1] = fill
+    n0 = flash_attention.route_launches["tc"]
+    got = flash_attention(q, k, v, bias)
+    assert flash_attention.route_launches["tc"] == n0 + 1
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -619,7 +692,8 @@ def test_attention_function_launches_the_kernel(dev, dtype):
         out = merge_heads(fn(q, k, v, bias))
         out.backward(dout)
         return out, x.grad
-    route = attention_route(dev, dtype)
+    q, k, v = (split_heads(y, h) for y in qkv.split(h * d, dim=-1))
+    route = _k1_route(q, k, v)
     n0, b0 = flash_attention.launches, dict(flash_attention.backward_calls)
     out, got = run(flash_attention)
     torch.cuda.synchronize()
@@ -713,7 +787,8 @@ def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
     assert k1.route_launches == {"f32tc": 0, "tc": 14 + again[0],
                                  "tc_narrow": 2, "plain": 0}
     assert k1.backward_calls == {"f32tc": 0, "tc": 14, "tc_narrow": 2}
-    assert k2.route_launches == {"f32tc": 0, "tc": 25 + again[1]}
+    assert k2.route_launches == {"f32tc": 0, "tc": 25 + again[1],
+                                 "tc_elem": 0}
     assert k2.backward_calls == {"f32tc": 0, "tc": 25}
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32 and torch.isfinite(p.grad).all(), \

@@ -20,7 +20,7 @@ from ns2vc_tpu.ops import pallas_attention, pallas_resnet
 from ns2vc_tpu_torch.ops import _build
 from ns2vc_tpu_torch.ops.attention import multihead_attention
 from ns2vc_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain,
+    flash_attention, flash_attention_plain, plan_wgmma_attention,
 )
 from ns2vc_tpu_torch.ops.fused_resnet import (
     affine_silu_conv1d, affine_silu_conv1d_plain, gn_silu_conv1d,
@@ -292,6 +292,84 @@ def test_f32_attention_planner(bh, tq, tk, d, want):
     assert (splits - 1) * per < tiles <= splits * per
 
 
+def _unet_attention_geometries():
+    """(B*H, Tq, Tk, D) of the UNet's 32 attention calls per step at the
+    serving bucket (448 frames, a 320-frame prompt), level by level."""
+    out = []
+    for lvl, hd in enumerate((16, 32, 48, 64)):
+        t = 448 >> lvl
+        out += [(t, t, hd), (t, 320, hd)]
+    return out
+
+
+@pytest.mark.parametrize("bsz,heads", [(16, 8), (1, 8), (16, 4), (1, 4)])
+def test_wgmma_attention_planner(bsz, heads):
+    """The key tile of every UNet attention at B=16 and B=1, with 8 heads
+    and with the 4 local heads of the 'model' axis: 128 keys only where
+    the grid's 64-query blocks fit one wave of the H100's SMs, the head is
+    at most 64 wide and the keys fill two 128-key tiles; 64 elsewhere."""
+    from ns2vc_tpu_torch.ops._build import H100_SMS
+
+    want = {  # (B*H, level, self / cross) -> keys per tile
+        (128, 0): (64, 64), (128, 1): (64, 64), (128, 2): (64, 64),
+        (128, 3): (64, 128),     # 128 blocks: self 56 keys, cross 320
+        (8, 0): (128, 128), (8, 1): (128, 128), (8, 2): (64, 128),
+        (8, 3): (64, 128),       # 112 and 56 keys: one 128-key tile
+        (64, 0): (64, 64), (64, 1): (64, 64), (64, 2): (64, 128),
+        (64, 3): (64, 128),      # 448, 256, 128 and 64 blocks
+        (4, 0): (128, 128), (4, 1): (128, 128), (4, 2): (64, 128),
+        (4, 3): (64, 128)}
+    bh = bsz * heads
+    for i, (tq, tk, d) in enumerate(_unet_attention_geometries()):
+        got = plan_wgmma_attention(bh, tq, tk, d)
+        assert got == want[(bh, i // 2)][i % 2], (bh, tq, tk, d)
+        blocks = -(-tq // 64) * bh
+        assert (got == 128) == (blocks <= H100_SMS and tk > 128 and d <= 64)
+    # wider heads keep 64-key tiles (the op registry's D = 128)
+    assert plan_wgmma_attention(8, 400, 400, 128) == 64
+
+
+@pytest.mark.parametrize("bsz,heads", [(16, 8), (1, 8), (2, 4)])
+def test_attention_wrapper_follows_the_planner(card_routes, bsz, heads):
+    """Every UNet attention of a step, laid out as the model lays it out
+    (self: head views of one packed (B, T, 3C) projection; cross: of
+    (B, T, C) projections, with the prompt's key padding), reaches the
+    wgmma kernel's entry with the planner's key tile and counts as "tc";
+    the two pooling attentions (D = 100 and 4) reach the mma.sync kernel with
+    element loads, counted as "tc_narrow"."""
+    from ns2vc_tpu_torch.ops.attention import split_heads
+
+    r0 = dict(flash_attention.route_launches)
+    geos = _unet_attention_geometries()
+    for i, (tq, tk, d) in enumerate(geos):
+        c = heads * d
+        if i % 2 == 0:
+            q, k, v = torch.zeros(bsz, tq, 3 * c,
+                                  dtype=torch.bfloat16).split(c, dim=-1)
+            bias = None
+        else:
+            q = torch.zeros(bsz, tq, c, dtype=torch.bfloat16)
+            k, v = (torch.zeros(bsz, tk, c, dtype=torch.bfloat16)
+                    for _ in range(2))
+            bias = torch.zeros(bsz, tk)
+            bias[:, 272:] = -1e4
+        flash_attention(*(split_heads(x, heads) for x in (q, k, v)), bias)
+    for d, h in ((100, 1), (4, 64)):     # ref_enc and add_embedding pools
+        q = torch.zeros(bsz, h, 1, d, dtype=torch.bfloat16)
+        kv = torch.zeros(bsz, h, 321, d, dtype=torch.bfloat16)
+        flash_attention(q, kv, kv)
+    assert {key: flash_attention.route_launches[key] - r0[key]
+            for key in r0} == {"f32tc": 0, "tc": len(geos), "tc_narrow": 2,
+                               "plain": 0}
+    names = [name for name, _ in card_routes.calls]
+    assert names == (["ns2vc_flash_attention_wgmma_fwd"] * len(geos)
+                     + ["ns2vc_flash_attention_tc_fwd"] * 2)
+    for (tq, tk, d), (_, args) in zip(geos, card_routes.calls):
+        assert args[5:10] == (bsz, heads, tq, tk, d)
+        assert args[23] == plan_wgmma_attention(bsz * heads, tq, tk, d)
+    assert [args[23] for _, args in card_routes.calls[len(geos):]] == [0, 0]
+
+
 def test_route_tables():
     from ns2vc_tpu_torch.ops.flash_attention import attention_route
     from ns2vc_tpu_torch.ops.fused_resnet import resnet_route
@@ -374,9 +452,14 @@ def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
     assert {key: flash_attention.route_launches[key] - r0[key]
             for key in r0} == {key: int(key == route) for key in r0}
     (name, args), = card_routes.calls
-    assert name == ("ns2vc_flash_attention_f32tc_fwd" if route == "f32tc"
-                    else "ns2vc_flash_attention_tc_fwd")
-    assert args[23] == int(route != "tc_narrow")    # 16-byte cp.async tiles
+    assert name == {"f32tc": "ns2vc_flash_attention_f32tc_fwd",
+                    "tc": "ns2vc_flash_attention_wgmma_fwd",
+                    "tc_narrow": "ns2vc_flash_attention_tc_fwd"}[route]
+    assert args[5:10] == (b, h, t, t, d)
+    if route == "tc":      # TMA tiles of the planner's key tile
+        assert args[23:] == (plan_wgmma_attention(b * h, t, t, d), 0)
+    else:                  # 16-byte cp.async tiles, or element loads
+        assert args[23] == int(route != "tc_narrow")
     if route == "f32tc":    # one split of its one key tile: no workspace
         assert args[24:28] == (1, 1, None, None)
 
