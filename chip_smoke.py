@@ -22,6 +22,30 @@ JAX or of the JAX package.
 Parity phases run with TF32 off; the serving and CLI phases run with
 PyTorch's defaults.
 
+Every serving call goes through `Svc`'s serving programs: a key's first
+call runs the eager body once (the warm-up), captures it as a CUDA graph
+and replays it; later calls replay. So the serving phases count a first
+call's launches twice (warm-up and replay) and a later call's once, and
+the CLI runs (a fresh Svc each) count each device batch twice. The
+compiled serving phase (after the MicroBatcher, whose dispatches must
+each be one replay, and whose program cache's memory is printed) holds
+each program against the eager body (`Svc._run_eager`) at the same seed,
+bit for bit: B=16 bf16 pcm16, B=1 bf16 f32 out, B=16 f32, DDIM with eta >
+0 and DDPM (a 25-step copy of the model), whose per-step noise is drawn
+before the replay; it times eager against graph in turns (eager, graph,
+graph, eager), dispatches two batches of one key in flight and reads each
+back, and prints each program's capture time, graph nodes and replays.
+Each of the three programs' graphs must hold, as kernel nodes read
+through libcuda, exactly the K1, K2 and statistics launches its replay
+adds to the counters. The profiles at the end also profile the eager body
+of the same three calls (kernel time and busy share of each), and each
+profiled replay's K1, K2 and statistics kernels, as the profiler saw them,
+must be the launches the counters counted (a profile that lost kernel
+records, which the eager bodies' profiles show happens, is taken again,
+at most three times). A JSON line {"compiled_serving": {...}}
+holds these numbers, and each route's kernels-line entry gains
+`compiled_serving_launches`.
+
 Training (after the CLI runs): 12 synthesized wavs through the port's
 preprocess on the card (ContentVec through K1's f32 route), then
 `Config()` at full width trained through the `Trainer` at 32 x 272 in bf16
@@ -255,6 +279,7 @@ def wall_ms(fn):
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -835,7 +860,11 @@ class PathCalls:
     dtype, the scale and whether a key bias came (the first call's bias is
     kept), recorded where `multihead_attention` calls it; K2 by (B, T, C),
     the dtype and Co, recorded where the UNet calls `gn_silu_conv1d`. Each
-    group counts its calls; the dtype is the second field of every key."""
+    group counts its calls; the dtype is the second field of every key.
+    A serving program's first call makes each call twice, in its eager
+    warm-up and in its capture, and launches each twice, in the warm-up and
+    the replay that follows: so over a run whose every program is called
+    once, as a CLI run's, the calls recorded are the launches made."""
 
     def __init__(self):
         self.k1: dict = {}     # key -> calls
@@ -1016,6 +1045,12 @@ def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace can miss the first kernels after it starts (once, a
+        # B=1 eager call's first 14 K1 and 15 K2 launches): one small
+        # kernel and a pause before the call
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
         fn()
         torch.cuda.synchronize()
     by = {}
@@ -1038,16 +1073,40 @@ def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
     return by
 
 
-def serving_profile(fn, wall_ms_unprofiled: float, label: str) -> dict:
+def serving_profile(fn, wall_ms_unprofiled: float, label: str,
+                    replay: bool = True) -> dict:
     """One serving call under torch.profiler: its kernel time, and the
     share of K1 (flash_fwd_wgmma / flash_fwd_tc / flash_fwd_f32tc and its
     merge kernel; the two bf16 kernels also apart), K2
     (affine_silu_conv_k3_wgmma / _f32tc and the f32 route's split reduce)
     and the GroupNorm statistics (group_norm_affine_kernel), each with its
-    launches."""
-    by = device_breakdown(fn, wall_ms_unprofiled, label)
+    launches. For a replay the kernels the profile saw launched must be
+    what the launch counters counted over the call (a replay adds what its
+    capture counted): K1's and K2's main kernels and the statistics
+    kernel. The trace can lose kernel records (the eager bodies' profiles
+    have missed 6-120 of a call's ~5,000 counted launches), so a replay
+    whose profile saw fewer is profiled again, at most three times in
+    all; more kernels than counted fail at once. Through the eager body
+    (`replay` False) every counted launch is a wrapper's own, so a
+    difference there is the trace's and is only printed."""
+    for attempt in range(1, 4):
+        reset_launches()
+        by = device_breakdown(fn, wall_ms_unprofiled, label)
+        counted = route_counts()
+        seen = {name: sum(n for kernel, (_, n) in by.items() if key in kernel)
+                for name, key in KERNEL_NAMES}
+        want = kernel_totals(counted)
+        if seen == want or not replay:
+            break
+        if any(seen[k] > want[k] for k in want) or attempt == 3:
+            fail(f"profile {label} (attempt {attempt}): kernels in the "
+                 f"profile {seen}, launches counted {want}")
+        say(f"profile {label}: attempt {attempt}: the trace holds "
+            f"{seen} of the {want} kernels counted; profiling again")
     out = {"wall_ms": wall_ms_unprofiled,
-           "kernel_ms": sum(ms for ms, _ in by.values())}
+           "kernel_ms": sum(ms for ms, _ in by.values()),
+           "busy": sum(ms for ms, _ in by.values()) / wall_ms_unprofiled,
+           "launches_counted": want}
     for key, names in (("k1", ("flash_fwd", "split_kv_merge")),
                        ("k1_wgmma", ("flash_fwd_wgmma",)),
                        ("k1_tc", ("flash_fwd_tc_kernel",)),
@@ -1063,8 +1122,9 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str) -> dict:
         f" ms x{out['k1_tc_launches']}), K2 {out['k2_ms']:.1f} ms "
         f"({out['k2_launches']}), "
         f"GroupNorm statistics (group_norm_affine_kernel) {out['gn_ms']:.1f} "
-        f"ms ({out['gn_launches']}) of {out['kernel_ms']:.1f} ms kernel time "
-        f"[{CARD}]")
+        f"ms ({out['gn_launches']}) of {out['kernel_ms']:.1f} ms kernel time; "
+        f"the profile's K1 / K2 / statistics kernels {seen}, the launches "
+        f"counted {want} [{CARD}]")
     return out
 
 
@@ -1135,19 +1195,24 @@ def check_serving(cfg, sd, vsd, dev):
         torch.cuda.synchronize()
         return outs, (time.perf_counter() - t0) * 1e3
 
-    # warm-up call, checked in f32; its K1 calls recorded by geometry give
-    # the bf16 split (wgmma kernel / tc_narrow) of the timed call's launches
+    # the first call at a key (f32 out): the eager warm-up, the capture and
+    # one replay; its K1 calls recorded by geometry (the warm-up's and the
+    # capture's: each stands for one launch) give the bf16 split (wgmma
+    # kernel / tc_narrow) of its launches
     path = PathCalls()
+    reset_launches()
     with contextlib.ExitStack() as stack:
         for patch in path.patches():
             stack.enter_context(patch)
         outs, warm_ms = run("float32")
+    first = route_counts()
     if len(outs) != B or any(o.shape != (n_samples,) or o.dtype != np.float32
                              or not np.isfinite(o).all() for o in outs):
         fail("serving warm-up (float32): wrong count, shape, dtype or "
              "non-finite output")
+    _, first_ms = run("pcm16")      # the pcm16 key's first call
     reset_launches()
-    outs, ms = run("pcm16")
+    outs, ms = run("pcm16")         # a replay
     counts = bf16_counts = route_counts()
     if len(outs) != B or any(o.shape != (n_samples,) or o.dtype != np.int16
                              for o in outs):
@@ -1161,14 +1226,22 @@ def check_serving(cfg, sd, vsd, dev):
             "affine_silu_conv1d_tc_elem": 0, "group_norm_affine": STEPS * 45}
     split = k1_split(path)
     if n_levels != 4 or route_totals(counts) != want or any(
-            counts[k] != n for k, n in split.items()):
-        fail(f"launch counts {counts}, expected {want}, K1 bf16 split "
-             f"{split}")
+            first[k] != n for k, n in split.items()) or any(
+            first[k] != 2 * n for k, n in counts.items()):
+        fail(f"launch counts {counts} (a replay), expected {want}; the first "
+             f"call's {first} (warm-up and replay: twice a replay's), K1 "
+             f"bf16 split {split}")
+    keys = [k for k in svc._programs if k.batch == B]
+    if sorted(svc._programs[k].replays for k in keys) != [1, 2]:
+        fail(f"serving: programs {keys} replayed "
+             f"{[svc._programs[k].replays for k in keys]} times, expected 1 "
+             f"(float32) and 2 (pcm16)")
     audio_s = B * n_samples / cfg.data.sampling_rate
     say(f"serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} bf16 pcm16: "
-        f"{B} x int16 ({n_samples},) finite; warm-up {warm_ms:.1f} ms, "
-        f"call {ms:.1f} ms = {audio_s / (ms / 1e3):.2f}x real time; launches "
-        f"{counts} [{CARD}]")
+        f"{B} x int16 ({n_samples},) finite; first call at a key (warm-up, "
+        f"capture, replay) {warm_ms:.1f} ms (float32 out), {first_ms:.1f} ms "
+        f"(pcm16); replay {ms:.1f} ms = {audio_s / (ms / 1e3):.2f}x real "
+        f"time; launches {counts} (first call {first}) [{CARD}]")
     single_ms = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1181,8 +1254,8 @@ def check_serving(cfg, sd, vsd, dev):
                 or not np.isfinite(w).all():
             fail("single request: wrong shape, dtype or non-finite output")
     say(f"single request B=1 T={T_CLIP} steps={STEPS} bf16: f32 "
-        f"({n_samples},) finite; first {single_ms[0]:.1f} ms, second "
-        f"{single_ms[1]:.1f} ms = "
+        f"({n_samples},) finite; first (warm-up, capture, replay) "
+        f"{single_ms[0]:.1f} ms, second (replay) {single_ms[1]:.1f} ms = "
         f"{n_samples / cfg.data.sampling_rate / (single_ms[1] / 1e3):.2f}x "
         f"real time [{CARD}]")
     walls = {"batch": ms, "single": single_ms[1]}
@@ -1213,11 +1286,256 @@ def check_serving(cfg, sd, vsd, dev):
         f"in bf16, {(counts['group_norm_affine'] + counts['affine_silu_conv1d_f32tc']) / (STEPS * 45):g} "
         f"in f32")
     say(f"serving B={B} T={T_CLIP} Tp={TP_REFER} steps={STEPS} f32 (Svc's "
-        f"default dtype) pcm16: warm-up {warm32:.1f} ms, call "
+        f"default dtype) pcm16: first call {warm32:.1f} ms, replay "
         f"{walls['batch_f32']:.1f} ms = "
         f"{audio_s / (walls['batch_f32'] / 1e3):.2f}x real time; launches "
         f"{counts} [{CARD}]")
     return svc, svc32, clips, refer, walls, served
+
+
+# -- the compiled serving programs -------------------------------------------
+
+DDPM_TIMESTEPS = 25   # DDPM's model copy: 25 diffusion steps (betas < 1)
+REDUCED_STEPS = 10    # DDIM with eta > 0
+DDIM_ETA = 0.5
+
+
+def eager_body(svc):
+    """Svc's calls through its eager body instead of its programs."""
+    from unittest import mock
+
+    return mock.patch.object(svc, "_run", svc._run_eager)
+
+
+def same_audio(a: list, b: list) -> float | None:
+    """None when two calls' waveforms are equal bit for bit, else their
+    largest difference."""
+    if len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y)
+                                for x, y in zip(a, b)):
+        return None
+    return max(float(np.abs(x.astype(np.float64) - y).max())
+               for x, y in zip(a, b))
+
+
+def program_lines(name, svc) -> list:
+    """Per program of a Svc: its key, capture ms, graph nodes, replays."""
+    out = []
+    for k, p in svc._programs.items():
+        out.append({"svc": name, "method": k.method, "steps": k.steps,
+                    "eta": k.eta, "batch": k.batch, "t_pad": k.t_pad,
+                    "tp_pad": k.tp_pad, "output": k.output,
+                    "dtype": str(k.dtype)[6:], "use_f0": k.use_f0,
+                    "tf32": [k.tf32_matmul, k.tf32_cudnn],
+                    "capture_ms": p.capture_ms, "nodes": p.nodes,
+                    "replays": p.replays})
+        say(f"  program {name} {k.method} steps={k.steps} eta={k.eta} "
+            f"B={k.batch} T={k.t_pad} Tp={k.tp_pad} {k.output} "
+            f"{str(k.dtype)[6:]} tf32={k.tf32_matmul}/{k.tf32_cudnn}: "
+            f"capture {p.capture_ms:.1f} ms, {p.nodes} graph nodes, "
+            f"{p.replays} replays")
+    return out
+
+
+KERNEL_NAMES = (("k1", "flash_fwd"), ("k2", "affine_silu_conv_k3"),
+                ("gn", "group_norm_affine"))
+
+
+def kernel_totals(counted: dict) -> dict:
+    """The K1 / K2 / statistics kernel launches in a route_counts() dict."""
+    return {"k1": counted["flash_attention_f32tc"]
+            + counted["flash_attention_tc"],
+            "k2": counted["affine_silu_conv1d_f32tc"]
+            + counted["affine_silu_conv1d_tc"],
+            "gn": counted["group_norm_affine"]}
+
+
+def graph_kernels(graph) -> dict:
+    """The K1 / K2 / statistics kernel nodes of a CUDA graph kept after
+    instantiation (keep_graph=True), read through libcuda (node types,
+    kernel node parameters, function names; child graphs included): the
+    kernels each replay launches, independent of any tracer."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def check(err, what):
+        if err != 0:
+            fail(f"graph nodes: {what} returned CUresult {err}")
+
+    names, seen = {}, {k: 0 for k, _ in KERNEL_NAMES}
+    params = (ctypes.c_uint8 * 128)()   # CUDA_KERNEL_NODE_PARAMS_v2: 72 B
+    kind, name, child = ctypes.c_int(), ctypes.c_char_p(), vp()
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(vp(g), None, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        nodes = (vp * n.value)()
+        check(cu.cuGraphGetNodes(vp(g), nodes, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        for node in nodes:
+            check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            if kind.value == 4:     # CU_GRAPH_NODE_TYPE_GRAPH
+                check(cu.cuGraphChildGraphNodeGetGraph(
+                    vp(node), ctypes.byref(child)),
+                    "cuGraphChildGraphNodeGetGraph")
+                walk(child.value)
+                continue
+            if kind.value != 0:     # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            check(cu.cuGraphKernelNodeGetParams_v2(vp(node), params),
+                  "cuGraphKernelNodeGetParams_v2")
+            func = vp.from_buffer(params, 0).value     # CUfunction
+            kern = vp.from_buffer(params, 56).value    # CUkernel
+            handle = func or kern
+            if handle not in names:
+                get = cu.cuFuncGetName if func else cu.cuKernelGetName
+                check(get(ctypes.byref(name), vp(handle)),
+                      "cuFuncGetName" if func else "cuKernelGetName")
+                names[handle] = name.value.decode()
+            for k, key in KERNEL_NAMES:
+                if key in names[handle]:
+                    seen[k] += 1
+    walk(graph.raw_cuda_graph())
+    return seen
+
+
+def check_compiled_serving(cfg, sd, vsd, svc, svc32, clips, refer, dev):
+    """The serving programs against the eager body (`Svc._run_eager`) at
+    the same seed, bit for bit: B=16 bf16 pcm16, B=1 bf16 f32 out and B=16
+    f32 pcm16 (Svc's default dtype), each timed in turns (eager, graph,
+    graph, eager) with its launches counted through the eager body and
+    through a replay, which must agree; DDIM with eta > 0 (10 steps) and
+    DDPM (a copy of the model with 25 diffusion steps) at B=16, whose
+    pre-drawn per-step noise must keep the seed's result; two dispatches
+    of one key in flight, each read back as its own batch's audio; and
+    each program's capture time, graph nodes and replays."""
+    import dataclasses
+
+    import torch
+
+    from ns2vc_tpu_torch.infer.svc import Svc
+
+    hop = cfg.data.hop_length
+    res = {"cases": {}}
+    for name, s, cl, out in (("b16_bf16_pcm16", svc, clips, "pcm16"),
+                             ("b1_bf16_f32out", svc, clips[:1], "float32"),
+                             ("b16_f32_pcm16", svc32, clips, "pcm16")):
+        audio, walls, launches = [], defaultdict(list), {}
+        before = {k: p.replays for k, p in s._programs.items()}
+        for mode in ("eager", "graph", "graph", "eager"):
+            ctx = eager_body(s) if mode == "eager" else \
+                contextlib.nullcontext()
+            reset_launches()
+            with ctx:
+                o, ms = wall_ms(lambda: s.infer_batch(
+                    cl, refer, sampling_timesteps=STEPS, order=2,
+                    output=out))
+            launches.setdefault(mode, route_counts())
+            audio.append(o)
+            walls[mode].append(ms)
+        diffs = [same_audio(audio[0], a) for a in audio[1:]]
+        if any(d is not None for d in diffs):
+            fail(f"compiled serving {name}: graph and eager outputs differ "
+                 f"(largest difference per call after the first eager: "
+                 f"{diffs})")
+        if launches["eager"] != launches["graph"] or not any(
+                launches["graph"].values()):
+            fail(f"compiled serving {name}: launches through the eager body "
+                 f"{launches['eager']}, through a replay "
+                 f"{launches['graph']}")
+        # the program's graph holds the launches its replays add
+        progs = [p for k, p in s._programs.items()
+                 if p.replays > before.get(k, 0)]
+        nodes = graph_kernels(progs[0].graph) if len(progs) == 1 else None
+        if nodes != kernel_totals(launches["graph"]):
+            fail(f"compiled serving {name}: programs replayed "
+                 f"{[p.key for p in progs]}, K1 / K2 / statistics kernel "
+                 f"nodes in its graph {nodes}, launches counted per replay "
+                 f"{kernel_totals(launches['graph'])}")
+        e, g = (float(np.mean(walls[m])) for m in ("eager", "graph"))
+        audio_s = len(cl) * cl[0].shape[0] * hop / cfg.data.sampling_rate
+        res["cases"][name] = {"eager_ms": walls["eager"],
+                              "graph_ms": walls["graph"],
+                              "launches": launches["graph"],
+                              "graph_kernel_nodes": nodes}
+        say(f"compiled serving {name} (B={len(cl)} T={T_CLIP} steps={STEPS}):"
+            f" graph == eager bit for bit ({len(cl)} x "
+            f"{audio[0][0].dtype}); wall ms in turns eager "
+            f"{walls['eager'][0]:.1f}, graph {walls['graph'][0]:.1f}, graph "
+            f"{walls['graph'][1]:.1f}, eager {walls['eager'][1]:.1f}: "
+            f"{e / g:.2f}x, {audio_s / (g / 1e3):.2f}x real time; launches "
+            f"per call {launches['graph']}; K1 / K2 / statistics kernel "
+            f"nodes in the graph {nodes} [{CARD}]")
+
+    # the samplers that draw noise: pre-drawn, the seed's result
+    cfg_ddpm = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, timesteps=DDPM_TIMESTEPS))
+    svc_ddpm = Svc(config=cfg_ddpm, params=sd, vocos_params=vsd,
+                   compute_dtype="bfloat16", device=dev)
+    for name, s, kw in (
+            ("ddim_eta", svc, dict(sample_method="ddim", eta=DDIM_ETA,
+                                   sampling_timesteps=REDUCED_STEPS)),
+            ("ddpm", svc_ddpm, dict(sample_method="ddpm"))):
+        runs = {}
+        for label, seed, eager in (("graph", 0, False), ("eager", 0, True),
+                                   ("graph_again", 0, False),
+                                   ("graph_seed1", 1, False),
+                                   ("eager_seed1", 1, True)):
+            with (eager_body(s) if eager else contextlib.nullcontext()):
+                runs[label], ms = wall_ms(lambda: s.infer_batch(
+                    clips, refer, seed=seed, output="float32", **kw))
+            runs[f"{label}_ms"] = ms
+        diffs = {k: same_audio(runs["graph"], runs[k])
+                 for k in ("eager", "graph_again")}
+        diffs["seed1"] = same_audio(runs["graph_seed1"], runs["eager_seed1"])
+        if any(d is not None for d in diffs.values()) or same_audio(
+                runs["graph"], runs["graph_seed1"]) is None:
+            fail(f"compiled serving {name}: graph vs eager at the same seed "
+                 f"{diffs} (None: bit for bit), or seeds 0 and 1 agree")
+        n_draws = len(next(
+            p for k, p in s._programs.items()
+            if k.method == kw["sample_method"] and k.eta == kw.get(
+                "eta", 0.0) and k.steps == kw.get("sampling_timesteps", 30)
+        ).static["draws"])
+        res["cases"][name] = {k: runs[k] for k in runs if k.endswith("_ms")}
+        res["cases"][name]["noise_draws"] = n_draws
+        say(f"compiled serving {name} B={B} ({kw}): graph == eager bit for "
+            f"bit at seeds 0 and 1 with {n_draws} pre-drawn noise tensors, "
+            f"seeds 0 and 1 differ; first call {runs['graph_ms']:.1f} ms, "
+            f"eager {runs['eager_ms']:.1f}, replay "
+            f"{runs['graph_again_ms']:.1f} [{CARD}]")
+
+    # two dispatches of one key in flight, each read back as its own audio
+    r = np.random.default_rng(SEED + 12)
+    clips_b = [(0.1 * r.standard_normal((T_CLIP, 256))).astype(np.float32)
+               for _ in range(B)]
+    kw = dict(sampling_timesteps=STEPS, order=2, output="pcm16")
+    want_a = svc.infer_batch(clips, refer, seed=0, **kw)
+    want_b = svc.infer_batch(clips_b, refer, seed=1, **kw)
+    torch.cuda.synchronize()
+    fa = svc.infer_batch_async(clips, refer, seed=0, **kw)
+    fb = svc.infer_batch_async(clips_b, refer, seed=1, **kw)
+    a_pending = fa.done is not None and not fa.done.query()
+    got_a, got_b = fa(), fb()
+    if same_audio(got_a, want_a) is not None or same_audio(
+            got_b, want_b) is not None or same_audio(got_a, got_b) is None:
+        fail("compiled serving: two dispatches of one key in flight did not "
+             "each read back its own batch's audio")
+    say(f"compiled serving: two B={B} dispatches of one key in flight (batch "
+        f"1 still running when batch 2 was enqueued: {a_pending}): each read "
+        f"back its own audio, bit for bit [{CARD}]")
+    res["in_flight"] = {"first_pending_at_second_dispatch": a_pending}
+    say("serving programs (capture: host ms of capture and instantiation):")
+    res["programs"] = (program_lines("bf16", svc) + program_lines("f32", svc32)
+                       + program_lines("ddpm", svc_ddpm))
+    res["memory"] = {"bf16": svc._program_memory(),
+                     "f32": svc32._program_memory()}
+    del svc_ddpm
+    torch.cuda.empty_cache()
+    return res
 
 
 # -- slice 2: front end, samplers, overlap, MicroBatcher, wav in -> wav out ---
@@ -1312,18 +1630,22 @@ def check_front_end(dev, cv_sd, crepe_sd):
 
 def check_samplers(svc, clips, refer, hop, sr):
     """ddim (50 steps), dpmsolver (order 2, 50 steps) and unipc (50 steps)
-    through Svc.infer_batch at B=16 x 400 frames, bf16, pcm16."""
+    through Svc.infer_batch at B=16 x 400 frames, bf16, pcm16: the first
+    call at each key (unipc's is warm from check_serving) and a replay."""
     audio_s = len(clips) * clips[0].shape[0] * hop / sr
     for method in ("ddim", "dpmsolver", "unipc"):
-        outs, ms = wall_ms(lambda: svc.infer_batch(
-            clips, refer, sample_method=method, sampling_timesteps=STEPS,
-            order=2, output="pcm16"))
-        if any(o.shape != (clips[0].shape[0] * hop,) or o.dtype != np.int16
-               for o in outs):
-            fail(f"sampler {method}: wrong shape or dtype")
+        ms = []
+        for _ in range(2):
+            outs, t = wall_ms(lambda: svc.infer_batch(
+                clips, refer, sample_method=method, sampling_timesteps=STEPS,
+                order=2, output="pcm16"))
+            ms.append(t)
+            if any(o.shape != (clips[0].shape[0] * hop,)
+                   or o.dtype != np.int16 for o in outs):
+                fail(f"sampler {method}: wrong shape or dtype")
         say(f"sampler {method:9s} B={len(clips)} T={clips[0].shape[0]} "
-            f"steps={STEPS} bf16 pcm16: {ms:.1f} ms = "
-            f"{audio_s / (ms / 1e3):.2f}x real time [{CARD}]")
+            f"steps={STEPS} bf16 pcm16: {ms[0]:.1f} ms, then {ms[1]:.1f} ms "
+            f"= {audio_s / (ms[1] / 1e3):.2f}x real time [{CARD}]")
 
 
 def check_overlap(svc, refer):
@@ -1374,9 +1696,17 @@ def check_overlap(svc, refer):
         f"{1e3 * (t_f2 - t0):.0f} ms [{CARD}]")
 
 
+MB_STEPS = 10   # the MicroBatcher's sampler steps: each of its 8 keys
+                # pays a warm-up and a capture
+
+
 def check_microbatcher(svc, refer, hop):
     """32 requests of 150-600 frames from 4 threads through one
-    MicroBatcher (max_batch 16, max_inflight 2, pcm16)."""
+    MicroBatcher (max_batch 16, max_inflight 2, pcm16, 10 UniPC steps):
+    each dispatch one replay, and the memory the program cache holds after
+    it."""
+    import torch
+
     from ns2vc_tpu_torch.infer.serve import MicroBatcher
 
     r = np.random.default_rng(SEED + 6)
@@ -1384,9 +1714,10 @@ def check_microbatcher(svc, refer, hop):
     clips = [(0.1 * r.standard_normal((int(n), 256))).astype(np.float32)
              for n in lens]
     futs = [None] * 32
+    before = {k: p.replays for k, p in svc._programs.items()}
     t0 = time.perf_counter()
     with MicroBatcher(svc, refer, max_batch=16, max_inflight=2,
-                      sampling_timesteps=CLI_STEPS, output="pcm16") as mb:
+                      sampling_timesteps=MB_STEPS, output="pcm16") as mb:
         def client(k):
             for i in range(k, 32, 4):
                 futs[i] = mb.submit(clips[i])
@@ -1407,10 +1738,24 @@ def check_microbatcher(svc, refer, hop):
         fail(f"MicroBatcher: {len(svc._refer_cache)} refer cache entries "
              f"left after close()")
     audio_s = float(lens.sum()) * hop / 24000
+    replays = {f"{k.batch}x{k.t_pad}": p.replays - before.get(k, 0)
+               for k, p in svc._programs.items()
+               if p.replays > before.get(k, 0)}
+    if sum(replays.values()) != len(mix):
+        fail(f"MicroBatcher: {len(mix)} dispatches, program replays "
+             f"{replays}")
+    mem = svc._program_memory()
     say(f"MicroBatcher 32 requests (150-600 frames, 4 threads) steps="
-        f"{CLI_STEPS} pcm16: batches (real, dispatched) {mix}; wall "
+        f"{MB_STEPS} pcm16: batches (real, dispatched) {mix}; wall "
         f"{wall:.0f} ms = {audio_s / (wall / 1e3):.2f}x real time; refer "
-        f"cache empty after close [{CARD}]")
+        f"cache empty after close; replays per program (B x T_pad) "
+        f"{replays} [{CARD}]")
+    say(f"program cache after the MicroBatcher: {mem['programs']} programs, "
+        f"static buffers {mem['static_bytes'] / 2**20:.1f} MiB, shared graph "
+        f"pool {mem['pool_bytes'] / 2**20:.1f} MiB; card memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB [{CARD}]")
+    return {"dispatches": mix, "replays": replays, "wall_ms": wall, **mem}
 
 
 class Stages:
@@ -1475,7 +1820,6 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
     from ns2vc_tpu_torch.audio.host import Slicer, read_wav, write_wav
     from ns2vc_tpu_torch.features.contentvec import ContentVec
     from ns2vc_tpu_torch.infer.cli import main as cli_main
-    from ns2vc_tpu_torch.models.vocos import Vocos
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention_plain
     from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_plain
 
@@ -1523,6 +1867,8 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                     "contentvec", ContentVec.forward)),
                 mock.patch.object(svc_mod.Svc, "_run", counted(
                     "batches", svc_mod.Svc._run)),
+                mock.patch.object(svc_mod.Svc, "_capture", counted(
+                    "programs", svc_mod.Svc._capture)),
                 mock.patch.object(svc_mod.Svc, "slice_inference", kept)]
             if stages is not None:
                 for obj, attr, name in (
@@ -1532,8 +1878,9 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                         (svc_mod.Svc, "compute_f0", "F0"),
                         (ContentVec, "forward", "ContentVec"),
                         (svc_mod.Svc, "compute_refer_mel", "refer mel"),
-                        (svc_mod, "generate_mel", "sampler"),
-                        (Vocos, "forward", "Vocos")):
+                        # the serving program: the sampler and Vocos, with
+                        # each batch's warm-up and capture (a fresh Svc)
+                        (svc_mod.Svc, "_run", "device program")):
                     patches.append(mock.patch.object(
                         obj, attr, stages.wrap(name, getattr(obj, attr))))
             reset_launches()
@@ -1554,14 +1901,17 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
         path_calls = PathCalls()
         counts, calls, ms, _ = run([], patches=path_calls.patches())
         # ContentVec runs in f32 (the 3xTF32 route), the UNet, encoders and
-        # pooling in bf16 (the bf16 tensor-core routes)
+        # pooling in bf16 (the bf16 tensor-core routes). Each device batch
+        # is one replay, and each program's first call (a fresh Svc: each
+        # batch's) also runs its body eagerly once, the warm-up
+        runs = calls["batches"] + calls.get("programs", 0)
         want = {"flash_attention_f32tc": 12 * calls["contentvec"],
-                "flash_attention_tc": calls["batches"] * (14 + 32 * CLI_STEPS),
-                "flash_attention_tc_narrow": 2 * calls["batches"],
+                "flash_attention_tc": runs * (14 + 32 * CLI_STEPS),
+                "flash_attention_tc_narrow": 2 * runs,
                 "affine_silu_conv1d_f32tc": 0,
-                "affine_silu_conv1d_tc": calls["batches"] * 45 * CLI_STEPS,
+                "affine_silu_conv1d_tc": runs * 45 * CLI_STEPS,
                 "affine_silu_conv1d_tc_elem": 0,
-                "group_norm_affine": calls["batches"] * 45 * CLI_STEPS}
+                "group_norm_affine": runs * 45 * CLI_STEPS}
         split = k1_split(path_calls)
         if route_totals(counts) != want or calls["contentvec"] < 3 or any(
                 counts[k] != n for k, n in split.items()):
@@ -1577,7 +1927,8 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
             f"source at 44.1 kHz -> {want_len} samples at 24 kHz, finite; "
             f"{ms:.0f} ms = {len(src) / sr / (ms / 1e3):.2f}x real time; "
             f"{calls['contentvec']} ContentVec calls, {calls['batches']} "
-            f"device batches; launches {counts}; K1 geometries "
+            f"device batches, {calls.get('programs', 0)} programs captured; "
+            f"launches {counts}; K1 geometries "
             f"{len(path_calls.k1)}, K2 geometries {len(path_calls.k2)} "
             f"[{CARD}]")
         for name, extra in (("unipc", []), ("-fmp (CREPE)", ["-fmp"])):
@@ -2702,10 +3053,11 @@ def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
     """Svc.infer_batch (B=16, pcm16) with the predictor, auto_predict_f0
     off and on, beside the f0-off model's call, in turns (off, auto off,
     auto on, auto on, auto off, off: the host's drift falls on both
-    sides), counted in each of the first calls: auto off launches what the
-    f0-off model launches (the predictor's output would go unused, so it
-    does not run), auto on 10 more K1 calls, on the f32 route (the
-    predictor's f32 trunk under the bf16 model); then B=1, in turns."""
+    sides), counted in each of the first calls (replays: every key has
+    had its first call): auto off launches what the f0-off model launches
+    (the predictor's output would go unused, so it does not run), auto on
+    10 more K1 calls, on the f32 route (the predictor's f32 trunk under the
+    bf16 model); then B=1, in turns."""
     import torch
 
     def run(svc, **kw):
@@ -2716,7 +3068,8 @@ def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
         torch.cuda.synchronize()
         return outs, (time.perf_counter() - t0) * 1e3
     n_samples = clips[0].shape[0] * svc_f.hop_size
-    run(svc_f, f0s=f0s, uvs=uvs)                      # warm-up
+    for auto in (False, True):      # each key's first call: the warm-up
+        run(svc_f, f0s=f0s, uvs=uvs, auto_predict_f0=auto)
     calls = {"off": (svc_off, {}),
              "auto0": (svc_f, dict(f0s=f0s, uvs=uvs, auto_predict_f0=False)),
              "auto1": (svc_f, dict(f0s=f0s, uvs=uvs, auto_predict_f0=True))}
@@ -2744,6 +3097,9 @@ def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
         f"launches {counts['auto1']} (auto off {counts['auto0']}, f0 off "
         f"{off}) [{CARD}]")
     single = defaultdict(list)
+    svc_f.infer_from_features(clips[0], refer, sampling_timesteps=STEPS,
+                              order=2, f0=f0s[0], uv=uvs[0],
+                              auto_predict_f0=True)   # the key's first call
     for name, svc, kw in (("off", svc_off, {}),
                           ("f0", svc_f, dict(f0=f0s[0], uv=uvs[0],
                                              auto_predict_f0=True)),
@@ -2951,18 +3307,21 @@ def _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd):
         with mock.patch.object(ContentVec, "forward", counted(
                 "contentvec", ContentVec.forward)), \
                 mock.patch.object(svc_mod.Svc, "_run", counted(
-                    "batches", svc_mod.Svc._run)):
+                    "batches", svc_mod.Svc._run)), \
+                mock.patch.object(svc_mod.Svc, "_capture", counted(
+                    "programs", svc_mod.Svc._capture)):
             _, ms = wall_ms(lambda: cli_main(argv))
         counts = route_counts()
         wav, out_sr = read_wav(os.path.join(tmp, "out", "src_auto_ref.wav"))
-    want = {"flash_attention_f32tc": 12 * calls["contentvec"]
-            + 10 * calls["batches"],
-            "flash_attention_tc": calls["batches"] * (14 + 32 * F0_CLI_STEPS),
-            "flash_attention_tc_narrow": 2 * calls["batches"],
+    # each batch one replay, each program's first call one warm-up too
+    runs = calls["batches"] + calls["programs"]
+    want = {"flash_attention_f32tc": 12 * calls["contentvec"] + 10 * runs,
+            "flash_attention_tc": runs * (14 + 32 * F0_CLI_STEPS),
+            "flash_attention_tc_narrow": 2 * runs,
             "affine_silu_conv1d_f32tc": 0,
-            "affine_silu_conv1d_tc": calls["batches"] * 45 * F0_CLI_STEPS,
+            "affine_silu_conv1d_tc": runs * 45 * F0_CLI_STEPS,
             "affine_silu_conv1d_tc_elem": 0,
-            "group_norm_affine": calls["batches"] * 45 * F0_CLI_STEPS}
+            "group_norm_affine": runs * 45 * F0_CLI_STEPS}
     if out_sr != cfg_f.data.sampling_rate or not np.isfinite(wav).all() or \
             abs(len(wav) - want_len) > cfg_f.data.hop_length or \
             route_totals(counts) != want:
@@ -4540,7 +4899,11 @@ def main() -> int:
         check_samplers(svc, clips, refer, cfg.data.hop_length,
                        cfg.data.sampling_rate)
         check_overlap(svc, refer)
-        check_microbatcher(svc, refer, cfg.data.hop_length)
+        batcher = check_microbatcher(svc, refer, cfg.data.hop_length)
+    with phase("compiled serving"):
+        compiled = check_compiled_serving(cfg, sd, vsd, svc, svc32, clips,
+                                          refer, dev)
+        compiled["microbatcher"] = batcher
     cv_sd, crepe_sd = front_end_weights()
     with phase("CLI runs"):
         counts, f32_counts, path_calls = check_cli(cfg, sd, vsd, cv_sd,
@@ -4592,6 +4955,28 @@ def main() -> int:
         f32_serving = serving_profile(lambda: svc32.infer_batch(
             clips, refer, sampling_timesteps=STEPS, order=2,
             output="pcm16"), walls["batch_f32"], f"serving B={B} f32")
+        # the same calls through the eager body, against its own wall time
+        for name, s, cl, out, graph in (
+                ("b16_bf16_pcm16", svc, clips, "pcm16", bf16_serving),
+                ("b1_bf16_f32out", svc, clips[:1], "float32", single),
+                ("b16_f32_pcm16", svc32, clips, "pcm16", f32_serving)):
+            case = compiled["cases"][name]
+            with eager_body(s):
+                eager = serving_profile(lambda: s.infer_batch(
+                    cl, refer, sampling_timesteps=STEPS, order=2,
+                    output=out), float(np.mean(case["eager_ms"])),
+                    f"{name} eager body", replay=False)
+            graph_wall = float(np.mean(case["graph_ms"]))
+            case.update(eager_kernel_ms=eager["kernel_ms"],
+                        graph_kernel_ms=graph["kernel_ms"],
+                        eager_busy=eager["busy"],
+                        graph_busy=graph["kernel_ms"] / graph_wall)
+            say(f"compiled serving {name}: kernel time {eager['kernel_ms']:.1f}"
+                f" ms eager, {graph['kernel_ms']:.1f} ms graph; device busy "
+                f"{100 * case['eager_busy']:.0f} % of the eager call "
+                f"({float(np.mean(case['eager_ms'])):.1f} ms), "
+                f"{100 * case['graph_busy']:.0f} % of the replay "
+                f"({graph_wall:.1f} ms) [{CARD}]")
         step_kernels = k2_step_kernels(unet, dev)
         train["profile"] = training_profile(trainer, train_batches[0],
                                             train["step_ms"])
@@ -4646,7 +5031,14 @@ def main() -> int:
         # times of one UNet step's calls, and the f32 serving call
         st = (k1_step if route.startswith("flash") else k2_step)
         ss = st.sums.get(route, {})
+        # the compiled serving path: a replay of its phase, of the
+        # route's dtype, counted with the counts set to 0 just before it
+        replayed = compiled["cases"]["b16_f32_pcm16" if route.endswith(
+            "f32tc") else "b16_bf16_pcm16"]["launches"][route]
+        if replayed == 0:
+            fail(f"{route}: no launch in the compiled serving phase's replay")
         slice6 = {"serving_launches": served[route],
+                  "compiled_serving_launches": replayed,
                   **{f"serving_step_{name}": ss.get(key) for key, name in (
                       ("ms", "ms"), ("plain", "plain_ms"),
                       ("bound", "bound_ms"), ("lib", "library_ms"),
@@ -4715,6 +5107,7 @@ def main() -> int:
         "cfg_sample_ms": modules["cfg_sample_ms"],
         "lora_err": modules["lora_err"],
         "stream_errs": modules["stream_errs"]}}))
+    print(json.dumps({"compiled_serving": compiled}))
     print(json.dumps({"nsf_hifigan": nsf}))
     print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"tensor_parallel": tp}))

@@ -72,19 +72,15 @@ def ddim_sample(x0_fn: DenoiseFn, x_T: torch.Tensor, schedule: NoiseSchedule,
                 ) -> torch.Tensor:
     """DDIM over `steps` calls (default eta 0: deterministic; the final
     step returns the x0 prediction). `noise[j]` is the j-th call's draw."""
-    n = schedule.num_timesteps
-    times = np.trunc(np.linspace(-1.0, n - 1, steps + 1)).astype(np.int64)
-    pairs = list(zip(times[::-1][:-1], times[::-1][1:]))   # (t, t_next)
     acp = schedule.alphas_cumprod
     x = x_T
-    for j, (t, tn) in enumerate(pairs):
+    for j, (t, tn) in enumerate(_ddim_pairs(schedule, steps)):
         x0 = x0_fn(x, _labels(x, t))
         if tn < 0:
             x = x0
             continue
-        alpha, alpha_next = acp[t], acp[tn]
-        sigma = eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
-                              / (1 - alpha))
+        alpha_next = acp[tn]
+        sigma = _ddim_sigma(schedule, t, tn, eta)
         c = np.float32(np.sqrt(1 - alpha_next - sigma ** 2))
         srt = np.float32(schedule.sqrt_recip_alphas_cumprod[t])
         srm1 = np.float32(schedule.sqrt_recipm1_alphas_cumprod[t])
@@ -93,6 +89,35 @@ def ddim_sample(x0_fn: DenoiseFn, x_T: torch.Tensor, schedule: NoiseSchedule,
         if sigma != 0.0:
             x = x + float(np.float32(sigma)) * _noise(x, j, noise, generator)
     return x
+
+
+def _ddim_pairs(schedule: NoiseSchedule, steps: int) -> list:
+    """DDIM's (t, t_next) per call; t_next < 0 on the last."""
+    n = schedule.num_timesteps
+    times = np.trunc(np.linspace(-1.0, n - 1, steps + 1)).astype(np.int64)
+    return list(zip(times[::-1][:-1], times[::-1][1:]))
+
+
+def _ddim_sigma(schedule: NoiseSchedule, t, tn, eta: float) -> float:
+    alpha, alpha_next = schedule.alphas_cumprod[t], schedule.alphas_cumprod[tn]
+    return eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next)
+                         / (1 - alpha))
+
+
+def noise_calls(method: str, schedule: NoiseSchedule,
+                steps: int | None = None, eta: float = 0.0) -> list[int]:
+    """The model calls (0-based) after which `sample(method, ...)` draws
+    noise, in draw order: every DDPM call (t = 0 too), each DDIM call but
+    the last when eta > 0, none for the ODE samplers. x_T and then one
+    draw of x_T's shape and dtype per listed call, from one generator,
+    are the draws `generate_mel` makes itself from that generator."""
+    if method == "ddpm":
+        return list(range(schedule.num_timesteps))
+    if method == "ddim":
+        return [j for j, (t, tn) in enumerate(_ddim_pairs(schedule,
+                                                          steps or 100))
+                if tn >= 0 and _ddim_sigma(schedule, t, tn, eta) != 0.0]
+    return []
 
 
 def _fast_sampler_consts(schedule: NoiseSchedule, steps: int,
@@ -447,17 +472,17 @@ def dpm_inverse(x0_fn: DenoiseFn, x0: torch.Tensor, schedule: NoiseSchedule,
 def sample(method: str, x0_fn: DenoiseFn, x_T: torch.Tensor,
            schedule: NoiseSchedule, steps: int | None = None,
            generator: torch.Generator | None = None, order: int = 2,
-           variant: str = "bh2", noise: Sequence | None = None
-           ) -> torch.Tensor:
-    """Dispatch by method name: 'ddpm', 'ddim' (100 steps), 'dpmsolver'
-    (DPM-Solver++ multistep, 40 steps) or 'unipc' (30 steps, `variant`
-    bh2/bh1/vary_coeff). `generator` / `noise` feed DDPM's and DDIM's
-    draws."""
+           variant: str = "bh2", noise: Sequence | None = None,
+           eta: float = 0.0) -> torch.Tensor:
+    """Dispatch by method name: 'ddpm', 'ddim' (100 steps, `eta` 0: the
+    JAX dispatcher's), 'dpmsolver' (DPM-Solver++ multistep, 40 steps) or
+    'unipc' (30 steps, `variant` bh2/bh1/vary_coeff). `generator` /
+    `noise` feed DDPM's and DDIM's draws."""
     if method == "ddpm":
         return ddpm_sample(x0_fn, x_T, schedule, generator, noise)
     if method == "ddim":
         return ddim_sample(x0_fn, x_T, schedule, steps or 100, generator,
-                           noise=noise)
+                           eta=eta, noise=noise)
     if method == "dpmsolver":
         return dpmpp_2m_sample(x0_fn, x_T, schedule, steps or 40, order=order)
     if method == "unipc":

@@ -12,6 +12,34 @@ Inputs are padded to 64-frame shape buckets and masked by length; outputs
 are trimmed per request. The diffusion model runs in `compute_dtype`;
 ContentVec, CREPE and Vocos run in f32, as in the JAX Svc.
 
+The device part of a call (encoders, the step-invariant conditioning
+precompute, the sampler loop over the UNet, Vocos, and the int16
+quantisation) is one serving program per key, as the JAX Svc's
+`_get_infer_fn` jits one XLA program per key. The key is the JAX key
+(method, steps, order, use_f0, auto_predict_f0, vocode, output) with DDIM's
+eta, what JAX's retracing keys (the padded batch and the 64-frame T and Tp
+buckets), the compute dtype and the float32 matmul and cuDNN TF32 settings
+in force (a capture bakes them in). A program reads its inputs from static
+device buffers that each call fills: the content, refer, lengths, f0 and
+uv, and the randomness, drawn before the device work from the call's
+seeded generator in the order the eager body draws it (x_T, then each
+DDPM or DDIM eta > 0 step's noise), so a call at seed s gives the eager
+body's result at seed s. On a card the program's first call runs the body
+eagerly once (the warm-up, which fills what is lazy: the kernel build,
+packed weights and their tensor maps, cuFFT plans, cuBLAS handles), then
+captures it as a CUDA graph on a side stream in thread-local capture mode
+(other threads may synchronise events meanwhile, as the MicroBatcher's
+completers do), then replays it; every later call at the key only
+replays. The graphs of one Svc share one memory pool (a new one after a
+failed capture, into whose pool PyTorch's allocator takes no further
+capture): replays are serialised under the Svc's lock and each output is
+copied out, in stream order, before the next replay. A failed capture or
+replay raises; nothing
+falls back to eager on a card. On the CPU the program runs its body
+eagerly over the same static buffers and pre-drawn noise. `unload_model`
+drops the programs. The kernels' launch counters count a replay's
+launches: each replay adds what its capture counted.
+
 Dispatch and readback are split (`infer_batch_async`): the device work is
 enqueued on the Svc's card's current stream with pinned, non-blocking
 uploads, the waveform's device-to-host copy is enqueued into pinned memory
@@ -36,9 +64,11 @@ are ignored.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
+import threading
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,8 +79,11 @@ from ns2vc_tpu_torch.audio.host import (
 )
 from ns2vc_tpu_torch.audio.mel import log_mel_spectrogram
 from ns2vc_tpu_torch.audio.resample import resample
+from ns2vc_tpu_torch.diffusion.samplers import noise_calls
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2, generate_mel
 from ns2vc_tpu_torch.models.vocos import vocos_from_state_dict
+from ns2vc_tpu_torch.ops import flash_attention as _k1_ops
+from ns2vc_tpu_torch.ops import fused_resnet as _k2_ops
 from ns2vc_tpu_torch.utils.precision import resolve_dtype
 
 
@@ -67,6 +100,70 @@ def to_pcm16(wav: torch.Tensor) -> torch.Tensor:
     """f32 waveform in [-1, 1] -> int16 PCM: clip(round(wav * 32767))."""
     return torch.clamp(torch.round(wav.float() * 32767.0),
                        -32768.0, 32767.0).to(torch.int16)
+
+
+class _ProgramKey(NamedTuple):
+    """What one serving program is for: the JAX Svc's `_get_infer_fn` key
+    and DDIM's eta, the shapes JAX's retracing keys, and what a capture
+    bakes in."""
+    method: str
+    steps: int
+    order: int
+    use_f0: bool
+    auto_predict_f0: bool
+    vocode: bool
+    output: str
+    eta: float
+    batch: int
+    t_pad: int
+    tp_pad: int
+    dtype: torch.dtype
+    tf32_matmul: bool
+    tf32_cudnn: bool
+
+
+class _Program:
+    """One serving program: the static device buffers its body reads
+    (`static`; "noise" lists each call's pre-drawn noise, None where the
+    sampler draws none, and "draws" the same buffers in draw order) and, on
+    a card, the CUDA graph captured over them, its static output, the
+    launch counts one replay adds, the replays made, the capture's host
+    time and the graph's node count."""
+
+    def __init__(self, key: _ProgramKey, static: dict):
+        self.key, self.static = key, static
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.counts: Optional[list] = None
+        self.replays = 0
+        self.capture_ms: Optional[float] = None
+        self.nodes: Optional[int] = None
+
+
+_COUNTED_OPS = (_k1_ops, _k2_ops)   # the wrappers with launch counters
+
+
+def _launch_counts() -> list:
+    return [ops.launch_counts() for ops in _COUNTED_OPS]
+
+
+def _add_launch_counts(counts: list, times: int = 1) -> None:
+    for ops, delta in zip(_COUNTED_OPS, counts):
+        ops.add_launch_counts(delta, times)
+
+
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a graph captured with keep_graph=True (libcuda's
+    cuGraphGetNodes)."""
+    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_size_t)]
+    get_nodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = get_nodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned CUresult {err}")
+    return n.value
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -127,6 +224,12 @@ class Svc:
         self.model.load_state_dict(params)
         self.model.to(self.device, self.compute_dtype).eval()
         self._refer_cache: dict = {}  # (key, n, tp_pad) -> device tensor
+        self._programs: dict[_ProgramKey, _Program] = {}
+        self._graph_pool = None       # the programs' shared memory pool
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        # one call's copy in, replay and copy out at a time
+        self._serving_lock = threading.Lock()
+        self._last_readback: Optional[torch.cuda.Event] = None
 
         def place(module):
             return None if module is None else \
@@ -266,13 +369,15 @@ class Svc:
             self._refer_cache.pop(key, None)
 
     @torch.no_grad()
-    def _run(self, c_in: np.ndarray, r_dev: torch.Tensor, t_lens, tp_len: int,
-             sample_method: str, steps: int, order: int, seed: int,
-             output: str, f0_in: Optional[np.ndarray] = None,
-             uv_in: Optional[np.ndarray] = None,
-             auto_predict_f0: bool = False) -> torch.Tensor:
-        """generate_mel + Vocos (+ pcm16), enqueued on the device: the
-        padded (B, T_pad * hop) waveform."""
+    def _run_eager(self, c_in: np.ndarray, r_dev: torch.Tensor, t_lens,
+                   tp_len: int, sample_method: str, steps: int, order: int,
+                   seed: int, output: str, f0_in: Optional[np.ndarray] = None,
+                   uv_in: Optional[np.ndarray] = None,
+                   auto_predict_f0: bool = False,
+                   eta: float = 0.0) -> torch.Tensor:
+        """The eager body of `_run`: generate_mel (drawing its own noise
+        from the seeded generator) + Vocos (+ pcm16), every op dispatched
+        from Python. What a program's replay at the same seed must equal."""
         n = c_in.shape[0]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         mel = generate_mel(
@@ -282,9 +387,164 @@ class Svc:
             method=sample_method, steps=steps, order=order,
             f0=None if f0_in is None else self._upload(f0_in),
             uv=None if uv_in is None else self._upload(uv_in),
-            auto_predict_f0=auto_predict_f0)
+            auto_predict_f0=auto_predict_f0, eta=eta)
         wav = self.vocos(mel)
         return to_pcm16(wav) if output == "pcm16" else wav
+
+    @torch.no_grad()
+    def _run(self, c_in: np.ndarray, r_dev: torch.Tensor, t_lens, tp_len: int,
+             sample_method: str, steps: int, order: int, seed: int,
+             output: str, f0_in: Optional[np.ndarray] = None,
+             uv_in: Optional[np.ndarray] = None,
+             auto_predict_f0: bool = False, eta: float = 0.0) -> torch.Tensor:
+        """generate_mel + Vocos (+ pcm16) through the serving program of
+        this call's key, enqueued on the device: the padded (B, T_pad * hop)
+        waveform. On a card it is the program's static output, which the
+        next call overwrites: the caller reads it back first, as
+        `infer_batch_async` does under the Svc's lock."""
+        key = _ProgramKey(
+            sample_method, steps, order, f0_in is not None, auto_predict_f0,
+            True, output, float(eta), c_in.shape[0], c_in.shape[1],
+            r_dev.shape[1], self.compute_dtype,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+        prog = self._programs.get(key)
+        new = prog is None
+        if new:
+            prog = self._new_program(key, c_in.shape[2], r_dev.shape[2])
+        self._stage(prog, c_in, r_dev, t_lens, tp_len, seed, f0_in, uv_in)
+        if self.device.type != "cuda":
+            self._programs[key] = prog
+            return self._program_body(prog)
+        if new:
+            self._capture(prog)
+            self._programs[key] = prog
+        prog.graph.replay()
+        _add_launch_counts(prog.counts)
+        prog.replays += 1
+        return prog.out
+
+    def _new_program(self, key: _ProgramKey, c_dim: int,
+                     mel_dim: int) -> _Program:
+        """A program's static buffers, allocated outside any capture."""
+        n, t = key.batch, key.t_pad
+
+        def empty(*shape, dtype=self.compute_dtype):
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        out_ch = self.cfg.diffusion_encoder.out_channels
+        calls = noise_calls(key.method, self.model.schedule, key.steps,
+                            key.eta)
+        draws = list(empty(len(calls), n, t, out_ch)) if calls else []
+        noise = None
+        if calls:
+            noise = [None] * (calls[-1] + 1)
+            for j, buf in zip(calls, draws):
+                noise[j] = buf
+        f0 = empty(n, t, dtype=torch.float32) if key.use_f0 else None
+        return _Program(key, {
+            "c": empty(n, t, c_dim, dtype=torch.float32),
+            "refer": empty(n, key.tp_pad, mel_dim),
+            "lengths": empty(n, dtype=torch.int64),
+            "refer_lengths": empty(n, dtype=torch.int64),
+            "f0": f0, "uv": None if f0 is None else torch.empty_like(f0),
+            "x_T": empty(n, t, out_ch), "noise": noise, "draws": draws})
+
+    def _stage(self, prog: _Program, c_in: np.ndarray, r_dev: torch.Tensor,
+               t_lens, tp_len: int, seed: int,
+               f0_in: Optional[np.ndarray],
+               uv_in: Optional[np.ndarray]) -> None:
+        """Fill a program's static inputs for one call, enqueued on the
+        current stream: the host arrays through pinned memory, the refer
+        from the device, x_T and each step's noise drawn from the call's
+        seeded generator in the eager body's order."""
+        s, on_card = prog.static, self.device.type == "cuda"
+        n = c_in.shape[0]
+        for name, arr in (("c", c_in), ("lengths", np.asarray(t_lens,
+                                                               np.int64)),
+                          ("refer_lengths", np.full((n,), tp_len, np.int64)),
+                          ("f0", f0_in), ("uv", uv_in)):
+            if s[name] is not None:
+                src = torch.from_numpy(np.ascontiguousarray(arr))
+                s[name].copy_(src.pin_memory() if on_card else src,
+                              non_blocking=on_card)
+        s["refer"].copy_(r_dev)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for buf in (s["x_T"], *s["draws"]):
+            buf.normal_(generator=gen)
+
+    def _program_body(self, prog: _Program) -> torch.Tensor:
+        """One call's device work over a program's static buffers: the
+        eager body with x_T and the noise given."""
+        s, key = prog.static, prog.key
+        mel = generate_mel(
+            self.model, s["c"], s["refer"], s["lengths"], s["refer_lengths"],
+            x_T=s["x_T"], method=key.method, steps=key.steps,
+            order=key.order, noise=s["noise"], f0=s["f0"], uv=s["uv"],
+            auto_predict_f0=key.auto_predict_f0, eta=key.eta)
+        wav = self.vocos(mel)
+        return to_pcm16(wav) if key.output == "pcm16" else wav
+
+    def _capture(self, prog: _Program) -> None:
+        """A program's first call on a card, before its first replay: the
+        body run eagerly (the warm-up, launched and counted), then captured
+        on the Svc's side stream into the shared pool. The capture launches
+        nothing, so its counts come off the counters and each replay adds
+        them back. Raises if the capture fails."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        cur, side = torch.cuda.current_stream(self.device), \
+            self._capture_stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._program_body(prog)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            graph.capture_begin(pool=self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = self._program_body(prog)
+            except BaseException as e:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    # an invalidated capture ends with an error before
+                    # the allocator stops routing to the pool: stop it
+                    torch._C._cuda_endAllocateToPool(self.device.index,
+                                                     self._graph_pool)
+                # the allocator refuses any later capture into this pool:
+                # the next program starts a new one
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                raise RuntimeError(f"serving program {prog.key}: capture "
+                                   f"failed: {e}") from e
+            finally:
+                counts = [{k: a[k] - b[k] for k in a}
+                          for a, b in zip(_launch_counts(), before)]
+                _add_launch_counts(counts, -1)
+            graph.capture_end()
+            prog.nodes = _graph_nodes(graph)
+            graph.instantiate()
+            prog.capture_ms = (time.perf_counter() - t0) * 1e3
+        cur.wait_stream(side)
+        prog.graph, prog.out, prog.counts = graph, out, counts
+
+    def _program_memory(self) -> dict:
+        """Device bytes the program cache holds: its static buffers, and on
+        a card the segments of its graphs' memory pool."""
+        static = sum(t.numel() * t.element_size()
+                     for p in self._programs.values()
+                     for name, t in p.static.items()
+                     if isinstance(t, torch.Tensor))
+        static += sum(d.numel() * d.element_size()
+                      for p in self._programs.values()
+                      for d in p.static["draws"])
+        pools = {tuple(p.graph.pool()) for p in self._programs.values()
+                 if p.graph is not None}
+        pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) in pools) if pools else 0
+        return {"programs": len(self._programs), "static_bytes": static,
+                "pool_bytes": pool}
 
     # -- single-clip inference ----------------------------------------------
 
@@ -324,16 +584,17 @@ class Svc:
                     order: int = 2, f0s: Optional[list] = None,
                     uvs: Optional[list] = None,
                     auto_predict_f0: bool = False,
-                    output: str = "float32") -> list:
+                    output: str = "float32", eta: float = 0.0) -> list:
         """Convert many clips in one device batch: a list of (T_i, 256)
         content arrays -> a list of waveforms (float32, or int16 PCM with
         output='pcm16', quantised on the device). All clips are padded to
-        the largest bucket and masked by length."""
+        the largest bucket and masked by length. `eta` is DDIM's (0, the
+        JAX Svc's, is deterministic)."""
         return self.infer_batch_async(
             clips, refer_mel, sample_method=sample_method,
             sampling_timesteps=sampling_timesteps, seed=seed, order=order,
             f0s=f0s, uvs=uvs, auto_predict_f0=auto_predict_f0,
-            output=output)()
+            output=output, eta=eta)()
 
     def infer_batch_async(self, clips: list, refer_mel: np.ndarray,
                           sample_method: str = "unipc",
@@ -341,13 +602,17 @@ class Svc:
                           order: int = 2, f0s: Optional[list] = None,
                           uvs: Optional[list] = None,
                           auto_predict_f0: bool = False,
-                          output: str = "float32", refer_cache_key=None):
+                          output: str = "float32", refer_cache_key=None,
+                          eta: float = 0.0):
         """infer_batch split at the device/host boundary: enqueues the
-        device work and the readback into pinned memory, and returns a
-        zero-arg `finish() -> list[np.ndarray]` that waits on this batch's
-        own CUDA event (`finish.done`) and nothing else. A
-        `refer_cache_key` keeps the padded refer on the device across
-        dispatches."""
+        device work (the serving program of the call's key) and the
+        readback into pinned memory, and returns a zero-arg `finish() ->
+        list[np.ndarray]` that waits on this batch's own CUDA event
+        (`finish.done`) and nothing else. A `refer_cache_key` keeps the
+        padded refer on the device across dispatches. Safe to call from
+        several threads: one call's copy in, replay and copy out hold the
+        Svc's lock, and a call on another stream waits for the previous
+        call's readback before it fills the static inputs."""
         if not clips:
             return lambda: []
         if output not in ("float32", "pcm16"):
@@ -382,7 +647,7 @@ class Svc:
         dtype = torch.int16 if output == "pcm16" else torch.float32
         on_card = self.device.type == "cuda"
         done = None
-        with self._on_device():
+        with self._on_device(), self._serving_lock:
             # the pinned readback buffer is allocated before any of this
             # batch's work is enqueued
             host = torch.empty((n, t_pad * hop), dtype=dtype,
@@ -390,13 +655,18 @@ class Svc:
             r_dev = self._device_refer(refer_mel, n,
                                        _bucket(refer_mel.shape[0]),
                                        cache_key=refer_cache_key)
+            stream = torch.cuda.current_stream(self.device) if on_card \
+                else None
+            if self._last_readback is not None:
+                stream.wait_event(self._last_readback)
             wav = self._run(c_in, r_dev, t_lens, refer_mel.shape[0],
                             sample_method, sampling_timesteps, order, seed,
-                            output, f0_in, uv_in, auto_predict_f0)
+                            output, f0_in, uv_in, auto_predict_f0, eta)
             host.copy_(wav, non_blocking=on_card)
             if on_card:
                 done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+                done.record(stream)
+                self._last_readback = done
 
         def finish() -> list:
             if done is not None:
@@ -511,8 +781,14 @@ class Svc:
             torch.cuda.empty_cache()
 
     def unload_model(self):
-        self.model = None
-        self._refer_cache.clear()
+        """Drop the model, the refer cache and the serving programs (their
+        graphs and memory pool), as the JAX Svc drops its jit cache."""
+        with self._serving_lock:
+            self.model = None
+            self._refer_cache.clear()
+            self._programs.clear()
+            self._graph_pool = None
+            self._last_readback = None
 
 
 class RealTimeVC:

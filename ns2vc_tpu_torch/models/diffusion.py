@@ -235,12 +235,13 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
                  order: int = 2, noise=None, f0: torch.Tensor | None = None,
                  uv: torch.Tensor | None = None,
                  auto_predict_f0: bool = True, mesh=None,
-                 gather: bool = True) -> torch.Tensor:
+                 gather: bool = True, eta: float = 0.0) -> torch.Tensor:
     """Encode the conditioning once, run the sampler (`method` 'ddpm',
-    'ddim', 'dpmsolver' or 'unipc', the JAX package's default steps when
-    `steps` is None), return the (B, T, 100) log-mel in f32. The model
-    runs in the dtype of its parameters; c and refer are cast to it, f0 and
-    uv (B, T) stay in theirs (f32: the coarse F0 bins are taken there).
+    'ddim' with DDIM's `eta`, 'dpmsolver' or 'unipc', the JAX package's
+    default steps when `steps` is None), return the (B, T, 100) log-mel in
+    f32. The model runs in the dtype of its parameters; c and refer are
+    cast to it, f0 and uv (B, T) stay in theirs (f32: the coarse F0 bins
+    are taken there).
     `x_T` (B, T, 100) is the initial noise; without it the noise is drawn
     from `generator` on the model's device, which also feeds DDPM's and
     DDIM's per-step draws unless `noise` gives them.
@@ -278,7 +279,8 @@ def generate_mel(model: NaturalSpeech2, c: torch.Tensor, refer: torch.Tensor,
         x_T = x_T[rows]
         noise = None if noise is None else [n[rows] for n in noise]
     mel = sample(method, x0_fn, x_T.to(c.device, dtype), model.schedule,
-                 steps, generator=generator, order=order, noise=noise)
+                 steps, generator=generator, order=order, noise=noise,
+                 eta=eta)
     mel = mel.float()
     if rows is not None and gather and mesh.shape["data"] > 1:
         mel = torch.cat(all_gather(mel, mesh_groups(mesh)[1]))

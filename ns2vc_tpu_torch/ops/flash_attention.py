@@ -34,7 +34,9 @@ A CUDA tensor launches one of the kernels or raises. `flash_attention.
 launches` counts every launch, `flash_attention.route_launches` each route's
 and sub-route's ("tc", "tc_narrow", "f32tc"); its "plain" entry
 counts the calls `ops/attention.py` sends to the plain version by their
-bias or head dim (no kernel launches for those).
+bias or head dim (no kernel launches for those). A replayed CUDA graph
+launches kernels without calling the wrapper: its owner adds the counts
+its capture took (`launch_counts`, `add_launch_counts`).
 The kernels read q/k/v through their (batch, head, seq) strides, so the
 (B, H, T, D) views that `ops/attention.py::split_heads` makes of the
 (B, T, H*D) projections go in without a transpose copy, and the output is
@@ -255,11 +257,28 @@ flash_attention.launches = 0
 flash_attention.route_launches = {"f32tc": 0, "tc": 0, "tc_narrow": 0,
                                   "plain": 0}
 flash_attention.backward_calls = {"f32tc": 0, "tc": 0, "tc_narrow": 0}
+# the counters' owner, also while a caller replaces the module's public
+# name
+_counts = flash_attention
 
 
 def reset_launches() -> None:
-    flash_attention.launches = 0
-    for counts in (flash_attention.route_launches,
-                   flash_attention.backward_calls):
+    _counts.launches = 0
+    for counts in (_counts.route_launches, _counts.backward_calls):
         for key in counts:
             counts[key] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """The forward launch counters, flat (a CUDA graph's owner takes them
+    before and after its capture)."""
+    return {"launches": _counts.launches,
+            **{f"route.{k}": n for k, n in _counts.route_launches.items()}}
+
+
+def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
+    """Add `times` x `delta` (a difference of two `launch_counts()`): a
+    replay launches what its capture counted."""
+    _counts.launches += times * delta["launches"]
+    for k in _counts.route_launches:
+        _counts.route_launches[k] += times * delta[f"route.{k}"]

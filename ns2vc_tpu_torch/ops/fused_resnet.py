@@ -33,9 +33,11 @@ bf16 kernel's TMA map of them; f32 weights packed as their big and small
 TF32 planes). A CUDA tensor launches one of the kernels or raises.
 `affine_silu_conv1d.launches` counts every launch,
 `affine_silu_conv1d.route_launches` each route's ("tc_elem" apart from
-"tc"), `group_norm_affine.launches` the statistics kernel's. The CUDA
-source notes say what bounds each kernel on the H100 and how its design
-answers that.
+"tc"), `group_norm_affine.launches` the statistics kernel's. A replayed
+CUDA graph launches kernels without calling the wrappers: its owner adds
+the counts its capture took (`launch_counts`, `add_launch_counts`). The
+CUDA source notes say what bounds each kernel on the H100 and how its
+design answers that.
 
 Training: when grad is enabled and an input requires it, a CUDA call goes
 through an autograd Function whose forward is the same launch and whose
@@ -343,15 +345,34 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 affine_silu_conv1d.launches = 0
 affine_silu_conv1d.route_launches = {"f32tc": 0, "tc": 0, "tc_elem": 0}
 affine_silu_conv1d.backward_calls = {"f32tc": 0, "tc": 0}
+# the counters' owner, also while a caller replaces the module's public
+# name (the plain version in its place)
+_conv_counts = affine_silu_conv1d
 
 
 def reset_launches() -> None:
-    affine_silu_conv1d.launches = 0
+    _conv_counts.launches = 0
     _gn_counts.launches = _gn_counts.backward_calls = 0
-    for counts in (affine_silu_conv1d.route_launches,
-                   affine_silu_conv1d.backward_calls):
+    for counts in (_conv_counts.route_launches, _conv_counts.backward_calls):
         for key in counts:
             counts[key] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """The forward launch counters, flat (a CUDA graph's owner takes them
+    before and after its capture)."""
+    return {"launches": _conv_counts.launches, "gn": _gn_counts.launches,
+            **{f"route.{k}": n
+               for k, n in _conv_counts.route_launches.items()}}
+
+
+def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
+    """Add `times` x `delta` (a difference of two `launch_counts()`): a
+    replay launches what its capture counted."""
+    _conv_counts.launches += times * delta["launches"]
+    _gn_counts.launches += times * delta["gn"]
+    for k in _conv_counts.route_launches:
+        _conv_counts.route_launches[k] += times * delta[f"route.{k}"]
 
 
 def gn_route(device: torch.device | str) -> str:

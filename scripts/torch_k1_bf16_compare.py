@@ -16,7 +16,7 @@ same q, k, v and key bias in the order old, new, new, old, each as the
 device time of 20 calls captured as one CUDA graph
 (`chip_smoke.graph_ms`), the wgmma kernel at the key tile
 `plan_wgmma_attention` picks. Beside each: SDPA with the key bias as its
-mask (timed only), the bound (`chip_smoke.k1_bound`: bytes or operations at
+mask (timed only), the plain version (`flash_attention_plain`), the bound (`chip_smoke.k1_bound`: bytes or operations at
 the H100's peaks), the exp floor (one exponential per score at 16 per SM
 and clock on 132 SMs, at the SM clock `nvidia-smi --query-gpu=clocks.max.sm`
 reports), the eager host time per call of both (back-to-back wrapper
@@ -142,7 +142,8 @@ def inputs(b, h, tq, tk, d, valid, layout, g, dev):
 def compare(label, geos, dev, g):
     import ns2vc_tpu_torch.ops.flash_attention as fa
 
-    keys = ("old", "new", "sdpa", "bound", "exp", "eager_old", "eager_new")
+    keys = ("old", "new", "sdpa", "plain", "bound", "exp", "eager_old",
+            "eager_new")
     sums, rows = dict.fromkeys(keys, 0.0), []
     for name, b, h, tq, tk, d, valid, calls, layout in geos:
         q, k, v, bias = inputs(b, h, tq, tk, d, valid, layout, g, dev)
@@ -166,6 +167,8 @@ def compare(label, geos, dev, g):
                "new": (turns[1] + turns[2]) / 2,
                "sdpa": cs.graph_ms(cs.sdpa_call(q, k, v, bias, d ** -0.5),
                                    ITERS),
+               "plain": cs.graph_ms(lambda: fa.flash_attention_plain(
+                   q, k, v, bias), ITERS),
                "bound": cs.k1_bound(q, k, bias)[0],
                "bound_by": cs.k1_bound(q, k, bias)[1],
                "exp": cs.exp_floor(q, k),
@@ -178,13 +181,14 @@ def compare(label, geos, dev, g):
         cs.say(f"K1 bf16 {label} {name:16s} B={b} H={h} Tq={tq} Tk={tk} "
                f"D={d} x{calls}: mma.sync {turns[0]:.4f}/{turns[3]:.4f} wgmma "
                f"{turns[1]:.4f}/{turns[2]:.4f} ms (key tile {key_tile}); "
-               f"SDPA {row['sdpa']:.4f}, bound "
+               f"SDPA {row['sdpa']:.4f}, plain {row['plain']:.4f}, bound "
                f"{row['bound']:.5f} ({row['bound_by']}), exp floor "
                f"{row['exp']:.5f}; eager per call mma.sync {row['eager_old']:.4f}"
                f" wgmma {row['eager_new']:.4f}; err mma.sync {errs['old']:.2e} "
                f"wgmma {errs['new']:.2e}")
     cs.say(f"K1 bf16 one UNet step, {label}: the mma.sync kernel {sums['old']:.4f} "
-           f"ms -> wgmma {sums['new']:.4f}; SDPA {sums['sdpa']:.4f}; bound "
+           f"ms -> wgmma {sums['new']:.4f}; SDPA {sums['sdpa']:.4f}; plain "
+           f"{sums['plain']:.4f}; bound "
            f"{sums['bound']:.5f}, exp floor {sums['exp']:.5f} "
            f"({100 * sums['exp'] / sums['new']:.1f} % of wgmma's time); "
            f"eager mma.sync {sums['eager_old']:.4f} wgmma {sums['eager_new']:.4f}"

@@ -19,7 +19,8 @@ At every resnet epilogue of one UNet step (`chip_smoke.resnet_cases`, the
 geometry (B=32, the 272-frame bucket), in bf16, it times the two convs on
 the same x, a, b, w, bias in the order old, new, new, old, each as the
 device time of 10 calls captured as one CUDA graph (`chip_smoke.graph_ms`),
-beside cuDNN's conv1d of the pre-activated input alone; both outputs are
+beside cuDNN's conv1d of the pre-activated input alone and the plain
+version (`affine_silu_conv1d_plain`); both outputs are
 held against the plain version (`chip_smoke.RESNET_BF16_RTOL`). At the
 B=16 and B=1 serving geometries it times the statistics: the torch ops
 (`group_norm_affine_plain`), the kernel, the kernel, the torch ops, and
@@ -110,7 +111,8 @@ def conv_cases(fn, unet, dev, bsz, t_bucket):
     import ns2vc_tpu_torch.ops.fused_resnet as fr
 
     g = torch.Generator(device=dev).manual_seed(cs.SEED + 50 + bsz)
-    rows, sums = [], {"old": 0.0, "new": 0.0, "conv": 0.0, "bound": 0.0}
+    rows, sums = [], {"old": 0.0, "new": 0.0, "conv": 0.0, "plain": 0.0,
+                      "bound": 0.0}
     for name, t, c, co, film in cs.resnet_cases(unet):
         t = t * t_bucket // cs.T_PAD
         x = torch.randn(bsz, t, c, generator=g, device=dev).bfloat16()
@@ -136,26 +138,31 @@ def conv_cases(fn, unet, dev, bsz, t_bucket):
         h = F.silu(x.float() * a[:, None, :] + b[:, None, :]).bfloat16() \
             .transpose(1, 2).contiguous()
         conv = cs.graph_ms(lambda: F.conv1d(h, w, bias, padding=1))
+        plain = cs.graph_ms(lambda: fr.affine_silu_conv1d_plain(
+            x, a, b, w, bias))
         bound = cs.k2_bound(bsz, t, c, co, torch.bfloat16)[0]
         row = {"name": name, "t": t, "c": c, "co": co,
                "old_ms": (turns[0] + turns[3]) / 2,
                "new_ms": (turns[1] + turns[2]) / 2, "turns": turns,
-               "conv_alone_ms": conv, "bound_ms": bound,
+               "conv_alone_ms": conv, "plain_ms": plain, "bound_ms": bound,
                "old_splits": old_splits,
                "new_splits": fr.plan_wgmma(bsz, t, c, co)[0],
                "old_err": errs[0], "new_err": errs[1]}
         rows.append(row)
         for key, val in (("old", row["old_ms"]), ("new", row["new_ms"]),
-                         ("conv", conv), ("bound", bound)):
+                         ("conv", conv), ("plain", plain),
+                         ("bound", bound)):
             sums[key] += val
         cs.say(f"K2 bf16 B={bsz} {name:18s} T={t} C={c} Co={co}: old "
                f"{turns[0]:.4f}/{turns[3]:.4f} new {turns[1]:.4f}/"
                f"{turns[2]:.4f} ms (splits {old_splits} -> "
-               f"{row['new_splits']}), cuDNN conv alone {conv:.4f}, bound "
+               f"{row['new_splits']}), cuDNN conv alone {conv:.4f}, plain "
+               f"{plain:.4f}, bound "
                f"{bound:.5f}; err old {errs[0]:.2e} new {errs[1]:.2e}")
     cs.say(f"K2 bf16 one UNet step, B={bsz} x {t_bucket}: old kernel "
            f"{sums['old']:.4f} ms -> wgmma {sums['new']:.4f} ms; cuDNN conv "
-           f"alone {sums['conv']:.4f}; bound {sums['bound']:.5f} "
+           f"alone {sums['conv']:.4f}; plain {sums['plain']:.4f}; bound "
+           f"{sums['bound']:.5f} "
            f"({100 * sums['bound'] / sums['new']:.1f} % of it) [{cs.CARD}]")
     return {"per_step": sums, "rows": rows}
 

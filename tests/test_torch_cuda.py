@@ -29,6 +29,10 @@ the route its call took. The Svc
 readback test checks that
 batch N's `finish()` waits on its own CUDA event only: it returns while
 batch N+1, whose device work ends in a spin kernel, is still running.
+The serving programs: a replay (and a key's first call) against the eager
+body at the same seed, bit for bit, with the launches a replay counts;
+two dispatches of one key in flight; a capture while another thread
+waits on events; a capture that fails raises and caches nothing.
 """
 
 import pytest
@@ -659,6 +663,145 @@ def test_svc_dispatch_from_another_thread(dev):
     assert next(iter(svc._refer_cache.values())).device == last
     for a, b in zip(got[0], want):
         np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+# -- serving programs: CUDA graphs of the serving call ------------------------
+
+def _counts():
+    from ns2vc_tpu_torch.ops import flash_attention, fused_resnet
+
+    return (flash_attention.launch_counts(), fused_resnet.launch_counts())
+
+
+def _reset_counts():
+    from ns2vc_tpu_torch.ops import flash_attention, fused_resnet
+
+    flash_attention.reset_launches()
+    fused_resnet.reset_launches()
+
+
+def _request(seed, lens=(40, 70)):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    return ([r.standard_normal((n, 256)).astype(np.float32) for n in lens],
+            r.standard_normal((30, 100)).astype(np.float32))
+
+
+@pytest.mark.parametrize("method,eta", [("unipc", 0.0), ("dpmsolver", 0.0),
+                                        ("ddim", 0.5)])
+def test_svc_program_replay_equals_the_eager_body(dev, monkeypatch, method,
+                                                  eta):
+    """A key's first call (warm-up, capture, replay) and a replay give the
+    eager body's waveforms at the same seed bit for bit (DDIM's eta > 0
+    noise drawn before the replay); a replay counts the eager body's
+    launches, and the first call twice those (warm-up and replay)."""
+    import numpy as np
+
+    svc = _small_svc(dev)
+    clips, refer = _request(2)
+    kw = dict(sample_method=method, sampling_timesteps=4, eta=eta, seed=3)
+    _reset_counts()
+    first = svc.infer_batch(clips, refer, **kw)
+    first_counts = _counts()
+    _reset_counts()
+    replay = svc.infer_batch(clips, refer, **kw)
+    replay_counts = _counts()
+    (prog,) = svc._programs.values()
+    assert prog.graph is not None and prog.replays == 2 and prog.nodes > 0
+    monkeypatch.setattr(svc, "_run", svc._run_eager)
+    _reset_counts()
+    eager = svc.infer_batch(clips, refer, **kw)
+    assert _counts() == replay_counts
+    k1, k2 = replay_counts
+    assert k1["launches"] > 0 and k2["launches"] > 0 and k2["gn"] > 0
+    for part, c in zip(first_counts, replay_counts):
+        assert part == {k: 2 * n for k, n in c.items()}
+    for a, b, c in zip(first, replay, eager):
+        assert np.array_equal(a, c) and np.array_equal(b, c)
+
+
+def test_svc_programs_in_flight_keep_each_batchs_audio(dev):
+    """Two dispatches of one key before either is read back: the second
+    replay overwrites the program's static output only after the first
+    batch's copy out, in stream order."""
+    import numpy as np
+
+    svc = _small_svc(dev)
+    (a, refer), (b, _) = _request(4), _request(5)
+    kw = dict(sampling_timesteps=4, output="pcm16")
+    want_a = svc.infer_batch(a, refer, seed=1, **kw)
+    want_b = svc.infer_batch(b, refer, seed=2, **kw)
+    fa = svc.infer_batch_async(a, refer, seed=1, **kw)
+    fb = svc.infer_batch_async(b, refer, seed=2, **kw)
+    got_a, got_b = fa(), fb()
+    assert len(svc._programs) == 1
+    for x, y in zip(got_a + got_b, want_a + want_b):
+        assert np.array_equal(x, y)
+    assert not np.array_equal(got_a[0], got_b[0])
+
+
+def test_svc_capture_while_another_thread_synchronises(dev, monkeypatch):
+    """A completer thread waits on a batch's event and records and waits on
+    its own events while the dispatching thread captures a new key: the
+    capture is thread-local, so the waits do not break it."""
+    import threading
+
+    import numpy as np
+
+    svc = _small_svc(dev)
+    clips, refer = _request(6)
+    svc.infer_batch(clips, refer, sampling_timesteps=4)       # key A
+    done, waits, got = threading.Event(), [], []
+    pending = svc.infer_batch_async(clips, refer, sampling_timesteps=4)
+
+    def completer():
+        got.append(pending())
+        while not done.is_set():
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+            waits.append(1)
+    t = threading.Thread(target=completer)
+    t.start()
+    try:
+        new = svc.infer_batch(clips, refer, sampling_timesteps=5)  # key B
+    finally:
+        done.set()
+        t.join(timeout=120)
+    assert not t.is_alive() and len(got) == 1 and waits
+    assert len(svc._programs) == 2
+    assert all(p.graph is not None for p in svc._programs.values())
+    monkeypatch.setattr(svc, "_run", svc._run_eager)
+    want = svc.infer_batch(clips, refer, sampling_timesteps=5)
+    for x, y in zip(new, want):
+        assert np.array_equal(x, y)
+
+
+def test_svc_failed_capture_raises(dev, monkeypatch):
+    """A body that synchronises the device cannot be captured: the call
+    raises, caches no program and falls back to nothing; the capture's
+    launches come off the counters. The same key captures once the body
+    is capturable again."""
+    svc = _small_svc(dev)
+    clips, refer = _request(7)
+    vocos = type(svc.vocos).forward
+
+    def synchronising(self, mel):
+        torch.cuda.synchronize()
+        return vocos(self, mel)
+    monkeypatch.setattr(type(svc.vocos), "forward", synchronising)
+    _reset_counts()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        svc.infer_batch(clips, refer, sampling_timesteps=4)
+    warm_only = _counts()
+    assert svc._programs == {}
+    monkeypatch.undo()
+    _reset_counts()
+    svc.infer_batch(clips, refer, sampling_timesteps=4)
+    assert _counts() == tuple({k: 2 * n for k, n in c.items()}
+                              for c in warm_only)
+    assert len(svc._programs) == 1
 
 
 # -- training: K1 and K2 under autograd ---------------------------------------

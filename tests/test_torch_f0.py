@@ -404,13 +404,13 @@ def svc_pair():
 
 def _jax_noise(monkeypatch, seed):
     """The port Svc's sampler starts from the x_T the JAX Svc draws from
-    PRNGKey(seed)."""
+    PRNGKey(seed), in place of the one its serving program drew."""
     real = svc_mod.generate_mel
 
     def gm(model, c, *args, **kwargs):
         x_T = jax.random.normal(jax.random.split(jax.random.PRNGKey(seed))[0],
                                 (c.shape[0], c.shape[1], 100), jnp.float32)
-        return real(model, c, *args, x_T=_t(np.array(x_T)), **kwargs)
+        return real(model, c, *args, **{**kwargs, "x_T": _t(np.array(x_T))})
     monkeypatch.setattr(svc_mod, "generate_mel", gm)
 
 
