@@ -131,28 +131,34 @@ versions, and the two waveforms are compared.
 
 Each kernel has two routes, chosen by dtype in its wrapper: bf16 goes to
 the bf16 tensor-core kernels (`flash_attention_tc`: the wgmma kernel over
-TMA-fed K/V tiles, `flash_attention_tc_wgmma`, and for rows TMA cannot
-take the mma.sync kernel with element loads, `flash_attention_tc_narrow`;
-every K1 bf16 geometry also times the mma.sync kernel it replaced, in
-turns, and prints the exp floor; `affine_silu_conv1d_tc`:
-wgmma over TMA-fed weights, with its element-load sub-route
-`affine_silu_conv1d_tc_elem` for x that TMA cannot describe), f32 to the
-3xTF32 tensor-core one (`flash_attention_f32tc`,
-`affine_silu_conv1d_f32tc`: three TF32 passes per product). The GroupNorm
-statistics and fold before every K2 call are one kernel for both dtypes
-(`group_norm_affine`): at every K2 geometry it is held against
+TMA-fed K/V tiles, `flash_attention_tc_wgmma`, the single-query kernel
+for calls of one query (the two attention pools), `flash_attention_tc_q1`,
+and for other rows TMA cannot take the mma.sync kernel with element
+loads, `flash_attention_tc_narrow`; every K1 bf16 geometry also times the
+mma.sync kernel it replaced, in turns, and prints the exp floor;
+`affine_silu_conv1d_tc`: wgmma over TMA-fed weights, with its element-load
+sub-route `affine_silu_conv1d_tc_elem` for x that TMA cannot describe),
+f32 to the 3xTF32 tensor-core one (`flash_attention_f32tc`, whose calls of
+one query take the single-query kernel in f32,
+`flash_attention_f32tc_q1`, timed in turns against the 3xTF32 kernel;
+`affine_silu_conv1d_f32tc`: wgmma, three TF32 passes per product, with
+`affine_silu_conv1d_f32tc_elem` for x that TMA cannot describe; every f32
+K2 geometry must give bitwise-equal outputs on two launches). The
+GroupNorm statistics and fold before every K2 call are one kernel for both
+dtypes (`group_norm_affine`): at every K2 geometry it is held against
 `group_norm_affine_plain` within GN_RTOL and two launches must agree bit
 for bit, timed beside torch.var_mean over the f32 grouped view and its
 bound. Every route is held against the plain version at the B=16 serving
 shapes and at every geometry the CLI run recorded, in its own dtype's
-tolerance.
+tolerance (the calls of one query in both dtypes).
 
 Output: one line per phase result (every timing line ends with the card's
 name and power limit), then a JSON line {"kernels": [...]}, one entry per
-route: launches (counted in the bf16 CLI run, or for the f32 resnet route,
-which that run does not take, in the f32 CLI run through the kernels;
-`launches_from` names the run); max_abs_err, the largest error against the
-plain version over every shape checked in the route's dtype; ms / plain_ms,
+route: launches (counted in the bf16 CLI run, or for the f32 resnet route
+and the f32 single-query route, which that run does not take, in the f32
+CLI run through the kernels; `launches_from` names the run); max_abs_err,
+the largest error against the plain version over every shape checked in
+the route's dtype; ms / plain_ms,
 the CLI run's calls of the route, each geometry's device time (10 calls
 captured as a CUDA graph, the replay timed with CUDA events) times its
 calls, summed, and eager_ms, the same with the calls made back to back
@@ -234,12 +240,20 @@ ROUTES = {   # route -> (kernel source, the TPU code it replaces)
     # kernel's source
     "flash_attention_tc": ("flash_attention_wgmma.cu",
                            "ns2vc_tpu/ops/pallas_attention.py:92"),
-    # its sub-routes: the wgmma kernel, and the mma.sync kernel with
-    # element loads for rows TMA cannot take
+    # its sub-routes on the path: the wgmma kernel, and the single-query
+    # kernel (Tq == 1: the attention pools). The mma.sync kernel with
+    # element loads ("flash_attention_tc_narrow", flash_attention_tc.cu)
+    # takes rows TMA cannot take of more than one query; no path has such
+    # calls since the pools took the single-query kernel, so it is held
+    # against its plain version and timed at the pools' geometries beside
+    # the kernel that replaced it there (`k1_case`), not listed here
     "flash_attention_tc_wgmma": ("flash_attention_wgmma.cu",
                                  "ns2vc_tpu/ops/pallas_attention.py:92"),
-    "flash_attention_tc_narrow": ("flash_attention_tc.cu",
-                                  "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "flash_attention_tc_q1": ("flash_attention_q1.cu",
+                              "ns2vc_tpu/ops/pallas_attention.py:92"),
+    # the f32 route's calls of one query take the same kernel in f32
+    "flash_attention_f32tc_q1": ("flash_attention_q1.cu",
+                                 "ns2vc_tpu/ops/pallas_attention.py:92"),
     "affine_silu_conv1d_f32tc": ("gn_silu_conv1d.cu",
                                  "ns2vc_tpu/ops/pallas_resnet.py:71"),
     "affine_silu_conv1d_tc": ("gn_silu_conv1d_tc.cu",
@@ -457,11 +471,14 @@ def route_counts() -> dict:
     )
 
     k1, k2 = flash_attention.route_launches, affine_silu_conv1d.route_launches
-    return {"flash_attention_f32tc": k1["f32tc"],
-            "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
+    return {"flash_attention_f32tc": k1["f32tc"] + k1["f32tc_q1"],
+            "flash_attention_f32tc_q1": k1["f32tc_q1"],
+            "flash_attention_tc": k1["tc"] + k1["tc_narrow"] + k1["tc_q1"],
             "flash_attention_tc_wgmma": k1["tc"],
             "flash_attention_tc_narrow": k1["tc_narrow"],
-            "affine_silu_conv1d_f32tc": k2["f32tc"],
+            "flash_attention_tc_q1": k1["tc_q1"],
+            "affine_silu_conv1d_f32tc": k2["f32tc"] + k2["f32tc_elem"],
+            "affine_silu_conv1d_f32tc_elem": k2["f32tc_elem"],
             "affine_silu_conv1d_tc": k2["tc"] + k2["tc_elem"],
             "affine_silu_conv1d_tc_elem": k2["tc_elem"],
             "group_norm_affine": group_norm_affine.launches}
@@ -469,13 +486,15 @@ def route_counts() -> dict:
 
 def route_totals(counts: dict) -> dict:
     """Launches per route without the count of K1's wgmma kernel, which
-    is the bf16 route's less its tc_narrow launches (`k1_split` predicts
-    both from a run's recorded calls); fails if they do not add up."""
+    is the bf16 route's less its tc_narrow and tc_q1 launches (`k1_split`
+    predicts all three from a run's recorded calls); fails if they do not
+    add up."""
     tc, narrow = counts["flash_attention_tc"], counts.get(
         "flash_attention_tc_narrow")
     wgmma = counts["flash_attention_tc_wgmma"]
+    q1 = counts.get("flash_attention_tc_q1", 0)
     # backward_calls() does not count tc_narrow apart
-    if (wgmma > tc) if narrow is None else (wgmma + narrow != tc):
+    if (wgmma > tc) if narrow is None else (wgmma + narrow + q1 != tc):
         fail(f"K1 bf16 sub-routes do not add up to its {tc} launches: "
              f"{counts}")
     return {k: n for k, n in counts.items()
@@ -484,21 +503,27 @@ def route_totals(counts: dict) -> dict:
 
 def k1_split(calls) -> dict:
     """The bf16 K1 launches per sub-route of the calls a PathCalls
-    recorded, as `_launch` routes them: q, k and v in whole aligned
-    16-byte rows (D % 8 == 0, offsets and strides of 8 elements) to the
-    wgmma kernel, the others to tc_narrow."""
+    recorded, as `_launch` routes them: one query (Tq == 1, at most
+    Q1_MAX_KEYS keys) to the single-query kernel, else q, k and v in whole
+    aligned 16-byte rows (D % 8 == 0, offsets and strides of 8 elements)
+    to the wgmma kernel, the others to tc_narrow."""
     import torch
 
-    out = {"flash_attention_tc_wgmma": 0, "flash_attention_tc_narrow": 0}
+    from ns2vc_tpu_torch.ops.flash_attention import Q1_MAX_KEYS
+
+    out = {"flash_attention_tc_wgmma": 0, "flash_attention_tc_narrow": 0,
+           "flash_attention_tc_q1": 0}
     for (geo, dtype, _, _), n in calls.k1.items():
         if dtype != torch.bfloat16:
             continue
+        (q_shape, *_), (k_shape, *_) = geo[:2]
         aligned = all(
             shape[-1] % 8 == 0 and offset % 8 == 0
             and all(s % 8 == 0 for s, m in zip(stride[:-1], shape) if m > 1)
             for shape, stride, offset, _ in geo)
-        out["flash_attention_tc_wgmma" if aligned
-            else "flash_attention_tc_narrow"] += n
+        out["flash_attention_tc_q1" if q_shape[2] == 1
+            and k_shape[2] <= Q1_MAX_KEYS else "flash_attention_tc_wgmma"
+            if aligned else "flash_attention_tc_narrow"] += n
     return out
 
 
@@ -517,6 +542,18 @@ class MmaSyncLibrary:
 
     def ns2vc_flash_attention_wgmma_fwd(self, *args):
         return self.lib.ns2vc_flash_attention_tc_fwd(*args[:-2], 1, args[-1])
+
+
+def q1_off():
+    """A context in which K1's calls of one query take the routes they took
+    before the single-query kernel: in bf16 the mma.sync kernel with
+    element loads at the pools' rows (tc_narrow), in f32 the 3xTF32
+    kernel."""
+    from unittest import mock
+
+    from ns2vc_tpu_torch.ops import flash_attention as fa
+
+    return mock.patch.object(fa, "Q1_DTYPES", ())
 
 
 def mma_sync_kernel():
@@ -590,16 +627,20 @@ def resnet_cases(unet):
 # -- phases -----------------------------------------------------------------
 
 K1_SUB = {"tc": "flash_attention_tc_wgmma",      # bf16 sub-route entries
-          "tc_narrow": "flash_attention_tc_narrow"}
+          "tc_narrow": "flash_attention_tc_narrow",
+          "tc_q1": "flash_attention_tc_q1",
+          "f32tc_q1": "flash_attention_f32tc_q1"}   # and f32's
 
 
 def k1_case(q, k, v, bias, scale=None, timed=True):
     """K1 against its plain version on one input set, through the route its
-    dtype takes. Returns a dict: route, sub (the bf16 sub-route, else
-    None), err, tol, bound, bound_by, and when timed exp (`exp_floor`) and
-    the device times (graph_ms) ms, plain, lib (SDPA), old (bf16: the
-    mma.sync kernel, in turns with the wgmma kernel where that one runs: old, new,
-    new, old), and eager, the kernel's eager time_ms; the times None when
+    dtype takes. Returns a dict: route, sub (the bf16 sub-route, or the
+    f32 route's single-query one, else None), err, tol, bound, bound_by,
+    and when timed exp (`exp_floor`) and the device times (graph_ms) ms,
+    plain, lib (SDPA), old (bf16: the mma.sync kernel, in turns with the
+    wgmma kernel or the single-query kernel where those run: old, new,
+    new, old), prior (f32 single query: the 3xTF32 kernel, in turns
+    likewise), and eager, the kernel's eager time_ms; the times None when
     not timed."""
     import torch
 
@@ -630,6 +671,19 @@ def k1_case(q, k, v, bias, scale=None, timed=True):
             r["ms"] = (graph_ms(call) + graph_ms(call)) / 2
             with mma_sync_kernel():
                 r["old"] = (t0 + graph_ms(call)) / 2
+        elif sub in ("tc_q1", "f32tc_q1"):
+            # against the kernel these calls took before, in turns, held
+            # against the plain version too
+            with q1_off():
+                before_out = flash_attention(q, k, v, bias, scale)
+                torch.cuda.synchronize()
+                r["old_err"] = (before_out.float()
+                                - want.float()).abs().max().item()
+                t0 = graph_ms(call)
+            r["ms"] = (graph_ms(call) + graph_ms(call)) / 2
+            with q1_off():
+                r["old" if sub == "tc_q1" else "prior"] = \
+                    (t0 + graph_ms(call)) / 2
         else:
             r["ms"] = graph_ms(call)
             if sub == "tc_narrow":     # the mma.sync kernel itself
@@ -651,7 +705,8 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     same for the statistics kernel that folded the affine (err against
     `group_norm_affine_plain`, lib: torch.var_mean over the f32 grouped
     view alone); fails unless two launches give bitwise-equal a, b within
-    GN_RTOL of the plain version's."""
+    GN_RTOL of the plain version's, and in f32 unless two launches of the
+    conv give bitwise-equal y (its split sums in a fixed order)."""
     import torch
     import torch.nn.functional as F
 
@@ -675,8 +730,12 @@ def k2_case(bsz, t, c, co, film, dtype, g, dev, timed=True):
     a2, b2 = group_norm_affine(*stats_args)
     pa, pb = group_norm_affine_plain(*stats_args)
     got = affine_silu_conv1d(x, a, b, w, bias)
+    again = affine_silu_conv1d(x, a, b, w, bias)
     want = affine_silu_conv1d_plain(x, a, b, w, bias)
     torch.cuda.synchronize()
+    if dtype == torch.float32 and not torch.equal(got, again):
+        fail(f"K2 B={bsz} T={t} C={c} Co={co} f32: two launches differ by "
+             f"{(got - again).abs().max().item()}")
     st = {"route": gn_route(dtype),
           "err": max((a - pa).abs().max().item(), (b - pb).abs().max().item()),
           "tol": GN_RTOL * max(1.0, pa.abs().max().item(),
@@ -719,7 +778,8 @@ class RouteSums:
     """Per route: the worst error and summed times over the shapes given,
     each weighted by its calls."""
 
-    KEYS = ("ms", "eager", "plain", "lib", "conv", "bound", "exp", "old")
+    KEYS = ("ms", "eager", "plain", "lib", "conv", "bound", "exp", "old",
+            "prior")
 
     def __init__(self):
         self.err = defaultdict(float)
@@ -782,15 +842,23 @@ def check_attention(cfg, dev):
                 bias = torch.zeros(b, tk, device=dev)
                 bias[:, valid:] = -1e4
             r = k1_case(q, k, v, bias)
+            # the kernel the call took before, in turns: the mma.sync
+            # kernel (bf16), the 3xTF32 kernel (f32 single query)
+            before = "".join(f" {label}={r[key]:.4f}" for key, label in (
+                ("old", "mma_sync_kernel_ms"), ("prior", "f32tc_kernel_ms"))
+                if r.get(key) is not None)
             say(f"K1 {name:20s} {str(dtype)[6:]:8s} B={b} H={h} Tq={tq} "
                 f"Tk={tk} D={d} {r['sub'] or r['route']} max_abs_err="
-                f"{r['err']:.3e} (tol {r['tol']:g}) kernel_ms={r['ms']:.4f} "
-                f"eager_ms={r['eager']:.4f} plain_ms="
+                f"{r['err']:.3e} (tol {r['tol']:g}) kernel_ms={r['ms']:.4f}"
+                f"{before} eager_ms={r['eager']:.4f} plain_ms="
                 f"{r['plain']:.4f} sdpa_ms={r['lib']:.4f} bound_ms="
                 f"{r['bound']:.5f} ({r['bound_by']}) exp_floor_ms="
                 f"{r['exp']:.5f} [{CARD}]")
             if not r["err"] <= r["tol"]:
                 fail(f"K1 {name} {dtype}: error {r['err']} > {r['tol']}")
+            if not r.get("old_err", 0.0) <= r["tol"]:
+                fail(f"K1 {name} {dtype}: the kernel the single-query one "
+                     f"replaced errs by {r['old_err']} > {r['tol']}")
             sums.add(r, 1)
             step.add(r, calls)
     qkv = torch.randn(B, T_PAD, 3 * 256, device=dev).bfloat16()
@@ -901,9 +969,11 @@ def check_path_calls(calls: PathCalls, dev):
     """Every K1 and K2 geometry of a recorded run against its plain
     version, in f32 and in bf16 (each through the route its dtype takes),
     on random inputs laid out as the run's (K1: the same strides and key
-    bias). K1 geometries are timed in the dtype the run gave them; K2's in
-    both dtypes, since the f32 CLI run takes the same geometries through
-    the f32 route. Returns a RouteSums of the run's calls."""
+    bias). K1 geometries are timed in the dtype the run gave them, and
+    those of one query (the pools) in f32 too, under the f32 single-query
+    sub-route alone; K2's in both dtypes: the f32 CLI run takes the same
+    geometries through the f32 routes. Returns a RouteSums of the run's
+    calls."""
     from unittest import mock
 
     import torch
@@ -932,17 +1002,27 @@ def check_path_calls(calls: PathCalls, dev):
         (bsz, t, c), _, co = key
         return (f"B={bsz} T={t} C={c} Co={co} split bf16 "
                 f"{fr.plan_wgmma(bsz, t, c, co)} f32 {fr.plan_tc(bsz, t, c, co)}")
+    def single(key):   # a K1 geometry of one query
+        return key[0][0][0][2] == 1
     for name, groups, run, label, timed_in in (
-            ("K1", calls.k1, k1, k1_label, lambda d, d0: d == d0),
-            ("K2", calls.k2, k2, k2_label, lambda d, d0: True)):
+            ("K1", calls.k1, k1, k1_label,
+             lambda d, key: d == key[1] or single(key)),
+            ("K2", calls.k2, k2, k2_label, lambda d, key: True)):
         for key, n in groups.items():
             parts = []
             for dtype in (torch.float32, torch.bfloat16):
-                r = run(key, dtype, timed_in(dtype, key[1]))
+                r = run(key, dtype, timed_in(dtype, key))
                 if not r["err"] <= r["tol"]:
                     fail(f"{name} CLI geometry {label(key)} {dtype}: error "
                          f"{r['err']} > {r['tol']}")
-                sums.add(r, n)
+                if name == "K1" and dtype != key[1] and r["sub"]:
+                    # the f32 CLI run's calls of this geometry: timed
+                    # under the sub-route only (the route's sums are the
+                    # bf16 run's calls)
+                    sums.add({**r, "sub": None, "ms": None}, n)
+                    sums.add({**r, "route": r["sub"]}, n)
+                else:
+                    sums.add(r, n)
                 if "stats" in r:
                     sums.add(r["stats"], n)
                 parts.append(f"{str(dtype)[6:]} {r['route']} err "
@@ -1110,6 +1190,7 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str,
     for key, names in (("k1", ("flash_fwd", "split_kv_merge")),
                        ("k1_wgmma", ("flash_fwd_wgmma",)),
                        ("k1_tc", ("flash_fwd_tc_kernel",)),
+                       ("k1_q1", ("flash_fwd_q1",)),
                        ("k2", ("affine_silu_conv_k3", "split_k_reduce")),
                        ("gn", ("group_norm_affine",))):
         hits = [(ms, n) for name, (ms, n) in by.items()
@@ -1119,7 +1200,9 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str,
     say(f"profile {label}: K1 {out['k1_ms']:.1f} ms ({out['k1_launches']} "
         f"kernels; wgmma {out['k1_wgmma_ms']:.1f} ms x"
         f"{out['k1_wgmma_launches']}, mma.sync kernel {out['k1_tc_ms']:.1f}"
-        f" ms x{out['k1_tc_launches']}), K2 {out['k2_ms']:.1f} ms "
+        f" ms x{out['k1_tc_launches']}, single-query kernel "
+        f"{out['k1_q1_ms']:.2f} ms x{out['k1_q1_launches']}), K2 "
+        f"{out['k2_ms']:.1f} ms "
         f"({out['k2_launches']}), "
         f"GroupNorm statistics (group_norm_affine_kernel) {out['gn_ms']:.1f} "
         f"ms ({out['gn_launches']}) of {out['kernel_ms']:.1f} ms kernel time; "
@@ -1219,9 +1302,11 @@ def check_serving(cfg, sd, vsd, dev):
         fail("serving (pcm16): wrong count, shape or dtype")
     n_levels = len(cfg.diffusion_encoder.block_out_channels)
     # bf16: everything on the tensor-core routes; the two pooling calls
-    # (D = 100 and 4) stage their tiles with element loads
-    want = {"flash_attention_f32tc": 0, "flash_attention_tc": 14 + STEPS * 32,
-            "flash_attention_tc_narrow": 2, "affine_silu_conv1d_f32tc": 0,
+    # (D = 100 and 4, one query) on the single-query kernel
+    want = {"flash_attention_f32tc": 0, "flash_attention_f32tc_q1": 0,
+            "flash_attention_tc": 14 + STEPS * 32,
+            "flash_attention_tc_narrow": 0, "flash_attention_tc_q1": 2,
+            "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": STEPS * 45,
             "affine_silu_conv1d_tc_elem": 0, "group_norm_affine": STEPS * 45}
     split = k1_split(path)
@@ -1268,8 +1353,11 @@ def check_serving(cfg, sd, vsd, dev):
     outs, walls["batch_f32"] = wall_ms(run32)
     counts = route_counts()
     want = {"flash_attention_f32tc": 14 + STEPS * 32,
+            "flash_attention_f32tc_q1": 2,
             "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
+            "flash_attention_tc_q1": 0,
             "affine_silu_conv1d_f32tc": STEPS * 45,
+            "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": 0, "affine_silu_conv1d_tc_elem": 0,
             "group_norm_affine": STEPS * 45}
     if route_totals(counts) != want or len(outs) != B or any(
@@ -1278,7 +1366,7 @@ def check_serving(cfg, sd, vsd, dev):
              f"count, shape or dtype")
     # each route's launches in the serving call of its dtype (the
     # statistics kernel's in the bf16 call, the main path's)
-    served = {r: (counts if r.endswith("f32tc") else bf16_counts)[r]
+    served = {r: (counts if "f32tc" in r else bf16_counts)[r]
               for r in counts}
     served["group_norm_affine_f32"] = counts["group_norm_affine"]
     say(f"serving: kernels per K2 call (statistics + conv): "
@@ -1906,9 +1994,12 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
         # batch's) also runs its body eagerly once, the warm-up
         runs = calls["batches"] + calls.get("programs", 0)
         want = {"flash_attention_f32tc": 12 * calls["contentvec"],
+                "flash_attention_f32tc_q1": 0,
                 "flash_attention_tc": runs * (14 + 32 * CLI_STEPS),
-                "flash_attention_tc_narrow": 2 * runs,
+                "flash_attention_tc_narrow": 0,
+                "flash_attention_tc_q1": 2 * runs,
                 "affine_silu_conv1d_f32tc": 0,
+                "affine_silu_conv1d_f32tc_elem": 0,
                 "affine_silu_conv1d_tc": runs * 45 * CLI_STEPS,
                 "affine_silu_conv1d_tc_elem": 0,
                 "group_norm_affine": runs * 45 * CLI_STEPS}
@@ -1954,8 +2045,11 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
                                   fused_resnet.group_norm_affine_plain)])
         f32_want = {"flash_attention_f32tc": counts["flash_attention_f32tc"]
                     + counts["flash_attention_tc"],
+                    "flash_attention_f32tc_q1": counts["flash_attention_tc_q1"],
                     "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
+                    "flash_attention_tc_q1": 0,
                     "affine_silu_conv1d_f32tc": counts["affine_silu_conv1d_tc"],
+                    "affine_silu_conv1d_f32tc_elem": 0,
                     "affine_silu_conv1d_tc": 0, "affine_silu_conv1d_tc_elem": 0,
                     "group_norm_affine": counts["group_norm_affine"]}
         if route_totals(k_counts) != f32_want or max(p_counts.values()) != 0:
@@ -2029,8 +2123,8 @@ def backward_calls() -> dict:
     )
 
     k1, k2 = flash_attention.backward_calls, affine_silu_conv1d.backward_calls
-    return {"flash_attention_f32tc": k1["f32tc"],
-            "flash_attention_tc": k1["tc"] + k1["tc_narrow"],
+    return {"flash_attention_f32tc": k1["f32tc"] + k1["f32tc_q1"],
+            "flash_attention_tc": k1["tc"] + k1["tc_narrow"] + k1["tc_q1"],
             "flash_attention_tc_wgmma": k1["tc"],
             "affine_silu_conv1d_f32tc": k2["f32tc"],
             "affine_silu_conv1d_tc": k2["tc"],
@@ -2761,8 +2855,10 @@ def check_training(vsd, cv_sd, dev, tmp):
     # forward finds them in the cache
     if len(packs) != 45:
         fail(f"training step packed K2 weights {len(packs)} times, not 45")
-    want = {"flash_attention_f32tc": 0, "flash_attention_tc": 46 + 32,
-            "flash_attention_tc_narrow": 2, "affine_silu_conv1d_f32tc": 0,
+    want = {"flash_attention_f32tc": 0, "flash_attention_f32tc_q1": 0,
+            "flash_attention_tc": 46 + 32, "flash_attention_tc_narrow": 0,
+            "flash_attention_tc_q1": 2, "affine_silu_conv1d_f32tc": 0,
+            "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": 45 + 44, "affine_silu_conv1d_tc_elem": 0,
             "group_norm_affine": 45 + 44}
     want_bwd = {"flash_attention_f32tc": 0, "flash_attention_tc": 46,
@@ -3316,9 +3412,10 @@ def _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd):
     # each batch one replay, each program's first call one warm-up too
     runs = calls["batches"] + calls["programs"]
     want = {"flash_attention_f32tc": 12 * calls["contentvec"] + 10 * runs,
+            "flash_attention_f32tc_q1": 0,
             "flash_attention_tc": runs * (14 + 32 * F0_CLI_STEPS),
-            "flash_attention_tc_narrow": 2 * runs,
-            "affine_silu_conv1d_f32tc": 0,
+            "flash_attention_tc_narrow": 0, "flash_attention_tc_q1": 2 * runs,
+            "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": runs * 45 * F0_CLI_STEPS,
             "affine_silu_conv1d_tc_elem": 0,
             "group_norm_affine": runs * 45 * F0_CLI_STEPS}
@@ -3672,8 +3769,10 @@ def check_cfg_sample(cfg, sd, dev):
                                                steps))
     counts = route_counts()
     # per UNet call: 32 attentions + the pooled add_embedding (D = 4)
-    want = {"flash_attention_f32tc": 0, "flash_attention_tc": steps * 33,
-            "flash_attention_tc_narrow": steps, "affine_silu_conv1d_f32tc": 0,
+    want = {"flash_attention_f32tc": 0, "flash_attention_f32tc_q1": 0,
+            "flash_attention_tc": steps * 33, "flash_attention_tc_narrow": 0,
+            "flash_attention_tc_q1": steps, "affine_silu_conv1d_f32tc": 0,
+            "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": steps * 45, "affine_silu_conv1d_tc_elem": 0,
             "group_norm_affine": steps * 45}
     if not torch.isfinite(mel.float()).all() or route_totals(counts) != want:
@@ -4991,9 +5090,11 @@ def main() -> int:
 
     kernels = []
     for route, (source, replaces) in ROUTES.items():
-        # the bf16 CLI run takes no f32 resnet call: that route's launches
-        # are the f32 CLI run's (through the kernels, TF32 off)
-        f32_only = route == "affine_silu_conv1d_f32tc"
+        # the bf16 CLI run takes no f32 resnet call and no f32 call of one
+        # query: those routes' launches are the f32 CLI run's (through the
+        # kernels, TF32 off)
+        f32_only = route in ("affine_silu_conv1d_f32tc",
+                             "flash_attention_f32tc_q1")
         launches = (f32_counts if f32_only else counts)[route]
         if launches == 0 or on_path.calls[route] == 0:
             fail(f"{route}: {launches} launches on its CLI run, "
@@ -5033,8 +5134,8 @@ def main() -> int:
         ss = st.sums.get(route, {})
         # the compiled serving path: a replay of its phase, of the
         # route's dtype, counted with the counts set to 0 just before it
-        replayed = compiled["cases"]["b16_f32_pcm16" if route.endswith(
-            "f32tc") else "b16_bf16_pcm16"]["launches"][route]
+        replayed = compiled["cases"]["b16_f32_pcm16" if "f32tc" in route
+                                     else "b16_bf16_pcm16"]["launches"][route]
         if replayed == 0:
             fail(f"{route}: no launch in the compiled serving phase's replay")
         slice6 = {"serving_launches": served[route],
@@ -5044,17 +5145,19 @@ def main() -> int:
                       ("bound", "bound_ms"), ("lib", "library_ms"),
                       ("conv", "conv_alone_ms"))},
                   "serving_step_bound_by": st.bound_by(route)}
-        if route.endswith("f32tc"):
+        if "f32tc" in route:
             slice6["f32_serving_profiled_ms"] = f32_serving[
-                "k1_ms" if route.startswith("flash") else "k2_ms"]
+                "k1_q1_ms" if route.endswith("_q1") else "k1_ms"
+                if route.startswith("flash") else "k2_ms"]
         # this slice's: the profiled serving calls, and the statistics
         # kernel's f32 serving (Svc's default dtype) beside its bf16
         profiled = {"flash": "k1_ms", "affine": "k2_ms", "group": "gn_ms"}[
             route.split("_")[0]]
-        if route in K1_SUB.values():   # by kernel: wgmma, or mma.sync
+        if route in K1_SUB.values():   # by kernel: wgmma, mma.sync, q1
             profiled = ("k1_wgmma_ms" if route == "flash_attention_tc_wgmma"
+                        else "k1_q1_ms" if route.endswith("_q1")
                         else "k1_tc_ms")
-        if not route.endswith("f32tc"):
+        if "f32tc" not in route:
             slice6["serving_profiled_ms"] = bf16_serving[profiled]
             slice6["single_profiled_ms"] = single[profiled]
         if route == "group_norm_affine":
@@ -5083,6 +5186,8 @@ def main() -> int:
                 "serving_step_mma_sync_kernel_ms": k1_step.sums[route].get("old"),
                 "train_mma_sync_kernel_ms": geo.get("old_fwd_ms")}
                if "old" in s else {}),
+            # K1 f32 of one query: the 3xTF32 kernel at the same calls
+            **({"f32tc_kernel_ms": s["prior"]} if "prior" in s else {}),
             "train_launches_per_step": t_launch,
             "train_backward_calls_per_step": t_bwd,
             "preprocess_launches": pre,

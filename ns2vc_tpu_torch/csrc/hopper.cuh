@@ -1,23 +1,25 @@
 // Hopper (sm_90a) building blocks of the kernels, in inline PTX:
-// mbarriers, TMA tensor loads, the warpgroup matrix multiply (wgmma) with
-// A in registers or in shared memory and B read from swizzled shared memory
-// through a descriptor, thread block cluster barriers and distributed
-// shared memory, and the host side of a tensor map (cuTensorMapEncodeTiled,
-// reached through libcuda.so.1, which the CUDA runtime has already loaded
-// into the process, so the kernel library links against the CUDA runtime
-// alone).
+// mbarriers, TMA tensor loads, the warpgroup matrix multiply (wgmma, bf16
+// and tf32) with A in registers or in shared memory and B read from
+// swizzled shared memory through a descriptor, thread block cluster
+// barriers and distributed shared memory, and the host side of a tensor
+// map (cuTensorMapEncodeTiled, reached through libcuda.so.1, which the CUDA
+// runtime has already loaded into the process, so the kernel library links
+// against the CUDA runtime alone).
 //
 // 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B): in a buffer aligned to
 // 1024 bytes whose rows are 128 bytes, the 16-byte chunk j of row r sits at
 // r * 128 + ((j ^ (r % 8)) * 16). TMA writes that layout; `swz128` gives the
 // address for ldmatrix and the threads that read or write such a tile. The
 // 64- and 32-byte swizzles are the same pattern over rows of 64 and 32
-// bytes (atoms of 8 rows: 512 and 256 bytes); where only TMA writes a tile
-// and only wgmma reads it, both apply the pattern to the shared address
-// bits, and the tile needs no more than an atom-aligned base.
+// bytes (atoms of 8 rows: 512 and 256 bytes; `swz64` addresses the first);
+// where only TMA and wgmma touch a tile, both apply the pattern to the
+// shared address bits, and the tile needs no more than an atom-aligned
+// base.
 //
 // Operand layouts of wgmma's shared-memory descriptors (`wgmma_desc`), for
-// a swizzle of W bytes (32, 64 or 128) over bf16:
+// a swizzle of W bytes (32, 64 or 128) over bf16 (tf32: the same bytes, a
+// K step of 8 elements, K-major only):
 //   K-major (rows along M or N, K contiguous): 8-row atoms `sbo` bytes
 //     apart (8 * W when the rows are packed); a 16-wide K step inside a row
 //     is the start address plus 32 bytes; `lbo` unused.
@@ -44,6 +46,12 @@ namespace ns2vc {
 
 __device__ __forceinline__ uint32_t swz128(uint32_t base, int row, int chunk) {
   return base + row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// the 64-byte swizzle's place of 16-byte chunk `chunk` (0..3) of row `row`
+// in a tile of 64-byte rows whose base is 512-byte aligned
+__device__ __forceinline__ uint32_t swz64(uint32_t base, int row, int chunk) {
+  return base + row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
 }
 
 // -- mbarriers ---------------------------------------------------------------
@@ -396,6 +404,36 @@ __device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d (64 x 64 f32) = (accumulate ? d : 0) + a (64 x 8 tf32, registers: per
+// warp mma.sync m16n8k8's TF32 A fragment, mma.cuh) . b (8 x 64 tf32,
+// K-major in shared memory, descriptor `desc`). For 32-bit types wgmma
+// takes no transpose: both operands are K-major. It reads only the upper
+// 19 bits of each operand (no rounding): the caller rounds them to TF32.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
 // -- clusters ----------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {
@@ -456,23 +494,39 @@ inline TensorMapEncodeFn tensor_map_encoder() {
   return fn;
 }
 
-// a bf16 tensor map of `rank` dims (innermost first), byte strides of the
-// outer dims, box `box`, the given swizzle (128 bytes unless named), zero
-// fill out of bounds (also for a box wider than its dimension).
+// a tensor map of elements of `type` over `rank` dims (innermost first),
+// byte strides of the outer dims, box `box`, the given swizzle, zero fill
+// out of bounds (also for a box wider than its dimension).
 // Returns 0, or a negative code: -1 no encoder, -(1000 + CUresult).
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return -1;
+  const uint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides,
+                      box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(1000 + int(r));
+}
+
+// `encode_map` of bf16 elements, 128-byte swizzle unless named
 inline int encode_bf16_map(
     CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
     const uint64_t* strides, const uint32_t* box,
     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
-  TensorMapEncodeFn encode = tensor_map_encoder();
-  if (encode == nullptr) return -1;
-  const uint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                      const_cast<void*>(base), dims, strides, box, ones,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(1000 + int(r));
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box, swizzle);
+}
+
+// `encode_map` of f32 elements (the tf32 kernels' operands)
+inline int encode_f32_map(CUtensorMap* map, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
+                    strides, box, swizzle);
 }
 
 }  // namespace ns2vc

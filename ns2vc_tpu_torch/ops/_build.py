@@ -50,9 +50,13 @@ _SIGNATURES = {
     "ns2vc_flash_attention_f32tc_fwd":
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 3
         + [_P] * 3,
-    "ns2vc_affine_silu_conv1d_f32tc": [_P] * 7 + [_I] * 9 + [_P],
+    "ns2vc_flash_attention_q1_fwd":
+        [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 5
+        + [_P],
+    "ns2vc_affine_silu_conv1d_f32tc": [_P] * 6 + [_I] * 8 + [_P],
     "ns2vc_affine_silu_conv1d_tc": [_P] * 6 + [_I] * 8 + [_P],
     "ns2vc_encode_weight_map": [_P, _I, _I, _P],
+    "ns2vc_encode_weight_map_f32": [_P, _I, _I, _P],
     "ns2vc_group_norm_affine":
         [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [ctypes.c_float] + [_I] * 4
         + [_P],

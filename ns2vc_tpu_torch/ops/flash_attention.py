@@ -12,15 +12,23 @@ call by its rows and `plan_wgmma_attention`:
                   wgmma for Q.K^T and P.V, the softmax overlapped with them,
                   D <= 128 in whole 16-byte chunks (D % 8 == 0, aligned
                   strides), with the keys per tile `plan_wgmma_attention`
-                  gives; rows that are not whole aligned 16-byte chunks
-                  (D = 4, 100 or odd, odd strides) take the mma.sync
-                  kernel (`csrc/flash_attention_tc.cu`) with element
-                  loads, counted apart as "tc_narrow"
+                  gives; a single query (Tq == 1, at most Q1_MAX_KEYS keys:
+                  the attention pools) takes `csrc/flash_attention_q1.cu`,
+                  dot products and softmax on the CUDA cores over key rows
+                  read in the widest aligned vectors, the keys split over a
+                  cluster where the grid is small (`plan_q1`), counted
+                  apart as "tc_q1"; other rows that are not whole aligned
+                  16-byte chunks (D = 4, 100 or odd, odd strides) take the
+                  mma.sync kernel (`csrc/flash_attention_tc.cu`) with
+                  element loads, counted apart as "tc_narrow"
     cuda, f32  -> "f32tc": `csrc/flash_attention.cu`, TF32 tensor cores in
                   three passes (3xTF32: each operand's TF32 big and small
                   halves), at f32 accuracy, D <= 128; where its 64-query
                   blocks would leave SMs idle, `plan_f32tc` splits the key
-                  tiles over more blocks, merged by a second kernel
+                  tiles over more blocks, merged by a second kernel; a
+                  single query takes the single-query kernel in f32 (exact
+                  f32 on the CUDA cores; faster than the 3xTF32 kernel at
+                  both pools on an H100, PERF.md), counted as "f32tc_q1"
 
 q in f32 with k and v in bf16 (the F0 predictor's cross-attention under a
 bf16 model: its trunk is f32, its prompt bf16, as flax promotes them) is
@@ -32,7 +40,8 @@ skips the one rounding of the probabilities to bf16 before the PV product.
 
 A CUDA tensor launches one of the kernels or raises. `flash_attention.
 launches` counts every launch, `flash_attention.route_launches` each route's
-and sub-route's ("tc", "tc_narrow", "f32tc"); its "plain" entry
+and sub-route's ("tc", "tc_q1", "tc_narrow", "f32tc", "f32tc_q1"); its
+"plain" entry
 counts the calls `ops/attention.py` sends to the plain version by their
 bias or head dim (no kernel launches for those). A replayed CUDA graph
 launches kernels without calling the wrapper: its owner adds the counts
@@ -60,6 +69,17 @@ import torch
 from ns2vc_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 128      # both kernels' widest padded head
+# the single-query kernel (csrc/flash_attention_q1.cu): its block, its ring
+# of key tiles, a block's row segment and a stage at most, and the keys
+# whose logits one head's block keeps in shared memory
+Q1_THREADS, Q1_STAGES = 256, 3
+Q1_SEGMENT_BYTES, Q1_STAGE_BYTES = 512, 32768
+Q1_MAX_KEYS = 16384
+Q1_MAX_SPLITS = 8       # a portable cluster
+MAX_SMEM = 232448       # an H100 block's shared memory
+# the dtypes whose Tq == 1 calls take it: both (at the pools it beat the
+# f32 3xTF32 kernel on an H100, PERF.md)
+Q1_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
@@ -88,6 +108,63 @@ def plan_wgmma_attention(bh: int, tq: int, tk: int, d: int) -> int:
     blocks = -(-tq // 64) * bh
     wide = d <= 64 and blocks <= _build.H100_SMS and tk > 128
     return 128 if wide else 64
+
+
+def q1_smem(hg: int, d: int, kpb: int, tile: int, es: int) -> int:
+    """Shared memory of a single-query block of `hg` heads of D over its
+    `kpb` keys in tiles of `tile`, elements of `es` bytes: q, the logits,
+    the PV shares, the cluster's max and sum per head and the block's PV
+    partial in f32 (16-byte aligned), then the stages."""
+    floats = (2 * hg * d + hg * kpb + Q1_THREADS + 2 * hg + 3) & ~3
+    return 4 * floats + es * Q1_STAGES * tile * hg * d
+
+
+def plan_q1(b: int, h: int, tk: int, d: int,
+            es: int) -> tuple[int, int, int]:
+    """(heads per block, keys per tile, key splits) of the single-query
+    kernel. Heads are grouped so that B x groups reaches the H100's SMs
+    where the heads allow it, a group's row segment at most
+    Q1_SEGMENT_BYTES; where B x groups still falls short, the keys are
+    split over a cluster of up to Q1_MAX_SPLITS blocks of 32 keys or more
+    each, dealt evenly with none empty. The key tile is the power of two
+    in [32, 512] that fills a Q1_STAGE_BYTES stage, at most a split's keys;
+    fewer heads per block until the shared memory fits (one head of up to
+    Q1_MAX_KEYS keys always does)."""
+    groups = min(h, max(1, -(-_build.H100_SMS // b)))
+    hg = min(-(-h // groups), max(1, Q1_SEGMENT_BYTES // (d * es)))
+    while True:
+        blocks = b * -(-h // hg)
+        splits = max(1, min(Q1_MAX_SPLITS, -(-_build.H100_SMS // blocks),
+                            tk // 32))
+        kpb = -(-tk // splits)
+        splits = -(-tk // kpb)
+        seg = Q1_STAGE_BYTES // (hg * d * es)
+        tile = min(kpb, max(32, min(512, 1 << (seg.bit_length() - 1))))
+        if hg == 1 or q1_smem(hg, d, kpb, tile, es) <= MAX_SMEM:
+            return hg, tile, splits
+        hg = -(-hg // 2)
+
+
+def q1_vec_bytes(k: torch.Tensor, v: torch.Tensor, hg: int) -> int:
+    """The widest load (16, 8 or 4 bytes, else one element) that divides
+    every base, stride and row segment the single-query kernel reads of k
+    and v in blocks of `hg` heads. Where the heads of a key lie side by side
+    (head stride D, or one head) a block's segment is its heads' H_g x D
+    values, else one head's D."""
+    b, h, tk, d = k.shape
+    es = k.element_size()
+    merged = h == 1 or all(t.stride(1) == d for t in (k, v))
+    last = h - (-(-h // hg) - 1) * hg
+    segs = {hg * d, last * d} if merged else {d}
+
+    def fits(t, vb):
+        return (t.data_ptr() % vb == 0
+                and (b == 1 or t.stride(0) * es % vb == 0)
+                and (tk == 1 or t.stride(2) * es % vb == 0)
+                and all(n * es % vb == 0 for n in segs)
+                and (merged or h == 1 or t.stride(1) * es % vb == 0))
+    return next((vb for vb in (16, 8, 4) if fits(k, vb) and fits(v, vb)),
+                es)
 
 
 def attention_route(device: torch.device | str, dtype: torch.dtype) -> str:
@@ -229,13 +306,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     bias_ptr = None if bias is None else bias.data_ptr()
     vec = all(_build.aligned16(t) for t in (q, k, v))
-    if route == "tc" and not vec:
+    if tq == 1 and tk <= Q1_MAX_KEYS and q.dtype in Q1_DTYPES:
+        route += "_q1"
+    elif route == "tc" and not vec:
         route = "tc_narrow"
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
             b, h, tq, tk, d, *strides, float(scale), int(vec))
-    if route == "tc":   # the key tile in vec's place
+    if route.endswith("_q1"):
+        hg, tile, splits = plan_q1(b, h, tk, d, q.element_size())
+        err = lib.ns2vc_flash_attention_q1_fwd(
+            *args[:-1], hg, tile, splits, q1_vec_bytes(k, v, hg),
+            int(q.dtype == torch.bfloat16), _build.stream_of(q))
+    elif route == "tc":   # the key tile in vec's place
         err = lib.ns2vc_flash_attention_wgmma_fwd(
             *args[:-1], plan_wgmma_attention(b * h, tq, tk, d),
             _build.stream_of(q))
@@ -254,9 +338,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = {"f32tc": 0, "tc": 0, "tc_narrow": 0,
-                                  "plain": 0}
-flash_attention.backward_calls = {"f32tc": 0, "tc": 0, "tc_narrow": 0}
+flash_attention.route_launches = {"f32tc": 0, "f32tc_q1": 0, "tc": 0,
+                                  "tc_q1": 0, "tc_narrow": 0, "plain": 0}
+flash_attention.backward_calls = {"f32tc": 0, "f32tc_q1": 0, "tc": 0,
+                                  "tc_q1": 0, "tc_narrow": 0}
 # the counters' owner, also while a caller replaces the module's public
 # name
 _counts = flash_attention

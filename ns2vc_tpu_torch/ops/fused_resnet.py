@@ -22,18 +22,22 @@ arithmetic in torch ops. `affine_silu_conv1d` routes by
                   not fill the card; x through a TMA map, or ("tc_elem")
                   by element loads when C % 8 != 0 or x, a, b are not
                   16-byte aligned
-    cuda, f32  -> "f32tc": `csrc/gn_silu_conv1d.cu`, an implicit GEMM on
-                  TF32 tensor cores in three passes (3xTF32: each
-                  operand's TF32 big and small halves), at f32 accuracy,
-                  split by `plan_tc` with an f32 workspace
+    cuda, f32  -> "f32tc": `csrc/gn_silu_conv1d.cu`, the same design on
+                  wgmma in TF32 with three passes per product (3xTF32:
+                  each operand's TF32 big and small halves), at f32
+                  accuracy, in 64 x 128 output tiles over 16-channel
+                  chunks, split by `plan_tc` into a cluster likewise; x by
+                  element loads ("f32tc_elem") when C % 4 != 0 or x, a, b
+                  are not 16-byte aligned
 
 Both run over weights packed once per weight tensor by `pack_conv_weight`
 (kept while the tensor lives, keyed by its storage and version, with the
-bf16 kernel's TMA map of them; f32 weights packed as their big and small
-TF32 planes). A CUDA tensor launches one of the kernels or raises.
+kernel's TMA map of them; f32 weights packed as their big and small TF32
+planes). A CUDA tensor launches one of the kernels or raises.
 `affine_silu_conv1d.launches` counts every launch,
 `affine_silu_conv1d.route_launches` each route's ("tc_elem" apart from
-"tc"), `group_norm_affine.launches` the statistics kernel's. A replayed
+"tc", "f32tc_elem" from "f32tc"), `group_norm_affine.launches` the
+statistics kernel's. A replayed
 CUDA graph launches kernels without calling the wrappers: its owner adds
 the counts its capture took (`launch_counts`, `add_launch_counts`). The
 CUDA source notes say what bounds each kernel on the H100 and how its
@@ -64,10 +68,12 @@ import torch.nn.functional as F
 from ns2vc_tpu_torch.ops import _build
 
 # the kernels' tiles: frames, output channels, input channels per chunk
-# (csrc/gn_silu_conv1d_tc.cu kBM, kBN, kBK; csrc/gn_silu_conv1d.cu's)
+# (csrc/gn_silu_conv1d_tc.cu kBM, kBN, kBK; csrc/gn_silu_conv1d.cu's: a
+# chunk is one 64-byte row of f32)
 TC_BM, TC_BN, TC_BK = 64, 128, 64
-F32_BM, F32_BN, F32_BK = 64, 64, 16
-TC_MAX_SPLITS = 8         # the bf16 kernel's splits form one portable cluster
+F32_BM, F32_BN, F32_BK = 64, 128, 16
+TC_MAX_SPLITS = 8         # either conv kernel's splits form one portable
+                          # cluster
 GN_MAX_SPLITS = 8         # the statistics kernel's blocks per slab, likewise
 
 
@@ -93,38 +99,35 @@ def tile_width(dtype: torch.dtype) -> int:
     return TC_BN if dtype == torch.bfloat16 else F32_BN
 
 
-def plan_tc(bsz: int, t: int, c: int, co: int,
-            bk: int = F32_BK) -> tuple[int, int]:
-    """(splits, chunks per split) of the f32 kernel's channel loop over its
-    `bk`-channel chunks: the fewest splits whose (T, Co, B) output tiles
-    times splits reach one block per SM of the H100 (one split when the
-    tiles alone do), or one chunk per split where even that falls short.
-    The chunks are dealt evenly and no split is left empty."""
-    tiles = -(-t // F32_BM) * -(-co // F32_BN) * bsz
-    n_chunks = -(-c // bk)
-    for want in range(1, n_chunks + 1):
-        cps = -(-n_chunks // want)
-        splits = -(-n_chunks // cps)   # no empty split
-        if tiles * splits >= _build.H100_SMS:
-            return splits, cps
-    return n_chunks, 1
-
-
-def plan_wgmma(bsz: int, t: int, c: int, co: int) -> tuple[int, int]:
-    """(splits, chunks per split) of the bf16 kernel's channel loop over
-    its 64-channel chunks. The kernel holds one block per SM, so the
-    splits of a tile stay within one wave, and its two consumer
-    warpgroups take alternate chunks, so a split gets two or more: the
-    most splits, at most TC_MAX_SPLITS (one cluster) and at most half the
-    chunks, whose (T, Co, B) output tiles times splits fit on the H100's
-    SMs; one split when the tiles alone fill them. The chunks are dealt
-    evenly and no split is left empty."""
-    tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
-    n_chunks = -(-c // TC_BK)
+def _plan_cluster(tiles: int, n_chunks: int) -> tuple[int, int]:
+    """(splits, chunks per split) of a warp-specialised conv kernel's
+    channel loop. It holds one block per SM, so the splits of a tile stay
+    within one wave; a split gets two chunks or more (the bf16 kernel's two
+    consumer warpgroups take alternate chunks): the most splits, at most
+    TC_MAX_SPLITS (one cluster) and at most half the chunks, whose output
+    tiles times splits fit on the H100's SMs; one split when the tiles
+    alone fill them. The chunks are dealt evenly and no split is left
+    empty."""
     want = max(1, min(TC_MAX_SPLITS, n_chunks // 2,
                       _build.H100_SMS // tiles))
     cps = -(-n_chunks // want)
     return -(-n_chunks // cps), cps
+
+
+def plan_tc(bsz: int, t: int, c: int, co: int) -> tuple[int, int]:
+    """(splits, chunks per split) of the f32 kernel over its 64 x 128
+    (T, Co) output tiles per batch row and 16-channel chunks
+    (`_plan_cluster`)."""
+    return _plan_cluster(-(-t // F32_BM) * -(-co // F32_BN) * bsz,
+                         -(-c // F32_BK))
+
+
+def plan_wgmma(bsz: int, t: int, c: int, co: int) -> tuple[int, int]:
+    """(splits, chunks per split) of the bf16 kernel over its 64 x 128
+    (T, Co) output tiles per batch row and 64-channel chunks
+    (`_plan_cluster`)."""
+    return _plan_cluster(-(-t // TC_BM) * -(-co // TC_BN) * bsz,
+                         -(-c // TC_BK))
 
 
 GN_THREADS, GN_LOADS = 512, 8   # the statistics kernel's block, loads in
@@ -155,9 +158,9 @@ def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
     the tile and chunk widths of the kernel of w's dtype: tap k's (Co, C)
     matrix multiplies the frames shifted by k - 1. bf16: (3, Co_pad,
     C_pad), Co_pad a multiple of 128 and C_pad of 64 (rows of 128 bytes for
-    TMA). f32: (2, 3, Co_pad, C_pad) in 64 x 16, the big and small TF32
-    halves of 3xTF32 (big = w rounded to TF32, small = the exact remainder
-    rounded again), so the kernel splits no weight."""
+    TMA). f32: (2, 3, Co_pad, C_pad) in 128 x 16 (rows of 64 bytes), the
+    big and small TF32 halves of 3xTF32 (big = w rounded to TF32, small =
+    the exact remainder rounded again), so the kernel splits no weight."""
     co, c, _ = w.shape
     bk, bn = chunk_width(w.dtype), tile_width(w.dtype)
     shape = (3, -(-co // bn) * bn, -(-c // bk) * bk)
@@ -175,7 +178,7 @@ def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
 
 class _Packed:
     """One weight tensor's packing: its key, the packed tensor, and the
-    bf16 kernel's TMA map of it (128 bytes, encoded at first launch)."""
+    kernel's TMA map of it (128 bytes, encoded at first launch)."""
 
     __slots__ = ("key", "tensor", "tmap")
 
@@ -204,15 +207,18 @@ def packed_weight(w: torch.Tensor) -> torch.Tensor:
 
 
 def weight_map(w: torch.Tensor, lib) -> ctypes.Array:
-    """The bf16 kernel's TMA map of `packed_weight(w)`, encoded once per
-    packing (it holds the packed tensor's address)."""
+    """The TMA map of `packed_weight(w)` for the kernel of w's dtype,
+    encoded once per packing (it holds the packed tensor's address): rows
+    of the packed tensor's leading axes, columns its C_pad."""
     hit = _packing(w)
     if hit.tmap is None:
         p = hit.tensor
+        encode = (lib.ns2vc_encode_weight_map if p.dtype == torch.bfloat16
+                  else lib.ns2vc_encode_weight_map_f32)
         tmap = ctypes.create_string_buffer(128)
-        _build.check(lib.ns2vc_encode_weight_map(
-            p.data_ptr(), p.shape[0] * p.shape[1], p.shape[2],
-            ctypes.addressof(tmap)), "affine_silu_conv1d weight map")
+        _build.check(encode(p.data_ptr(), p.numel() // p.shape[-1],
+                            p.shape[-1], ctypes.addressof(tmap)),
+                     "affine_silu_conv1d weight map")
         hit.tmap = tmap
     return hit.tmap
 
@@ -307,8 +313,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError("affine_silu_conv1d: inputs must be contiguous")
     if any(v.device != x.device for v in (a, b, w, bias)):
         raise ValueError("affine_silu_conv1d: inputs on different devices")
-    splits, cps = (plan_wgmma(bsz, t, c, co) if route == "tc"
-                   else plan_tc(bsz, t, c, co, F32_BK))
+    splits, cps = (plan_wgmma if route == "tc" else plan_tc)(bsz, t, c, co)
     if min(bsz, t, c, co) < 1 or bsz * splits > 65535:
         raise ValueError(f"affine_silu_conv1d: unsupported shape "
                          f"{tuple(x.shape)} -> {co}")
@@ -316,34 +321,24 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     lib = _build.library()
     y = torch.empty((bsz, t, co), dtype=x.dtype, device=x.device)
     wp = packed_weight(w)
+    tmap = weight_map(w, lib)
     vec = all(_build.aligned16(v) for v in (x, a, b))
-    stream = _build.stream_of(x)
-    if route == "tc":
-        tmap = weight_map(w, lib)
-        sub = "tc" if vec else "tc_elem"
-        affine_silu_conv1d.launches += 1
-        affine_silu_conv1d.route_launches[sub] += 1
-        err = lib.ns2vc_affine_silu_conv1d_tc(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), ctypes.addressof(tmap),
-            bias.data_ptr(), y.data_ptr(), bsz, t, c, co, wp.shape[-2], cps,
-            splits, int(vec), stream)
-        _build.check(err, f"affine_silu_conv1d ({sub})")
-        return y, route
-    ws = None if splits == 1 else torch.empty(     # bsz * splits < 132 * 132
-        (splits, bsz, t, co), dtype=torch.float32, device=x.device)
+    sub = route if vec else f"{route}_elem"
+    entry = (lib.ns2vc_affine_silu_conv1d_tc if route == "tc"
+             else lib.ns2vc_affine_silu_conv1d_f32tc)
     affine_silu_conv1d.launches += 1
-    affine_silu_conv1d.route_launches[route] += 1
-    err = lib.ns2vc_affine_silu_conv1d_f32tc(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), wp.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),
-        bsz, t, c, co, wp.shape[-1], wp.shape[-2], cps, splits, int(vec),
-        stream)
-    _build.check(err, f"affine_silu_conv1d ({route})")
+    affine_silu_conv1d.route_launches[sub] += 1
+    err = entry(x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                ctypes.addressof(tmap), bias.data_ptr(), y.data_ptr(), bsz, t,
+                c, co, wp.shape[-2], cps, splits, int(vec),
+                _build.stream_of(x))
+    _build.check(err, f"affine_silu_conv1d ({sub})")
     return y, route
 
 
 affine_silu_conv1d.launches = 0
-affine_silu_conv1d.route_launches = {"f32tc": 0, "tc": 0, "tc_elem": 0}
+affine_silu_conv1d.route_launches = {"f32tc": 0, "f32tc_elem": 0, "tc": 0,
+                                     "tc_elem": 0}
 affine_silu_conv1d.backward_calls = {"f32tc": 0, "tc": 0}
 # the counters' owner, also while a caller replaces the module's public
 # name (the plain version in its place)

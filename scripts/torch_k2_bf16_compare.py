@@ -12,7 +12,7 @@ channel split into an f32 workspace and a reduce kernel): it is compiled
 with nvcc next to this tree's `csrc/` headers into the gitignored
 `.scratch/` and bound with ctypes, with its weights packed in its own
 layout (3, Co_pad 64, C_pad 32) and its split planned as its wrapper
-planned it (`plan_tc` over 64 x 64 tiles and 32-channel chunks).
+planned it (`old_plan`: 64 x 64 tiles and 32-channel chunks).
 
 At every resnet epilogue of one UNet step (`chip_smoke.resnet_cases`, the
 448-frame serving bucket) at B=16 and at B=1, and at the training step's
@@ -53,6 +53,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OLD_BK = 32     # the old kernel's channel chunk (its tile is 64 x 64)
 
 
+def old_plan(bsz: int, t: int, c: int, co: int, bk: int) -> tuple[int, int]:
+    """(splits, chunks per split) as the mma.sync kernels' wrapper planned
+    them over 64 x 64 output tiles and `bk`-channel chunks: the fewest
+    splits whose tiles times splits reach the H100's 132 SMs, or one chunk
+    per split where even that falls short, dealt evenly, none empty."""
+    tiles = -(-t // 64) * -(-co // 64) * bsz
+    n_chunks = -(-c // bk)
+    for want in range(1, n_chunks + 1):
+        cps = -(-n_chunks // want)
+        splits = -(-n_chunks // cps)
+        if tiles * splits >= 132:
+            return splits, cps
+    return n_chunks, 1
+
+
 def build_old(source: str):
     """The old kernel's library, compiled once per source into .scratch/."""
     from ns2vc_tpu_torch.ops import _build
@@ -82,14 +97,12 @@ def build_old(source: str):
 def old_conv(fn, x, a, b, w, bias):
     """A closure that launches the old kernel on these inputs (its packed
     weights, workspace and output made once)."""
-    import ns2vc_tpu_torch.ops.fused_resnet as fr
-
     bsz, t, c = x.shape
     co = w.shape[0]
     cop, cp = -(-co // 64) * 64, -(-c // OLD_BK) * OLD_BK
     wp = torch.zeros(3, cop, cp, dtype=torch.bfloat16, device=x.device)
     wp[:, :co, :c] = w.permute(2, 0, 1)
-    splits, cps = fr.plan_tc(bsz, t, c, co, OLD_BK)   # its own planner
+    splits, cps = old_plan(bsz, t, c, co, OLD_BK)   # its own planner
     ws = None if splits == 1 else torch.empty(
         (splits, bsz, t, co), dtype=torch.float32, device=x.device)
     y = torch.empty(bsz, t, co, dtype=torch.bfloat16, device=x.device)

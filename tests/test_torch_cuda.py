@@ -24,8 +24,12 @@ split over the 'model' axis (Co = C_out / mp: 128, 192, 256 at mp=2, 64 and
 D <= 128 to the kernel and full-bias or D > 128 calls to the plain route,
 counted as such. bf16 goes to the bf16 tensor-core kernels (K1 "tc", the
 wgmma kernel, at every head width up to 128 and both key tiles, and
-"tc_narrow"; K2 "tc"), f32 to the 3xTF32 ones ("f32tc"); each test checks
-the route its call took. The Svc
+"tc_narrow"; K2 "tc"), f32 to the 3xTF32 ones ("f32tc"); K1 calls of one
+query, in either dtype, to the single-query kernel ("tc_q1", "f32tc_q1":
+the pools, odd key counts, fully masked rows, D of 1 to 128); each test
+checks the route its call took. K2's f32 kernel is also held to give
+bitwise-equal outputs on two launches, split over a cluster at B = 1 and
+2, and with element loads at C % 4 != 0. The Svc
 readback test checks that
 batch N's `finish()` waits on its own CUDA event only: it returns while
 batch N+1, whose device work ends in a spin kernel, is still running.
@@ -69,10 +73,13 @@ def _gen(dev, seed=0):
 
 def _k1_route(q, k, v):
     """The route counter a K1 call on these inputs moves, as the wrapper
-    picks it: bf16 rows of aligned 16-byte chunks take the wgmma kernel
+    picks it: one query takes the single-query kernel ("tc_q1", f32
+    "f32tc_q1"); bf16 rows of aligned 16-byte chunks take the wgmma kernel
     ("tc"), other bf16 rows the mma.sync kernel with element loads
     ("tc_narrow")."""
     route = attention_route(q.device, q.dtype)
+    if q.shape[2] == 1:
+        return route + "_q1"
     if route == "tc" and not all(_build.aligned16(t) for t in (q, k, v)):
         return "tc_narrow"
     return route
@@ -346,15 +353,15 @@ def test_affine_silu_conv1d_tc(dev, dtype, b, t, c, co):
     w = (torch.randn(co, c, 3, generator=g, device=dev)
          / (3 * c) ** 0.5).to(dtype)
     bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
-    route = "f32tc" if dtype == torch.float32 else \
-        "tc" if c % 8 == 0 else "tc_elem"
+    route = ("tc" if dtype == torch.bfloat16 else "f32tc") + (
+        "" if c % (16 // x.element_size()) == 0 else "_elem")
     n0 = affine_silu_conv1d.route_launches[route]
     got = affine_silu_conv1d(x, a, off, w, bias)
     assert affine_silu_conv1d.route_launches[route] == n0 + 1
     want = affine_silu_conv1d_plain(x, a, off, w, bias)
     torch.cuda.synchronize()
-    assert (plan_wgmma(b, t, c, co) if dtype == torch.bfloat16
-            else plan_tc(b, t, c, co, chunk_width(dtype)))[0] >= 1
+    assert (plan_wgmma if dtype == torch.bfloat16 else plan_tc)(
+        b, t, c, co)[0] >= 1
     tol = 3e-5 if dtype == torch.float32 else \
         1e-2 * max(1.0, want.float().abs().max().item())
     assert got.dtype == dtype and got.shape == want.shape
@@ -392,8 +399,8 @@ def test_gn_silu_conv1d_at_the_model_axis_widths(dev, dtype, c, co):
         s = 0.2 * torch.randn(b, c, generator=g, device=dev)
         sh = 0.2 * torch.randn(b, c, generator=g, device=dev)
         bk = chunk_width(dtype)
-        splits, cps = (plan_wgmma(b, t, c, co) if dtype == torch.bfloat16
-                       else plan_tc(b, t, c, co, bk))
+        splits, cps = (plan_wgmma if dtype == torch.bfloat16 else plan_tc)(
+            b, t, c, co)
         n_chunks = -(-c // bk)
         assert splits * cps >= n_chunks > (splits - 1) * cps
         route = "f32tc" if dtype == torch.float32 else "tc"
@@ -455,6 +462,108 @@ def test_wgmma_conv_at_the_serving_geometries(dev, bsz):
         tol = 1e-2 * max(1.0, want.float().abs().max().item())
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol, (name, plan_wgmma(bsz, t, c, co), err, tol)
+
+
+@pytest.mark.parametrize("bsz", [16, 2, 1])
+def test_f32_conv_at_the_serving_geometries(dev, bsz):
+    """The f32 wgmma kernel (3xTF32) at every epilogue of one UNet step, at
+    B=16 (no split), B=2 and B=1 (clusters of up to 8 splits), with the
+    affine from the statistics kernel, against the plain version within
+    the JAX suite's 3e-5; two launches give bitwise-equal outputs."""
+    g = _gen(dev, 12)
+    for name, t, c, co, film in _unet_resnet_cases():
+        x = torch.randn(bsz, t, c, generator=g, device=dev)
+        w = torch.randn(co, c, 3, generator=g, device=dev) / (3 * c) ** 0.5
+        bias = 0.1 * torch.randn(co, generator=g, device=dev)
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        beta = 0.1 * torch.randn(c, generator=g, device=dev)
+        s = sh = None
+        if film:
+            s, sh = (0.2 * torch.randn(bsz, 2 * c, generator=g, device=dev)
+                     ).chunk(2, dim=-1)
+        a, b = group_norm_affine(x, gamma, beta, 8, 1e-5, s, sh)
+        n0 = affine_silu_conv1d.route_launches["f32tc"]
+        got = affine_silu_conv1d(x, a, b, w, bias)
+        again = affine_silu_conv1d(x, a, b, w, bias)
+        assert affine_silu_conv1d.route_launches["f32tc"] == n0 + 2
+        want = affine_silu_conv1d_plain(x, a, b, w, bias)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= 3e-5, (name, plan_tc(bsz, t, c, co), err)
+        assert torch.equal(got, again), (name, plan_tc(bsz, t, c, co))
+
+
+@pytest.mark.parametrize("b,t,c,co", [
+    (1, 56, 1022, 512),   # C % 4 != 0 over a cluster of 8 splits
+    (2, 448, 126, 100),   # C % 4 != 0, the output tail's Co
+    (2, 37, 3, 8),        # fewer channels than a vector
+])
+def test_f32_conv_element_loads(dev, b, t, c, co):
+    """x that TMA cannot describe (C % 4 != 0): the f32 kernel loads it by
+    elements ("f32tc_elem"), against the plain version; bitwise repeatable."""
+    g = _gen(dev, 13)
+    x = torch.randn(b, t, c, generator=g, device=dev)
+    a = 1 + 0.2 * torch.randn(b, c, generator=g, device=dev)
+    off = 0.2 * torch.randn(b, c, generator=g, device=dev)
+    w = torch.randn(co, c, 3, generator=g, device=dev) / (3 * c) ** 0.5
+    bias = 0.1 * torch.randn(co, generator=g, device=dev)
+    n0 = affine_silu_conv1d.route_launches["f32tc_elem"]
+    got = affine_silu_conv1d(x, a, off, w, bias)
+    again = affine_silu_conv1d(x, a, off, w, bias)
+    assert affine_silu_conv1d.route_launches["f32tc_elem"] == n0 + 2
+    want = affine_silu_conv1d_plain(x, a, off, w, bias)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 3e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,tk,d,layout", [
+    (16, 1, 321, 100, "pool"),    # ref_enc at B=16
+    (16, 64, 321, 4, "pool"),     # add_embedding at B=16
+    (1, 64, 321, 4, "pool"),      # add_embedding at B=1: keys split
+    (3, 5, 77, 1, "heads"),       # odd Tk, D = 1
+    (3, 5, 77, 4, "heads"),
+    (3, 5, 77, 100, "heads"),
+    (2, 2, 1000, 128, "heads"),   # the widest head, several key tiles
+])
+def test_single_query_kernel(dev, dtype, atol, b, h, tk, d, layout):
+    """The single-query kernel (Tq == 1) against the plain version: the
+    pools as head views of (B, T, C) projections, and separate
+    (B, H, T, D) tensors with key padding, one batch row fully masked
+    (finite) and one at -1e30; two launches give bitwise-equal outputs."""
+    g = _gen(dev, 14)
+    if layout == "pool":
+        q, k, v = (split_heads(torch.randn(b, n, h * d, generator=g,
+                                           device=dev).to(dtype), h)
+                   for n in (1, tk, tk))
+        bias = None
+    else:
+        q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+                   for n in (1, tk, tk))
+        bias = torch.zeros(b, tk, device=dev)
+        bias[0, tk // 3:] = -1e4
+        bias[1] = -1e4
+        bias[-1, :tk // 2] = -1e30
+    route = "tc_q1" if dtype == torch.bfloat16 else "f32tc_q1"
+    n0 = flash_attention.route_launches[route]
+    got = flash_attention(q, k, v, bias)
+    again = flash_attention(q, k, v, bias)
+    assert flash_attention.route_launches[route] == n0 + 2
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, 1, d)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    if bias is not None:
+        # the fully masked row: f32 logits near -1e4 carry steps of 2^-10
+        masked = MASKED_F32_ATOL * v.float().abs().max().item() \
+            if dtype == torch.float32 else atol
+        assert err[1].max().item() <= masked
+        err[1] = 0
+    assert err.max().item() <= atol
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
@@ -925,13 +1034,16 @@ def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
     k1, k2 = fa.flash_attention, fused_resnet.affine_silu_conv1d
     # two levels: 12 UNet attentions, 2 encoder layers and 2 pooling calls
-    # (D = 100 and 4: element loads); 24 resnet epilogues and the tail
+    # (one query, D = 100 and 4: the single-query kernel); 24 resnet
+    # epilogues and the tail
     again = (12, 24) if remat_policy else (0, 0)
-    assert k1.route_launches == {"f32tc": 0, "tc": 14 + again[0],
-                                 "tc_narrow": 2, "plain": 0}
-    assert k1.backward_calls == {"f32tc": 0, "tc": 14, "tc_narrow": 2}
-    assert k2.route_launches == {"f32tc": 0, "tc": 25 + again[1],
-                                 "tc_elem": 0}
+    assert k1.route_launches == {"f32tc": 0, "f32tc_q1": 0,
+                                 "tc": 14 + again[0], "tc_q1": 2,
+                                 "tc_narrow": 0, "plain": 0}
+    assert k1.backward_calls == {"f32tc": 0, "f32tc_q1": 0, "tc": 14,
+                                 "tc_q1": 2, "tc_narrow": 0}
+    assert k2.route_launches == {"f32tc": 0, "f32tc_elem": 0,
+                                 "tc": 25 + again[1], "tc_elem": 0}
     assert k2.backward_calls == {"f32tc": 0, "tc": 25}
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32 and torch.isfinite(p.grad).all(), \

@@ -185,8 +185,9 @@ def test_packed_weights_give_conv1d(b, t, c, co):
     the frames shifted by k - 1, zero padded), give F.conv1d's k=3 SAME
     product: bf16 (3, Co_pad, C_pad) in the wgmma kernel's 128-wide output
     tiles and 64-channel chunks (rows of 128 bytes for TMA); f32 (2, 3,
-    Co_pad, C_pad) in 64 x 16, TF32 big and small halves (the low 13 bits
-    of each zero) that sum to w within 2^-22 of |w|."""
+    Co_pad, C_pad) in 128 x 16 (rows of 64 bytes), TF32 big and small
+    halves (the low 13 bits of each zero) that sum to w within 2^-22 of
+    |w|."""
     import torch.nn.functional as F
 
     from ns2vc_tpu_torch.ops.fused_resnet import (
@@ -205,6 +206,7 @@ def test_packed_weights_give_conv1d(b, t, c, co):
     assert planes.dtype == torch.float32 and planes.is_contiguous()
     assert planes.shape == (2, 3, -(-co // F32_BN) * F32_BN,
                             -(-c // F32_BK) * F32_BK)
+    assert (F32_BN, F32_BK * planes.element_size()) == (128, 64)
     assert not planes[:, :, co:].any() and not planes[:, :, :, c:].any()
     assert not (planes.view(torch.int32) & 0x1FFF).any()
     joined = planes[0] + planes[1]
@@ -231,13 +233,12 @@ def _full_resnet_cases():
 @pytest.mark.parametrize("bsz", [1, 2, 16])
 def test_planner_fills_the_card(bsz):
     """Every K2 geometry of the serving bucket at B in {1, 2, 16}: each
-    split plan deals every chunk to exactly one non-empty split. The f32
-    kernel's (`plan_tc`, 16-channel chunks, 64 x 64 tiles) gives at least
-    132 blocks wherever tiles x chunks allow. The bf16 wgmma kernel's
-    (`plan_wgmma`, 64-channel chunks, 64 x 128 tiles, one block per SM,
-    two consumer warpgroups on alternate chunks) splits into one cluster of
-    at most 8 of two chunks or more each and stays within one wave of 132
-    blocks: as many splits as that allows, none once the tiles fill it."""
+    split plan deals every chunk to exactly one non-empty split. Both conv
+    kernels (f32: `plan_tc`, 16-channel chunks; bf16: `plan_wgmma`,
+    64-channel chunks; 64 x 128 tiles, one block per SM) split into one
+    cluster of at most 8 of two chunks or more each and stay within one
+    wave of 132 blocks: as many splits as that allows, none once the
+    tiles fill it."""
     from ns2vc_tpu_torch.ops.fused_resnet import (
         F32_BK, F32_BM, F32_BN, TC_BK, TC_BM, TC_BN, TC_MAX_SPLITS, plan_tc,
         plan_wgmma,
@@ -246,22 +247,14 @@ def test_planner_fills_the_card(bsz):
 
     cases = _full_resnet_cases()
     assert len(cases) == 45
-    for t_div in (1, 2):
+    for (plan, bm, bn, bk), t_div in itertools.product(
+            ((plan_tc, F32_BM, F32_BN, F32_BK),
+             (plan_wgmma, TC_BM, TC_BN, TC_BK)), (1, 2)):
         for name, t, c, co, _ in cases:   # the bucket and a half-length one
             t //= t_div
-            splits, cps = plan_tc(bsz, t, c, co, F32_BK)
-            n_chunks = -(-c // F32_BK)
-            tiles = -(-t // F32_BM) * -(-co // F32_BN) * bsz
-            assert (splits - 1) * cps < n_chunks <= splits * cps, name
-            if tiles * n_chunks >= H100_SMS:
-                assert tiles * splits >= H100_SMS, (name, bsz, t)
-            else:
-                assert splits == n_chunks, (name, bsz, t)
-            if tiles >= H100_SMS:
-                assert splits == 1, (name, bsz, t)
-            splits, cps = plan_wgmma(bsz, t, c, co)
-            n_chunks = -(-c // TC_BK)
-            tiles = -(-t // TC_BM) * -(-co // TC_BN) * bsz
+            splits, cps = plan(bsz, t, c, co)
+            n_chunks = -(-c // bk)
+            tiles = -(-t // bm) * -(-co // bn) * bsz
             assert (splits - 1) * cps < n_chunks <= splits * cps, name
             assert splits <= TC_MAX_SPLITS, (name, bsz, t)
             assert splits == 1 or cps >= 2, (name, bsz, t)
@@ -335,8 +328,10 @@ def test_attention_wrapper_follows_the_planner(card_routes, bsz, heads):
     (self: head views of one packed (B, T, 3C) projection; cross: of
     (B, T, C) projections, with the prompt's key padding), reaches the
     wgmma kernel's entry with the planner's key tile and counts as "tc";
-    the two pooling attentions (D = 100 and 4) reach the mma.sync kernel with
-    element loads, counted as "tc_narrow"."""
+    the two pooling attentions (one query, D = 100 and 4) reach the
+    single-query kernel with `plan_q1`'s heads per block and key tile and
+    the widest loads their rows allow, counted as "tc_q1"."""
+    from ns2vc_tpu_torch.ops.flash_attention import plan_q1
     from ns2vc_tpu_torch.ops.attention import split_heads
 
     r0 = dict(flash_attention.route_launches)
@@ -354,20 +349,28 @@ def test_attention_wrapper_follows_the_planner(card_routes, bsz, heads):
             bias = torch.zeros(bsz, tk)
             bias[:, 272:] = -1e4
         flash_attention(*(split_heads(x, heads) for x in (q, k, v)), bias)
-    for d, h in ((100, 1), (4, 64)):     # ref_enc and add_embedding pools
-        q = torch.zeros(bsz, h, 1, d, dtype=torch.bfloat16)
-        kv = torch.zeros(bsz, h, 321, d, dtype=torch.bfloat16)
+    pools = ((100, 1), (4, 64))          # ref_enc and add_embedding pools
+    for d, h in pools:                   # head views of (B, T, C) projections
+        q = split_heads(torch.zeros(bsz, 1, h * d, dtype=torch.bfloat16), h)
+        kv = split_heads(torch.zeros(bsz, 321, h * d, dtype=torch.bfloat16),
+                         h)
         flash_attention(q, kv, kv)
     assert {key: flash_attention.route_launches[key] - r0[key]
-            for key in r0} == {"f32tc": 0, "tc": len(geos), "tc_narrow": 2,
-                               "plain": 0}
+            for key in r0} == {"f32tc": 0, "f32tc_q1": 0, "tc": len(geos),
+                               "tc_q1": 2, "tc_narrow": 0, "plain": 0}
     names = [name for name, _ in card_routes.calls]
     assert names == (["ns2vc_flash_attention_wgmma_fwd"] * len(geos)
-                     + ["ns2vc_flash_attention_tc_fwd"] * 2)
+                     + ["ns2vc_flash_attention_q1_fwd"] * 2)
     for (tq, tk, d), (_, args) in zip(geos, card_routes.calls):
         assert args[5:10] == (bsz, heads, tq, tk, d)
         assert args[23] == plan_wgmma_attention(bsz * heads, tq, tk, d)
-    assert [args[23] for _, args in card_routes.calls[len(geos):]] == [0, 0]
+    # the pools' rows: 200 bytes (8-byte loads), and 64 heads side by side
+    # (a block's heads' 8-byte values in 16-byte loads where they pair up)
+    for (d, h), (_, args) in zip(pools, card_routes.calls[len(geos):]):
+        hg, tile, splits = plan_q1(bsz, h, 321, d, 2)
+        vb = 16 if hg * d * 2 % 16 == 0 else 8
+        assert args[5:10] == (bsz, h, 1, 321, d)
+        assert args[23:28] == (hg, tile, splits, vb, 1)
 
 
 def test_route_tables():
@@ -464,18 +467,95 @@ def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
         assert args[24:28] == (1, 1, None, None)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,d,layout", [
+    (16, 1, 100, "pool"),      # ref_enc: rows of 100 values
+    (16, 64, 4, "pool"),       # add_embedding: 64 heads side by side
+    (2, 4, 64, "packed"),      # head views of one packed projection
+    (3, 2, 4, "separate"),     # (B, H, T, D) tensors of their own
+])
+def test_single_query_calls_reach_the_q1_kernel(card_routes, dtype, b, h,
+                                                d, layout):
+    """A call of one query (Tq == 1) in either dtype reaches the
+    single-query kernel's entry with `plan_q1`'s heads per block, key tile
+    and key splits, the widest load the rows allow and the dtype flag, and
+    counts as "tc_q1" (bf16) or "f32tc_q1" (f32)."""
+    from ns2vc_tpu_torch.ops.attention import split_heads
+    from ns2vc_tpu_torch.ops.flash_attention import plan_q1, q1_vec_bytes
+
+    tk, c = 321, h * d
+    if layout == "pool":
+        q, k, v = (split_heads(torch.zeros(b, n, c, dtype=dtype), h)
+                   for n in (1, tk, tk))
+    elif layout == "packed":
+        q = split_heads(torch.zeros(b, 1, c, dtype=dtype), h)
+        k, v = (split_heads(x, h) for x in torch.zeros(
+            b, tk, 3 * c, dtype=dtype).split(c, dim=-1)[1:])
+    else:
+        q, k, v = (torch.zeros(b, h, n, d, dtype=dtype) for n in (1, tk, tk))
+    r0 = dict(flash_attention.route_launches)
+    out = flash_attention(q, k, v, torch.zeros(b, tk))
+    assert out.shape == (b, h, 1, d) and out.dtype == dtype
+    route = "tc_q1" if dtype == torch.bfloat16 else "f32tc_q1"
+    assert {key: flash_attention.route_launches[key] - r0[key]
+            for key in r0} == {key: int(key == route) for key in r0}
+    (name, args), = card_routes.calls
+    assert name == "ns2vc_flash_attention_q1_fwd"
+    assert args[5:10] == (b, h, 1, tk, d) and args[3] is not None
+    hg, tile, splits = plan_q1(b, h, tk, d, q.element_size())
+    assert args[23:28] == (hg, tile, splits, q1_vec_bytes(k, v, hg),
+                           int(dtype == torch.bfloat16))
+    # a head's row of 8 or 200 bytes alone: 8-byte loads; of 16, 128, 256
+    # or 400 bytes, or 8 heads of 4 side by side (the pool at B=16): 16
+    es = q.element_size()
+    want_vb = 16 if d * es % 16 == 0 or (layout == "pool" and d == 4) else 8
+    assert args[26] == want_vb
+
+
+@pytest.mark.parametrize("b", [1, 2, 16])
+@pytest.mark.parametrize("h,tk,d,es", [
+    (1, 321, 100, 2), (64, 321, 4, 2), (1, 321, 100, 4), (64, 321, 4, 4),
+    (8, 16384, 128, 4), (12, 33, 64, 2), (3, 9, 1, 2),
+])
+def test_single_query_planner(b, h, tk, d, es):
+    """`plan_q1`: every key dealt to one of at most 8 non-empty splits of
+    32 keys or more (fewer keys: one split), a block's row segment at most
+    512 bytes, B x groups x splits within one wave of the H100 unless the
+    keys or heads fill it alone, and the shared memory within a block's
+    227 KB."""
+    from ns2vc_tpu_torch.ops._build import H100_SMS
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        MAX_SMEM, Q1_SEGMENT_BYTES, plan_q1, q1_smem,
+    )
+
+    hg, tile, splits = plan_q1(b, h, tk, d, es)
+    kpb = -(-tk // splits)
+    assert 1 <= splits <= 8 and (splits - 1) * kpb < tk <= splits * kpb
+    assert splits == 1 or kpb >= 32
+    assert 1 <= tile <= kpb and 1 <= hg <= h
+    assert hg == 1 or hg * d * es <= Q1_SEGMENT_BYTES
+    blocks = b * -(-h // hg)
+    assert splits == 1 or blocks < H100_SMS
+    assert blocks * splits < 2 * H100_SMS or splits == 1
+    assert q1_smem(hg, d, kpb, tile, es) <= MAX_SMEM
+
+
 @pytest.mark.parametrize("dtype,bsz,t,c,co", [
     (torch.bfloat16, 16, 448, 256, 128),   # enough tiles: no split
     (torch.bfloat16, 1, 56, 1024, 512),    # a cluster of 8 splits
     (torch.bfloat16, 2, 37, 20, 100),      # C % 8 != 0: element loads
-    (torch.float32, 1, 56, 512, 512),
+    (torch.float32, 1, 56, 512, 512),      # a cluster of 8 splits
+    (torch.float32, 16, 448, 128, 128),    # 224 tiles: no split
+    (torch.float32, 2, 37, 22, 100),       # C % 4 != 0: element loads
 ])
 def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
     """The arguments each K2 entry point gets. bf16: the weights' TMA map
     is encoded once per packing (wgmma tiles: Co padded to 128, C to 64)
     and its address handed to every launch with `plan_wgmma`'s split; x,
     a, b 16-byte aligned take TMA ("tc"), else element loads ("tc_elem").
-    f32: the packed planes and `plan_tc`'s split with its workspace."""
+    f32 likewise: the planes' map (Co padded to 128, C to 16, both
+    planes' three taps as rows) and `plan_tc`'s split; x, a, b 16-byte
+    aligned take TMA ("f32tc"), else element loads ("f32tc_elem")."""
     from ns2vc_tpu_torch.ops.fused_resnet import (
         F32_BN, TC_BN, chunk_width, pack_conv_weight, plan_tc, plan_wgmma,
     )
@@ -505,17 +585,20 @@ def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
         assert len(card_routes.calls) == 3
         assert card_routes.calls[2][1][3] == args[3]
     else:
-        assert affine_silu_conv1d.route_launches["f32tc"] == r0["f32tc"] + 1
-        (name, args), = card_routes.calls
-        assert name == "ns2vc_affine_silu_conv1d_f32tc"
-        splits, cps = plan_tc(bsz, t, c, co, bk)
+        sub = "f32tc" if aligned else "f32tc_elem"
+        assert {k: affine_silu_conv1d.route_launches[k] - r0[k]
+                for k in r0} == {k: int(k == sub) for k in r0}
+        (enc, enc_args), (name, args) = card_routes.calls
+        splits, cps = plan_tc(bsz, t, c, co)
         cop = -(-co // F32_BN) * F32_BN
-        assert args[7:] == (bsz, t, c, co, cp, cop, cps, splits, int(aligned),
-                            0)
-        assert (args[6] is None) == (splits == 1)    # the f32 workspace
-        # the packed weights are made once per weight tensor
+        assert enc == "ns2vc_encode_weight_map_f32"
+        assert enc_args[1:3] == (2 * 3 * cop, cp) and enc_args[3] == args[3]
+        assert name == "ns2vc_affine_silu_conv1d_f32tc"
+        assert args[6:] == (bsz, t, c, co, cop, cps, splits, int(aligned), 0)
+        # the packed weights and their map are made once per weight tensor
         affine_silu_conv1d(x, a, a, w, bias)
-        assert card_routes.calls[1][1][3] == args[3]
+        assert len(card_routes.calls) == 3
+        assert card_routes.calls[2][1][3] == args[3]
     assert pack_conv_weight(w).shape[-2:] == (cop, cp)
 
 
