@@ -138,9 +138,13 @@ loads, `flash_attention_tc_narrow`; every K1 bf16 geometry also times the
 mma.sync kernel it replaced, in turns, and prints the exp floor;
 `affine_silu_conv1d_tc`: wgmma over TMA-fed weights, with its element-load
 sub-route `affine_silu_conv1d_tc_elem` for x that TMA cannot describe),
-f32 to the 3xTF32 tensor-core one (`flash_attention_f32tc`, whose calls of
-one query take the single-query kernel in f32,
-`flash_attention_f32tc_q1`, timed in turns against the 3xTF32 kernel;
+f32 to the 3xTF32 tensor-core ones (`flash_attention_f32tc`: the tf32
+wgmma kernel over TMA-fed K/V tiles, `flash_attention_f32tc_wgmma`, timed
+at every f32 geometry in turns against the mma.sync 3xTF32 kernel it
+replaced, which keeps the rows TMA cannot take,
+`flash_attention_f32tc_narrow`, and held to give bitwise-equal outputs on
+two launches; its calls of one query take the single-query kernel in f32,
+`flash_attention_f32tc_q1`, timed in turns against the wgmma kernel;
 `affine_silu_conv1d_f32tc`: wgmma, three TF32 passes per product, with
 `affine_silu_conv1d_f32tc_elem` for x that TMA cannot describe; every f32
 K2 geometry must give bitwise-equal outputs on two launches). The
@@ -234,8 +238,20 @@ PEAK_BYTES = 3.35e12
 # (other summation orders): of max(1, max|a|, max|b|)
 GN_RTOL = 2e-5
 ROUTES = {   # route -> (kernel source, the TPU code it replaces)
-    "flash_attention_f32tc": ("flash_attention.cu",
+    # the f32 route as a whole (its sub-routes below), named by its main
+    # kernel's source
+    "flash_attention_f32tc": ("flash_attention_f32_wgmma.cu",
                               "ns2vc_tpu/ops/pallas_attention.py:92"),
+    # its sub-route on the path: the tf32 wgmma kernel over TMA-fed K/V
+    # tiles. The mma.sync 3xTF32 kernel ("flash_attention_f32tc_narrow",
+    # flash_attention.cu) takes f32 rows TMA cannot take of more than one
+    # query; no path has such calls, so it is not listed here: its cp.async
+    # form is held against its plain version and timed in turns beside the
+    # wgmma kernel at every f32 geometry (`k1_case`), and its element-load
+    # form, as the route runs it, at two head views one float longer per
+    # row (`check_attention`)
+    "flash_attention_f32tc_wgmma": ("flash_attention_f32_wgmma.cu",
+                                    "ns2vc_tpu/ops/pallas_attention.py:92"),
     # the bf16 route as a whole (both sub-routes below), named by its main
     # kernel's source
     "flash_attention_tc": ("flash_attention_wgmma.cu",
@@ -471,7 +487,10 @@ def route_counts() -> dict:
     )
 
     k1, k2 = flash_attention.route_launches, affine_silu_conv1d.route_launches
-    return {"flash_attention_f32tc": k1["f32tc"] + k1["f32tc_q1"],
+    return {"flash_attention_f32tc": k1["f32tc"] + k1["f32tc_narrow"]
+            + k1["f32tc_q1"],
+            "flash_attention_f32tc_wgmma": k1["f32tc"],
+            "flash_attention_f32tc_narrow": k1["f32tc_narrow"],
             "flash_attention_f32tc_q1": k1["f32tc_q1"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"] + k1["tc_q1"],
             "flash_attention_tc_wgmma": k1["tc"],
@@ -485,20 +504,23 @@ def route_counts() -> dict:
 
 
 def route_totals(counts: dict) -> dict:
-    """Launches per route without the count of K1's wgmma kernel, which
-    is the bf16 route's less its tc_narrow and tc_q1 launches (`k1_split`
-    predicts all three from a run's recorded calls); fails if they do not
-    add up."""
-    tc, narrow = counts["flash_attention_tc"], counts.get(
-        "flash_attention_tc_narrow")
-    wgmma = counts["flash_attention_tc_wgmma"]
-    q1 = counts.get("flash_attention_tc_q1", 0)
-    # backward_calls() does not count tc_narrow apart
-    if (wgmma > tc) if narrow is None else (wgmma + narrow + q1 != tc):
-        fail(f"K1 bf16 sub-routes do not add up to its {tc} launches: "
-             f"{counts}")
+    """Launches per route without the counts of K1's wgmma kernels, each
+    its route's (bf16 "tc", f32 "f32tc") less its narrow and single-query
+    launches (`k1_split` predicts the bf16 route's three from a run's
+    recorded calls); fails if they do not add up."""
+    for dt in ("", "f32"):
+        route = f"flash_attention_{dt}tc"
+        total, narrow = counts[route], counts.get(f"{route}_narrow")
+        wgmma = counts[f"{route}_wgmma"]
+        q1 = counts.get(f"{route}_q1", 0)
+        # backward_calls() does not count the narrow sub-routes apart
+        if (wgmma > total) if narrow is None else (
+                wgmma + narrow + q1 != total):
+            fail(f"K1 {dt or 'bf16'} sub-routes do not add up to its "
+                 f"{total} launches: {counts}")
     return {k: n for k, n in counts.items()
-            if k != "flash_attention_tc_wgmma"}
+            if k not in ("flash_attention_tc_wgmma",
+                         "flash_attention_f32tc_wgmma")}
 
 
 def k1_split(calls) -> dict:
@@ -528,11 +550,13 @@ def k1_split(calls) -> dict:
 
 
 class MmaSyncLibrary:
-    """The kernel library with the wgmma kernel's entry answered by the
-    mma.sync kernel with 16-byte cp.async tiles (the same arguments, its
-    `vec` = 1 in place of the key tile): under `mma_sync_kernel()` the
-    wrapper's "tc" calls run the kernel the wgmma one replaced, at the
-    same Python cost."""
+    """The kernel library with the wgmma kernels' entries answered by the
+    mma.sync kernels they replaced, with 16-byte cp.async tiles: bf16's by
+    flash_attention_tc.cu (the same arguments, its `vec` = 1 in place of
+    the key tile), f32's by flash_attention.cu (`vec` = 1, its own key
+    split `plan_f32tc` in place of the wgmma plan, and its workspace):
+    under `mma_sync_kernel()` the wrapper's "tc" and "f32tc" calls run
+    the kernel the wgmma one replaced, at about the same Python cost."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -542,6 +566,20 @@ class MmaSyncLibrary:
 
     def ns2vc_flash_attention_wgmma_fwd(self, *args):
         return self.lib.ns2vc_flash_attention_tc_fwd(*args[:-2], 1, args[-1])
+
+    def ns2vc_flash_attention_f32_wgmma_fwd(self, *args):
+        import torch
+
+        from ns2vc_tpu_torch.ops.flash_attention import plan_f32tc
+
+        b, h, tq, tk, d = args[5:10]
+        splits, per = plan_f32tc(b * h, tq, tk, d)
+        ws = [None, None] if splits == 1 else [
+            torch.empty((splits, b * h * tq, n), dtype=torch.float32,
+                        device="cuda") for n in (d, 2)]
+        return self.lib.ns2vc_flash_attention_f32tc_fwd(
+            *args[:23], 1, per, splits,
+            *(None if w is None else w.data_ptr() for w in ws), args[-1])
 
 
 def q1_off():
@@ -557,7 +595,8 @@ def q1_off():
 
 
 def mma_sync_kernel():
-    """A context in which K1's bf16 "tc" calls launch the mma.sync kernel."""
+    """A context in which K1's "tc" (bf16) and "f32tc" (f32) calls launch
+    the mma.sync kernels the wgmma ones replaced."""
     from unittest import mock
 
     from ns2vc_tpu_torch.ops import _build
@@ -568,11 +607,11 @@ def mma_sync_kernel():
 
 # -- the path's shapes ------------------------------------------------------
 
-def attention_cases(cfg):
+def attention_cases(cfg, bsz=B):
     """(name, B, H, Tq, Tk, D, valid keys or None, calls per UNet step,
-    layout) of every attention the serving path runs. layout: 'self' reads
-    q/k/v from one packed (B, T, 3C) projection, 'cross' q from (B, Tq, C)
-    and k/v from (B, Tk, C)."""
+    layout) of every attention the serving path runs at batch `bsz`.
+    layout: 'self' reads q/k/v from one packed (B, T, 3C) projection,
+    'cross' q from (B, Tq, C) and k/v from (B, Tk, C)."""
     d = cfg.diffusion_encoder
     enc = cfg.phoneme_encoder
     lpb, n = d.layers_per_block, len(d.block_out_channels)
@@ -583,18 +622,18 @@ def attention_cases(cfg):
         # level), mid (last level), up (all but the first up block)
         calls = (lpb if lvl < n - 1 else 1) + (lpb + 1 if lvl < n - 1 else 0)
         hd = ch // d.n_heads
-        out.append((f"unet_self_L{lvl}", B, d.n_heads, t, t, hd, None,
+        out.append((f"unet_self_L{lvl}", bsz, d.n_heads, t, t, hd, None,
                     calls, "self"))
-        out.append((f"unet_cross_L{lvl}", B, d.n_heads, t, TP_PAD, hd,
+        out.append((f"unet_cross_L{lvl}", bsz, d.n_heads, t, TP_PAD, hd,
                     TP_REFER, calls, "cross"))
     hd = enc.hidden_channels // enc.n_heads
-    out.append(("enc_content_self", B, enc.n_heads, T_PAD, T_PAD, hd, T_CLIP,
+    out.append(("enc_content_self", bsz, enc.n_heads, T_PAD, T_PAD, hd, T_CLIP,
                 0, "self"))
-    out.append(("enc_prompt_self", B, enc.n_heads, TP_PAD, TP_PAD, hd,
+    out.append(("enc_prompt_self", bsz, enc.n_heads, TP_PAD, TP_PAD, hd,
                 TP_REFER, 0, "self"))
     pr = cfg.prompt_encoder.in_channels
-    out.append(("pool_ref_enc", B, 1, 1, TP_PAD + 1, pr, None, 0, "cross"))
-    out.append(("pool_add_embedding", B, d.addition_embed_heads, 1,
+    out.append(("pool_ref_enc", bsz, 1, 1, TP_PAD + 1, pr, None, 0, "cross"))
+    out.append(("pool_add_embedding", bsz, d.addition_embed_heads, 1,
                 TP_PAD + 1, d.hidden_channels // d.addition_embed_heads,
                 None, 0, "cross"))
     for t in CONTENTVEC_T:   # ContentVec: 12 heads of 64 over T50 frames
@@ -629,19 +668,24 @@ def resnet_cases(unet):
 K1_SUB = {"tc": "flash_attention_tc_wgmma",      # bf16 sub-route entries
           "tc_narrow": "flash_attention_tc_narrow",
           "tc_q1": "flash_attention_tc_q1",
-          "f32tc_q1": "flash_attention_f32tc_q1"}   # and f32's
+          "f32tc": "flash_attention_f32tc_wgmma",   # and f32's
+          "f32tc_narrow": "flash_attention_f32tc_narrow",
+          "f32tc_q1": "flash_attention_f32tc_q1"}
 
 
 def k1_case(q, k, v, bias, scale=None, timed=True):
     """K1 against its plain version on one input set, through the route its
-    dtype takes. Returns a dict: route, sub (the bf16 sub-route, or the
-    f32 route's single-query one, else None), err, tol, bound, bound_by,
-    and when timed exp (`exp_floor`) and the device times (graph_ms) ms,
-    plain, lib (SDPA), old (bf16: the mma.sync kernel, in turns with the
-    wgmma kernel or the single-query kernel where those run: old, new,
-    new, old), prior (f32 single query: the 3xTF32 kernel, in turns
+    dtype takes. Returns a dict: route, sub (the sub-route: K1_SUB's
+    entry), err, tol, bound, bound_by, and when timed exp (`exp_floor`)
+    and the device times (graph_ms) ms, plain, lib (SDPA; at the narrow
+    sub-routes on contiguous copies), old (the
+    mma.sync kernel of the dtype, in turns with the wgmma kernel, or in
+    bf16 with the single-query kernel, where those run: old, new, new,
+    old), prior (f32 single query: the 3xTF32 wgmma kernel, in turns
     likewise), and eager, the kernel's eager time_ms; the times None when
-    not timed."""
+    not timed; when timed also old_err, the replaced kernel's error against
+    the plain version, which must be within tol as well. The f32 wgmma
+    kernel must give bitwise-equal outputs on two launches."""
     import torch
 
     from ns2vc_tpu_torch.ops.flash_attention import (
@@ -652,6 +696,10 @@ def k1_case(q, k, v, bias, scale=None, timed=True):
     got = flash_attention(q, k, v, bias, scale)
     sub = next((key for key, n in flash_attention.route_launches.items()
                 if n != before[key]), None)
+    if sub == "f32tc" and not torch.equal(
+            got, flash_attention(q, k, v, bias, scale)):
+        fail(f"K1 f32 wgmma kernel at q {tuple(q.shape)} k "
+             f"{tuple(k.shape)}: two launches differ")
     want = flash_attention_plain(q, k, v, bias, scale)
     torch.cuda.synchronize()
     r = {"route": k1_route(q.dtype), "sub": K1_SUB.get(sub),
@@ -663,35 +711,37 @@ def k1_case(q, k, v, bias, scale=None, timed=True):
     if timed:
         s = q.shape[-1] ** -0.5 if scale is None else scale
         call = lambda: flash_attention(q, k, v, bias, scale)  # noqa: E731
-        if sub == "tc":
-            # against the mma.sync kernel (the one it replaced) in turns: old,
-            # new, new, old
-            with mma_sync_kernel():
-                t0 = graph_ms(call)
-            r["ms"] = (graph_ms(call) + graph_ms(call)) / 2
-            with mma_sync_kernel():
-                r["old"] = (t0 + graph_ms(call)) / 2
-        elif sub in ("tc_q1", "f32tc_q1"):
-            # against the kernel these calls took before, in turns, held
-            # against the plain version too
-            with q1_off():
+        if sub in ("tc", "f32tc", "tc_q1", "f32tc_q1"):
+            # against the kernel it replaced, in turns (old, new, new, old),
+            # held against the plain version too: the mma.sync kernel of the
+            # dtype, or for calls of one query the route they took before
+            before = mma_sync_kernel if sub in ("tc", "f32tc") else q1_off
+            with before():
                 before_out = flash_attention(q, k, v, bias, scale)
                 torch.cuda.synchronize()
                 r["old_err"] = (before_out.float()
                                 - want.float()).abs().max().item()
+                if not r["old_err"] <= r["tol"]:
+                    fail(f"K1 {str(q.dtype)[6:]} at q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}: the kernel {r['sub']} replaced "
+                         f"errs by {r['old_err']} > {r['tol']}")
                 t0 = graph_ms(call)
             r["ms"] = (graph_ms(call) + graph_ms(call)) / 2
-            with q1_off():
-                r["old" if sub == "tc_q1" else "prior"] = \
+            with before():
+                r["prior" if sub == "f32tc_q1" else "old"] = \
                     (t0 + graph_ms(call)) / 2
         else:
             r["ms"] = graph_ms(call)
-            if sub == "tc_narrow":     # the mma.sync kernel itself
+            if sub in ("tc_narrow", "f32tc_narrow"):   # the mma.sync kernel
                 r["old"] = r["ms"]
         r["eager"] = time_ms(call)
         r["plain"] = graph_ms(lambda: flash_attention_plain(q, k, v, bias,
                                                             scale))
-        r["lib"] = graph_ms(sdpa_call(q, k, v, bias, s))
+        # SDPA refuses rows that are not 16-byte aligned: at the narrow
+        # sub-routes it reads contiguous copies of the same values
+        lib_in = ([x.contiguous() for x in (q, k, v)]
+                  if str(sub).endswith("_narrow") else (q, k, v))
+        r["lib"] = graph_ms(sdpa_call(*lib_in, bias, s))
     return r
 
 
@@ -819,48 +869,67 @@ def check_attention(cfg, dev):
     """Every attention the serving path runs, f32 and bf16, against the
     plain version; the calls of one UNet step at B=16 summed per route (bf16
     serving takes the tensor-core route, f32 serving, `Svc`'s default, the
-    3xTF32 one). Returns (every shape's sums, the step's)."""
+    3xTF32 one), and in f32 those of one step at B=1 (the single request,
+    the CLI's last batch). Returns (every shape's sums, the B=16 step's,
+    the B=1 f32 step's)."""
     import torch
 
     from ns2vc_tpu_torch.ops.attention import split_heads
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    sums, step = RouteSums(), RouteSums()
-    for name, b, h, tq, tk, d, valid, calls, layout in attention_cases(cfg):
+    sums, step, step1 = RouteSums(), RouteSums(), RouteSums()
+    cases = [(case, dtype, step) for case in attention_cases(cfg)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(case, torch.float32, step1) for case in attention_cases(cfg, 1)
+              if case[7] > 0]
+    # f32 rows TMA cannot take, as the "f32tc_narrow" route runs them (the
+    # mma.sync kernel with element loads, its own key split): head views of
+    # a packed projection one float longer per row, at the UNet's first
+    # self-attention and at ContentVec's T = 400 (84 blocks: keys split);
+    # timed and checked, outside the sums (no path has such calls); their
+    # sdpa_ms is SDPA on contiguous copies (`k1_case`)
+    cases += [((case[0] + "+1",) + case[1:8] + ("self+1",), torch.float32,
+               None) for case in attention_cases(cfg)[:1]]
+    cases += [(("contentvec_T400+1", 1, 12, 400, 400, 64, None, 0, "self+1"),
+               torch.float32, None)]
+    for (name, b, h, tq, tk, d, valid, calls, layout), dtype, at in cases:
         c = h * d
-        for dtype in (torch.float32, torch.bfloat16):
-            def rnd(*shape):
-                return torch.randn(shape, generator=g, device=dev).to(dtype)
-            if layout == "self":
-                q, k, v = rnd(b, tq, 3 * c).split(c, dim=-1)
-            else:
-                q, k, v = rnd(b, tq, c), rnd(b, tk, c), rnd(b, tk, c)
-            q, k, v = (split_heads(x, h) for x in (q, k, v))
-            bias = None
-            if valid is not None:
-                bias = torch.zeros(b, tk, device=dev)
-                bias[:, valid:] = -1e4
-            r = k1_case(q, k, v, bias)
-            # the kernel the call took before, in turns: the mma.sync
-            # kernel (bf16), the 3xTF32 kernel (f32 single query)
-            before = "".join(f" {label}={r[key]:.4f}" for key, label in (
-                ("old", "mma_sync_kernel_ms"), ("prior", "f32tc_kernel_ms"))
-                if r.get(key) is not None)
-            say(f"K1 {name:20s} {str(dtype)[6:]:8s} B={b} H={h} Tq={tq} "
-                f"Tk={tk} D={d} {r['sub'] or r['route']} max_abs_err="
-                f"{r['err']:.3e} (tol {r['tol']:g}) kernel_ms={r['ms']:.4f}"
-                f"{before} eager_ms={r['eager']:.4f} plain_ms="
-                f"{r['plain']:.4f} sdpa_ms={r['lib']:.4f} bound_ms="
-                f"{r['bound']:.5f} ({r['bound_by']}) exp_floor_ms="
-                f"{r['exp']:.5f} [{CARD}]")
-            if not r["err"] <= r["tol"]:
-                fail(f"K1 {name} {dtype}: error {r['err']} > {r['tol']}")
-            if not r.get("old_err", 0.0) <= r["tol"]:
-                fail(f"K1 {name} {dtype}: the kernel the single-query one "
-                     f"replaced errs by {r['old_err']} > {r['tol']}")
-            sums.add(r, 1)
-            step.add(r, calls)
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        if layout == "self":
+            q, k, v = rnd(b, tq, 3 * c).split(c, dim=-1)
+        elif layout == "self+1":
+            q, k, v = rnd(b, tq, 3 * c + 1)[..., :3 * c].split(c, dim=-1)
+        else:
+            q, k, v = rnd(b, tq, c), rnd(b, tk, c), rnd(b, tk, c)
+        q, k, v = (split_heads(x, h) for x in (q, k, v))
+        bias = None
+        if valid is not None:
+            bias = torch.zeros(b, tk, device=dev)
+            bias[:, valid:] = -1e4
+        r = k1_case(q, k, v, bias)
+        # the kernel the call took before, in turns: the mma.sync
+        # kernel of its dtype, the 3xTF32 kernel (f32 single query)
+        before = "".join(f" {label}={r[key]:.4f}" for key, label in (
+            ("old", "mma_sync_kernel_ms"), ("prior", "f32tc_kernel_ms"))
+            if r.get(key) is not None)
+        say(f"K1 {name:20s} {str(dtype)[6:]:8s} B={b} H={h} Tq={tq} "
+            f"Tk={tk} D={d} {r['sub'] or r['route']} max_abs_err="
+            f"{r['err']:.3e} (tol {r['tol']:g}) kernel_ms={r['ms']:.4f}"
+            f"{before} eager_ms={r['eager']:.4f} plain_ms="
+            f"{r['plain']:.4f} sdpa_ms={r['lib']:.4f} bound_ms="
+            f"{r['bound']:.5f} ({r['bound_by']}) exp_floor_ms="
+            f"{r['exp']:.5f} [{CARD}]")
+        if not r["err"] <= r["tol"]:
+            fail(f"K1 {name} {dtype}: error {r['err']} > {r['tol']}")
+        if at is None:
+            if r["sub"] != "flash_attention_f32tc_narrow":
+                fail(f"K1 {name} {layout}: took {r['sub']}, not "
+                     f"flash_attention_f32tc_narrow")
+            continue
+        sums.add(r, 1)
+        at.add(r, calls)
     qkv = torch.randn(B, T_PAD, 3 * 256, device=dev).bfloat16()
     q, k, v = (split_heads(x, 8) for x in qkv.split(256, dim=-1))
     say(f"K1 SDPA backend at the bf16 encoder self-attention shapes: "
@@ -879,10 +948,11 @@ def check_attention(cfg, dev):
                 fail(f"K1 fully masked row ({dtype}, bias {fill}) is not "
                      f"finite")
     say("K1 fully masked batch rows: finite (f32 and bf16)")
-    for route in step.sums:
-        say(f"K1 one UNet step at B={B} ({step.calls[route]} calls, "
-            f"{route}): {step.line(route)} [{CARD}]")
-    return sums, step
+    for bsz, st in ((B, step), (1, step1)):
+        for route in st.sums:
+            say(f"K1 one UNet step at B={bsz} ({st.calls[route]} calls, "
+                f"{route}): {st.line(route)} [{CARD}]")
+    return sums, step, step1
 
 
 def check_resnet(unet, dev):
@@ -1156,8 +1226,9 @@ def device_breakdown(fn, wall_ms_unprofiled: float, label: str,
 def serving_profile(fn, wall_ms_unprofiled: float, label: str,
                     replay: bool = True) -> dict:
     """One serving call under torch.profiler: its kernel time, and the
-    share of K1 (flash_fwd_wgmma / flash_fwd_tc / flash_fwd_f32tc and its
-    merge kernel; the two bf16 kernels also apart), K2
+    share of K1 (flash_fwd_wgmma / flash_fwd_tc / flash_fwd_f32_wgmma /
+    flash_fwd_f32tc and its merge kernel; the two bf16 kernels and the f32
+    wgmma kernel also apart), K2
     (affine_silu_conv_k3_wgmma / _f32tc and the f32 route's split reduce)
     and the GroupNorm statistics (group_norm_affine_kernel), each with its
     launches. For a replay the kernels the profile saw launched must be
@@ -1189,6 +1260,7 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str,
            "launches_counted": want}
     for key, names in (("k1", ("flash_fwd", "split_kv_merge")),
                        ("k1_wgmma", ("flash_fwd_wgmma",)),
+                       ("k1_f32_wgmma", ("flash_fwd_f32_wgmma",)),
                        ("k1_tc", ("flash_fwd_tc_kernel",)),
                        ("k1_q1", ("flash_fwd_q1",)),
                        ("k2", ("affine_silu_conv_k3", "split_k_reduce")),
@@ -1199,7 +1271,9 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str,
         out[f"{key}_launches"] = sum(n for _, n in hits)
     say(f"profile {label}: K1 {out['k1_ms']:.1f} ms ({out['k1_launches']} "
         f"kernels; wgmma {out['k1_wgmma_ms']:.1f} ms x"
-        f"{out['k1_wgmma_launches']}, mma.sync kernel {out['k1_tc_ms']:.1f}"
+        f"{out['k1_wgmma_launches']}, f32 wgmma "
+        f"{out['k1_f32_wgmma_ms']:.1f} ms x{out['k1_f32_wgmma_launches']}, "
+        f"mma.sync kernel {out['k1_tc_ms']:.1f}"
         f" ms x{out['k1_tc_launches']}, single-query kernel "
         f"{out['k1_q1_ms']:.2f} ms x{out['k1_q1_launches']}), K2 "
         f"{out['k2_ms']:.1f} ms "
@@ -1305,6 +1379,7 @@ def check_serving(cfg, sd, vsd, dev):
     # (D = 100 and 4, one query) on the single-query kernel
     want = {"flash_attention_f32tc": 0, "flash_attention_f32tc_q1": 0,
             "flash_attention_tc": 14 + STEPS * 32,
+            "flash_attention_f32tc_narrow": 0,
             "flash_attention_tc_narrow": 0, "flash_attention_tc_q1": 2,
             "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": STEPS * 45,
@@ -1354,7 +1429,9 @@ def check_serving(cfg, sd, vsd, dev):
     counts = route_counts()
     want = {"flash_attention_f32tc": 14 + STEPS * 32,
             "flash_attention_f32tc_q1": 2,
-            "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
+            "flash_attention_tc": 0,
+            "flash_attention_f32tc_narrow": 0,
+            "flash_attention_tc_narrow": 0,
             "flash_attention_tc_q1": 0,
             "affine_silu_conv1d_f32tc": STEPS * 45,
             "affine_silu_conv1d_f32tc_elem": 0,
@@ -1996,6 +2073,7 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
         want = {"flash_attention_f32tc": 12 * calls["contentvec"],
                 "flash_attention_f32tc_q1": 0,
                 "flash_attention_tc": runs * (14 + 32 * CLI_STEPS),
+                "flash_attention_f32tc_narrow": 0,
                 "flash_attention_tc_narrow": 0,
                 "flash_attention_tc_q1": 2 * runs,
                 "affine_silu_conv1d_f32tc": 0,
@@ -2046,7 +2124,9 @@ def check_cli(cfg, sd, vsd, cv_sd, crepe_sd):
         f32_want = {"flash_attention_f32tc": counts["flash_attention_f32tc"]
                     + counts["flash_attention_tc"],
                     "flash_attention_f32tc_q1": counts["flash_attention_tc_q1"],
-                    "flash_attention_tc": 0, "flash_attention_tc_narrow": 0,
+                    "flash_attention_tc": 0,
+                    "flash_attention_f32tc_narrow": 0,
+                    "flash_attention_tc_narrow": 0,
                     "flash_attention_tc_q1": 0,
                     "affine_silu_conv1d_f32tc": counts["affine_silu_conv1d_tc"],
                     "affine_silu_conv1d_f32tc_elem": 0,
@@ -2123,7 +2203,9 @@ def backward_calls() -> dict:
     )
 
     k1, k2 = flash_attention.backward_calls, affine_silu_conv1d.backward_calls
-    return {"flash_attention_f32tc": k1["f32tc"] + k1["f32tc_q1"],
+    return {"flash_attention_f32tc": k1["f32tc"] + k1["f32tc_narrow"]
+            + k1["f32tc_q1"],
+            "flash_attention_f32tc_wgmma": k1["f32tc"],
             "flash_attention_tc": k1["tc"] + k1["tc_narrow"] + k1["tc_q1"],
             "flash_attention_tc_wgmma": k1["tc"],
             "affine_silu_conv1d_f32tc": k2["f32tc"],
@@ -2856,7 +2938,9 @@ def check_training(vsd, cv_sd, dev, tmp):
     if len(packs) != 45:
         fail(f"training step packed K2 weights {len(packs)} times, not 45")
     want = {"flash_attention_f32tc": 0, "flash_attention_f32tc_q1": 0,
-            "flash_attention_tc": 46 + 32, "flash_attention_tc_narrow": 0,
+            "flash_attention_tc": 46 + 32,
+            "flash_attention_f32tc_narrow": 0,
+            "flash_attention_tc_narrow": 0,
             "flash_attention_tc_q1": 2, "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": 45 + 44, "affine_silu_conv1d_tc_elem": 0,
@@ -3145,6 +3229,14 @@ def contours(n: int, t: int, seed: int):
     return f0s, uvs
 
 
+def plus_f0_k1(counts: dict) -> dict:
+    """`counts` (route_counts() or backward_calls()) with the F0
+    predictor's 10 cross-attentions added: K1's f32 route, its wgmma
+    kernel."""
+    return dict(counts, **{k: counts[k] + 10 for k in (
+        "flash_attention_f32tc", "flash_attention_f32tc_wgmma")})
+
+
 def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
     """Svc.infer_batch (B=16, pcm16) with the predictor, auto_predict_f0
     off and on, beside the f0-off model's call, in turns (off, auto off,
@@ -3179,8 +3271,7 @@ def f0_serving(svc_f, svc_off, clips, refer, f0s, uvs):
                                  np.int16 for o in outs):
             fail(f"f0 serving {name}: wrong count, shape or dtype")
     off = counts["off"]
-    want = {"auto0": off, "auto1": dict(
-        off, flash_attention_f32tc=off["flash_attention_f32tc"] + 10)}
+    want = {"auto0": off, "auto1": plus_f0_k1(off)}
     for name in ("auto0", "auto1"):
         if counts[name] != want[name]:
             fail(f"f0 serving {name}: launches {counts[name]}, expected "
@@ -3414,6 +3505,7 @@ def _f0_cli(cfg_f, sd_f, vsd, cv_sd, crepe_sd):
     want = {"flash_attention_f32tc": 12 * calls["contentvec"] + 10 * runs,
             "flash_attention_f32tc_q1": 0,
             "flash_attention_tc": runs * (14 + 32 * F0_CLI_STEPS),
+            "flash_attention_f32tc_narrow": 0,
             "flash_attention_tc_narrow": 0, "flash_attention_tc_q1": 2 * runs,
             "affine_silu_conv1d_f32tc": 0, "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": runs * 45 * F0_CLI_STEPS,
@@ -3546,10 +3638,8 @@ def f0_training(off, trainer_off, batches_off, vsd, dev, tmp):
     launches, bwd = route_counts(), backward_calls()
     # the predictor's 10 cross-attentions take K1's f32 route (its f32
     # trunk under the bf16 step), each once, not recomputed
-    want = dict(off["launches"], flash_attention_f32tc=off["launches"][
-        "flash_attention_f32tc"] + 10)
-    want_bwd = dict(off["backward"], flash_attention_f32tc=off["backward"][
-        "flash_attention_f32tc"] + 10)
+    want = plus_f0_k1(off["launches"])
+    want_bwd = plus_f0_k1(off["backward"])
     if launches != want or bwd != want_bwd:
         fail(f"f0 training step launches {launches} (expected {want}), "
              f"backward calls {bwd} (expected {want_bwd})")
@@ -3770,7 +3860,9 @@ def check_cfg_sample(cfg, sd, dev):
     counts = route_counts()
     # per UNet call: 32 attentions + the pooled add_embedding (D = 4)
     want = {"flash_attention_f32tc": 0, "flash_attention_f32tc_q1": 0,
-            "flash_attention_tc": steps * 33, "flash_attention_tc_narrow": 0,
+            "flash_attention_tc": steps * 33,
+            "flash_attention_f32tc_narrow": 0,
+            "flash_attention_tc_narrow": 0,
             "flash_attention_tc_q1": steps, "affine_silu_conv1d_f32tc": 0,
             "affine_silu_conv1d_f32tc_elem": 0,
             "affine_silu_conv1d_tc": steps * 45, "affine_silu_conv1d_tc_elem": 0,
@@ -5034,7 +5126,7 @@ def main() -> int:
         tp = check_tensor_parallel(dev, train_tmp.name)
     with no_tf32():
         with phase("K1 shapes"):
-            k1_all, k1_step = check_attention(cfg, dev)
+            k1_all, k1_step, k1_step1 = check_attention(cfg, dev)
         with phase("K2 shapes"):
             k2_all, k2_step = check_resnet(unet, dev)
         with phase("full model"):
@@ -5106,7 +5198,9 @@ def main() -> int:
             route)
         pre = train["preprocess_launches"][route]
         if (t_launch if route.endswith("_tc") or route == "group_norm_affine"
-                else pre if route == "flash_attention_f32tc" else 1) == 0:
+                else pre if route in ("flash_attention_f32tc",
+                                      "flash_attention_f32tc_wgmma")
+                else 1) == 0:
             fail(f"{route}: {t_launch} launches per training step, {pre} in "
                  f"the preprocess run")
         # this slice's paths: the F0 predictor's serving call
@@ -5147,8 +5241,18 @@ def main() -> int:
                   "serving_step_bound_by": st.bound_by(route)}
         if "f32tc" in route:
             slice6["f32_serving_profiled_ms"] = f32_serving[
-                "k1_q1_ms" if route.endswith("_q1") else "k1_ms"
+                "k1_q1_ms" if route.endswith("_q1") else "k1_f32_wgmma_ms"
+                if route.endswith("_wgmma") else "k1_ms"
                 if route.startswith("flash") else "k2_ms"]
+        if route.startswith("flash_attention_f32tc") and \
+                not route.endswith("_q1"):
+            # this slice's: one f32 UNet step's calls at B=1
+            ss1 = k1_step1.sums.get(route, {})
+            slice6.update({f"serving_b1_step_{name}": ss1.get(key)
+                           for key, name in (
+                               ("ms", "ms"), ("old", "mma_sync_kernel_ms"),
+                               ("plain", "plain_ms"), ("bound", "bound_ms"),
+                               ("lib", "library_ms"))})
         # this slice's: the profiled serving calls, and the statistics
         # kernel's f32 serving (Svc's default dtype) beside its bf16
         profiled = {"flash": "k1_ms", "affine": "k2_ms", "group": "gn_ms"}[

@@ -47,6 +47,9 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float, _I, _P],
     "ns2vc_flash_attention_wgmma_fwd":
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float, _I, _P],
+    "ns2vc_flash_attention_f32_wgmma_fwd":
+        [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 3
+        + [_P],
     "ns2vc_flash_attention_f32tc_fwd":
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 3
         + [_P] * 3,

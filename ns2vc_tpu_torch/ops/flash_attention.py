@@ -21,14 +21,20 @@ call by its rows and `plan_wgmma_attention`:
                   16-byte chunks (D = 4, 100 or odd, odd strides) take the
                   mma.sync kernel (`csrc/flash_attention_tc.cu`) with
                   element loads, counted apart as "tc_narrow"
-    cuda, f32  -> "f32tc": `csrc/flash_attention.cu`, TF32 tensor cores in
-                  three passes (3xTF32: each operand's TF32 big and small
-                  halves), at f32 accuracy, D <= 128; where its 64-query
-                  blocks would leave SMs idle, `plan_f32tc` splits the key
-                  tiles over more blocks, merged by a second kernel; a
-                  single query takes the single-query kernel in f32 (exact
-                  f32 on the CUDA cores; faster than the 3xTF32 kernel at
-                  both pools on an H100, PERF.md), counted as "f32tc_q1"
+    cuda, f32  -> "f32tc": `csrc/flash_attention_f32_wgmma.cu`, TF32 tensor
+                  cores in three passes (3xTF32: each operand's TF32 big
+                  and small halves) on wgmma over TMA-fed K/V tiles, at f32
+                  accuracy, D <= 128 in 16-byte chunks (D % 4 == 0, aligned
+                  strides), with the key tile, consumer warpgroups per block
+                  and key splits over a cluster that `plan_f32_wgmma`
+                  gives; a single query takes the single-query kernel in
+                  f32 (exact f32 on the CUDA cores; faster than the 3xTF32
+                  kernels at both pools on an H100, PERF.md), counted as
+                  "f32tc_q1"; other rows that TMA cannot take take the
+                  mma.sync 3xTF32 kernel (`csrc/flash_attention.cu`) with
+                  element loads, its keys split over blocks and merged by a
+                  second kernel where `plan_f32tc` says, counted apart as
+                  "f32tc_narrow"
 
 q in f32 with k and v in bf16 (the F0 predictor's cross-attention under a
 bf16 model: its trunk is f32, its prompt bf16, as flax promotes them) is
@@ -40,8 +46,8 @@ skips the one rounding of the probabilities to bf16 before the PV product.
 
 A CUDA tensor launches one of the kernels or raises. `flash_attention.
 launches` counts every launch, `flash_attention.route_launches` each route's
-and sub-route's ("tc", "tc_q1", "tc_narrow", "f32tc", "f32tc_q1"); its
-"plain" entry
+and sub-route's ("tc", "tc_q1", "tc_narrow", "f32tc", "f32tc_q1",
+"f32tc_narrow"); its "plain" entry
 counts the calls `ops/attention.py` sends to the plain version by their
 bias or head dim (no kernel launches for those). A replayed CUDA graph
 launches kernels without calling the wrapper: its owner adds the counts
@@ -68,7 +74,7 @@ import torch
 
 from ns2vc_tpu_torch.ops import _build
 
-MAX_HEAD_DIM = 128      # both kernels' widest padded head
+MAX_HEAD_DIM = 128      # the kernels' widest padded head
 # the single-query kernel (csrc/flash_attention_q1.cu): its block, its ring
 # of key tiles, a block's row segment and a stage at most, and the keys
 # whose logits one head's block keeps in shared memory
@@ -83,11 +89,11 @@ Q1_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
-    """(splits, key tiles per split) of the f32 kernel for B*H = bh: one
-    split when its 64-query blocks give every SM of the H100 one, else as
-    many as the SMs hold resident blocks (two at D <= 64, one above: their
-    shared memory), each over the same number of key tiles (64 keys, 32 at
-    D > 64), none empty."""
+    """(splits, key tiles per split) of the mma.sync f32 kernel
+    ("f32tc_narrow") for B*H = bh: one split when its 64-query blocks give
+    every SM of the H100 one, else as many as the SMs hold resident blocks
+    (two at D <= 64, one above: their shared memory), each over the same
+    number of key tiles (64 keys, 32 at D > 64), none empty."""
     tiles = -(-tk // (64 if d <= 64 else 32))
     blocks = -(-tq // 64) * bh
     if blocks >= _build.H100_SMS:
@@ -95,6 +101,53 @@ def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
     want = max(1, (2 if d <= 64 else 1) * _build.H100_SMS // blocks)
     per = -(-tiles // min(want, tiles))
     return -(-tiles // per), per
+
+
+def f32_wgmma_dp(d: int) -> int:
+    """The f32 wgmma kernel's padded head dim: 16, 32, 64 or 128."""
+    return next(dp for dp in (16, 32, 64, 128) if d <= dp)
+
+
+def f32_wgmma_smem(dp: int, key_tile: int, consumers: int) -> int:
+    """Shared memory of one block of the f32 wgmma kernel (`Cfg::
+    SmemBytes`): alignment slack, each consumer's two Q planes, the raw K
+    and V slots, then three stages where they fit MAX_SMEM, else two, each
+    K's and V^T's two planes and the key bias."""
+    tile = 4 * key_tile * dp
+    fixed = 1024 + 2 * consumers * 4 * 64 * dp + 2 * tile
+    stage = 4 * tile + 4 * key_tile
+    return fixed + (3 if fixed + 3 * stage <= MAX_SMEM else 2) * stage
+
+
+# the f32 wgmma kernel's instantiated (key tile, consumers) per padded head
+# dim (`launch_dp` in its source)
+F32_WGMMA_TILES = {16: ((64, 1), (64, 2)), 32: ((64, 1), (64, 2)),
+                   64: ((64, 1), (32, 2)), 128: ((32, 1),)}
+
+
+def plan_f32_wgmma(bh: int, tq: int, tk: int, d: int
+                   ) -> tuple[int, int, int]:
+    """(keys per tile, consumer warpgroups per block, key splits) of the
+    f32 wgmma kernel for B*H = bh, as measured on an H100 (PERF.md). Two
+    consumers (128 query rows sharing each converted K/V tile) where the
+    head is at most 64 wide, the queries fill more than one 64-row tile
+    and such blocks number 64 or more; else one, so that a small grid
+    keeps its blocks. 64-key tiles, 32 with two consumers at D > 32 and at
+    D > 64 (what fits a consumer's registers). Where the blocks fall short
+    of the H100's SMs, the key tiles are split over a cluster of up to 8
+    blocks, as many as keep the grid within one wave, and, unless the
+    grid has 16 blocks or fewer, two key tiles or more each; every split
+    over the same number of tiles, none empty."""
+    dp = f32_wgmma_dp(d)
+    two = dp <= 64 and tq > 64 and -(-tq // 128) * bh >= 64
+    consumers = 2 if two else 1
+    key_tile = 32 if dp == 128 or (dp == 64 and two) else 64
+    tiles = -(-tk // key_tile)
+    blocks = -(-tq // (64 * consumers)) * bh
+    most = tiles if blocks <= 16 else max(1, tiles // 2)
+    splits = max(1, min(8, most, _build.H100_SMS // blocks))
+    splits = -(-tiles // -(-tiles // splits))
+    return key_tile, consumers, splits
 
 
 def plan_wgmma_attention(bh: int, tq: int, tk: int, d: int) -> int:
@@ -168,9 +221,9 @@ def q1_vec_bytes(k: torch.Tensor, v: torch.Tensor, hg: int) -> int:
 
 
 def attention_route(device: torch.device | str, dtype: torch.dtype) -> str:
-    """'plain' (CPU), 'tc' (bf16 kernel) or 'f32tc' (the 3xTF32 kernel,
-    which takes f32; `_launch` refuses any other dtype); raises for a device
-    that is neither."""
+    """'plain' (CPU), 'tc' (the bf16 kernels) or 'f32tc' (the 3xTF32
+    kernels, which take f32; `_launch` refuses any other dtype); raises for
+    a device that is neither."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
@@ -308,8 +361,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vec = all(_build.aligned16(t) for t in (q, k, v))
     if tq == 1 and tk <= Q1_MAX_KEYS and q.dtype in Q1_DTYPES:
         route += "_q1"
-    elif route == "tc" and not vec:
-        route = "tc_narrow"
+    elif route in ("tc", "f32tc") and not vec:
+        route += "_narrow"
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
@@ -323,7 +376,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.ns2vc_flash_attention_wgmma_fwd(
             *args[:-1], plan_wgmma_attention(b * h, tq, tk, d),
             _build.stream_of(q))
-    elif route == "f32tc":
+    elif route == "f32tc":   # the key tile, consumers and splits in vec's
+        err = lib.ns2vc_flash_attention_f32_wgmma_fwd(
+            *args[:-1], *plan_f32_wgmma(b * h, tq, tk, d),
+            _build.stream_of(q))
+    elif route == "f32tc_narrow":
         splits, per = plan_f32tc(b * h, tq, tk, d)
         ws = [None, None] if splits == 1 else [
             torch.empty((splits, b * h * tq, n), dtype=torch.float32,
@@ -338,10 +395,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = {"f32tc": 0, "f32tc_q1": 0, "tc": 0,
-                                  "tc_q1": 0, "tc_narrow": 0, "plain": 0}
-flash_attention.backward_calls = {"f32tc": 0, "f32tc_q1": 0, "tc": 0,
-                                  "tc_q1": 0, "tc_narrow": 0}
+flash_attention.route_launches = {"f32tc": 0, "f32tc_q1": 0,
+                                  "f32tc_narrow": 0, "tc": 0, "tc_q1": 0,
+                                  "tc_narrow": 0, "plain": 0}
+flash_attention.backward_calls = {"f32tc": 0, "f32tc_q1": 0,
+                                  "f32tc_narrow": 0, "tc": 0, "tc_q1": 0,
+                                  "tc_narrow": 0}
 # the counters' owner, also while a caller replaces the module's public
 # name
 _counts = flash_attention

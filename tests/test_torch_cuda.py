@@ -24,7 +24,10 @@ split over the 'model' axis (Co = C_out / mp: 128, 192, 256 at mp=2, 64 and
 D <= 128 to the kernel and full-bias or D > 128 calls to the plain route,
 counted as such. bf16 goes to the bf16 tensor-core kernels (K1 "tc", the
 wgmma kernel, at every head width up to 128 and both key tiles, and
-"tc_narrow"; K2 "tc"), f32 to the 3xTF32 ones ("f32tc"); K1 calls of one
+"tc_narrow"; K2 "tc"), f32 to the 3xTF32 ones (K1 "f32tc", the wgmma
+kernel, at every head width and instantiated key tile and consumer count,
+whole and split over a cluster, bitwise repeatable, and "f32tc_narrow",
+the mma.sync kernel, for rows TMA cannot take; K2 "f32tc"); K1 calls of one
 query, in either dtype, to the single-query kernel ("tc_q1", "f32tc_q1":
 the pools, odd key counts, fully masked rows, D of 1 to 128); each test
 checks the route its call took. K2's f32 kernel is also held to give
@@ -74,14 +77,14 @@ def _gen(dev, seed=0):
 def _k1_route(q, k, v):
     """The route counter a K1 call on these inputs moves, as the wrapper
     picks it: one query takes the single-query kernel ("tc_q1", f32
-    "f32tc_q1"); bf16 rows of aligned 16-byte chunks take the wgmma kernel
-    ("tc"), other bf16 rows the mma.sync kernel with element loads
-    ("tc_narrow")."""
+    "f32tc_q1"); rows of aligned 16-byte chunks take the wgmma kernel of
+    their dtype ("tc", "f32tc"), other rows the mma.sync kernel of their
+    dtype with element loads ("tc_narrow", "f32tc_narrow")."""
     route = attention_route(q.device, q.dtype)
     if q.shape[2] == 1:
         return route + "_q1"
-    if route == "tc" and not all(_build.aligned16(t) for t in (q, k, v)):
-        return "tc_narrow"
+    if not all(_build.aligned16(t) for t in (q, k, v)):
+        return route + "_narrow"
     return route
 
 
@@ -294,6 +297,112 @@ def test_wgmma_attention_fully_masked_rows(dev, fill, d):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= 3e-2
+
+
+def _f32_wgmma_plans():
+    """(D, keys per tile, consumers) of every instantiation of the f32
+    wgmma kernel, at each padded head dim and at D = 48 and 100 (a box
+    wider than the head)."""
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        F32_WGMMA_TILES, f32_wgmma_dp,
+    )
+
+    return [(d, kt, nc) for d in (16, 32, 48, 64, 100, 128)
+            for kt, nc in F32_WGMMA_TILES[f32_wgmma_dp(d)]]
+
+
+@pytest.mark.parametrize("d,key_tile,consumers", _f32_wgmma_plans())
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("layout,valid", [("self", None), ("cross", 200)])
+def test_f32_wgmma_attention_matches_plain(dev, monkeypatch, d, key_tile,
+                                           consumers, splits, layout,
+                                           valid):
+    """The f32 wgmma kernel with each key tile and consumer count it has,
+    whole or with its key tiles split over a cluster of 3, on strided
+    views of one packed (B, T, 3C) projection (self, no bias) or of
+    (B, T, C) projections with a key padding (cross), ragged on both axes,
+    against the plain version at 2e-5; two launches are bitwise equal."""
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+
+    monkeypatch.setattr(fa, "plan_f32_wgmma",
+                        lambda *a: (key_tile, consumers, splits))
+    g = _gen(dev, 12)
+    b, h, tq, tk = 2, 3, 150, 333
+    c = h * d
+    if layout == "self":
+        qkv = torch.randn(b, tk, 3 * c, generator=g, device=dev)
+        q, k, v = qkv.split(c, dim=-1)
+        q = q[:, :tq]
+    else:
+        q = torch.randn(b, tq, c, generator=g, device=dev)
+        k, v = (torch.randn(b, tk, c, generator=g, device=dev)
+                for _ in range(2))
+    q, k, v = (split_heads(x, h) for x in (q, k, v))
+    bias = None
+    if valid is not None:
+        bias = torch.zeros(b, tk, device=dev)
+        bias[-1, valid:] = -1e4
+    n0 = flash_attention.route_launches["f32tc"]
+    got = flash_attention(q, k, v, bias)
+    again = flash_attention(q, k, v, bias)
+    assert flash_attention.route_launches["f32tc"] == n0 + 2
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("fill", [-1e4, -1e30])
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_f32_wgmma_fully_masked_rows(dev, monkeypatch, fill, splits, d):
+    """A batch row whose keys are all masked stays finite on the f32 wgmma
+    kernel, whole or split, and (at -1e30, exact in f32 as the plain
+    version's) averages v uniformly."""
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+
+    plan = fa.plan_f32_wgmma(8, 37, 150, d)
+    monkeypatch.setattr(fa, "plan_f32_wgmma",
+                        lambda *a: (plan[0], plan[1], splits))
+    g = _gen(dev, 13)
+    q, k, v = (torch.randn(2, 4, t, d, generator=g, device=dev)
+               for t in (37, 150, 150))
+    bias = torch.zeros(2, 150, device=dev)
+    bias[1] = fill
+    n0 = flash_attention.route_launches["f32tc"]
+    got = flash_attention(q, k, v, bias)
+    assert flash_attention.route_launches["f32tc"] == n0 + 1
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    tol = 2e-5 if fill == -1e30 else MASKED_F32_ATOL * v.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("d,pad", [(6, 0), (7, 0), (32, 1), (64, 2)])
+def test_f32_narrow_rows_take_the_mma_sync_kernel(dev, d, pad):
+    """f32 rows TMA cannot take (D % 4 != 0, or head views of a projection
+    whose rows are `pad` floats longer, so their strides are no whole
+    16-byte chunks) go to the mma.sync 3xTF32 kernel with element loads
+    ("f32tc_narrow"), its keys split over blocks and merged at this small
+    grid, against the plain version at 2e-5."""
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+
+    g = _gen(dev, 14)
+    b, h, tq, tk = 1, 2, 150, 333
+    c = h * d
+    qkv = torch.randn(b, tk, 3 * c + pad, generator=g, device=dev)
+    q, k, v = qkv[..., :3 * c].split(c, dim=-1)
+    q, k, v = (split_heads(x, h) for x in (q[:, :tq], k, v))
+    bias = torch.zeros(b, tk, device=dev)
+    bias[:, 300:] = -1e4
+    assert fa.plan_f32tc(b * h, tq, tk, d)[0] > 1
+    n0 = flash_attention.route_launches["f32tc_narrow"]
+    got = flash_attention(q, k, v, bias)
+    assert flash_attention.route_launches["f32tc_narrow"] == n0 + 1
+    want = flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1038,10 +1147,11 @@ def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
     # epilogues and the tail
     again = (12, 24) if remat_policy else (0, 0)
     assert k1.route_launches == {"f32tc": 0, "f32tc_q1": 0,
-                                 "tc": 14 + again[0], "tc_q1": 2,
-                                 "tc_narrow": 0, "plain": 0}
-    assert k1.backward_calls == {"f32tc": 0, "f32tc_q1": 0, "tc": 14,
-                                 "tc_q1": 2, "tc_narrow": 0}
+                                 "f32tc_narrow": 0, "tc": 14 + again[0],
+                                 "tc_q1": 2, "tc_narrow": 0, "plain": 0}
+    assert k1.backward_calls == {"f32tc": 0, "f32tc_q1": 0,
+                                 "f32tc_narrow": 0, "tc": 14, "tc_q1": 2,
+                                 "tc_narrow": 0}
     assert k2.route_launches == {"f32tc": 0, "f32tc_elem": 0,
                                  "tc": 25 + again[1], "tc_elem": 0}
     assert k2.backward_calls == {"f32tc": 0, "tc": 25}

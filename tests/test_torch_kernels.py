@@ -20,7 +20,8 @@ from ns2vc_tpu.ops import pallas_attention, pallas_resnet
 from ns2vc_tpu_torch.ops import _build
 from ns2vc_tpu_torch.ops.attention import multihead_attention
 from ns2vc_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain, plan_wgmma_attention,
+    flash_attention, flash_attention_plain, plan_f32_wgmma,
+    plan_wgmma_attention,
 )
 from ns2vc_tpu_torch.ops.fused_resnet import (
     affine_silu_conv1d, affine_silu_conv1d_plain, gn_silu_conv1d,
@@ -322,6 +323,170 @@ def test_wgmma_attention_planner(bsz, heads):
     assert plan_wgmma_attention(8, 400, 400, 128) == 64
 
 
+def _f32_attention_geometries():
+    """(name, B*H, Tq, Tk, D) of every f32 K1 call of more than one query
+    that the path makes: the UNet's at B=16 and B=1 (`chip_smoke.
+    attention_cases`: serving, and the f32 CLI run's batches), ContentVec's
+    at T = 50, 400, 850 and 3000, the F0 predictor's cross-attention and
+    the op registry's D = 128."""
+    import chip_smoke
+    from ns2vc_tpu_torch.config import Config
+
+    out = []
+    for bsz in (16, 1):
+        out += [(f"{name}_B{bsz}", b * h, tq, tk, d) for name, b, h, tq, tk,
+                d, *_ in chip_smoke.attention_cases(Config(), bsz) if tq > 1]
+    out += [(f"contentvec_T{t}", 12, t, t, 64) for t in (50, 400, 850, 3000)]
+    out += [("f0_cross", 128, 448, 320, 32), ("registry_d128", 8, 400, 400,
+                                              128)]
+    return out
+
+
+# (keys per tile, consumers, splits) where the planner's rule is worth
+# reading twice: B=1's small grids keep one consumer and split over a
+# cluster (a grid of 16 blocks or fewer one tile a split), the 56-row level
+# keeps one consumer, two consumers take 32-key tiles at D = 48 and 64,
+# ContentVec's 20 s keeps its 84 blocks, D = 128 takes 32-key tiles
+F32_WGMMA_WANT = {
+    "unet_self_L0_B16": (64, 2, 1), "unet_self_L2_B16": (32, 2, 1),
+    "unet_cross_L3_B16": (64, 1, 1), "unet_self_L0_B1": (64, 1, 2),
+    "unet_cross_L0_B1": (64, 1, 2), "unet_cross_L2_B1": (64, 1, 5),
+    "unet_self_L3_B1": (64, 1, 1), "unet_cross_L3_B1": (64, 1, 5),
+    "contentvec_T50": (64, 1, 1), "contentvec_T400": (64, 1, 1),
+    "contentvec_T3000": (32, 2, 1), "f0_cross": (64, 2, 1),
+    "registry_d128": (32, 1, 2)}
+
+
+@pytest.mark.parametrize("name,bh,tq,tk,d", _f32_attention_geometries())
+def test_f32_wgmma_planner(name, bh, tq, tk, d):
+    """The f32 wgmma kernel's plan at every f32 geometry of the path: an
+    instantiated (key tile, consumers) of its padded head dim, two
+    consumers wherever the head is at most 64 wide and the queries fill
+    more than one 64-row tile in 64 such blocks or more, a block's shared
+    memory within the H100's 232,448 bytes, and where the blocks fall
+    short of the 132 SMs the key tiles split over a cluster of at most 8
+    that stays within one wave, two tiles or more a split unless the grid
+    has 16 blocks or fewer, each split over the same number of tiles, none
+    empty."""
+    from ns2vc_tpu_torch.ops._build import H100_SMS
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        F32_WGMMA_TILES, MAX_SMEM, f32_wgmma_dp, f32_wgmma_smem,
+    )
+
+    key_tile, consumers, splits = plan_f32_wgmma(bh, tq, tk, d)
+    dp = f32_wgmma_dp(d)
+    assert (key_tile, consumers) in F32_WGMMA_TILES[dp]
+    assert consumers == (2 if dp <= 64 and tq > 64
+                         and -(-tq // 128) * bh >= 64 else 1)
+    assert f32_wgmma_smem(dp, key_tile, consumers) <= MAX_SMEM
+    tiles = -(-tk // key_tile)
+    blocks = -(-tq // (64 * consumers)) * bh
+    per = -(-tiles // splits)
+    assert 1 <= splits <= 8 and (splits - 1) * per < tiles <= splits * per
+    assert blocks * splits <= max(blocks, H100_SMS)
+    most = tiles if blocks <= 16 else max(1, tiles // 2)
+    assert splits <= most
+    if blocks < H100_SMS and splits < min(8, most):
+        # one more split would leave an empty one or pass one wave
+        more = -(-tiles // -(-tiles // (splits + 1)))
+        assert more == splits or blocks * (splits + 1) > H100_SMS
+    if name in F32_WGMMA_WANT:
+        assert (key_tile, consumers, splits) == F32_WGMMA_WANT[name]
+
+
+@pytest.mark.parametrize("dp,key_tile,consumers,want", [
+    (16, 64, 1, 67328), (16, 64, 2, 75520), (32, 64, 1, 132864),
+    (32, 64, 2, 149248), (64, 64, 1, 198144), (64, 32, 2, 181632),
+    (128, 32, 1, 230656),
+])
+def test_f32_wgmma_shared_memory(dp, key_tile, consumers, want):
+    """Each instantiation's shared memory, summed by hand from the
+    kernel's layout (1024 bytes of alignment slack; per consumer Q's two
+    planes of 64 x DP floats; the raw K and V slots of BN x DP; three
+    stages where they fit, else two, of four BN x DP planes and BN floats
+    of key bias), within a block's 232,448 bytes; every instantiation is
+    listed."""
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        F32_WGMMA_TILES, MAX_SMEM, f32_wgmma_smem,
+    )
+
+    assert (key_tile, consumers) in F32_WGMMA_TILES[dp]
+    assert sum(map(len, F32_WGMMA_TILES.values())) == 7
+    tile, stage = 4 * key_tile * dp, 4 * (4 * key_tile * dp + key_tile)
+    fixed = 1024 + consumers * 2 * 4 * 64 * dp + 2 * tile
+    stages = (want - fixed) // stage
+    assert want == fixed + stages * stage and stages in (2, 3)
+    assert f32_wgmma_smem(dp, key_tile, consumers) == want <= MAX_SMEM
+    assert stages == 3 or want + stage > MAX_SMEM
+
+
+@pytest.mark.parametrize("bsz", [16, 1])
+def test_f32_attention_wrapper_follows_the_planner(card_routes, bsz):
+    """The UNet's attentions in f32 (Svc's default dtype), laid out as the
+    model lays them out, reach the f32 wgmma kernel's entry with the
+    planner's key tile, consumers and splits and count as "f32tc"; the two
+    pools (one query) reach the single-query kernel ("f32tc_q1"); the
+    same head views one float longer per row (strides of no whole 16-byte
+    chunks) reach the mma.sync kernel ("f32tc_narrow")."""
+    from ns2vc_tpu_torch.ops.attention import split_heads
+
+    heads = 8
+    geos = _unet_attention_geometries()
+    r0 = dict(flash_attention.route_launches)
+    for pad in (0, 1):
+        for i, (tq, tk, d) in enumerate(geos):
+            c = heads * d
+            if i % 2 == 0:
+                qkv = torch.zeros(bsz, tq, 3 * c + pad)
+                q, k, v = qkv[..., :3 * c].split(c, dim=-1)
+                bias = None
+            else:
+                q = torch.zeros(bsz, tq, c + pad)[..., :c]
+                k, v = (torch.zeros(bsz, tk, c + pad)[..., :c]
+                        for _ in range(2))
+                bias = torch.zeros(bsz, tk)
+            flash_attention(*(split_heads(x, heads) for x in (q, k, v)),
+                            bias)
+    for d, h in ((100, 1), (4, 64)):     # the pools
+        q = split_heads(torch.zeros(bsz, 1, h * d), h)
+        kv = split_heads(torch.zeros(bsz, 321, h * d), h)
+        flash_attention(q, kv, kv)
+    n = len(geos)
+    assert {key: flash_attention.route_launches[key] - r0[key]
+            for key in r0} == {"f32tc": n, "f32tc_q1": 2, "f32tc_narrow": n,
+                               "tc": 0, "tc_q1": 0, "tc_narrow": 0,
+                               "plain": 0}
+    names = [name for name, _ in card_routes.calls]
+    assert names == (["ns2vc_flash_attention_f32_wgmma_fwd"] * n
+                     + ["ns2vc_flash_attention_f32tc_fwd"] * n
+                     + ["ns2vc_flash_attention_q1_fwd"] * 2)
+    for (tq, tk, d), (_, args) in zip(geos, card_routes.calls):
+        assert args[5:10] == (bsz, heads, tq, tk, d)
+        assert args[23:] == (*plan_f32_wgmma(bsz * heads, tq, tk, d), 0)
+    for (_, args) in card_routes.calls[n:2 * n]:
+        assert args[23] == 0      # element loads
+
+
+def test_f32_narrow_launches_count_and_replay():
+    """The new counter key, "f32tc_narrow", resets with the others and
+    travels through `launch_counts` / `add_launch_counts` (a replayed
+    CUDA graph adds what its capture counted) and `backward_calls`."""
+    from ns2vc_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    counts = fa.launch_counts()
+    assert counts["route.f32tc_narrow"] == 0
+    assert "f32tc_narrow" in fa.flash_attention.backward_calls
+    delta = {k: 0 for k in counts}
+    delta.update({"launches": 3, "route.f32tc_narrow": 1, "route.f32tc": 2})
+    fa.add_launch_counts(delta, 2)
+    assert fa.flash_attention.route_launches["f32tc_narrow"] == 2
+    assert fa.flash_attention.route_launches["f32tc"] == 4
+    assert fa.flash_attention.launches == 6
+    fa.reset_launches()
+    assert set(fa.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("bsz,heads", [(16, 8), (1, 8), (2, 4)])
 def test_attention_wrapper_follows_the_planner(card_routes, bsz, heads):
     """Every UNet attention of a step, laid out as the model lays it out
@@ -356,8 +521,9 @@ def test_attention_wrapper_follows_the_planner(card_routes, bsz, heads):
                          h)
         flash_attention(q, kv, kv)
     assert {key: flash_attention.route_launches[key] - r0[key]
-            for key in r0} == {"f32tc": 0, "f32tc_q1": 0, "tc": len(geos),
-                               "tc_q1": 2, "tc_narrow": 0, "plain": 0}
+            for key in r0} == {"f32tc": 0, "f32tc_q1": 0, "f32tc_narrow": 0,
+                               "tc": len(geos), "tc_q1": 2, "tc_narrow": 0,
+                               "plain": 0}
     names = [name for name, _ in card_routes.calls]
     assert names == (["ns2vc_flash_attention_wgmma_fwd"] * len(geos)
                      + ["ns2vc_flash_attention_q1_fwd"] * 2)
@@ -436,6 +602,10 @@ def card_routes(monkeypatch):
     (torch.bfloat16, 4, "separate", "tc_narrow"),
     (torch.bfloat16, 128, "separate", "tc"),        # the widest head
     (torch.float32, 64, "packed", "f32tc"),
+    (torch.float32, 48, "separate", "f32tc"),       # a box wider than D
+    (torch.float32, 100, "packed", "f32tc"),        # rows of 400 bytes
+    (torch.float32, 6, "packed", "f32tc_narrow"),   # D % 4 != 0
+    (torch.float32, 7, "separate", "f32tc_narrow"),
 ])
 def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
                                              route):
@@ -455,15 +625,18 @@ def test_attention_wrapper_routes_card_calls(card_routes, dtype, d, layout,
     assert {key: flash_attention.route_launches[key] - r0[key]
             for key in r0} == {key: int(key == route) for key in r0}
     (name, args), = card_routes.calls
-    assert name == {"f32tc": "ns2vc_flash_attention_f32tc_fwd",
+    assert name == {"f32tc": "ns2vc_flash_attention_f32_wgmma_fwd",
+                    "f32tc_narrow": "ns2vc_flash_attention_f32tc_fwd",
                     "tc": "ns2vc_flash_attention_wgmma_fwd",
                     "tc_narrow": "ns2vc_flash_attention_tc_fwd"}[route]
     assert args[5:10] == (b, h, t, t, d)
     if route == "tc":      # TMA tiles of the planner's key tile
         assert args[23:] == (plan_wgmma_attention(b * h, t, t, d), 0)
-    else:                  # 16-byte cp.async tiles, or element loads
-        assert args[23] == int(route != "tc_narrow")
-    if route == "f32tc":    # one split of its one key tile: no workspace
+    elif route == "f32tc":  # TMA tiles: the planner's tile, consumers, splits
+        assert args[23:] == (*plan_f32_wgmma(b * h, t, t, d), 0)
+    else:                  # element loads
+        assert args[23] == 0
+    if route == "f32tc_narrow":   # one split of its one key tile
         assert args[24:28] == (1, 1, None, None)
 
 
