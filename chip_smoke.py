@@ -66,6 +66,26 @@ these numbers, and each route's entry in the kernels line gains the
 training step's launches, backward calls, forward and backward device
 times and bounds.
 
+The Trainer's steps on the card are replays of its step
+programs (one CUDA graph per step key) and its eval sample a replay of an
+eval program: the launches per step are a replay's (and an eager step's,
+which must launch the same), and the timings above are replays'. The
+compiled phases (`check_compiled_training`, also for the F0 predictor's
+trainer): 3 steps through freshly captured programs against 3 eager steps
+from the same state and seeds, cuDNN deterministic on both sides (its
+convolution weight gradient in K2's backward otherwise differs between
+two eager steps): losses, grad norms, the draws (t, noise, the first
+dropout mask, the F0 scale) and every parameter, AdamW moment and EMA
+tensor, bit for bit; the medians in turns (compiled, eager, eager,
+compiled), peak memory beside the graphs' pool, capture ms, graph nodes
+and the graph's K1 / K2 / statistics kernel nodes held equal to a
+replay's counted launches; two geometries in turns on one memory pool,
+each step against the eager step; the capturable AdamW against the eager
+one (1e-6); the eval program against the eager eval, bit for bit, with
+its first-call, replay and eager ms; a checkpoint loaded into the
+compiled trainer recaptures. The profiles at the end take a replay and
+an eager step.
+
 F0 predictor (after training): `Config()` with the F0 predictor (seed-0
 weights, synthesized contours with unvoiced stretches) served through
 `Svc.infer_batch` at B=16 x 400 with auto_predict_f0 off and on, beside the
@@ -2832,27 +2852,65 @@ def witness_states(trainer, cfg, snap: dict) -> list:
     return states
 
 
-def snapshot(trainer) -> dict:
-    """A copy of what a train step changes: parameters, optimizer state,
-    EMA and step."""
-    import copy
+def _opt_params(trainer) -> list:
+    return [p for g in trainer.state.optimizer.param_groups
+            for p in g["params"]]
 
+
+def snapshot(trainer) -> dict:
+    """A copy of what a train step changes: parameters, optimizer state
+    (per parameter, in the optimizer's order), EMA and step."""
+    opt = trainer.state.optimizer.state
     return {"model": {k: v.detach().clone() for k, v in
                       trainer.model.state_dict().items()},
-            "opt": copy.deepcopy(trainer.state.optimizer.state_dict()),
+            "opt": [{k: v.clone() for k, v in opt[p].items()}
+                    for p in _opt_params(trainer)],
             "ema": {k: v.clone() for k, v in
                     (trainer.state.ema_params or {}).items()},
             "step": trainer.state.step}
 
 
 def restore(trainer, snap: dict) -> None:
-    import copy
+    """Back to a `snapshot`, copied into the live tensors: the step
+    programs' graphs hold their addresses (an optimizer's load_state_dict
+    would replace them and drop the programs)."""
+    import torch
 
     trainer.model.load_state_dict(snap["model"])
-    trainer.state.optimizer.load_state_dict(copy.deepcopy(snap["opt"]))
+    opt = trainer.state.optimizer.state
+    with torch.no_grad():
+        for p, saved in zip(_opt_params(trainer), snap["opt"]):
+            for k, v in saved.items():
+                opt[p][k].copy_(v)
     for k, v in snap["ema"].items():
         trainer.state.ema_params[k].copy_(v)
     trainer.state.step = snap["step"]
+
+
+def close(x, y, rtol: float = 0.0) -> bool:
+    """Bit for bit, or with `rtol` within rtol * max(1e-3, max|y|) (the
+    gradient checks' rule)."""
+    import torch
+
+    if not rtol:
+        return torch.equal(x, y)
+    return (x.float() - y.float()).abs().max().item() <= rtol * max(
+        1e-3, y.float().abs().max().item())
+
+
+def state_differs(trainer, a: dict, b: dict, rtol: float = 0.0) -> list:
+    """The names of the tensors in which two `snapshot`s of the trainer
+    differ (`close`)."""
+    names = [n for n, _ in trainer.model.named_parameters()]
+    out = [f"step {a['step']} vs {b['step']}"] if a["step"] != b["step"] \
+        else []
+    out += [f"parameter {k}" for k in a["model"]
+            if not close(a["model"][k], b["model"][k], rtol)]
+    out += [f"AdamW {k} of {names[i]}" for i, (x, y) in enumerate(
+        zip(a["opt"], b["opt"])) for k in x if not close(x[k], y[k], rtol)]
+    out += [f"EMA {k}" for k in a["ema"]
+            if not close(a["ema"][k], b["ema"][k], rtol)]
+    return out
 
 
 def check_training(vsd, cv_sd, dev, tmp):
@@ -2900,14 +2958,17 @@ def check_training(vsd, cv_sd, dev, tmp):
         batches = [trainer.device_batch(next(serial)) for _ in range(4)]
     serial.close()
     # each step that makes the state the gradient checks see: its number,
-    # its batch (by object), and whether t and noise were given
+    # its batch (by object), and whether t and noise were given; through
+    # the step programs or eagerly
     steps_log = []
-    step_fn = trainer.train_step
 
-    def logged(b, *args, **kw):
-        steps_log.append((trainer.step, id(b), "t" in kw))
-        return step_fn(b, *args, **kw)
-    trainer.train_step = logged
+    def logged(step_fn):
+        def f(b, *args, **kw):
+            steps_log.append((trainer.step, id(b), "t" in kw))
+            return step_fn(b, *args, **kw)
+        return f
+    trainer.train_step = logged(trainer.train_step)
+    trainer._train_step_eager = logged(trainer._train_step_eager)
     trainer.dl = synced_data_loader(
         trainer.ds, trainer._collator, TRAIN_B, seed=cfg.train.seed,
         num_workers=trainer.num_workers, shard_index=0, shard_count=1)
@@ -2922,17 +2983,28 @@ def check_training(vsd, cv_sd, dev, tmp):
         f"{TRAIN_T}, set up in {time.perf_counter() - t0:.1f} s")
     unet = trainer.model.diff_model.unet
 
-    # launches and backward calls of one step (remat dots)
+    # launches and backward calls of one step (remat dots): a replay of
+    # the step program (the key's first call: warm-up and capture), then
+    # an eager step, which must launch the same
+    t1 = time.perf_counter()
     trainer.train_step(b0)
     torch.cuda.synchronize()
+    res["first_call_ms"] = (time.perf_counter() - t1) * 1e3
+    reset_launches()
+    trainer.train_step(batches[1])
+    torch.cuda.synchronize()
+    launches, bwd = route_counts(), backward_calls()
     reset_launches()
     packs = []
     pack = fr.pack_conv_weight
     with mock.patch.object(fr, "pack_conv_weight",
                            lambda w: packs.append(1) or pack(w)):
-        trainer.train_step(batches[1])
+        trainer._train_step_eager(batches[2])
     torch.cuda.synchronize()
-    launches, bwd = route_counts(), backward_calls()
+    if route_counts() != launches or backward_calls() != bwd:
+        fail(f"training step: a replay counts launches {launches} and "
+             f"backward calls {bwd}, the eager step {route_counts()} and "
+             f"{backward_calls()}")
     # the step's fresh bf16 weights are packed once each; the recomputed
     # forward finds them in the cache
     if len(packs) != 45:
@@ -2953,7 +3025,9 @@ def check_training(vsd, cv_sd, dev, tmp):
              f"backward calls {bwd} (expected {want_bwd})")
     res["launches"], res["backward"] = launches, bwd
     say(f"training step (remat dots): launches {launches}; backward calls "
-        f"{bwd}; K2 weights packed {len(packs)} times")
+        f"{bwd} (a replay and the eager step alike); K2 weights packed "
+        f"{len(packs)} times (eager); the step key's first call (warm-up "
+        f"and capture) {res['first_call_ms']:.0f} ms [{CARD}]")
 
     # step time and peak memory per remat policy
     res["remat"] = {}
@@ -2964,9 +3038,11 @@ def check_training(vsd, cv_sd, dev, tmp):
         ms, peak, m = median_step_ms(trainer, batches, TRAIN_WARMUP,
                                      TRAIN_TIMED)
         res["remat"][name] = (ms, peak)
-        say(f"training step remat {name:4s}: median {ms:.2f} ms of "
-            f"{TRAIN_TIMED} (after {TRAIN_WARMUP} warm-up), peak memory "
-            f"{peak:.2f} GB, loss {m['loss'].item():.4f} [{CARD}]")
+        say(f"training step remat {name:4s} (step program replays): median "
+            f"{ms:.2f} ms of {TRAIN_TIMED} (after {TRAIN_WARMUP} warm-up), "
+            f"peak memory {peak:.2f} GB outside the graphs' pool "
+            f"({pool_gb(trainer):.2f} GB), loss {m['loss'].item():.4f} "
+            f"[{CARD}]")
     unet.remat, unet.remat_policy = True, "dots"
     res["step_ms"], res["peak_gb"] = res["remat"]["dots"]
 
@@ -3010,14 +3086,14 @@ def check_training(vsd, cv_sd, dev, tmp):
     with contextlib.ExitStack() as stack:
         for p in calls.patches():
             stack.enter_context(p)
-        trainer.train_step(b0)
+        trainer._train_step_eager(b0)
     unet.remat = True
     torch.cuda.synchronize()
     with no_tf32():
         res["geometries"] = check_train_geometries(calls, dev)
 
     made_by = list(steps_log)
-    del trainer.train_step
+    del trainer.train_step, trainer._train_step_eager
     states = witness_states(trainer, cfg, before_loop)
     del before_loop
 
@@ -3049,6 +3125,7 @@ def check_training(vsd, cv_sd, dev, tmp):
     res.update(check_grads(cfg, {k: v.detach().cpu() for k, v in
                                  trainer.model.state_dict().items()},
                            b0, dev, states, provenance))
+    res["compiled"] = check_compiled_training(trainer, batches, dev)
 
     # checkpoint round trip and one request served from it
     path = trainer.save()
@@ -3073,15 +3150,12 @@ def check_training(vsd, cv_sd, dev, tmp):
     if wav.shape != (T_CLIP * cfg.data.hop_length,) or \
             not np.isfinite(wav).all():
         fail(f"serving from the trained checkpoint: {wav.shape}")
-    sample = trainer.sample_eval(torch.Generator(device=dev).manual_seed(1))
-    if sample is None or not np.isfinite(sample[0]).all() or \
-            sample[1] is None or not np.isfinite(sample[1]).all():
-        fail("Trainer.sample_eval: no eval sample, or not finite")
     say(f"checkpoint {os.path.basename(path)} (step {trainer.step}) round "
         f"trip: parameters, optimizer state and EMA restored; Svc served one "
-        f"{T_CLIP}-frame request from its EMA parameters, finite; eval "
-        f"sample mel {sample[0].shape}")
+        f"{T_CLIP}-frame request from its EMA parameters, finite")
     del svc
+    res["eval"] = check_compiled_eval(trainer, dev)
+    check_recapture(trainer, path, b0)
     return trainer, batches, res
 
 
@@ -3182,6 +3256,393 @@ def training_profile(trainer, batch, step_ms, title=""):
             "kernels_launched": launches,
             "groups": dict(grouped),
             "ranges": {k: v[0] for k, v in annotated.items()}}
+
+
+# -- the Trainer's step and eval programs -------------------------------------
+
+COMPARE_STEPS = 3             # compiled vs eager from one state and seeds
+BUCKETS = ((TRAIN_T, TRAIN_T), (192, 128))   # the bucketed loop's (T, Tp)
+BUCKET_ROUNDS = 3             # steps per geometry, the two in turns
+OPT_RTOL = 1e-6               # capturable AdamW vs eager: the optax bound
+# nn.Embedding's backward (`embedding_dense_backward`: atomic adds over the
+# repeated F0 bins) is not deterministic on the card: two eager steps of the
+# F0 predictor's trainer differ in the F0 embedding's gradient, so that
+# trainer's compiled steps are held at GRAD_RTOL where they are not bit for
+# bit (every tensor: a last bit of the grad norm moves the clip's scale)
+NONDETERMINISTIC_OP = ("nn.Embedding's backward (embedding_dense_backward, "
+                       "pre_model.f0_emb.weight)")
+
+
+def pool_gb(trainer) -> float:
+    """GB in the segments of the memory pool the trainer's graphs share."""
+    import torch
+
+    pools = {tuple(p.graph.pool()) for p in (
+        *trainer._step_programs.values(), *trainer._eval_programs.values())
+        if p.graph is not None}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) in pools) / 2 ** 30
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: its convolution weight gradient
+    (K2's backward, `convolution_backward`) otherwise differs between two
+    eager steps from one state. A capture bakes the algorithms in: the
+    callers drop the step programs on entry and on exit."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def step_draws(trainer):
+    """Within the context every NaturalSpeech2.forward appends a dict to
+    the yielded list: clones of what it draws from the trainer's step
+    generator, t, noise, the first dropout mask and the F0 scale. A
+    capture's clones are graph buffers that each replay fills again."""
+    from unittest import mock
+
+    import torch
+
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+
+    gen, runs, forward = trainer.generator, [], NaturalSpeech2.forward
+    drawn = {"t": (torch, "randint"), "noise": (torch, "randn"),
+             "f0_scale": (torch, "rand"), "mask": (torch.Tensor, "bernoulli_")}
+
+    def probed(self, *a, **kw):
+        cur = {}
+        runs.append(cur)
+
+        def rec(name, fn):
+            def f(*fa, **fkw):
+                out = fn(*fa, **fkw)
+                if fkw.get("generator") is gen and name not in cur:
+                    cur[name] = out.clone()
+                return out
+            return f
+        with contextlib.ExitStack() as stack:
+            for name, (owner, attr) in drawn.items():
+                stack.enter_context(mock.patch.object(
+                    owner, attr, rec(name, getattr(owner, attr))))
+            return forward(self, *a, **kw)
+    with mock.patch.object(NaturalSpeech2, "forward", probed):
+        yield runs
+
+
+def compare_compiled_step(trainer, batches, label: str) -> dict:
+    """COMPARE_STEPS steps through the step programs, captured anew (the
+    first call the warm-up and the capture, the rest replays), and the
+    same steps through the eager step from the same state and seeds, with
+    cuDNN deterministic on both sides: the loss and its terms, the grad
+    norm and the draws (`step_draws`) of every step, and after the last
+    every parameter, both AdamW moments and the EMA, bit for bit. The
+    trainer ends at the state it started from, with no program."""
+    import torch
+
+    start = snapshot(trainer)
+    got, ms = {}, []
+    with deterministic_cudnn():
+        for mode in ("compiled", "eager"):
+            restore(trainer, start)
+            trainer.drop_programs()
+            step = trainer.train_step if mode == "compiled" \
+                else trainer._train_step_eager
+            metrics, draws = [], []
+            with step_draws(trainer) as runs:
+                for i, b in enumerate(batches[:COMPARE_STEPS]):
+                    t0 = time.perf_counter()
+                    m = step(b)
+                    torch.cuda.synchronize()
+                    if mode == "compiled":
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    # a replay refills the capture's buffers, runs[1]
+                    rec = runs[i] if mode == "eager" else runs[min(i, 1)]
+                    metrics.append({k: m[k].detach().float().cpu() for k in
+                                    ("loss", "loss_diff", "loss_f0",
+                                     "grad_norm")})
+                    draws.append({k: v.cpu() for k, v in rec.items()})
+            got[mode] = (metrics, draws, snapshot(trainer))
+            if mode == "compiled":
+                (prog,) = trainer._step_programs.values()
+                capture_ms, nodes = prog.capture_ms, prog.nodes
+        restore(trainer, start)
+        trainer.drop_programs()
+    bad = []
+    rtol = GRAD_RTOL if trainer.cfg.f0_predictor.enabled else 0.0
+    exact = state_differs(trainer, got["compiled"][2], got["eager"][2])
+    exact += [i for i, (a, b) in enumerate(zip(got["compiled"][0],
+                                               got["eager"][0]))
+              if any(not torch.equal(a[k], b[k]) for k in a)]
+    for i, (a, b) in enumerate(zip(got["compiled"][0], got["eager"][0])):
+        bad += [f"step {i + 1} {k} {a[k].item()} vs {b[k].item()}"
+                for k in a if not close(a[k], b[k], rtol)]
+    want = {"t", "noise", "mask"} | (
+        {"f0_scale"} if trainer.cfg.f0_predictor.enabled else set())
+    for i, (a, b) in enumerate(zip(got["compiled"][1], got["eager"][1])):
+        if set(a) != want or set(b) != want:
+            bad.append(f"step {i + 1} draws recorded {sorted(a)} / "
+                       f"{sorted(b)}, expected {sorted(want)}")
+        bad += [f"step {i + 1} draw {k}" for k in sorted(want & set(a))
+                if not torch.equal(a[k], b[k])]
+    differs = state_differs(trainer, got["compiled"][2], got["eager"][2],
+                            rtol)
+    bad += differs[:8] + ([f"... {len(differs)} tensors in all"]
+                          if len(differs) > 8 else [])
+    if bad:
+        fail(f"compiled training {label}: the step programs' steps differ "
+             f"from the eager steps (cuDNN deterministic on both sides; "
+             f"without it cuDNN's convolution weight gradient, in K2's "
+             f"backward, differs between two eager steps"
+             + (f"; {NONDETERMINISTIC_OP} is not deterministic: held at "
+                f"rtol {rtol}" if rtol else "") + f"): {bad}")
+    n_state = sum(len(got["eager"][2][k]) for k in ("model", "opt", "ema"))
+    agree = "bit for bit" if not exact else (
+        f"within rtol {rtol} ({len(exact)} tensors or steps not bit for "
+        f"bit: {NONDETERMINISTIC_OP} is not deterministic)")
+    say(f"compiled training {label}: {COMPARE_STEPS} steps through the step "
+        f"program (first call {ms[0]:.0f} ms: warm-up and capture "
+        f"{capture_ms:.0f} ms, {nodes} graph nodes; replays "
+        f"{', '.join(f'{x:.1f}' for x in ms[1:])} ms) against the eager "
+        f"step from the same state and seeds, cuDNN deterministic: loss, "
+        f"grad norm, draws {sorted(want)} and {n_state} state tensors "
+        f"(parameters, AdamW moments, EMA) "
+        f"{agree if not bad else 'DIFFER'}; the draws bit for bit [{CARD}]")
+    return {"steps": COMPARE_STEPS, "bitwise": not exact and not bad,
+            "not_bitwise": [str(x) for x in exact[:8]],
+            "rtol": rtol if exact else 0.0, "draws": sorted(want),
+            "first_call_ms": ms[0], "capture_ms": capture_ms, "nodes": nodes,
+            "replay_wall_ms": ms[1:],
+            "losses": [m["loss"].item() for m in got["eager"][0]]}
+
+
+def compiled_figures(trainer, batches, label: str) -> dict:
+    """The step program's figures beside the eager step's: median ms of
+    TRAIN_TIMED after TRAIN_WARMUP (`median_step_ms`) in turns, compiled,
+    eager, eager, compiled, and each turn's peak memory; the bytes the
+    graphs' pool holds; a replay's launches and backward calls per route,
+    and the graph's K1 / K2 / statistics kernel nodes (libcuda) held equal
+    to the launches."""
+    from unittest import mock
+
+    import torch
+
+    turns = {"compiled": [], "eager": []}
+    for mode in ("compiled", "eager", "eager", "compiled"):
+        with (contextlib.nullcontext() if mode == "compiled" else
+              mock.patch.object(trainer, "train_step",
+                                trainer._train_step_eager)):
+            ms, peak, _ = median_step_ms(trainer, batches, TRAIN_WARMUP,
+                                         TRAIN_TIMED)
+        turns[mode].append((ms, peak))
+    reset_launches()
+    trainer.train_step(batches[0])
+    torch.cuda.synchronize()
+    launches, bwd = route_counts(), backward_calls()
+    prog = trainer._step_programs[trainer._step_key(batches[0], None, None)]
+    nodes = graph_kernels(prog.graph)
+    if nodes != kernel_totals(launches):
+        fail(f"compiled training {label}: the step graph's kernel nodes "
+             f"{nodes}, a replay's counted launches "
+             f"{kernel_totals(launches)}")
+    out = {"compiled_ms": [t[0] for t in turns["compiled"]],
+           "eager_ms": [t[0] for t in turns["eager"]],
+           "compiled_peak_gb": max(t[1] for t in turns["compiled"]),
+           "eager_peak_gb": max(t[1] for t in turns["eager"]),
+           "pool_gb": pool_gb(trainer), "capture_ms": prog.capture_ms,
+           "nodes": prog.nodes, "graph_kernel_nodes": nodes,
+           "replay_launches": launches, "replay_backward_calls": bwd}
+    say(f"compiled training {label}: median step in turns (compiled, eager, "
+        f"eager, compiled) {out['compiled_ms'][0]:.2f}, "
+        f"{out['eager_ms'][0]:.2f}, {out['eager_ms'][1]:.2f}, "
+        f"{out['compiled_ms'][1]:.2f} ms; peak memory outside the pool "
+        f"{out['compiled_peak_gb']:.2f} GB (eager {out['eager_peak_gb']:.2f}"
+        f" GB), the graphs' pool {out['pool_gb']:.2f} GB; capture "
+        f"{prog.capture_ms:.0f} ms, {prog.nodes} graph nodes (K1 / K2 / "
+        f"statistics kernels {nodes}); a replay launches {launches}, "
+        f"backward calls {bwd} [{CARD}]")
+    return out
+
+
+def cut_batch(batch: dict, t: int, tp: int) -> dict:
+    """A device batch cut to t content and tp refer frames."""
+    out = {k: (v[:, :t] if k in ("c", "spec", "f0", "uv") else
+               v[:, :tp] if k == "refer" else v).contiguous()
+           for k, v in batch.items()}
+    out["lengths"] = batch["lengths"].clamp(max=t)
+    out["refer_lengths"] = batch["refer_lengths"].clamp(max=tp)
+    return out
+
+
+def bucketed_loop(trainer, batches) -> dict:
+    """BUCKET_ROUNDS steps at each of the two BUCKETS geometries in turns
+    (A B A B ...) through the step programs, one per geometry in one
+    memory pool, replayed in an order other than their capture's; each
+    step held against the eager step from the same state, cuDNN
+    deterministic: loss, grad norm and the state after it, bit for bit.
+    The trainer ends where it started, with no program."""
+    import torch
+
+    start = snapshot(trainer)
+    bad, ms = [], []
+    with deterministic_cudnn():
+        trainer.drop_programs()
+        for r in range(BUCKET_ROUNDS):
+            for j, (t, tp) in enumerate(BUCKETS):
+                b = cut_batch(batches[(r + j) % len(batches)], t, tp)
+                before = snapshot(trainer)
+                t0 = time.perf_counter()
+                m = trainer.train_step(b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                after = snapshot(trainer)
+                restore(trainer, before)
+                e = trainer._train_step_eager(b)
+                if not (torch.equal(m["loss"], e["loss"]) and
+                        torch.equal(m["grad_norm"], e["grad_norm"])):
+                    bad.append(f"round {r} {t}x{tp}: loss {m['loss'].item()}"
+                               f" vs {e['loss'].item()}")
+                differs = state_differs(trainer, after, snapshot(trainer))
+                if differs:
+                    bad.append(f"round {r} {t}x{tp}: {differs[:4]} "
+                               f"({len(differs)} tensors)")
+        progs = list(trainer._step_programs.values())
+        pools = {tuple(p.graph.pool()) for p in progs}
+        replays = sorted(p.replays for p in progs)
+        restore(trainer, start)
+        trainer.drop_programs()
+    if bad or len(progs) != len(BUCKETS) or len(pools) != 1 or \
+            replays != [BUCKET_ROUNDS - 1] * len(BUCKETS):
+        fail(f"compiled training, bucketed loop: {bad}; {len(progs)} "
+             f"programs in {len(pools)} pools, replays {replays}")
+    say(f"compiled training, bucketed loop: {BUCKET_ROUNDS} steps at each of "
+        f"{BUCKETS} in turns, {len(progs)} step programs in one memory pool,"
+        f" every step the eager step's bit for bit (cuDNN deterministic); "
+        f"call ms {', '.join(f'{x:.0f}' for x in ms)} (each geometry's "
+        f"first: warm-up and capture) [{CARD}]")
+    return {"geometries": [list(g) for g in BUCKETS],
+            "rounds": BUCKET_ROUNDS, "call_ms": ms, "bitwise": not bad}
+
+
+def check_capturable_adamw(dev) -> float:
+    """The step programs' AdamW (capturable: step counts and bias
+    corrections on the card) against the eager one over three clipped
+    steps of Config()'s first parameter shapes, within OPT_RTOL (and 1e-7
+    absolute). Returns the worst relative difference."""
+    import torch
+
+    from ns2vc_tpu_torch.config import Config
+    from ns2vc_tpu_torch.train.trainer import (
+        clip_by_global_norm, make_optimizer,
+    )
+
+    cfg = Config()
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    shapes = [(512, 256, 3), (512,), (2048, 512)]
+    a = [torch.nn.Parameter(torch.randn(s, generator=g, device=dev))
+         for s in shapes]
+    b = [torch.nn.Parameter(p.detach().clone()) for p in a]
+    oa, ob = make_optimizer(cfg, a), make_optimizer(cfg, b, capturable=True)
+    worst = 0.0
+    for i in range(3):
+        for p, q in zip(a, b):
+            p.grad = (30.0 if i == 1 else 0.01) * torch.randn(
+                p.shape, generator=g, device=dev)
+            q.grad = p.grad.clone()
+        clip_by_global_norm([p.grad for p in a], 1.0)
+        clip_by_global_norm([q.grad for q in b], 1.0)
+        oa.step()
+        ob.step()
+        for p, q in zip(a, b):
+            err = ((q - p).abs() - 1e-7).clamp(min=0) / p.abs().clamp(
+                min=1e-30)
+            worst = max(worst, err.max().item())
+    if worst > OPT_RTOL:
+        fail(f"capturable AdamW vs eager: {worst:.3g} relative (rtol "
+             f"{OPT_RTOL})")
+    say(f"capturable AdamW (the step programs') vs eager AdamW, 3 clipped "
+        f"steps: worst {worst:.3g} relative beyond 1e-7 (rtol {OPT_RTOL}) "
+        f"[{CARD}]")
+    return worst
+
+
+def check_compiled_eval(trainer, dev) -> dict:
+    """Trainer.sample_eval through its eval program against the eager
+    eval, the same item and generator seed: the first call (warm-up and
+    capture) and a replay give the eager mel and waveform bit for bit; the
+    ms of each."""
+    from unittest import mock
+
+    import torch
+
+    got, ms = [], []
+    for mode in ("first call", "replay", "eager"):
+        with (mock.patch.object(trainer, "compiled", False)
+              if mode == "eager" else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            got.append(trainer.sample_eval(
+                torch.Generator(device=dev).manual_seed(1)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    (key, prog), = trainer._eval_programs.items()
+    same = all(np.array_equal(x[i], got[2][i]) for x in got[:2]
+               for i in (0, 1))
+    if any(x is None or x[1] is None or not np.isfinite(x[0]).all()
+           for x in got) or not same or prog.replays != 1:
+        fail(f"Trainer.sample_eval: the eval program's mel and waveform "
+             f"{'equal' if same else 'differ from'} the eager eval's; "
+             f"replays {prog.replays}")
+    say(f"compiled eval ({key.t_pad} x {key.tr_pad} frames, UniPC 30 steps "
+        f"and Vocos): first call {ms[0]:.0f} ms (warm-up and capture "
+        f"{prog.capture_ms:.0f} ms, {prog.nodes} graph nodes), replay "
+        f"{ms[1]:.1f} ms, eager {ms[2]:.1f} ms; mel {got[0][0].shape} and "
+        f"waveform bit for bit the eager eval's [{CARD}]")
+    return {"first_call_ms": ms[0], "replay_ms": ms[1], "eager_ms": ms[2],
+            "capture_ms": prog.capture_ms, "nodes": prog.nodes,
+            "t_pad": key.t_pad, "tr_pad": key.tr_pad, "bitwise": same}
+
+
+def check_recapture(trainer, path, batch) -> None:
+    """After `load` the step programs are gone and the next step captures
+    anew from the restored state: it is the eager step's, bit for bit
+    (cuDNN deterministic)."""
+    import torch
+
+    with deterministic_cudnn():
+        trainer.train_step(batch)       # a program to drop
+        trainer.load(path=path)
+        held = len(trainer._step_programs)
+        start = snapshot(trainer)
+        m = trainer.train_step(batch)
+        m = trainer.train_step(batch)   # a replay of the new capture
+        compiled = snapshot(trainer)
+        restore(trainer, start)
+        e = trainer._train_step_eager(batch)
+        e = trainer._train_step_eager(batch)
+        differs = state_differs(trainer, compiled, snapshot(trainer))
+        trainer.drop_programs()
+    if held or differs or not torch.equal(m["loss"], e["loss"]):
+        fail(f"resumed step programs: {held} programs after load; after two "
+             f"steps {differs[:4]} differ from the eager steps")
+    say(f"checkpoint resumed into the compiled trainer: no program after "
+        f"load, captured anew, two steps the eager steps' bit for bit")
+
+
+def check_compiled_training(trainer, batches, dev, label: str = "") -> dict:
+    """The step programs of one trainer at 32 x 272 bf16: against the eager
+    step, their figures, and (without the F0 predictor) the bucketed loop
+    and the capturable AdamW."""
+    res = {"compare": compare_compiled_step(trainer, batches, label)}
+    res["figures"] = compiled_figures(trainer, batches, label)
+    if not trainer.cfg.f0_predictor.enabled:
+        res["bucketed"] = bucketed_loop(trainer, batches)
+        res["adamw_worst_rel"] = check_capturable_adamw(dev)
+    return res
 
 
 # -- slice 5: the F0-predictor configuration and the other model modules ------
@@ -3644,6 +4105,8 @@ def f0_training(off, trainer_off, batches_off, vsd, dev, tmp):
         fail(f"f0 training step launches {launches} (expected {want}), "
              f"backward calls {bwd} (expected {want_bwd})")
     res["launches"], res["backward"] = launches, bwd
+    res["compiled"] = check_compiled_training(trainer, batches, dev,
+                                              "with the F0 predictor")
     turns = []
     for tr, bs in ((trainer_off, batches_off), (trainer, batches),
                    (trainer_off, batches_off)):
@@ -5001,7 +5464,8 @@ def check_tensor_parallel(dev, tmp) -> dict:
         f"({coll['all_reduce_mean']['bytes'] / 1e6:.1f} MB); median step "
         f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms per rank (gloo "
         f"through host copies on one card, not NCCL) vs "
-        f"{step['step_ms']:.1f} ms in one process; generate_mel DDIM "
+        f"{step['step_ms']:.1f} ms in one process (step program "
+        f"replays); generate_mel DDIM "
         f"{MP_GEN_STEPS} steps over the mesh vs one process max error "
         f"{mel_err:.2e} (atol {MP_MEL_ATOL}, rtol {MP_MEL_RTOL}); saved at "
         f"mp=2, resumed at mp=1 at step {resumed_step}; "
@@ -5032,6 +5496,8 @@ def _flat(x):
 
 
 def main() -> int:
+    from unittest import mock
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5169,11 +5635,19 @@ def main() -> int:
                 f"{100 * case['graph_busy']:.0f} % of the replay "
                 f"({graph_wall:.1f} ms) [{CARD}]")
         step_kernels = k2_step_kernels(unet, dev)
-        train["profile"] = training_profile(trainer, train_batches[0],
-                                            train["step_ms"])
-        f0["training"]["profile"] = training_profile(
-            f0_trainer, f0_batches[0], f0["training"]["step_ms"],
-            "with the F0 predictor")
+        # a replay of the step program, then the eager step
+        for tr, res, bs, title in (
+                (trainer, train, train_batches, ""),
+                (f0_trainer, f0["training"], f0_batches,
+                 "with the F0 predictor")):
+            fig = res["compiled"]["figures"]
+            res["profile"] = training_profile(
+                tr, bs[0], float(np.mean(fig["compiled_ms"])),
+                f"{title} (step program replay)".strip())
+            with mock.patch.object(tr, "train_step", tr._train_step_eager):
+                res["profile_eager"] = training_profile(
+                    tr, bs[0], float(np.mean(fig["eager_ms"])),
+                    f"{title} (eager step)".strip())
     trainer.close()
     f0_trainer.close()
     train_tmp.cleanup()

@@ -25,20 +25,15 @@ uv, and the randomness, drawn before the device work from the call's
 seeded generator in the order the eager body draws it (x_T, then each
 DDPM or DDIM eta > 0 step's noise), so a call at seed s gives the eager
 body's result at seed s. On a card the program's first call runs the body
-eagerly once (the warm-up, which fills what is lazy: the kernel build,
-packed weights and their tensor maps, cuFFT plans, cuBLAS handles), then
-captures it as a CUDA graph on a side stream in thread-local capture mode
-(other threads may synchronise events meanwhile, as the MicroBatcher's
-completers do), then replays it; every later call at the key only
-replays. The graphs of one Svc share one memory pool (a new one after a
-failed capture, into whose pool PyTorch's allocator takes no further
-capture): replays are serialised under the Svc's lock and each output is
-copied out, in stream order, before the next replay. A failed capture or
-replay raises; nothing
-falls back to eager on a card. On the CPU the program runs its body
-eagerly over the same static buffers and pre-drawn noise. `unload_model`
-drops the programs. The kernels' launch counters count a replay's
-launches: each replay adds what its capture counted.
+eagerly once (the warm-up), captures it as a CUDA graph and replays it;
+every later call at the key only replays (`utils/graphs.py`: the side
+stream, the thread-local capture mode, the memory pool the Svc's graphs
+share, the launch counts a replay adds). Replays are serialised under the
+Svc's lock and each output is copied out, in stream order, before the
+next replay. A failed capture or replay raises; nothing falls back to
+eager on a card. On the CPU the program runs its body eagerly over the
+same static buffers and pre-drawn noise. `unload_model` drops the
+programs.
 
 Dispatch and readback are split (`infer_batch_async`): the device work is
 enqueued on the Svc's card's current stream with pinned, non-blocking
@@ -64,7 +59,6 @@ are ignored.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import os
 import threading
 import time
@@ -82,8 +76,7 @@ from ns2vc_tpu_torch.audio.resample import resample
 from ns2vc_tpu_torch.diffusion.samplers import noise_calls
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2, generate_mel
 from ns2vc_tpu_torch.models.vocos import vocos_from_state_dict
-from ns2vc_tpu_torch.ops import flash_attention as _k1_ops
-from ns2vc_tpu_torch.ops import fused_resnet as _k2_ops
+from ns2vc_tpu_torch.utils.graphs import GraphCapturer, GraphProgram
 from ns2vc_tpu_torch.utils.precision import resolve_dtype
 
 
@@ -120,50 +113,6 @@ class _ProgramKey(NamedTuple):
     dtype: torch.dtype
     tf32_matmul: bool
     tf32_cudnn: bool
-
-
-class _Program:
-    """One serving program: the static device buffers its body reads
-    (`static`; "noise" lists each call's pre-drawn noise, None where the
-    sampler draws none, and "draws" the same buffers in draw order) and, on
-    a card, the CUDA graph captured over them, its static output, the
-    launch counts one replay adds, the replays made, the capture's host
-    time and the graph's node count."""
-
-    def __init__(self, key: _ProgramKey, static: dict):
-        self.key, self.static = key, static
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.out: Optional[torch.Tensor] = None
-        self.counts: Optional[list] = None
-        self.replays = 0
-        self.capture_ms: Optional[float] = None
-        self.nodes: Optional[int] = None
-
-
-_COUNTED_OPS = (_k1_ops, _k2_ops)   # the wrappers with launch counters
-
-
-def _launch_counts() -> list:
-    return [ops.launch_counts() for ops in _COUNTED_OPS]
-
-
-def _add_launch_counts(counts: list, times: int = 1) -> None:
-    for ops, delta in zip(_COUNTED_OPS, counts):
-        ops.add_launch_counts(delta, times)
-
-
-def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
-    """The node count of a graph captured with keep_graph=True (libcuda's
-    cuGraphGetNodes)."""
-    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
-    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.POINTER(ctypes.c_size_t)]
-    get_nodes.restype = ctypes.c_int
-    n = ctypes.c_size_t(0)
-    err = get_nodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
-    if err != 0:
-        raise RuntimeError(f"cuGraphGetNodes returned CUresult {err}")
-    return n.value
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -224,9 +173,11 @@ class Svc:
         self.model.load_state_dict(params)
         self.model.to(self.device, self.compute_dtype).eval()
         self._refer_cache: dict = {}  # (key, n, tp_pad) -> device tensor
-        self._programs: dict[_ProgramKey, _Program] = {}
-        self._graph_pool = None       # the programs' shared memory pool
-        self._capture_stream: Optional[torch.cuda.Stream] = None
+        # a program's static buffers: "noise" lists each call's pre-drawn
+        # noise (None where the sampler draws none), "draws" the same
+        # buffers in draw order
+        self._programs: dict[_ProgramKey, GraphProgram] = {}
+        self._graphs = GraphCapturer(self.device)
         # one call's copy in, replay and copy out at a time
         self._serving_lock = threading.Lock()
         self._last_readback: Optional[torch.cuda.Event] = None
@@ -419,13 +370,10 @@ class Svc:
         if new:
             self._capture(prog)
             self._programs[key] = prog
-        prog.graph.replay()
-        _add_launch_counts(prog.counts)
-        prog.replays += 1
-        return prog.out
+        return prog.replay()
 
     def _new_program(self, key: _ProgramKey, c_dim: int,
-                     mel_dim: int) -> _Program:
+                     mel_dim: int) -> GraphProgram:
         """A program's static buffers, allocated outside any capture."""
         n, t = key.batch, key.t_pad
 
@@ -441,7 +389,7 @@ class Svc:
             for j, buf in zip(calls, draws):
                 noise[j] = buf
         f0 = empty(n, t, dtype=torch.float32) if key.use_f0 else None
-        return _Program(key, {
+        return GraphProgram(key, {
             "c": empty(n, t, c_dim, dtype=torch.float32),
             "refer": empty(n, key.tp_pad, mel_dim),
             "lengths": empty(n, dtype=torch.int64),
@@ -449,7 +397,7 @@ class Svc:
             "f0": f0, "uv": None if f0 is None else torch.empty_like(f0),
             "x_T": empty(n, t, out_ch), "noise": noise, "draws": draws})
 
-    def _stage(self, prog: _Program, c_in: np.ndarray, r_dev: torch.Tensor,
+    def _stage(self, prog: GraphProgram, c_in: np.ndarray, r_dev: torch.Tensor,
                t_lens, tp_len: int, seed: int,
                f0_in: Optional[np.ndarray],
                uv_in: Optional[np.ndarray]) -> None:
@@ -472,7 +420,7 @@ class Svc:
         for buf in (s["x_T"], *s["draws"]):
             buf.normal_(generator=gen)
 
-    def _program_body(self, prog: _Program) -> torch.Tensor:
+    def _program_body(self, prog: GraphProgram) -> torch.Tensor:
         """One call's device work over a program's static buffers: the
         eager body with x_T and the noise given."""
         s, key = prog.static, prog.key
@@ -484,50 +432,12 @@ class Svc:
         wav = self.vocos(mel)
         return to_pcm16(wav) if key.output == "pcm16" else wav
 
-    def _capture(self, prog: _Program) -> None:
+    def _capture(self, prog: GraphProgram) -> None:
         """A program's first call on a card, before its first replay: the
-        body run eagerly (the warm-up, launched and counted), then captured
-        on the Svc's side stream into the shared pool. The capture launches
-        nothing, so its counts come off the counters and each replay adds
-        them back. Raises if the capture fails."""
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        cur, side = torch.cuda.current_stream(self.device), \
-            self._capture_stream
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._program_body(prog)
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            before = _launch_counts()
-            t0 = time.perf_counter()
-            graph.capture_begin(pool=self._graph_pool,
-                                capture_error_mode="thread_local")
-            try:
-                out = self._program_body(prog)
-            except BaseException as e:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    # an invalidated capture ends with an error before
-                    # the allocator stops routing to the pool: stop it
-                    torch._C._cuda_endAllocateToPool(self.device.index,
-                                                     self._graph_pool)
-                # the allocator refuses any later capture into this pool:
-                # the next program starts a new one
-                self._graph_pool = torch.cuda.graph_pool_handle()
-                raise RuntimeError(f"serving program {prog.key}: capture "
-                                   f"failed: {e}") from e
-            finally:
-                counts = [{k: a[k] - b[k] for k in a}
-                          for a, b in zip(_launch_counts(), before)]
-                _add_launch_counts(counts, -1)
-            graph.capture_end()
-            prog.nodes = _graph_nodes(graph)
-            graph.instantiate()
-            prog.capture_ms = (time.perf_counter() - t0) * 1e3
-        cur.wait_stream(side)
-        prog.graph, prog.out, prog.counts = graph, out, counts
+        body's warm-up and capture (`GraphCapturer.capture`). Raises if the
+        capture fails."""
+        self._graphs.capture(prog, lambda: self._program_body(prog),
+                             "serving program")
 
     def _program_memory(self) -> dict:
         """Device bytes the program cache holds: its static buffers, and on
@@ -787,7 +697,7 @@ class Svc:
             self.model = None
             self._refer_cache.clear()
             self._programs.clear()
-            self._graph_pool = None
+            self._graphs.reset()
             self._last_readback = None
 
 

@@ -135,6 +135,23 @@ class NaturalSpeech2(nn.Module):
         self.pre_model = PreModel(cfg)
         self.diff_model = DiffusionEncoder(cfg, remat, remat_policy)
         self.schedule = NoiseSchedule(cfg.train.timesteps)
+        self._schedule_on: dict = {}   # device -> `_schedule_tensors`
+
+    def _schedule_tensors(self, dev: torch.device) -> tuple:
+        """sqrt(acp), sqrt(1 - acp) and the loss weight (the SNR, clamped
+        under `min_snr_loss_weight`) as f64 tensors on `dev`, uploaded at
+        the first step on that device: a step captured as a CUDA graph
+        copies nothing from the host."""
+        hit = self._schedule_on.get(dev)
+        if hit is None:
+            snr = self.schedule.snr
+            if self.cfg.train.min_snr_loss_weight:
+                snr = np.minimum(snr, self.cfg.train.min_snr_gamma)
+            hit = self._schedule_on[dev] = tuple(
+                torch.as_tensor(a, device=dev) for a in (
+                    self.schedule.sqrt_alphas_cumprod,
+                    self.schedule.sqrt_one_minus_alphas_cumprod, snr))
+        return hit
 
     def forward(self, batch: dict, generator: torch.Generator | None = None,
                 t: torch.Tensor | None = None,
@@ -170,20 +187,17 @@ class NaturalSpeech2(nn.Module):
             f0=batch.get("f0"), uv=batch.get("uv"), f0_factor=f0_factor,
             auto_predict_f0=False)
 
+        sqrt_acp, sqrt_one_minus_acp, snr = self._schedule_tensors(dev)
+
         def coef(arr):
-            return torch.as_tensor(arr, dtype=spec.dtype,
-                                   device=dev)[t][:, None, None]
-        x_t = (coef(self.schedule.sqrt_alphas_cumprod) * x_start
-               + coef(self.schedule.sqrt_one_minus_alphas_cumprod) * noise)
+            return arr.to(spec.dtype)[t][:, None, None]
+        x_t = (coef(sqrt_acp) * x_start + coef(sqrt_one_minus_acp) * noise)
         model_out = self.diff_model(x_t, content, prompt, refer_mask,
                                     t.float())
         # the loss in f32 whatever the compute dtype
         model_out, x_start = model_out.float(), x_start.float()
         loss = ((model_out - x_start) ** 2).reshape(b, -1).mean(dim=-1)
-        snr = self.schedule.snr
-        if self.cfg.train.min_snr_loss_weight:
-            snr = np.minimum(snr, self.cfg.train.min_snr_gamma)
-        weight = torch.as_tensor(snr, dtype=torch.float32, device=dev)[t]
+        weight = snr.to(torch.float32)[t]
         loss_diff = (loss * weight).mean()
         loss_f0 = 0.0
         if lf0_pred is not None:

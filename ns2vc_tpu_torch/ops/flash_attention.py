@@ -50,8 +50,9 @@ and sub-route's ("tc", "tc_q1", "tc_narrow", "f32tc", "f32tc_q1",
 "f32tc_narrow"); its "plain" entry
 counts the calls `ops/attention.py` sends to the plain version by their
 bias or head dim (no kernel launches for those). A replayed CUDA graph
-launches kernels without calling the wrapper: its owner adds the counts
-its capture took (`launch_counts`, `add_launch_counts`).
+launches kernels, and runs their backwards, without calling the wrapper
+or the Function: its owner adds the launch and backward counts its
+capture took (`launch_counts`, `add_launch_counts`).
 The kernels read q/k/v through their (batch, head, seq) strides, so the
 (B, H, T, D) views that `ops/attention.py::split_heads` makes of the
 (B, T, H*D) projections go in without a transpose copy, and the output is
@@ -414,15 +415,18 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """The forward launch counters, flat (a CUDA graph's owner takes them
-    before and after its capture)."""
+    """The launch and backward counters, flat (a CUDA graph's owner takes
+    them before and after its capture)."""
     return {"launches": _counts.launches,
-            **{f"route.{k}": n for k, n in _counts.route_launches.items()}}
+            **{f"route.{k}": n for k, n in _counts.route_launches.items()},
+            **{f"backward.{k}": n for k, n in _counts.backward_calls.items()}}
 
 
 def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
     """Add `times` x `delta` (a difference of two `launch_counts()`): a
-    replay launches what its capture counted."""
+    replay launches, and runs the backwards, its capture counted."""
     _counts.launches += times * delta["launches"]
     for k in _counts.route_launches:
         _counts.route_launches[k] += times * delta[f"route.{k}"]
+    for k in _counts.backward_calls:
+        _counts.backward_calls[k] += times * delta[f"backward.{k}"]

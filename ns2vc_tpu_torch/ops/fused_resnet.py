@@ -38,8 +38,9 @@ planes). A CUDA tensor launches one of the kernels or raises.
 `affine_silu_conv1d.route_launches` each route's ("tc_elem" apart from
 "tc", "f32tc_elem" from "f32tc"), `group_norm_affine.launches` the
 statistics kernel's. A replayed
-CUDA graph launches kernels without calling the wrappers: its owner adds
-the counts its capture took (`launch_counts`, `add_launch_counts`). The
+CUDA graph launches kernels, and runs their backwards, without calling the
+wrappers or the Functions: its owner adds the launch and backward counts
+its capture took (`launch_counts`, `add_launch_counts`). The
 CUDA source notes say what bounds each kernel on the H100 and how its
 design answers that.
 
@@ -354,20 +355,26 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """The forward launch counters, flat (a CUDA graph's owner takes them
-    before and after its capture)."""
+    """The launch and backward counters, flat (a CUDA graph's owner takes
+    them before and after its capture)."""
     return {"launches": _conv_counts.launches, "gn": _gn_counts.launches,
+            "gn_backward": _gn_counts.backward_calls,
             **{f"route.{k}": n
-               for k, n in _conv_counts.route_launches.items()}}
+               for k, n in _conv_counts.route_launches.items()},
+            **{f"backward.{k}": n
+               for k, n in _conv_counts.backward_calls.items()}}
 
 
 def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
     """Add `times` x `delta` (a difference of two `launch_counts()`): a
-    replay launches what its capture counted."""
+    replay launches, and runs the backwards, its capture counted."""
     _conv_counts.launches += times * delta["launches"]
     _gn_counts.launches += times * delta["gn"]
+    _gn_counts.backward_calls += times * delta["gn_backward"]
     for k in _conv_counts.route_launches:
         _conv_counts.route_launches[k] += times * delta[f"route.{k}"]
+    for k in _conv_counts.backward_calls:
+        _conv_counts.backward_calls[k] += times * delta[f"backward.{k}"]
 
 
 def gn_route(device: torch.device | str) -> str:

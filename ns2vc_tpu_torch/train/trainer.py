@@ -61,6 +61,28 @@ writes and split again by every rank that reads, so a run resumes at any
 mp. Eval samples come from the ranks of data index 0, through the split
 `generate_mel`, and rank 0 writes them.
 
+On a card in one process the step and the milestone eval run as CUDA
+graphs, the counterparts of the JAX Trainer's jitted `_get_step_fn` and
+`_get_eval_fn` (`utils/graphs.py`). A step program per `_StepKey` (the
+batch's geometry, accumulation, dtype, remat and its policy, the F0
+predictor, whether t and noise are given, the TF32 settings): static
+buffers for the batch's fields, t, noise and the step count, which each
+call fills; the step's generator is registered with the graph and seeded
+at `step_seed` before each call, so a replay draws t, noise, the dropout
+masks and the F0 scale as the eager step does. A key's first call is an
+eager step on the side stream (the warm-up: it makes the gradients, the
+optimizer's state and everything else lazy outside the capture), then
+the capture; every later call replays. AdamW is capturable there
+(`make_optimizer`). An eval program per (64-frame content and refer
+buckets, F0 predictor, TF32 settings): its body copies the EMA (or the
+parameters) into the eval model, then encoders, 30 UniPC steps and Vocos,
+with x_T drawn before the call from the eval generator. The metrics are
+copied out of the graph after each replay. Loading an optimizer state
+(`load`, `Optimizer.load_state_dict`) or new EMA tensors (`load_torch`)
+drops the programs: their graphs hold the old tensors' addresses. On the
+CPU, and in a process group (gloo cannot be captured; NCCL capture is not
+done yet), the step and the eval run eagerly.
+
 `Trainer` drives it: the data loader, the step, the stdout line
 `step N loss ... grad_norm ... steps/s ...`, scalars as JSON lines in the
 run dir's `scalars.jsonl` (and `train.log`), spectrogram images as PNGs
@@ -89,7 +111,7 @@ import subprocess
 import time
 from collections import deque
 from datetime import datetime
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,6 +131,7 @@ from ns2vc_tpu_torch.parallel.mesh import (
     flat_gradients, gather_state, host_barrier, make_mesh, mesh_groups,
     param_shardings, put_local_batch, shard_parameters, shard_state, world,
 )
+from ns2vc_tpu_torch.utils.graphs import GraphCapturer, GraphProgram
 from ns2vc_tpu_torch.utils.precision import (
     cast_floating, parameters_as, resolve_dtype,
 )
@@ -117,14 +140,18 @@ from ns2vc_tpu_torch.utils.precision import (
 ADAMW_WEIGHT_DECAY = 1e-4
 
 
-def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
+def make_optimizer(cfg: Config, params,
+                   capturable: bool = False) -> torch.optim.AdamW:
     """AdamW as the JAX package's `optax.adamw(lr, b1, b2, eps)`: the
     config's lr, betas and eps, weight decay 1e-4. Clipping is the train
-    step's (`clip_by_global_norm`)."""
+    step's (`clip_by_global_norm`). `capturable` (parameters on a card
+    only) keeps the step count on the device and takes the bias
+    corrections there, so a CUDA graph can capture `step()`."""
     t = cfg.train
     return torch.optim.AdamW(params, lr=t.train_lr,
                              betas=tuple(t.adam_betas), eps=t.eps,
-                             weight_decay=ADAMW_WEIGHT_DECAY)
+                             weight_decay=ADAMW_WEIGHT_DECAY,
+                             capturable=capturable)
 
 
 def global_norm(tensors: list, split: list = (),
@@ -196,14 +223,22 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
     rank), the rest over every rank, and the norm counts each block once.
     metrics: loss, its terms loss_diff and loss_f0 (0 without the F0
     predictor) and grad_norm (0-d tensors, no host synchronisation) and,
-    with accum 1, pred and target (this rank's rows)."""
-    flat = None
+    with accum 1, pred and target (this rank's rows).
 
-    def train_step(state: TrainState, batch: dict,
-                   generator: torch.Generator | None = None,
-                   t: torch.Tensor | None = None,
-                   noise: torch.Tensor | None = None,
-                   f0_factor: torch.Tensor | None = None) -> dict:
+    `train_step.body(state, batch, generator, t, noise, f0_factor, step)`
+    is the step's device work alone, what a CUDA graph captures: it reads
+    the step count from `step` (a 0-d int64 tensor on the model's device,
+    filled before each call), which decides the EMA's update on the device
+    (decay d at (step + 1) % ema_every == 0, else 1: e * d + p * (1 - d),
+    as the JAX step has it), and leaves `state.step` to its caller. The
+    gradients, once allocated, are zeroed in place."""
+    flat = None
+    counters: dict = {}   # device -> the step count `train_step` fills
+
+    def body(state: TrainState, batch: dict,
+             generator: torch.Generator | None, t: torch.Tensor | None,
+             noise: torch.Tensor | None, f0_factor: torch.Tensor | None,
+             step: torch.Tensor) -> dict:
         nonlocal flat
         model = state.model
         model.train()
@@ -215,7 +250,7 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
             flat = flat_gradients(params, flat, extra=3)
             flat.zero_()
         else:
-            state.optimizer.zero_grad(set_to_none=True)
+            state.optimizer.zero_grad(set_to_none=False)
         micro = [dict(zip(batch, vals)) for vals in zip(
             *(v.chunk(accum) for v in batch.values()))]
         loss_sum, aux = 0.0, {}
@@ -253,19 +288,33 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
         grad_norm = clip_by_global_norm(grads[len(split):], max_norm,
                                         grads[:len(split)], model_group)
         state.optimizer.step()
-        if ema_decay > 0.0 and state.ema_params is not None \
-                and (state.step + 1) % ema_every == 0:
+        if ema_decay > 0.0 and state.ema_params is not None:
+            d = torch.where((step + 1) % ema_every == 0, ema_decay, 1.0)
             ema = [state.ema_params[n] for n, _ in named]
-            torch._foreach_mul_(ema, ema_decay)
-            torch._foreach_add_(ema, [p.detach() for _, p in named],
-                                alpha=1.0 - ema_decay)
-        state.step += 1
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, torch._foreach_mul(
+                [p.detach() for _, p in named], 1.0 - d))
         metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm,
                    **{k: v / accum for k, v in terms.items()}}
-        if accum == 1:
-            metrics["pred"], metrics["target"] = aux["pred"], aux["target"]
+        if accum == 1:   # outside autograd: the step's graph is freed
+            metrics["pred"] = aux["pred"].detach()
+            metrics["target"] = aux["target"].detach()
         return metrics
 
+    def train_step(state: TrainState, batch: dict,
+                   generator: torch.Generator | None = None,
+                   t: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None,
+                   f0_factor: torch.Tensor | None = None) -> dict:
+        dev = next(state.model.parameters()).device
+        if dev not in counters:
+            counters[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+        metrics = body(state, batch, generator, t, noise, f0_factor,
+                       counters[dev].fill_(state.step))
+        state.step += 1
+        return metrics
+
+    train_step.body = body
     return train_step
 
 
@@ -309,6 +358,38 @@ def rank_seed(step_seed_: int, index: int) -> int:
     """The dropout generator's seed of data index `index` > 0 in a step
     (data index 0 draws its masks from the step's generator itself)."""
     return (step_seed_ * 0xC2B2AE35 + index) & 0x7FFFFFFFFFFF
+
+
+class _StepKey(NamedTuple):
+    """What one step program is for: the batch's geometry, what the step's
+    ops depend on, and what a capture bakes in."""
+    batch: int
+    t: int
+    tp: int
+    accum: int
+    dtype: torch.dtype
+    remat: bool
+    remat_policy: str
+    f0: bool
+    given_t: bool
+    given_noise: bool
+    tf32_matmul: bool
+    tf32_cudnn: bool
+
+
+class _EvalKey(NamedTuple):
+    """What one eval program is for: the 64-frame content and refer
+    buckets, the F0 predictor, and what a capture bakes in."""
+    t_pad: int
+    tr_pad: int
+    f0: bool
+    tf32_matmul: bool
+    tf32_cudnn: bool
+
+
+def _tf32() -> tuple[bool, bool]:
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
 
 
 class Trainer:
@@ -357,10 +438,16 @@ class Trainer:
             broadcast_(list(model.parameters()))
         self.placements = param_shardings(model, self.mesh)
         shard_parameters(model, self.placements, self.mesh)
+        # the step and the eval as CUDA graphs: on a card, in one process
+        self.compiled = self.device.type == "cuda" and not self.distributed
         self.state = TrainState(
-            model=model, optimizer=make_optimizer(self.cfg,
-                                                  model.parameters()),
+            model=model, optimizer=make_optimizer(
+                self.cfg, model.parameters(), capturable=self.compiled),
             ema_params=init_ema(model) if t.use_ema else None)
+        self._graphs = GraphCapturer(self.device)
+        self._step_programs: dict[_StepKey, GraphProgram] = {}
+        self._eval_programs: dict[_EvalKey, GraphProgram] = {}
+        self._programs_of = None   # (optimizer, EMA) the programs captured
         self.accum = t.gradient_accumulate_every
         self._step_fn = make_train_step(
             self.accum, self.compute_dtype,
@@ -468,10 +555,19 @@ class Trainer:
 
     def train_step(self, batch: dict, t: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None) -> dict:
-        """One optimizer step on a device batch, with the step's generator
-        (or the given t and noise). In a process group, `batch` is this
-        rank's rows (its data index's) and t and noise, when given, are the
-        global batch's."""
+        """One optimizer step on a device batch (as `device_batch` makes
+        it), with the step's generator (or the given t and noise): on a
+        card in one process through the step program of its key, else
+        eagerly. In a process group, `batch` is this rank's rows (its data
+        index's) and t and noise, when given, are the global batch's."""
+        if self.compiled:
+            return self._train_step_program(batch, t, noise)
+        return self._train_step_eager(batch, t, noise)
+
+    def _train_step_eager(self, batch: dict, t: torch.Tensor | None = None,
+                          noise: torch.Tensor | None = None) -> dict:
+        """The step with every op dispatched from Python: what a step
+        program's replay from the same state must equal."""
         seed = step_seed(self.cfg.train.seed, self.step)
         self.generator.manual_seed(seed)
         if not self.distributed:
@@ -480,6 +576,94 @@ class Trainer:
         drop = self.generator if self.data_index == 0 else \
             self._rank_generator.manual_seed(rank_seed(seed, self.data_index))
         return self._step_fn(self.state, batch, drop, t, noise, f0_factor)
+
+    # -- the step and eval programs -----------------------------------------
+
+    def drop_programs(self) -> None:
+        """Drop the step and eval programs, their graphs and memory pool:
+        the next call at each key captures anew."""
+        self._step_programs.clear()
+        self._eval_programs.clear()
+        self._graphs.reset()
+
+    def _check_programs(self) -> None:
+        """Keep the programs only while the optimizer and the EMA tensors
+        they captured are this state's (an optimizer's `load_state_dict`
+        drops them through its hook)."""
+        opt, ema = self.state.optimizer, self.state.ema_params
+        held = self._programs_of
+        if held is not None and held[0] is opt and held[1] is ema:
+            return
+        self.drop_programs()
+        if held is None or held[0] is not opt:
+            opt.register_load_state_dict_post_hook(
+                lambda o: self.drop_programs()
+                if o is self.state.optimizer else None)
+        self._programs_of = (opt, ema)
+
+    def _step_key(self, batch: dict, t, noise) -> _StepKey:
+        unet = self.model.diff_model.unet
+        return _StepKey(
+            batch["spec"].shape[0], batch["spec"].shape[1],
+            batch["refer"].shape[1], self.accum, self.compute_dtype,
+            unet.remat, unet.remat_policy, self.cfg.f0_predictor.enabled,
+            t is not None, noise is not None, *_tf32())
+
+    def _train_step_program(self, batch: dict,
+                            t: torch.Tensor | None = None,
+                            noise: torch.Tensor | None = None) -> dict:
+        """The step through the program of its key: the batch, t and noise
+        (when given) and the step count staged into its static buffers,
+        the step's generator seeded, then a replay; a key's first call is
+        the warm-up (an eager step), then the capture. The metrics are
+        copies. On the CPU the body runs eagerly over the static buffers,
+        the work a card captures."""
+        self._check_programs()
+        key = self._step_key(batch, t, noise)
+        prog = self._step_programs.get(key)
+        if prog is None:   # static buffers, allocated outside any capture
+            prog = GraphProgram(key, {
+                "batch": {k: torch.empty_like(v) for k, v in batch.items()},
+                "t": None if t is None else torch.empty_like(
+                    t, device=self.device),
+                "noise": None if noise is None else torch.empty_like(
+                    noise, device=self.device),
+                "step": torch.zeros((), dtype=torch.int64,
+                                    device=self.device)})
+        s = prog.static
+        for k, v in batch.items():
+            s["batch"][k].copy_(v)
+        for name, v in (("t", t), ("noise", noise)):
+            if v is not None:
+                s[name].copy_(v)
+        s["step"].fill_(self.step)
+        self.generator.manual_seed(step_seed(self.cfg.train.seed, self.step))
+
+        def body():
+            return self._step_fn.body(self.state, s["batch"], self.generator,
+                                      s["t"], s["noise"], None, s["step"])
+        if self.device.type != "cuda":
+            out = body()
+            self._step_programs[key] = prog
+        elif prog.graph is None:
+            try:
+                out = self._graphs.capture(prog, body, "step program",
+                                           (self.generator,))
+            except RuntimeError:
+                # a failed capture leaves the generator it registered in
+                # capture mode: draw from a new one
+                self.generator = torch.Generator(self.device)
+                raise
+            # held: a graph writes these whatever .grad holds later
+            prog.grads = [(p, p.grad) for p in self.model.parameters()]
+            self._step_programs[key] = prog
+        else:
+            for p, g in prog.grads:
+                if p.grad is not g:
+                    p.grad = g
+            out = prog.replay()
+        self.state.step += 1
+        return {k: v.clone() for k, v in out.items()}
 
     def _global_draws(self, batch: dict, t, noise):
         """This rank's rows of t, noise and (with the F0 predictor) the
@@ -581,7 +765,9 @@ class Trainer:
         """Resume from a checkpoint of this trainer: `path`, else
         ckpt/model-`step`.pt, else the newest in ckpt/. Restores the
         parameters, optimizer state (a fresh AdamW where the file holds
-        none), EMA (when this run keeps one) and step. Every rank of a
+        none; a capturable AdamW's file loads into an eager one and back),
+        EMA (when this run keeps one) and step; the step and eval programs
+        are captured anew. Every rank of a
         process group reads it, keeps its blocks of the full tensors, and
         none goes on (to a save whose garbage collection could remove it)
         until all have."""
@@ -600,9 +786,15 @@ class Trainer:
                              f"use load_torch for a reference model-N.pt")
         self.model.load_state_dict(self._local(data["params"]))
         if data["opt_state"] is not None:
-            self.state.optimizer.load_state_dict(self._optimizer_state(
+            opt = self._optimizer_state(
                 data["opt_state"],
-                lambda sd, pl: shard_state(sd, pl, self.mesh)))
+                lambda sd, pl: shard_state(sd, pl, self.mesh))
+            # the file's AdamW may have been capturable or not: this one
+            # stays as it is (and its step count where that puts it)
+            opt["param_groups"] = [
+                {**g, "capturable": live["capturable"]} for g, live in zip(
+                    opt["param_groups"], self.state.optimizer.param_groups)]
+            self.state.optimizer.load_state_dict(opt)
         if self.state.ema_params is not None:
             src = self._local(data["ema_params"] or data["params"])
             for k, v in self.state.ema_params.items():
@@ -636,10 +828,11 @@ class Trainer:
         """Sample one eval item (reference model.py:905-938) with UniPC, 30
         steps, from the EMA parameters when kept: (mel (T, 100), waveform or
         None, gt spec, refer spec, gt audio, refer audio), numpy; None
-        without an eval set, and on every rank but 0. The ranks of data
-        index 0 sample together (the model split over their model group,
-        `generator` seeded alike on each); the others go on to the next
-        step's all-reduce and wait there."""
+        without an eval set, and on every rank but 0. On a card in one
+        process through the eval program of the item's buckets. The ranks
+        of data index 0 sample together (the model split over their model
+        group, `generator` seeded alike on each); the others go on to the
+        next step's all-reduce and wait there."""
         if self.eval_ds is None or self.data_index != 0:
             return None
         c, f0, spec, audio, uv, c_r, f0_r, spec_r, audio_r, uv_r = \
@@ -651,39 +844,105 @@ class Trainer:
         c_in[0, :t_len] = c
         refer_in = np.zeros((1, tr_pad, spec_r.shape[1]), np.float32)
         refer_in[0, :tr_len] = spec_r
-        f0_dev = uv_dev = None
+        f0_in = uv_in = None
         if self.cfg.f0_predictor.enabled:
             f0_in = np.zeros((1, t_pad), np.float32)
             uv_in = np.zeros((1, t_pad), np.float32)
             m = min(t_len, np.size(f0))
             f0_in[0, :m] = np.reshape(f0, (-1,))[:m]
             uv_in[0, :m] = np.reshape(uv, (-1,))[:m]
-            f0_dev = torch.from_numpy(f0_in).to(self.device)
-            uv_dev = torch.from_numpy(uv_in).to(self.device)
         if self._eval_model is None:
             self._eval_model = shard_parameters(
                 NaturalSpeech2(self.cfg), self.placements, self.mesh).to(
                 self.device, self.compute_dtype).eval()
+        run = self._eval_program if self.compiled else self._eval_eager
+        mel, wav = run(c_in, refer_in, t_len, tr_len, f0_in, uv_in, generator)
+        if not self.is_main:
+            return None
+        if wav is not None:
+            wav = wav[0, : t_len * self.cfg.data.hop_length].float().cpu(
+                ).numpy()
+        return (mel[0, :t_len].cpu().numpy(), wav, spec, spec_r, audio,
+                audio_r)
+
+    def _eval_eager(self, c_in, refer_in, t_len, tr_len, f0_in, uv_in,
+                    generator):
+        """sample_eval's device work dispatched from Python: the EMA (or the
+        parameters) loaded into the eval model, generate_mel (x_T drawn
+        from `generator`), and Vocos on rank 0 -> (mel, waveform or
+        None), padded."""
+        dev = self.device
         self._eval_model.load_state_dict(
             self.state.ema_params if self.state.ema_params is not None
             else self.model.state_dict())
-        dev = self.device
+
+        def up(a):
+            return None if a is None else torch.from_numpy(a).to(dev)
         mel = generate_mel(
-            self._eval_model, torch.from_numpy(c_in).to(dev),
-            torch.from_numpy(refer_in).to(dev),
+            self._eval_model, up(c_in), up(refer_in),
             torch.tensor([t_len], device=dev),
             torch.tensor([tr_len], device=dev),
-            generator=generator, method="unipc", steps=30, f0=f0_dev,
-            uv=uv_dev)
-        if not self.is_main:
-            return None
+            generator=generator, method="unipc", steps=30, f0=up(f0_in),
+            uv=up(uv_in))
         wav = None
-        if self.vocos is not None:
+        if self.vocos is not None and self.is_main:
             with torch.no_grad():
-                wav = self.vocos(mel)[0, : t_len * self.cfg.data.hop_length]
-            wav = wav.float().cpu().numpy()
-        return (mel[0, :t_len].cpu().numpy(), wav, spec, spec_r, audio,
-                audio_r)
+                wav = self.vocos(mel)
+        return mel, wav
+
+    def _eval_program(self, c_in, refer_in, t_len, tr_len, f0_in, uv_in,
+                      generator):
+        """sample_eval's device work through the eval program of its key:
+        the inputs staged into its static buffers, x_T drawn from
+        `generator` as generate_mel draws it, then a replay (a key's first
+        call: the warm-up, then the capture). On the CPU the body runs
+        eagerly over the static buffers."""
+        self._check_programs()
+        key = _EvalKey(c_in.shape[1], refer_in.shape[1], f0_in is not None,
+                       *_tf32())
+        prog = self._eval_programs.get(key)
+        if prog is None:   # static buffers, allocated outside any capture
+
+            def empty(*shape, dtype=torch.float32):
+                return torch.empty(shape, dtype=dtype, device=self.device)
+            f0 = None if f0_in is None else empty(1, key.t_pad)
+            prog = GraphProgram(key, {
+                "c": empty(*c_in.shape), "refer": empty(*refer_in.shape),
+                "lengths": empty(1, dtype=torch.int64),
+                "refer_lengths": empty(1, dtype=torch.int64),
+                "f0": f0, "uv": None if f0 is None else empty(1, key.t_pad),
+                "x_T": empty(1, key.t_pad,
+                             self.cfg.diffusion_encoder.out_channels,
+                             dtype=self.compute_dtype)})
+        s = prog.static
+        for name, arr in (("c", c_in), ("refer", refer_in),
+                          ("lengths", np.array([t_len], np.int64)),
+                          ("refer_lengths", np.array([tr_len], np.int64)),
+                          ("f0", f0_in), ("uv", uv_in)):
+            if arr is not None:
+                s[name].copy_(torch.from_numpy(arr))
+        s["x_T"].normal_(generator=generator)
+
+        @torch.no_grad()
+        def body():
+            src = self.state.ema_params
+            if src is None:
+                src = dict(self.model.named_parameters())
+            for name, p in self._eval_model.named_parameters():
+                p.copy_(src[name])
+            mel = generate_mel(
+                self._eval_model, s["c"], s["refer"], s["lengths"],
+                s["refer_lengths"], x_T=s["x_T"], method="unipc", steps=30,
+                f0=s["f0"], uv=s["uv"])
+            return mel, None if self.vocos is None else self.vocos(mel)
+        if self.device.type != "cuda":
+            self._eval_programs[key] = prog
+            return body()
+        if prog.graph is None:
+            out = self._graphs.capture(prog, body, "eval program")
+            self._eval_programs[key] = prog
+            return out
+        return prog.replay()
 
     def _write_eval(self, result, step: int) -> dict:
         from ns2vc_tpu_torch.utils.wavio import write_wav

@@ -39,8 +39,14 @@ batch N+1, whose device work ends in a spin kernel, is still running.
 The serving programs: a replay (and a key's first call) against the eager
 body at the same seed, bit for bit, with the launches a replay counts;
 two dispatches of one key in flight; a capture while another thread
-waits on events; a capture that fails raises and caches nothing.
+waits on events; a capture that fails raises and caches nothing. The
+Trainer's step and eval programs: replays against the eager step and
+eval, bit for bit (with and without the F0 predictor, two geometries in
+turns on one pool), a failed capture, the capturable AdamW against the
+eager one (1e-6), checkpoints between the card and the CPU.
 """
+
+import os
 
 import pytest
 import torch
@@ -1188,3 +1194,256 @@ def test_multihead_attention_routes_on_the_card(dev, dtype):
         torch.cuda.synchronize()
         tol = 2e-5 if dtype == torch.float32 else 3e-2
         assert (got.float().cpu() - want).abs().max().item() <= tol
+
+
+# -- the Trainer's step and eval programs ---------------------------------------
+#
+# On a card in one process `Trainer.train_step` replays one CUDA graph per
+# step key and `sample_eval` one per eval bucket. Held bit for bit against
+# the eager step (`Trainer._train_step_eager`) and the eager eval from the
+# same state and seeds, with dropout 0.2 (masks and the F0 scale drawn inside
+# the graph from the registered step generator). cuDNN's convolution weight
+# gradient (K2's backward, `convolution_backward`) is not deterministic by
+# default: two eager steps differ in those weights. The comparisons run with
+# `torch.backends.cudnn.deterministic` on both sides. nn.Embedding's
+# backward (`embedding_dense_backward`, atomic adds over repeated F0 bins)
+# is not deterministic either: with the F0 predictor the steps are held at
+# the gradient checks' 1e-4 of max(1e-3, max|eager|) per tensor.
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+def _small_trainer(dev, root, f0=False, vocos=False):
+    """A Trainer of a narrow bf16 configuration (no data files: batches come
+    from `_train_batch`), EMA every 2 steps, and one eval item."""
+    import numpy as np
+
+    from ns2vc_tpu_torch.config import (
+        Config, DataConfig, DiffusionEncoderConfig, EncoderConfig,
+        F0PredictorConfig, TrainConfig,
+    )
+    from ns2vc_tpu_torch.convert import init_vocos_params
+    from ns2vc_tpu_torch.train.trainer import Trainer
+
+    os.makedirs(os.path.join(root, "empty"), exist_ok=True)
+    empty = os.path.join(root, "empty")
+    cfg = Config(
+        train=TrainConfig(compute_dtype="bfloat16", use_ema=True,
+                          ema_update_every=2, num_workers=0,
+                          logs_folder=os.path.join(root, "logs")),
+        data=DataConfig(training_files=empty, val_files=empty),
+        phoneme_encoder=EncoderConfig(n_layers=1),
+        prompt_encoder=EncoderConfig(in_channels=100, n_layers=1),
+        diffusion_encoder=DiffusionEncoderConfig(
+            block_out_channels=(64, 128)),
+        f0_predictor=F0PredictorConfig(enabled=f0, attention_layers=1))
+    vsd = init_vocos_params(torch.Generator().manual_seed(3)) if vocos \
+        else None
+    tr = Trainer(cfg, logs_folder=os.path.join(root, "run"),
+                 vocos_params=vsd, device=dev)
+    r = np.random.default_rng(4)
+    item = (r.standard_normal((90, 256)).astype(np.float32),      # c
+            (150 + 50 * r.random(90)).astype(np.float32),          # f0
+            r.standard_normal((90, 100)).astype(np.float32),       # spec
+            np.zeros(8, np.float32),                               # audio
+            np.ones(90, np.float32),                               # uv
+            None, None,
+            r.standard_normal((70, 100)).astype(np.float32),       # refer
+            np.zeros(8, np.float32), None)
+    tr.eval_ds = [item]
+    return tr
+
+
+def _train_batch(tr, seed, b=4, t=64, tp=48):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    batch = {"c": r.standard_normal((b, t, 256)).astype(np.float32),
+             "refer": r.standard_normal((b, tp, 100)).astype(np.float32),
+             "spec": r.standard_normal((b, t, 100)).astype(np.float32),
+             "f0": (120 + 200 * r.random((b, t))).astype(np.float32),
+             "uv": (r.random((b, t)) > 0.2).astype(np.float32),
+             "lengths": np.array([t, t - 14, t - 31, t][:b], np.int32),
+             "refer_lengths": np.array([tp, 20, tp, 31][:b], np.int32)}
+    return tr.device_batch(batch)
+
+
+def _trainer_state(tr) -> dict:
+    opt = tr.state.optimizer.state_dict()["state"]
+    return {"params": {k: v.detach().clone()
+                       for k, v in tr.model.state_dict().items()},
+            "moments": {(i, k): v.clone() for i, st in opt.items()
+                        for k, v in st.items()},
+            "ema": {k: v.clone() for k, v in tr.state.ema_params.items()}}
+
+
+def _close(x, y, rtol=0.0) -> bool:
+    if not rtol:
+        return torch.equal(x, y)
+    return (x.float() - y.float()).abs().max().item() <= rtol * max(
+        1e-3, y.float().abs().max().item())
+
+
+def _differing(a: dict, b: dict, rtol=0.0) -> list:
+    return [(part, k) for part in a for k in a[part]
+            if not _close(a[part][k], b[part][k], rtol)]
+
+
+@pytest.mark.parametrize("f0", [False, True])
+def test_train_step_program_replays_the_eager_step(dev, tmp_path, f0,
+                                                   deterministic):
+    """Three steps (the first a warm-up and capture, then two replays)
+    against three eager steps of a second Trainer from the same seed:
+    metrics and state bit for bit; a replay counts the eager step's
+    launches and backward calls."""
+    comp = _small_trainer(dev, str(tmp_path / "c"), f0=f0)
+    eager = _small_trainer(dev, str(tmp_path / "e"), f0=f0)
+    eager.compiled = False
+    rtol = 1e-4 if f0 else 0.0
+    batches = [_train_batch(comp, s) for s in range(3)]
+    for i, b in enumerate(batches):
+        _reset_counts()
+        mc = comp.train_step(b)
+        counted = _counts()
+        _reset_counts()
+        me = eager.train_step(b)
+        assert _counts() == counted, i
+        for k in me:
+            assert _close(mc[k], me[k], rtol), (i, k)
+        assert not _differing(_trainer_state(comp), _trainer_state(eager),
+                              rtol)
+    (prog,) = comp._step_programs.values()
+    assert prog.replays == 2 and prog.nodes > 0 and prog.capture_ms > 0
+    assert counted[0]["backward.tc"] > 0 and counted[1]["gn_backward"] > 0
+    if f0:
+        assert me["loss_f0"] > 0
+
+
+def test_train_step_programs_of_two_geometries_in_turns(dev, tmp_path,
+                                                        deterministic):
+    """Two batch geometries, their programs sharing one memory pool,
+    replayed in alternating order: each step is the eager step's."""
+    comp = _small_trainer(dev, str(tmp_path / "c"))
+    eager = _small_trainer(dev, str(tmp_path / "e"))
+    eager.compiled = False
+    for i, (t, tp) in enumerate([(64, 48), (128, 64)] * 3):
+        b = _train_batch(comp, i, t=t, tp=tp)
+        mc, me = comp.train_step(b), eager.train_step(b)
+        assert torch.equal(mc["loss"], me["loss"]), i
+        assert torch.equal(mc["grad_norm"], me["grad_norm"]), i
+    assert not _differing(_trainer_state(comp), _trainer_state(eager))
+    assert sorted(p.replays for p in comp._step_programs.values()) == [2, 2]
+    pools = {tuple(p.graph.pool()) for p in comp._step_programs.values()}
+    assert len(pools) == 1
+
+
+def test_train_step_failed_capture_raises(dev, tmp_path, monkeypatch):
+    """A step body that synchronises cannot be captured: the call raises
+    after its warm-up step and caches no program; the key captures once
+    the body is capturable again."""
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+
+    tr = _small_trainer(dev, str(tmp_path))
+    b = _train_batch(tr, 0)
+    forward = NaturalSpeech2.forward
+
+    def synchronising(self, *a, **kw):
+        torch.cuda.synchronize()
+        return forward(self, *a, **kw)
+    monkeypatch.setattr(NaturalSpeech2, "forward", synchronising)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        tr.train_step(b)
+    assert tr._step_programs == {}
+    monkeypatch.undo()
+    tr.train_step(b)
+    tr.train_step(b)
+    (prog,) = tr._step_programs.values()
+    assert prog.replays == 1
+
+
+def test_eval_program_replays_the_eager_eval(dev, tmp_path, deterministic):
+    """The eval sample's first call (warm-up and capture) and a replay give
+    the eager eval's mel and waveform bit for bit, from the EMA copied into
+    the eval model inside the graph: a step between two evals moves both
+    alike."""
+    import numpy as np
+
+    comp = _small_trainer(dev, str(tmp_path / "c"), f0=True, vocos=True)
+    eager = _small_trainer(dev, str(tmp_path / "e"), f0=True, vocos=True)
+    eager.compiled = False
+    got = []
+    for i in range(2):
+        for tr in (comp, eager):
+            tr.train_step(_train_batch(tr, i))
+            tr.train_step(_train_batch(tr, i + 10))
+        got.append([tr.sample_eval(_gen(dev, 7)) for tr in (comp, eager)])
+    for c, e in got:
+        assert np.array_equal(c[0], e[0]) and np.array_equal(c[1], e[1])
+    assert not np.array_equal(got[0][0][0], got[1][0][0])
+    (prog,) = comp._eval_programs.values()
+    assert prog.replays == 1
+
+
+def test_capturable_adamw_matches_the_eager_one(dev):
+    """The step programs' AdamW (capturable: step counts and bias
+    corrections on the card) against the eager one over three clipped
+    steps: 1e-6 relative, the CPU test's optax bound."""
+    from ns2vc_tpu_torch.config import Config
+    from ns2vc_tpu_torch.train.trainer import (
+        clip_by_global_norm, make_optimizer,
+    )
+
+    cfg = Config()
+    g = _gen(dev, 5)
+    shapes = [(256, 256, 3), (256,), (64, 100)]
+    a = [torch.nn.Parameter(torch.randn(s, generator=g, device=dev))
+         for s in shapes]
+    b = [torch.nn.Parameter(p.detach().clone()) for p in a]
+    oa = make_optimizer(cfg, a)
+    ob = make_optimizer(cfg, b, capturable=True)
+    for i in range(3):
+        for p, q in zip(a, b):
+            p.grad = (30.0 if i == 1 else 0.01) * torch.randn(
+                p.shape, generator=g, device=dev)
+            q.grad = p.grad.clone()
+        clip_by_global_norm([p.grad for p in a], 1.0)
+        clip_by_global_norm([q.grad for q in b], 1.0)
+        oa.step()
+        ob.step()
+        for p, q in zip(a, b):
+            assert torch.allclose(q, p, rtol=1e-6, atol=1e-7)
+    assert ob.state[b[0]]["step"].device == dev
+
+
+def test_checkpoints_cross_between_the_card_and_the_cpu(dev, tmp_path,
+                                                         deterministic):
+    """A compiled Trainer's checkpoint resumes in a CPU Trainer (eager
+    AdamW), and the CPU's in a card Trainer, which captures anew: step,
+    both moments and the EMA equal; the resumed card Trainer's next step
+    is the eager step's."""
+    comp = _small_trainer(dev, str(tmp_path / "c"))
+    for s in range(3):
+        comp.train_step(_train_batch(comp, s))
+    path = comp.save()
+    cpu = _small_trainer(torch.device("cpu"), str(tmp_path / "cpu"))
+    cpu.load(path=path)
+    assert cpu.step == comp.step == 3
+    assert not any(g["capturable"] for g in cpu.state.optimizer.param_groups)
+    want = {part: {k: v.cpu() for k, v in d.items()}
+            for part, d in _trainer_state(comp).items()}
+    assert not _differing(_trainer_state(cpu), want)
+    back = cpu.save(milestone=30)
+    again = _small_trainer(dev, str(tmp_path / "again"))
+    again.train_step(_train_batch(again, 9))     # a program to drop
+    again.load(path=back)
+    assert again._step_programs == {} and again.step == 3
+    assert all(g["capturable"] for g in again.state.optimizer.param_groups)
+    b = _train_batch(comp, 3)
+    eager = _small_trainer(dev, str(tmp_path / "eager"))
+    eager.compiled = False
+    eager.load(path=back)
+    m, e = again.train_step(b), eager.train_step(b)
+    assert torch.equal(m["loss"], e["loss"])
+    assert not _differing(_trainer_state(again), _trainer_state(eager))
