@@ -214,7 +214,7 @@ import sys
 import tempfile
 import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 
@@ -1534,11 +1534,18 @@ def kernel_totals(counted: dict) -> dict:
             "gn": counted["group_norm_affine"]}
 
 
-def graph_kernels(graph) -> dict:
-    """The K1 / K2 / statistics kernel nodes of a CUDA graph kept after
-    instantiation (keep_graph=True), read through libcuda (node types,
-    kernel node parameters, function names; child graphs included): the
-    kernels each replay launches, independent of any tracer."""
+# CUgraphNodeType
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+def graph_census(graph) -> tuple[Counter, Counter]:
+    """(kernel nodes by function name, nodes by type) of a CUDA graph kept
+    after instantiation (keep_graph=True), read through libcuda (node
+    types, kernel node parameters, function names; child graphs walked):
+    what each replay runs, independent of any tracer."""
     import ctypes
 
     cu = ctypes.CDLL("libcuda.so.1")
@@ -1548,7 +1555,7 @@ def graph_kernels(graph) -> dict:
         if err != 0:
             fail(f"graph nodes: {what} returned CUresult {err}")
 
-    names, seen = {}, {k: 0 for k, _ in KERNEL_NAMES}
+    names, kernels, types = {}, Counter(), Counter()
     params = (ctypes.c_uint8 * 128)()   # CUDA_KERNEL_NODE_PARAMS_v2: 72 B
     kind, name, child = ctypes.c_int(), ctypes.c_char_p(), vp()
 
@@ -1562,6 +1569,8 @@ def graph_kernels(graph) -> dict:
         for node in nodes:
             check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
                   "cuGraphNodeGetType")
+            types[NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES)
+                  else str(kind.value)] += 1
             if kind.value == 4:     # CU_GRAPH_NODE_TYPE_GRAPH
                 check(cu.cuGraphChildGraphNodeGetGraph(
                     vp(node), ctypes.byref(child)),
@@ -1580,11 +1589,17 @@ def graph_kernels(graph) -> dict:
                 check(get(ctypes.byref(name), vp(handle)),
                       "cuFuncGetName" if func else "cuKernelGetName")
                 names[handle] = name.value.decode()
-            for k, key in KERNEL_NAMES:
-                if key in names[handle]:
-                    seen[k] += 1
+            kernels[names[handle]] += 1
     walk(graph.raw_cuda_graph())
-    return seen
+    return kernels, types
+
+
+def graph_kernels(graph) -> dict:
+    """The K1 / K2 / statistics kernel nodes of a CUDA graph (see
+    `graph_census`): the kernels each replay launches."""
+    kernels, _ = graph_census(graph)
+    return {k: sum(n for name, n in kernels.items() if key in name)
+            for k, key in KERNEL_NAMES}
 
 
 def check_compiled_serving(cfg, sd, vsd, svc, svc32, clips, refer, dev):
@@ -2873,13 +2888,18 @@ def snapshot(trainer) -> dict:
 def restore(trainer, snap: dict) -> None:
     """Back to a `snapshot`, copied into the live tensors: the step
     programs' graphs hold their addresses (an optimizer's load_state_dict
-    would replace them and drop the programs)."""
+    would replace them and drop the programs). A parameter the snapshot's
+    optimizer held no state for (a trainer that had not stepped) loses its
+    state, which the next step makes anew: drop the programs after such a
+    restore."""
     import torch
 
     trainer.model.load_state_dict(snap["model"])
     opt = trainer.state.optimizer.state
     with torch.no_grad():
         for p, saved in zip(_opt_params(trainer), snap["opt"]):
+            if not saved:
+                opt.pop(p, None)
             for k, v in saved.items():
                 opt[p][k].copy_(v)
     for k, v in snap["ema"].items():
@@ -3302,10 +3322,12 @@ def deterministic_cudnn():
 
 @contextlib.contextmanager
 def step_draws(trainer):
-    """Within the context every NaturalSpeech2.forward appends a dict to
-    the yielded list: clones of what it draws from the trainer's step
-    generator, t, noise, the first dropout mask and the F0 scale. A
-    capture's clones are graph buffers that each replay fills again."""
+    """Within the context every step body appends a dict to the yielded
+    list: clones of what it draws from the trainer's step generator, t,
+    noise, the first dropout mask and the F0 scale, in its
+    NaturalSpeech2.forward or, in a process group, in the trainer's
+    `_global_draws` and the forward after it. A capture's clones are graph
+    buffers that each replay fills again."""
     from unittest import mock
 
     import torch
@@ -3315,24 +3337,32 @@ def step_draws(trainer):
     gen, runs, forward = trainer.generator, [], NaturalSpeech2.forward
     drawn = {"t": (torch, "randint"), "noise": (torch, "randn"),
              "f0_scale": (torch, "rand"), "mask": (torch.Tensor, "bernoulli_")}
+    # the group's draws open a step's record, its forward continues it
+    opened = {"by_draws": False}
 
-    def probed(self, *a, **kw):
-        cur = {}
-        runs.append(cur)
+    def probe(fn, by_draws):
+        def probed(*a, **kw):
+            if by_draws or not opened["by_draws"]:
+                runs.append({})
+            opened["by_draws"] = by_draws
+            cur = runs[-1]
 
-        def rec(name, fn):
-            def f(*fa, **fkw):
-                out = fn(*fa, **fkw)
-                if fkw.get("generator") is gen and name not in cur:
-                    cur[name] = out.clone()
-                return out
-            return f
-        with contextlib.ExitStack() as stack:
-            for name, (owner, attr) in drawn.items():
-                stack.enter_context(mock.patch.object(
-                    owner, attr, rec(name, getattr(owner, attr))))
-            return forward(self, *a, **kw)
-    with mock.patch.object(NaturalSpeech2, "forward", probed):
+            def rec(name, draw):
+                def f(*fa, **fkw):
+                    out = draw(*fa, **fkw)
+                    if fkw.get("generator") is gen and name not in cur:
+                        cur[name] = out.clone()
+                    return out
+                return f
+            with contextlib.ExitStack() as stack:
+                for name, (owner, attr) in drawn.items():
+                    stack.enter_context(mock.patch.object(
+                        owner, attr, rec(name, getattr(owner, attr))))
+                return fn(*a, **kw)
+        return probed
+    with mock.patch.object(NaturalSpeech2, "forward", probe(forward, False)), \
+            mock.patch.object(trainer, "_global_draws",
+                              probe(trainer._global_draws, True)):
         yield runs
 
 
@@ -3583,7 +3613,7 @@ def check_compiled_eval(trainer, dev) -> dict:
 
     got, ms = [], []
     for mode in ("first call", "replay", "eager"):
-        with (mock.patch.object(trainer, "compiled", False)
+        with (mock.patch.object(trainer, "eval_compiled", False)
               if mode == "eager" else contextlib.nullcontext()):
             t0 = time.perf_counter()
             got.append(trainer.sample_eval(
@@ -4802,23 +4832,105 @@ def params_digest(model) -> str:
     return h.hexdigest()
 
 
+def group_programs(tr, batches) -> dict:
+    """The step and eval programs of a Trainer in a process group of one
+    process over NCCL: COMPARE_STEPS replays against as many eager group
+    steps from one state (`compare_compiled_step`); the group key's first
+    call, capture and graph, its K1 / K2 / statistics kernel nodes held
+    equal to a replay's counted launches and NCCL's kernel nodes counted
+    apart; a replay's launches, backward calls and collectives held equal
+    to an eager group step's; the eval program against the eager eval
+    (`check_compiled_eval`)."""
+    import torch
+
+    from ns2vc_tpu_torch.parallel import mesh
+
+    out = {"compare": compare_compiled_step(
+        tr, batches, "in an NCCL group of one process")}
+    # the key anew: the compared programs were captured with cuDNN
+    # deterministic, and dropped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_step(batches[0])
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    prog = tr._step_programs[tr._step_key(batches[0], None, None)]
+    counted = {}
+    for name, step in (("replay", tr.train_step),
+                       ("eager", tr._train_step_eager)):
+        reset_launches()
+        mesh.reset_counters()
+        step(batches[1])
+        torch.cuda.synchronize()
+        counted[name] = {"launches": route_counts(),
+                         "backward": backward_calls(),
+                         "collectives": mesh.counters()}
+    if counted["replay"] != counted["eager"] or prog.replays != 1:
+        fail(f"group step program: a replay counts {counted['replay']}, an "
+             f"eager group step {counted['eager']}; replays {prog.replays}")
+    kernels, types = graph_census(prog.graph)
+    nodes = graph_kernels(prog.graph)
+    if nodes != kernel_totals(counted["replay"]["launches"]):
+        fail(f"group step program: the graph's kernel nodes {nodes}, a "
+             f"replay's counted launches "
+             f"{kernel_totals(counted['replay']['launches'])}")
+    nccl = {k: n for k, n in kernels.items() if "nccl" in k.lower()}
+    out.update(first_call_ms=first, capture_ms=prog.capture_ms,
+               nodes=prog.nodes, graph_kernel_nodes=nodes,
+               nccl_nodes=sum(nccl.values()), nccl_kernels=nccl,
+               node_types=dict(types), **counted["replay"])
+    out["eval"] = check_compiled_eval(tr, tr.device)
+    return out
+
+
+def group_turns(tr, batches) -> dict:
+    """Median step ms (DP_TURN_STEPS after one warm-up) in turns in this
+    process: the group's step program, its eager step, and the step program
+    of one process without a group (no all-reduce, its own programs), in
+    the order group, eager, alone, alone, eager, group."""
+    from unittest import mock
+
+    from ns2vc_tpu_torch.train.trainer import make_train_step
+
+    t = tr.cfg.train
+    group = (tr._step_fn, True, tr._step_programs)
+    alone = (make_train_step(
+        tr.accum, tr.compute_dtype,
+        ema_decay=t.ema_decay if t.use_ema else 0.0,
+        ema_every=t.ema_update_every, max_norm=t.grad_clip_norm), False, {})
+    turns = {"group": [], "eager": [], "alone": []}
+    for name in ("group", "eager", "alone", "alone", "eager", "group"):
+        tr._step_fn, tr.distributed, tr._step_programs = \
+            alone if name == "alone" else group
+        with (mock.patch.object(tr, "train_step", tr._train_step_eager)
+              if name == "eager" else contextlib.nullcontext()):
+            turns[name].append(median_step_ms(tr, batches, 1,
+                                              DP_TURN_STEPS)[0])
+    tr._step_fn, tr.distributed, tr._step_programs = group
+    return turns
+
+
 def data_parallel_worker(job_dir: str) -> int:
     """One rank of the data-parallel phase (`chip_smoke.py
     --data-parallel-worker DIR`): joins the group NS2VC_COORDINATOR /
     NS2VC_NUM_PROCESSES / NS2VC_PROCESS_ID describe, trains DIR/config.json
     through the Trainer (synced loader, all-reduce) as DIR/job.json says,
-    and writes DIR/result_rank{r}.json. Mode "full": launches, backward
-    calls and all-reduces of one step, then the median step. Mode "steps":
-    DP_STEPS steps (losses, grad norms, geometries; the gradients of the
-    first and the parameters after the last written for the comparison),
-    DP_TIMED timed steps, a save, a resume on every rank and 2 more steps
-    through Trainer.train."""
+    and writes DIR/result_rank{r}.json. Mode "full" (NCCL): the step and
+    eval programs (`group_programs`), the median replayed step, the step
+    in turns (`group_turns`), and last a profiled replay and eager step.
+    Mode "steps": DP_STEPS steps (losses, grad norms, geometries; the
+    gradients of the first and the parameters after the last written for
+    the comparison), DP_TIMED timed steps, a save, a resume on every rank
+    and 2 more steps through Trainer.train."""
+    from unittest import mock
+
     import torch
     import torch.distributed as dist
 
     from ns2vc_tpu_torch.config import load_config
+    from ns2vc_tpu_torch.convert import init_vocos_params
     from ns2vc_tpu_torch.parallel import mesh
-    from ns2vc_tpu_torch.train.trainer import Trainer, make_train_step
+    from ns2vc_tpu_torch.train.trainer import Trainer
 
     with open(os.path.join(job_dir, "job.json")) as f:
         job = json.load(f)
@@ -4832,40 +4944,32 @@ def data_parallel_worker(job_dir: str) -> int:
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     cfg = load_config(os.path.join(job_dir, "config.json"))
     out = {"rank": rank, "world": n, "backend": dist.get_backend()}
-    tr = Trainer(cfg, logs_folder=os.path.join(job_dir, "run"), device=dev)
+    # the eval program's waveform needs a vocoder
+    vsd = init_vocos_params(torch.Generator().manual_seed(SEED),
+                            hop_length=cfg.data.hop_length) \
+        if job["mode"] == "full" else None
+    tr = Trainer(cfg, logs_folder=os.path.join(job_dir, "run"),
+                 vocos_params=vsd, device=dev)
+    out["compiled"] = [tr.compiled, tr.eval_compiled]
     out["n_params"] = sum(p.numel() for p in tr.model.parameters())
     loader = tr.loader()
     grads = None
     if job["mode"] == "full":
+        if not (tr.compiled and tr.eval_compiled):
+            fail(f"data parallel over {out['backend']}: the Trainer's step "
+                 f"and eval are not programs (compiled {out['compiled']})")
         batches = [tr.device_batch(next(loader)) for _ in range(4)]
         out["batch"] = list(batches[0]["c"].shape)
-        tr.train_step(batches[0])
-        sync()
-        reset_launches()
-        calls, nbytes = mesh.all_reduce_mean.calls, mesh.all_reduce_mean.bytes
-        tr.train_step(batches[1])
-        sync()
-        out["launches"], out["backward"] = route_counts(), backward_calls()
-        out["all_reduce_calls"] = mesh.all_reduce_mean.calls - calls
-        out["all_reduce_bytes"] = mesh.all_reduce_mean.bytes - nbytes
+        out["programs"] = group_programs(tr, batches)
+        out["launches"] = out["programs"]["launches"]
+        out["backward"] = out["programs"]["backward"]
+        reduced = out["programs"]["collectives"]["all_reduce_mean"]
+        out["all_reduce_calls"] = reduced["calls"]
+        out["all_reduce_bytes"] = reduced["bytes"]
         ms, peak, m = median_step_ms(tr, batches, TRAIN_WARMUP, TRAIN_TIMED)
         out.update(step_ms=ms, peak_gb=peak, loss=m["loss"].item(),
                    grad_norm=m["grad_norm"].item())
-        # in turns in this process: the group's step and the step of one
-        # process without a group (no all-reduce, one process's draws)
-        t = cfg.train
-        group_fn = tr._step_fn
-        alone_fn = make_train_step(
-            tr.accum, tr.compute_dtype,
-            ema_decay=t.ema_decay if t.use_ema else 0.0,
-            ema_every=t.ema_update_every, max_norm=t.grad_clip_norm)
-        out["turns_ms"] = {"group": [], "alone": []}
-        for name in ("group", "alone", "alone", "group"):
-            tr._step_fn, tr.distributed = (group_fn, True) \
-                if name == "group" else (alone_fn, False)
-            out["turns_ms"][name].append(median_step_ms(
-                tr, batches, 1, DP_TURN_STEPS)[0])
-        tr._step_fn, tr.distributed = group_fn, True
+        out["turns_ms"] = group_turns(tr, batches)
     else:
         out["losses"], out["norms"], out["geoms"] = [], [], []
         for i in range(DP_STEPS):
@@ -4926,6 +5030,16 @@ def data_parallel_worker(job_dir: str) -> int:
     digests = [None] * n
     dist.all_gather_object(digests, params_digest(tr.model))
     out["digests"] = digests
+    if job["mode"] == "full":   # last: the profiler slows later launches
+        out["profile"] = training_profile(
+            tr, batches[0], out["step_ms"],
+            "in an NCCL group of one process (step program replay)")
+        with mock.patch.object(tr, "train_step", tr._train_step_eager):
+            out["profile_eager"] = training_profile(
+                tr, batches[0], float(np.mean(out["turns_ms"]["eager"])),
+                "in an NCCL group of one process (eager step)")
+    # the graphs hold NCCL's work: gone before its communicators
+    tr.drop_programs()
     tr.close()
     with open(os.path.join(job_dir, f"result_rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -4989,13 +5103,18 @@ def run_data_parallel(job_dir: str, cfg, job: dict, n: int,
 
 def check_data_parallel(processed, train, dev, tmp) -> dict:
     """The Trainer over torch.distributed: a group of one process over
-    NCCL at full width (the synced loader, the all-reduce; its step beside
-    the single-process step of the training phase, the same launches and
-    backward calls), then two ranks on the one card over gloo (NCCL takes
-    one rank per device) at reduced depth in f32 without TF32: the ranks'
-    parameters bitwise equal, the step against one process on the
-    concatenated batch at JAX's tolerances, the same bucket geometries on
-    both ranks, a save by rank 0 and a resume on both."""
+    NCCL at full width, where the step and the eval are programs (the
+    synced loader, the all-reduce inside the step's graph; the replays bit
+    for bit the eager group steps, a replay's launches, backward calls and
+    collectives the eager step's and the single-process step's of the
+    training phase, the eval program the eager eval's; the replay, the
+    eager group step and the single-process replay in turns; the busy
+    share of a replay and of an eager step), then two ranks on the one
+    card over gloo (NCCL takes one rank per device), where the step stays
+    eager, at reduced depth in f32 without TF32: the ranks' parameters
+    bitwise equal, the step against one process on the concatenated batch
+    at JAX's tolerances, the same bucket geometries on both ranks, a save
+    by rank 0 and a resume on both."""
     import torch
 
     from ns2vc_tpu_torch.data.dataset import synced_data_loader
@@ -5028,26 +5147,55 @@ def check_data_parallel(processed, train, dev, tmp) -> dict:
              f"{full['all_reduce_bytes']} bytes (expected 1 of {want_bytes}), "
              f"loss {full['loss']}, grad norm {full['grad_norm']}")
     one_ms = train["remat"]["dots"][0]
+    progs, turns = full["programs"], full["turns_ms"]
+    cmp_, ev = progs["compare"], progs["eval"]
+
+    def listed(xs):
+        return ", ".join(f"{x:.2f}" for x in xs)
+    profiled = {k: full.get(k) or {} for k in ("profile", "profile_eager")}
+    busy = {k: p.get("busy") for k, p in profiled.items()}
     say(f"data parallel, {full['world']} process over {full['backend']} at "
         f"full width ({full['n_params'] / 1e6:.1f} M parameters, batch "
         f"{full['batch'][0]} x {full['batch'][1]}, bf16, synced loader, "
-        f"serial): "
-        f"median step {full['step_ms']:.2f} ms of {TRAIN_TIMED} (after "
-        f"{TRAIN_WARMUP} warm-up) vs {one_ms:.2f} ms single-process, peak "
-        f"{full['peak_gb']:.2f} GB; {full['all_reduce_calls']} all-reduce of "
-        f"{full['all_reduce_bytes'] / 1e6:.1f} MB per step, "
-        f"{full['all_reduce_ms']:.3f} ms alone; in turns in its process "
-        f"(median of {DP_TURN_STEPS}) with the group "
-        f"{', '.join(f'{x:.2f}' for x in full['turns_ms']['group'])} ms, "
-        f"without {', '.join(f'{x:.2f}' for x in full['turns_ms']['alone'])}"
-        f" ms; launches per step "
-        f"{full['launches']}, backward calls {full['backward']} (the "
-        f"single-process step's) [{CARD}]")
+        f"serial), the step and the eval as programs: median replayed step "
+        f"{full['step_ms']:.2f} ms of {TRAIN_TIMED} (after {TRAIN_WARMUP} "
+        f"warm-up) vs {one_ms:.2f} ms single-process, peak "
+        f"{full['peak_gb']:.2f} GB; in turns in its process (median of "
+        f"{DP_TURN_STEPS}) group replay {listed(turns['group'])} ms, group "
+        f"eager {listed(turns['eager'])} ms, single-process replay "
+        f"{listed(turns['alone'])} ms; device busy "
+        + (f"{100 * busy['profile']:.0f} % of a replay "
+           f"({profiled['profile']['kernel_ms']:.1f} ms of kernels), "
+           f"{100 * busy['profile_eager']:.0f} % of an eager group step "
+           f"({profiled['profile_eager']['kernel_ms']:.1f} ms)"
+           if None not in busy.values() else "not profiled")
+        + f"; the group key's first call {progs['first_call_ms']:.0f} ms "
+        f"(warm-up and capture {progs['capture_ms']:.0f} ms), "
+        f"{progs['nodes']} graph nodes, by type {progs['node_types']}, "
+        f"K1 / K2 / statistics kernel nodes {progs['graph_kernel_nodes']} "
+        f"(a replay's counted launches), NCCL kernel nodes "
+        f"{progs['nccl_nodes']} {progs['nccl_kernels']}; "
+        f"{COMPARE_STEPS} steps (first call, then replays "
+        f"{listed(cmp_['replay_wall_ms'])} ms) bit for bit the eager group "
+        f"steps from one state, cuDNN deterministic (loss, grad norm, draws "
+        f"{cmp_['draws']}, parameters, AdamW moments, EMA); a replay's "
+        f"{full['all_reduce_calls']} all-reduce of "
+        f"{full['all_reduce_bytes'] / 1e6:.1f} MB, launches and backward "
+        f"calls an eager group step's and the single-process step's; "
+        f"all-reduce alone {full['all_reduce_ms']:.3f} ms; the eval "
+        f"program's first call {ev['first_call_ms']:.0f} ms, replay "
+        f"{ev['replay_ms']:.1f} ms vs eager {ev['eager_ms']:.1f} ms, bit "
+        f"for bit [{CARD}]")
     res["world1"] = {k: full[k] for k in (
         "backend", "n_params", "step_ms", "peak_gb", "all_reduce_calls",
         "all_reduce_bytes", "all_reduce_ms", "turns_ms", "launches",
-        "backward")}
+        "backward", "compiled")}
     res["world1"]["single_process_step_ms"] = one_ms
+    res["world1"]["programs"] = {k: v for k, v in progs.items() if k not in (
+        "launches", "backward")}
+    res["world1"]["busy"] = busy
+    res["world1"]["kernel_ms"] = {k: p.get("kernel_ms")
+                                  for k, p in profiled.items()}
 
     job_dir = os.path.join(tmp, "dp_two")
     cfg = dp_config(processed, os.path.join(tmp, "dp_logs"))
@@ -5055,6 +5203,10 @@ def check_data_parallel(processed, train, dev, tmp) -> dict:
         job_dir, cfg, {"mode": "steps", "device": str(dev),
                        "backend": "gloo", "f32": True}, 2)
     r0, r1 = ranks
+    if any(r["compiled"] != [False, dev.type == "cuda"] for r in ranks):
+        fail(f"data parallel, 2 ranks over gloo: compiled (step, eval) "
+             f"{r0['compiled']}, {r1['compiled']}: the step stays eager "
+             f"under gloo, the eval is a program on a card at mp = 1")
     for key in ("geoms", "losses", "digest", "saved", "resumed_step",
                 "digest_resumed", "step_after", "geoms_after",
                 "digest_after", "digests"):
@@ -5276,6 +5428,7 @@ def tensor_parallel_worker(job_dir: str) -> int:
     t0 = time.perf_counter()
     tr = Trainer(cfg, logs_folder=os.path.join(job_dir, "run"), device=dev)
     out = {"rank": rank, "world": n, "backend": dist.get_backend(),
+           "compiled": [tr.compiled, tr.eval_compiled],
            "mesh": tr.mesh.shape, "setup_s": time.perf_counter() - t0,
            "n_params_local": sum(p.numel() for p in tr.model.parameters()),
            "n_split": sum(1 for pl in tr.placements.values() if pl.axis)}
@@ -5377,6 +5530,9 @@ def check_tensor_parallel(dev, tmp) -> dict:
                                              "mode": "tensor parallel"}, 2,
                               MP_WORKER)
     r0, r1 = ranks
+    if any(r["compiled"] != [False, False] for r in ranks):
+        fail(f"tensor parallel over gloo: compiled (step, eval) "
+             f"{r0['compiled']}, {r1['compiled']}: both stay eager")
     saved = torch.load(os.path.join(job_dir, "rank0.pt"))
     for key in ("loss", "grad_norm", "launches", "backward", "collectives",
                 "replicated_digest", "digest_gathered", "path"):

@@ -28,11 +28,22 @@ The cluster is set up from the environment, with the JAX package's names:
 The backend is NCCL for a card and gloo for the CPU, unless the caller
 names one (gloo on a card reduces through host copies).
 
+The collectives count their calls and bytes (`counters()`). Under NCCL
+the Trainer captures its step, collectives included, as a CUDA graph
+(`train/trainer.py`), and a replay runs no Python: `launch_counts` and
+`add_launch_counts` let the graph's owner take a capture's counts off and
+add them back per replay, as it does with the kernels' launches
+(`utils/graphs.py`).
+
 Not ported: the packed host-to-device batch (`make_batch_packer`,
 `unpack_batch`, the JAX trainer's `pack_h2d`), and the barrier the JAX
 trainer holds around a freshly compiled step (its gloo transport gives a
-communicator ~30 s to come up while another host still compiles): an
-eager torch step compiles nothing, so no rank waits on another's compile.
+communicator ~30 s to come up while another host still compiles). A step
+key's first call here is an eager step, whose collectives bring up every
+communicator the capture uses and meet every rank, then a capture, which
+communicates nothing and takes seconds against NCCL's timeout of minutes;
+every rank captures the same keys in the same order (the synced loader
+gives them one geometry per step).
 """
 
 from __future__ import annotations
@@ -269,16 +280,36 @@ all_gather.calls = 0
 all_gather.bytes = 0
 
 
+_COUNTED = (all_reduce_mean, all_reduce_sum, all_gather)
+
+
 def reset_counters() -> None:
     """Zero the collectives' counters."""
-    for fn in (all_reduce_mean, all_reduce_sum, all_gather):
+    for fn in _COUNTED:
         fn.calls = fn.bytes = 0
 
 
 def counters() -> dict:
     """{collective: {"calls": n, "bytes": n}} so far."""
     return {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes}
-            for fn in (all_reduce_mean, all_reduce_sum, all_gather)}
+            for fn in _COUNTED}
+
+
+def launch_counts() -> dict[str, int]:
+    """The collectives' counters, flat (a CUDA graph's owner takes them
+    before and after its capture, as it takes the kernels' launch
+    counts)."""
+    return {f"{fn.__name__}.{k}": getattr(fn, k) for fn in _COUNTED
+            for k in ("calls", "bytes")}
+
+
+def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
+    """Add `times` x `delta` (a difference of two `launch_counts()`): a
+    replay runs its capture's collectives."""
+    for fn in _COUNTED:
+        for k in ("calls", "bytes"):
+            setattr(fn, k, getattr(fn, k)
+                    + times * delta[f"{fn.__name__}.{k}"])
 
 
 def broadcast_(tensors: list, src: int = 0) -> None:

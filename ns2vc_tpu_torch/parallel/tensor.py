@@ -18,7 +18,11 @@ alike on the ranks of the model group. Per split layer:
 read through f, sliced to this rank's features. Each rank so computes a
 split layer's output features alone, and its weight block's gradient is
 the gradient of that block of the whole layer. The collectives are counted
-by `parallel.mesh` (`all_gather`, `all_reduce_sum`).
+by `parallel.mesh` (`all_gather`, `all_reduce_sum`). Both Functions read
+no device value on the host and allocate only through the caching
+allocator (the gathered parts, the flat gradient buffer), so under NCCL
+the Trainer's step program captures them whole: their collectives in the
+graph, their buffers in its pool.
 
 The resnet convs run as K2 on the local block (`models/unet.py::
 ResnetBlock1D`, through `column_parallel`): K2 takes `co` = C_out / mp

@@ -61,27 +61,36 @@ writes and split again by every rank that reads, so a run resumes at any
 mp. Eval samples come from the ranks of data index 0, through the split
 `generate_mel`, and rank 0 writes them.
 
-On a card in one process the step and the milestone eval run as CUDA
-graphs, the counterparts of the JAX Trainer's jitted `_get_step_fn` and
-`_get_eval_fn` (`utils/graphs.py`). A step program per `_StepKey` (the
-batch's geometry, accumulation, dtype, remat and its policy, the F0
-predictor, whether t and noise are given, the TF32 settings): static
-buffers for the batch's fields, t, noise and the step count, which each
-call fills; the step's generator is registered with the graph and seeded
-at `step_seed` before each call, so a replay draws t, noise, the dropout
-masks and the F0 scale as the eager step does. A key's first call is an
-eager step on the side stream (the warm-up: it makes the gradients, the
-optimizer's state and everything else lazy outside the capture), then
-the capture; every later call replays. AdamW is capturable there
+On a card the step and the milestone eval run as CUDA graphs, the
+counterparts of the JAX Trainer's step jitted over its mesh
+(`_get_step_fn`) and its jitted `_get_eval_fn` (`utils/graphs.py`).
+`compiled_paths` decides which: the step in one process or in a process
+group whose groups are all NCCL (its all-reduces, and at mp > 1 the
+tensor-parallel gathers and reductions, inside the graph; gloo reduces
+through host copies, which no graph holds, so its step is eager); the
+eval at a model axis of one under any backend, where its body holds no
+collective (at mp > 1 it stays eager, as the JAX multi-host eval is
+skipped there). A step program per `_StepKey` (the batch's geometry,
+accumulation, dtype, remat and its policy, the F0 predictor, whether t
+and noise are given, the TF32 settings): static buffers for the batch's
+fields, t and noise (the global batch's, in a group), and the step count,
+which each call fills; the step's generator (and, at data index > 0, the
+dropout generator) is registered with the graph and seeded before each
+call, so a replay draws t, noise, the dropout masks and the F0 scale as
+the eager step does (in a group at the global batch's shape, inside the
+graph). A key's first call is an eager step on the side stream (the
+warm-up: it makes the gradients, the optimizer's state, the NCCL
+communicators and everything else lazy outside the capture), then the
+capture; every later call replays. AdamW is capturable where the step is
 (`make_optimizer`). An eval program per (64-frame content and refer
 buckets, F0 predictor, TF32 settings): its body copies the EMA (or the
 parameters) into the eval model, then encoders, 30 UniPC steps and Vocos,
 with x_T drawn before the call from the eval generator. The metrics are
 copied out of the graph after each replay. Loading an optimizer state
 (`load`, `Optimizer.load_state_dict`) or new EMA tensors (`load_torch`)
-drops the programs: their graphs hold the old tensors' addresses. On the
-CPU, and in a process group (gloo cannot be captured; NCCL capture is not
-done yet), the step and the eval run eagerly.
+drops the programs: their graphs hold the old tensors' addresses. A
+capture that fails raises; no path falls back to the eager step. On the
+CPU the step and the eval run eagerly.
 
 `Trainer` drives it: the data loader, the step, the stdout line
 `step N loss ... grad_norm ... steps/s ...`, scalars as JSON lines in the
@@ -276,9 +285,11 @@ def make_train_step(accum: int = 1, compute_dtype: torch.dtype =
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
         if data_parallel:
-            flat[-3:] = torch.stack([
-                torch.as_tensor(x, dtype=torch.float32, device=flat.device)
-                for x in (loss_sum, terms["loss_diff"], terms["loss_f0"])])
+            # in place: a term on the host (the F0 loss's 0.0 without the
+            # predictor) is a fill, which a CUDA graph can hold, not a copy
+            for slot, x in zip(flat[-3:], (loss_sum, terms["loss_diff"],
+                                           terms["loss_f0"])):
+                slot.fill_(x)
             n_split = sum(p.numel() for p in split)
             if n_split and dist.get_world_size(data_group) > 1:
                 all_reduce_mean(flat[:n_split], data_group)
@@ -392,6 +403,19 @@ def _tf32() -> tuple[bool, bool]:
             torch.backends.cudnn.allow_tf32)
 
 
+def compiled_paths(device_type: str, backends=frozenset(),
+                   model_size: int = 1) -> tuple[bool, bool]:
+    """(step, eval): whether the Trainer's step and its milestone eval run
+    as CUDA graphs on a device of `device_type`, with `backends` the
+    backends of the process group and of the mesh's model and data groups
+    (empty without a group) and `model_size` the model axis. The step is
+    captured on a card without a group or where every group is NCCL; the
+    eval on a card at a model axis of one, whatever the backend (its body
+    holds no collective there)."""
+    card = device_type == "cuda"
+    return card and set(backends) <= {"nccl"}, card and model_size == 1
+
+
 class Trainer:
     """End-to-end training driver (reference Trainer, model.py:748-946) on
     one card, or one card per rank of a process group: `train()` steps,
@@ -438,8 +462,11 @@ class Trainer:
             broadcast_(list(model.parameters()))
         self.placements = param_shardings(model, self.mesh)
         shard_parameters(model, self.placements, self.mesh)
-        # the step and the eval as CUDA graphs: on a card, in one process
-        self.compiled = self.device.type == "cuda" and not self.distributed
+        backends = {dist.get_backend(g) for g in (
+            None, self.model_group, self.data_group)} \
+            if self.distributed else set()
+        self.compiled, self.eval_compiled = compiled_paths(
+            self.device.type, backends, self.mesh.shape["model"])
         self.state = TrainState(
             model=model, optimizer=make_optimizer(
                 self.cfg, model.parameters(), capturable=self.compiled),
@@ -556,10 +583,11 @@ class Trainer:
     def train_step(self, batch: dict, t: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None) -> dict:
         """One optimizer step on a device batch (as `device_batch` makes
-        it), with the step's generator (or the given t and noise): on a
-        card in one process through the step program of its key, else
-        eagerly. In a process group, `batch` is this rank's rows (its data
-        index's) and t and noise, when given, are the global batch's."""
+        it), with the step's generator (or the given t and noise): through
+        the step program of its key where `compiled` (`compiled_paths`),
+        else eagerly. In a process group, `batch` is this rank's rows (its
+        data index's) and t and noise, when given, are the global
+        batch's."""
         if self.compiled:
             return self._train_step_program(batch, t, noise)
         return self._train_step_eager(batch, t, noise)
@@ -568,14 +596,22 @@ class Trainer:
                           noise: torch.Tensor | None = None) -> dict:
         """The step with every op dispatched from Python: what a step
         program's replay from the same state must equal."""
+        drop = self._seed_generators()
+        f0_factor = None
+        if self.distributed:
+            t, noise, f0_factor = self._global_draws(batch, t, noise)
+        return self._step_fn(self.state, batch, drop, t, noise, f0_factor)
+
+    def _seed_generators(self) -> torch.Generator:
+        """Seed the step's generator at `step_seed` and, in a group at data
+        index > 0, the dropout generator at `rank_seed`; the generator the
+        dropout masks are drawn from."""
         seed = step_seed(self.cfg.train.seed, self.step)
         self.generator.manual_seed(seed)
-        if not self.distributed:
-            return self._step_fn(self.state, batch, self.generator, t, noise)
-        t, noise, f0_factor = self._global_draws(batch, t, noise)
-        drop = self.generator if self.data_index == 0 else \
-            self._rank_generator.manual_seed(rank_seed(seed, self.data_index))
-        return self._step_fn(self.state, batch, drop, t, noise, f0_factor)
+        if not self.distributed or self.data_index == 0:
+            return self.generator
+        return self._rank_generator.manual_seed(
+            rank_seed(seed, self.data_index))
 
     # -- the step and eval programs -----------------------------------------
 
@@ -614,10 +650,12 @@ class Trainer:
                             noise: torch.Tensor | None = None) -> dict:
         """The step through the program of its key: the batch, t and noise
         (when given) and the step count staged into its static buffers,
-        the step's generator seeded, then a replay; a key's first call is
-        the warm-up (an eager step), then the capture. The metrics are
-        copies. On the CPU the body runs eagerly over the static buffers,
-        the work a card captures."""
+        the generators seeded, then a replay; a key's first call is the
+        warm-up (an eager step), then the capture. In a process group the
+        body draws t, noise and the F0 scale at the global batch's shape
+        (`_global_draws`) and reduces over the group, inside the graph.
+        The metrics are copies. On the CPU the body runs eagerly over the
+        static buffers, the work a card captures."""
         self._check_programs()
         key = self._step_key(batch, t, noise)
         prog = self._step_programs.get(key)
@@ -637,22 +675,28 @@ class Trainer:
             if v is not None:
                 s[name].copy_(v)
         s["step"].fill_(self.step)
-        self.generator.manual_seed(step_seed(self.cfg.train.seed, self.step))
+        drop = self._seed_generators()
 
         def body():
-            return self._step_fn.body(self.state, s["batch"], self.generator,
-                                      s["t"], s["noise"], None, s["step"])
+            t, noise, f0_factor = s["t"], s["noise"], None
+            if self.distributed:
+                t, noise, f0_factor = self._global_draws(s["batch"], t, noise)
+            return self._step_fn.body(self.state, s["batch"], drop, t, noise,
+                                      f0_factor, s["step"])
         if self.device.type != "cuda":
             out = body()
             self._step_programs[key] = prog
         elif prog.graph is None:
             try:
-                out = self._graphs.capture(prog, body, "step program",
-                                           (self.generator,))
+                out = self._graphs.capture(
+                    prog, body, "step program",
+                    (self.generator,) + ((drop,) if drop is not
+                                         self.generator else ()))
             except RuntimeError:
-                # a failed capture leaves the generator it registered in
-                # capture mode: draw from a new one
+                # a failed capture leaves the generators it registered in
+                # capture mode: draw from new ones
                 self.generator = torch.Generator(self.device)
+                self._rank_generator = torch.Generator(self.device)
                 raise
             # held: a graph writes these whatever .grad holds later
             prog.grads = [(p, p.grad) for p in self.model.parameters()]
@@ -828,11 +872,13 @@ class Trainer:
         """Sample one eval item (reference model.py:905-938) with UniPC, 30
         steps, from the EMA parameters when kept: (mel (T, 100), waveform or
         None, gt spec, refer spec, gt audio, refer audio), numpy; None
-        without an eval set, and on every rank but 0. On a card in one
-        process through the eval program of the item's buckets. The ranks
-        of data index 0 sample together (the model split over their model
-        group, `generator` seeded alike on each); the others go on to the
-        next step's all-reduce and wait there."""
+        without an eval set, and on every rank but 0. Through the eval
+        program of the item's buckets where `eval_compiled`
+        (`compiled_paths`: on a card at a model axis of one), else eagerly.
+        The ranks of data index 0 sample together (the model split over
+        their model group, `generator` seeded alike on each; rank 0 alone
+        at mp = 1, with no collective); the others go on to the next
+        step's all-reduce and wait there."""
         if self.eval_ds is None or self.data_index != 0:
             return None
         c, f0, spec, audio, uv, c_r, f0_r, spec_r, audio_r, uv_r = \
@@ -855,7 +901,7 @@ class Trainer:
             self._eval_model = shard_parameters(
                 NaturalSpeech2(self.cfg), self.placements, self.mesh).to(
                 self.device, self.compute_dtype).eval()
-        run = self._eval_program if self.compiled else self._eval_eager
+        run = self._eval_program if self.eval_compiled else self._eval_eager
         mel, wav = run(c_in, refer_in, t_len, tr_len, f0_in, uv_in, generator)
         if not self.is_main:
             return None

@@ -14,9 +14,9 @@ no further capture into the failed one. Random draws inside a body come
 from generators registered with the graph, which a replay reads at their
 current seed and offset.
 
-The kernels' launch and backward counters count a replay's launches: a
-capture takes its own counts off (it launches nothing) and each replay
-adds them back.
+The kernels' launch and backward counters, and the collectives' calls and
+bytes (`parallel/mesh.py`), count a replay's work: a capture takes its own
+counts off (it launches nothing) and each replay adds them back.
 """
 
 from __future__ import annotations
@@ -29,8 +29,10 @@ import torch
 
 from ns2vc_tpu_torch.ops import flash_attention as _k1_ops
 from ns2vc_tpu_torch.ops import fused_resnet as _k2_ops
+from ns2vc_tpu_torch.parallel import mesh as _mesh
 
-_COUNTED_OPS = (_k1_ops, _k2_ops)   # the wrappers with launch counters
+# the kernels' wrappers and the collectives, each with its counters
+_COUNTED_OPS = (_k1_ops, _k2_ops, _mesh)
 
 
 def launch_counts() -> list:

@@ -43,7 +43,11 @@ waits on events; a capture that fails raises and caches nothing. The
 Trainer's step and eval programs: replays against the eager step and
 eval, bit for bit (with and without the F0 predictor, two geometries in
 turns on one pool), a failed capture, the capturable AdamW against the
-eager one (1e-6), checkpoints between the card and the CPU.
+eager one (1e-6), checkpoints between the card and the CPU. In a process
+group of one process over NCCL the step program (its all-reduce inside
+the graph) replays the eager group step bit for bit and counts an eager
+step's collectives, and the eval program replays the eager eval; over
+gloo the step stays eager and the eval is a program.
 """
 
 import os
@@ -1372,7 +1376,7 @@ def test_eval_program_replays_the_eager_eval(dev, tmp_path, deterministic):
 
     comp = _small_trainer(dev, str(tmp_path / "c"), f0=True, vocos=True)
     eager = _small_trainer(dev, str(tmp_path / "e"), f0=True, vocos=True)
-    eager.compiled = False
+    eager.compiled = eager.eval_compiled = False
     got = []
     for i in range(2):
         for tr in (comp, eager):
@@ -1383,7 +1387,7 @@ def test_eval_program_replays_the_eager_eval(dev, tmp_path, deterministic):
         assert np.array_equal(c[0], e[0]) and np.array_equal(c[1], e[1])
     assert not np.array_equal(got[0][0][0], got[1][0][0])
     (prog,) = comp._eval_programs.values()
-    assert prog.replays == 1
+    assert prog.replays == 1 and not eager._eval_programs
 
 
 def test_capturable_adamw_matches_the_eager_one(dev):
@@ -1447,3 +1451,77 @@ def test_checkpoints_cross_between_the_card_and_the_cpu(dev, tmp_path,
     m, e = again.train_step(b), eager.train_step(b)
     assert torch.equal(m["loss"], e["loss"])
     assert not _differing(_trainer_state(again), _trainer_state(eager))
+
+
+@pytest.fixture
+def process_group(dev):
+    """A process group of this one process over the backend the test
+    names (`tcp://localhost`, a free port), destroyed after it."""
+    import socket
+
+    import torch.distributed as dist
+
+    def start(backend):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    yield start
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_group_step_program_replays_the_eager_group_step(
+        dev, tmp_path, deterministic, process_group):
+    """NCCL, one process: three steps through the step program (the first
+    a warm-up and capture, then two replays, the all-reduce in the graph)
+    against three eager group steps of a second Trainer from the same
+    seed: metrics and state bit for bit, each call counting one
+    all-reduce of the flat gradient buffer as the eager step does; the
+    eval's first call and a replay give the eager eval bit for bit."""
+    import numpy as np
+
+    from ns2vc_tpu_torch.parallel import mesh
+
+    process_group("nccl")
+    comp = _small_trainer(dev, str(tmp_path / "c"), vocos=True)
+    eager = _small_trainer(dev, str(tmp_path / "e"), vocos=True)
+    assert comp.distributed and comp.compiled and comp.eval_compiled
+    eager.compiled = eager.eval_compiled = False
+    n = sum(p.numel() for p in comp.model.parameters()) + 3
+    for i in range(3):
+        b = _train_batch(comp, i)
+        got = []
+        for tr in (comp, eager):
+            mesh.reset_counters()
+            m = tr.train_step(b)
+            got.append((m, mesh.counters()))
+        (mc, cc), (me, ce) = got
+        assert cc == ce and ce["all_reduce_mean"] == {"calls": 1,
+                                                      "bytes": 4 * n}, i
+        for k in me:
+            assert torch.equal(mc[k], me[k]), (i, k)
+        assert not _differing(_trainer_state(comp), _trainer_state(eager))
+    (prog,) = comp._step_programs.values()
+    assert prog.replays == 2 and prog.nodes > 0
+    evals = [[tr.sample_eval(_gen(dev, 7)) for tr in (comp, eager)]
+             for _ in range(2)]
+    for c, e in evals:
+        assert np.array_equal(c[0], e[0]) and np.array_equal(c[1], e[1])
+    (prog,) = comp._eval_programs.values()
+    assert prog.replays == 1 and not eager._eval_programs
+    comp.drop_programs()     # the graphs before the group's communicator
+
+
+def test_gloo_group_step_stays_eager(dev, tmp_path, process_group):
+    """gloo on a card reduces through host copies, which no graph holds:
+    the step runs eagerly (an eager AdamW) and caches no program; the
+    eval, which holds no collective at a model axis of one, is a
+    program."""
+    process_group("gloo")
+    tr = _small_trainer(dev, str(tmp_path))
+    assert tr.distributed and not tr.compiled and tr.eval_compiled
+    assert not any(g["capturable"] for g in tr.state.optimizer.param_groups)
+    m = tr.train_step(_train_batch(tr, 0))
+    assert torch.isfinite(m["loss"]) and tr._step_programs == {}

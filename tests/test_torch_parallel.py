@@ -27,8 +27,16 @@ loader, the multi-process Trainer) against the JAX package's, on the CPU.
   steps, save, resume on both ranks, train 2 more; the ranks agree on the
   geometry sequence, which is JAX's schedule's, and on the parameters
   after training, after the resume and after training on.
+- The group's step program (`Trainer._train_step_program`, `compiled` set
+  by hand: on the CPU its body runs eagerly over the static buffers, the
+  work a card captures under NCCL; gloo itself is never captured): the
+  JAX step case, the F0 case (the body draws the F0 scale) and a case with
+  dropout 0.2 and EMA every 2 steps over two steps (data index 1 draws its
+  masks from the dropout generator the program seeds per step), each bit
+  for bit the eager group step's (loss terms, grad norm, gradients,
+  parameters, AdamW moments, EMA), and the JAX case at JAX's tolerances.
 
-The four cluster cases share one run of two worker processes.
+The cluster cases share one run of two worker processes.
 """
 
 import dataclasses
@@ -246,6 +254,24 @@ _WORKER = textwrap.dedent('''
     mesh.host_barrier("cluster")
     print("TOTAL", float(total), x.tolist(), y.tolist(), flush=True)
 
+    def stepped(tr, ms):
+        """What a step leaves: metrics, gradients, parameters, moments."""
+        opt = tr.state.optimizer.state_dict()["state"]
+        return {"metrics": [{k: m[k] for k in ("loss", "loss_diff",
+                                                "loss_f0", "grad_norm")}
+                            for m in ms],
+                "grads": {k: p.grad.clone() for k, p in
+                          tr.model.named_parameters()},
+                "params": tr.model.state_dict(),
+                "moments": {(i, k): v for i, st in opt.items()
+                            for k, v in st.items()},
+                "ema": tr.state.ema_params, "programs": len(tr._step_programs)}
+
+    def program_trainer(cfg, name):
+        tr = Trainer(cfg, logs_folder=os.path.join(out, name), device="cpu")
+        tr.compiled = True    # the program body, eagerly over its buffers
+        return tr
+
     # one step on this rank's rows of the global batch, JAX's draws
     case = torch.load(os.path.join(out, "step_case.pt"))
     cfg = load_config(os.path.join(out, "step_config.json"))
@@ -258,8 +284,18 @@ _WORKER = textwrap.dedent('''
     torch.save({"loss": m["loss"], "grad_norm": m["grad_norm"],
                 "grads": {k: p.grad for k, p in
                           tr.model.named_parameters()},
-                "params": tr.model.state_dict()},
+                "params": tr.model.state_dict(),
+                "state": stepped(tr, [m])},
                os.path.join(out, f"step_rank{rank}.pt"))
+    assert not (tr.compiled or tr.eval_compiled)
+    tr.close()
+
+    # the same step through the group's step program
+    tr = program_trainer(cfg, "prog_run")
+    tr.model.load_state_dict(case["params"])
+    m = tr.train_step(tr.device_batch(local), t=case["t"],
+                      noise=case["noise"])
+    torch.save(stepped(tr, [m]), os.path.join(out, f"prog_rank{rank}.pt"))
     tr.close()
 
     # the F0 predictor on: t, noise and the F0 scale from the step's
@@ -273,9 +309,28 @@ _WORKER = textwrap.dedent('''
     torch.save({"loss": m["loss"], "loss_f0": m["loss_f0"],
                 "grad_norm": m["grad_norm"],
                 "grads": {k: p.grad for k, p in
-                          tr.model.named_parameters()}},
+                          tr.model.named_parameters()},
+                "state": stepped(tr, [m])},
                os.path.join(out, f"f0_rank{rank}.pt"))
     tr.close()
+    tr = program_trainer(cfg, "f0_prog_run")
+    tr.model.load_state_dict(case["params"])
+    m = tr.train_step(tr.device_batch(mesh.shard_batch(case["batch"],
+                                                       tr.mesh)))
+    torch.save(stepped(tr, [m]), os.path.join(out, f"f0prog_rank{rank}.pt"))
+    tr.close()
+
+    # dropout 0.2, EMA every 2 steps: two eager steps, two program steps
+    cfg = load_config(os.path.join(out, "drop_config.json"))
+    drop = {}
+    for name in ("eager", "prog"):
+        tr = Trainer(cfg, logs_folder=os.path.join(out, f"drop_{name}"),
+                     device="cpu") if name == "eager" else \
+            program_trainer(cfg, "drop_prog")
+        b = tr.device_batch(mesh.shard_batch(case["batch"], tr.mesh))
+        drop[name] = stepped(tr, [tr.train_step(b) for _ in range(2)])
+        tr.close()
+    torch.save(drop, os.path.join(out, f"drop_rank{rank}.pt"))
 
     # the bucketed journey: train, save, resume on both ranks, train on
     cfg = load_config(os.path.join(out, "journey_config.json"))
@@ -393,6 +448,17 @@ def _f0_case(out_dir, feature_dir):
     case = {"params": model.state_dict(), "batch": batch}
     torch.save(case, os.path.join(out_dir, "f0_case.pt"))
     tconfig.save_config(cfg, os.path.join(out_dir, "f0_config.json"))
+    # the dropout case: masks in the encoders and the F0 predictor, the EMA
+    # updated at the second step
+    tconfig.save_config(dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, use_ema=True,
+                                       ema_update_every=2, ema_decay=0.9),
+        phoneme_encoder=dataclasses.replace(cfg.phoneme_encoder,
+                                            p_dropout=0.2),
+        prompt_encoder=dataclasses.replace(cfg.prompt_encoder,
+                                           p_dropout=0.2),
+        f0_predictor=dataclasses.replace(cfg.f0_predictor, p_dropout=0.2)),
+        os.path.join(out_dir, "drop_config.json"))
     return cfg, case
 
 
@@ -442,12 +508,13 @@ def cluster(tmp_path_factory, feature_dir):
     for p, text in zip(procs, outs):
         assert p.returncode == 0, text[-4000:]
         assert "WORKER-OK" in text, text[-4000:]
-    ranks = [torch.load(out / f"step_rank{i}.pt") for i in range(2)]
+    def ranks(name):
+        return [torch.load(out / f"{name}_rank{i}.pt") for i in range(2)]
     return {"outs": outs, "cfg": cfg, "case": case, "want": want,
-            "ranks": ranks, "geoms": geoms, "dir": out, "f0_cfg": f0_cfg,
-            "f0_case": f0_case,
-            "f0_ranks": [torch.load(out / f"f0_rank{i}.pt")
-                         for i in range(2)]}
+            "ranks": ranks("step"), "geoms": geoms, "dir": out,
+            "f0_cfg": f0_cfg, "f0_case": f0_case, "f0_ranks": ranks("f0"),
+            "prog_ranks": ranks("prog"), "f0prog_ranks": ranks("f0prog"),
+            "drop_ranks": ranks("drop")}
 
 
 def _lines(text, tag):
@@ -530,3 +597,45 @@ def test_two_process_bucketed_train_save_resume(cluster):
     with open(run / "scalars.jsonl") as f:     # rank 0 writes alone
         steps = [json.loads(ln)["step"] for ln in f]
     assert steps == [2, 4, 6]
+
+
+def _differing(a: dict, b: dict) -> list:
+    """What two `stepped` records of the worker hold differently."""
+    out = [f"step {i} {k}" for i, (x, y) in enumerate(zip(a["metrics"],
+                                                         b["metrics"]))
+           for k in x if not torch.equal(x[k], y[k])]
+    for part in ("grads", "params", "moments", "ema"):
+        x, y = a[part] or {}, b[part] or {}
+        assert x.keys() == y.keys(), part
+        out += [f"{part} {k}" for k in x if not torch.equal(x[k], y[k])]
+    return out
+
+
+@pytest.mark.parametrize("case", ["jax_step", "f0", "dropout"])
+def test_two_rank_step_program_equals_the_eager_group_step(cluster, case):
+    """The group's step program (its body run eagerly over the static
+    buffers, as compiled on the CPU) is the eager group step bit for bit
+    on each rank; the JAX case also matches JAX's 2-device data mesh at
+    JAX's tolerances."""
+    for rank in range(2):
+        if case == "dropout":
+            got = cluster["drop_ranks"][rank]
+            prog, eager = got["prog"], got["eager"]
+            assert len(prog["metrics"]) == 2 and prog["ema"]
+        elif case == "f0":
+            prog = cluster["f0prog_ranks"][rank]
+            eager = cluster["f0_ranks"][rank]["state"]
+            assert prog["metrics"][0]["loss_f0"] > 0
+        else:
+            prog = cluster["prog_ranks"][rank]
+            eager = cluster["ranks"][rank]["state"]
+            m = prog["metrics"][0]
+            _assert_step({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                          "grads": prog["grads"]}, cluster["want"])
+        assert prog["programs"] == 1 and eager["programs"] == 0, rank
+        assert not _differing(prog, eager), (rank, _differing(prog,
+                                                              eager)[:5])
+    if case == "dropout":   # the replicas agree after the masked steps
+        a, b = (cluster["drop_ranks"][r]["prog"] for r in range(2))
+        assert all(torch.equal(v, b["params"][k])
+                   for k, v in a["params"].items())

@@ -273,3 +273,41 @@ def test_replay_accounting_adds_and_takes_back_launch_counts(monkeypatch):
         ops.add_launch_counts(delta, -2)
         assert ops.launch_counts() == before
     assert k2._gn_counts.launches == 0 and k2._conv_counts.launches == 0
+
+
+def test_a_replay_adds_back_the_collectives_calls_and_bytes():
+    """A GraphProgram's replay adds its capture's all-reduce and
+    all-gather calls and bytes to the mesh's counters, as it adds the
+    kernels' launches; a capture's own are taken off the same way."""
+    from ns2vc_tpu_torch.parallel import mesh
+    from ns2vc_tpu_torch.utils import graphs
+
+    class Graph:
+        def replay(self):
+            pass
+    mesh.reset_counters()
+    try:
+        before = graphs.launch_counts()
+        assert before[-1] == mesh.launch_counts()
+        assert set(before[-1]) == {f"{c}.{k}" for c in mesh.counters()
+                                   for k in ("calls", "bytes")}
+        prog = graphs.GraphProgram("step", {})
+        prog.graph = Graph()
+        prog.counts = [{k: 0 for k in c} for c in before]
+        prog.counts[-1].update({"all_reduce_mean.calls": 1,
+                                "all_reduce_mean.bytes": 4 * 1003,
+                                "all_reduce_sum.calls": 3,
+                                "all_reduce_sum.bytes": 4 * 96,
+                                "all_gather.calls": 2,
+                                "all_gather.bytes": 2 * 4 * 512})
+        prog.replay()
+        prog.replay()
+        assert mesh.counters() == {
+            "all_reduce_mean": {"calls": 2, "bytes": 8 * 1003},
+            "all_reduce_sum": {"calls": 6, "bytes": 8 * 96},
+            "all_gather": {"calls": 4, "bytes": 16 * 512}}
+        assert prog.replays == 2
+        graphs.add_launch_counts(prog.counts, -2)
+        assert graphs.launch_counts() == before
+    finally:
+        mesh.reset_counters()

@@ -34,7 +34,13 @@ gradient rtol 1e-3 / atol 1e-7, `generate_mel` atol 2e-5 / rtol 1e-5.
 - (g) `gather_parameters` after `shard_parameters` is the identity, and
   the blocks each rank keeps are the values JAX's `param_shardings` gives
   each device of a (1, 2) mesh (fused to_qkv and the GEGLU proj among
-  them).
+  them);
+- (h) the split step through the group's step program (`compiled` set by
+  hand: on the CPU its body runs eagerly over the static buffers, the
+  work a card captures under NCCL) is the eager split step bit for bit
+  (metrics, parameters, gradients, AdamW moments, EMA) with the same
+  collectives' calls and bytes; a CPU Trainer in the gloo group compiles
+  neither path.
 
 Single-process cases: the f/g Functions' backward over two simulated ranks
 (threads exchanging tensors in place of the collectives) against the
@@ -203,6 +209,36 @@ _WORKER = textwrap.dedent('''
     res["numel"] = sum(p.numel() for p in tr.model.parameters())
     if rank == 0:
         save("step", {"grads": full_grads, "params": params, "ema": ema})
+    res["compiled"] = [tr.compiled, tr.eval_compiled]
+
+    # (h) the same split step through the step program's body (compiled
+    # set by hand: on the CPU it runs eagerly over the static buffers)
+    prog = Trainer(tr.cfg, logs_folder=os.path.join(out, "prog_run"),
+                   device="cpu")
+    prog.compiled = True
+    prog.model.load_state_dict(from_flax_sharded(case["tree"], prog.cfg,
+                                                 prog.mesh))
+    prog.state.ema_params = ttrainer.init_ema(prog.model)
+    mesh.reset_counters()
+    mp_ = prog.train_step(prog.device_batch(local), t=case["t"],
+                          noise=case["noise"])
+    res["program_counters"] = mesh.counters()
+    res["programs"] = len(prog._step_programs)
+    def moments(t):
+        return [v for st in t.state.optimizer.state_dict()["state"].values()
+                for v in st.values()]
+    res["program_differs"] = [k for k in m if not torch.equal(m[k], mp_[k])]
+    for part, a, b in (
+            ("param", dict(tr.model.named_parameters()),
+             dict(prog.model.named_parameters())),
+            ("grad", grads, {k: p.grad for k, p in
+                             prog.model.named_parameters()}),
+            ("ema", tr.state.ema_params, prog.state.ema_params),
+            ("moment", dict(enumerate(moments(tr))),
+             dict(enumerate(moments(prog))))):
+        res["program_differs"] += [f"{part} {k}" for k in a
+                                   if not torch.equal(a[k], b[k])]
+    prog.close()
     tr.close()
 
     # (c) F0 predictor on, dropout 0: t, noise and the F0 scale drawn by the
@@ -487,6 +523,15 @@ def test_split_step_matches_jax_and_one_process(cluster, tmp_path):
     assert counters["all_reduce_mean"]["calls"] == 2
     assert all(r["counters"] == counters for r in res)
     tr.close()
+
+
+def test_split_step_program_equals_the_eager_split_step(cluster):
+    """(h) the program body's split step is the eager one's on every
+    rank, its collectives counted alike."""
+    for r in cluster["res"]:
+        assert r["compiled"] == [False, False]
+        assert r["programs"] == 1 and r["program_differs"] == [], r["rank"]
+        assert r["program_counters"] == r["counters"]
 
 
 def test_split_adamw_step_matches_one_process(cluster, tmp_path):

@@ -5,8 +5,9 @@ the CPU `Trainer._train_step_program` runs the same body eagerly over the
 same buffers (the batch's fields, t and noise when given, the step count),
 with the step's generator seeded at `step_seed` before it, and so does
 `_eval_program` for `sample_eval` (the EMA copied into the eval model,
-x_T drawn before the body). `Trainer.compiled` picks the path, True on a
-card in one process; set here on the CPU.
+x_T drawn before the body). `Trainer.compiled` and `.eval_compiled`
+pick the paths (`compiled_paths`: on a card, the step without a group or
+under NCCL, the eval at a model axis of one); set here on the CPU.
 
 - Against JAX: the setup of test_torch_train's `step_pair` (accumulation
   2, EMA every 2 steps, p_dropout 0, three steps with JAX's draws given as
@@ -86,7 +87,7 @@ def _config(root, f0=False, p_dropout=0.2, **train):
 def _trainer(cfg, root, name, compiled, vocos=None):
     tr = ttrainer.Trainer(cfg, logs_folder=os.path.join(root, name),
                           vocos_params=vocos, device="cpu")
-    tr.compiled = compiled
+    tr.compiled = tr.eval_compiled = compiled
     return tr
 
 
@@ -327,6 +328,34 @@ def test_a_new_optimizer_state_or_ema_drops_the_programs(tmp_path):
     assert len(tr._step_programs) == 1
     (prog,) = tr._step_programs.values()
     assert prog.static["step"].item() == tr.step - 1
+
+
+# -- which path runs ---------------------------------------------------------------
+
+@pytest.mark.parametrize("device,backends,model_size,step,eval_", [
+    ("cuda", set(), 1, True, True),              # one process
+    ("cuda", {"nccl"}, 1, True, True),
+    ("cuda", {"nccl"}, 2, True, False),          # the split eval: eager
+    ("cuda", {"gloo"}, 1, False, True),          # gloo: host copies
+    ("cuda", {"gloo"}, 2, False, False),
+    ("cuda", {"nccl", "gloo"}, 1, False, True),  # a gloo group among them
+    ("cpu", set(), 1, False, False),
+    ("cpu", {"gloo"}, 1, False, False),
+    ("cpu", {"gloo"}, 2, False, False),
+])
+def test_compile_rule(device, backends, model_size, step, eval_):
+    """The step is a program on a card without a group or where every
+    group is NCCL; the eval on a card at a model axis of one under any
+    backend; nothing on the CPU."""
+    assert ttrainer.compiled_paths(device, backends, model_size) == (
+        step, eval_)
+
+
+def test_a_cpu_trainer_compiles_nothing(tmp_path):
+    tr = ttrainer.Trainer(_config(str(tmp_path)),
+                          logs_folder=str(tmp_path / "run"), device="cpu")
+    assert (tr.compiled, tr.eval_compiled) == (False, False)
+    assert not any(g["capturable"] for g in tr.state.optimizer.param_groups)
 
 
 # -- checkpoints between the two optimizers -----------------------------------------
