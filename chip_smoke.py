@@ -55,7 +55,14 @@ launches again in the recomputation, and has one backward); step time and
 peak memory for remat dots, off and all; the loss on one fixed batch over
 30 steps; the loader-fed loop; every K1 / K2 geometry of a step, forward
 and backward through the autograd Functions, against autograd through the
-plain versions, with the torch backward's device time and bound; card vs
+plain versions, with the torch backward's device time and bound; K2's
+backward kernels (`affine_silu_conv1d_grad`, csrc/affine_silu_conv1d_bwd.cu)
+at every geometry of the step, in bf16 and in f32, against the plain
+backward (cuDNN, TF32 off; the bf16 kernels' f32 sums before rounding)
+within K2_BWD_RTOL of max|plain| per gradient, two launches bitwise equal,
+timed in turns against cuDNN's path under the step's flags and under
+cudnn.deterministic; a step's launches of the backward kernels (45 bf16,
+one per K2 backward); card vs
 CPU gradients at B=2 x 272 in f32 and bf16 vs f32 cosines, with a witness
 of how far bf16's own rounding moves those cosines (`bf16_witness`; the
 phase's batches come in the same order in every run: a serial loader,
@@ -71,12 +78,15 @@ programs (one CUDA graph per step key) and its eval sample a replay of an
 eval program: the launches per step are a replay's (and an eager step's,
 which must launch the same), and the timings above are replays'. The
 compiled phases (`check_compiled_training`, also for the F0 predictor's
-trainer): 3 steps through freshly captured programs against 3 eager steps
-from the same state and seeds, cuDNN deterministic on both sides (its
-convolution weight gradient in K2's backward otherwise differs between
-two eager steps): losses, grad norms, the draws (t, noise, the first
-dropout mask, the F0 scale) and every parameter, AdamW moment and EMA
-tensor, bit for bit; the medians in turns (compiled, eager, eager,
+trainer): first two eager steps from one state under the process's
+default flags, the loss, grad norm and every parameter, AdamW moment and
+EMA tensor bit for bit (the step is deterministic by itself: K2's
+backward kernels, the F0 embedding's one-hot backward, cuDNN's
+deterministic algorithms inside the step); then 3 steps through freshly
+captured programs against 3 eager steps from the same state and seeds,
+under the same default flags: losses, grad norms, the draws (t, noise,
+the first dropout mask, the F0 scale) and every parameter, AdamW moment
+and EMA tensor, bit for bit; the medians in turns (compiled, eager, eager,
 compiled), peak memory beside the graphs' pool, capture ms, graph nodes
 and the graph's K1 / K2 / statistics kernel nodes held equal to a
 replay's counted launches; two geometries in turns on one memory pool,
@@ -197,7 +207,15 @@ library_ms, the same sum for one PyTorch call of the same function
 (`F.scaled_dot_product_attention` with the additive key bias for K1; none
 for K2, whose affine -> SiLU -> conv has no single call: `conv_alone_ms`
 times cuDNN's conv1d of the pre-activated input beside it; torch.var_mean
-alone for the statistics). The serving profiles at the end name K1's, K2's
+alone for the statistics). K2's backward kernels have entries of their
+own, `affine_silu_conv1d_backward_bf16` and `_f32`: launches counted in
+one training step (bf16) and in the f32 card gradients, the errors
+against the plain backward (`max_abs_err`, and `max_rel_err` of
+max|plain|), ms, plain_ms (cuDNN's path under the step's flags) and
+plain_deterministic_ms summed over the training step's geometries,
+bound_ms, and library_ms null (cuDNN's `convolution_backward` computes
+neither the activation's gradient nor da, db). The serving profiles at
+the end name K1's, K2's
 and the statistics kernel's share of each call, and the kernels of one
 B=16 UNet step's 45 epilogues are counted with the statistics as torch ops
 and through their kernel. Then the card's name and power limit, and last
@@ -257,6 +275,19 @@ PEAK_BYTES = 3.35e12
 # the GroupNorm statistics kernel against its plain version, f32 either way
 # (other summation orders): of max(1, max|a|, max|b|)
 GN_RTOL = 2e-5
+# K2's backward kernels against the plain backward (cuDNN, TF32 off), f32
+# sums in other orders, the bf16 kernels' sums before their rounding: each
+# of dx, da, db, dw, dbias within K2_BWD_RTOL of its max |plain| (K2's f32
+# bound)
+K2_BWD_RTOL = 3e-5
+# K2's backward kernels (csrc/affine_silu_conv1d_bwd.cu), per dtype: the
+# backward of the TPU kernel, which XLA differentiates
+BACKWARD_ROUTES = {
+    "affine_silu_conv1d_backward_bf16": (
+        "affine_silu_conv1d_bwd.cu", "ns2vc_tpu/ops/pallas_resnet.py:71"),
+    "affine_silu_conv1d_backward_f32": (
+        "affine_silu_conv1d_bwd.cu", "ns2vc_tpu/ops/pallas_resnet.py:71"),
+}
 ROUTES = {   # route -> (kernel source, the TPU code it replaces)
     # the f32 route as a whole (its sub-routes below), named by its main
     # kernel's source
@@ -2248,6 +2279,61 @@ def backward_calls() -> dict:
             "group_norm_affine": group_norm_affine.backward_calls}
 
 
+def grad_launches() -> dict:
+    """Launches of K2's backward kernels per dtype since the last
+    reset_launches(), by their kernels-line names."""
+    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_grad
+
+    r = affine_silu_conv1d_grad.route_launches
+    return {"affine_silu_conv1d_backward_bf16": r["bf16"],
+            "affine_silu_conv1d_backward_f32": r["f32"]}
+
+
+def k2_backward_case(x, a, b, w, bias, dy) -> dict:
+    """K2's backward kernels on one input set against the plain backward
+    (called under TF32 off): the largest error of the five gradients, of
+    max |plain| each (the bf16 kernels' sums before rounding), a bitwise
+    repeat, and device times in turns (kernels, cuDNN's path under the
+    step's cuDNN flags, the same under cudnn.deterministic, and back):
+    ms, plain (today's cuDNN path), plain_det, and the bound."""
+    import torch
+
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d_backward, affine_silu_conv1d_grad,
+    )
+
+    got = affine_silu_conv1d_grad(x, a, b, w, bias, dy, keep_f32=True)
+    again = affine_silu_conv1d_grad(x, a, b, w, bias, dy, keep_f32=True)
+    want = affine_silu_conv1d_backward(x.float(), a, b, w.float(),
+                                       bias.float(), dy.float())
+    torch.cuda.synchronize()
+    abs_err = [(g - e).abs().max().item() for g, e in zip(got, want)]
+    err = max(d / max(e.abs().max().item(), 1e-30)
+              for d, e in zip(abs_err, want))
+    repeat = all(torch.equal(g, r) for g, r in zip(got, again))
+    times = {"ms": [], "plain": [], "plain_det": []}
+
+    def cudnn(det):
+        # the training step's cuDNN flags (TF32 on, PyTorch's default),
+        # deterministic as asked
+        return torch.backends.cudnn.flags(
+            enabled=True, benchmark=torch.backends.cudnn.benchmark,
+            deterministic=det, allow_tf32=True)
+    for which in ("ms", "plain", "plain_det", "plain_det", "plain", "ms"):
+        if which == "ms":
+            times[which].append(graph_ms(lambda: affine_silu_conv1d_grad(
+                x, a, b, w, bias, dy)))
+            continue
+        with cudnn(which == "plain_det"):
+            times[which].append(graph_ms(lambda: affine_silu_conv1d_backward(
+                x, a, b, w, bias, dy)))
+    bsz, t, c = x.shape
+    bnd, by = k2_backward_bound(bsz, t, c, w.shape[0], x.dtype)
+    return {"err": err, "abs_err": max(abs_err), "repeat": repeat,
+            "bound": bnd, "bound_by": by,
+            **{k: float(np.mean(v)) for k, v in times.items()}}
+
+
 def median_step_ms(trainer, batches, warmup, timed, **kw):
     """Median wall ms of `timed` train steps on device-resident batches,
     each synchronised, after `warmup` steps; the peak memory (GB) of the
@@ -2337,10 +2423,14 @@ def check_train_geometries(calls, dev):
     """Every K1 / K2 geometry of one bf16 training step (remat off: one
     call per backward), forward and backward through the Function against
     autograd through the plain version, on random inputs laid out as the
-    step's; the forward timed as in the serving phases, the torch
-    backward timed as a CUDA graph. Returns per route {fwd_ms, bwd_ms,
+    step's; the forward timed as in the serving phases, the backward (K1's
+    torch ops, K2's backward kernels) timed as a CUDA graph. At every K2
+    geometry K2's backward kernels, in bf16 and in f32, against the plain
+    backward (`k2_backward_case`). Returns per route {fwd_ms, bwd_ms,
     bwd_bound, bwd_by, err, plain_ms, lib_ms, bound} summed over the
-    step's calls."""
+    step's calls (K2's also bwd_plain_ms, cuDNN's path), and per backward
+    kernel route {ms, plain, plain_det, bound, bound_by, err, abs_err,
+    calls}."""
     from unittest import mock
 
     import torch
@@ -2350,13 +2440,13 @@ def check_train_geometries(calls, dev):
         flash_attention, flash_attention_backward, flash_attention_plain,
     )
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        affine_silu_conv1d_backward, gn_silu_conv1d, group_norm_affine,
-        group_norm_affine_plain,
+        gn_silu_conv1d, group_norm_affine, group_norm_affine_plain,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
     out = defaultdict(lambda: defaultdict(float))
     worst = defaultdict(float)
+    bwd_out = defaultdict(lambda: defaultdict(float))   # K2's backward
 
     def add(route, key, value, n):
         out[route][key] += n * value
@@ -2439,8 +2529,31 @@ def check_train_geometries(calls, dev):
         add(route, "conv_ms", r["conv"], n)
         add(route, "bound", r["bound"], n)
         a, b = group_norm_affine(x, gamma, beta, 8, 1e-5, *film)
-        add(route, "bwd_ms", graph_ms(lambda: affine_silu_conv1d_backward(
-            x, a, b, w, bias, dy)), n)
+        # the backward kernels against the plain backward, in the step's
+        # dtype and in f32, timed in turns against cuDNN's path in both
+        # modes
+        for kd in (dtype, torch.float32):
+            kb = k2_backward_case(*(v.to(kd) if v.dtype != torch.float32
+                                    or kd == torch.float32 else v
+                                    for v in (x, a, b, w, bias, dy)))
+            name = ("affine_silu_conv1d_backward_bf16"
+                    if kd == torch.bfloat16 else
+                    "affine_silu_conv1d_backward_f32")
+            if not (kb["err"] <= K2_BWD_RTOL and kb["repeat"]):
+                fail(f"K2 backward kernels ({kd}) B={bsz} T={t} C={c} "
+                     f"Co={co}: error {kb['err']:.3e} of max|plain| (tol "
+                     f"{K2_BWD_RTOL}), two launches bitwise equal: "
+                     f"{kb['repeat']}")
+            d = bwd_out[name]
+            d["err"] = max(d["err"], kb["err"])
+            d["abs_err"] = max(d["abs_err"], kb["abs_err"])
+            for k in ("ms", "plain", "plain_det", "bound"):
+                d[k] += n * kb[k]
+            d["by_" + kb["bound_by"]] += n * kb["bound"]
+            d["calls"] += n
+            if kd == dtype:   # the step's backward: the kernels
+                add(route, "bwd_ms", kb["ms"], n)
+                add(route, "bwd_plain_ms", kb["plain"], n)
         bb, by = k2_backward_bound(bsz, t, c, co, dtype)
         add(route, "bwd_bound", bb, n)
         out[route]["bwd_by_" + by] += n * bb
@@ -2481,8 +2594,23 @@ def check_train_geometries(calls, dev):
             + (f", conv alone {d['conv_ms']:.4f}" if d.get("conv_ms") else "")
             + (f", mma.sync kernel {d['old_fwd_ms']:.4f}"
                if d.get("old_fwd_ms") else "")
-            + f", bound {d['bound']:.5f}), torch backward {d['bwd_ms']:.4f} "
-            f"(bound {d['bwd_bound']:.5f}, {d['bwd_by']}) [{CARD}]")
+            + f", bound {d['bound']:.5f}), "
+            + ("backward kernels" if d.get("bwd_plain_ms") else
+               "torch backward") + f" {d['bwd_ms']:.4f} "
+            + (f"(cuDNN's path {d['bwd_plain_ms']:.4f}) "
+               if d.get("bwd_plain_ms") else "")
+            + f"(bound {d['bwd_bound']:.5f}, {d['bwd_by']}) [{CARD}]")
+    for name, d in bwd_out.items():
+        by = {k[3:]: v for k, v in d.items() if k.startswith("by_")}
+        d["bound_by"] = max(by, key=by.get)
+        say(f"{name} at the training step's {int(d['calls'])} K2 calls (B="
+            f"{TRAIN_B}): worst error {d['err']:.3e} of max|plain| (tol "
+            f"{K2_BWD_RTOL}), two launches bitwise equal at every geometry;"
+            f" device ms per step in turns: kernels {d['ms']:.4f}, cuDNN's "
+            f"path {d['plain']:.4f}, under cudnn.deterministic "
+            f"{d['plain_det']:.4f} (bound {d['bound']:.5f}, {d['bound_by']}"
+            f") [{CARD}]")
+        out[name] = d
     return out
 
 
@@ -2584,8 +2712,16 @@ def check_grads(cfg, sd, batch, dev, states=(), provenance=None):
 
     gates, replay = [], []
     with no_tf32():
+        reset_launches()
         with relu_gates(gates):
             (l_card, g_card), ms = wall_ms(lambda: grads(dev))
+        f32_grads, f32_bwd = grad_launches(), backward_calls()
+        if f32_grads["affine_silu_conv1d_backward_f32"] != \
+                f32_bwd["affine_silu_conv1d_f32tc"] or not f32_grads[
+                    "affine_silu_conv1d_backward_f32"]:
+            fail(f"f32 gradients on the card: K2's backward kernels "
+                 f"launched {f32_grads}, K2's f32 backward calls "
+                 f"{f32_bwd['affine_silu_conv1d_f32tc']}")
         with relu_gates(gates, replay):
             l_cpu, g_cpu = grads(torch.device("cpu"))
     models.pop("cpu"), loaded.pop("cpu")
@@ -2660,6 +2796,8 @@ def check_grads(cfg, sd, batch, dev, states=(), provenance=None):
              f"below {GRAD_COSINE} and the plain bf16 cosine, or "
              f"{len(noise_floor)} tensors at the noise floor")
     return {"grad_f32_worst": worst, "grad_f32_worst_tensor": worst_name,
+            "grad_f32_backward_launches": f32_grads[
+                "affine_silu_conv1d_backward_f32"],
             "grad_bf16_cosine": cos[low], "grad_bf16_worst_tensor": low,
             "grad_bf16_plain_cosine": cos_plain[low],
             "grad_bf16_below_target": sorted(
@@ -2907,29 +3045,20 @@ def restore(trainer, snap: dict) -> None:
     trainer.state.step = snap["step"]
 
 
-def close(x, y, rtol: float = 0.0) -> bool:
-    """Bit for bit, or with `rtol` within rtol * max(1e-3, max|y|) (the
-    gradient checks' rule)."""
-    import torch
-
-    if not rtol:
-        return torch.equal(x, y)
-    return (x.float() - y.float()).abs().max().item() <= rtol * max(
-        1e-3, y.float().abs().max().item())
-
-
-def state_differs(trainer, a: dict, b: dict, rtol: float = 0.0) -> list:
+def state_differs(trainer, a: dict, b: dict) -> list:
     """The names of the tensors in which two `snapshot`s of the trainer
-    differ (`close`)."""
+    differ, bit for bit."""
+    from torch import equal
+
     names = [n for n, _ in trainer.model.named_parameters()]
     out = [f"step {a['step']} vs {b['step']}"] if a["step"] != b["step"] \
         else []
     out += [f"parameter {k}" for k in a["model"]
-            if not close(a["model"][k], b["model"][k], rtol)]
+            if not equal(a["model"][k], b["model"][k])]
     out += [f"AdamW {k} of {names[i]}" for i, (x, y) in enumerate(
-        zip(a["opt"], b["opt"])) for k in x if not close(x[k], y[k], rtol)]
+        zip(a["opt"], b["opt"])) for k in x if not equal(x[k], y[k])]
     out += [f"EMA {k}" for k in a["ema"]
-            if not close(a["ema"][k], b["ema"][k], rtol)]
+            if not equal(a["ema"][k], b["ema"][k])]
     return out
 
 
@@ -3013,7 +3142,7 @@ def check_training(vsd, cv_sd, dev, tmp):
     reset_launches()
     trainer.train_step(batches[1])
     torch.cuda.synchronize()
-    launches, bwd = route_counts(), backward_calls()
+    launches, bwd, grads = route_counts(), backward_calls(), grad_launches()
     reset_launches()
     packs = []
     pack = fr.pack_conv_weight
@@ -3021,10 +3150,18 @@ def check_training(vsd, cv_sd, dev, tmp):
                            lambda w: packs.append(1) or pack(w)):
         trainer._train_step_eager(batches[2])
     torch.cuda.synchronize()
-    if route_counts() != launches or backward_calls() != bwd:
-        fail(f"training step: a replay counts launches {launches} and "
-             f"backward calls {bwd}, the eager step {route_counts()} and "
-             f"{backward_calls()}")
+    if route_counts() != launches or backward_calls() != bwd \
+            or grad_launches() != grads:
+        fail(f"training step: a replay counts launches {launches}, "
+             f"backward calls {bwd} and backward kernels {grads}, the eager "
+             f"step {route_counts()}, {backward_calls()} and "
+             f"{grad_launches()}")
+    # every K2 backward of the step ran on the backward kernels
+    if grads != {"affine_silu_conv1d_backward_bf16": 45,
+                 "affine_silu_conv1d_backward_f32": 0}:
+        fail(f"training step: K2's backward kernels launched {grads}, not "
+             f"once per K2 backward (45 bf16)")
+    res["grad_launches"] = grads
     # the step's fresh bf16 weights are packed once each; the recomputed
     # forward finds them in the cache
     if len(packs) != 45:
@@ -3045,7 +3182,8 @@ def check_training(vsd, cv_sd, dev, tmp):
              f"backward calls {bwd} (expected {want_bwd})")
     res["launches"], res["backward"] = launches, bwd
     say(f"training step (remat dots): launches {launches}; backward calls "
-        f"{bwd} (a replay and the eager step alike); K2 weights packed "
+        f"{bwd}; K2's backward kernels {grads} (a replay and the eager step "
+        f"alike); K2 weights packed "
         f"{len(packs)} times (eager); the step key's first call (warm-up "
         f"and capture) {res['first_call_ms']:.0f} ms [{CARD}]")
 
@@ -3181,8 +3319,9 @@ def check_training(vsd, cv_sd, dev, tmp):
 
 def training_profile(trainer, batch, step_ms, title=""):
     """One training step under torch.profiler (host and device activity):
-    device time by kernel, grouped, with K1's and K2's torch backward and
-    the GroupNorm statistics attributed through record_function ranges;
+    device time by kernel, grouped, with K1's torch backward, K2's backward
+    kernels and the GroupNorm statistics attributed through
+    record_function ranges (an eager step's; a replay runs no Python);
     the busy share against the unprofiled median step."""
     from unittest import mock
 
@@ -3199,7 +3338,7 @@ def training_profile(trainer, batch, step_ms, title=""):
                 return fn(*a, **k)
         return f
     ranges = {"K1 torch backward": (fa, "flash_attention_backward"),
-              "K2 torch backward": (fr, "affine_silu_conv1d_backward"),
+              "K2 backward kernels": (fr, "affine_silu_conv1d_grad"),
               "GroupNorm statistics (forward)": (fr, "group_norm_affine")}
     with contextlib.ExitStack() as stack:
         for label, (mod, name) in ranges.items():
@@ -3242,6 +3381,10 @@ def training_profile(trainer, batch, step_ms, title=""):
               ("GroupNorm statistics (group_norm_affine_kernel; the "
                "backward's var_mean, Welford reduce)",
                ("group_norm_affine", "welford", "Welford")),
+              # before cuDNN's group, whose kernel names hold "dgrad" too
+              ("K2 backward (dgrad_kernel, wgrad_kernel, finalize_kernel)",
+               ("::dgrad_kernel<", "::wgrad_kernel<",
+                "::finalize_kernel<")),
               ("cuDNN convolutions", ("cudnn", "conv", "dgrad", "wgrad",
                                       "fprop", "implicit")),
               ("cuBLAS / CUTLASS GEMMs", ("gemm", "nvjet", "cutlass",
@@ -3284,13 +3427,6 @@ COMPARE_STEPS = 3             # compiled vs eager from one state and seeds
 BUCKETS = ((TRAIN_T, TRAIN_T), (192, 128))   # the bucketed loop's (T, Tp)
 BUCKET_ROUNDS = 3             # steps per geometry, the two in turns
 OPT_RTOL = 1e-6               # capturable AdamW vs eager: the optax bound
-# nn.Embedding's backward (`embedding_dense_backward`: atomic adds over the
-# repeated F0 bins) is not deterministic on the card: two eager steps of the
-# F0 predictor's trainer differ in the F0 embedding's gradient, so that
-# trainer's compiled steps are held at GRAD_RTOL where they are not bit for
-# bit (every tensor: a last bit of the grad norm moves the clip's scale)
-NONDETERMINISTIC_OP = ("nn.Embedding's backward (embedding_dense_backward, "
-                       "pre_model.f0_emb.weight)")
 
 
 def pool_gb(trainer) -> float:
@@ -3304,20 +3440,45 @@ def pool_gb(trainer) -> float:
                if tuple(seg["segment_pool_id"]) in pools) / 2 ** 30
 
 
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN's deterministic algorithms: its convolution weight gradient
-    (K2's backward, `convolution_backward`) otherwise differs between two
-    eager steps from one state. A capture bakes the algorithms in: the
-    callers drop the step programs on entry and on exit."""
+def check_eager_repeat(trainer, batches, label: str) -> dict:
+    """The fault's own witness: two eager steps from one snapshot on one
+    batch, under the process's default flags: the loss, its terms, the
+    grad norm, every parameter, both AdamW moments and the EMA, bit for
+    bit. The trainer ends at the state it started from."""
     import torch
 
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
+    start = snapshot(trainer)
+    runs = []
+    for _ in range(2):
+        restore(trainer, start)
+        m = trainer._train_step_eager(batches[0])
+        torch.cuda.synchronize()
+        runs.append(({k: m[k].detach().float().cpu() for k in
+                      ("loss", "loss_diff", "loss_f0", "grad_norm")},
+                     snapshot(trainer)))
+    restore(trainer, start)
+    (m1, s1), (m2, s2) = runs
+    bad = [f"{k} {m1[k].item()} vs {m2[k].item()}" for k in m1
+           if not torch.equal(m1[k], m2[k])]
+    differs = state_differs(trainer, s1, s2)
+    bad += differs[:8] + ([f"... {len(differs)} tensors in all"]
+                          if len(differs) > 8 else [])
+    n_state = sum(len(s1[k]) for k in ("model", "opt", "ema"))
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if bad:
+        fail(f"training {label}: two eager steps from one state differ "
+             f"(cuDNN deterministic, benchmark, TF32; matmul TF32: {flags}):"
+             f" {bad}")
+    say(f"training {label}: two eager steps from one state under the "
+        f"process's default flags (cuDNN deterministic, benchmark, TF32; "
+        f"matmul TF32: {flags}): loss {m1['loss'].item():.6f}, grad norm "
+        f"{m1['grad_norm'].item():.6f} and {n_state} state tensors "
+        f"(parameters, AdamW moments, EMA) bit for bit [{CARD}]")
+    return {"bitwise": True, "state_tensors": n_state,
+            "default_flags": list(flags)}
 
 
 @contextlib.contextmanager
@@ -3369,8 +3530,8 @@ def step_draws(trainer):
 def compare_compiled_step(trainer, batches, label: str) -> dict:
     """COMPARE_STEPS steps through the step programs, captured anew (the
     first call the warm-up and the capture, the rest replays), and the
-    same steps through the eager step from the same state and seeds, with
-    cuDNN deterministic on both sides: the loss and its terms, the grad
+    same steps through the eager step from the same state and seeds,
+    under the process's default flags: the loss and its terms, the grad
     norm and the draws (`step_draws`) of every step, and after the last
     every parameter, both AdamW moments and the EMA, bit for bit. The
     trainer ends at the state it started from, with no program."""
@@ -3378,41 +3539,35 @@ def compare_compiled_step(trainer, batches, label: str) -> dict:
 
     start = snapshot(trainer)
     got, ms = {}, []
-    with deterministic_cudnn():
-        for mode in ("compiled", "eager"):
-            restore(trainer, start)
-            trainer.drop_programs()
-            step = trainer.train_step if mode == "compiled" \
-                else trainer._train_step_eager
-            metrics, draws = [], []
-            with step_draws(trainer) as runs:
-                for i, b in enumerate(batches[:COMPARE_STEPS]):
-                    t0 = time.perf_counter()
-                    m = step(b)
-                    torch.cuda.synchronize()
-                    if mode == "compiled":
-                        ms.append((time.perf_counter() - t0) * 1e3)
-                    # a replay refills the capture's buffers, runs[1]
-                    rec = runs[i] if mode == "eager" else runs[min(i, 1)]
-                    metrics.append({k: m[k].detach().float().cpu() for k in
-                                    ("loss", "loss_diff", "loss_f0",
-                                     "grad_norm")})
-                    draws.append({k: v.cpu() for k, v in rec.items()})
-            got[mode] = (metrics, draws, snapshot(trainer))
-            if mode == "compiled":
-                (prog,) = trainer._step_programs.values()
-                capture_ms, nodes = prog.capture_ms, prog.nodes
+    for mode in ("compiled", "eager"):
         restore(trainer, start)
         trainer.drop_programs()
+        step = trainer.train_step if mode == "compiled" \
+            else trainer._train_step_eager
+        metrics, draws = [], []
+        with step_draws(trainer) as runs:
+            for i, b in enumerate(batches[:COMPARE_STEPS]):
+                t0 = time.perf_counter()
+                m = step(b)
+                torch.cuda.synchronize()
+                if mode == "compiled":
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                # a replay refills the capture's buffers, runs[1]
+                rec = runs[i] if mode == "eager" else runs[min(i, 1)]
+                metrics.append({k: m[k].detach().float().cpu() for k in
+                                ("loss", "loss_diff", "loss_f0",
+                                 "grad_norm")})
+                draws.append({k: v.cpu() for k, v in rec.items()})
+        got[mode] = (metrics, draws, snapshot(trainer))
+        if mode == "compiled":
+            (prog,) = trainer._step_programs.values()
+            capture_ms, nodes = prog.capture_ms, prog.nodes
+    restore(trainer, start)
+    trainer.drop_programs()
     bad = []
-    rtol = GRAD_RTOL if trainer.cfg.f0_predictor.enabled else 0.0
-    exact = state_differs(trainer, got["compiled"][2], got["eager"][2])
-    exact += [i for i, (a, b) in enumerate(zip(got["compiled"][0],
-                                               got["eager"][0]))
-              if any(not torch.equal(a[k], b[k]) for k in a)]
     for i, (a, b) in enumerate(zip(got["compiled"][0], got["eager"][0])):
         bad += [f"step {i + 1} {k} {a[k].item()} vs {b[k].item()}"
-                for k in a if not close(a[k], b[k], rtol)]
+                for k in a if not torch.equal(a[k], b[k])]
     want = {"t", "noise", "mask"} | (
         {"f0_scale"} if trainer.cfg.f0_predictor.enabled else set())
     for i, (a, b) in enumerate(zip(got["compiled"][1], got["eager"][1])):
@@ -3421,32 +3576,21 @@ def compare_compiled_step(trainer, batches, label: str) -> dict:
                        f"{sorted(b)}, expected {sorted(want)}")
         bad += [f"step {i + 1} draw {k}" for k in sorted(want & set(a))
                 if not torch.equal(a[k], b[k])]
-    differs = state_differs(trainer, got["compiled"][2], got["eager"][2],
-                            rtol)
+    differs = state_differs(trainer, got["compiled"][2], got["eager"][2])
     bad += differs[:8] + ([f"... {len(differs)} tensors in all"]
                           if len(differs) > 8 else [])
     if bad:
         fail(f"compiled training {label}: the step programs' steps differ "
-             f"from the eager steps (cuDNN deterministic on both sides; "
-             f"without it cuDNN's convolution weight gradient, in K2's "
-             f"backward, differs between two eager steps"
-             + (f"; {NONDETERMINISTIC_OP} is not deterministic: held at "
-                f"rtol {rtol}" if rtol else "") + f"): {bad}")
+             f"from the eager steps (the process's default flags): {bad}")
     n_state = sum(len(got["eager"][2][k]) for k in ("model", "opt", "ema"))
-    agree = "bit for bit" if not exact else (
-        f"within rtol {rtol} ({len(exact)} tensors or steps not bit for "
-        f"bit: {NONDETERMINISTIC_OP} is not deterministic)")
     say(f"compiled training {label}: {COMPARE_STEPS} steps through the step "
         f"program (first call {ms[0]:.0f} ms: warm-up and capture "
         f"{capture_ms:.0f} ms, {nodes} graph nodes; replays "
         f"{', '.join(f'{x:.1f}' for x in ms[1:])} ms) against the eager "
-        f"step from the same state and seeds, cuDNN deterministic: loss, "
-        f"grad norm, draws {sorted(want)} and {n_state} state tensors "
-        f"(parameters, AdamW moments, EMA) "
-        f"{agree if not bad else 'DIFFER'}; the draws bit for bit [{CARD}]")
-    return {"steps": COMPARE_STEPS, "bitwise": not exact and not bad,
-            "not_bitwise": [str(x) for x in exact[:8]],
-            "rtol": rtol if exact else 0.0, "draws": sorted(want),
+        f"step from the same state and seeds, the process's default flags:"
+        f" loss, grad norm, draws {sorted(want)} and {n_state} state "
+        f"tensors (parameters, AdamW moments, EMA) bit for bit [{CARD}]")
+    return {"steps": COMPARE_STEPS, "bitwise": True, "draws": sorted(want),
             "first_call_ms": ms[0], "capture_ms": capture_ms, "nodes": nodes,
             "replay_wall_ms": ms[1:],
             "losses": [m["loss"].item() for m in got["eager"][0]]}
@@ -3514,46 +3658,45 @@ def bucketed_loop(trainer, batches) -> dict:
     """BUCKET_ROUNDS steps at each of the two BUCKETS geometries in turns
     (A B A B ...) through the step programs, one per geometry in one
     memory pool, replayed in an order other than their capture's; each
-    step held against the eager step from the same state, cuDNN
-    deterministic: loss, grad norm and the state after it, bit for bit.
+    step held against the eager step from the same state, the process's
+    default flags: loss, grad norm and the state after it, bit for bit.
     The trainer ends where it started, with no program."""
     import torch
 
     start = snapshot(trainer)
     bad, ms = [], []
-    with deterministic_cudnn():
-        trainer.drop_programs()
-        for r in range(BUCKET_ROUNDS):
-            for j, (t, tp) in enumerate(BUCKETS):
-                b = cut_batch(batches[(r + j) % len(batches)], t, tp)
-                before = snapshot(trainer)
-                t0 = time.perf_counter()
-                m = trainer.train_step(b)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-                after = snapshot(trainer)
-                restore(trainer, before)
-                e = trainer._train_step_eager(b)
-                if not (torch.equal(m["loss"], e["loss"]) and
-                        torch.equal(m["grad_norm"], e["grad_norm"])):
-                    bad.append(f"round {r} {t}x{tp}: loss {m['loss'].item()}"
-                               f" vs {e['loss'].item()}")
-                differs = state_differs(trainer, after, snapshot(trainer))
-                if differs:
-                    bad.append(f"round {r} {t}x{tp}: {differs[:4]} "
-                               f"({len(differs)} tensors)")
-        progs = list(trainer._step_programs.values())
-        pools = {tuple(p.graph.pool()) for p in progs}
-        replays = sorted(p.replays for p in progs)
-        restore(trainer, start)
-        trainer.drop_programs()
+    trainer.drop_programs()
+    for r in range(BUCKET_ROUNDS):
+        for j, (t, tp) in enumerate(BUCKETS):
+            b = cut_batch(batches[(r + j) % len(batches)], t, tp)
+            before = snapshot(trainer)
+            t0 = time.perf_counter()
+            m = trainer.train_step(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = snapshot(trainer)
+            restore(trainer, before)
+            e = trainer._train_step_eager(b)
+            if not (torch.equal(m["loss"], e["loss"]) and
+                    torch.equal(m["grad_norm"], e["grad_norm"])):
+                bad.append(f"round {r} {t}x{tp}: loss {m['loss'].item()}"
+                           f" vs {e['loss'].item()}")
+            differs = state_differs(trainer, after, snapshot(trainer))
+            if differs:
+                bad.append(f"round {r} {t}x{tp}: {differs[:4]} "
+                           f"({len(differs)} tensors)")
+    progs = list(trainer._step_programs.values())
+    pools = {tuple(p.graph.pool()) for p in progs}
+    replays = sorted(p.replays for p in progs)
+    restore(trainer, start)
+    trainer.drop_programs()
     if bad or len(progs) != len(BUCKETS) or len(pools) != 1 or \
             replays != [BUCKET_ROUNDS - 1] * len(BUCKETS):
         fail(f"compiled training, bucketed loop: {bad}; {len(progs)} "
              f"programs in {len(pools)} pools, replays {replays}")
     say(f"compiled training, bucketed loop: {BUCKET_ROUNDS} steps at each of "
         f"{BUCKETS} in turns, {len(progs)} step programs in one memory pool,"
-        f" every step the eager step's bit for bit (cuDNN deterministic); "
+        f" every step the eager step's bit for bit (default flags); "
         f"call ms {', '.join(f'{x:.0f}' for x in ms)} (each geometry's "
         f"first: warm-up and capture) [{CARD}]")
     return {"geometries": [list(g) for g in BUCKETS],
@@ -3640,22 +3783,21 @@ def check_compiled_eval(trainer, dev) -> dict:
 def check_recapture(trainer, path, batch) -> None:
     """After `load` the step programs are gone and the next step captures
     anew from the restored state: it is the eager step's, bit for bit
-    (cuDNN deterministic)."""
+    (the process's default flags)."""
     import torch
 
-    with deterministic_cudnn():
-        trainer.train_step(batch)       # a program to drop
-        trainer.load(path=path)
-        held = len(trainer._step_programs)
-        start = snapshot(trainer)
-        m = trainer.train_step(batch)
-        m = trainer.train_step(batch)   # a replay of the new capture
-        compiled = snapshot(trainer)
-        restore(trainer, start)
-        e = trainer._train_step_eager(batch)
-        e = trainer._train_step_eager(batch)
-        differs = state_differs(trainer, compiled, snapshot(trainer))
-        trainer.drop_programs()
+    trainer.train_step(batch)       # a program to drop
+    trainer.load(path=path)
+    held = len(trainer._step_programs)
+    start = snapshot(trainer)
+    m = trainer.train_step(batch)
+    m = trainer.train_step(batch)   # a replay of the new capture
+    compiled = snapshot(trainer)
+    restore(trainer, start)
+    e = trainer._train_step_eager(batch)
+    e = trainer._train_step_eager(batch)
+    differs = state_differs(trainer, compiled, snapshot(trainer))
+    trainer.drop_programs()
     if held or differs or not torch.equal(m["loss"], e["loss"]):
         fail(f"resumed step programs: {held} programs after load; after two "
              f"steps {differs[:4]} differ from the eager steps")
@@ -3666,8 +3808,11 @@ def check_recapture(trainer, path, batch) -> None:
 def check_compiled_training(trainer, batches, dev, label: str = "") -> dict:
     """The step programs of one trainer at 32 x 272 bf16: against the eager
     step, their figures, and (without the F0 predictor) the bucketed loop
-    and the capturable AdamW."""
-    res = {"compare": compare_compiled_step(trainer, batches, label)}
+    and the capturable AdamW; first the witness that two eager steps
+    from one state agree bit for bit."""
+    res = {"eager_repeat": check_eager_repeat(trainer, batches,
+                                              label or "JAX case"),
+           "compare": compare_compiled_step(trainer, batches, label)}
     res["figures"] = compiled_figures(trainer, batches, label)
     if not trainer.cfg.f0_predictor.enabled:
         res["bucketed"] = bucketed_loop(trainer, batches)
@@ -4131,9 +4276,11 @@ def f0_training(off, trainer_off, batches_off, vsd, dev, tmp):
     # trunk under the bf16 step), each once, not recomputed
     want = plus_f0_k1(off["launches"])
     want_bwd = plus_f0_k1(off["backward"])
-    if launches != want or bwd != want_bwd:
+    if launches != want or bwd != want_bwd or \
+            grad_launches() != off["grad_launches"]:
         fail(f"f0 training step launches {launches} (expected {want}), "
-             f"backward calls {bwd} (expected {want_bwd})")
+             f"backward calls {bwd} (expected {want_bwd}), K2's backward "
+             f"kernels {grad_launches()} (expected {off['grad_launches']})")
     res["launches"], res["backward"] = launches, bwd
     res["compiled"] = check_compiled_training(trainer, batches, dev,
                                               "with the F0 predictor")
@@ -4847,8 +4994,7 @@ def group_programs(tr, batches) -> dict:
 
     out = {"compare": compare_compiled_step(
         tr, batches, "in an NCCL group of one process")}
-    # the key anew: the compared programs were captured with cuDNN
-    # deterministic, and dropped
+    # the key anew: the comparison drops its programs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.train_step(batches[0])
@@ -4864,6 +5010,7 @@ def group_programs(tr, batches) -> dict:
         torch.cuda.synchronize()
         counted[name] = {"launches": route_counts(),
                          "backward": backward_calls(),
+                         "backward_kernels": grad_launches(),
                          "collectives": mesh.counters()}
     if counted["replay"] != counted["eager"] or prog.replays != 1:
         fail(f"group step program: a replay counts {counted['replay']}, an "
@@ -5177,7 +5324,7 @@ def check_data_parallel(processed, train, dev, tmp) -> dict:
         f"{progs['nccl_nodes']} {progs['nccl_kernels']}; "
         f"{COMPARE_STEPS} steps (first call, then replays "
         f"{listed(cmp_['replay_wall_ms'])} ms) bit for bit the eager group "
-        f"steps from one state, cuDNN deterministic (loss, grad norm, draws "
+        f"steps from one state, default flags (loss, grad norm, draws "
         f"{cmp_['draws']}, parameters, AdamW moments, EMA); a replay's "
         f"{full['all_reduce_calls']} all-reduce of "
         f"{full['all_reduce_bytes'] / 1e6:.1f} MB, launches and backward "
@@ -5929,11 +6076,42 @@ def main() -> int:
                 "plain_ms"), "train_library_ms": geo.get("lib_ms"),
             "train_bound_ms": geo.get("bound"),
             "train_backward_ms": geo.get("bwd_ms"),
+            # K2: the step's backward is the backward kernels; cuDNN's
+            # path (the plain backward) beside it
+            **({"train_backward_plain_ms": geo["bwd_plain_ms"]}
+               if "bwd_plain_ms" in geo else {}),
             "train_backward_bound_ms": geo.get("bwd_bound"),
             "train_backward_bound_by": geo.get("bwd_by"),
             "train_backward_max_err": geo.get("err"),
             "tensor_parallel_launches_per_rank_step": tp[
                 "launches_per_rank"][route], **slice5, **slice6})
+    # K2's backward kernels: launched on the training step's path (bf16)
+    # and the f32 card gradients' (f32), counted with the counts set to 0
+    # just before; timed and held against the plain backward at the step's
+    # geometries
+    bwd_launches = {
+        "affine_silu_conv1d_backward_bf16": (
+            train["grad_launches"]["affine_silu_conv1d_backward_bf16"],
+            "train_step_bf16"),
+        "affine_silu_conv1d_backward_f32": (
+            train["grad_f32_backward_launches"], "train_grads_f32")}
+    for route, (source, replaces) in BACKWARD_ROUTES.items():
+        d = train["geometries"][route]
+        launches, launches_from = bwd_launches[route]
+        if launches == 0:
+            fail(f"{route}: no launch on {launches_from}")
+        kernels.append({
+            "name": route, "route": "cuda",
+            "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "launches_from": launches_from,
+            "max_abs_err": d["abs_err"], "max_rel_err": d["err"],
+            "ms": d["ms"], "plain_ms": d["plain"],
+            "plain_deterministic_ms": d["plain_det"],
+            "bound_ms": d["bound"], "bound_by": d["bound_by"],
+            "library_ms": None,
+            "timed_at": f"the bf16 training step's {int(d['calls'])} K2 "
+                        f"backward calls, B={TRAIN_B}, in "
+                        f"{route.rsplit('_', 1)[1]}"})
     print(json.dumps({"f0_predictor": {
         "serving": f0["serving"], "cli_ms": f0["cli_ms"],
         "card_vs_cpu": f0["card_vs_cpu"],

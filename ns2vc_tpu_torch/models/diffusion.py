@@ -35,6 +35,7 @@ from ns2vc_tpu_torch.models.encoders import (
     F0Predictor, PhoneEncoder, PromptEncoder, TextTimeEmbedding,
 )
 from ns2vc_tpu_torch.models.unet import UNet1DConditionModel
+from ns2vc_tpu_torch.ops.embedding import embedding_lookup
 from ns2vc_tpu_torch.ops.masking import sequence_mask
 from ns2vc_tpu_torch.ops.sequence import F0_BIN, f0_to_coarse, normalize_f0
 from ns2vc_tpu_torch.parallel.mesh import (
@@ -92,7 +93,10 @@ class PreModel(nn.Module):
                                                * 500.0 / 2595.0) - 1.0)
             else:
                 f0_for_emb = f0
-            content = content + self.f0_emb(f0_to_coarse(f0_for_emb))
+            # nn.Embedding's lookup with a backward that sums in a fixed
+            # order (its own adds repeated bins' rows with atomics)
+            content = content + embedding_lookup(f0_to_coarse(f0_for_emb),
+                                                 self.f0_emb.weight)
         return content, prompt, lf0, lf0_pred
 
 

@@ -46,10 +46,16 @@ design answers that.
 
 Training: when grad is enabled and an input requires it, a CUDA call goes
 through an autograd Function whose forward is the same launch and whose
-backward is `affine_silu_conv1d_backward`, written out in f32 torch ops
-(the activation is recomputed, the conv's input and weight gradients are
-one `convolution_backward`). Each backward adds one to
-`affine_silu_conv1d.backward_calls[route]`. The packed weights are
+backward is `affine_silu_conv1d_grad`: three kernels
+(`csrc/affine_silu_conv1d_bwd.cu`, both dtypes, f32 FFMA) that recompute
+the activation and sum every gradient in an order fixed by the indices,
+with no atomics, so a training step is bit-reproducible on the card.
+`affine_silu_conv1d_backward`, the same arithmetic in f32 torch ops (the
+conv's input and weight gradients one `convolution_backward`), is their
+plain version, which a CPU tensor takes. Each backward adds one to
+`affine_silu_conv1d.backward_calls[route]`, each launch of the backward
+kernels one to `affine_silu_conv1d_grad.launches` and to its
+`route_launches["bf16"]` or `["f32"]`. The packed weights are
 made from `w.detach()`: w's gradient comes from the backward, never
 through the packed copy. `group_norm_affine` goes through its own Function
 whose forward is the statistics kernel and whose backward re-runs
@@ -76,6 +82,11 @@ F32_BM, F32_BN, F32_BK = 64, 128, 16
 TC_MAX_SPLITS = 8         # either conv kernel's splits form one portable
                           # cluster
 GN_MAX_SPLITS = 8         # the statistics kernel's blocks per slab, likewise
+# the backward kernels' tiles (csrc/affine_silu_conv1d_bwd.cu kTile, kCols,
+# kChunk): frames (dgrad) or output channels (wgrad), input channels, and
+# the weight gradient's frames per chunk
+BWD_TILE, BWD_COLS, BWD_CHUNK = 64, 64, 16
+BWD_MAX_SPLITS = 64
 
 
 def resnet_route(device: torch.device | str, dtype: torch.dtype) -> str:
@@ -261,7 +272,8 @@ def affine_silu_conv1d_backward(x: torch.Tensor, a: torch.Tensor,
 
 
 class _AffineSiluConv1dFn(torch.autograd.Function):
-    """The kernel's launch under autograd; backward in f32 torch ops."""
+    """The kernel's launch under autograd; backward through the backward
+    kernels (`affine_silu_conv1d_grad`)."""
 
     @staticmethod
     def forward(ctx, x, a, b, w, bias):
@@ -272,8 +284,87 @@ class _AffineSiluConv1dFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        affine_silu_conv1d.backward_calls[ctx.route] += 1
-        return affine_silu_conv1d_backward(*ctx.saved_tensors, dy)
+        _conv_counts.backward_calls[ctx.route] += 1
+        return affine_silu_conv1d_grad(*ctx.saved_tensors, dy.contiguous())
+
+
+def plan_backward(bsz: int, t: int, c: int, co: int) -> int:
+    """Splits of the backward's weight-gradient sum over its B * ceil(T /
+    16) frame chunks: enough (64 x 64) dw tiles times splits for two blocks
+    per SM of the H100, at most BWD_MAX_SPLITS and at most the chunks."""
+    tiles = -(-c // BWD_COLS) * -(-co // BWD_TILE)
+    chunks = bsz * -(-t // BWD_CHUNK)
+    return max(1, min(chunks, BWD_MAX_SPLITS,
+                      round(2 * _build.H100_SMS / tiles)))
+
+
+def backward_workspace(bsz: int, t: int, c: int, co: int,
+                       splits: int) -> int:
+    """f32 values of the backward kernels' workspace: each split's dw and
+    dbias partials, each frame tile's da and db partials."""
+    return splits * (3 * co * c + co) + 2 * bsz * -(-t // BWD_TILE) * c
+
+
+def affine_silu_conv1d_grad(x: torch.Tensor, a: torch.Tensor,
+                            b: torch.Tensor, w: torch.Tensor,
+                            bias: torch.Tensor, dy: torch.Tensor,
+                            keep_f32: bool = False):
+    """(dx, da, db, dw, dbias) of `affine_silu_conv1d` given dy (B, T, Co),
+    each in its input's dtype, or with `keep_f32` dx, dw, dbias in f32
+    (the sums before their rounding to bf16). A CPU tensor takes
+    `affine_silu_conv1d_backward`; a CUDA tensor the backward kernels
+    (`csrc/affine_silu_conv1d_bwd.cu`: f32 FFMA, no atomics, so two calls
+    on one input agree bit for bit) or raises. On CUDA: x, w, bias, dy
+    contiguous and of one dtype (f32 or bf16); a, b contiguous f32."""
+    if resnet_route(x.device, x.dtype) == "plain":
+        if keep_f32:
+            x, w, bias, dy = (v.float() for v in (x, w, bias, dy))
+        return affine_silu_conv1d_backward(x, a, b, w, bias, dy)
+    return _grad_launch(x, a, b, w, bias, dy, keep_f32)
+
+
+def _grad_launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 w: torch.Tensor, bias: torch.Tensor, dy: torch.Tensor,
+                 keep_f32: bool = False):
+    """Check the inputs and launch the backward kernels: (dx, da, db, dw,
+    dbias)."""
+    _check_inputs(x, a, b, w, bias, "affine_silu_conv1d_grad")
+    bsz, t, c = x.shape
+    co = w.shape[0]
+    if dy.shape != (bsz, t, co) or dy.dtype != x.dtype \
+            or not dy.is_contiguous() or dy.device != x.device:
+        raise ValueError(f"affine_silu_conv1d_grad: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} must be contiguous ({bsz}, {t}, {co}) "
+                         f"{x.dtype} on {x.device}")
+    if bsz > 65535 or -(-t // BWD_TILE) > 65535:
+        raise ValueError(f"affine_silu_conv1d_grad: unsupported shape "
+                         f"{tuple(x.shape)}")
+    _build.require_current_device(x)
+    lib = _build.library()
+    splits = plan_backward(bsz, t, c, co)
+    ws = torch.empty(backward_workspace(bsz, t, c, co, splits),
+                     dtype=torch.float32, device=x.device)
+    out = torch.float32 if keep_f32 else x.dtype
+    dx = torch.empty((bsz, t, c), dtype=out, device=x.device)
+    dw = torch.empty((co, c, 3), dtype=out, device=x.device)
+    dbias = torch.empty((co,), dtype=out, device=x.device)
+    da = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
+    db = torch.empty_like(da)
+    route = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    _grad_counts.launches += 1
+    _grad_counts.route_launches[route] += 1
+    err = lib.ns2vc_affine_silu_conv1d_bwd(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), da.data_ptr(), db.data_ptr(), dw.data_ptr(),
+        dbias.data_ptr(), ws.data_ptr(), bsz, t, c, co, splits,
+        int(x.dtype == torch.bfloat16), int(keep_f32), _build.stream_of(x))
+    _build.check(err, f"affine_silu_conv1d_grad ({route})")
+    return dx, da, db, dw, dbias
+
+
+affine_silu_conv1d_grad.launches = 0
+affine_silu_conv1d_grad.route_launches = {"bf16": 0, "f32": 0}
+_grad_counts = affine_silu_conv1d_grad
 
 
 def affine_silu_conv1d(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -289,33 +380,46 @@ def affine_silu_conv1d(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return _launch(x, a, b, w, bias)[0]
 
 
-def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-            w: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, str]:
-    """Check the inputs and launch the kernel of their route: (y, route)."""
-    route = resnet_route(x.device, x.dtype)
+def _check_inputs(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  w: torch.Tensor, bias: torch.Tensor, what: str) -> None:
+    """Raise unless the inputs are what the forward and backward kernels
+    take: x (B, T, C), a, b (B, C) f32, w (Co, C, 3), bias (Co,), x, w,
+    bias of one kernel dtype, all contiguous and on one device."""
     if x.dim() != 3:
-        raise ValueError(f"affine_silu_conv1d: x must be (B, T, C), got "
+        raise ValueError(f"{what}: x must be (B, T, C), got "
                          f"{tuple(x.shape)}")
     bsz, t, c = x.shape
     co = w.shape[0]
     if w.shape != (co, c, 3) or bias.shape != (co,) \
             or a.shape != (bsz, c) or b.shape != (bsz, c):
         raise ValueError(
-            f"affine_silu_conv1d: shapes x {tuple(x.shape)} a "
+            f"{what}: shapes x {tuple(x.shape)} a "
             f"{tuple(a.shape)} b {tuple(b.shape)} w {tuple(w.shape)} bias "
             f"{tuple(bias.shape)}")
     if x.dtype not in _build.KERNEL_DTYPES or w.dtype != x.dtype \
             or bias.dtype != x.dtype:
-        raise ValueError(f"affine_silu_conv1d: dtypes x {x.dtype} w {w.dtype}"
+        raise ValueError(f"{what}: dtypes x {x.dtype} w {w.dtype}"
                          f" bias {bias.dtype}; f32 or bf16, all alike")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError("affine_silu_conv1d: a and b must be f32")
+        raise ValueError(f"{what}: a and b must be f32")
     if not all(v.is_contiguous() for v in (x, a, b, w, bias)):
-        raise ValueError("affine_silu_conv1d: inputs must be contiguous")
+        raise ValueError(f"{what}: inputs must be contiguous")
     if any(v.device != x.device for v in (a, b, w, bias)):
-        raise ValueError("affine_silu_conv1d: inputs on different devices")
+        raise ValueError(f"{what}: inputs on different devices")
+    if min(bsz, t, c, co) < 1:
+        raise ValueError(f"{what}: unsupported shape {tuple(x.shape)} -> "
+                         f"{co}")
+
+
+def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            w: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, str]:
+    """Check the inputs and launch the kernel of their route: (y, route)."""
+    route = resnet_route(x.device, x.dtype)
+    _check_inputs(x, a, b, w, bias, "affine_silu_conv1d")
+    bsz, t, c = x.shape
+    co = w.shape[0]
     splits, cps = (plan_wgmma if route == "tc" else plan_tc)(bsz, t, c, co)
-    if min(bsz, t, c, co) < 1 or bsz * splits > 65535:
+    if bsz * splits > 65535:
         raise ValueError(f"affine_silu_conv1d: unsupported shape "
                          f"{tuple(x.shape)} -> {co}")
     _build.require_current_device(x)
@@ -347,9 +451,10 @@ _conv_counts = affine_silu_conv1d
 
 
 def reset_launches() -> None:
-    _conv_counts.launches = 0
+    _conv_counts.launches = _grad_counts.launches = 0
     _gn_counts.launches = _gn_counts.backward_calls = 0
-    for counts in (_conv_counts.route_launches, _conv_counts.backward_calls):
+    for counts in (_conv_counts.route_launches, _conv_counts.backward_calls,
+                   _grad_counts.route_launches):
         for key in counts:
             counts[key] = 0
 
@@ -362,7 +467,10 @@ def launch_counts() -> dict[str, int]:
             **{f"route.{k}": n
                for k, n in _conv_counts.route_launches.items()},
             **{f"backward.{k}": n
-               for k, n in _conv_counts.backward_calls.items()}}
+               for k, n in _conv_counts.backward_calls.items()},
+            "grad": _grad_counts.launches,
+            **{f"grad.{k}": n
+               for k, n in _grad_counts.route_launches.items()}}
 
 
 def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
@@ -375,6 +483,9 @@ def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
         _conv_counts.route_launches[k] += times * delta[f"route.{k}"]
     for k in _conv_counts.backward_calls:
         _conv_counts.backward_calls[k] += times * delta[f"backward.{k}"]
+    _grad_counts.launches += times * delta["grad"]
+    for k in _grad_counts.route_launches:
+        _grad_counts.route_launches[k] += times * delta[f"grad.{k}"]
 
 
 def gn_route(device: torch.device | str) -> str:

@@ -63,10 +63,17 @@ def maybe_initialize_distributed(device: str | torch.device | None = None,
                                  backend: str | None = None) -> bool:
     """Join the process group the environment describes (module
     docstring); True when a group is up (also when it was already), False
-    without one. On a card, each process takes `cuda:{LOCAL_RANK}`, else
-    `cuda:{process id mod device count}`, as its current device."""
+    without one. `device` defaults to "cuda", which raises without a card
+    (pass "cpu" for a gloo group on the CPU). On a card, each process takes
+    `cuda:{LOCAL_RANK}`, else `cuda:{process id mod device count}`, as its
+    current device."""
     if dist.is_initialized():
         return True
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device is "
+                           f"available; pass device='cpu' for a gloo group "
+                           f"on the CPU")
     coord = os.environ.get("NS2VC_COORDINATOR")
     if coord:
         init = f"tcp://{coord}"
@@ -78,9 +85,6 @@ def maybe_initialize_distributed(device: str | torch.device | None = None,
         size = int(os.environ["WORLD_SIZE"])
     else:
         return False
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
     if device.type == "cuda":
         index = device.index
         if index is None:

@@ -104,14 +104,29 @@ config; the newest `keep_ckpts` kept) that `convert.load_checkpoint`, and
 so `Svc`, reads. It runs on `cuda` unless given `device="cpu"`, and raises
 without a card.
 
+The step is bit-reproducible on a card, as the JAX step is one XLA program
+on its device: the same state and batch give the same state, eager or
+replayed. K2's backward and the F0 embedding's backward sum in an order
+fixed by the indices (`ops/fused_resnet.py::affine_silu_conv1d_grad`,
+`ops/embedding.py`), and the step runs with
+`torch.backends.cudnn.deterministic` set (`deterministic_convolutions`),
+restored after it, so that the convolutions left to cuDNN (the encoders,
+the UNet's in/out, shortcuts and samplers, the F0 predictor's) take
+deterministic algorithms in the eager step, the warm-up and the capture,
+which bakes them into the graph.
+
+`NS2VC_PROFILE_AT=<start>:<num>` traces steps start .. start + num - 1 of
+`train()` into the run dir's `profile/` (`utils/profiling.py`, the JAX
+trainer's profile window), with `torch.profiler`.
+
 Not ported, because they answer the TPU's runtime: the AOT step cache, the
 packed one-buffer host-to-device transfer (`pack_h2d`), the persistent
-compile cache, the compile barrier of the multi-host step and the xplane
-profile window.
+compile cache and the compile barrier of the multi-host step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -398,6 +413,19 @@ class _EvalKey(NamedTuple):
     tf32_cudnn: bool
 
 
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN restricted to its deterministic algorithms inside (its
+    heuristics otherwise may pick a weight gradient that sums in another
+    order on every run), the process's setting restored after."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def _tf32() -> tuple[bool, bool]:
     return (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -598,9 +626,11 @@ class Trainer:
         program's replay from the same state must equal."""
         drop = self._seed_generators()
         f0_factor = None
-        if self.distributed:
-            t, noise, f0_factor = self._global_draws(batch, t, noise)
-        return self._step_fn(self.state, batch, drop, t, noise, f0_factor)
+        with deterministic_convolutions():
+            if self.distributed:
+                t, noise, f0_factor = self._global_draws(batch, t, noise)
+            return self._step_fn(self.state, batch, drop, t, noise,
+                                 f0_factor)
 
     def _seed_generators(self) -> torch.Generator:
         """Seed the step's generator at `step_seed` and, in a group at data
@@ -688,10 +718,13 @@ class Trainer:
             self._step_programs[key] = prog
         elif prog.graph is None:
             try:
-                out = self._graphs.capture(
-                    prog, body, "step program",
-                    (self.generator,) + ((drop,) if drop is not
-                                         self.generator else ()))
+                # the warm-up and the capture, whose algorithms the graph
+                # keeps
+                with deterministic_convolutions():
+                    out = self._graphs.capture(
+                        prog, body, "step program",
+                        (self.generator,) + ((drop,) if drop is not
+                                             self.generator else ()))
             except RuntimeError:
                 # a failed capture leaves the generators it registered in
                 # capture mode: draw from new ones
@@ -1052,6 +1085,9 @@ class Trainer:
 
     def train(self, num_steps: Optional[int] = None):
         from ns2vc_tpu_torch.utils.logger import get_logger
+        from ns2vc_tpu_torch.utils.profiling import (
+            Window, profile_window_from_env,
+        )
 
         t = self.cfg.train
         total = num_steps if num_steps is not None else t.train_num_steps
@@ -1060,8 +1096,16 @@ class Trainer:
         loader = self.loader()
         batches = deque(self.device_batch(next(loader))
                         for _ in range(max(1, t.prefetch_depth)))
+        profile_window = profile_window_from_env()
+        trace = Window(os.path.join(self.logs_folder, "profile"))
         t0 = time.time()
         while self.step < total:
+            if profile_window is not None:
+                start, num = profile_window
+                if self.step == start:
+                    trace.start()
+                elif self.step == start + num and trace.open:
+                    trace.stop()
             batches.append(self.device_batch(next(loader)))
             batch = batches.popleft()
             metrics = self.train_step(batch)
@@ -1095,6 +1139,8 @@ class Trainer:
                     self._log({"step": step,
                                **self._write_eval(result, step)})
                 self.save()
+        if trace.open:   # the run ended inside the window
+            trace.stop()
         # a final checkpoint, so a short or interrupted run is never lost
         self.save()
         print("training complete", flush=True)

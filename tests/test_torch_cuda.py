@@ -30,7 +30,13 @@ whole and split over a cluster, bitwise repeatable, and "f32tc_narrow",
 the mma.sync kernel, for rows TMA cannot take; K2 "f32tc"); K1 calls of one
 query, in either dtype, to the single-query kernel ("tc_q1", "f32tc_q1":
 the pools, odd key counts, fully masked rows, D of 1 to 128); each test
-checks the route its call took. K2's f32 kernel is also held to give
+checks the route its call took. K2's backward kernels
+(`affine_silu_conv1d_grad`) are held against the plain backward in both
+dtypes (3e-5 of max|plain| per gradient, the bf16 kernels' f32 sums before
+their rounding, and the rounded outputs within half a bf16 ulp of them),
+odd T, C not a multiple of 16 and Co of the output tail included, two
+launches bitwise equal; under autograd K2's backward takes them and never
+cuDNN. K2's f32 kernel is also held to give
 bitwise-equal outputs on two launches, split over a cluster at B = 1 and
 2, and with element loads at C % 4 != 0. The Svc
 readback test checks that
@@ -40,8 +46,9 @@ The serving programs: a replay (and a key's first call) against the eager
 body at the same seed, bit for bit, with the launches a replay counts;
 two dispatches of one key in flight; a capture while another thread
 waits on events; a capture that fails raises and caches nothing. The
-Trainer's step and eval programs: replays against the eager step and
-eval, bit for bit (with and without the F0 predictor, two geometries in
+Trainer's step and eval programs, under the process's default flags:
+replays against the eager step and eval, bit for bit (with and without
+the F0 predictor, two geometries in
 turns on one pool), a failed capture, the capturable AdamW against the
 eager one (1e-6), checkpoints between the card and the CPU. In a process
 group of one process over NCCL the step program (its all-reduce inside
@@ -61,9 +68,9 @@ from ns2vc_tpu_torch.ops.flash_attention import (
     attention_route, flash_attention, flash_attention_plain,
 )
 from ns2vc_tpu_torch.ops.fused_resnet import (
-    affine_silu_conv1d, affine_silu_conv1d_plain, chunk_width, gn_silu_conv1d,
-    group_norm_affine, group_norm_affine_plain, plan_tc, plan_wgmma,
-    tile_width,
+    affine_silu_conv1d, affine_silu_conv1d_grad, affine_silu_conv1d_plain,
+    chunk_width, gn_silu_conv1d, group_norm_affine, group_norm_affine_plain,
+    plan_tc, plan_wgmma, tile_width,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1101,10 +1108,15 @@ def test_resnet_function_launches_the_kernel(dev, dtype, monkeypatch):
     route = "tc" if dtype == torch.bfloat16 else "f32tc"
     n0, b0 = affine_silu_conv1d.launches, dict(
         affine_silu_conv1d.backward_calls)
+    k0 = dict(affine_silu_conv1d_grad.route_launches)
     y, got = run()
     torch.cuda.synchronize()
     assert affine_silu_conv1d.launches == n0 + 1 and y.grad_fn is not None
     assert affine_silu_conv1d.backward_calls[route] == b0[route] + 1
+    # the backward runs on the backward kernels, never on cuDNN
+    grad_route = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert affine_silu_conv1d_grad.route_launches[grad_route] == \
+        k0[grad_route] + 1
     monkeypatch.setattr(fr, "affine_silu_conv1d", affine_silu_conv1d_plain)
     _, want = run()
     for name, a, e in zip(("x", "gamma", "beta", "w", "bias", "scale",
@@ -1112,6 +1124,80 @@ def test_resnet_function_launches_the_kernel(dev, dtype, monkeypatch):
         assert a.dtype == e.dtype and torch.isfinite(a.float()).all(), name
         assert (a.float() - e.float()).abs().max().item() <= \
             _grad_tol(dtype, e), name
+
+
+# K2's backward kernels (`affine_silu_conv1d_grad`) against the plain
+# backward (`affine_silu_conv1d_backward`, cuDNN with TF32 off) on the same
+# inputs, f32 sums either way in other orders: dx, dw, dbias, da, db each
+# within 3e-5 of max|plain| (K2's f32 bound), the bf16 kernels' sums taken
+# before their rounding (`keep_f32`), and their bf16 outputs within one
+# rounding of those sums. Two launches agree bit for bit.
+K2_BWD_RTOL = 3e-5
+K2_BWD_GEOMETRIES = [
+    (2, 136, 256, 128),    # a UNet level of the training step
+    (4, 34, 1024, 512),    # the deepest level: T < one frame tile
+    (3, 37, 40, 100),      # odd T, C not a multiple of 16, conv_out's Co
+    (1, 5, 7, 3),          # smaller than every tile
+    (32, 272, 128, 100),   # conv_out at the training batch: 64 splits
+]
+
+
+def _k2_backward_inputs(g, dev, bsz, t, c, co, dtype):
+    x = torch.randn(bsz, t, c, generator=g, device=dev).to(dtype)
+    a = 1 + 0.3 * torch.randn(bsz, c, generator=g, device=dev)
+    b = 0.3 * torch.randn(bsz, c, generator=g, device=dev)
+    w = (torch.randn(co, c, 3, generator=g, device=dev)
+         / (3 * c) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
+    dy = torch.randn(bsz, t, co, generator=g, device=dev).to(dtype)
+    return x, a, b, w, bias, dy
+
+
+@pytest.mark.parametrize("geometry", K2_BWD_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_backward_kernels_match_the_plain_backward(dev, dtype, geometry):
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d_backward, plan_backward,
+    )
+
+    args = _k2_backward_inputs(_gen(dev, 21), dev, *geometry, dtype)
+    route = "bf16" if dtype == torch.bfloat16 else "f32"
+    n0 = affine_silu_conv1d_grad.route_launches[route]
+    got = affine_silu_conv1d_grad(*args, keep_f32=True)
+    again = affine_silu_conv1d_grad(*args, keep_f32=True)
+    out = affine_silu_conv1d_grad(*args)
+    assert affine_silu_conv1d_grad.route_launches[route] == n0 + 3
+    x, a, b, w, bias, dy = args
+    want = affine_silu_conv1d_backward(x.float(), a, b, w.float(),
+                                       bias.float(), dy.float())
+    torch.cuda.synchronize()
+    names = ("dx", "da", "db", "dw", "dbias")
+    for name, gv, rv, wv, ov, inp in zip(names, got, again, want, out,
+                                         (x, a, b, w, bias)):
+        assert gv.shape == wv.shape and gv.dtype == torch.float32, name
+        assert torch.equal(gv, rv), name
+        scale = max(wv.abs().max().item(), 1e-30)
+        err = (gv - wv).abs().max().item() / scale
+        assert err <= K2_BWD_RTOL, (name, err, plan_backward(*geometry))
+        assert ov.dtype == inp.dtype, name
+        # one rounding of the kept sums (bf16: half an ulp, 2^-8 relative)
+        assert ((ov.float() - gv).abs()
+                <= gv.abs() * (2.0 ** -8 if dtype == torch.bfloat16
+                               else 0.0)).all(), name
+
+
+def test_k2_backward_refuses_what_it_cannot_take(dev):
+    x, a, b, w, bias, dy = _k2_backward_inputs(_gen(dev, 22), dev, 2, 8, 16,
+                                               8, torch.float32)
+    with pytest.raises(ValueError, match="dy"):
+        affine_silu_conv1d_grad(x, a, b, w, bias, dy[:, :4])
+    with pytest.raises(ValueError, match="dy"):
+        affine_silu_conv1d_grad(x, a, b, w, bias, dy.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        affine_silu_conv1d_grad(x.transpose(0, 1).contiguous().transpose(
+            0, 1), a, b, w, bias, dy)
+    with pytest.raises(ValueError, match="a and b"):
+        affine_silu_conv1d_grad(x, a.double(), b, w, bias, dy)
 
 
 @pytest.mark.parametrize("remat_policy", [None, "dots"])
@@ -1206,18 +1292,11 @@ def test_multihead_attention_routes_on_the_card(dev, dtype):
 # step key and `sample_eval` one per eval bucket. Held bit for bit against
 # the eager step (`Trainer._train_step_eager`) and the eager eval from the
 # same state and seeds, with dropout 0.2 (masks and the F0 scale drawn inside
-# the graph from the registered step generator). cuDNN's convolution weight
-# gradient (K2's backward, `convolution_backward`) is not deterministic by
-# default: two eager steps differ in those weights. The comparisons run with
-# `torch.backends.cudnn.deterministic` on both sides. nn.Embedding's
-# backward (`embedding_dense_backward`, atomic adds over repeated F0 bins)
-# is not deterministic either: with the F0 predictor the steps are held at
-# the gradient checks' 1e-4 of max(1e-3, max|eager|) per tensor.
+# the graph from the registered step generator), under the process's
+# default cuDNN flags, with and without the F0 predictor: the step is
+# deterministic by itself (K2's backward kernels, the F0 embedding's
+# one-hot backward, cuDNN's deterministic algorithms inside the step).
 
-
-@pytest.fixture
-def deterministic(monkeypatch):
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
 
 def _small_trainer(dev, root, f0=False, vocos=False):
     """A Trainer of a narrow bf16 configuration (no data files: batches come
@@ -1283,21 +1362,13 @@ def _trainer_state(tr) -> dict:
             "ema": {k: v.clone() for k, v in tr.state.ema_params.items()}}
 
 
-def _close(x, y, rtol=0.0) -> bool:
-    if not rtol:
-        return torch.equal(x, y)
-    return (x.float() - y.float()).abs().max().item() <= rtol * max(
-        1e-3, y.float().abs().max().item())
-
-
-def _differing(a: dict, b: dict, rtol=0.0) -> list:
+def _differing(a: dict, b: dict) -> list:
     return [(part, k) for part in a for k in a[part]
-            if not _close(a[part][k], b[part][k], rtol)]
+            if not torch.equal(a[part][k], b[part][k])]
 
 
 @pytest.mark.parametrize("f0", [False, True])
-def test_train_step_program_replays_the_eager_step(dev, tmp_path, f0,
-                                                   deterministic):
+def test_train_step_program_replays_the_eager_step(dev, tmp_path, f0):
     """Three steps (the first a warm-up and capture, then two replays)
     against three eager steps of a second Trainer from the same seed:
     metrics and state bit for bit; a replay counts the eager step's
@@ -1305,7 +1376,6 @@ def test_train_step_program_replays_the_eager_step(dev, tmp_path, f0,
     comp = _small_trainer(dev, str(tmp_path / "c"), f0=f0)
     eager = _small_trainer(dev, str(tmp_path / "e"), f0=f0)
     eager.compiled = False
-    rtol = 1e-4 if f0 else 0.0
     batches = [_train_batch(comp, s) for s in range(3)]
     for i, b in enumerate(batches):
         _reset_counts()
@@ -1315,9 +1385,8 @@ def test_train_step_program_replays_the_eager_step(dev, tmp_path, f0,
         me = eager.train_step(b)
         assert _counts() == counted, i
         for k in me:
-            assert _close(mc[k], me[k], rtol), (i, k)
-        assert not _differing(_trainer_state(comp), _trainer_state(eager),
-                              rtol)
+            assert torch.equal(mc[k], me[k]), (i, k)
+        assert not _differing(_trainer_state(comp), _trainer_state(eager))
     (prog,) = comp._step_programs.values()
     assert prog.replays == 2 and prog.nodes > 0 and prog.capture_ms > 0
     assert counted[0]["backward.tc"] > 0 and counted[1]["gn_backward"] > 0
@@ -1325,8 +1394,7 @@ def test_train_step_program_replays_the_eager_step(dev, tmp_path, f0,
         assert me["loss_f0"] > 0
 
 
-def test_train_step_programs_of_two_geometries_in_turns(dev, tmp_path,
-                                                        deterministic):
+def test_train_step_programs_of_two_geometries_in_turns(dev, tmp_path):
     """Two batch geometries, their programs sharing one memory pool,
     replayed in alternating order: each step is the eager step's."""
     comp = _small_trainer(dev, str(tmp_path / "c"))
@@ -1367,7 +1435,7 @@ def test_train_step_failed_capture_raises(dev, tmp_path, monkeypatch):
     assert prog.replays == 1
 
 
-def test_eval_program_replays_the_eager_eval(dev, tmp_path, deterministic):
+def test_eval_program_replays_the_eager_eval(dev, tmp_path):
     """The eval sample's first call (warm-up and capture) and a replay give
     the eager eval's mel and waveform bit for bit, from the EMA copied into
     the eval model inside the graph: a step between two evals moves both
@@ -1421,8 +1489,7 @@ def test_capturable_adamw_matches_the_eager_one(dev):
     assert ob.state[b[0]]["step"].device == dev
 
 
-def test_checkpoints_cross_between_the_card_and_the_cpu(dev, tmp_path,
-                                                         deterministic):
+def test_checkpoints_cross_between_the_card_and_the_cpu(dev, tmp_path):
     """A compiled Trainer's checkpoint resumes in a CPU Trainer (eager
     AdamW), and the CPU's in a card Trainer, which captures anew: step,
     both moments and the EMA equal; the resumed card Trainer's next step
@@ -1473,7 +1540,7 @@ def process_group(dev):
 
 
 def test_group_step_program_replays_the_eager_group_step(
-        dev, tmp_path, deterministic, process_group):
+        dev, tmp_path, process_group):
     """NCCL, one process: three steps through the step program (the first
     a warm-up and capture, then two replays, the all-reduce in the graph)
     against three eager group steps of a second Trainer from the same

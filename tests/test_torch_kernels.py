@@ -856,10 +856,12 @@ def test_gn_silu_conv1d_feeds_the_statistics_to_the_conv(card_routes):
 # -- K1 and K2 under autograd -------------------------------------------------
 #
 # The backward of each kernel is written out in torch ops
-# (`flash_attention_backward`, `affine_silu_conv1d_backward`) and reached
-# through an autograd Function whose forward is the kernel's launch. Here the
-# launch is replaced by the plain version on the CPU (`kernels_on_cpu`), so
-# the Functions, their saved tensors and their backward run as on a card.
+# (`flash_attention_backward`; for K2 `affine_silu_conv1d_backward`, the
+# plain version of its backward kernels) and reached through an autograd
+# Function whose forward is the kernel's launch. Here each launch, the
+# backward kernels' too, is replaced by its plain version on the CPU
+# (`kernels_on_cpu`), so the Functions, their saved tensors and their
+# backward run as on a card.
 # Tolerances: 1e-5 in f32, 1e-6 in f64, against torch.autograd through the
 # plain versions; gradcheck in f64.
 
@@ -882,10 +884,16 @@ def kernels_on_cpu():
         fr.affine_silu_conv1d.launches += 1
         fr.affine_silu_conv1d.route_launches["tc"] += 1
         return fr.affine_silu_conv1d_plain(x, a, b, w, bias), "tc"
+
+    def g_launch(x, a, b, w, bias, dy, keep_f32=False):
+        fr.affine_silu_conv1d_grad.launches += 1
+        fr.affine_silu_conv1d_grad.route_launches["bf16"] += 1
+        return fr.affine_silu_conv1d_backward(x, a, b, w, bias, dy)
     with mock.patch.object(fa, "attention_route", lambda *a: "tc"), \
             mock.patch.object(fa, "_launch", a_launch), \
             mock.patch.object(fr, "resnet_route", lambda *a: "tc"), \
-            mock.patch.object(fr, "_launch", r_launch):
+            mock.patch.object(fr, "_launch", r_launch), \
+            mock.patch.object(fr, "_grad_launch", g_launch):
         yield
 
 
