@@ -56,7 +56,8 @@ peak memory for remat dots, off and all; the loss on one fixed batch over
 30 steps; the loader-fed loop; every K1 / K2 geometry of a step, forward
 and backward through the autograd Functions, against autograd through the
 plain versions, with the torch backward's device time and bound; K2's
-backward kernels (`affine_silu_conv1d_grad`, csrc/affine_silu_conv1d_bwd.cu)
+backward kernels (`affine_silu_conv1d_grad`: bf16 csrc/affine_silu_conv1d_
+bwd_wgmma.cu, f32 csrc/affine_silu_conv1d_bwd.cu)
 at every geometry of the step, in bf16 and in f32, against the plain
 backward (cuDNN, TF32 off; the bf16 kernels' f32 sums before rounding)
 within K2_BWD_RTOL of max|plain| per gradient, two launches bitwise equal,
@@ -280,11 +281,12 @@ GN_RTOL = 2e-5
 # of dx, da, db, dw, dbias within K2_BWD_RTOL of its max |plain| (K2's f32
 # bound)
 K2_BWD_RTOL = 3e-5
-# K2's backward kernels (csrc/affine_silu_conv1d_bwd.cu), per dtype: the
-# backward of the TPU kernel, which XLA differentiates
+# K2's backward kernels, per dtype (bf16: wgmma over TMA-fed tiles; f32:
+# FFMA): the backward of the TPU kernel, which XLA differentiates
 BACKWARD_ROUTES = {
     "affine_silu_conv1d_backward_bf16": (
-        "affine_silu_conv1d_bwd.cu", "ns2vc_tpu/ops/pallas_resnet.py:71"),
+        "affine_silu_conv1d_bwd_wgmma.cu",
+        "ns2vc_tpu/ops/pallas_resnet.py:71"),
     "affine_silu_conv1d_backward_f32": (
         "affine_silu_conv1d_bwd.cu", "ns2vc_tpu/ops/pallas_resnet.py:71"),
 }
@@ -3382,9 +3384,11 @@ def training_profile(trainer, batch, step_ms, title=""):
                "backward's var_mean, Welford reduce)",
                ("group_norm_affine", "welford", "Welford")),
               # before cuDNN's group, whose kernel names hold "dgrad" too
-              ("K2 backward (dgrad_kernel, wgrad_kernel, finalize_kernel)",
+              ("K2 backward (dgrad, wgrad, finalize kernels: bf16 "
+               "*_wgmma_kernel, f32 *_kernel)",
                ("::dgrad_kernel<", "::wgrad_kernel<",
-                "::finalize_kernel<")),
+                "::finalize_kernel<", "::dgrad_wgmma_kernel<",
+                "::wgrad_wgmma_kernel<", "::finalize_wgmma_kernel<")),
               ("cuDNN convolutions", ("cudnn", "conv", "dgrad", "wgrad",
                                       "fprop", "implicit")),
               ("cuBLAS / CUTLASS GEMMs", ("gemm", "nvjet", "cutlass",

@@ -1,5 +1,6 @@
-// The resnet epilogue's backward on Hopper (sm_90a), for x in bf16 and in
-// f32, deterministic by construction: for
+// The resnet epilogue's backward on Hopper (sm_90a), for x in f32 (bf16
+// takes affine_silu_conv1d_bwd_wgmma.cu), deterministic by construction:
+// for
 //     z = x a + b,  s = sigmoid(z),  h = z s,
 //     y = conv1d_k3_SAME(h, w) + bias
 // given dy (B, T, Co) it computes
@@ -9,9 +10,7 @@
 //     dz = dh s (1 + z (1 - s)),  dx = dz a,
 //     da[b,c] = sum_t dz x,  db[b,c] = sum_t dz.
 // x (B, T, C), dy (B, T, Co) channels-last, w (Co, C, 3) torch Conv1d
-// layout, all of one type X; a, b (B, C) f32. dx, dw, dbias are written in
-// the output type O (X, or f32 when the caller keeps the sums unrounded),
-// da, db in f32.
+// layout, a, b (B, C), all f32; so are dx, dw, dbias, da, db.
 //
 // Replaces: the backward of the port's kernel K2 (`_AffineSiluConv1dFn`
 // in ops/fused_resnet.py), which handed the three shifted products to
@@ -23,8 +22,8 @@
 //
 // What bounds it on the H100: operations. Two products of 6 B T C Co FLOPs
 // each (dh over K = 3 Co, dw over K = B T) on f32 inputs (x's activation
-// is recomputed in f32 and dy, w upcast), which the plain version, and the
-// JAX reference, sum in f32.
+// is recomputed in f32), which the plain version, and the JAX reference,
+// sum in f32.
 // What the design does about it: the products run on the CUDA cores in
 // f32 FFMA (exact products, f32 sums: at least the plain version's
 // accuracy, which cuDNN runs in TF32 by default), in register tiles of 4 x
@@ -52,14 +51,10 @@
 // The wrapper's `plan_backward` picks the splits: enough blocks for two per
 // SM, at most 64 and at most the number of chunks, which keeps the
 // workspace under ~13 MB at every width.
-#include <cuda_bf16.h>
-
 #include <cstdint>
 
 namespace ns2vc {
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;           // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kTile = 64;               // dgrad: frames; wgrad: output channels
@@ -69,17 +64,11 @@ constexpr int kChunk = 16;              // dgrad: output channels per step;
 constexpr int kHalo = kTile + 2;        // dgrad's staged frames t0-1..t0+64
 constexpr int kHaloPad = kHalo + 2;     // rows of 16-byte multiples
 
+// the kernels' element types (X, O) are f32: no conversion
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 template <typename O>
-__device__ __forceinline__ O from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+__device__ __forceinline__ O from_f(float v) { return v; }
 
 // z = x a + b as the plain version rounds it (no contraction)
 __device__ __forceinline__ float affine(float x, float a, float b) {
@@ -410,28 +399,18 @@ int launch(const void* x, const void* a, const void* b, const void* w,
 }  // namespace
 }  // namespace ns2vc
 
-// x (B, T, C), w (Co, C, 3), dy (B, T, Co) contiguous, bf16 (x_bf16) or
-// f32; a, b (B, C) f32 contiguous. Writes dx (B, T, C), dw (Co, C, 3),
-// dbias (Co,) in x's type, or in f32 (out_f32), and da, db (B, C) f32.
-// ws: f32 workspace of S * 3 * Co * C + S * Co + 2 * B * ceil(T / 64) * C
-// values; S (`splits`) >= 1 splits the weight gradient's sum over the
-// B * ceil(T / 16) frame chunks (at most that many). The caller guarantees
-// B >= 1, T >= 1, C >= 1, Co >= 1 and B, ceil(T / 64) <= 65535. Returns the
-// CUDA error of the launches (0 on success).
+// x (B, T, C), w (Co, C, 3), dy (B, T, Co) contiguous f32; a, b (B, C)
+// f32 contiguous. Writes dx (B, T, C), dw (Co, C, 3), dbias (Co,), da, db
+// (B, C), all f32. ws: f32 workspace of S * 3 * Co * C + S * Co + 2 * B *
+// ceil(T / 64) * C values; S (`splits`) >= 1 splits the weight gradient's
+// sum over the B * ceil(T / 16) frame chunks (at most that many). The
+// caller guarantees B >= 1, T >= 1, C >= 1, Co >= 1 and B, ceil(T / 64) <=
+// 65535. Returns the CUDA error of the launches (0 on success).
 extern "C" int ns2vc_affine_silu_conv1d_bwd(
     const void* x, const void* a, const void* b, const void* w,
     const void* dy, void* dx, void* da, void* db, void* dw, void* dbias,
-    void* ws, int B, int Tlen, int C, int Co, int splits, int x_bf16,
-    int out_f32, void* stream) {
-  using ns2vc::bf16;
-  using ns2vc::launch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!x_bf16)
-    return launch<float, float>(x, a, b, w, dy, dx, da, db, dw, dbias, ws, B,
-                                Tlen, C, Co, splits, st);
-  if (out_f32)
-    return launch<bf16, float>(x, a, b, w, dy, dx, da, db, dw, dbias, ws, B,
-                               Tlen, C, Co, splits, st);
-  return launch<bf16, bf16>(x, a, b, w, dy, dx, da, db, dw, dbias, ws, B,
-                            Tlen, C, Co, splits, st);
+    void* ws, int B, int Tlen, int C, int Co, int splits, void* stream) {
+  return ns2vc::launch<float, float>(x, a, b, w, dy, dx, da, db, dw, dbias,
+                                     ws, B, Tlen, C, Co, splits,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -58,7 +58,8 @@ _SIGNATURES = {
         + [_P],
     "ns2vc_affine_silu_conv1d_f32tc": [_P] * 6 + [_I] * 8 + [_P],
     "ns2vc_affine_silu_conv1d_tc": [_P] * 6 + [_I] * 8 + [_P],
-    "ns2vc_affine_silu_conv1d_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    "ns2vc_affine_silu_conv1d_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "ns2vc_affine_silu_conv1d_bwd_wgmma": [_P] * 11 + [_I] * 8 + [_P],
     "ns2vc_encode_weight_map": [_P, _I, _I, _P],
     "ns2vc_encode_weight_map_f32": [_P, _I, _I, _P],
     "ns2vc_group_norm_affine":

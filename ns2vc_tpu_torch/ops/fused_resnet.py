@@ -46,10 +46,14 @@ design answers that.
 
 Training: when grad is enabled and an input requires it, a CUDA call goes
 through an autograd Function whose forward is the same launch and whose
-backward is `affine_silu_conv1d_grad`: three kernels
-(`csrc/affine_silu_conv1d_bwd.cu`, both dtypes, f32 FFMA) that recompute
-the activation and sum every gradient in an order fixed by the indices,
-with no atomics, so a training step is bit-reproducible on the card.
+backward is `affine_silu_conv1d_grad`: three kernels per dtype that
+recompute the activation and sum every gradient in an order fixed by the
+shapes, with no atomics, so a training step is bit-reproducible on the
+card. bf16 (every training step's route): `csrc/affine_silu_conv1d_bwd_
+wgmma.cu`, dgrad and wgrad on wgmma over TMA-fed tiles of the flattened
+B * T frames, h in BWD_H_PLANES bf16 planes (written by dgrad, read by
+wgrad), splits of the weight gradient's frame sum from `plan_wgrad`; f32:
+`csrc/affine_silu_conv1d_bwd.cu`, f32 FFMA, splits from `plan_backward`.
 `affine_silu_conv1d_backward`, the same arithmetic in f32 torch ops (the
 conv's input and weight gradients one `convolution_backward`), is their
 plain version, which a CPU tensor takes. Each backward adds one to
@@ -82,11 +86,18 @@ F32_BM, F32_BN, F32_BK = 64, 128, 16
 TC_MAX_SPLITS = 8         # either conv kernel's splits form one portable
                           # cluster
 GN_MAX_SPLITS = 8         # the statistics kernel's blocks per slab, likewise
-# the backward kernels' tiles (csrc/affine_silu_conv1d_bwd.cu kTile, kCols,
-# kChunk): frames (dgrad) or output channels (wgrad), input channels, and
-# the weight gradient's frames per chunk
+# the f32 backward kernels' tiles (csrc/affine_silu_conv1d_bwd.cu kTile,
+# kCols, kChunk): frames (dgrad) or output channels (wgrad), input
+# channels, and the weight gradient's frames per chunk
 BWD_TILE, BWD_COLS, BWD_CHUNK = 64, 64, 16
 BWD_MAX_SPLITS = 64
+# the bf16 backward kernels' tiles (csrc/affine_silu_conv1d_bwd_wgmma.cu
+# kFrames, kCols, kWgRows): frames of the flattened B * T per dgrad tile and
+# per weight-gradient chunk, input channels per tile, output channels per
+# weight-gradient tile; the bf16 planes of h
+WG_FRAMES, WG_COLS, WG_ROWS = 64, 64, 64
+WG_MAX_SPLITS = 64
+BWD_H_PLANES = 2
 
 
 def resnet_route(device: torch.device | str, dtype: torch.dtype) -> str:
@@ -199,16 +210,32 @@ class _Packed:
 
 
 _PACKED: dict[int, _Packed] = {}   # id(w) -> its packing, while w lives
+_BY_KEY: dict[tuple, _Packed] = {}  # the same packings by their keys
 
 
 def _packing(w: torch.Tensor) -> _Packed:
-    key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape))
+    """w's packing; another tensor object over the same memory, stride and
+    version as a live packed tensor (the alias autograd saves for a
+    backward, as under remat) shares that tensor's packing."""
+    key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape), w.stride())
     hit = _PACKED.get(id(w))
-    if hit is None or hit.key != key:
-        if hit is None:
-            weakref.finalize(w, _PACKED.pop, id(w), None)
-        hit = _PACKED[id(w)] = _Packed(key, pack_conv_weight(w))
+    if hit is not None and hit.key == key:
+        return hit
+    alias = _BY_KEY.get(key)
+    if alias is not None:
+        return alias
+    if hit is None:
+        weakref.finalize(w, _forget, id(w))
+    else:
+        _BY_KEY.pop(hit.key, None)
+    hit = _PACKED[id(w)] = _BY_KEY[key] = _Packed(key, pack_conv_weight(w))
     return hit
+
+
+def _forget(ident: int) -> None:
+    hit = _PACKED.pop(ident, None)
+    if hit is not None and _BY_KEY.get(hit.key) is hit:
+        del _BY_KEY[hit.key]
 
 
 def packed_weight(w: torch.Tensor) -> torch.Tensor:
@@ -289,9 +316,10 @@ class _AffineSiluConv1dFn(torch.autograd.Function):
 
 
 def plan_backward(bsz: int, t: int, c: int, co: int) -> int:
-    """Splits of the backward's weight-gradient sum over its B * ceil(T /
-    16) frame chunks: enough (64 x 64) dw tiles times splits for two blocks
-    per SM of the H100, at most BWD_MAX_SPLITS and at most the chunks."""
+    """Splits of the f32 backward's weight-gradient sum over its B * ceil(T
+    / 16) frame chunks: enough (64 x 64) dw tiles times splits for two
+    blocks per SM of the H100, at most BWD_MAX_SPLITS and at most the
+    chunks."""
     tiles = -(-c // BWD_COLS) * -(-co // BWD_TILE)
     chunks = bsz * -(-t // BWD_CHUNK)
     return max(1, min(chunks, BWD_MAX_SPLITS,
@@ -300,9 +328,37 @@ def plan_backward(bsz: int, t: int, c: int, co: int) -> int:
 
 def backward_workspace(bsz: int, t: int, c: int, co: int,
                        splits: int) -> int:
-    """f32 values of the backward kernels' workspace: each split's dw and
-    dbias partials, each frame tile's da and db partials."""
+    """f32 values of the f32 backward kernels' workspace: each split's dw
+    and dbias partials, each frame tile's da and db partials."""
     return splits * (3 * co * c + co) + 2 * bsz * -(-t // BWD_TILE) * c
+
+
+def plan_wgrad(bsz: int, t: int, c: int, co: int) -> int:
+    """Splits of the bf16 backward's weight-gradient sum over the
+    ceil(B * T / 64) chunks of the flattened frames: (64 x 64 x 3 taps) dw
+    tiles times splits up to the H100's SMs (one block each), at most
+    WG_MAX_SPLITS and at most the chunks. Split z takes chunks [z n / S,
+    (z + 1) n / S): contiguous, none empty."""
+    tiles = -(-c // WG_COLS) * -(-co // WG_ROWS)
+    chunks = -(-bsz * t // WG_FRAMES)
+    return max(1, min(chunks, WG_MAX_SPLITS, _build.H100_SMS // tiles))
+
+
+def frame_slots(t: int) -> int:
+    """The most 64-frame tiles of the flattened B * T frames that one batch
+    row of T frames touches: da's and db's partials per batch row."""
+    return (t + WG_FRAMES - 2) // WG_FRAMES + 1
+
+
+def wgmma_backward_workspace(bsz: int, t: int, c: int, co: int,
+                             splits: int) -> int:
+    """f32 values of the bf16 backward kernels' workspace: each split's dw
+    and dbias partials, each batch row's frame-tile partials of da and db,
+    then, at a multiple of 64 values, h's two bf16 planes over the B * T
+    frames, rows of C rounded up to 64 (dgrad writes them, wgrad reads
+    them by TMA)."""
+    partials = splits * (3 * co * c + co) + 2 * bsz * frame_slots(t) * c
+    return -(-partials // 64) * 64 + bsz * t * -(-c // WG_COLS) * WG_COLS
 
 
 def affine_silu_conv1d_grad(x: torch.Tensor, a: torch.Tensor,
@@ -312,8 +368,9 @@ def affine_silu_conv1d_grad(x: torch.Tensor, a: torch.Tensor,
     """(dx, da, db, dw, dbias) of `affine_silu_conv1d` given dy (B, T, Co),
     each in its input's dtype, or with `keep_f32` dx, dw, dbias in f32
     (the sums before their rounding to bf16). A CPU tensor takes
-    `affine_silu_conv1d_backward`; a CUDA tensor the backward kernels
-    (`csrc/affine_silu_conv1d_bwd.cu`: f32 FFMA, no atomics, so two calls
+    `affine_silu_conv1d_backward`; a CUDA tensor the backward kernels of
+    its dtype (bf16: `csrc/affine_silu_conv1d_bwd_wgmma.cu`, wgmma; f32:
+    `csrc/affine_silu_conv1d_bwd.cu`, f32 FFMA; no atomics, so two calls
     on one input agree bit for bit) or raises. On CUDA: x, w, bias, dy
     contiguous and of one dtype (f32 or bf16); a, b contiguous f32."""
     if resnet_route(x.device, x.dtype) == "plain":
@@ -336,28 +393,42 @@ def _grad_launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"affine_silu_conv1d_grad: dy {tuple(dy.shape)} "
                          f"{dy.dtype} must be contiguous ({bsz}, {t}, {co}) "
                          f"{x.dtype} on {x.device}")
-    if bsz > 65535 or -(-t // BWD_TILE) > 65535:
+    bf16 = x.dtype == torch.bfloat16
+    if (-(-bsz * t // WG_FRAMES) if bf16 else max(bsz, -(-t // BWD_TILE))) \
+            > 65535:
         raise ValueError(f"affine_silu_conv1d_grad: unsupported shape "
                          f"{tuple(x.shape)}")
     _build.require_current_device(x)
     lib = _build.library()
-    splits = plan_backward(bsz, t, c, co)
-    ws = torch.empty(backward_workspace(bsz, t, c, co, splits),
-                     dtype=torch.float32, device=x.device)
+    if bf16:
+        splits = plan_wgrad(bsz, t, c, co)
+        size = wgmma_backward_workspace(bsz, t, c, co, splits)
+    else:
+        splits = plan_backward(bsz, t, c, co)
+        size = backward_workspace(bsz, t, c, co, splits)
+    ws = torch.empty(size, dtype=torch.float32, device=x.device)
     out = torch.float32 if keep_f32 else x.dtype
     dx = torch.empty((bsz, t, c), dtype=out, device=x.device)
     dw = torch.empty((co, c, 3), dtype=out, device=x.device)
     dbias = torch.empty((co,), dtype=out, device=x.device)
     da = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
     db = torch.empty_like(da)
-    route = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    route = "bf16" if bf16 else "f32"
     _grad_counts.launches += 1
     _grad_counts.route_launches[route] += 1
-    err = lib.ns2vc_affine_silu_conv1d_bwd(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), da.data_ptr(), db.data_ptr(), dw.data_ptr(),
-        dbias.data_ptr(), ws.data_ptr(), bsz, t, c, co, splits,
-        int(x.dtype == torch.bfloat16), int(keep_f32), _build.stream_of(x))
+    ptrs = (x.data_ptr(), a.data_ptr(), b.data_ptr())
+    outs = (dx.data_ptr(), da.data_ptr(), db.data_ptr(), dw.data_ptr(),
+            dbias.data_ptr(), ws.data_ptr())
+    if bf16:
+        vec = all(_build.aligned16(v) for v in (x, a, b, dy))
+        err = lib.ns2vc_affine_silu_conv1d_bwd_wgmma(
+            *ptrs, ctypes.addressof(weight_map(w, lib)), dy.data_ptr(),
+            *outs, bsz, t, c, co, packed_weight(w).shape[-2], splits,
+            int(vec), int(keep_f32), _build.stream_of(x))
+    else:
+        err = lib.ns2vc_affine_silu_conv1d_bwd(
+            *ptrs, w.data_ptr(), dy.data_ptr(), *outs, bsz, t, c, co, splits,
+            _build.stream_of(x))
     _build.check(err, f"affine_silu_conv1d_grad ({route})")
     return dx, da, db, dw, dbias
 

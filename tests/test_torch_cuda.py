@@ -35,8 +35,9 @@ checks the route its call took. K2's backward kernels
 dtypes (3e-5 of max|plain| per gradient, the bf16 kernels' f32 sums before
 their rounding, and the rounded outputs within half a bf16 ulp of them),
 odd T, C not a multiple of 16 and Co of the output tail included, two
-launches bitwise equal; under autograd K2's backward takes them and never
-cuDNN. K2's f32 kernel is also held to give
+launches bitwise equal; the bf16 route (the wgmma kernels) also at every
+geometry of a `Config()` training step at its batch of 32; under autograd
+K2's backward takes them and never cuDNN. K2's f32 kernel is also held to give
 bitwise-equal outputs on two launches, split over a cluster at B = 1 and
 2, and with element loads at C % 4 != 0. The Svc
 readback test checks that
@@ -1137,6 +1138,8 @@ K2_BWD_GEOMETRIES = [
     (2, 136, 256, 128),    # a UNet level of the training step
     (4, 34, 1024, 512),    # the deepest level: T < one frame tile
     (3, 37, 40, 100),      # odd T, C not a multiple of 16, conv_out's Co
+    (3, 37, 40, 24),       # the same through TMA maps: a partial channel
+                           # tile, one half of an output-channel chunk
     (1, 5, 7, 3),          # smaller than every tile
     (32, 272, 128, 100),   # conv_out at the training batch: 64 splits
 ]
@@ -1186,6 +1189,44 @@ def test_k2_backward_kernels_match_the_plain_backward(dev, dtype, geometry):
                                else 0.0)).all(), name
 
 
+# every (T, C, Co) of K2 in a `Config()` training step at 32 x 272: the
+# UNet's 44 resnet epilogues and its output conv (Co = 100, which TMA
+# cannot describe: element loads)
+K2_TRAIN_GEOMETRIES = [
+    (272, 128, 128), (272, 384, 128), (272, 256, 128), (272, 128, 100),
+    (136, 128, 256), (136, 256, 256), (136, 640, 256), (136, 512, 256),
+    (136, 384, 256),
+    (68, 256, 384), (68, 384, 384), (68, 896, 384), (68, 768, 384),
+    (68, 640, 384),
+    (34, 384, 512), (34, 512, 512), (34, 1024, 512), (34, 896, 512),
+]
+
+
+@pytest.mark.parametrize("geometry", K2_TRAIN_GEOMETRIES)
+def test_k2_backward_bf16_at_the_training_geometries(dev, geometry):
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d_backward, plan_wgrad,
+    )
+
+    t, c, co = geometry
+    args = _k2_backward_inputs(_gen(dev, 23), dev, 32, t, c, co,
+                               torch.bfloat16)
+    n0 = dict(affine_silu_conv1d_grad.route_launches)
+    got = affine_silu_conv1d_grad(*args, keep_f32=True)
+    again = affine_silu_conv1d_grad(*args, keep_f32=True)
+    assert affine_silu_conv1d_grad.route_launches == {
+        "bf16": n0["bf16"] + 2, "f32": n0["f32"]}
+    x, a, b, w, bias, dy = args
+    want = affine_silu_conv1d_backward(x.float(), a, b, w.float(),
+                                       bias.float(), dy.float())
+    torch.cuda.synchronize()
+    for name, gv, rv, wv in zip(("dx", "da", "db", "dw", "dbias"), got,
+                                again, want):
+        assert torch.equal(gv, rv), name
+        err = (gv - wv).abs().max().item() / wv.abs().max().item()
+        assert err <= K2_BWD_RTOL, (name, err, plan_wgrad(32, t, c, co))
+
+
 def test_k2_backward_refuses_what_it_cannot_take(dev):
     x, a, b, w, bias, dy = _k2_backward_inputs(_gen(dev, 22), dev, 2, 8, 16,
                                                8, torch.float32)
@@ -1198,6 +1239,14 @@ def test_k2_backward_refuses_what_it_cannot_take(dev):
             0, 1), a, b, w, bias, dy)
     with pytest.raises(ValueError, match="a and b"):
         affine_silu_conv1d_grad(x, a.double(), b, w, bias, dy)
+    # the bf16 route's checks alike
+    xb, wb, biasb, dyb = (v.to(torch.bfloat16) for v in (x, w, bias, dy))
+    with pytest.raises(ValueError, match="dy"):
+        affine_silu_conv1d_grad(xb, a, b, wb, biasb, dy)
+    with pytest.raises(ValueError, match="dtypes"):
+        affine_silu_conv1d_grad(xb, a, b, w, biasb, dyb)
+    with pytest.raises(ValueError, match="a and b"):
+        affine_silu_conv1d_grad(xb, a.bfloat16(), b, wb, biasb, dyb)
 
 
 @pytest.mark.parametrize("remat_policy", [None, "dots"])
