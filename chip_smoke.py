@@ -53,11 +53,18 @@ with remat dots: launches and backward calls of one step, counted with
 the counts set to 0 just before it (each K1 / K2 call of the forward
 launches again in the recomputation, and has one backward); step time and
 peak memory for remat dots, off and all; the loss on one fixed batch over
-30 steps; the loader-fed loop; every K1 / K2 geometry of a step, forward
-and backward through the autograd Functions, against autograd through the
-plain versions, with the torch backward's device time and bound; K2's
-backward kernels (`affine_silu_conv1d_grad`: bf16 csrc/affine_silu_conv1d_
-bwd_wgmma.cu, f32 csrc/affine_silu_conv1d_bwd.cu)
+30 steps; the loader-fed loop; every K1 / K2 geometry of a step, K2's
+(and an f32 K1 call's) forward and backward through the autograd Functions
+against autograd through the plain versions, with the backward's device
+time and bound; K1's bf16
+backward kernels (`flash_attention_grad`: csrc/flash_attention_bwd_wgmma.cu)
+at every K1 geometry of the step against the plain backward (torch ops)
+within K1_BWD_RTOL of max|plain| in each batch row and K1_BWD_RMS of
+||plain||, two launches bitwise equal,
+timed in turns against it and SDPA's backward; a step's launches of them
+(44 tile calls and the 2 pools, one per K1 backward, none in torch ops);
+K2's backward kernels (`affine_silu_conv1d_grad`: bf16
+csrc/affine_silu_conv1d_bwd_wgmma.cu, f32 csrc/affine_silu_conv1d_bwd.cu)
 at every geometry of the step, in bf16 and in f32, against the plain
 backward (cuDNN, TF32 off; the bf16 kernels' f32 sums before rounding)
 within K2_BWD_RTOL of max|plain| per gradient, two launches bitwise equal,
@@ -215,7 +222,15 @@ against the plain backward (`max_abs_err`, and `max_rel_err` of
 max|plain|), ms, plain_ms (cuDNN's path under the step's flags) and
 plain_deterministic_ms summed over the training step's geometries,
 bound_ms, and library_ms null (cuDNN's `convolution_backward` computes
-neither the activation's gradient nor da, db). The serving profiles at
+neither the activation's gradient nor da, db). K1's bf16 backward
+kernels have two, `flash_attention_backward_tc` (the tile kernels) and
+`flash_attention_backward_tc_q1` (the single-query kernel): launches
+counted in one training step, errors against the plain backward
+(`flash_attention_backward`, torch ops) at every K1 geometry of the step
+(`max_rel_err` of the batch row's max|plain|, `max_rel_rms` of the
+gradient's norm),
+ms, plain_ms and library_ms (SDPA's backward: forward and backward less
+the forward) summed over them, and bound_ms. The serving profiles at
 the end name K1's, K2's
 and the statistics kernel's share of each call, and the kernels of one
 B=16 UNet step's 45 epilogues are counted with the statistics as torch ops
@@ -284,6 +299,15 @@ K2_BWD_RTOL = 3e-5
 # K2's backward kernels, per dtype (bf16: wgmma over TMA-fed tiles; f32:
 # FFMA): the backward of the TPU kernel, which XLA differentiates
 BACKWARD_ROUTES = {
+    # K1's bf16 backward (dq, then dk and dv, on wgmma) and its single-query
+    # kernel, one source: the gradient of the function the TPU kernel
+    # computes, which XLA differentiates
+    "flash_attention_backward_tc": (
+        "flash_attention_bwd_wgmma.cu",
+        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "flash_attention_backward_tc_q1": (
+        "flash_attention_bwd_wgmma.cu",
+        "ns2vc_tpu/ops/pallas_attention.py:92"),
     "affine_silu_conv1d_backward_bf16": (
         "affine_silu_conv1d_bwd_wgmma.cu",
         "ns2vc_tpu/ops/pallas_resnet.py:71"),
@@ -2234,6 +2258,23 @@ GRAD_COSINE = 0.99            # bf16 kernels vs f32 plain, per tensor
 BF16_COSINE_GAP = 5e-3        # the kernels' allowance below plain bf16
 K1_GRAD_BF16 = 3e-2           # bf16 backward vs plain autograd, of
 K2_GRAD_BF16 = 3e-2           # max(1, max|grad|)
+# K1's bf16 backward kernels vs the plain backward, per gradient
+# (`k1_grad_errors`). The largest error in each batch row, of the row's
+# max |plain|: two correct bf16 roundings of one f32 value differ by at
+# most one ulp, up to 2^-7 of the row's max; the rest (2.2e-3) covers the
+# f32 differences (dS in two bf16 planes, other summation orders, exp2;
+# the largest, a fully masked row's logits, which both versions quantise
+# to 2^-10 at -1e4). A gradient 10 % off in one batch row reads 0.1. The
+# relative RMS error over the whole gradient, ||got - plain|| / ||plain||:
+# such roundings differ in few elements, where a fault of a bf16
+# rounding's size in every element (dS in one bf16 plane, P unrounded for
+# dV, Delta from the bf16 O) reads ~1e-3 or more and stays within the
+# largest-error bound (scripts/torch_k1_bwd_compare.py reads both bounds
+# on the kernels and on such faults). Over one batch row the RMS is not
+# held: at the pools a row of dq holds 256 elements, where one flip at
+# its largest element can pass the bound alone.
+K1_BWD_RTOL = 1e-2
+K1_BWD_RMS = 4e-4
 TRAIN_WAVS = 12
 
 
@@ -2245,6 +2286,80 @@ def k1_backward_bound(q, k, bias):
     nbytes = q.element_size() * (3 * b * h * tq * d + 4 * b * h * tk * d)
     return bound(10.0 * b * h * tq * tk * d,
                  nbytes + (0 if bias is None else 4 * b * tk), q.dtype)
+
+
+def sdpa_grad_calls(q, k, v, bias, scale, do):
+    """The library yardstick of K1's backward: closures of one SDPA call
+    with the additive key bias as its mask, forward alone and forward with
+    its backward through autograd (timed only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                              scale=scale)
+
+    def both():
+        return torch.autograd.grad(fwd(), leaves, do)
+    return fwd, both
+
+
+def k1_grad_errors(got, want) -> tuple[list, list]:
+    """Per gradient, the largest over batch rows of max |got - want| / max
+    |want| within the row (K1_BWD_RTOL's metric), and ||got - want|| /
+    ||want|| over the whole gradient (K1_BWD_RMS's)."""
+    peak, rms = [], []
+    for a, b in zip(got, want):
+        a, b = a.float().reshape(len(a), -1), b.float().reshape(len(b), -1)
+        d = a - b
+        peak.append((d.abs().amax(1)
+                     / b.abs().amax(1).clamp_min(1e-30)).max().item())
+        rms.append((d.norm() / b.norm().clamp_min(1e-30)).item())
+    return peak, rms
+
+
+def k1_backward_case(q, k, v, bias, scale, do) -> dict:
+    """K1's bf16 backward kernels (`flash_attention_grad`) on one input set
+    against the plain backward (`flash_attention_backward`): the sub-route's
+    kernels-line name, the largest errors of dq, dk, dv by `k1_grad_errors`
+    (err, rms) and absolute (abs_err), a bitwise repeat, and device
+    times in turns, kernels, plain, SDPA, SDPA, plain, kernels: ms, plain,
+    lib (SDPA's forward and backward less its forward), turns."""
+    import torch
+
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad,
+    )
+
+    from ns2vc_tpu_torch.ops.flash_attention import Q1_MAX_KEYS
+
+    sub = "tc_q1" if q.shape[2] == 1 and k.shape[2] <= Q1_MAX_KEYS else "tc"
+    got = flash_attention_grad(q, k, v, bias, scale, do)
+    again = flash_attention_grad(q, k, v, bias, scale, do)
+    want = flash_attention_backward(q, k, v, bias, scale, do)
+    torch.cuda.synchronize()
+    diff = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, want)]
+    peak, rms = k1_grad_errors(got, want)
+    r = {"name": f"flash_attention_backward_{sub}",
+         "err": max(peak), "rms": max(rms),
+         "abs_err": max(diff),
+         "repeat": all(torch.equal(a, b) for a, b in zip(got, again))}
+    fwd, both = sdpa_grad_calls(q, k, v, bias, scale, do)
+    calls = {"ms": lambda: flash_attention_grad(q, k, v, bias, scale, do),
+             "plain": lambda: flash_attention_backward(q, k, v, bias, scale,
+                                                       do),
+             "lib": both}
+    turns = defaultdict(list)
+    for key in ("ms", "plain", "lib", "lib", "plain", "ms"):
+        turns[key].append(graph_ms(calls[key]))
+    r.update({key: sum(t) / 2 for key, t in turns.items()})
+    r["lib"] -= graph_ms(fwd)
+    r["turns"] = dict(turns)
+    return r
 
 
 def gn_backward_bound(bsz, t, c, dtype):
@@ -2282,12 +2397,17 @@ def backward_calls() -> dict:
 
 
 def grad_launches() -> dict:
-    """Launches of K2's backward kernels per dtype since the last
-    reset_launches(), by their kernels-line names."""
+    """Launches of the backward kernels since the last reset_launches(), by
+    their kernels-line names: K1's bf16 ones per sub-route, K2's per
+    dtype."""
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_grad
     from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_grad
 
-    r = affine_silu_conv1d_grad.route_launches
-    return {"affine_silu_conv1d_backward_bf16": r["bf16"],
+    a, r = (flash_attention_grad.route_launches,
+            affine_silu_conv1d_grad.route_launches)
+    return {"flash_attention_backward_tc": a["tc"],
+            "flash_attention_backward_tc_q1": a["tc_q1"],
+            "affine_silu_conv1d_backward_bf16": r["bf16"],
             "affine_silu_conv1d_backward_f32": r["f32"]}
 
 
@@ -2423,16 +2543,19 @@ def training_config(processed, logs):
 
 def check_train_geometries(calls, dev):
     """Every K1 / K2 geometry of one bf16 training step (remat off: one
-    call per backward), forward and backward through the Function against
-    autograd through the plain version, on random inputs laid out as the
-    step's; the forward timed as in the serving phases, the backward (K1's
-    torch ops, K2's backward kernels) timed as a CUDA graph. At every K2
-    geometry K2's backward kernels, in bf16 and in f32, against the plain
-    backward (`k2_backward_case`). Returns per route {fwd_ms, bwd_ms,
-    bwd_bound, bwd_by, err, plain_ms, lib_ms, bound} summed over the
-    step's calls (K2's also bwd_plain_ms, cuDNN's path), and per backward
-    kernel route {ms, plain, plain_det, bound, bound_by, err, abs_err,
-    calls}."""
+    call per backward) on random inputs laid out as the step's: the forward
+    timed as in the serving phases; K1's bf16 backward kernels against the
+    plain backward (`k1_backward_case`, timed in turns with it and SDPA's
+    backward), an f32 K1 call's backward through the Function against
+    autograd through the plain version, timed as a CUDA graph; K2's
+    forward and backward through the Function against autograd through the
+    plain version, and at every K2 geometry K2's backward kernels, in bf16
+    and in f32 (`k2_backward_case`).
+    Returns per route {fwd_ms, bwd_ms, bwd_bound, bwd_by, err, plain_ms,
+    lib_ms, bound} summed over the step's calls (also bwd_plain_ms: K1's
+    torch ops, K2's cuDNN path; K1's bwd_lib_ms, SDPA's backward), and per
+    backward kernel route {ms, plain, plain_det (K2) or lib (K1), bound,
+    bound_by, err, abs_err, calls}."""
     from unittest import mock
 
     import torch
@@ -2463,21 +2586,23 @@ def check_train_geometries(calls, dev):
         q, k, v = views
         s = q.shape[-1] ** -0.5 if scale is None else scale
         do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
-        o = flash_attention(q, k, v, bias, scale)
-        o.backward(do)
-        got = [b_.grad for b_ in bufs]
-        ref = [b_.detach().requires_grad_() for b_ in bufs]
-        flash_attention_plain(*(r_.as_strided(shape, stride, offset)
-                                for r_, (shape, stride, offset, _)
-                                in zip(ref, geo)), bias, scale).backward(do)
-        err = max((a.float() - b_.grad.float()).abs().max().item()
-                  / max(1.0, b_.grad.float().abs().max().item())
-                  for a, b_ in zip(got, ref))
         route = k1_route(dtype)
-        worst[route] = max(worst[route], err)
-        if not err <= K1_GRAD_BF16:
-            fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: error "
-                 f"{err} > {K1_GRAD_BF16} of max(1, max|grad|)")
+        if dtype != torch.bfloat16:
+            # the f32 route's backward (torch ops) through the Function
+            flash_attention(q, k, v, bias, scale).backward(do)
+            got = [b_.grad for b_ in bufs]
+            ref = [b_.detach().requires_grad_() for b_ in bufs]
+            flash_attention_plain(*(r_.as_strided(shape, stride, offset)
+                                    for r_, (shape, stride, offset, _)
+                                    in zip(ref, geo)), bias,
+                                  scale).backward(do)
+            err = max((a.float() - b_.grad.float()).abs().max().item()
+                      / max(1.0, b_.grad.float().abs().max().item())
+                      for a, b_ in zip(got, ref))
+            worst[route] = max(worst[route], err)
+            if not err <= K1_GRAD_BF16:
+                fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: "
+                     f"error {err} > {K1_GRAD_BF16} of max(1, max|grad|)")
         qd, kd, vd = (t.detach() for t in (q, k, v))
         r = k1_case(qd, kd, vd, bias, scale)
         add(route, "fwd_ms", r["ms"], n)
@@ -2486,9 +2611,34 @@ def check_train_geometries(calls, dev):
         add(route, "plain_ms", r["plain"], n)
         add(route, "lib_ms", r["lib"], n)
         add(route, "bound", r["bound"], n)
-        add(route, "bwd_ms", graph_ms(lambda: flash_attention_backward(
-            qd, kd, vd, bias, s, do)), n)
         bb, by = k1_backward_bound(qd, kd, bias)
+        if dtype == torch.bfloat16:
+            # the backward kernels against the plain backward, timed in
+            # turns against it and SDPA's backward
+            kb = k1_backward_case(qd, kd, vd, bias, s, do)
+            if not (kb["err"] <= K1_BWD_RTOL and kb["rms"] <= K1_BWD_RMS
+                    and kb["repeat"]):
+                fail(f"K1 backward kernels q{tuple(q.shape)} "
+                     f"k{tuple(k.shape)}: error {kb['err']:.3e} of the "
+                     f"batch row's max|plain| (tol {K1_BWD_RTOL}), relative "
+                     f"RMS {kb['rms']:.3e} (tol {K1_BWD_RMS}), two "
+                     f"launches bitwise equal: {kb['repeat']}")
+            worst[route] = max(worst[route], kb["err"])
+            d = bwd_out[kb["name"]]
+            d["err"] = max(d["err"], kb["err"])
+            d["rms"] = max(d["rms"], kb["rms"])
+            d["abs_err"] = max(d["abs_err"], kb["abs_err"])
+            for k_ in ("ms", "plain", "lib"):
+                d[k_] += n * kb[k_]
+            d["bound"] += n * bb
+            d["by_" + by] += n * bb
+            d["calls"] += n
+            add(route, "bwd_ms", kb["ms"], n)
+            add(route, "bwd_plain_ms", kb["plain"], n)
+            add(route, "bwd_lib_ms", kb["lib"], n)
+        else:
+            add(route, "bwd_ms", graph_ms(lambda: flash_attention_backward(
+                qd, kd, vd, bias, s, do)), n)
         add(route, "bwd_bound", bb, n)
         out[route]["bwd_by_" + by] += n * bb
         out[route]["calls"] += n
@@ -2584,11 +2734,15 @@ def check_train_geometries(calls, dev):
         by = {k[7:]: v for k, v in d.items() if k.startswith("bwd_by_")}
         d["bwd_by"] = max(by, key=by.get)
         stats = route.startswith("group_norm")
+        k1_kernels = route.startswith("flash") and d.get("bwd_plain_ms")
         say(f"{route} at the training step's {int(d['calls'])} calls (B="
             f"{TRAIN_B}, bf16): "
             + ("forward vs plain worst " if stats else
-               "backward vs plain autograd worst ")
-            + f"{d['err']:.3e}" + ("" if stats else " of max(1, max|grad|)")
+               "backward kernels vs plain backward worst " if k1_kernels
+               else "backward vs plain autograd worst ")
+            + f"{d['err']:.3e}" + ("" if stats else
+                                   " of the batch row's max|plain|"
+                                   if k1_kernels else " of max(1, max|grad|)")
             + f"; device ms per step: "
             f"forward {d['fwd_ms']:.4f} (plain {d['plain_ms']:.4f}"
             + (f", {'var_mean' if stats else 'SDPA'} {d['lib_ms']:.4f}"
@@ -2599,19 +2753,32 @@ def check_train_geometries(calls, dev):
             + f", bound {d['bound']:.5f}), "
             + ("backward kernels" if d.get("bwd_plain_ms") else
                "torch backward") + f" {d['bwd_ms']:.4f} "
-            + (f"(cuDNN's path {d['bwd_plain_ms']:.4f}) "
+            + (f"({'cuDNN' if route.startswith('affine') else 'torch ops'}"
+               f" path {d['bwd_plain_ms']:.4f}"
+               + (f", SDPA's backward {d['bwd_lib_ms']:.4f}"
+                  if d.get("bwd_lib_ms") else "") + ") "
                if d.get("bwd_plain_ms") else "")
             + f"(bound {d['bwd_bound']:.5f}, {d['bwd_by']}) [{CARD}]")
     for name, d in bwd_out.items():
         by = {k[3:]: v for k, v in d.items() if k.startswith("by_")}
         d["bound_by"] = max(by, key=by.get)
-        say(f"{name} at the training step's {int(d['calls'])} K2 calls (B="
-            f"{TRAIN_B}): worst error {d['err']:.3e} of max|plain| (tol "
-            f"{K2_BWD_RTOL}), two launches bitwise equal at every geometry;"
-            f" device ms per step in turns: kernels {d['ms']:.4f}, cuDNN's "
-            f"path {d['plain']:.4f}, under cudnn.deterministic "
-            f"{d['plain_det']:.4f} (bound {d['bound']:.5f}, {d['bound_by']}"
-            f") [{CARD}]")
+        if name.startswith("flash"):
+            say(f"{name} at the training step's {int(d['calls'])} K1 calls "
+                f"of its sub-route (B={TRAIN_B}): worst error {d['err']:.3e} "
+                f"of the batch row's max|plain| (tol {K1_BWD_RTOL}), relative "
+                f"RMS {d['rms']:.3e} (tol {K1_BWD_RMS}), two launches "
+                f"bitwise equal at every geometry; device ms per step in "
+                f"turns: kernels {d['ms']:.4f}, torch ops (plain) "
+                f"{d['plain']:.4f}, SDPA's backward {d['lib']:.4f} (bound "
+                f"{d['bound']:.5f}, {d['bound_by']}) [{CARD}]")
+        else:
+            say(f"{name} at the training step's {int(d['calls'])} K2 calls "
+                f"(B={TRAIN_B}): worst error {d['err']:.3e} of max|plain| "
+                f"(tol {K2_BWD_RTOL}), two launches bitwise equal at every "
+                f"geometry; device ms per step in turns: kernels "
+                f"{d['ms']:.4f}, cuDNN's path {d['plain']:.4f}, under "
+                f"cudnn.deterministic {d['plain_det']:.4f} (bound "
+                f"{d['bound']:.5f}, {d['bound_by']}) [{CARD}]")
         out[name] = d
     return out
 
@@ -3082,7 +3249,7 @@ def check_training(vsd, cv_sd, dev, tmp):
     )
     from ns2vc_tpu_torch.infer.svc import Svc
     from ns2vc_tpu_torch.models.unet import ResnetBlock1D
-    from ns2vc_tpu_torch.ops import fused_resnet as fr
+    from ns2vc_tpu_torch.ops import flash_attention as fa, fused_resnet as fr
     from ns2vc_tpu_torch.train.trainer import Trainer
 
     res = {}
@@ -3146,10 +3313,13 @@ def check_training(vsd, cv_sd, dev, tmp):
     torch.cuda.synchronize()
     launches, bwd, grads = route_counts(), backward_calls(), grad_launches()
     reset_launches()
-    packs = []
+    packs, plain_k1 = [], []
     pack = fr.pack_conv_weight
+    k1_plain = fa.flash_attention_backward
     with mock.patch.object(fr, "pack_conv_weight",
-                           lambda w: packs.append(1) or pack(w)):
+                           lambda w: packs.append(1) or pack(w)), \
+            mock.patch.object(fa, "flash_attention_backward",
+                              lambda *a: plain_k1.append(1) or k1_plain(*a)):
         trainer._train_step_eager(batches[2])
     torch.cuda.synchronize()
     if route_counts() != launches or backward_calls() != bwd \
@@ -3158,11 +3328,15 @@ def check_training(vsd, cv_sd, dev, tmp):
              f"backward calls {bwd} and backward kernels {grads}, the eager "
              f"step {route_counts()}, {backward_calls()} and "
              f"{grad_launches()}")
-    # every K2 backward of the step ran on the backward kernels
-    if grads != {"affine_silu_conv1d_backward_bf16": 45,
-                 "affine_silu_conv1d_backward_f32": 0}:
-        fail(f"training step: K2's backward kernels launched {grads}, not "
-             f"once per K2 backward (45 bf16)")
+    # every K1 and K2 backward of the step ran on the backward kernels (K1:
+    # 44 tile calls and the 2 pools), none on K1's torch ops
+    if grads != {"flash_attention_backward_tc": 44,
+                 "flash_attention_backward_tc_q1": 2,
+                 "affine_silu_conv1d_backward_bf16": 45,
+                 "affine_silu_conv1d_backward_f32": 0} or plain_k1:
+        fail(f"training step: the backward kernels launched {grads}, not "
+             f"once per K1 (44 + 2 pools) and K2 (45) backward; K1's torch "
+             f"ops backward ran {len(plain_k1)} times in the eager step")
     res["grad_launches"] = grads
     # the step's fresh bf16 weights are packed once each; the recomputed
     # forward finds them in the cache
@@ -3184,8 +3358,9 @@ def check_training(vsd, cv_sd, dev, tmp):
              f"backward calls {bwd} (expected {want_bwd})")
     res["launches"], res["backward"] = launches, bwd
     say(f"training step (remat dots): launches {launches}; backward calls "
-        f"{bwd}; K2's backward kernels {grads} (a replay and the eager step "
-        f"alike); K2 weights packed "
+        f"{bwd}; backward kernels {grads} (a replay and the eager step "
+        f"alike; K1's torch ops backward {len(plain_k1)} times); K2 weights "
+        f"packed "
         f"{len(packs)} times (eager); the step key's first call (warm-up "
         f"and capture) {res['first_call_ms']:.0f} ms [{CARD}]")
 
@@ -3321,17 +3496,17 @@ def check_training(vsd, cv_sd, dev, tmp):
 
 def training_profile(trainer, batch, step_ms, title=""):
     """One training step under torch.profiler (host and device activity):
-    device time by kernel, grouped, with K1's torch backward, K2's backward
-    kernels and the GroupNorm statistics attributed through
-    record_function ranges (an eager step's; a replay runs no Python);
-    the busy share against the unprofiled median step."""
+    device time by kernel, grouped by kernel name (the backward kernels,
+    launched through ctypes, by theirs: a record_function range around
+    their wrappers holds none of their time), the GroupNorm statistics also
+    attributed through a record_function range (an eager step's; a replay
+    runs no Python); the busy share against the unprofiled median step."""
     from unittest import mock
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    import ns2vc_tpu_torch.ops.flash_attention as fa
     import ns2vc_tpu_torch.ops.fused_resnet as fr
 
     def ranged(label, fn):
@@ -3339,9 +3514,7 @@ def training_profile(trainer, batch, step_ms, title=""):
             with record_function(label):
                 return fn(*a, **k)
         return f
-    ranges = {"K1 torch backward": (fa, "flash_attention_backward"),
-              "K2 backward kernels": (fr, "affine_silu_conv1d_grad"),
-              "GroupNorm statistics (forward)": (fr, "group_norm_affine")}
+    ranges = {"GroupNorm statistics (forward)": (fr, "group_norm_affine")}
     with contextlib.ExitStack() as stack:
         for label, (mod, name) in ranges.items():
             stack.enter_context(mock.patch.object(
@@ -3378,6 +3551,8 @@ def training_profile(trainer, batch, step_ms, title=""):
         say("training profile: the profiler recorded no device time")
         return {}
     groups = (("K1 forward (flash_fwd*)", ("flash_fwd",)),
+              ("K1 backward (flash_bwd_dq, _dkdv, _q1 kernels)",
+               ("flash_bwd",)),
               ("K2 forward (affine_silu_conv_k3*, split reduce)",
                ("affine_silu_conv", "split_k_reduce")),
               ("GroupNorm statistics (group_norm_affine_kernel; the "
@@ -6094,6 +6269,9 @@ def main() -> int:
     # just before; timed and held against the plain backward at the step's
     # geometries
     bwd_launches = {
+        **{name: (train["grad_launches"][name], "train_step_bf16")
+           for name in ("flash_attention_backward_tc",
+                        "flash_attention_backward_tc_q1")},
         "affine_silu_conv1d_backward_bf16": (
             train["grad_launches"]["affine_silu_conv1d_backward_bf16"],
             "train_step_bf16"),
@@ -6109,13 +6287,19 @@ def main() -> int:
             "source": f"ns2vc_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "launches_from": launches_from,
             "max_abs_err": d["abs_err"], "max_rel_err": d["err"],
+            **({"max_rel_rms": d["rms"]} if "rms" in d else {}),
             "ms": d["ms"], "plain_ms": d["plain"],
-            "plain_deterministic_ms": d["plain_det"],
+            **({"plain_deterministic_ms": d["plain_det"]}
+               if "plain_det" in d else {}),
             "bound_ms": d["bound"], "bound_by": d["bound_by"],
-            "library_ms": None,
-            "timed_at": f"the bf16 training step's {int(d['calls'])} K2 "
-                        f"backward calls, B={TRAIN_B}, in "
-                        f"{route.rsplit('_', 1)[1]}"})
+            # K1: SDPA's backward; K2: none
+            "library_ms": d.get("lib"),
+            "timed_at": (f"the bf16 training step's {int(d['calls'])} K1 "
+                         f"backward calls of this sub-route, B={TRAIN_B}"
+                         if route.startswith("flash") else
+                         f"the bf16 training step's {int(d['calls'])} K2 "
+                         f"backward calls, B={TRAIN_B}, in "
+                         f"{route.rsplit('_', 1)[1]}")})
     print(json.dumps({"f0_predictor": {
         "serving": f0["serving"], "cli_ms": f0["cli_ms"],
         "card_vs_cpu": f0["card_vs_cpu"],

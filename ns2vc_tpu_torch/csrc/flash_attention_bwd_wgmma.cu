@@ -1,0 +1,869 @@
+// Flash attention backward on Hopper (sm_90a), bf16 in and out: given
+//     o = softmax(q.k^T * scale + key_bias) . v
+// and o's gradient dO, it computes
+//     P = softmax(q.k^T * scale + key_bias)           (recomputed, f32)
+//     dV = P^T . dO          (P rounded to bf16, as the PV product takes it)
+//     dP = dO . V^T,  Delta = rowsum(P * dP),  dS = P * (dP - Delta)
+//     dQ = dS . K * scale,   dK = dS^T . Q * scale
+// q, k, v, dO (B, H, T, D) bf16 views through (batch, head, seq) strides,
+// the key bias (B, Tk) f32 or none; dq, dk, dv bf16 through their strides.
+//
+// Replaces: the torch-ops backward `ops/flash_attention.py::
+// flash_attention_backward` (which stays as the plain version) for bf16
+// calls, and through it XLA's autodiff of ns2vc_tpu/ops/attention.py::
+// scaled_dot_product_attention, the function the Pallas TPU kernel
+// ns2vc_tpu/ops/pallas_attention.py::flash_attention computes (forward
+// only; the JAX package trains through XLA's attention).
+//
+// What bounds it on the H100: at a training step's 46 calls (B = 32 x 272,
+// heads of 4..100) the five products are 0.3 GFLOP a call at most and the
+// bytes a few MB: the bound is ~0.3 ms for the step, bytes at most calls.
+// A kernel is far from it if it keeps P or dS in device memory, or adds
+// them with atomics; the design keeps both in registers and needs none.
+//
+// Precision: Delta is rowsum(P * dP) over the f32 P and dP the kernels
+// compute, never rowsum(dO * O) over the bf16 O (whose rounding, carried
+// into every element of a row, a component the keys share turns into dQ's
+// largest error), so each row of dS sums to zero up to f32 rounding. dS
+// enters dQ and dK as two bf16 planes (hi = bf16(dS), lo = bf16(dS - hi):
+// |dS - hi - lo| <= 2^-17 |dS|), each product exact in f32 and summed in
+// f32; one plane's rounding breaks the rows' zero sum by ~2^-9 of |dS|.
+//
+// Design, two kernels over the tile structure of the forward
+// (flash_attention_wgmma.cu: 4-D (D, H, T, B) tensor maps of the strided
+// views, 64-row tiles swizzled by the row width, a producer warp that
+// issues every TMA copy into a ring of stages, one consumer warpgroup on
+// wgmma), no atomics:
+//   - `dq` (kernel A), one block per (64 query rows, batch*head): Q and dO
+//     once, then every key tile's K and V twice. Sweep 1: S = Q.K^T and
+//     dP = dO.V^T on wgmma m64n64k16 (both operands K-major from shared
+//     memory), and per row, online in the log2 domain, the max m, the sum
+//     l = sum 2^(x - m) and u = sum 2^(x - m) dP, each rescaled as m
+//     moves; then lse = m + log2(l) and Delta = u / l, written to the
+//     workspace (rows past Tq: lse = +inf, Delta = 0, so they give P = 0
+//     below). Sweep 2: S and dP again, P = 2^(x - lse), dS, and dQ += dS.K
+//     on wgmma with dS's planes as A from registers and K as the
+//     transposed (MN-major) B operand;
+//   - `dkdv` (kernel B), one block per (64 keys, batch*head): K and V
+//     once, then every query tile's Q, dO, lse and Delta. S^T = K.Q^T and
+//     dP^T = V.dO^T (keys along wgmma's M), P^T = 2^(x - lse), dS^T, then
+//     dV += bf16(P^T).dO and dK += dS^T.Q on wgmma, A from registers, Q and
+//     dO as MN-major B.
+// Overlap: in `dq`'s second sweep tile j's dS is computed while tile
+// j-1's dQ product runs, and tile j+1's scores are issued before tile j's
+// product (one wgmma round trip between tiles, not two: 1.59 -> 1.46 ms per
+// training step on an H100). `dkdv` keeps one tile in flight: the same
+// overlap there held S^T and dP^T beside the A fragments (128 -> 166
+// registers at DP = 16, two blocks per SM for three) and lost (1.33 ->
+// 1.41 ms; PERF.md). The exponentials (three per score in all) are not the
+// floor at these head widths; per-tile latency is.
+// Every sum runs in an order fixed by the shapes (wgmma's within a product,
+// the tiles in order, a row's four lanes by xor shuffles), so two launches
+// on one input give bitwise-equal outputs. Keys past Tk get a bias of
+// -inf (P = 0); tiles past T and columns past D arrive as zeros from TMA.
+//
+// Calls of one query (Tq = 1: the attention pools, D = 4 and 100, rows
+// TMA cannot take) take `q1`, on the CUDA cores: a tile of 64 query rows
+// would be 63 rows of padding, and the products are dot products. One
+// block of 256 threads per (batch, head); teams of L lanes (the power of
+// two >= D, at most 32) take one key at a time, each lane E = ceil(D / L)
+// elements, the dot products reduced by xor shuffles within the team. A
+// first pass over the keys finds m, l and u online per team; the teams
+// are merged in a fixed order (xor shuffles, then the warps in index
+// order by one thread); a second pass gives each key's dv and dk row and
+// the team's share of dq, the shares added in a fixed order. All in f32:
+// dS needs no planes here.
+#include <math_constants.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "hopper.cuh"
+#include "mma.cuh"
+
+namespace ns2vc {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRows = 64;     // rows of every tile: queries or keys
+constexpr int kGroup = 128;   // threads of a warpgroup
+constexpr int kThreads = kGroup + 32;   // + the producer warp
+
+template <int DP>
+struct Cfg {
+  static constexpr int W = DP < 64 ? 2 * DP : 128;  // swizzle = panel row bytes
+  static constexpr int PC = W / 2;                  // head columns per panel
+  static constexpr int NP = DP / PC;                // panels
+  static constexpr int Panel = kRows * W;
+  static constexpr int TileBytes = NP * Panel;      // one 64-row tile
+  static constexpr int StageBytes = 2 * TileBytes;  // K, V or Q, dO
+  static constexpr int Stages = DP <= 64 ? 3 : 2;
+  // [2 fixed tiles][Stages x 2 tiles][Stages x 2 x 64 floats]
+  static constexpr int SmemBytes =
+      1024 + 2 * TileBytes + Stages * StageBytes + Stages * 2 * kRows * 4;
+  static_assert(Panel % 1024 == 0, "atom alignment");
+};
+
+// d (64 x 64 f32) = (accumulate ? d : 0) + a . b^T, both 64-row K-major
+// tiles in shared memory (the forward's Q.K^T), over the K steps that
+// hold head columns
+template <int DP>
+__device__ __forceinline__ void product_kmajor(float (&d)[32], uint32_t a,
+                                               uint32_t b, int ksteps) {
+  using C = Cfg<DP>;
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    if (ks < ksteps) {
+      const uint32_t off = (ks * 16 % C::PC) * 2;   // bytes in a row
+      const int pnl = ks * 16 / C::PC;
+      wgmma_m64n64k16_ss(
+          d, wgmma_desc<C::W>(a + pnl * C::Panel + off, 16, 8 * C::W),
+          wgmma_desc<C::W>(b + pnl * C::Panel + off, 16, 8 * C::W), ks > 0);
+    }
+  }
+}
+
+// d (64 x DP f32) += a (64 x 64 bf16, registers: four k16 fragments) . b
+// (a 64-row tile read as wgmma's transposed, MN-major, B: its rows along K)
+template <int DP>
+__device__ __forceinline__ void product_mn(float (&d)[DP / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+  using C = Cfg<DP>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_mn<DP>(d, a[kk],
+                    wgmma_desc<C::W>(b + kk * 16 * C::W, C::Panel, 8 * C::W));
+}
+
+// an accumulator of 64 x 64 f32 as A fragments (wgmma's m64nNk16 A, four
+// K steps of 16 columns) of bf16: one plane, or the rounding's remainder
+// as a second
+__device__ __forceinline__ void to_frag(const float (&v)[32],
+                                        uint32_t (&hi)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      hi[kk][r] = pack_bf16x2(v[8 * kk + 2 * r], v[8 * kk + 2 * r + 1]);
+}
+
+__device__ __forceinline__ void to_planes(const float (&v)[32],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = v[8 * kk + 2 * r], b = v[8 * kk + 2 * r + 1];
+      const uint32_t h = pack_bf16x2(a, b);
+      hi[kk][r] = h;
+      lo[kk][r] = pack_bf16x2(a - __uint_as_float(h << 16),
+                              b - __uint_as_float(h & 0xffff0000u));
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&r)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) fence_operand(r[e]);
+}
+
+// rows of a 64 x DP accumulator (this thread's rows `row0` and `row0 + 8`
+// of the tile) times `mul` into bf16 rows of `out` below `rows`, columns
+// below D (D % 8 == 0: d < D => d + 1 < D)
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
+                                           bf16* out, int64_t st, int row0,
+                                           int rows, int D, int qd,
+                                           float mul) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = row0 + 8 * i;
+    if (t >= rows) continue;
+    bf16* orow = out + int64_t(t) * st;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int d = 8 * j + 2 * qd;
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16x2(
+            acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+    }
+  }
+}
+
+template <int DP, bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const float* __restrict__ bias, bf16* __restrict__ dq,
+                    float* __restrict__ lse_ws, float* __restrict__ delta_ws,
+                    int H, int Tq, int Tk, int D, int tq_pad, int64_t dq_sb,
+                    int64_t dq_sh, int64_t dq_st, float scale_log2,
+                    float scale) {
+  using C = Cfg<DP>;
+  constexpr int ST = C::Stages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * ST];
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_tile = base, do_tile = base + C::TileBytes;
+  auto k_tile = [&](int s) { return base + 2 * C::TileBytes + s * C::StageBytes; };
+  auto v_tile = [&](int s) { return k_tile(s) + C::TileBytes; };
+  float* bias_s = reinterpret_cast<float*>(
+      smem_raw + (base - raw) + 2 * C::TileBytes + ST * C::StageBytes);
+  const uint32_t qfull = smem_u32(&bars[0]);
+  auto full = [&](int s) { return smem_u32(&bars[1 + s]); };
+  auto empty = [&](int s) { return smem_u32(&bars[1 + ST + s]); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kRows;
+  const int n_tiles = (Tk + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 32);               // the producer warp's lanes
+      mbar_init(empty(s), kGroup);          // every consumer thread
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: Q and dO, then every key tile's K, V and key bias (log2
+    // domain, -inf past Tk), twice
+    if (lane == 0) {
+      prefetch_tensormap(&qmap);
+      prefetch_tensormap(&kmap);
+      prefetch_tensormap(&vmap);
+      prefetch_tensormap(&domap);
+      mbar_arrive_expect_tx(qfull, 2 * C::TileBytes);
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p) {
+        tma_load_4d(q_tile + p * C::Panel, &qmap, qfull, p * C::PC, h, q0, b);
+        tma_load_4d(do_tile + p * C::Panel, &domap, qfull, p * C::PC, h, q0,
+                    b);
+      }
+    }
+    const float* brow = kBias ? bias + int64_t(b) * Tk : nullptr;
+    for (int it = 0; it < 2 * n_tiles; ++it) {
+      const int s = it % ST, j = it % n_tiles;
+      if (it >= ST) mbar_wait(empty(s), ((it / ST) - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(full(s), C::StageBytes);
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load_4d(k_tile(s) + p * C::Panel, &kmap, full(s), p * C::PC, h,
+                      j * kRows, b);
+          tma_load_4d(v_tile(s) + p * C::Panel, &vmap, full(s), p * C::PC, h,
+                      j * kRows, b);
+        }
+      }
+      float* bs = bias_s + s * kRows;
+#pragma unroll
+      for (int i = lane; i < kRows; i += 32) {
+        const int key = j * kRows + i;
+        bs[i] = key >= Tk ? -CUDART_INF_F : kBias ? brow[key] * kLog2e : 0.f;
+      }
+      mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  const int g = lane >> 2, qd = lane & 3;
+  const int ksteps = (D + 15) / 16;
+  float S[32], dP[32];
+  // this thread's rows g and g + 8 of its warp's 16: running max (log2
+  // domain), its part of the row's sum and of u
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f},
+        u[2] = {0.f, 0.f};
+
+  // S = Q.K^T and dP = dO.V^T of the tile in stage s, one commit group
+  auto scores = [&](int s) {
+    wgmma_fence();
+    product_kmajor<DP>(S, q_tile, k_tile(s), ksteps);
+    product_kmajor<DP>(dP, do_tile, v_tile(s), ksteps);
+    wgmma_commit();
+  };
+  // once they have landed: S holds the logits x = s * scale * log2(e) +
+  // bias * log2(e)
+  auto logits = [&](int s) {
+    fence_all(S);
+    fence_all(dP);
+    const float* bs = bias_s + s * kRows;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * c + 2 * qd);
+      S[4 * c] = fmaf(S[4 * c], scale_log2, bb.x);
+      S[4 * c + 1] = fmaf(S[4 * c + 1], scale_log2, bb.y);
+      S[4 * c + 2] = fmaf(S[4 * c + 2], scale_log2, bb.x);
+      S[4 * c + 3] = fmaf(S[4 * c + 3], scale_log2, bb.y);
+    }
+  };
+
+  mbar_wait(qfull, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST;
+    mbar_wait(full(s), (j / ST) & 1);
+    scores(s);
+    wgmma_wait<0>();
+    logits(s);
+    mbar_arrive(empty(s));
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      mx[0] = fmaxf(mx[0], fmaxf(S[4 * c], S[4 * c + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(S[4 * c + 2], S[4 * c + 3]));
+    }
+    float ref[2], sum[2] = {0.f, 0.f}, usum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = fmaxf(mx[i], m[i]);
+      ref[i] = mx[i] == -CUDART_INF_F ? 0.f : mx[i];
+      const float alpha = ex2_approx(m[i] - ref[i]);
+      l[i] *= alpha;
+      u[i] *= alpha;
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const float p = ex2_approx(S[e] - ref[i]);
+      sum[i] += p;
+      usum[i] = fmaf(p, dP[e], usum[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += sum[i];
+      u[i] += usum[i];
+    }
+  }
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    u[i] += __shfl_xor_sync(0xffffffffu, u[i], 1);
+    u[i] += __shfl_xor_sync(0xffffffffu, u[i], 2);
+    lse[i] = m[i] == -CUDART_INF_F ? CUDART_INF_F : m[i] + log2f(l[i]);
+    delta[i] = m[i] == -CUDART_INF_F ? 0.f : u[i] / l[i];
+    const int t = q0 + 16 * warp + g + 8 * i;
+    if (qd == 0) {
+      const int64_t at = int64_t(bh) * tq_pad + t;
+      lse_ws[at] = t < Tq ? lse[i] : CUDART_INF_F;
+      delta_ws[at] = t < Tq ? delta[i] : 0.f;
+    }
+  }
+
+  float dQ[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) dQ[e] = 0.f;
+  uint32_t hi[4][4], lo[4][4];
+  // sweep 2, the ring's tiles n_tiles .. 2 n_tiles - 1: tile j's dS is
+  // computed while tile j-1's dQ product runs, and tile j+1's S and dP are
+  // issued before tile j's dQ product
+  mbar_wait(full(n_tiles % ST), (n_tiles / ST) & 1);
+  scores(n_tiles % ST);
+  wgmma_wait<0>();
+  for (int j = 0; j < n_tiles; ++j) {
+    const int it = n_tiles + j, s = it % ST;
+    logits(s);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      S[e] = ex2_approx(S[e] - lse[i]) * (dP[e] - delta[i]);   // dS
+    }
+    wgmma_wait<0>();   // tile j-1's dQ product is done with hi, lo, its K
+    fence_all(dQ);
+    if (j > 0) mbar_arrive(empty((it - 1) % ST));
+    to_planes(S, hi, lo);
+    if (j + 1 < n_tiles) {
+      mbar_wait(full((it + 1) % ST), ((it + 1) / ST) & 1);
+      scores((it + 1) % ST);
+    }
+    wgmma_fence();
+    product_mn<DP>(dQ, hi, k_tile(s));
+    product_mn<DP>(dQ, lo, k_tile(s));
+    wgmma_commit();
+    wgmma_wait<1>();   // the groups retire in order: tile j+1's S, dP
+  }
+  wgmma_wait<0>();
+  fence_all(dQ);
+  mbar_arrive(empty((2 * n_tiles - 1) % ST));
+  store_rows<DP>(dQ, dq + int64_t(b) * dq_sb + int64_t(h) * dq_sh, dq_st,
+                 q0 + 16 * warp + g, Tq, D, qd, scale);
+}
+
+template <int DP, bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ lse_ws,
+                      const float* __restrict__ delta_ws,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                      int Tk, int D, int tq_pad, int64_t dk_sb, int64_t dk_sh,
+                      int64_t dk_st, int64_t dv_sb, int64_t dv_sh,
+                      int64_t dv_st, float scale_log2, float scale) {
+  using C = Cfg<DP>;
+  constexpr int ST = C::Stages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * ST];
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_tile = base, v_tile = base + C::TileBytes;
+  auto q_tile = [&](int s) { return base + 2 * C::TileBytes + s * C::StageBytes; };
+  auto do_tile = [&](int s) { return q_tile(s) + C::TileBytes; };
+  // per stage: the query tile's lse, then its Delta
+  float* rows_s = reinterpret_cast<float*>(
+      smem_raw + (base - raw) + 2 * C::TileBytes + ST * C::StageBytes);
+  const uint32_t kvfull = smem_u32(&bars[0]);
+  auto full = [&](int s) { return smem_u32(&bars[1 + s]); };
+  auto empty = [&](int s) { return smem_u32(&bars[1 + ST + s]); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kRows;
+  const int n_q = tq_pad / kRows;
+
+  if (tid == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), kGroup);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: K and V, then every query tile's Q, dO, lse and Delta
+    if (lane == 0) {
+      prefetch_tensormap(&qmap);
+      prefetch_tensormap(&kmap);
+      prefetch_tensormap(&vmap);
+      prefetch_tensormap(&domap);
+      mbar_arrive_expect_tx(kvfull, 2 * C::TileBytes);
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p) {
+        tma_load_4d(k_tile + p * C::Panel, &kmap, kvfull, p * C::PC, h, k0, b);
+        tma_load_4d(v_tile + p * C::Panel, &vmap, kvfull, p * C::PC, h, k0, b);
+      }
+    }
+    const int64_t row_at = int64_t(bh) * tq_pad;
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % ST;
+      if (i >= ST) mbar_wait(empty(s), ((i / ST) - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(full(s), C::StageBytes);
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load_4d(q_tile(s) + p * C::Panel, &qmap, full(s), p * C::PC, h,
+                      i * kRows, b);
+          tma_load_4d(do_tile(s) + p * C::Panel, &domap, full(s), p * C::PC,
+                      h, i * kRows, b);
+        }
+      }
+      float* rs = rows_s + s * 2 * kRows;
+#pragma unroll
+      for (int r = lane; r < kRows; r += 32) {
+        rs[r] = lse_ws[row_at + i * kRows + r];
+        rs[kRows + r] = delta_ws[row_at + i * kRows + r];
+      }
+      mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  const int g = lane >> 2, qd = lane & 3;
+  const int ksteps = (D + 15) / 16;
+  // this thread's keys k0 + 16 warp + g and + 8: their bias (log2 domain)
+  float kb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + 16 * warp + g + 8 * i;
+    kb[i] = key >= Tk ? -CUDART_INF_F
+            : kBias   ? bias[int64_t(b) * Tk + key] * kLog2e
+                      : 0.f;
+  }
+  float dK[DP / 2], dV[DP / 2], S[32], dP[32];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) dK[e] = dV[e] = 0.f;
+  uint32_t pf[4][4], hi[4][4], lo[4][4];
+
+  mbar_wait(kvfull, 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int s = i % ST;
+    mbar_wait(full(s), (i / ST) & 1);
+    wgmma_fence();
+    product_kmajor<DP>(S, k_tile, q_tile(s), ksteps);    // S^T
+    product_kmajor<DP>(dP, v_tile, do_tile(s), ksteps);  // dP^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_all(S);
+    fence_all(dP);
+    const float* rs = rows_s + s * 2 * kRows;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {   // queries 8c + 2qd, + 1
+      const float2 ls = *reinterpret_cast<const float2*>(rs + 8 * c + 2 * qd);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(rs + kRows + 8 * c + 2 * qd);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 4 * c + r;
+        const float p = ex2_approx(fmaf(S[e], scale_log2, kb[r >> 1]) -
+                                   ((r & 1) ? ls.y : ls.x));
+        S[e] = p;
+        dP[e] = p * (dP[e] - ((r & 1) ? dl.y : dl.x));   // dS^T
+      }
+    }
+    to_frag(S, pf);
+    to_planes(dP, hi, lo);
+    wgmma_fence();
+    product_mn<DP>(dV, pf, do_tile(s));
+    product_mn<DP>(dK, hi, q_tile(s));
+    product_mn<DP>(dK, lo, q_tile(s));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_all(dK);
+    fence_all(dV);
+    mbar_arrive(empty(s));
+  }
+  const int row0 = k0 + 16 * warp + g;
+  store_rows<DP>(dK, dk + int64_t(b) * dk_sb + int64_t(h) * dk_sh, dk_st,
+                 row0, Tk, D, qd, scale);
+  store_rows<DP>(dV, dv + int64_t(b) * dv_sb + int64_t(h) * dv_sh, dv_st,
+                 row0, Tk, D, qd, 1.f);
+}
+
+// -- single query -------------------------------------------------------------
+
+constexpr int kQ1Threads = 256;
+constexpr int kQ1Warps = kQ1Threads / 32;
+
+struct Q1Args {
+  const bf16 *q, *k, *v, *dout;
+  const float* bias;
+  bf16 *dq, *dk, *dv;
+  int H, Tk, D, lanes_log2;
+  // (batch, head, seq) element strides of q, k, v, dO, dq, dk, dv
+  int64_t s[21];
+  float scale_log2, scale;
+};
+
+// m, l, u of two parts of a row merged (m the max in the log2 domain, l
+// and u rescaled to it); from either side the same sums (a + b == b + a)
+__device__ __forceinline__ void merge_row(float& m, float& l, float& u,
+                                          float m2, float l2, float u2) {
+  const float mn = fmaxf(m, m2);
+  const float ref = mn == -CUDART_INF_F ? 0.f : mn;
+  const float a = ex2_approx(m - ref), a2 = ex2_approx(m2 - ref);
+  l = __fadd_rn(__fmul_rn(l, a), __fmul_rn(l2, a2));
+  u = __fadd_rn(__fmul_rn(u, a), __fmul_rn(u2, a2));
+  m = mn;
+}
+
+template <int E>
+__global__ void __launch_bounds__(kQ1Threads)
+flash_bwd_q1_kernel(const __grid_constant__ Q1Args a) {
+  __shared__ float red[kQ1Warps][128];
+  __shared__ float parts[kQ1Warps][3];
+  __shared__ float row[2];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int L = 1 << a.lanes_log2, sub = lane & (L - 1);
+  const int team = tid >> a.lanes_log2, teams = kQ1Threads >> a.lanes_log2;
+  const int D = a.D;
+  const int64_t* s = a.s;
+  const bf16* qr = a.q + int64_t(b) * s[0] + int64_t(h) * s[1];
+  const bf16* kr = a.k + int64_t(b) * s[3] + int64_t(h) * s[4];
+  const bf16* vr = a.v + int64_t(b) * s[6] + int64_t(h) * s[7];
+  const bf16* dor = a.dout + int64_t(b) * s[9] + int64_t(h) * s[10];
+  const float* brow = a.bias ? a.bias + int64_t(b) * a.Tk : nullptr;
+  float qv[E], dov[E], kv[E], dqa[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int d = sub + L * e;
+    qv[e] = d < D ? __bfloat162float(qr[d]) : 0.f;
+    dov[e] = d < D ? __bfloat162float(dor[d]) : 0.f;
+    dqa[e] = 0.f;
+  }
+  // key j's logit (log2 domain) and dP, the same in every lane of the team;
+  // its k values stay in kv
+  auto key = [&](int j, float& x, float& dp) {
+    const bf16* kj = kr + int64_t(j) * s[5];
+    const bf16* vj = vr + int64_t(j) * s[8];
+    float sk = 0.f, sv = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = sub + L * e;
+      kv[e] = d < D ? __bfloat162float(kj[d]) : 0.f;
+      const float vv = d < D ? __bfloat162float(vj[d]) : 0.f;
+      sk = fmaf(qv[e], kv[e], sk);
+      sv = fmaf(dov[e], vv, sv);
+    }
+    for (int o = L >> 1; o > 0; o >>= 1) {
+      sk += __shfl_xor_sync(0xffffffffu, sk, o);
+      sv += __shfl_xor_sync(0xffffffffu, sv, o);
+    }
+    x = brow ? fmaf(sk, a.scale_log2, brow[j] * kLog2e) : sk * a.scale_log2;
+    dp = sv;
+  };
+
+  // every lane runs every round (the shuffles take the whole warp); a
+  // team past the last key skips its round's work
+  float m = -CUDART_INF_F, l = 0.f, u = 0.f;
+  for (int j0 = 0; j0 < a.Tk; j0 += teams) {
+    const int j = j0 + team;
+    float x, dp;
+    key(min(j, a.Tk - 1), x, dp);
+    if (j < a.Tk) merge_row(m, l, u, x, 1.f, dp);
+  }
+  for (int o = L; o < 32; o <<= 1)
+    merge_row(m, l, u, __shfl_xor_sync(0xffffffffu, m, o),
+              __shfl_xor_sync(0xffffffffu, l, o),
+              __shfl_xor_sync(0xffffffffu, u, o));
+  if (lane == 0) {
+    parts[warp][0] = m;
+    parts[warp][1] = l;
+    parts[warp][2] = u;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float mm = parts[0][0], ll = parts[0][1], uu = parts[0][2];
+    for (int w = 1; w < kQ1Warps; ++w)
+      merge_row(mm, ll, uu, parts[w][0], parts[w][1], parts[w][2]);
+    row[0] = mm == -CUDART_INF_F ? CUDART_INF_F : mm + log2f(ll);
+    row[1] = mm == -CUDART_INF_F ? 0.f : uu / ll;
+  }
+  __syncthreads();
+  const float lse = row[0], delta = row[1];
+
+  for (int j0 = 0; j0 < a.Tk; j0 += teams) {
+    const int j = j0 + team;
+    float x, dp;
+    key(min(j, a.Tk - 1), x, dp);
+    if (j >= a.Tk) continue;
+    const float p = ex2_approx(x - lse);
+    const float ds = p * (dp - delta);
+    const float pb = __bfloat162float(__float2bfloat16_rn(p));
+    bf16* dkj = a.dk + int64_t(b) * s[15] + int64_t(h) * s[16] +
+                int64_t(j) * s[17];
+    bf16* dvj = a.dv + int64_t(b) * s[18] + int64_t(h) * s[19] +
+                int64_t(j) * s[20];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = sub + L * e;
+      if (d < D) {
+        dvj[d] = __float2bfloat16_rn(pb * dov[e]);
+        dkj[d] = __float2bfloat16_rn(ds * qv[e] * a.scale);
+      }
+      dqa[e] = fmaf(ds, kv[e], dqa[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    for (int o = L; o < 32; o <<= 1)
+      dqa[e] += __shfl_xor_sync(0xffffffffu, dqa[e], o);
+    const int d = sub + L * e;
+    if (lane < L && d < D) red[warp][d] = dqa[e];
+  }
+  __syncthreads();
+  if (tid < D) {
+    float sum = red[0][tid];
+    for (int w = 1; w < kQ1Warps; ++w) sum += red[w][tid];
+    bf16* dqr = a.dq + int64_t(b) * s[12] + int64_t(h) * s[13];
+    dqr[tid] = __float2bfloat16_rn(sum * a.scale);
+  }
+}
+
+// one operand's tensor map: (D, H, T, B) with element strides (sh, st,
+// sb), a box of PC columns x 64 rows of one head, swizzled as the tiles
+int encode_map(CUtensorMap* map, const void* p, int B, int H, int T, int D,
+               int64_t sb, int64_t sh, int64_t st, int pc) {
+  const int64_t outer[3][2] = {{sh, H}, {st, T}, {sb, B}};
+  uint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    // a dimension of one element is never stepped over: any multiple of
+    // 16 bytes will do for its stride
+    const uint64_t v = uint64_t(outer[i][0]) * 2;
+    strides[i] = outer[i][1] > 1 || (v > 0 && v % 16 == 0) ? v : 16;
+  }
+  const uint64_t dims[4] = {uint64_t(D), uint64_t(H), uint64_t(T),
+                            uint64_t(B)};
+  const uint32_t box[4] = {uint32_t(pc), 1, uint32_t(kRows), 1};
+  const CUtensorMapSwizzle sw = pc == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : pc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_bf16_map(map, p, 4, dims, strides, box, sw);
+}
+
+struct Call {
+  const void *q, *k, *v, *dout;
+  const float* bias;
+  void *dq, *dk, *dv;
+  float* ws;
+  int B, H, Tq, Tk, D;
+  const int64_t* s;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DP, bool kBias>
+int launch(const Call& c) {
+  using C = Cfg<DP>;
+  const int64_t* s = c.s;
+  CUtensorMap qm, km, vm, dom;
+  int r = encode_map(&qm, c.q, c.B, c.H, c.Tq, c.D, s[0], s[1], s[2], C::PC);
+  if (r == 0)
+    r = encode_map(&km, c.k, c.B, c.H, c.Tk, c.D, s[3], s[4], s[5], C::PC);
+  if (r == 0)
+    r = encode_map(&vm, c.v, c.B, c.H, c.Tk, c.D, s[6], s[7], s[8], C::PC);
+  if (r == 0)
+    r = encode_map(&dom, c.dout, c.B, c.H, c.Tq, c.D, s[9], s[10], s[11],
+                   C::PC);
+  if (r != 0) return r;
+  static bool a_set[kMaxDevices] = {}, b_set[kMaxDevices] = {};
+  cudaError_t err = allow_dynamic_smem(flash_bwd_dq_kernel<DP, kBias>,
+                                       C::SmemBytes, a_set);
+  if (err == cudaSuccess)
+    err = allow_dynamic_smem(flash_bwd_dkdv_kernel<DP, kBias>, C::SmemBytes,
+                             b_set);
+  if (err != cudaSuccess) return int(err);
+  const int tq_pad = (c.Tq + kRows - 1) / kRows * kRows;
+  const int64_t rows = int64_t(c.B) * c.H * tq_pad;
+  float* lse = c.ws;
+  float* delta = c.ws + rows;
+  const float sl2 = c.scale * kLog2e;
+  flash_bwd_dq_kernel<DP, kBias>
+      <<<dim3(tq_pad / kRows, c.B * c.H), kThreads, C::SmemBytes, c.stream>>>(
+          qm, km, vm, dom, c.bias, static_cast<bf16*>(c.dq), lse, delta, c.H,
+          c.Tq, c.Tk, c.D, tq_pad, s[12], s[13], s[14], sl2, c.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dkdv_kernel<DP, kBias>
+      <<<dim3((c.Tk + kRows - 1) / kRows, c.B * c.H), kThreads, C::SmemBytes,
+         c.stream>>>(qm, km, vm, dom, c.bias, lse, delta,
+                     static_cast<bf16*>(c.dk), static_cast<bf16*>(c.dv), c.H,
+                     c.Tk, c.D, tq_pad, s[15], s[16], s[17], s[18], s[19],
+                     s[20], sl2, c.scale);
+  return int(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dp(const Call& c) {
+  return c.bias ? launch<DP, true>(c) : launch<DP, false>(c);
+}
+
+template <int E>
+int launch_q1(const Call& c) {
+  Q1Args a;
+  a.q = static_cast<const bf16*>(c.q);
+  a.k = static_cast<const bf16*>(c.k);
+  a.v = static_cast<const bf16*>(c.v);
+  a.dout = static_cast<const bf16*>(c.dout);
+  a.bias = c.bias;
+  a.dq = static_cast<bf16*>(c.dq);
+  a.dk = static_cast<bf16*>(c.dk);
+  a.dv = static_cast<bf16*>(c.dv);
+  a.H = c.H;
+  a.Tk = c.Tk;
+  a.D = c.D;
+  int lanes = 1, lg = 0;
+  while (lanes < c.D && lanes < 32) {
+    lanes *= 2;
+    ++lg;
+  }
+  a.lanes_log2 = lg;
+  for (int i = 0; i < 21; ++i) a.s[i] = c.s[i];
+  a.scale_log2 = c.scale * kLog2e;
+  a.scale = c.scale;
+  flash_bwd_q1_kernel<E><<<c.B * c.H, kQ1Threads, 0, c.stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+Call make_call(const void* q, const void* k, const void* v, const void* bias,
+               const void* dout, void* dq, void* dk, void* dv, void* ws,
+               int B, int H, int Tq, int Tk, int D, const int64_t* s,
+               float scale, void* stream) {
+  return Call{q, k, v, dout, static_cast<const float*>(bias), dq, dk, dv,
+              static_cast<float*>(ws), B, H, Tq, Tk, D, s, scale,
+              static_cast<cudaStream_t>(stream)};
+}
+
+}  // namespace
+}  // namespace ns2vc
+
+// Both entries: bf16 q, k, v, dout (the gradient of o) as (B, H, T, D)
+// views by element strides (batch, head, seq) with unit stride on D; bias
+// (B, Tk) f32 contiguous or null; dq, dk, dv bf16 (B, H, T, D) views by
+// their strides (rows 4-byte aligned), written whole; scale the forward's.
+// The 21 strides: q, k, v, dout, dq, dk, dv, three each. Each returns the
+// CUDA error of its launches (0 on success), or a negative code from a
+// tensor map (-1: libcuda's encoder was not found; -(1000 + r): it
+// returned CUresult r).
+//
+// The tile kernels (dq, then dkdv): 1 <= D <= 128 with D % 8 == 0, Tq, Tk
+// >= 1, B*H <= 65535, q, k, v, dout 16-byte aligned with strides of whole
+// 16-byte chunks (TMA's rule); ws: f32 workspace of 2 * B * H * Tq_pad
+// values, Tq_pad = Tq rounded up to 64 (each row's lse, then its Delta).
+extern "C" int ns2vc_flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, void* dq, void* dk, void* dv, void* ws, int B, int H,
+    int Tq, int Tk, int D, int64_t q_sb, int64_t q_sh, int64_t q_st,
+    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,
+    int64_t v_st, int64_t do_sb, int64_t do_sh, int64_t do_st, int64_t dq_sb,
+    int64_t dq_sh, int64_t dq_st, int64_t dk_sb, int64_t dk_sh, int64_t dk_st,
+    int64_t dv_sb, int64_t dv_sh, int64_t dv_st, float scale, void* stream) {
+  using namespace ns2vc;
+  const int64_t s[21] = {q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,  v_sb,
+                         v_sh,  v_st,  do_sb, do_sh, do_st, dq_sb, dq_sh,
+                         dq_st, dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st};
+  const Call c = make_call(q, k, v, bias, dout, dq, dk, dv, ws, B, H, Tq, Tk,
+                           D, s, scale, stream);
+  if (D % 8 != 0 || D < 1) return int(cudaErrorInvalidValue);
+  if (D <= 16) return launch_dp<16>(c);
+  if (D <= 32) return launch_dp<32>(c);
+  if (D <= 64) return launch_dp<64>(c);
+  if (D <= 128) return launch_dp<128>(c);
+  return int(cudaErrorInvalidValue);
+}
+
+// The single-query kernel: Tq == 1, 1 <= D <= 128, any strides (element
+// loads); ws unused.
+extern "C" int ns2vc_flash_attention_bwd_q1(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, void* dq, void* dk, void* dv, void* ws, int B, int H,
+    int Tq, int Tk, int D, int64_t q_sb, int64_t q_sh, int64_t q_st,
+    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,
+    int64_t v_st, int64_t do_sb, int64_t do_sh, int64_t do_st, int64_t dq_sb,
+    int64_t dq_sh, int64_t dq_st, int64_t dk_sb, int64_t dk_sh, int64_t dk_st,
+    int64_t dv_sb, int64_t dv_sh, int64_t dv_st, float scale, void* stream) {
+  using namespace ns2vc;
+  const int64_t s[21] = {q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,  v_sb,
+                         v_sh,  v_st,  do_sb, do_sh, do_st, dq_sb, dq_sh,
+                         dq_st, dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st};
+  const Call c = make_call(q, k, v, bias, dout, dq, dk, dv, ws, B, H, Tq, Tk,
+                           D, s, scale, stream);
+  if (Tq != 1 || D < 1 || D > 128) return int(cudaErrorInvalidValue);
+  const int lanes = D >= 32 ? 32 : D;   // E = ceil(D / lanes)
+  switch ((D + lanes - 1) / lanes) {
+    case 1: return launch_q1<1>(c);
+    case 2: return launch_q1<2>(c);
+    case 3: return launch_q1<3>(c);
+    default: return launch_q1<4>(c);
+  }
+}

@@ -56,6 +56,10 @@ _SIGNATURES = {
     "ns2vc_flash_attention_q1_fwd":
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 5
         + [_P],
+    "ns2vc_flash_attention_bwd_wgmma":
+        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
+    "ns2vc_flash_attention_bwd_q1":
+        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
     "ns2vc_affine_silu_conv1d_f32tc": [_P] * 6 + [_I] * 8 + [_P],
     "ns2vc_affine_silu_conv1d_tc": [_P] * 6 + [_I] * 8 + [_P],
     "ns2vc_affine_silu_conv1d_bwd": [_P] * 11 + [_I] * 5 + [_P],

@@ -61,12 +61,25 @@ written as a (B, Tq, H, D) buffer whose (B, H, Tq, D) view is returned, so
 
 Training: when grad is enabled and q, k or v requires it, a CUDA call goes
 through an autograd Function whose forward is the same launch and whose
-backward is `flash_attention_backward`, written out in torch ops (the JAX
-package differentiates XLA's attention; it has no backward kernel either).
-No gradient flows to the key bias (a mask) or to the scale. Each backward
-adds one to `flash_attention.backward_calls[route]`, the route its forward
-took. Serving, the samplers and CUDA graph capture, which run without
-grad, launch directly.
+backward is `flash_attention_grad` (the JAX package differentiates XLA's
+attention; its Pallas kernel is forward-only), routed by dtype:
+
+    cpu        -> `flash_attention_backward`, the plain version in torch ops
+    cuda, bf16 -> "tc": `csrc/flash_attention_bwd_wgmma.cu`, two kernels on
+                  wgmma over TMA-fed tiles (dq with each row's lse and
+                  Delta, then dk and dv), no atomics, D % 8 == 0 with
+                  aligned rows (as the forward's "tc" takes them); a single
+                  query (the pools) takes its single-query kernel on the
+                  CUDA cores, counted apart as "tc_q1"; other rows raise
+    cuda, f32  -> "f32tc": `flash_attention_backward` in torch ops (the
+                  f32 gradient checks and the F0 predictor's f32 calls)
+
+`flash_attention_grad.launches` counts the backward kernels' launches,
+`.route_launches` each sub-route's. No gradient flows to the key bias (a
+mask) or to the scale. Each backward adds one to
+`flash_attention.backward_calls[route]`, the route its forward took.
+Serving, the samplers and CUDA graph capture, which run without grad,
+launch directly.
 """
 
 from __future__ import annotations
@@ -87,6 +100,7 @@ MAX_SMEM = 232448       # an H100 block's shared memory
 # the dtypes whose Tq == 1 calls take it: both (at the pools it beat the
 # f32 3xTF32 kernel on an H100, PERF.md)
 Q1_DTYPES = (torch.bfloat16, torch.float32)
+BWD_ROWS = 64           # the backward tile kernels' rows: queries or keys
 
 
 def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
@@ -288,8 +302,100 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_workspace(b: int, h: int, tq: int) -> int:
+    """f32 values of the backward tile kernels' workspace: each of the B*H
+    rows of queries, padded to whole 64-row tiles, its lse and its
+    Delta."""
+    return 2 * b * h * -(-tq // BWD_ROWS) * BWD_ROWS
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor | None, scale: float,
+                         do: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` given o's gradient do, each in its
+    input's dtype and shape. A CPU tensor takes `flash_attention_backward`;
+    a CUDA tensor its dtype's route: bf16 the backward kernels
+    (`csrc/flash_attention_bwd_wgmma.cu`; no atomics, so two calls on one
+    input agree bit for bit) or raises, f32 `flash_attention_backward`."""
+    if attention_route(q.device, q.dtype) != "tc":
+        return flash_attention_backward(q, k, v, bias, scale, do)
+    return _grad_launch(q, k, v, bias, scale, do)
+
+
+def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 bias: torch.Tensor | None, scale: float, do: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch the backward kernels: (dq, dk, dv) as
+    (B, H, T, D) views of (B, T, H, D) buffers."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d) \
+            or do.shape != q.shape:
+        raise ValueError(f"flash_attention_grad: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} do "
+                         f"{tuple(do.shape)}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
+        raise ValueError(f"flash_attention_grad: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}/{do.dtype}; the kernels take bf16")
+    if not 1 <= d <= MAX_HEAD_DIM or tq < 1 or tk < 1 or b * h > 65535:
+        raise ValueError(f"flash_attention_grad: unsupported shape "
+                         f"B*H={b * h} Tq={tq} Tk={tk} D={d}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention_grad: head dim must have unit "
+                         "stride")
+    if any(t.device != q.device for t in (k, v, do)):
+        raise ValueError("flash_attention_grad: q, k, v, do on different "
+                         "devices")
+    if bias is not None and (bias.shape != (b, tk)
+                             or bias.dtype != torch.float32
+                             or not bias.is_contiguous()
+                             or bias.device != q.device):
+        raise ValueError(f"flash_attention_grad: bias must be contiguous f32 "
+                         f"({b}, {tk}) on {q.device}, got "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    route = "tc_q1" if tq == 1 and tk <= Q1_MAX_KEYS else "tc"
+    if route == "tc" and (d % 8 != 0 or not all(
+            _build.aligned16(t) for t in (q, k, v))):
+        raise ValueError(f"flash_attention_grad: the backward kernels take "
+                         f"rows of whole aligned 16-byte chunks (D % 8 == 0, "
+                         f"strides of 8 elements), got D={d}, strides "
+                         f"{q.stride()} {k.stride()} {v.stride()}")
+    # do comes as autograd gives it: a layout the kernel cannot read (TMA:
+    # aligned rows, nonzero strides) is copied first
+    if do.stride(-1) != 1 or route == "tc" and not (
+            _build.aligned16(do) and all(
+                s > 0 for s, n in zip(do.stride()[:-1], do.shape) if n > 1)):
+        do = do.contiguous()
+    _build.require_current_device(q)
+    lib = _build.library()
+    grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+             .permute(0, 2, 1, 3) for t in (tq, tk, tk)]
+    ws = None if route == "tc_q1" else torch.empty(
+        bwd_workspace(b, h, tq), dtype=torch.float32, device=q.device)
+    _grad_counts.launches += 1
+    _grad_counts.route_launches[route] += 1
+    fn = (lib.ns2vc_flash_attention_bwd_q1 if route == "tc_q1"
+          else lib.ns2vc_flash_attention_bwd_wgmma)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if bias is None else bias.data_ptr(), do.data_ptr(),
+             *(t.data_ptr() for t in grads),
+             None if ws is None else ws.data_ptr(), b, h, tq, tk, d,
+             *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]),
+             float(scale), _build.stream_of(q))
+    _build.check(err, f"flash_attention_grad ({route})")
+    return tuple(grads)
+
+
+flash_attention_grad.launches = 0
+flash_attention_grad.route_launches = {"tc": 0, "tc_q1": 0}
+_grad_counts = flash_attention_grad
+
+
 class _FlashAttentionFn(torch.autograd.Function):
-    """The kernel's launch under autograd; backward in torch ops."""
+    """The kernel's launch under autograd; backward through
+    `flash_attention_grad`."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
@@ -302,7 +408,7 @@ class _FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias = ctx.saved_tensors
         flash_attention.backward_calls[ctx.route] += 1
-        dq, dk, dv = flash_attention_backward(q, k, v, bias, ctx.scale, do)
+        dq, dk, dv = flash_attention_grad(q, k, v, bias, ctx.scale, do)
         return dq, dk, dv, None, None
 
 
@@ -408,8 +514,9 @@ _counts = flash_attention
 
 
 def reset_launches() -> None:
-    _counts.launches = 0
-    for counts in (_counts.route_launches, _counts.backward_calls):
+    _counts.launches = _grad_counts.launches = 0
+    for counts in (_counts.route_launches, _counts.backward_calls,
+                   _grad_counts.route_launches):
         for key in counts:
             counts[key] = 0
 
@@ -419,7 +526,9 @@ def launch_counts() -> dict[str, int]:
     them before and after its capture)."""
     return {"launches": _counts.launches,
             **{f"route.{k}": n for k, n in _counts.route_launches.items()},
-            **{f"backward.{k}": n for k, n in _counts.backward_calls.items()}}
+            **{f"backward.{k}": n for k, n in _counts.backward_calls.items()},
+            "grad": _grad_counts.launches,
+            **{f"grad.{k}": n for k, n in _grad_counts.route_launches.items()}}
 
 
 def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
@@ -430,3 +539,6 @@ def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
         _counts.route_launches[k] += times * delta[f"route.{k}"]
     for k in _counts.backward_calls:
         _counts.backward_calls[k] += times * delta[f"backward.{k}"]
+    _grad_counts.launches += times * delta["grad"]
+    for k in _grad_counts.route_launches:
+        _grad_counts.route_launches[k] += times * delta[f"grad.{k}"]

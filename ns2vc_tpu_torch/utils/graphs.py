@@ -22,6 +22,7 @@ counts off (it launches nothing) and each replay adds them back.
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 from typing import Callable, Optional
 
@@ -114,29 +115,40 @@ class GraphCapturer:
             for gen in generators:
                 graph.register_generator_state(gen)
             before = launch_counts()
-            t0 = time.perf_counter()
-            graph.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
+            # a garbage collection inside the capture would destroy earlier
+            # programs' unreachable graphs and generators from the capturing
+            # thread, which invalidates the capture: collect before, none
+            # during
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                out = body()
-            except BaseException as e:
+                t0 = time.perf_counter()
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    # an invalidated capture ends with an error before
-                    # the allocator stops routing to the pool: stop it
-                    torch._C._cuda_endAllocateToPool(self.device.index,
-                                                     self.pool)
-                # the allocator refuses any later capture into this pool:
-                # the next program starts a new one
-                self.pool = torch.cuda.graph_pool_handle()
-                raise RuntimeError(f"{what} {prog.key}: capture failed: "
-                                   f"{e}") from e
+                    out = body()
+                except BaseException as e:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        # an invalidated capture ends with an error before
+                        # the allocator stops routing to the pool: stop it
+                        torch._C._cuda_endAllocateToPool(self.device.index,
+                                                         self.pool)
+                    # the allocator refuses any later capture into this
+                    # pool: the next program starts a new one
+                    self.pool = torch.cuda.graph_pool_handle()
+                    raise RuntimeError(f"{what} {prog.key}: capture failed: "
+                                       f"{e}") from e
+                finally:
+                    counts = [{k: a[k] - b[k] for k in a}
+                              for a, b in zip(launch_counts(), before)]
+                    add_launch_counts(counts, -1)
+                graph.capture_end()
             finally:
-                counts = [{k: a[k] - b[k] for k in a}
-                          for a, b in zip(launch_counts(), before)]
-                add_launch_counts(counts, -1)
-            graph.capture_end()
+                if collecting:
+                    gc.enable()
             prog.nodes = graph_nodes(graph)
             graph.instantiate()
             prog.capture_ms = (time.perf_counter() - t0) * 1e3

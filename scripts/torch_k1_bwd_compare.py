@@ -1,0 +1,356 @@
+"""K1's bf16 backward (the hand-written kernels) against the plain torch-ops
+backward it replaced and SDPA's backward, on one GPU, in turns, at every K1
+call of a `Config()` training step.
+
+    python3 scripts/torch_k1_bwd_compare.py [--out FILE]
+
+The calls are enumerated from the step itself: the step body of
+`train/trainer.py::make_train_step` runs once on the meta device (no
+memory, no card) at `chip_smoke.TRAIN_B` x `TRAIN_T`, bf16, remat off (one
+call per backward), with `ops/attention.py`'s `flash_attention` replaced
+by a recorder of each call's q, k, v layout (shape, strides, storage
+offset and size), scale and whether a key bias came: 46 calls in 11
+geometries. At each geometry, on seeded bf16 q, k, v laid out as the
+step's, a key-padding bias where the step has one and dO laid out as
+autograd hands it (a head view of a (B, Tq, C) gradient), it
+- holds the kernels (`flash_attention_grad`) against the plain backward
+  (`flash_attention_backward`) per gradient (`chip_smoke.k1_grad_errors`):
+  the largest error within `chip_smoke.K1_BWD_RTOL` of each batch row's
+  max|plain|, the relative RMS error within `K1_BWD_RMS` of the
+  gradient's norm; and two launches bit for bit;
+- reads the same errors of faulty backwards (`faulty_backward`, torch
+  ops): dV from P not rounded to bf16, dS in one bf16 plane, Delta from
+  the bf16 O, and each gradient 10 % off in one batch row (the kernels and
+  this one also by the older metric, of max(1, max|plain|) per tensor), so
+  the bounds can be set between what the kernels read and what a wrong
+  backward reads;
+- times kernels, plain, SDPA, SDPA, plain, kernels, each the device time of
+  10 calls captured as one CUDA graph (`chip_smoke.k1_backward_case`);
+  SDPA's backward is `scaled_dot_product_attention` with the bias as an
+  additive mask, forward and backward through autograd, less its forward
+  (timing only: the port never calls it); the bound is `chip_smoke.
+  k1_backward_bound`;
+- and the device time of each kernel a call launches (dq, dkdv, q1) from
+  torch.profiler over eager calls.
+Last, ptxas's registers and spills of every instantiation of
+`csrc/flash_attention_bwd_wgmma.cu` (compiled once more with -Xptxas=-v
+into the gitignored `.scratch/`), and the blocks an SM holds by registers. Every time carries the card's name and
+power limit. Prints a line per geometry, the sums per training step, and a
+JSON line {"k1_bwd_compare": ...} last (also to --out). Card only; imports
+nothing of JAX.
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+from collections import Counter, defaultdict
+from unittest import mock
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke as cs  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(ROOT, "ns2vc_tpu_torch", "csrc",
+                      "flash_attention_bwd_wgmma.cu")
+
+
+def step_calls(bsz: int, t: int, tp: int) -> Counter:
+    """The K1 calls of one bf16 `Config()` training step, remat off, by
+    (layout of q, k, v; scale; bias given): the step body run on the meta
+    device, dropout off (its draws need a generator on the device)."""
+    import ns2vc_tpu_torch.ops.attention as attention
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    import ns2vc_tpu_torch.ops.fused_resnet as fr
+    from ns2vc_tpu_torch.config import Config
+    from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2
+    from ns2vc_tpu_torch.train.trainer import (
+        TrainState, make_optimizer, make_train_step,
+    )
+
+    calls = Counter()
+
+    def record(q, k, v, bias=None, scale=None):
+        geo = tuple((tuple(x.shape), x.stride(), x.storage_offset(),
+                     x.untyped_storage().nbytes() // x.element_size())
+                    for x in (q, k, v))
+        calls[(geo, scale, bias is not None)] += 1
+        return fa.flash_attention_plain(q, k, v, bias, scale)
+    meta = torch.device("meta")
+    cfg = Config()
+    with torch.device(meta):
+        model = NaturalSpeech2(cfg, remat=False)
+    for m in model.modules():
+        if type(m).__name__ == "Dropout":
+            m.p = 0.0
+    batch = {"c": torch.randn(bsz, t, 256, device=meta),
+             "refer": torch.randn(bsz, tp, 100, device=meta),
+             "spec": torch.randn(bsz, t, 100, device=meta),
+             "lengths": torch.full((bsz,), t, device=meta),
+             "refer_lengths": torch.full((bsz,), tp, device=meta)}
+    state = TrainState(model, make_optimizer(cfg, model.parameters()))
+    step = make_train_step(compute_dtype=torch.bfloat16)
+    with mock.patch.object(attention, "flash_attention", record), \
+            mock.patch.object(fr, "affine_silu_conv1d",
+                              fr.affine_silu_conv1d_plain), \
+            mock.patch.object(fr, "group_norm_affine",
+                              fr.group_norm_affine_plain):
+        step.body(state, batch, None, torch.zeros(bsz, device=meta),
+                  torch.randn(bsz, t, 100, device=meta), None,
+                  torch.zeros((), dtype=torch.int64, device=meta))
+    return calls
+
+
+def inputs(key, g, dev):
+    """Seeded bf16 q, k, v in the call's layout, a key-padding bias (first
+    row whole) where it had one, dO as a head view of (B, Tq, H*D)."""
+    geo, _, with_bias = key
+    bufs = [torch.randn(size, generator=g, device=dev).bfloat16()
+            for _, _, _, size in geo]
+    q, k, v = (b.as_strided(shape, stride, offset)
+               for b, (shape, stride, offset, _) in zip(bufs, geo))
+    bsz, h, tq, d = q.shape
+    tk = k.shape[2]
+    bias = None
+    if with_bias:
+        lengths = torch.randint(1, tk + 1, (bsz,), generator=g, device=dev)
+        lengths[0] = tk
+        keep = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
+        bias = (1.0 - keep.float()) * -1e4
+    do = torch.randn(bsz, tq, h * d, generator=g, device=dev).bfloat16() \
+        .view(bsz, tq, h, d).transpose(1, 2)
+    return q, k, v, bias, do
+
+
+FAULTS = ("dV from P unrounded", "dS in one bf16 plane",
+          "Delta from the bf16 O", "10 % off in one batch row")
+
+
+def faulty_backward(q, k, v, bias, scale, do, fault):
+    """`flash_attention_backward` with one of FAULTS, in torch ops, its
+    outputs in bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    logits = qf @ kf.transpose(-1, -2) * scale
+    if bias is not None:
+        logits = logits + bias[:, None, None, :]
+    p = torch.softmax(logits, dim=-1)
+    pv = p if fault == FAULTS[0] else p.bfloat16().float()
+    dv = pv.transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    if fault == FAULTS[2]:
+        o = (p.bfloat16().float() @ vf).bfloat16().float()
+        delta = (dof * o).sum(-1, keepdim=True)
+    else:
+        delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if fault == FAULTS[1]:
+        ds = ds.bfloat16().float()
+    out = [ds @ kf * scale, ds.transpose(-1, -2) @ qf * scale, dv]
+    if fault == FAULTS[3]:
+        for t in out:
+            t[-1] *= 1.1
+    return [t.bfloat16() for t in out]
+
+
+def old_errors(got, want):
+    """The bound's older metric: max |got - want| of max(1, max|want|) per
+    gradient."""
+    return [((a.float() - b.float()).abs().max()
+             / max(1.0, b.float().abs().max().item())).item()
+            for a, b in zip(got, want)]
+
+
+def kernel_ms(run, reps=3):
+    """Device ms of each kernel one call launches, from torch.profiler over
+    `reps` eager calls: the tile kernels (dq, dkdv), the single-query
+    kernel (q1), and the rest (other)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        name = next((k for k in ("dq", "dkdv", "q1")
+                     if f"flash_bwd_{k}_kernel" in e.key), "other")
+        out[name] += us / 1e3 / reps
+    return dict(out)
+
+
+def blocks_by_registers(regs: int, threads: int) -> int:
+    """Blocks an H100 SM holds by its 64K registers: each warp's are
+    allocated in units of 256 (8 a thread)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return 65536 // (per_warp * -(-threads // 32))
+
+
+def ptxas_report() -> list:
+    """(kernel, registers, spill stores, spill loads, blocks an SM holds by
+    registers) of every instantiation in the source, from nvcc
+    -Xptxas=-v: the tile kernels run 160 threads (a consumer warpgroup and
+    a producer warp), the single-query kernel 256."""
+    from ns2vc_tpu_torch.ops import _build
+
+    obj = os.path.join(ROOT, ".scratch", "flash_attention_bwd_ptxas.o")
+    os.makedirs(os.path.dirname(obj), exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", SOURCE,
+                           "-o", obj], capture_output=True, text=True,
+                          cwd=os.path.dirname(SOURCE))
+    if proc.returncode != 0:
+        cs.fail(f"nvcc: {proc.stdout}{proc.stderr}")
+    out, name, spills = [], None, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_bwd_\w+?_kernel)I(Li(\d+)E)?(Lb(\d))?",
+                          m.group(1))
+            name = k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "") \
+                + (f" bias={k.group(5)}" if k.group(5) else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            threads = 256 if name.startswith("flash_bwd_q1") else 160
+            row = (name, int(m.group(1)), *spills,
+                   blocks_by_registers(int(m.group(1)), threads))
+            if row not in out:
+                out.append(row)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_k1_bwd_compare: no CUDA device", file=sys.stderr)
+        return 2
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad,
+    )
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs.CARD = cs.card_line()
+    cs.say(f"device: {torch.cuda.get_device_name(0)}; {cs.CARD}")
+    calls = step_calls(cs.TRAIN_B, cs.TRAIN_T, cs.TRAIN_T)
+    cs.say(f"K1 calls of one bf16 training step (B={cs.TRAIN_B} x "
+           f"{cs.TRAIN_T}, remat off): {sum(calls.values())} in "
+           f"{len(calls)} geometries")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 90)
+    rows = []
+    sums = defaultdict(float)
+    per_kernel = defaultdict(float)
+    worst = {}
+    for key, n in calls.items():
+        q, k, v, bias, do = inputs(key, g, dev)
+        scale = q.shape[-1] ** -0.5 if key[1] is None else key[1]
+        r = cs.k1_backward_case(q, k, v, bias, scale, do)
+        if not (r["err"] <= cs.K1_BWD_RTOL and r["rms"] <= cs.K1_BWD_RMS
+                and r["repeat"]):
+            cs.fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: "
+                    f"error {r['err']} of the batch row's max|plain| (tol "
+                    f"{cs.K1_BWD_RTOL}), relative RMS {r['rms']} (tol "
+                    f"{cs.K1_BWD_RMS}), bitwise repeat {r['repeat']}")
+        want = flash_attention_backward(q, k, v, bias, scale, do)
+        got = flash_attention_grad(q, k, v, bias, scale, do)
+        # per backward, (dq, dk, dv) by each metric
+        controls = {"kernels": dict(zip(("max", "rms"), cs.k1_grad_errors(
+            got, want)), older=old_errors(got, want))}
+        for fault in FAULTS:
+            bad = faulty_backward(q, k, v, bias, scale, do, fault)
+            controls[fault] = dict(zip(("max", "rms"),
+                                       cs.k1_grad_errors(bad, want)))
+            if fault == FAULTS[3]:
+                controls[fault]["older"] = old_errors(bad, want)
+        # over the geometries: the least and the largest of each reading
+        for name, errs in controls.items():
+            for metric, e in errs.items():
+                lo, hi = worst.get((name, metric), (1e9, 0.0))
+                worst[(name, metric)] = (min(lo, max(e)), max(hi, max(e)))
+        kernels = kernel_ms(lambda: flash_attention_grad(
+            q, k, v, bias, scale, do))
+        for kname, ms in kernels.items():
+            per_kernel[kname] += n * ms
+        bound, by = cs.k1_backward_bound(q, k, bias)
+        row = {"q": list(q.shape), "k": list(k.shape),
+               "bias": bias is not None, "calls": n, "sub": r["name"],
+               "ms": r["ms"], "plain_ms": r["plain"], "sdpa_ms": r["lib"],
+               "turns": r["turns"],
+               "sdpa_backend": cs.sdpa_backend(q, k, v, bias, scale),
+               "bound_ms": bound, "bound_by": by, "err": r["err"],
+               "rms": r["rms"],
+               "abs_err": r["abs_err"], "kernels": kernels,
+               "controls": controls}
+        rows.append(row)
+        for name in ("ms", "plain_ms", "sdpa_ms", "bound_ms"):
+            sums[name] += n * row[name]
+        t = r["turns"]
+        cs.say(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)} bias="
+               f"{int(bias is not None)} x{n}: kernels "
+               f"{t['ms'][0]:.4f}/{t['ms'][1]:.4f} ms, plain "
+               f"{t['plain'][0]:.4f}/{t['plain'][1]:.4f}, SDPA's backward "
+               f"{r['lib']:.4f} ({row['sdpa_backend']}), bound {bound:.5f} "
+               f"({by}); err {r['err']:.2e}, rms {r['rms']:.2e}; (dq, dk, "
+               f"dv) " + "; ".join(
+                   f"{name} {metric} " + "/".join(f"{e:.2e}" for e in errs)
+                   for name, m in controls.items()
+                   for metric, errs in m.items())
+               + "; profiled: "
+               + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in sorted(
+                   kernels.items())) + f" [{cs.CARD}]")
+    cs.say(f"K1 backward, one training step's {sum(calls.values())} calls "
+           f"(B={cs.TRAIN_B} x {cs.TRAIN_T}, bf16): kernels "
+           f"{sums['ms']:.4f} ms, plain (torch ops) {sums['plain_ms']:.4f}, "
+           f"SDPA's backward {sums['sdpa_ms']:.4f}; bound "
+           f"{sums['bound_ms']:.5f} ({100 * sums['bound_ms'] / sums['ms']:.1f}"
+           f" % of it); worst err {max(r['err'] for r in rows):.2e}, rms "
+           f"{max(r['rms'] for r in rows):.2e} "
+           f"[{cs.CARD}]")
+    cs.say("  profiled per step: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in sorted(per_kernel.items()))
+        + f" [{cs.CARD}]")
+    cs.say("  over the step's geometries, least / largest reading of each "
+           f"backward: max (of the batch row's max|plain|, bound "
+           f"{cs.K1_BWD_RTOL}), rms (of the gradient's norm, bound "
+           f"{cs.K1_BWD_RMS}), "
+           "older (of max(1, max|plain|) per tensor, bound 3e-2): "
+           + "; ".join(f"{name} {metric} {lo:.3e} / {hi:.3e}"
+                       for (name, metric), (lo, hi) in worst.items()))
+    regs = ptxas_report()
+    for name, r, st, ld, blocks in regs:
+        cs.say(f"  ptxas {name}: {r} registers, spills {st} / {ld} bytes, "
+               f"{blocks} blocks per SM by registers")
+    out = {"card": cs.CARD, "per_step": dict(sums),
+           "readings": {f"{name}, {metric}": v
+                        for (name, metric), v in worst.items()},
+           "per_kernel": dict(per_kernel), "ptxas": regs, "rows": rows}
+    line = json.dumps({"k1_bwd_compare": out})
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

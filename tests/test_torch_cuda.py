@@ -35,7 +35,12 @@ checks the route its call took. K2's backward kernels
 dtypes (3e-5 of max|plain| per gradient, the bf16 kernels' f32 sums before
 their rounding, and the rounded outputs within half a bf16 ulp of them),
 odd T, C not a multiple of 16 and Co of the output tail included, two
-launches bitwise equal; the bf16 route (the wgmma kernels) also at every
+launches bitwise equal; K1's bf16 backward kernels (`flash_attention_grad`)
+against `flash_attention_backward` at every geometry of a `Config()`
+training step (1e-2 of max|plain| in each batch row), at ragged shapes, fully
+masked rows and a key component all keys share, bitwise repeatable, with
+their refusals and their route's counters; K2's bf16 route (the wgmma
+kernels) also at every
 geometry of a `Config()` training step at its batch of 32; under autograd
 K2's backward takes them and never cuDNN. K2's f32 kernel is also held to give
 bitwise-equal outputs on two launches, split over a cluster at B = 1 and
@@ -1227,6 +1232,210 @@ def test_k2_backward_bf16_at_the_training_geometries(dev, geometry):
         assert err <= K2_BWD_RTOL, (name, err, plan_wgrad(32, t, c, co))
 
 
+# K1's bf16 backward kernels (`flash_attention_grad`: dq, then dk and dv,
+# on wgmma; one query on the CUDA cores) against the plain backward
+# (`flash_attention_backward`) on the same inputs, per gradient, within
+# the bounds chip_smoke holds the training step's calls to
+# (`chip_smoke.K1_BWD_RTOL` of each batch row's max |plain|, `K1_BWD_RMS`
+# of the gradient's norm; the reasons stand there). Two launches agree bit
+# for bit.
+# every K1 geometry of a `Config()` training step at 32 x 272, bf16, as
+# the step lays them out: (H, Tq, Tk, D, layout, key bias, calls) with
+# layout "packed" (q, k, v head views of one (B, T, 3C) projection),
+# "cross" (q of a (B, Tq, C) projection, k and v of two (B, Tk, C) ones)
+# or "pool" (one query of a (B, 1, C) projection over keys of (B, Tk, C))
+K1_TRAIN_GEOMETRIES = [
+    (8, 272, 272, 16, "packed", False, 5),   # UNet level 0 self
+    (8, 272, 272, 16, "cross", True, 5),     # level 0 cross, prompt keys
+    (8, 136, 136, 32, "packed", False, 5),
+    (8, 136, 272, 32, "cross", True, 5),
+    (8, 68, 68, 48, "packed", False, 5),
+    (8, 68, 272, 48, "cross", True, 5),
+    (8, 34, 34, 64, "packed", False, 1),
+    (8, 34, 272, 64, "cross", True, 1),
+    (8, 272, 272, 32, "packed", True, 12),   # phone / prompt encoders
+    (1, 1, 273, 100, "pool", False, 1),      # ref_enc
+    (64, 1, 273, 4, "pool", False, 1),       # add_embedding
+]
+
+
+def _k1_backward_inputs(g, dev, bsz, geometry, dtype=torch.bfloat16):
+    """q, k, v, key bias, dO of one K1 geometry, laid out as the step's."""
+    h, tq, tk, d, layout, with_bias, _ = geometry
+    c = h * d
+
+    def proj(t, n):
+        return torch.randn(bsz, t, n * c, generator=g, device=dev).to(dtype)
+    if layout == "packed":
+        q, k, v = (split_heads(x, h) for x in proj(tq, 3).split(c, dim=-1))
+    else:
+        q, k, v = (split_heads(proj(t, 1), h) for t in (tq, tk, tk))
+    bias = None
+    if with_bias:
+        lengths = torch.randint(1, tk + 1, (bsz,), generator=g, device=dev)
+        lengths[0] = tk
+        keep = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
+        bias = (1.0 - keep.float()) * -1e4
+    # dO as autograd hands it: the (B, Tq, C) gradient's head view
+    do = split_heads(torch.randn(bsz, tq, c, generator=g, device=dev)
+                     .to(dtype), h)
+    return q, k, v, bias, do
+
+
+def _hold_k1_backward(got, want):
+    import chip_smoke as cs
+
+    peak, rms = cs.k1_grad_errors(got, want)
+    assert max(peak) <= cs.K1_BWD_RTOL and max(rms) <= cs.K1_BWD_RMS, (
+        peak, rms)
+
+
+@pytest.mark.parametrize("geometry", K1_TRAIN_GEOMETRIES)
+def test_k1_backward_bf16_at_the_training_geometries(dev, geometry):
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad,
+    )
+
+    q, k, v, bias, do = _k1_backward_inputs(_gen(dev, 31), dev, 32, geometry)
+    scale = q.shape[-1] ** -0.5
+    route = "tc_q1" if q.shape[2] == 1 else "tc"
+    n0 = dict(flash_attention_grad.route_launches)
+    got = flash_attention_grad(q, k, v, bias, scale, do)
+    again = flash_attention_grad(q, k, v, bias, scale, do)
+    assert flash_attention_grad.route_launches == {
+        **n0, route: n0[route] + 2}
+    want = flash_attention_backward(q, k, v, bias, scale, do)
+    torch.cuda.synchronize()
+    for gv, rv, inp in zip(got, again, (q, k, v)):
+        assert gv.shape == inp.shape and gv.dtype == torch.bfloat16
+        assert torch.equal(gv, rv)
+    _hold_k1_backward(got, want)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,valid", [
+    (2, 3, 37, 53, 8, None),       # the narrowest head, ragged tiles
+    (2, 2, 130, 65, 24, 40),       # D between tiles' widths, key padding
+    (1, 2, 65, 200, 40, 129),
+    (2, 2, 100, 70, 128, 64),      # the widest head: two panels
+    (3, 4, 1, 50, 24, 17),         # one query with a key bias
+    (2, 2, 1, 9, 1, None),         # one query, one column
+])
+def test_k1_backward_bf16_matches_the_plain_backward(dev, b, h, tq, tk, d,
+                                                     valid):
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad,
+    )
+
+    g = _gen(dev, 32)
+    q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev)
+               .to(torch.bfloat16) for t in (tq, tk, tk))
+    bias = None
+    if valid is not None:
+        bias = torch.zeros(b, tk, device=dev)
+        bias[-1, valid:] = -1e4
+    do = torch.randn(b, h, tq, d, generator=g, device=dev).to(torch.bfloat16)
+    got = flash_attention_grad(q, k, v, bias, 0.3, do)
+    want = flash_attention_backward(q, k, v, bias, 0.3, do)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.float()).all() for x in got)
+    _hold_k1_backward(got, want)
+    assert torch.equal(got[0], flash_attention_grad(q, k, v, bias, 0.3,
+                                                    do)[0])
+
+
+@pytest.mark.parametrize("tq", [1, 70])
+def test_k1_backward_fully_masked_rows(dev, tq):
+    """A batch row whose every key is masked stays finite and matches the
+    plain version (softmax of the scores shifted by -1e4)."""
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad,
+    )
+
+    g = _gen(dev, 33)
+    q, k, v = (torch.randn(2, 2, t, 16, generator=g, device=dev)
+               .to(torch.bfloat16) for t in (tq, 90, 90))
+    bias = torch.zeros(2, 90, device=dev)
+    bias[1] = -1e4
+    do = torch.randn(2, 2, tq, 16, generator=g, device=dev).to(torch.bfloat16)
+    got = flash_attention_grad(q, k, v, bias, 0.25, do)
+    want = flash_attention_backward(q, k, v, bias, 0.25, do)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.float()).all() for x in got)
+    # the masked row's logits, quantised to 2^-10 at -1e4 in both versions,
+    # differ in every element: the RMS bound holds the unmasked row only
+    import chip_smoke as cs
+
+    assert max(cs.k1_grad_errors(got, want)[0]) <= cs.K1_BWD_RTOL
+    _hold_k1_backward([x[:1] for x in got], [x[:1] for x in want])
+
+
+def test_k1_backward_keeps_dq_with_a_shared_key_component(dev):
+    """Keys and values that share a component (tests/test_torch_kernels.py's
+    case): the kernels' dq stays within bf16 rounding of the f64
+    gradient, as the plain version's does."""
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_grad
+
+    g = _gen(dev, 34)
+    q, k, v = ((0.3 * torch.randn(2, 4, 64, 16, generator=g, device=dev)
+                + off).bfloat16() for off in (0.0, 3.0, 3.0))
+    do = torch.randn(2, 4, 64, 16, generator=g, device=dev).bfloat16()
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    flash_attention_plain(*leaves, None, 0.25).backward(do.double())
+    want = leaves[0].grad
+    dq = flash_attention_grad(q, k, v, None, 0.25, do)[0].double()
+    cos = (dq.flatten() @ want.flatten()) / (dq.norm() * want.norm())
+    assert cos.item() > 0.9999
+
+
+def test_k1_backward_refuses_what_it_cannot_take(dev):
+    """A bf16 call the kernels cannot take raises: rows that are not whole
+    aligned 16-byte chunks (D % 8 != 0 with more than one query), mixed
+    dtypes, a wrong dO or bias. f32 takes its own route (torch ops)."""
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_grad
+
+    g = _gen(dev, 35)
+    q, k, v, do = (torch.randn(2, 2, 9, 4, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_grad(q, k, v, None, 0.5, do)
+    q, k, v, do = (torch.randn(2, 2, 9, 16, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention_grad(q, k, v, None, 0.5, do.float())
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention_grad(q, k, v, None, 0.5, do[:, :, :4])
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention_grad(q, k, v, torch.zeros(2, 9, device=dev)
+                             .bfloat16(), 0.5, do)
+    n0 = dict(flash_attention_grad.route_launches)
+    flash_attention_grad(*(x.float() for x in (q, k, v)), None, 0.5,
+                         do.float())
+    assert flash_attention_grad.route_launches == n0
+
+
+@pytest.mark.parametrize("tq,route", [(40, "tc"), (1, "tc_q1")])
+def test_k1_backward_counts_the_kernel_route_apart(dev, tq, route):
+    """Under autograd a bf16 call's backward launches the kernels (counted
+    in `flash_attention_grad.route_launches`), an f32 call's runs the torch
+    ops: both count in `flash_attention.backward_calls` by route."""
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_grad
+
+    g = _gen(dev, 36)
+    for dtype, fwd in ((torch.bfloat16, route), (torch.float32,
+                                                 "f32" + route)):
+        q, k, v = (torch.randn(2, 4, t, 32, generator=g, device=dev)
+                   .to(dtype).requires_grad_() for t in (tq, 70, 70))
+        calls = dict(flash_attention.backward_calls)
+        n0 = dict(flash_attention_grad.route_launches)
+        flash_attention(q, k, v).float().sum().backward()
+        torch.cuda.synchronize()
+        assert flash_attention.backward_calls == {**calls,
+                                                  fwd: calls[fwd] + 1}
+        grown = {route: n0[route] + 1} if dtype == torch.bfloat16 else {}
+        assert flash_attention_grad.route_launches == {**n0, **grown}
+        assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
+
+
 def test_k2_backward_refuses_what_it_cannot_take(dev):
     x, a, b, w, bias, dy = _k2_backward_inputs(_gen(dev, 22), dev, 2, 8, 16,
                                                8, torch.float32)
@@ -1297,6 +1506,8 @@ def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
     assert k1.backward_calls == {"f32tc": 0, "f32tc_q1": 0,
                                  "f32tc_narrow": 0, "tc": 14, "tc_q1": 2,
                                  "tc_narrow": 0}
+    # every K1 backward on the bf16 kernels, none in torch ops
+    assert fa.flash_attention_grad.route_launches == {"tc": 14, "tc_q1": 2}
     assert k2.route_launches == {"f32tc": 0, "f32tc_elem": 0,
                                  "tc": 25 + again[1], "tc_elem": 0}
     assert k2.backward_calls == {"f32tc": 0, "tc": 25}

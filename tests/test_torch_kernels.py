@@ -889,8 +889,15 @@ def kernels_on_cpu():
         fr.affine_silu_conv1d_grad.launches += 1
         fr.affine_silu_conv1d_grad.route_launches["bf16"] += 1
         return fr.affine_silu_conv1d_backward(x, a, b, w, bias, dy)
+
+    def ag_launch(q, k, v, bias, scale, do):
+        fa.flash_attention_grad.launches += 1
+        fa.flash_attention_grad.route_launches[
+            "tc_q1" if q.shape[2] == 1 else "tc"] += 1
+        return fa.flash_attention_backward(q, k, v, bias, scale, do)
     with mock.patch.object(fa, "attention_route", lambda *a: "tc"), \
             mock.patch.object(fa, "_launch", a_launch), \
+            mock.patch.object(fa, "_grad_launch", ag_launch), \
             mock.patch.object(fr, "resnet_route", lambda *a: "tc"), \
             mock.patch.object(fr, "_launch", r_launch), \
             mock.patch.object(fr, "_grad_launch", g_launch):
