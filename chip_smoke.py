@@ -70,7 +70,22 @@ backward (cuDNN, TF32 off; the bf16 kernels' f32 sums before rounding)
 within K2_BWD_RTOL of max|plain| per gradient, two launches bitwise equal,
 timed in turns against cuDNN's path under the step's flags and under
 cudnn.deterministic; a step's launches of the backward kernels (45 bf16,
-one per K2 backward); card vs
+one per K2 backward); the statistics' backward kernels
+(`group_norm_affine_grad`: csrc/group_norm_affine_bwd.cu) at every
+statistics call of the step against their plain version
+(`group_norm_affine_backward`, torch ops, on the forward's mean and rstd)
+within GN_BWD_RTOL of max|plain| per gradient (one bf16 rounding more for
+bf16 gradients), two launches bitwise equal, timed in turns against the
+autograd recompute of the plain forward they replaced; a step's launches
+of them (45, one per statistics backward, none through torch ops); K1's
+f32 backward kernels (csrc/flash_attention_f32_bwd_wgmma.cu, the pools on
+the single-query kernel in f32) at every f32 K1 backward of the f32 card
+gradients (B=2) and of the F0 predictor's step (its 10 cross-attentions,
+recorded from an eager step, none through torch ops), on the recorded
+inputs, against the plain backward in f64 within K1_F32_BWD_RTOL of each
+batch row's max or K1_F32_BWD_COND times the plain f32 backward's own
+error, two launches bitwise equal, timed in turns against the torch ops and SDPA's
+f32 backward (TF32 off); card vs
 CPU gradients at B=2 x 272 in f32 and bf16 vs f32 cosines, with a witness
 of how far bf16's own rounding moves those cosines (`bf16_witness`; the
 phase's batches come in the same order in every run: a serial loader,
@@ -230,7 +245,16 @@ counted in one training step, errors against the plain backward
 (`max_rel_err` of the batch row's max|plain|, `max_rel_rms` of the
 gradient's norm),
 ms, plain_ms and library_ms (SDPA's backward: forward and backward less
-the forward) summed over them, and bound_ms. The serving profiles at
+the forward) summed over them, and bound_ms. K1's f32 backward kernels
+have `flash_attention_backward_f32tc` (launches counted in the F0
+predictor's training step, timed at its 10 calls; the f32 card
+gradients' calls beside as `grad_f32_*`) and
+`flash_attention_backward_f32tc_q1` (launched and timed at the f32 card
+gradients' pools); the statistics' backward kernels
+`group_norm_affine_backward` (launches counted in one training step; ms,
+plain_ms the closed form in torch ops, recompute_ms the autograd
+recompute they replaced, bound_ms, summed over the step's calls;
+library_ms null: no PyTorch call computes the fold's gradient). The serving profiles at
 the end name K1's, K2's
 and the statistics kernel's share of each call, and the kernels of one
 B=16 UNet step's 45 epilogues are counted with the statistics as torch ops
@@ -291,6 +315,26 @@ PEAK_BYTES = 3.35e12
 # the GroupNorm statistics kernel against its plain version, f32 either way
 # (other summation orders): of max(1, max|a|, max|b|)
 GN_RTOL = 2e-5
+# the statistics' backward kernels against their plain version
+# (`group_norm_affine_backward` on the forward's mean and rstd), of each
+# gradient's max|plain|: f32 sums in other orders; a gradient in bf16 (dx
+# of bf16 x, those of bf16 parameters) one bf16 rounding more on each side
+# (half a bf16 ulp, 2^-9 of each value, doubled)
+GN_BWD_RTOL = 2e-5
+
+
+def gn_grad_rtol(dtype) -> float:
+    return GN_BWD_RTOL + (2.0 ** -8 if str(dtype) == "torch.bfloat16"
+                          else 0.0)
+
+
+def gn_grad_error(got, want) -> float:
+    """max |got - want| / max |want| of one gradient, in f32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
 # K2's backward kernels against the plain backward (cuDNN, TF32 off), f32
 # sums in other orders, the bf16 kernels' sums before their rounding: each
 # of dx, da, db, dw, dbias within K2_BWD_RTOL of its max |plain| (K2's f32
@@ -313,6 +357,18 @@ BACKWARD_ROUTES = {
         "ns2vc_tpu/ops/pallas_resnet.py:71"),
     "affine_silu_conv1d_backward_f32": (
         "affine_silu_conv1d_bwd.cu", "ns2vc_tpu/ops/pallas_resnet.py:71"),
+    # K1's f32 backward on tf32 wgmma (3xTF32), and its calls of one query
+    # on the single-query kernel in f32
+    "flash_attention_backward_f32tc": (
+        "flash_attention_f32_bwd_wgmma.cu",
+        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "flash_attention_backward_f32tc_q1": (
+        "flash_attention_bwd_wgmma.cu",
+        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    # the statistics' backward: the gradient of the XLA fold of the Pallas
+    # kernel's wrapper, which XLA differentiates
+    "group_norm_affine_backward": (
+        "group_norm_affine_bwd.cu", "ns2vc_tpu/ops/pallas_resnet.py:121"),
 }
 ROUTES = {   # route -> (kernel source, the TPU code it replaces)
     # the f32 route as a whole (its sub-routes below), named by its main
@@ -1341,7 +1397,7 @@ def serving_profile(fn, wall_ms_unprofiled: float, label: str,
                        ("k1_tc", ("flash_fwd_tc_kernel",)),
                        ("k1_q1", ("flash_fwd_q1",)),
                        ("k2", ("affine_silu_conv_k3", "split_k_reduce")),
-                       ("gn", ("group_norm_affine",))):
+                       ("gn", ("group_norm_affine_kernel",))):
         hits = [(ms, n) for name, (ms, n) in by.items()
                 if any(k in name for k in names)]
         out[f"{key}_ms"] = sum(ms for ms, _ in hits)
@@ -1578,8 +1634,11 @@ def program_lines(name, svc) -> list:
     return out
 
 
+# (the statistics' forward by its function's name: a kernel's mangled
+# name holds its source file's, and group_norm_affine_bwd.cu's backward
+# kernels would match the file's stem)
 KERNEL_NAMES = (("k1", "flash_fwd"), ("k2", "affine_silu_conv_k3"),
-                ("gn", "group_norm_affine"))
+                ("gn", "group_norm_affine_kernel"))
 
 
 def kernel_totals(counted: dict) -> dict:
@@ -2275,6 +2334,36 @@ K2_GRAD_BF16 = 3e-2           # max(1, max|grad|)
 # its largest element can pass the bound alone.
 K1_BWD_RTOL = 1e-2
 K1_BWD_RMS = 4e-4
+# K1's f32 backward kernels (3xTF32 on tf32 wgmma) against the plain
+# backward in f64, by the same batch-row metric, per gradient: within
+# K1_F32_BWD_RTOL (the training gradients' GRAD_RTOL), or within
+# K1_F32_BWD_COND times the plain backward's own f32 error against f64.
+# The second term is the data's conditioning: where the keys or values
+# share a large component, dS = P (dP - Delta) cancels and the plain f32
+# backward itself errs by ~1e-4 of a row's max dq (as the encoders' calls
+# in the f32 card gradients do); the kernels' 3xTF32 products carry ~2x
+# the f32 rounding there (tests/test_torch_k1_f32_backward.py emulates
+# both). On well-conditioned data the kernels stay within 2e-5.
+K1_F32_BWD_RTOL = 1e-4
+K1_F32_BWD_COND = 4.0
+
+
+def k1_f32_errors(got, q, k, v, bias, scale, do) -> tuple[list, list]:
+    """`k1_grad_errors` (largest per batch row) of the f32 kernels'
+    gradients and of the plain f32 backward's, both against the plain
+    backward in f64."""
+    from ns2vc_tpu_torch.ops.flash_attention import flash_attention_backward
+
+    f64 = flash_attention_backward(*(x.double() for x in (q, k, v)),
+                                   None if bias is None else bias.double(),
+                                   scale, do.double())
+    f32 = flash_attention_backward(q, k, v, bias, scale, do)
+    return k1_grad_errors(got, f64)[0], k1_grad_errors(f32, f64)[0]
+
+
+def k1_f32_holds(errs, plain_errs) -> bool:
+    return all(e <= max(K1_F32_BWD_RTOL, K1_F32_BWD_COND * p)
+               for e, p in zip(errs, plain_errs))
 TRAIN_WAVS = 12
 
 
@@ -2322,8 +2411,10 @@ def k1_grad_errors(got, want) -> tuple[list, list]:
 
 
 def k1_backward_case(q, k, v, bias, scale, do) -> dict:
-    """K1's bf16 backward kernels (`flash_attention_grad`) on one input set
-    against the plain backward (`flash_attention_backward`): the sub-route's
+    """K1's backward kernels (`flash_attention_grad`, bf16 or f32) on one
+    input set against the plain backward (`flash_attention_backward`; f32
+    under the caller's TF32 flags, off in the parity phases): the
+    sub-route's
     kernels-line name, the largest errors of dq, dk, dv by `k1_grad_errors`
     (err, rms) and absolute (abs_err), a bitwise repeat, and device
     times in turns, kernels, plain, SDPA, SDPA, plain, kernels: ms, plain,
@@ -2331,12 +2422,10 @@ def k1_backward_case(q, k, v, bias, scale, do) -> dict:
     import torch
 
     from ns2vc_tpu_torch.ops.flash_attention import (
-        flash_attention_backward, flash_attention_grad,
+        flash_attention_backward, flash_attention_grad, grad_route,
     )
 
-    from ns2vc_tpu_torch.ops.flash_attention import Q1_MAX_KEYS
-
-    sub = "tc_q1" if q.shape[2] == 1 and k.shape[2] <= Q1_MAX_KEYS else "tc"
+    sub = grad_route(q, k.shape[2])
     got = flash_attention_grad(q, k, v, bias, scale, do)
     again = flash_attention_grad(q, k, v, bias, scale, do)
     want = flash_attention_backward(q, k, v, bias, scale, do)
@@ -2348,6 +2437,12 @@ def k1_backward_case(q, k, v, bias, scale, do) -> dict:
          "err": max(peak), "rms": max(rms),
          "abs_err": max(diff),
          "repeat": all(torch.equal(a, b) for a, b in zip(got, again))}
+    if q.dtype == torch.float32:   # against f64, beside the plain f32's
+        errs, plain_errs = k1_f32_errors(got, q, k, v, bias, scale, do)
+        r.update(err64=max(errs), plain_err64=max(plain_errs),
+                 ok=k1_f32_holds(errs, plain_errs))
+    else:
+        r["ok"] = r["err"] <= K1_BWD_RTOL and r["rms"] <= K1_BWD_RMS
     fwd, both = sdpa_grad_calls(q, k, v, bias, scale, do)
     calls = {"ms": lambda: flash_attention_grad(q, k, v, bias, scale, do),
              "plain": lambda: flash_attention_backward(q, k, v, bias, scale,
@@ -2368,6 +2463,144 @@ def gn_backward_bound(bsz, t, c, dtype):
     es = 2 if str(dtype) == "torch.bfloat16" else 4
     f, m = 8.0 * bsz * t * c / PEAK_F32_CORES, 2 * es * bsz * t * c / PEAK_BYTES
     return max(f, m) * 1e3, ("operations" if f >= m else "bytes")
+
+
+@contextlib.contextmanager
+def record_k1_grads(store: dict):
+    """Record K1's backward calls (`flash_attention_grad`, as the autograd
+    Function calls it) by geometry: q, k, v, do's shapes and strides, key
+    bias, scale and dtype -> [count, a copy of the first call's inputs in
+    the same layout]. The calls run as they would."""
+    import torch
+
+    from unittest import mock
+
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+
+    real = fa.flash_attention_grad
+
+    def copy(x):
+        return None if x is None else torch.empty_strided(
+            x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
+
+    def recording(q, k, v, bias, scale, do):
+        key = (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+               v.stride(), do.stride(), bias is not None, scale, q.dtype)
+        if key not in store:
+            store[key] = [0, [copy(x) for x in (q, k, v, bias)]
+                          + [scale, copy(do)]]
+        store[key][0] += 1
+        return real(q, k, v, bias, scale, do)
+    with mock.patch.object(fa, "flash_attention_grad", recording):
+        yield
+
+
+def k1_recorded_backward(store: dict, label: str) -> dict:
+    """`k1_backward_case` at every geometry `record_k1_grads` recorded, on
+    the recorded inputs (TF32 off), each within its dtype's bound (f32:
+    `k1_f32_holds` against f64; bf16: K1_BWD_RTOL and K1_BWD_RMS), two
+    launches bitwise equal. Per kernels-line name, the
+    sums over the recorded calls: ms, plain (K1's torch ops), lib (SDPA's
+    backward), bound, and the worst err, rms, abs_err; calls."""
+    import torch
+
+    out = defaultdict(lambda: defaultdict(float))
+    with no_tf32():
+        for key, (n, (q, k, v, bias, scale, do)) in store.items():
+            r = k1_backward_case(q, k, v, bias, scale, do)
+            if not (r["ok"] and r["repeat"]):
+                fail(f"K1 backward kernels ({label}) q{tuple(q.shape)} "
+                     f"k{tuple(k.shape)} {q.dtype}: error {r['err']:.3e} of "
+                     f"the batch row's max|plain|, against f64 "
+                     f"{r.get('err64', float('nan')):.3e} (the plain f32 "
+                     f"backward's {r.get('plain_err64', float('nan')):.3e}; "
+                     f"tol: max({K1_F32_BWD_RTOL}, {K1_F32_BWD_COND} x it), "
+                     f"bf16 {K1_BWD_RTOL}), two launches bitwise equal: "
+                     f"{r['repeat']}")
+            bnd, by = k1_backward_bound(q, k, bias)
+            say(f"{r['name']} ({label}) q{tuple(q.shape)} k{tuple(k.shape)} "
+                f"bias={int(bias is not None)} x{n}: err {r['err']:.3e} of "
+                f"the batch row's max|plain|, abs {r['abs_err']:.3e}"
+                + (f"; against f64 {r['err64']:.3e} (the plain f32 "
+                   f"backward's {r['plain_err64']:.3e})" if "err64" in r
+                   else "") + "; device "
+                f"ms per call in turns: kernels {r['ms']:.4f}, torch ops "
+                f"(plain) {r['plain']:.4f}, SDPA's backward {r['lib']:.4f} "
+                f"(bound {bnd:.5f}, {by}) [{CARD}]")
+            d = out[r["name"]]
+            for k_ in ("err", "rms", "abs_err", "err64", "plain_err64"):
+                if k_ in r:
+                    d[k_] = max(d[k_], r[k_])
+            for k_ in ("ms", "plain", "lib"):
+                d[k_] += n * r[k_]
+            d["bound"] += n * bnd
+            d["by_" + by] += n * bnd
+            d["calls"] += n
+    for name, d in out.items():
+        by = {k[3:]: v for k, v in d.items() if k.startswith("by_")}
+        d["bound_by"] = max(by, key=by.get)
+        say(f"{name} at {label}'s {int(d['calls'])} calls: worst error "
+            f"{d['err']:.3e} of the batch row's max|plain|; device ms in "
+            f"turns: kernels {d['ms']:.4f}, torch ops (plain) "
+            f"{d['plain']:.4f}, SDPA's backward {d['lib']:.4f} (bound "
+            f"{d['bound']:.5f}, {d['bound_by']}) [{CARD}]")
+    return {name: dict(d) for name, d in out.items()}
+
+
+def gn_backward_case(x, gamma, beta, film, da, db, timed=True) -> dict:
+    """The statistics' backward kernels (`group_norm_affine_grad`) on one
+    input set, over the mean and rstd the forward kernel keeps, against
+    their plain version (`group_norm_affine_backward`, torch ops, on the
+    same mean and rstd): the largest `gn_grad_error` of the gradients
+    (err), whether each holds its `gn_grad_rtol` (ok), the largest
+    absolute error (abs_err), a bitwise repeat, and device
+    times in turns (kernels, the autograd recompute of the plain version
+    that the step ran before them, the closed form in torch ops, and back):
+    ms, recompute, plain, bound, bound_by."""
+    import torch
+
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        _gn_launch, group_norm_affine_backward, group_norm_affine_grad,
+        group_norm_affine_plain,
+    )
+
+    _, _, mean, rstd = _gn_launch(x, gamma, beta, 8, 1e-5, *film,
+                                  stats=True)
+    args = (x, gamma, beta, 8, *film, mean, rstd, da, db)
+    got = group_norm_affine_grad(*args)
+    again = group_norm_affine_grad(*args)
+    want = group_norm_affine_backward(x, gamma, beta, 8, 1e-5, *film, da,
+                                      db, mean, rstd)
+    torch.cuda.synchronize()
+    pairs = [(a, w) for a, w in zip(got, want) if w is not None]
+    r = {"err": max(gn_grad_error(a, w) for a, w in pairs),
+         "ok": all(gn_grad_error(a, w) <= gn_grad_rtol(w.dtype)
+                   for a, w in pairs),
+         "abs_err": max((a.float() - w.float()).abs().max().item()
+                        for a, w in pairs),
+         "repeat": all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None)}
+    bsz, t, c = x.shape
+    r["bound"], r["bound_by"] = gn_backward_bound(bsz, t, c, x.dtype)
+    if not timed:
+        return r
+    leaves = [v.detach().requires_grad_() for v in (x, gamma, beta, *film)
+              if v is not None]
+
+    def recompute():
+        fs = leaves[3:] if len(leaves) == 5 else [None, None]
+        return torch.autograd.grad(group_norm_affine_plain(
+            *leaves[:3], 8, 1e-5, *fs), leaves, (da, db))
+    calls = {"ms": lambda: group_norm_affine_grad(*args),
+             "recompute": recompute,
+             "plain": lambda: group_norm_affine_backward(
+                 x, gamma, beta, 8, 1e-5, *film, da, db, mean, rstd)}
+    turns = defaultdict(list)
+    for key in ("ms", "recompute", "plain", "plain", "recompute", "ms"):
+        turns[key].append(graph_ms(calls[key]))
+    r.update({key: sum(v) / 2 for key, v in turns.items()})
+    r["turns"] = dict(turns)
+    return r
 
 
 def k2_backward_bound(bsz, t, c, co, dtype):
@@ -2398,17 +2631,22 @@ def backward_calls() -> dict:
 
 def grad_launches() -> dict:
     """Launches of the backward kernels since the last reset_launches(), by
-    their kernels-line names: K1's bf16 ones per sub-route, K2's per
-    dtype."""
+    their kernels-line names: K1's per sub-route, K2's per dtype, the
+    statistics'."""
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention_grad
-    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_grad
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        affine_silu_conv1d_grad, group_norm_affine,
+    )
 
     a, r = (flash_attention_grad.route_launches,
             affine_silu_conv1d_grad.route_launches)
     return {"flash_attention_backward_tc": a["tc"],
             "flash_attention_backward_tc_q1": a["tc_q1"],
+            "flash_attention_backward_f32tc": a["f32tc"],
+            "flash_attention_backward_f32tc_q1": a["f32tc_q1"],
             "affine_silu_conv1d_backward_bf16": r["bf16"],
-            "affine_silu_conv1d_backward_f32": r["f32"]}
+            "affine_silu_conv1d_backward_f32": r["f32"],
+            "group_norm_affine_backward": group_norm_affine.backward_launches}
 
 
 def k2_backward_case(x, a, b, w, bias, dy) -> dict:
@@ -2544,13 +2782,15 @@ def training_config(processed, logs):
 def check_train_geometries(calls, dev):
     """Every K1 / K2 geometry of one bf16 training step (remat off: one
     call per backward) on random inputs laid out as the step's: the forward
-    timed as in the serving phases; K1's bf16 backward kernels against the
+    timed as in the serving phases; K1's backward kernels against the
     plain backward (`k1_backward_case`, timed in turns with it and SDPA's
-    backward), an f32 K1 call's backward through the Function against
-    autograd through the plain version, timed as a CUDA graph; K2's
-    forward and backward through the Function against autograd through the
-    plain version, and at every K2 geometry K2's backward kernels, in bf16
-    and in f32 (`k2_backward_case`).
+    backward; an f32 call's also through the Function against autograd
+    through the plain version); K2's forward and backward through the
+    Function against autograd through the plain version, and at every K2
+    geometry K2's backward kernels, in bf16 and in f32
+    (`k2_backward_case`), and the statistics' backward kernels
+    (`gn_backward_case`, timed in turns with the autograd recompute they
+    replaced).
     Returns per route {fwd_ms, bwd_ms, bwd_bound, bwd_by, err, plain_ms,
     lib_ms, bound} summed over the step's calls (also bwd_plain_ms: K1's
     torch ops, K2's cuDNN path; K1's bwd_lib_ms, SDPA's backward), and per
@@ -2562,7 +2802,7 @@ def check_train_geometries(calls, dev):
 
     import ns2vc_tpu_torch.ops.fused_resnet as fr
     from ns2vc_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward, flash_attention_plain,
+        flash_attention, flash_attention_plain,
     )
     from ns2vc_tpu_torch.ops.fused_resnet import (
         gn_silu_conv1d, group_norm_affine, group_norm_affine_plain,
@@ -2612,33 +2852,29 @@ def check_train_geometries(calls, dev):
         add(route, "lib_ms", r["lib"], n)
         add(route, "bound", r["bound"], n)
         bb, by = k1_backward_bound(qd, kd, bias)
-        if dtype == torch.bfloat16:
-            # the backward kernels against the plain backward, timed in
-            # turns against it and SDPA's backward
-            kb = k1_backward_case(qd, kd, vd, bias, s, do)
-            if not (kb["err"] <= K1_BWD_RTOL and kb["rms"] <= K1_BWD_RMS
-                    and kb["repeat"]):
-                fail(f"K1 backward kernels q{tuple(q.shape)} "
-                     f"k{tuple(k.shape)}: error {kb['err']:.3e} of the "
-                     f"batch row's max|plain| (tol {K1_BWD_RTOL}), relative "
-                     f"RMS {kb['rms']:.3e} (tol {K1_BWD_RMS}), two "
-                     f"launches bitwise equal: {kb['repeat']}")
-            worst[route] = max(worst[route], kb["err"])
-            d = bwd_out[kb["name"]]
-            d["err"] = max(d["err"], kb["err"])
-            d["rms"] = max(d["rms"], kb["rms"])
-            d["abs_err"] = max(d["abs_err"], kb["abs_err"])
-            for k_ in ("ms", "plain", "lib"):
-                d[k_] += n * kb[k_]
-            d["bound"] += n * bb
-            d["by_" + by] += n * bb
-            d["calls"] += n
-            add(route, "bwd_ms", kb["ms"], n)
-            add(route, "bwd_plain_ms", kb["plain"], n)
-            add(route, "bwd_lib_ms", kb["lib"], n)
-        else:
-            add(route, "bwd_ms", graph_ms(lambda: flash_attention_backward(
-                qd, kd, vd, bias, s, do)), n)
+        # the backward kernels against the plain backward, timed in turns
+        # against it and SDPA's backward
+        kb = k1_backward_case(qd, kd, vd, bias, s, do)
+        if not (kb["ok"] and kb["repeat"]):
+            fail(f"K1 backward kernels q{tuple(q.shape)} "
+                 f"k{tuple(k.shape)} {dtype}: error {kb['err']:.3e} of the "
+                 f"batch row's max|plain| (bf16 tol {K1_BWD_RTOL}; f32: "
+                 f"`k1_f32_holds`), relative RMS {kb['rms']:.3e} (bf16 tol "
+                 f"{K1_BWD_RMS}), two launches bitwise equal: "
+                 f"{kb['repeat']}")
+        worst[route] = max(worst[route], kb["err"])
+        d = bwd_out[kb["name"]]
+        d["err"] = max(d["err"], kb["err"])
+        d["rms"] = max(d["rms"], kb["rms"])
+        d["abs_err"] = max(d["abs_err"], kb["abs_err"])
+        for k_ in ("ms", "plain", "lib"):
+            d[k_] += n * kb[k_]
+        d["bound"] += n * bb
+        d["by_" + by] += n * bb
+        d["calls"] += n
+        add(route, "bwd_ms", kb["ms"], n)
+        add(route, "bwd_plain_ms", kb["plain"], n)
+        add(route, "bwd_lib_ms", kb["lib"], n)
         add(route, "bwd_bound", bb, n)
         out[route]["bwd_by_" + by] += n * bb
         out[route]["calls"] += n
@@ -2710,24 +2946,33 @@ def check_train_geometries(calls, dev):
         add(route, "bwd_bound", bb, n)
         out[route]["bwd_by_" + by] += n * bb
         out[route]["calls"] += n
-        # the statistics kernel: its backward recomputes the plain version
-        # under autograd (a, b's gradients of the K2 call)
+        # the statistics kernel, and its backward kernels (a, b's
+        # gradients of the K2 call)
         st, st_route = r["stats"], gn_route(dtype)
         worst[st_route] = max(worst[st_route], st["err"])
         for key, value in (("fwd_ms", st["ms"]), ("plain_ms", st["plain"]),
                            ("lib_ms", st["lib"]), ("bound", st["bound"])):
             add(st_route, key, value, n)
-        leaves = [v.detach().requires_grad_() for v in (x, gamma, beta,
-                                                        *film)]
+        # its backward kernels against their plain version, timed in turns
+        # against the autograd recompute of the plain forward they replaced
         da, db = torch.randn_like(a), torch.randn_like(b)
-
-        def stats_backward():
-            return torch.autograd.grad(group_norm_affine_plain(
-                *leaves[:3], 8, 1e-5, *leaves[3:]), leaves, (da, db))
-        add(st_route, "bwd_ms", graph_ms(stats_backward), n)
-        bb, by = gn_backward_bound(bsz, t, c, dtype)
-        add(st_route, "bwd_bound", bb, n)
-        out[st_route]["bwd_by_" + by] += n * bb
+        gb = gn_backward_case(x, gamma, beta, film, da, db)
+        if not (gb["ok"] and gb["repeat"]):
+            fail(f"statistics backward kernels B={bsz} T={t} C={c} {dtype}: "
+                 f"error {gb['err']:.3e} of max|plain| (tol GN_BWD_RTOL, "
+                 f"one bf16 rounding more for bf16 gradients), two launches "
+                 f"bitwise equal: {gb['repeat']}")
+        d = bwd_out["group_norm_affine_backward"]
+        d["err"] = max(d["err"], gb["err"])
+        d["abs_err"] = max(d["abs_err"], gb["abs_err"])
+        for k in ("ms", "plain", "recompute", "bound"):
+            d[k] += n * gb[k]
+        d["by_" + gb["bound_by"]] += n * gb["bound"]
+        d["calls"] += n
+        add(st_route, "bwd_ms", gb["ms"], n)
+        add(st_route, "bwd_plain_ms", gb["recompute"], n)
+        add(st_route, "bwd_bound", gb["bound"], n)
+        out[st_route]["bwd_by_" + gb["bound_by"]] += n * gb["bound"]
         out[st_route]["calls"] += n
     for route, d in out.items():
         d["err"] = worst[route]
@@ -2762,7 +3007,17 @@ def check_train_geometries(calls, dev):
     for name, d in bwd_out.items():
         by = {k[3:]: v for k, v in d.items() if k.startswith("by_")}
         d["bound_by"] = max(by, key=by.get)
-        if name.startswith("flash"):
+        if name.startswith("group_norm"):
+            say(f"{name} at the training step's {int(d['calls'])} statistics "
+                f"calls (B={TRAIN_B}): worst error {d['err']:.3e} of "
+                f"max|plain| (tol GN_BWD_RTOL {GN_BWD_RTOL:g}, one bf16 "
+                f"rounding more for bf16 gradients), two launches bitwise "
+                f"equal at every geometry; device ms per step in turns: "
+                f"kernels {d['ms']:.4f}, the autograd recompute they replaced "
+                f"{d['recompute']:.4f}, the closed form in torch ops (plain) "
+                f"{d['plain']:.4f} (bound {d['bound']:.5f}, {d['bound_by']}) "
+                f"[{CARD}]")
+        elif name.startswith("flash"):
             say(f"{name} at the training step's {int(d['calls'])} K1 calls "
                 f"of its sub-route (B={TRAIN_B}): worst error {d['err']:.3e} "
                 f"of the batch row's max|plain| (tol {K1_BWD_RTOL}), relative "
@@ -2880,17 +3135,23 @@ def check_grads(cfg, sd, batch, dev, states=(), provenance=None):
                              for n, p in model.named_parameters()}
 
     gates, replay = [], []
+    k1_calls = {}   # the f32 K1 backwards, recorded for their timing below
     with no_tf32():
         reset_launches()
-        with relu_gates(gates):
+        with relu_gates(gates), record_k1_grads(k1_calls):
             (l_card, g_card), ms = wall_ms(lambda: grads(dev))
         f32_grads, f32_bwd = grad_launches(), backward_calls()
+        k1_kernels = (f32_grads["flash_attention_backward_f32tc"]
+                      + f32_grads["flash_attention_backward_f32tc_q1"])
         if f32_grads["affine_silu_conv1d_backward_f32"] != \
                 f32_bwd["affine_silu_conv1d_f32tc"] or not f32_grads[
-                    "affine_silu_conv1d_backward_f32"]:
-            fail(f"f32 gradients on the card: K2's backward kernels "
+                    "affine_silu_conv1d_backward_f32"] or \
+                k1_kernels != f32_bwd["flash_attention_f32tc"] or \
+                not f32_grads["flash_attention_backward_f32tc_q1"]:
+            fail(f"f32 gradients on the card: the backward kernels "
                  f"launched {f32_grads}, K2's f32 backward calls "
-                 f"{f32_bwd['affine_silu_conv1d_f32tc']}")
+                 f"{f32_bwd['affine_silu_conv1d_f32tc']}, K1's "
+                 f"{f32_bwd['flash_attention_f32tc']}")
         with relu_gates(gates, replay):
             l_cpu, g_cpu = grads(torch.device("cpu"))
     models.pop("cpu"), loaded.pop("cpu")
@@ -2964,9 +3225,16 @@ def check_grads(cfg, sd, batch, dev, states=(), provenance=None):
         fail(f"bf16 gradients: {[(n, cos[n], cos_plain[n]) for n in bad]} "
              f"below {GRAD_COSINE} and the plain bf16 cosine, or "
              f"{len(noise_floor)} tensors at the noise floor")
+    # K1's f32 backward kernels at every geometry of the f32 gradients,
+    # on the recorded inputs, in turns with the torch ops and SDPA
+    k1_f32 = k1_recorded_backward(k1_calls, "the f32 card gradients (B=2)")
     return {"grad_f32_worst": worst, "grad_f32_worst_tensor": worst_name,
             "grad_f32_backward_launches": f32_grads[
                 "affine_silu_conv1d_backward_f32"],
+            "grad_f32_k1_launches": {
+                k: f32_grads[k] for k in ("flash_attention_backward_f32tc",
+                                          "flash_attention_backward_f32tc_q1")},
+            "grad_f32_k1_backward": k1_f32,
             "grad_bf16_cosine": cos[low], "grad_bf16_worst_tensor": low,
             "grad_bf16_plain_cosine": cos_plain[low],
             "grad_bf16_below_target": sorted(
@@ -3313,13 +3581,16 @@ def check_training(vsd, cv_sd, dev, tmp):
     torch.cuda.synchronize()
     launches, bwd, grads = route_counts(), backward_calls(), grad_launches()
     reset_launches()
-    packs, plain_k1 = [], []
+    packs, plain_k1, plain_gn = [], [], []
     pack = fr.pack_conv_weight
     k1_plain = fa.flash_attention_backward
+    gn_plain = fr.group_norm_affine_backward
     with mock.patch.object(fr, "pack_conv_weight",
                            lambda w: packs.append(1) or pack(w)), \
             mock.patch.object(fa, "flash_attention_backward",
-                              lambda *a: plain_k1.append(1) or k1_plain(*a)):
+                              lambda *a: plain_k1.append(1) or k1_plain(*a)), \
+            mock.patch.object(fr, "group_norm_affine_backward",
+                              lambda *a: plain_gn.append(1) or gn_plain(*a)):
         trainer._train_step_eager(batches[2])
     torch.cuda.synchronize()
     if route_counts() != launches or backward_calls() != bwd \
@@ -3328,15 +3599,20 @@ def check_training(vsd, cv_sd, dev, tmp):
              f"backward calls {bwd} and backward kernels {grads}, the eager "
              f"step {route_counts()}, {backward_calls()} and "
              f"{grad_launches()}")
-    # every K1 and K2 backward of the step ran on the backward kernels (K1:
-    # 44 tile calls and the 2 pools), none on K1's torch ops
+    # every K1, K2 and statistics backward of the step ran on the backward
+    # kernels (K1: 44 tile calls and the 2 pools), none on K1's or the
+    # statistics' torch ops
     if grads != {"flash_attention_backward_tc": 44,
                  "flash_attention_backward_tc_q1": 2,
+                 "flash_attention_backward_f32tc": 0,
+                 "flash_attention_backward_f32tc_q1": 0,
                  "affine_silu_conv1d_backward_bf16": 45,
-                 "affine_silu_conv1d_backward_f32": 0} or plain_k1:
+                 "affine_silu_conv1d_backward_f32": 0,
+                 "group_norm_affine_backward": 45} or plain_k1 or plain_gn:
         fail(f"training step: the backward kernels launched {grads}, not "
-             f"once per K1 (44 + 2 pools) and K2 (45) backward; K1's torch "
-             f"ops backward ran {len(plain_k1)} times in the eager step")
+             f"once per K1 (44 + 2 pools), K2 (45) and statistics (45) "
+             f"backward; K1's torch ops backward ran {len(plain_k1)} times "
+             f"and the statistics' {len(plain_gn)} times in the eager step")
     res["grad_launches"] = grads
     # the step's fresh bf16 weights are packed once each; the recomputed
     # forward finds them in the cache
@@ -3359,7 +3635,8 @@ def check_training(vsd, cv_sd, dev, tmp):
     res["launches"], res["backward"] = launches, bwd
     say(f"training step (remat dots): launches {launches}; backward calls "
         f"{bwd}; backward kernels {grads} (a replay and the eager step "
-        f"alike; K1's torch ops backward {len(plain_k1)} times); K2 weights "
+        f"alike; K1's torch ops backward {len(plain_k1)} times, the "
+        f"statistics' {len(plain_gn)} times); K2 weights "
         f"packed "
         f"{len(packs)} times (eager); the step key's first call (warm-up "
         f"and capture) {res['first_call_ms']:.0f} ms [{CARD}]")
@@ -3551,13 +3828,17 @@ def training_profile(trainer, batch, step_ms, title=""):
         say("training profile: the profiler recorded no device time")
         return {}
     groups = (("K1 forward (flash_fwd*)", ("flash_fwd",)),
+              # before the bf16 group, whose prefix the f32 names share
+              ("K1 f32 backward (flash_bwd_f32_dq, _dkdv kernels)",
+               ("flash_bwd_f32_",)),
               ("K1 backward (flash_bwd_dq, _dkdv, _q1 kernels)",
                ("flash_bwd",)),
               ("K2 forward (affine_silu_conv_k3*, split reduce)",
                ("affine_silu_conv", "split_k_reduce")),
-              ("GroupNorm statistics (group_norm_affine_kernel; the "
-               "backward's var_mean, Welford reduce)",
-               ("group_norm_affine", "welford", "Welford")),
+              ("GroupNorm statistics (group_norm_affine_kernel)",
+               ("group_norm_affine_kernel",)),
+              ("GroupNorm statistics backward (gn_bwd_coef, gn_bwd_dx "
+               "kernels)", ("gn_bwd_",)),
               # before cuDNN's group, whose kernel names hold "dgrad" too
               ("K2 backward (dgrad, wgrad, finalize kernels: bf16 "
                "*_wgmma_kernel, f32 *_kernel)",
@@ -4450,17 +4731,40 @@ def f0_training(off, trainer_off, batches_off, vsd, dev, tmp):
     reset_launches()
     trainer.train_step(batches[1])
     torch.cuda.synchronize()
-    launches, bwd = route_counts(), backward_calls()
+    launches, bwd, grads = route_counts(), backward_calls(), grad_launches()
     # the predictor's 10 cross-attentions take K1's f32 route (its f32
-    # trunk under the bf16 step), each once, not recomputed
+    # trunk under the bf16 step), each once, not recomputed, and their
+    # backwards K1's f32 backward kernels
     want = plus_f0_k1(off["launches"])
     want_bwd = plus_f0_k1(off["backward"])
-    if launches != want or bwd != want_bwd or \
-            grad_launches() != off["grad_launches"]:
+    want_grads = {**off["grad_launches"], "flash_attention_backward_f32tc":
+                  off["grad_launches"]["flash_attention_backward_f32tc"] + 10}
+    if launches != want or bwd != want_bwd or grads != want_grads:
         fail(f"f0 training step launches {launches} (expected {want}), "
-             f"backward calls {bwd} (expected {want_bwd}), K2's backward "
-             f"kernels {grad_launches()} (expected {off['grad_launches']})")
-    res["launches"], res["backward"] = launches, bwd
+             f"backward calls {bwd} (expected {want_bwd}), the backward "
+             f"kernels {grads} (expected {want_grads})")
+    res["launches"], res["backward"], res["grad_launches"] = \
+        launches, bwd, grads
+    # an eager step: no K1 backward in torch ops; its f32 K1 backwards
+    # recorded, then held against the plain backward and timed in turns
+    from unittest import mock
+
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+
+    plain_k1, k1_calls = [], {}
+    k1_plain = fa.flash_attention_backward
+    with mock.patch.object(fa, "flash_attention_backward",
+                           lambda *a: plain_k1.append(1) or k1_plain(*a)), \
+            record_k1_grads(k1_calls):
+        trainer._train_step_eager(batches[2])
+    torch.cuda.synchronize()
+    if plain_k1:
+        fail(f"f0 training step: K1's torch ops backward ran "
+             f"{len(plain_k1)} times in the eager step")
+    k1_calls = {key: c for key, c in k1_calls.items()
+                if key[-1] == torch.float32}
+    res["k1_f32_backward"] = k1_recorded_backward(
+        k1_calls, "the F0 predictor's training step")
     res["compiled"] = check_compiled_training(trainer, batches, dev,
                                               "with the F0 predictor")
     turns = []
@@ -6268,18 +6572,44 @@ def main() -> int:
     # and the f32 card gradients' (f32), counted with the counts set to 0
     # just before; timed and held against the plain backward at the step's
     # geometries
+    # (launches, the run they were counted in, the timings' entry, where
+    # the timings were taken)
+    geo = train["geometries"]
+    f0_k1 = f0["training"]["k1_f32_backward"]
+    grads_k1 = train["grad_f32_k1_backward"]
     bwd_launches = {
-        **{name: (train["grad_launches"][name], "train_step_bf16")
+        **{name: (train["grad_launches"][name], "train_step_bf16", geo[name],
+                  f"the bf16 training step's {int(geo[name]['calls'])} K1 "
+                  f"backward calls of this sub-route, B={TRAIN_B}")
            for name in ("flash_attention_backward_tc",
                         "flash_attention_backward_tc_q1")},
-        "affine_silu_conv1d_backward_bf16": (
-            train["grad_launches"]["affine_silu_conv1d_backward_bf16"],
-            "train_step_bf16"),
-        "affine_silu_conv1d_backward_f32": (
-            train["grad_f32_backward_launches"], "train_grads_f32")}
+        **{name: (train["grad_launches"][name] if name.endswith("bf16")
+                  else train["grad_f32_backward_launches"],
+                  "train_step_bf16" if name.endswith("bf16")
+                  else "train_grads_f32", geo[name],
+                  f"the bf16 training step's {int(geo[name]['calls'])} K2 "
+                  f"backward calls, B={TRAIN_B}, in "
+                  f"{name.rsplit('_', 1)[1]}")
+           for name in ("affine_silu_conv1d_backward_bf16",
+                        "affine_silu_conv1d_backward_f32")},
+        "flash_attention_backward_f32tc": (
+            f0["training"]["grad_launches"]["flash_attention_backward_f32tc"],
+            "train_step_f0_bf16", f0_k1["flash_attention_backward_f32tc"],
+            "the F0 predictor's training step's "
+            f"{int(f0_k1['flash_attention_backward_f32tc']['calls'])} f32 "
+            f"cross-attention backwards, B={TRAIN_B}"),
+        "flash_attention_backward_f32tc_q1": (
+            train["grad_f32_k1_launches"]["flash_attention_backward_f32tc_q1"],
+            "train_grads_f32", grads_k1["flash_attention_backward_f32tc_q1"],
+            "the f32 card gradients' (B=2) pool backwards"),
+        "group_norm_affine_backward": (
+            train["grad_launches"]["group_norm_affine_backward"],
+            "train_step_bf16", geo["group_norm_affine_backward"],
+            f"the bf16 training step's "
+            f"{int(geo['group_norm_affine_backward']['calls'])} statistics "
+            f"backward calls, B={TRAIN_B}")}
     for route, (source, replaces) in BACKWARD_ROUTES.items():
-        d = train["geometries"][route]
-        launches, launches_from = bwd_launches[route]
+        launches, launches_from, d, timed_at = bwd_launches[route]
         if launches == 0:
             fail(f"{route}: no launch on {launches_from}")
         kernels.append({
@@ -6291,15 +6621,18 @@ def main() -> int:
             "ms": d["ms"], "plain_ms": d["plain"],
             **({"plain_deterministic_ms": d["plain_det"]}
                if "plain_det" in d else {}),
+            # the statistics: the autograd recompute the kernels replaced
+            **({"recompute_ms": d["recompute"]} if "recompute" in d else {}),
             "bound_ms": d["bound"], "bound_by": d["bound_by"],
-            # K1: SDPA's backward; K2: none
-            "library_ms": d.get("lib"),
-            "timed_at": (f"the bf16 training step's {int(d['calls'])} K1 "
-                         f"backward calls of this sub-route, B={TRAIN_B}"
-                         if route.startswith("flash") else
-                         f"the bf16 training step's {int(d['calls'])} K2 "
-                         f"backward calls, B={TRAIN_B}, in "
-                         f"{route.rsplit('_', 1)[1]}")})
+            # K1: SDPA's backward; K2 and the statistics: none
+            "library_ms": d.get("lib"), "timed_at": timed_at,
+            # K1 f32: the f32 card gradients' tile-kernel calls too
+            **({"grad_f32_launches": train["grad_f32_k1_launches"][route],
+                **{f"grad_f32_{k}": grads_k1[route].get(v) for k, v in (
+                    ("ms", "ms"), ("plain_ms", "plain"),
+                    ("library_ms", "lib"), ("bound_ms", "bound"),
+                    ("max_rel_err", "err"))}}
+               if route == "flash_attention_backward_f32tc" else {})})
     print(json.dumps({"f0_predictor": {
         "serving": f0["serving"], "cli_ms": f0["cli_ms"],
         "card_vs_cpu": f0["card_vs_cpu"],

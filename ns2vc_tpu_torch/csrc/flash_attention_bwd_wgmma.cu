@@ -553,10 +553,24 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
 constexpr int kQ1Threads = 256;
 constexpr int kQ1Warps = kQ1Threads / 32;
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// T: bf16 (the bf16 route's pools) or float (the f32 route's)
+template <typename T>
 struct Q1Args {
-  const bf16 *q, *k, *v, *dout;
+  const T *q, *k, *v, *dout;
   const float* bias;
-  bf16 *dq, *dk, *dv;
+  T *dq, *dk, *dv;
   int H, Tk, D, lanes_log2;
   // (batch, head, seq) element strides of q, k, v, dO, dq, dk, dv
   int64_t s[21];
@@ -575,9 +589,9 @@ __device__ __forceinline__ void merge_row(float& m, float& l, float& u,
   m = mn;
 }
 
-template <int E>
+template <typename T, int E>
 __global__ void __launch_bounds__(kQ1Threads)
-flash_bwd_q1_kernel(const __grid_constant__ Q1Args a) {
+flash_bwd_q1_kernel(const __grid_constant__ Q1Args<T> a) {
   __shared__ float red[kQ1Warps][128];
   __shared__ float parts[kQ1Warps][3];
   __shared__ float row[2];
@@ -588,30 +602,30 @@ flash_bwd_q1_kernel(const __grid_constant__ Q1Args a) {
   const int team = tid >> a.lanes_log2, teams = kQ1Threads >> a.lanes_log2;
   const int D = a.D;
   const int64_t* s = a.s;
-  const bf16* qr = a.q + int64_t(b) * s[0] + int64_t(h) * s[1];
-  const bf16* kr = a.k + int64_t(b) * s[3] + int64_t(h) * s[4];
-  const bf16* vr = a.v + int64_t(b) * s[6] + int64_t(h) * s[7];
-  const bf16* dor = a.dout + int64_t(b) * s[9] + int64_t(h) * s[10];
+  const T* qr = a.q + int64_t(b) * s[0] + int64_t(h) * s[1];
+  const T* kr = a.k + int64_t(b) * s[3] + int64_t(h) * s[4];
+  const T* vr = a.v + int64_t(b) * s[6] + int64_t(h) * s[7];
+  const T* dor = a.dout + int64_t(b) * s[9] + int64_t(h) * s[10];
   const float* brow = a.bias ? a.bias + int64_t(b) * a.Tk : nullptr;
   float qv[E], dov[E], kv[E], dqa[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int d = sub + L * e;
-    qv[e] = d < D ? __bfloat162float(qr[d]) : 0.f;
-    dov[e] = d < D ? __bfloat162float(dor[d]) : 0.f;
+    qv[e] = d < D ? to_f(qr[d]) : 0.f;
+    dov[e] = d < D ? to_f(dor[d]) : 0.f;
     dqa[e] = 0.f;
   }
   // key j's logit (log2 domain) and dP, the same in every lane of the team;
   // its k values stay in kv
   auto key = [&](int j, float& x, float& dp) {
-    const bf16* kj = kr + int64_t(j) * s[5];
-    const bf16* vj = vr + int64_t(j) * s[8];
+    const T* kj = kr + int64_t(j) * s[5];
+    const T* vj = vr + int64_t(j) * s[8];
     float sk = 0.f, sv = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int d = sub + L * e;
-      kv[e] = d < D ? __bfloat162float(kj[d]) : 0.f;
-      const float vv = d < D ? __bfloat162float(vj[d]) : 0.f;
+      kv[e] = d < D ? to_f(kj[d]) : 0.f;
+      const float vv = d < D ? to_f(vj[d]) : 0.f;
       sk = fmaf(qv[e], kv[e], sk);
       sv = fmaf(dov[e], vv, sv);
     }
@@ -659,17 +673,17 @@ flash_bwd_q1_kernel(const __grid_constant__ Q1Args a) {
     if (j >= a.Tk) continue;
     const float p = ex2_approx(x - lse);
     const float ds = p * (dp - delta);
-    const float pb = __bfloat162float(__float2bfloat16_rn(p));
-    bf16* dkj = a.dk + int64_t(b) * s[15] + int64_t(h) * s[16] +
-                int64_t(j) * s[17];
-    bf16* dvj = a.dv + int64_t(b) * s[18] + int64_t(h) * s[19] +
-                int64_t(j) * s[20];
+    const float pb = to_f(from_f<T>(p));   // P in v's type, as the PV product
+    T* dkj = a.dk + int64_t(b) * s[15] + int64_t(h) * s[16] +
+             int64_t(j) * s[17];
+    T* dvj = a.dv + int64_t(b) * s[18] + int64_t(h) * s[19] +
+             int64_t(j) * s[20];
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int d = sub + L * e;
       if (d < D) {
-        dvj[d] = __float2bfloat16_rn(pb * dov[e]);
-        dkj[d] = __float2bfloat16_rn(ds * qv[e] * a.scale);
+        dvj[d] = from_f<T>(pb * dov[e]);
+        dkj[d] = from_f<T>(ds * qv[e] * a.scale);
       }
       dqa[e] = fmaf(ds, kv[e], dqa[e]);
     }
@@ -685,8 +699,8 @@ flash_bwd_q1_kernel(const __grid_constant__ Q1Args a) {
   if (tid < D) {
     float sum = red[0][tid];
     for (int w = 1; w < kQ1Warps; ++w) sum += red[w][tid];
-    bf16* dqr = a.dq + int64_t(b) * s[12] + int64_t(h) * s[13];
-    dqr[tid] = __float2bfloat16_rn(sum * a.scale);
+    T* dqr = a.dq + int64_t(b) * s[12] + int64_t(h) * s[13];
+    dqr[tid] = from_f<T>(sum * a.scale);
   }
 }
 
@@ -768,17 +782,17 @@ int launch_dp(const Call& c) {
   return c.bias ? launch<DP, true>(c) : launch<DP, false>(c);
 }
 
-template <int E>
+template <typename T, int E>
 int launch_q1(const Call& c) {
-  Q1Args a;
-  a.q = static_cast<const bf16*>(c.q);
-  a.k = static_cast<const bf16*>(c.k);
-  a.v = static_cast<const bf16*>(c.v);
-  a.dout = static_cast<const bf16*>(c.dout);
+  Q1Args<T> a;
+  a.q = static_cast<const T*>(c.q);
+  a.k = static_cast<const T*>(c.k);
+  a.v = static_cast<const T*>(c.v);
+  a.dout = static_cast<const T*>(c.dout);
   a.bias = c.bias;
-  a.dq = static_cast<bf16*>(c.dq);
-  a.dk = static_cast<bf16*>(c.dk);
-  a.dv = static_cast<bf16*>(c.dv);
+  a.dq = static_cast<T*>(c.dq);
+  a.dk = static_cast<T*>(c.dk);
+  a.dv = static_cast<T*>(c.dv);
   a.H = c.H;
   a.Tk = c.Tk;
   a.D = c.D;
@@ -791,7 +805,7 @@ int launch_q1(const Call& c) {
   for (int i = 0; i < 21; ++i) a.s[i] = c.s[i];
   a.scale_log2 = c.scale * kLog2e;
   a.scale = c.scale;
-  flash_bwd_q1_kernel<E><<<c.B * c.H, kQ1Threads, 0, c.stream>>>(a);
+  flash_bwd_q1_kernel<T, E><<<c.B * c.H, kQ1Threads, 0, c.stream>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -804,8 +818,36 @@ Call make_call(const void* q, const void* k, const void* v, const void* bias,
               static_cast<cudaStream_t>(stream)};
 }
 
+template <typename T>
+int launch_q1_any(const Call& c) {
+  if (c.Tq != 1 || c.D < 1 || c.D > 128) return int(cudaErrorInvalidValue);
+  const int lanes = c.D >= 32 ? 32 : c.D;   // E = ceil(D / lanes)
+  switch ((c.D + lanes - 1) / lanes) {
+    case 1: return launch_q1<T, 1>(c);
+    case 2: return launch_q1<T, 2>(c);
+    case 3: return launch_q1<T, 3>(c);
+    default: return launch_q1<T, 4>(c);
+  }
+}
+
 }  // namespace
 }  // namespace ns2vc
+
+#define NS2VC_BWD_ARGS                                                        \
+  const void *q, const void *k, const void *v, const void *bias,             \
+      const void *dout, void *dq, void *dk, void *dv, void *ws, int B, int H, \
+      int Tq, int Tk, int D, int64_t q_sb, int64_t q_sh, int64_t q_st,        \
+      int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,   \
+      int64_t v_st, int64_t do_sb, int64_t do_sh, int64_t do_st,              \
+      int64_t dq_sb, int64_t dq_sh, int64_t dq_st, int64_t dk_sb,             \
+      int64_t dk_sh, int64_t dk_st, int64_t dv_sb, int64_t dv_sh,             \
+      int64_t dv_st, float scale, void *stream
+#define NS2VC_BWD_CALL                                                        \
+  const int64_t s[21] = {q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,  v_sb,     \
+                         v_sh,  v_st,  do_sb, do_sh, do_st, dq_sb, dq_sh,     \
+                         dq_st, dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st};    \
+  const ns2vc::Call c = ns2vc::make_call(q, k, v, bias, dout, dq, dk, dv, ws, \
+                                         B, H, Tq, Tk, D, s, scale, stream)
 
 // Both entries: bf16 q, k, v, dout (the gradient of o) as (B, H, T, D)
 // views by element strides (batch, head, seq) with unit stride on D; bias
@@ -820,20 +862,9 @@ Call make_call(const void* q, const void* k, const void* v, const void* bias,
 // >= 1, B*H <= 65535, q, k, v, dout 16-byte aligned with strides of whole
 // 16-byte chunks (TMA's rule); ws: f32 workspace of 2 * B * H * Tq_pad
 // values, Tq_pad = Tq rounded up to 64 (each row's lse, then its Delta).
-extern "C" int ns2vc_flash_attention_bwd_wgmma(
-    const void* q, const void* k, const void* v, const void* bias,
-    const void* dout, void* dq, void* dk, void* dv, void* ws, int B, int H,
-    int Tq, int Tk, int D, int64_t q_sb, int64_t q_sh, int64_t q_st,
-    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,
-    int64_t v_st, int64_t do_sb, int64_t do_sh, int64_t do_st, int64_t dq_sb,
-    int64_t dq_sh, int64_t dq_st, int64_t dk_sb, int64_t dk_sh, int64_t dk_st,
-    int64_t dv_sb, int64_t dv_sh, int64_t dv_st, float scale, void* stream) {
+extern "C" int ns2vc_flash_attention_bwd_wgmma(NS2VC_BWD_ARGS) {
   using namespace ns2vc;
-  const int64_t s[21] = {q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,  v_sb,
-                         v_sh,  v_st,  do_sb, do_sh, do_st, dq_sb, dq_sh,
-                         dq_st, dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st};
-  const Call c = make_call(q, k, v, bias, dout, dq, dk, dv, ws, B, H, Tq, Tk,
-                           D, s, scale, stream);
+  NS2VC_BWD_CALL;
   if (D % 8 != 0 || D < 1) return int(cudaErrorInvalidValue);
   if (D <= 16) return launch_dp<16>(c);
   if (D <= 32) return launch_dp<32>(c);
@@ -844,26 +875,14 @@ extern "C" int ns2vc_flash_attention_bwd_wgmma(
 
 // The single-query kernel: Tq == 1, 1 <= D <= 128, any strides (element
 // loads); ws unused.
-extern "C" int ns2vc_flash_attention_bwd_q1(
-    const void* q, const void* k, const void* v, const void* bias,
-    const void* dout, void* dq, void* dk, void* dv, void* ws, int B, int H,
-    int Tq, int Tk, int D, int64_t q_sb, int64_t q_sh, int64_t q_st,
-    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,
-    int64_t v_st, int64_t do_sb, int64_t do_sh, int64_t do_st, int64_t dq_sb,
-    int64_t dq_sh, int64_t dq_st, int64_t dk_sb, int64_t dk_sh, int64_t dk_st,
-    int64_t dv_sb, int64_t dv_sh, int64_t dv_st, float scale, void* stream) {
-  using namespace ns2vc;
-  const int64_t s[21] = {q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,  v_sb,
-                         v_sh,  v_st,  do_sb, do_sh, do_st, dq_sb, dq_sh,
-                         dq_st, dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st};
-  const Call c = make_call(q, k, v, bias, dout, dq, dk, dv, ws, B, H, Tq, Tk,
-                           D, s, scale, stream);
-  if (Tq != 1 || D < 1 || D > 128) return int(cudaErrorInvalidValue);
-  const int lanes = D >= 32 ? 32 : D;   // E = ceil(D / lanes)
-  switch ((D + lanes - 1) / lanes) {
-    case 1: return launch_q1<1>(c);
-    case 2: return launch_q1<2>(c);
-    case 3: return launch_q1<3>(c);
-    default: return launch_q1<4>(c);
-  }
+extern "C" int ns2vc_flash_attention_bwd_q1(NS2VC_BWD_ARGS) {
+  NS2VC_BWD_CALL;
+  return ns2vc::launch_q1_any<ns2vc::bf16>(c);
+}
+
+// The same kernel over f32 q, k, v, dout, dq, dk, dv (the f32 route's
+// pools): P is not rounded before dV.
+extern "C" int ns2vc_flash_attention_bwd_q1_f32(NS2VC_BWD_ARGS) {
+  NS2VC_BWD_CALL;
+  return ns2vc::launch_q1_any<float>(c);
 }

@@ -7,7 +7,11 @@
 // (gn_silu_conv1d_tc.cu, gn_silu_conv1d.cu) apply before the SiLU.
 // x (B, T, C) bf16 or f32, contiguous; gamma, beta (C,) and scale, shift
 // (B, C) rows `film_stride` apart, f32 or bf16 (one dtype for the four);
-// a, b (B, C) f32.
+// a, b (B, C) f32. Under autograd the wrapper also passes (B, G) f32
+// buffers for each slab's mean and rstd, which the backward
+// (group_norm_affine_bwd.cu) reads instead of x's statistics; without
+// grad (serving, sampling, capture) they are null and nothing more is
+// written.
 //
 // Replaces: the XLA reductions of ns2vc_tpu/ops/pallas_resnet.py::
 // gn_silu_conv1d (:121-132: an f32 copy of x, mean and centred var over
@@ -104,7 +108,9 @@ group_norm_affine_kernel(const X* __restrict__ x, const P* __restrict__ gamma,
                          const P* __restrict__ scale,
                          const P* __restrict__ shift, int film_stride,
                          float* __restrict__ a_out, float* __restrict__ b_out,
-                         int Tlen, int C, float eps) {
+                         float* __restrict__ mean_out,
+                         float* __restrict__ rstd_out, int Tlen, int C,
+                         float eps) {
   __shared__ Moments warp_part[kThreads / 32];
   __shared__ Moments block_part;
   __shared__ float stats[2];   // mean, rstd of the slab
@@ -161,6 +167,10 @@ group_norm_affine_kernel(const X* __restrict__ x, const P* __restrict__ gamma,
     }
     stats[0] = t.mean;
     stats[1] = 1.f / sqrtf(t.m2 / t.n + eps);
+    if (mean_out != nullptr) {
+      mean_out[b * G + g] = stats[0];
+      rstd_out[b * G + g] = stats[1];
+    }
   }
   __syncwarp();
   if (S > 1) {
@@ -188,8 +198,8 @@ group_norm_affine_kernel(const X* __restrict__ x, const P* __restrict__ gamma,
 template <typename X, typename P>
 int launch(const void* x, const void* gamma, const void* beta,
            const void* scale, const void* shift, int film_stride, void* a,
-           void* b, int B, int Tlen, int C, int G, float eps, int splits,
-           int vec, cudaStream_t st) {
+           void* b, void* mean, void* rstd, int B, int Tlen, int C, int G,
+           float eps, int splits, int vec, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, G, B);
   cfg.blockDim = dim3(kThreads);
@@ -207,7 +217,8 @@ int launch(const void* x, const void* gamma, const void* beta,
         &cfg, kernel, static_cast<const X*>(x), static_cast<const P*>(gamma),
         static_cast<const P*>(beta), static_cast<const P*>(scale),
         static_cast<const P*>(shift), film_stride, static_cast<float*>(a),
-        static_cast<float*>(b), Tlen, C, eps);
+        static_cast<float*>(b), static_cast<float*>(mean),
+        static_cast<float*>(rstd), Tlen, C, eps);
   };
   cudaError_t err = vec ? args(group_norm_affine_kernel<X, P, V>)
                         : args(group_norm_affine_kernel<X, P, 1>);
@@ -221,33 +232,29 @@ int launch(const void* x, const void* gamma, const void* beta,
 // x (B, T, C) contiguous, bf16 (x_bf16) or f32; gamma, beta (C,)
 // contiguous and scale, shift (B, C) with rows film_stride elements apart
 // (both null for no FiLM), bf16 (p_bf16) or f32; a, b (B, C) f32
-// contiguous. G divides C; `splits` (1..8) blocks per (batch, group) form
-// a cluster, each over an equal run of frames. vec != 0: C / G is a
-// multiple of 16 / sizeof(x's type) and x is 16-byte aligned. The caller
-// guarantees 1 <= splits <= min(8, T), B, G <= 65535. Returns the CUDA
-// error of the launch (0 on success).
+// contiguous; mean, rstd (B, G) f32 contiguous, or both null. G divides
+// C; `splits` (1..8) blocks per (batch, group) form a cluster, each over
+// an equal run of frames. vec != 0: C / G is a multiple of 16 /
+// sizeof(x's type) and x is 16-byte aligned. The caller guarantees 1 <=
+// splits <= min(8, T), B, G <= 65535. Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int ns2vc_group_norm_affine(const void* x, const void* gamma,
                                        const void* beta, const void* scale,
                                        const void* shift, int film_stride,
-                                       void* a, void* b, int B, int Tlen,
-                                       int C, int G, float eps, int splits,
+                                       void* a, void* b, void* mean,
+                                       void* rstd, int B, int Tlen, int C,
+                                       int G, float eps, int splits,
                                        int x_bf16, int p_bf16, int vec,
                                        void* stream) {
   using ns2vc::bf16;
   using ns2vc::launch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return p_bf16 ? launch<bf16, bf16>(x, gamma, beta, scale, shift,
-                                       film_stride, a, b, B, Tlen, C, G, eps,
-                                       splits, vec, st)
-                  : launch<bf16, float>(x, gamma, beta, scale, shift,
-                                        film_stride, a, b, B, Tlen, C, G, eps,
-                                        splits, vec, st);
-  }
-  return p_bf16 ? launch<float, bf16>(x, gamma, beta, scale, shift,
-                                      film_stride, a, b, B, Tlen, C, G, eps,
-                                      splits, vec, st)
-                : launch<float, float>(x, gamma, beta, scale, shift,
-                                       film_stride, a, b, B, Tlen, C, G, eps,
-                                       splits, vec, st);
+  auto go = [&](auto kx, auto kp) {
+    using X = decltype(kx);
+    using P = decltype(kp);
+    return launch<X, P>(x, gamma, beta, scale, shift, film_stride, a, b,
+                        mean, rstd, B, Tlen, C, G, eps, splits, vec, st);
+  };
+  if (x_bf16) return p_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.f);
+  return p_bf16 ? go(0.f, bf16()) : go(0.f, 0.f);
 }

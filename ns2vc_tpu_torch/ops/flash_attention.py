@@ -71,8 +71,14 @@ attention; its Pallas kernel is forward-only), routed by dtype:
                   aligned rows (as the forward's "tc" takes them); a single
                   query (the pools) takes its single-query kernel on the
                   CUDA cores, counted apart as "tc_q1"; other rows raise
-    cuda, f32  -> "f32tc": `flash_attention_backward` in torch ops (the
-                  f32 gradient checks and the F0 predictor's f32 calls)
+    cuda, f32  -> "f32tc": `csrc/flash_attention_f32_bwd_wgmma.cu`, the same
+                  two kernels on tf32 wgmma in three passes per product
+                  (3xTF32, f32 accuracy) over TMA-fed tiles split into TF32
+                  planes by a converting warpgroup (the F0 predictor's f32
+                  cross-attentions and the f32 gradient checks), D <= 64
+                  with D % 4 == 0 and aligned rows; a single query takes
+                  the single-query kernel in f32, counted apart as
+                  "f32tc_q1"; other rows raise
 
 `flash_attention_grad.launches` counts the backward kernels' launches,
 `.route_launches` each sub-route's. No gradient flows to the key bias (a
@@ -101,6 +107,10 @@ MAX_SMEM = 232448       # an H100 block's shared memory
 # f32 3xTF32 kernel on an H100, PERF.md)
 Q1_DTYPES = (torch.bfloat16, torch.float32)
 BWD_ROWS = 64           # the backward tile kernels' rows: queries or keys
+F32_BWD_MAX_HEAD_DIM = 64   # the f32 backward tile kernels' widest head
+# the f32 backward tile kernels' streamed tiles (keys in dq, queries in
+# dkdv) per padded head dim (csrc/flash_attention_f32_bwd_wgmma.cu)
+F32_BWD_KEY_TILES = {16: 64, 32: 64, 64: 32}
 
 
 def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
@@ -316,12 +326,21 @@ def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     torch.Tensor]:
     """(dq, dk, dv) of `flash_attention` given o's gradient do, each in its
     input's dtype and shape. A CPU tensor takes `flash_attention_backward`;
-    a CUDA tensor its dtype's route: bf16 the backward kernels
-    (`csrc/flash_attention_bwd_wgmma.cu`; no atomics, so two calls on one
-    input agree bit for bit) or raises, f32 `flash_attention_backward`."""
-    if attention_route(q.device, q.dtype) != "tc":
+    a CUDA tensor the backward kernels of its dtype (bf16:
+    `csrc/flash_attention_bwd_wgmma.cu`, f32: `csrc/flash_attention_f32_
+    bwd_wgmma.cu`; calls of one query the single-query kernel of the
+    first; no atomics, so two calls on one input agree bit for bit) or
+    raises."""
+    if attention_route(q.device, q.dtype) == "plain":
         return flash_attention_backward(q, k, v, bias, scale, do)
     return _grad_launch(q, k, v, bias, scale, do)
+
+
+def grad_route(q: torch.Tensor, tk: int) -> str:
+    """The backward kernels' sub-route of a CUDA call: "tc" / "f32tc" (the
+    tile kernels), "tc_q1" / "f32tc_q1" (one query)."""
+    route = "tc" if q.dtype == torch.bfloat16 else "f32tc"
+    return route + "_q1" if q.shape[2] == 1 and tk <= Q1_MAX_KEYS else route
 
 
 def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -336,9 +355,11 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_grad: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} do "
                          f"{tuple(do.shape)}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
+    if q.dtype not in _build.KERNEL_DTYPES \
+            or any(t.dtype != q.dtype for t in (k, v, do)):
         raise ValueError(f"flash_attention_grad: dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}/{do.dtype}; the kernels take bf16")
+                         f"{v.dtype}/{do.dtype}; the kernels take bf16 or "
+                         f"f32, all alike")
     if not 1 <= d <= MAX_HEAD_DIM or tq < 1 or tk < 1 or b * h > 65535:
         raise ValueError(f"flash_attention_grad: unsupported shape "
                          f"B*H={b * h} Tq={tq} Tk={tk} D={d}")
@@ -355,16 +376,21 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_grad: bias must be contiguous f32 "
                          f"({b}, {tk}) on {q.device}, got "
                          f"{tuple(bias.shape)} {bias.dtype}")
-    route = "tc_q1" if tq == 1 and tk <= Q1_MAX_KEYS else "tc"
-    if route == "tc" and (d % 8 != 0 or not all(
+    route = grad_route(q, tk)
+    tiles = not route.endswith("_q1")
+    if tiles and (d * q.element_size() % 16 != 0 or not all(
             _build.aligned16(t) for t in (q, k, v))):
         raise ValueError(f"flash_attention_grad: the backward kernels take "
-                         f"rows of whole aligned 16-byte chunks (D % 8 == 0, "
-                         f"strides of 8 elements), got D={d}, strides "
-                         f"{q.stride()} {k.stride()} {v.stride()}")
+                         f"rows of whole aligned 16-byte chunks (D % "
+                         f"{16 // q.element_size()} == 0, aligned strides), "
+                         f"got D={d}, strides {q.stride()} {k.stride()} "
+                         f"{v.stride()}")
+    if route == "f32tc" and d > F32_BWD_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_grad: the f32 backward kernels "
+                         f"take D <= {F32_BWD_MAX_HEAD_DIM}, got D={d}")
     # do comes as autograd gives it: a layout the kernel cannot read (TMA:
     # aligned rows, nonzero strides) is copied first
-    if do.stride(-1) != 1 or route == "tc" and not (
+    if do.stride(-1) != 1 or tiles and not (
             _build.aligned16(do) and all(
                 s > 0 for s, n in zip(do.stride()[:-1], do.shape) if n > 1)):
         do = do.contiguous()
@@ -372,12 +398,14 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library()
     grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
              .permute(0, 2, 1, 3) for t in (tq, tk, tk)]
-    ws = None if route == "tc_q1" else torch.empty(
-        bwd_workspace(b, h, tq), dtype=torch.float32, device=q.device)
+    ws = torch.empty(bwd_workspace(b, h, tq), dtype=torch.float32,
+                     device=q.device) if tiles else None
     _grad_counts.launches += 1
     _grad_counts.route_launches[route] += 1
-    fn = (lib.ns2vc_flash_attention_bwd_q1 if route == "tc_q1"
-          else lib.ns2vc_flash_attention_bwd_wgmma)
+    fn = {"tc": lib.ns2vc_flash_attention_bwd_wgmma,
+          "tc_q1": lib.ns2vc_flash_attention_bwd_q1,
+          "f32tc": lib.ns2vc_flash_attention_f32_bwd_wgmma,
+          "f32tc_q1": lib.ns2vc_flash_attention_bwd_q1_f32}[route]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), do.data_ptr(),
              *(t.data_ptr() for t in grads),
@@ -389,7 +417,8 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_grad.launches = 0
-flash_attention_grad.route_launches = {"tc": 0, "tc_q1": 0}
+flash_attention_grad.route_launches = {"tc": 0, "tc_q1": 0, "f32tc": 0,
+                                       "f32tc_q1": 0}
 _grad_counts = flash_attention_grad
 
 

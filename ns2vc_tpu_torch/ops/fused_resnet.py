@@ -62,10 +62,14 @@ kernels one to `affine_silu_conv1d_grad.launches` and to its
 `route_launches["bf16"]` or `["f32"]`. The packed weights are
 made from `w.detach()`: w's gradient comes from the backward, never
 through the packed copy. `group_norm_affine` goes through its own Function
-whose forward is the statistics kernel and whose backward re-runs
-`group_norm_affine_plain` under autograd (`group_norm_affine.
-backward_calls`), so the GroupNorm and FiLM gradients are the plain
-version's.
+whose forward is the statistics kernel, which then also writes each
+(batch, group)'s f32 mean and rstd for the backward, and whose backward is
+`group_norm_affine_grad`: on a card `csrc/group_norm_affine_bwd.cu`, one
+launch of two kernels (the per-group coefficients and every parameter
+gradient in a fixed order, then dx in one streaming pass over x), on the
+CPU `group_norm_affine_backward`, the same closed form in torch ops. Each
+backward adds one to `group_norm_affine.backward_calls`, each launch of
+the backward kernels one to `group_norm_affine.backward_launches`.
 """
 
 from __future__ import annotations
@@ -524,6 +528,7 @@ _conv_counts = affine_silu_conv1d
 def reset_launches() -> None:
     _conv_counts.launches = _grad_counts.launches = 0
     _gn_counts.launches = _gn_counts.backward_calls = 0
+    _gn_counts.backward_launches = 0
     for counts in (_conv_counts.route_launches, _conv_counts.backward_calls,
                    _grad_counts.route_launches):
         for key in counts:
@@ -535,6 +540,7 @@ def launch_counts() -> dict[str, int]:
     them before and after its capture)."""
     return {"launches": _conv_counts.launches, "gn": _gn_counts.launches,
             "gn_backward": _gn_counts.backward_calls,
+            "gn_backward_launches": _gn_counts.backward_launches,
             **{f"route.{k}": n
                for k, n in _conv_counts.route_launches.items()},
             **{f"backward.{k}": n
@@ -550,6 +556,7 @@ def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
     _conv_counts.launches += times * delta["launches"]
     _gn_counts.launches += times * delta["gn"]
     _gn_counts.backward_calls += times * delta["gn_backward"]
+    _gn_counts.backward_launches += times * delta["gn_backward_launches"]
     for k in _conv_counts.route_launches:
         _conv_counts.route_launches[k] += times * delta[f"route.{k}"]
     for k in _conv_counts.backward_calls:
@@ -587,58 +594,55 @@ def group_norm_affine(x: torch.Tensor, gamma: torch.Tensor,
 
 
 class _GroupNormAffineFn(torch.autograd.Function):
-    """The statistics kernel under autograd; backward through the plain
-    version, recomputed."""
+    """The statistics kernel under autograd, keeping each slab's mean and
+    rstd; backward through `group_norm_affine_grad`."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, film_scale, film_shift, groups, eps):
-        ctx.save_for_backward(x, gamma, beta, film_scale, film_shift)
-        ctx.groups, ctx.eps = groups, eps
-        return _gn_launch(x, gamma, beta, groups, eps, film_scale,
-                          film_shift)
+        a, b, mean, rstd = _gn_launch(x, gamma, beta, groups, eps,
+                                      film_scale, film_shift, stats=True)
+        ctx.save_for_backward(x, gamma, beta, film_scale, film_shift, mean,
+                              rstd)
+        ctx.groups = groups
+        return a, b
 
     @staticmethod
     def backward(ctx, da, db):
         _gn_counts.backward_calls += 1
-        need = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
-            leaves = [None if v is None else v.detach().requires_grad_(n)
-                      for v, n in zip(ctx.saved_tensors, need)]
-            a, b = group_norm_affine_plain(*leaves[:3], ctx.groups, ctx.eps,
-                                           *leaves[3:])
-            wrt = [v for v, n in zip(leaves, need) if n and v is not None]
-            grads = iter(torch.autograd.grad((a, b), wrt, (da, db),
-                                             allow_unused=True))
-        return (*(next(grads) if n and v is not None else None
-                  for v, n in zip(leaves, need)), None, None)
+        x, gamma, beta, film_scale, film_shift, mean, rstd = \
+            ctx.saved_tensors
+        grads = group_norm_affine_grad(x, gamma, beta, ctx.groups,
+                                       film_scale, film_shift, mean, rstd,
+                                       da, db, need_x=ctx.needs_input_grad[0])
+        return (*(g if n else None
+                  for g, n in zip(grads, ctx.needs_input_grad[:5])),
+                None, None)
 
 
-def _gn_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               groups: int, eps: float, film_scale: torch.Tensor | None,
-               film_shift: torch.Tensor | None):
-    """Check the inputs and launch the statistics kernel: (a, b)."""
+def _gn_params(x, gamma, beta, film_scale, film_shift, what):
+    """Check the statistics kernels' inputs; gamma, beta and FiLM in one
+    dtype the kernels read (f32 where they differ), gamma and beta
+    contiguous, FiLM rows of unit stride one common stride apart (a chunk
+    of one projection) or made so: (params, FiLM row stride)."""
     if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"group_norm_affine: x must be contiguous (B, T, C),"
-                         f" got {tuple(x.shape)} strides {x.stride()}")
+        raise ValueError(f"{what}: x must be contiguous (B, T, C), got "
+                         f"{tuple(x.shape)} strides {x.stride()}")
     bsz, t, c = x.shape
     if x.dtype not in _build.KERNEL_DTYPES:
-        raise ValueError(f"group_norm_affine: x dtype {x.dtype}; f32 or bf16")
+        raise ValueError(f"{what}: x dtype {x.dtype}; f32 or bf16")
     if (film_scale is None) != (film_shift is None):
-        raise ValueError("group_norm_affine: FiLM needs scale and shift")
+        raise ValueError(f"{what}: FiLM needs scale and shift")
     params = [gamma, beta]
     if film_scale is not None:
         params += [film_scale, film_shift]
-    if groups < 1 or c % groups or min(bsz, t) < 1 or bsz > 65535 \
-            or groups > 65535 or gamma.shape != (c,) or beta.shape != (c,) \
+    if gamma.shape != (c,) or beta.shape != (c,) \
             or any(f.shape != (bsz, c) for f in params[2:]):
         raise ValueError(
-            f"group_norm_affine: shapes x {tuple(x.shape)} groups {groups} "
-            f"gamma {tuple(gamma.shape)} beta {tuple(beta.shape)} film "
+            f"{what}: shapes x {tuple(x.shape)} gamma "
+            f"{tuple(gamma.shape)} beta {tuple(beta.shape)} film "
             f"{[tuple(f.shape) for f in params[2:]]}")
     if any(v.device != x.device for v in params):
-        raise ValueError("group_norm_affine: inputs on different devices")
-    # gamma, beta and FiLM in one dtype the kernel reads, FiLM rows of
-    # unit stride one common stride apart (a chunk of one projection)
+        raise ValueError(f"{what}: inputs on different devices")
     if len({v.dtype for v in params}) > 1 \
             or params[0].dtype not in _build.KERNEL_DTYPES:
         params = [v.float() for v in params]
@@ -646,11 +650,29 @@ def _gn_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if len(params) == 4 and (params[2].stride(1) != 1
                              or params[3].stride() != params[2].stride()):
         params[2:] = [v.contiguous() for v in params[2:]]
-    film_stride = params[2].stride(0) if len(params) == 4 else 0
+    return params, (params[2].stride(0) if len(params) == 4 else 0)
+
+
+def _gn_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int, eps: float, film_scale: torch.Tensor | None,
+               film_shift: torch.Tensor | None, stats: bool = False):
+    """Check the inputs and launch the statistics kernel: (a, b), with
+    `stats` also each (batch, group)'s f32 mean and rstd, (B, G) each."""
+    params, film_stride = _gn_params(x, gamma, beta, film_scale, film_shift,
+                                     "group_norm_affine")
+    bsz, t, c = x.shape
+    if groups < 1 or c % groups or min(bsz, t) < 1 or bsz > 65535 \
+            or groups > 65535:
+        raise ValueError(f"group_norm_affine: shapes x {tuple(x.shape)} "
+                         f"groups {groups}")
     _build.require_current_device(x)
     lib = _build.library()
     a = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
     b = torch.empty_like(a)
+    mean = rstd = None
+    if stats:
+        mean, rstd = torch.empty((2, bsz, groups), dtype=torch.float32,
+                                 device=x.device)
     per = 16 // x.element_size()
     vec = (c // groups) % per == 0 and x.data_ptr() % 16 == 0
     splits = gn_splits(t, c, groups, per if vec else 1)
@@ -659,17 +681,108 @@ def _gn_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         x.data_ptr(), params[0].data_ptr(), params[1].data_ptr(),
         *((params[2].data_ptr(), params[3].data_ptr()) if len(params) == 4
           else (None, None)),
-        film_stride, a.data_ptr(), b.data_ptr(), bsz, t, c, groups,
-        float(eps), splits,
+        film_stride, a.data_ptr(), b.data_ptr(),
+        *((mean.data_ptr(), rstd.data_ptr()) if stats else (None, None)),
+        bsz, t, c, groups, float(eps), splits,
         int(x.dtype == torch.bfloat16),
         int(params[0].dtype == torch.bfloat16), int(vec),
         _build.stream_of(x))
     _build.check(err, "group_norm_affine")
-    return a, b
+    return (a, b, mean, rstd) if stats else (a, b)
+
+
+def group_norm_affine_grad(x: torch.Tensor, gamma: torch.Tensor,
+                           beta: torch.Tensor, groups: int,
+                           film_scale: torch.Tensor | None,
+                           film_shift: torch.Tensor | None,
+                           mean: torch.Tensor, rstd: torch.Tensor,
+                           da: torch.Tensor, db: torch.Tensor,
+                           need_x: bool = True):
+    """(dx, dgamma, dbeta, dscale, dshift) of `group_norm_affine` given a's
+    and b's gradients da, db (B, C) and the forward's mean and rstd (B, G)
+    f32, each in its input's dtype and shape (dscale, dshift None without
+    FiLM; dx None unless `need_x`). A CPU tensor takes
+    `group_norm_affine_backward`; a CUDA tensor the backward kernels
+    (`csrc/group_norm_affine_bwd.cu`; fixed summation orders, no atomics,
+    so two calls on one input agree bit for bit) or raises."""
+    if gn_route(x.device) == "plain":
+        out = group_norm_affine_backward(x, gamma, beta, groups, 0.0,
+                                         film_scale, film_shift, da, db,
+                                         mean, rstd)
+        return (out[0] if need_x else None, *out[1:])
+    return _gn_grad_launch(x, gamma, beta, groups, film_scale, film_shift,
+                           mean, rstd, da, db, need_x)
+
+
+GN_BWD_THREADS, GN_BWD_VECS = 256, 4   # the dx kernel's block, vectors in
+                                       # flight per thread
+
+
+def gn_backward_blocks(bsz: int, t: int, c: int, vec_width: int) -> int:
+    """Blocks of the statistics backward's dx kernel: each thread writes
+    GN_BWD_VECS vectors of `vec_width` values of dx."""
+    return -(-bsz * t * c // (vec_width * GN_BWD_THREADS * GN_BWD_VECS))
+
+
+def _gn_grad_launch(x, gamma, beta, groups, film_scale, film_shift, mean,
+                    rstd, da, db, need_x):
+    """Check the inputs and launch the statistics' backward kernels."""
+    params, film_stride = _gn_params(x, gamma, beta, film_scale, film_shift,
+                                     "group_norm_affine_grad")
+    bsz, t, c = x.shape
+    if groups < 1 or c % groups or bsz > 65535 or groups > 65535:
+        raise ValueError(f"group_norm_affine_grad: shapes x "
+                         f"{tuple(x.shape)} groups {groups}")
+    for name, v, shape in (("mean", mean, (bsz, groups)),
+                           ("rstd", rstd, (bsz, groups)),
+                           ("da", da, (bsz, c)), ("db", db, (bsz, c))):
+        if v.shape != shape or v.dtype != torch.float32 \
+                or v.device != x.device:
+            raise ValueError(f"group_norm_affine_grad: {name} must be f32 "
+                             f"{shape} on {x.device}, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    mean, rstd, da, db = (v.contiguous() for v in (mean, rstd, da, db))
+    _build.require_current_device(x)
+    lib = _build.library()
+    film = len(params) == 4
+    pdt = params[0].dtype
+    dx = torch.empty_like(x) if need_x else None
+    dgamma, dbeta = torch.empty((2, c), dtype=pdt, device=x.device)
+    dscale = dshift = None
+    if film:
+        dscale, dshift = torch.empty((2, bsz, c), dtype=pdt,
+                                     device=x.device)
+    coef = torch.empty((bsz, groups, 4), dtype=torch.float32,
+                       device=x.device)
+    per = 16 // x.element_size()
+    vec = (c // groups) % per == 0 and x.data_ptr() % 16 == 0
+    _gn_counts.backward_launches += 1
+    err = lib.ns2vc_group_norm_affine_bwd(
+        x.data_ptr(), params[0].data_ptr(), params[1].data_ptr(),
+        *((params[2].data_ptr(), params[3].data_ptr()) if film
+          else (None, None)),
+        film_stride, mean.data_ptr(), rstd.data_ptr(), da.data_ptr(),
+        db.data_ptr(), None if dx is None else dx.data_ptr(),
+        dgamma.data_ptr(), dbeta.data_ptr(),
+        *((dscale.data_ptr(), dshift.data_ptr()) if film else (None, None)),
+        coef.data_ptr(), bsz, t, c, groups,
+        gn_backward_blocks(bsz, t, c, per if vec else 1),
+        int(x.dtype == torch.bfloat16), int(pdt == torch.bfloat16),
+        int(vec), _build.stream_of(x))
+    _build.check(err, "group_norm_affine_grad")
+    # each gradient in its input's dtype (the kernels write the one dtype
+    # the parameters were read in)
+    out = [dgamma.to(gamma.dtype), dbeta.to(beta.dtype)]
+    if film:
+        out += [dscale.to(film_scale.dtype), dshift.to(film_shift.dtype)]
+    else:
+        out += [None, None]
+    return (dx, *out)
 
 
 group_norm_affine.launches = 0
 group_norm_affine.backward_calls = 0
+group_norm_affine.backward_launches = 0
 # the counters' owner, also while a caller wraps the module's public name
 # (a profiler's range, a test's recorder)
 _gn_counts = group_norm_affine
@@ -694,6 +807,64 @@ def group_norm_affine_plain(x: torch.Tensor, gamma: torch.Tensor,
         a = a * s
         b = b * s + film_shift.float()
     return a.contiguous(), b.contiguous()
+
+
+def group_norm_stats_plain(x: torch.Tensor, groups: int, eps: float):
+    """Each (batch, group)'s f32 mean and rstd = 1 / sqrt(var + eps), (B, G)
+    each: what the statistics kernel keeps for the backward."""
+    bsz, t, c = x.shape
+    xg = x.float().reshape(bsz, t, groups, c // groups)
+    var, mean = torch.var_mean(xg, dim=(1, 3), correction=0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_affine_backward(x: torch.Tensor, gamma: torch.Tensor,
+                               beta: torch.Tensor, groups: int, eps: float,
+                               film_scale: torch.Tensor | None,
+                               film_shift: torch.Tensor | None,
+                               da: torch.Tensor, db: torch.Tensor,
+                               mean: torch.Tensor | None = None,
+                               rstd: torch.Tensor | None = None):
+    """The statistics' backward kernels' plain version (torch ops, any
+    device): (dx, dgamma, dbeta, dscale, dshift) of `group_norm_affine`
+    given da, db (B, C), in closed form, in f32 (f64 for f64 inputs), each
+    cast to its input's dtype (dscale, dshift None without FiLM). With s =
+    1 + scale (or 1), g = gamma, and r, m the rstd and mean of channel c's
+    group (from x, or as given by the forward):
+        dshift = db,  dscale = da r g + db (beta - m r g)
+        dbeta = sum_B db s,  dgamma = sum_B r s (da - m db)
+        dr = sum_{c in G} g s (da - m db),  dm = -sum_{c in G} r g s db
+        dvar = -r^3 dr / 2,  dx = dm / N + 2 dvar (x - m) / N,
+    N = T C / G (dx from x - m, as the kernel takes it: exact where the
+    mean is large beside the spread)."""
+    bsz, t, c = x.shape
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if mean is None:
+        mean, rstd = group_norm_stats_plain(x.to(acc), groups, eps)
+    cg = c // groups
+    m = mean.to(acc).repeat_interleave(cg, dim=1)
+    r = rstd.to(acc).repeat_interleave(cg, dim=1)
+    g, be = gamma.to(acc), beta.to(acc)
+    da, db = da.to(acc), db.to(acc)
+    s = 1.0 if film_scale is None else 1.0 + film_scale.to(acc)
+    t_ = da - m * db
+    dgamma = (r * s * t_).sum(dim=0)
+    dbeta = (db * s).sum(dim=0)
+    dr = (g * s * t_).reshape(bsz, groups, cg).sum(dim=2)
+    dm = -(r * g * s * db).reshape(bsz, groups, cg).sum(dim=2)
+    rs = rstd.to(acc)
+    dvar = -0.5 * rs * rs * rs * dr
+    n = float(t * cg)
+    slope = 2.0 * dvar / n
+    xg = x.to(acc).reshape(bsz, t, groups, cg)
+    dx = ((dm / n)[:, None, :, None] + slope[:, None, :, None]
+          * (xg - mean.to(acc)[:, None, :, None])).reshape(bsz, t, c) \
+        .to(x.dtype)
+    dscale = dshift = None
+    if film_scale is not None:
+        dscale = (da * r * g + db * (be - m * r * g)).to(film_scale.dtype)
+        dshift = db.to(film_shift.dtype)
+    return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), dscale, dshift
 
 
 def gn_silu_conv1d(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -1,8 +1,11 @@
 """K1's bf16 backward (the hand-written kernels) against the plain torch-ops
 backward it replaced and SDPA's backward, on one GPU, in turns, at every K1
-call of a `Config()` training step.
+call of a `Config()` training step; with --f32, K1's f32 backward kernels
+the same way (TF32 off) at the F0 predictor's cross-attention (B = 32 x
+272, 8 heads of 32, key padding: its 10 calls a step) and at every K1
+geometry of the step at B = 2 (the f32 gradient checks').
 
-    python3 scripts/torch_k1_bwd_compare.py [--out FILE]
+    python3 scripts/torch_k1_bwd_compare.py [--f32] [--out FILE]
 
 The calls are enumerated from the step itself: the step body of
 `train/trainer.py::make_train_step` runs once on the meta device (no
@@ -32,13 +35,19 @@ autograd hands it (a head view of a (B, Tq, C) gradient), it
   k1_backward_bound`;
 - and the device time of each kernel a call launches (dq, dkdv, q1) from
   torch.profiler over eager calls.
-Last, ptxas's registers and spills of every instantiation of
-`csrc/flash_attention_bwd_wgmma.cu` (compiled once more with -Xptxas=-v
-into the gitignored `.scratch/`), and the blocks an SM holds by registers. Every time carries the card's name and
+In f32 the faulty backwards are not read: the kernels and the plain f32
+backward are read against the plain backward in f64, within
+`chip_smoke.k1_f32_holds`. Last, ptxas's registers and spills of
+every instantiation of `csrc/flash_attention_bwd_wgmma.cu` (--f32:
+`csrc/flash_attention_f32_bwd_wgmma.cu`; compiled once more with
+-Xptxas=-v into the gitignored `.scratch/`), and the blocks an SM holds by
+registers. Every time carries the card's name and
 power limit. Prints a line per geometry, the sums per training step, and a
 JSON line {"k1_bwd_compare": ...} last (also to --out). Card only; imports
 nothing of JAX.
 """
+
+from __future__ import annotations
 
 import argparse
 import json
@@ -57,14 +66,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(ROOT, "ns2vc_tpu_torch", "csrc",
-                      "flash_attention_bwd_wgmma.cu")
+SOURCES = {dtype: os.path.join(ROOT, "ns2vc_tpu_torch", "csrc", name)
+           for dtype, name in (("bf16", "flash_attention_bwd_wgmma.cu"),
+                               ("f32", "flash_attention_f32_bwd_wgmma.cu"))}
+F0_CALLS = 10   # the F0 predictor's f32 cross-attentions per step
 
 
-def step_calls(bsz: int, t: int, tp: int) -> Counter:
+def step_calls(bsz: int, t: int, tp: int, gn: Counter | None = None
+               ) -> Counter:
     """The K1 calls of one bf16 `Config()` training step, remat off, by
     (layout of q, k, v; scale; bias given): the step body run on the meta
-    device, dropout off (its draws need a generator on the device)."""
+    device, dropout off (its draws need a generator on the device). With
+    `gn`, the GroupNorm statistics' calls into it too, by (x's shape,
+    whether FiLM came)."""
     import ns2vc_tpu_torch.ops.attention as attention
     import ns2vc_tpu_torch.ops.flash_attention as fa
     import ns2vc_tpu_torch.ops.fused_resnet as fr
@@ -82,6 +96,13 @@ def step_calls(bsz: int, t: int, tp: int) -> Counter:
                     for x in (q, k, v))
         calls[(geo, scale, bias is not None)] += 1
         return fa.flash_attention_plain(q, k, v, bias, scale)
+
+    def record_gn(x, gamma, beta, groups, eps, film_scale=None,
+                  film_shift=None):
+        if gn is not None:
+            gn[(tuple(x.shape), film_scale is not None)] += 1
+        return fr.group_norm_affine_plain(x, gamma, beta, groups, eps,
+                                          film_scale, film_shift)
     meta = torch.device("meta")
     cfg = Config()
     with torch.device(meta):
@@ -99,19 +120,27 @@ def step_calls(bsz: int, t: int, tp: int) -> Counter:
     with mock.patch.object(attention, "flash_attention", record), \
             mock.patch.object(fr, "affine_silu_conv1d",
                               fr.affine_silu_conv1d_plain), \
-            mock.patch.object(fr, "group_norm_affine",
-                              fr.group_norm_affine_plain):
+            mock.patch.object(fr, "group_norm_affine", record_gn):
         step.body(state, batch, None, torch.zeros(bsz, device=meta),
                   torch.randn(bsz, t, 100, device=meta), None,
                   torch.zeros((), dtype=torch.int64, device=meta))
     return calls
 
 
-def inputs(key, g, dev):
-    """Seeded bf16 q, k, v in the call's layout, a key-padding bias (first
+def f0_call(bsz: int, t: int, tp: int) -> tuple:
+    """The F0 predictor's cross-attention as a step_calls key: q, k and v
+    head views of their own (B, T, 256) projections (k and v upcast from
+    bf16, as the wrapper does), 8 heads of 32, a key bias."""
+    def view(n):
+        return ((bsz, 8, n, 32), (n * 256, 32, 256, 1), 0, bsz * n * 256)
+    return (view(t), view(tp), view(tp)), None, True
+
+
+def inputs(key, g, dev, dtype=torch.bfloat16):
+    """Seeded q, k, v in the call's layout, a key-padding bias (first
     row whole) where it had one, dO as a head view of (B, Tq, H*D)."""
     geo, _, with_bias = key
-    bufs = [torch.randn(size, generator=g, device=dev).bfloat16()
+    bufs = [torch.randn(size, generator=g, device=dev).to(dtype)
             for _, _, _, size in geo]
     q, k, v = (b.as_strided(shape, stride, offset)
                for b, (shape, stride, offset, _) in zip(bufs, geo))
@@ -123,7 +152,7 @@ def inputs(key, g, dev):
         lengths[0] = tk
         keep = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
         bias = (1.0 - keep.float()) * -1e4
-    do = torch.randn(bsz, tq, h * d, generator=g, device=dev).bfloat16() \
+    do = torch.randn(bsz, tq, h * d, generator=g, device=dev).to(dtype) \
         .view(bsz, tq, h, d).transpose(1, 2)
     return q, k, v, bias, do
 
@@ -186,8 +215,8 @@ def kernel_ms(run, reps=3):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        name = next((k for k in ("dq", "dkdv", "q1")
-                     if f"flash_bwd_{k}_kernel" in e.key), "other")
+        m = re.search(r"flash_bwd_(?:f32_)?(dq|dkdv|q1)_kernel", e.key)
+        name = m.group(1) if m else "other"
         out[name] += us / 1e3 / reps
     return dict(out)
 
@@ -199,35 +228,38 @@ def blocks_by_registers(regs: int, threads: int) -> int:
     return 65536 // (per_warp * -(-threads // 32))
 
 
-def ptxas_report() -> list:
+def ptxas_report(f32: bool = False) -> list:
     """(kernel, registers, spill stores, spill loads, blocks an SM holds by
     registers) of every instantiation in the source, from nvcc
-    -Xptxas=-v: the tile kernels run 160 threads (a consumer warpgroup and
-    a producer warp), the single-query kernel 256."""
+    -Xptxas=-v: the bf16 tile kernels run 160 threads (a consumer
+    warpgroup and a producer warp), the f32 ones 256 (a converting and a
+    consumer warpgroup), the single-query kernel 256."""
     from ns2vc_tpu_torch.ops import _build
 
+    source = SOURCES["f32" if f32 else "bf16"]
     obj = os.path.join(ROOT, ".scratch", "flash_attention_bwd_ptxas.o")
     os.makedirs(os.path.dirname(obj), exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", SOURCE,
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", source,
                            "-o", obj], capture_output=True, text=True,
-                          cwd=os.path.dirname(SOURCE))
+                          cwd=os.path.dirname(source))
     if proc.returncode != 0:
         cs.fail(f"nvcc: {proc.stdout}{proc.stderr}")
     out, name, spills = [], None, None
     for line in (proc.stdout + proc.stderr).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_bwd_\w+?_kernel)I(Li(\d+)E)?(Lb(\d))?",
+            k = re.search(r"(flash_bwd_\w+?_kernel)I((?:Li\d+E)*)(Lb(\d))?",
                           m.group(1))
-            name = k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "") \
-                + (f" bias={k.group(5)}" if k.group(5) else "")
+            dims = re.findall(r"Li(\d+)E", k.group(2))
+            name = k.group(1) + (f"<{', '.join(dims)}>" if dims else "") \
+                + (f" bias={k.group(4)}" if k.group(4) else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            threads = 256 if name.startswith("flash_bwd_q1") else 160
+            threads = 256 if f32 or name.startswith("flash_bwd_q1") else 160
             row = (name, int(m.group(1)), *spills,
                    blocks_by_registers(int(m.group(1)), threads))
             if row not in out:
@@ -238,6 +270,9 @@ def ptxas_report() -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--f32", action="store_true",
+                    help="K1's f32 backward kernels at the F0 predictor's "
+                         "cross-attention and the step's geometries at B=2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k1_bwd_compare: no CUDA device", file=sys.stderr)
@@ -252,21 +287,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cs.CARD = cs.card_line()
     cs.say(f"device: {torch.cuda.get_device_name(0)}; {cs.CARD}")
-    calls = step_calls(cs.TRAIN_B, cs.TRAIN_T, cs.TRAIN_T)
-    cs.say(f"K1 calls of one bf16 training step (B={cs.TRAIN_B} x "
-           f"{cs.TRAIN_T}, remat off): {sum(calls.values())} in "
-           f"{len(calls)} geometries")
+    if args.f32:
+        calls = Counter({f0_call(cs.TRAIN_B, cs.TRAIN_T, cs.TRAIN_T):
+                         F0_CALLS})
+        calls.update(step_calls(2, cs.TRAIN_T, cs.TRAIN_T))
+        cs.say(f"K1 f32 calls: the F0 predictor's {F0_CALLS} cross-"
+               f"attentions (B={cs.TRAIN_B}) and the step's at B=2: "
+               f"{sum(calls.values())} in {len(calls)} geometries")
+    else:
+        calls = step_calls(cs.TRAIN_B, cs.TRAIN_T, cs.TRAIN_T)
+        cs.say(f"K1 calls of one bf16 training step (B={cs.TRAIN_B} x "
+               f"{cs.TRAIN_T}, remat off): {sum(calls.values())} in "
+               f"{len(calls)} geometries")
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    f0_sums = defaultdict(float)
     g = torch.Generator(device=dev).manual_seed(cs.SEED + 90)
     rows = []
     sums = defaultdict(float)
     per_kernel = defaultdict(float)
     worst = {}
     for key, n in calls.items():
-        q, k, v, bias, do = inputs(key, g, dev)
+        q, k, v, bias, do = inputs(key, g, dev, dtype)
         scale = q.shape[-1] ** -0.5 if key[1] is None else key[1]
         r = cs.k1_backward_case(q, k, v, bias, scale, do)
-        if not (r["err"] <= cs.K1_BWD_RTOL and r["rms"] <= cs.K1_BWD_RMS
-                and r["repeat"]):
+        if not (r["ok"] and r["repeat"]):
             cs.fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: "
                     f"error {r['err']} of the batch row's max|plain| (tol "
                     f"{cs.K1_BWD_RTOL}), relative RMS {r['rms']} (tol "
@@ -276,7 +320,7 @@ def main() -> int:
         # per backward, (dq, dk, dv) by each metric
         controls = {"kernels": dict(zip(("max", "rms"), cs.k1_grad_errors(
             got, want)), older=old_errors(got, want))}
-        for fault in FAULTS:
+        for fault in () if args.f32 else FAULTS:
             bad = faulty_backward(q, k, v, bias, scale, do, fault)
             controls[fault] = dict(zip(("max", "rms"),
                                        cs.k1_grad_errors(bad, want)))
@@ -291,6 +335,8 @@ def main() -> int:
             q, k, v, bias, scale, do))
         for kname, ms in kernels.items():
             per_kernel[kname] += n * ms
+            if q.shape[0] == cs.TRAIN_B and args.f32:
+                f0_sums["profiled_" + kname] += n * ms
         bound, by = cs.k1_backward_bound(q, k, bias)
         row = {"q": list(q.shape), "k": list(k.shape),
                "bias": bias is not None, "calls": n, "sub": r["name"],
@@ -298,19 +344,25 @@ def main() -> int:
                "turns": r["turns"],
                "sdpa_backend": cs.sdpa_backend(q, k, v, bias, scale),
                "bound_ms": bound, "bound_by": by, "err": r["err"],
-               "rms": r["rms"],
+               "rms": r["rms"], "err64": r.get("err64"),
+               "plain_err64": r.get("plain_err64"),
                "abs_err": r["abs_err"], "kernels": kernels,
                "controls": controls}
         rows.append(row)
         for name in ("ms", "plain_ms", "sdpa_ms", "bound_ms"):
             sums[name] += n * row[name]
+            if q.shape[0] == cs.TRAIN_B and args.f32:
+                f0_sums[name] += n * row[name]
         t = r["turns"]
         cs.say(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)} bias="
                f"{int(bias is not None)} x{n}: kernels "
                f"{t['ms'][0]:.4f}/{t['ms'][1]:.4f} ms, plain "
                f"{t['plain'][0]:.4f}/{t['plain'][1]:.4f}, SDPA's backward "
                f"{r['lib']:.4f} ({row['sdpa_backend']}), bound {bound:.5f} "
-               f"({by}); err {r['err']:.2e}, rms {r['rms']:.2e}; (dq, dk, "
+               f"({by}); err {r['err']:.2e}, rms {r['rms']:.2e}"
+               + (f", against f64 {r['err64']:.2e} (plain f32 "
+                  f"{r['plain_err64']:.2e})" if "err64" in r else "")
+               + "; (dq, dk, "
                f"dv) " + "; ".join(
                    f"{name} {metric} " + "/".join(f"{e:.2e}" for e in errs)
                    for name, m in controls.items()
@@ -318,8 +370,19 @@ def main() -> int:
                + "; profiled: "
                + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in sorted(
                    kernels.items())) + f" [{cs.CARD}]")
-    cs.say(f"K1 backward, one training step's {sum(calls.values())} calls "
-           f"(B={cs.TRAIN_B} x {cs.TRAIN_T}, bf16): kernels "
+    if args.f32:
+        cs.say(f"K1 f32 backward, the F0 predictor's {F0_CALLS} calls of a "
+               f"step (B={cs.TRAIN_B} x {cs.TRAIN_T}): kernels "
+               f"{f0_sums['ms']:.4f} ms, plain (torch ops) "
+               f"{f0_sums['plain_ms']:.4f}, SDPA's f32 backward "
+               f"{f0_sums['sdpa_ms']:.4f}; bound {f0_sums['bound_ms']:.5f}; "
+               "profiled: " + ", ".join(
+                   f"{k[9:]} {v:.4f}" for k, v in sorted(f0_sums.items())
+                   if k.startswith("profiled_")) + f" [{cs.CARD}]")
+    cs.say(f"K1 backward, {'all' if args.f32 else 'one training step'}'s "
+           f"{sum(calls.values())} calls ("
+           + ("the F0 calls and B=2, f32" if args.f32 else
+              f"B={cs.TRAIN_B} x {cs.TRAIN_T}, bf16") + "): kernels "
            f"{sums['ms']:.4f} ms, plain (torch ops) {sums['plain_ms']:.4f}, "
            f"SDPA's backward {sums['sdpa_ms']:.4f}; bound "
            f"{sums['bound_ms']:.5f} ({100 * sums['bound_ms'] / sums['ms']:.1f}"
@@ -336,11 +399,12 @@ def main() -> int:
            "older (of max(1, max|plain|) per tensor, bound 3e-2): "
            + "; ".join(f"{name} {metric} {lo:.3e} / {hi:.3e}"
                        for (name, metric), (lo, hi) in worst.items()))
-    regs = ptxas_report()
+    regs = ptxas_report(args.f32)
     for name, r, st, ld, blocks in regs:
         cs.say(f"  ptxas {name}: {r} registers, spills {st} / {ld} bytes, "
                f"{blocks} blocks per SM by registers")
-    out = {"card": cs.CARD, "per_step": dict(sums),
+    out = {"card": cs.CARD, "dtype": str(dtype), "per_step": dict(sums),
+           "f0_per_step": dict(f0_sums),
            "readings": {f"{name}, {metric}": v
                         for (name, metric), v in worst.items()},
            "per_kernel": dict(per_kernel), "ptxas": regs, "rows": rows}

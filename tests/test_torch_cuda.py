@@ -35,7 +35,18 @@ checks the route its call took. K2's backward kernels
 dtypes (3e-5 of max|plain| per gradient, the bf16 kernels' f32 sums before
 their rounding, and the rounded outputs within half a bf16 ulp of them),
 odd T, C not a multiple of 16 and Co of the output tail included, two
-launches bitwise equal; K1's bf16 backward kernels (`flash_attention_grad`)
+launches bitwise equal; the statistics' backward kernels
+(`group_norm_affine_grad`) against `group_norm_affine_backward` on the
+forward's mean and rstd at every (T, C) of a `Config()` training step,
+with FiLM as chunks of one projection and without, in bf16 and f32
+(chip_smoke.GN_BWD_RTOL of max|plain| per gradient for f32 outputs, one
+bf16 ulp of it for bf16 ones), two launches bitwise equal; K1's f32
+backward kernels against `flash_attention_backward` at the F0
+predictor's cross-attention (B = 32) and every training geometry at B = 2
+(the f32 gradient checks'), the pools included, against the plain
+backward in f64 within `chip_smoke.k1_f32_holds` (K1_F32_BWD_RTOL of each
+batch row's max, or K1_F32_BWD_COND times the plain f32 backward's own
+error), two launches bitwise equal, a fully masked row finite; K1's bf16 backward kernels (`flash_attention_grad`)
 against `flash_attention_backward` at every geometry of a `Config()`
 training step (1e-2 of max|plain| in each batch row), at ragged shapes, fully
 masked rows and a key component all keys share, bitwise repeatable, with
@@ -734,10 +745,10 @@ def test_group_norm_affine_matches_plain(dev, xdtype, pdtype, b, t, c, film):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_group_norm_affine_function_on_the_card(dev, dtype):
-    """Under autograd the statistics kernel runs forward and its backward
-    is the plain version's, recomputed: gradients of x, gamma, beta and
-    FiLM are autograd's through the plain version (to the rounding of the
-    same ops in another launch)."""
+    """Under autograd the statistics kernel runs forward (keeping each
+    slab's mean and rstd) and its backward is the backward kernels:
+    gradients of x, gamma, beta and FiLM are autograd's through the plain
+    version (to f32 rounding in another order, and one bf16 rounding)."""
     g = _gen(dev, 13)
     b, t, c = 4, 136, 128
     x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
@@ -752,9 +763,11 @@ def test_group_norm_affine_function_on_the_card(dev, dtype):
         torch.autograd.backward(out, (da, db))
         return [v.grad for v in leaves]
     n0, b0 = group_norm_affine.launches, group_norm_affine.backward_calls
+    k0 = group_norm_affine.backward_launches
     got = grads(group_norm_affine)
     assert group_norm_affine.launches == n0 + 1
     assert group_norm_affine.backward_calls == b0 + 1
+    assert group_norm_affine.backward_launches == k0 + 1
     want = grads(group_norm_affine_plain)
     torch.cuda.synchronize()
     rtol = 1e-5 if dtype == torch.float32 else 1e-2   # the grads' dtype
@@ -1407,17 +1420,19 @@ def test_k1_backward_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="bias"):
         flash_attention_grad(q, k, v, torch.zeros(2, 9, device=dev)
                              .bfloat16(), 0.5, do)
+    # f32 takes the f32 kernels (the tile kernels at D = 16)
     n0 = dict(flash_attention_grad.route_launches)
     flash_attention_grad(*(x.float() for x in (q, k, v)), None, 0.5,
                          do.float())
-    assert flash_attention_grad.route_launches == n0
+    assert flash_attention_grad.route_launches == {**n0,
+                                                   "f32tc": n0["f32tc"] + 1}
 
 
 @pytest.mark.parametrize("tq,route", [(40, "tc"), (1, "tc_q1")])
 def test_k1_backward_counts_the_kernel_route_apart(dev, tq, route):
-    """Under autograd a bf16 call's backward launches the kernels (counted
-    in `flash_attention_grad.route_launches`), an f32 call's runs the torch
-    ops: both count in `flash_attention.backward_calls` by route."""
+    """Under autograd a call's backward launches the kernels of its dtype
+    (counted in `flash_attention_grad.route_launches` by sub-route) and
+    counts in `flash_attention.backward_calls` by its forward's route."""
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention_grad
 
     g = _gen(dev, 36)
@@ -1431,8 +1446,8 @@ def test_k1_backward_counts_the_kernel_route_apart(dev, tq, route):
         torch.cuda.synchronize()
         assert flash_attention.backward_calls == {**calls,
                                                   fwd: calls[fwd] + 1}
-        grown = {route: n0[route] + 1} if dtype == torch.bfloat16 else {}
-        assert flash_attention_grad.route_launches == {**n0, **grown}
+        assert flash_attention_grad.route_launches == {**n0,
+                                                       fwd: n0[fwd] + 1}
         assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
 
 
@@ -1507,7 +1522,8 @@ def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
                                  "f32tc_narrow": 0, "tc": 14, "tc_q1": 2,
                                  "tc_narrow": 0}
     # every K1 backward on the bf16 kernels, none in torch ops
-    assert fa.flash_attention_grad.route_launches == {"tc": 14, "tc_q1": 2}
+    assert fa.flash_attention_grad.route_launches == {
+        "tc": 14, "tc_q1": 2, "f32tc": 0, "f32tc_q1": 0}
     assert k2.route_launches == {"f32tc": 0, "f32tc_elem": 0,
                                  "tc": 25 + again[1], "tc_elem": 0}
     assert k2.backward_calls == {"f32tc": 0, "tc": 25}
@@ -1852,3 +1868,126 @@ def test_gloo_group_step_stays_eager(dev, tmp_path, process_group):
     assert not any(g["capturable"] for g in tr.state.optimizer.param_groups)
     m = tr.train_step(_train_batch(tr, 0))
     assert torch.isfinite(m["loss"]) and tr._step_programs == {}
+
+
+# the statistics' backward kernels (`group_norm_affine_grad`) at every
+# (T, C) of a `Config()` training step's 45 K2 calls, B = 32
+GN_TRAIN_GEOMETRIES = sorted({(t, c) for t, c, _ in K2_TRAIN_GEOMETRIES})
+
+
+def _gn_backward_case(dev, g, t, c, dtype, film):
+    from ns2vc_tpu_torch.ops.fused_resnet import _gn_launch
+
+    b = 32
+    x = (0.5 + torch.randn(b, t, c, generator=g, device=dev)).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    fs = (None, None)
+    if film:   # two chunks of one (B, 2C) projection, as the UNet's
+        fs = (0.2 * torch.randn(b, 2 * c, generator=g, device=dev)).to(
+            dtype).chunk(2, dim=-1)
+    _, _, mean, rstd = _gn_launch(x, gamma, beta, 8, 1e-5, *fs, stats=True)
+    da, db = (torch.randn(b, c, generator=g, device=dev) for _ in range(2))
+    return x, gamma, beta, fs, mean, rstd, da, db
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,c", GN_TRAIN_GEOMETRIES)
+def test_gn_backward_kernels_at_the_training_geometries(dev, t, c, dtype):
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        group_norm_affine_backward, group_norm_affine_grad,
+    )
+
+    g = _gen(dev, 41)
+    for film in (True, False):
+        x, gamma, beta, fs, mean, rstd, da, db = _gn_backward_case(
+            dev, g, t, c, dtype, film)
+        n0 = group_norm_affine.backward_launches
+        got = group_norm_affine_grad(x, gamma, beta, 8, *fs, mean, rstd, da,
+                                     db)
+        again = group_norm_affine_grad(x, gamma, beta, 8, *fs, mean, rstd,
+                                       da, db)
+        assert group_norm_affine.backward_launches == n0 + 2
+        want = group_norm_affine_backward(x, gamma, beta, 8, 1e-5, *fs, da,
+                                          db, mean, rstd)
+        torch.cuda.synchronize()
+        for name, gv, rv, wv in zip(("x", "gamma", "beta", "scale",
+                                     "shift"), got, again, want):
+            if wv is None:
+                assert gv is None, name
+                continue
+            assert gv.dtype == wv.dtype and gv.shape == wv.shape, name
+            assert torch.equal(gv, rv), name
+            err = cs.gn_grad_error(gv, wv)
+            assert err <= cs.gn_grad_rtol(wv.dtype), (name, film, err)
+
+
+def test_gn_backward_kernels_element_loads(dev):
+    """Two channels a group (C = 16): dx by single elements."""
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        group_norm_affine_backward, group_norm_affine_grad,
+    )
+
+    x, gamma, beta, fs, mean, rstd, da, db = _gn_backward_case(
+        dev, _gen(dev, 42), 9, 16, torch.float32, True)
+    got = group_norm_affine_grad(x, gamma, beta, 8, *fs, mean, rstd, da, db)
+    want = group_norm_affine_backward(x, gamma, beta, 8, 1e-5, *fs, da, db,
+                                      mean, rstd)
+    for gv, wv in zip(got, want):
+        assert cs.gn_grad_error(gv, wv) <= cs.GN_BWD_RTOL
+
+
+# K1's f32 backward kernels at every f32 geometry a path runs: the F0
+# predictor's cross-attention at B = 32 (its 10 calls a step) and the
+# training step's geometries at B = 2 (the f32 gradient checks')
+K1_F32_GEOMETRIES = [(32, (8, 272, 272, 32, "cross", True, 10))] + [
+    (2, geo) for geo in K1_TRAIN_GEOMETRIES]
+
+
+@pytest.mark.parametrize("bsz,geometry", K1_F32_GEOMETRIES)
+def test_k1_backward_f32_at_its_geometries(dev, bsz, geometry):
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_grad, grad_route,
+    )
+
+    q, k, v, bias, do = _k1_backward_inputs(_gen(dev, 43), dev, bsz,
+                                            geometry, torch.float32)
+    scale = q.shape[-1] ** -0.5
+    route = grad_route(q, k.shape[2])
+    assert route == ("f32tc_q1" if q.shape[2] == 1 else "f32tc")
+    n0 = dict(flash_attention_grad.route_launches)
+    got = flash_attention_grad(q, k, v, bias, scale, do)
+    again = flash_attention_grad(q, k, v, bias, scale, do)
+    assert flash_attention_grad.route_launches == {**n0,
+                                                   route: n0[route] + 2}
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    errs, plain = cs.k1_f32_errors(got, q, k, v, bias, scale, do)
+    assert cs.k1_f32_holds(errs, plain), (errs, plain)
+
+
+def test_k1_backward_f32_fully_masked_row(dev):
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad,
+    )
+
+    g = _gen(dev, 44)
+    q, k, v, do = (torch.randn(2, 2, t, 32, generator=g, device=dev)
+                   for t in (70, 90, 90, 70))
+    bias = torch.zeros(2, 90, device=dev)
+    bias[1] = -1e4
+    got = flash_attention_grad(q, k, v, bias, 32 ** -0.5, do)
+    want = flash_attention_backward(q, k, v, bias, 32 ** -0.5, do)
+    assert all(torch.isfinite(x).all() for x in got)
+    # the unmasked row within the f32 bound; the masked one within the
+    # masked bound (its f32 logits carry steps of 2^-10)
+    errs, plain = cs.k1_f32_errors([x[:1] for x in got], q[:1], k[:1], v[:1],
+                                   bias[:1], 32 ** -0.5, do[:1])
+    assert cs.k1_f32_holds(errs, plain), (errs, plain)
+    peak, _ = cs.k1_grad_errors([x[1:] for x in got], [w[1:] for w in want])
+    assert max(peak) <= MASKED_F32_ATOL, peak

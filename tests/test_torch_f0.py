@@ -38,6 +38,20 @@ from ns2vc_tpu_torch.ops import sequence as tseq
 from test_torch_frontend import CV_SMALL, _contentvec_pair, _signal
 from test_torch_slice import VOCOS_KW, _filled_tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tests: their models are small,
+    and the suite's test workers share the host's cores, where several
+    OpenMP teams per core stall at their barriers (on an 8-core CPU host,
+    alone, 1 thread runs `test_torch_f0.py::test_trainer_serves_a_
+    predictor_checkpoint` in 14.7 s against 45.3 with 8)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 ENC_ATOL, PATH_ATOL, GRAD_RTOL, HELPER_ATOL = 2e-5, 1e-3, 1e-4, 1e-6
 B, T, TP = 2, 16, 12
 LENGTHS, REFER_LENGTHS = np.array([16, 11], np.int32), np.array([12, 7],

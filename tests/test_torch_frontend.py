@@ -72,6 +72,20 @@ from ns2vc_tpu_torch.models.vocos import (
 )
 from test_torch_slice import VOCOS_KW, _filled_tree, tiny_config
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tests: their models are small,
+    and the suite's test workers share the host's cores, where several
+    OpenMP teams per core stall at their barriers (on an 8-core CPU host,
+    alone, 1 thread runs `test_torch_f0.py::test_trainer_serves_a_
+    predictor_checkpoint` in 14.7 s against 45.3 with 8)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 RESAMPLE_ATOL, MEL_ATOL, CV_ATOL, LOADER_ATOL = 1e-5, 1e-4, 1e-4, 1e-6
 CREPE_ATOL, VOCOS_LOADER_ATOL, PATH_ATOL = 1e-5, 1e-5, 1e-3
 CV_SMALL = dict(dim=64, heads=4, ffn_dim=128, num_layers=2, output_layer=2)
@@ -317,11 +331,20 @@ def test_vocos_public_loader_matches_jax_converter(tmp_path):
 
 # -- Svc: features, the whole path, slice_inference ---------------------------
 
+class _JittedApply:
+    """A flax module's `apply` under one jax.jit: the JAX Svc calls only
+    `contentvec.apply`, and op by op it compiles every primitive of the
+    model anew for each clip length (~360 compiles per slice_inference)."""
+
+    def __init__(self, module):
+        self.apply = jax.jit(module.apply)
+
+
 def _jax_svc(cfg, params, cv_tree, cv_module=None):
     s = JSvc(config=cfg, params=params, contentvec_ckpt="",
              contentvec_params=cv_tree)
     if cv_module is not None:   # the JAX Svc builds a full-width ContentVec
-        s.contentvec = cv_module
+        s.contentvec = _JittedApply(cv_module)
     return s
 
 

@@ -45,6 +45,20 @@ from test_torch_host import _equal_trees, _reference_state_dict
 from test_torch_slice import _filled_tree
 from test_torch_train import _batch, _draws, _trainer_config, configs
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tests: their models are small,
+    and the suite's test workers share the host's cores, where several
+    OpenMP teams per core stall at their barriers (on an 8-core CPU host,
+    alone, 1 thread runs `test_torch_f0.py::test_trainer_serves_a_
+    predictor_checkpoint` in 14.7 s against 45.3 with 8)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORWARD_ATOL = 1e-3      # the JAX suite's full-model bound
 MIX_RTOL = 1e-6

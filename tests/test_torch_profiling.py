@@ -24,6 +24,19 @@ from ns2vc_tpu_torch.utils import profiling
 from test_torch_train import _trainer_config
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tests: their models are small,
+    and the suite's test workers share the host's cores, where several
+    OpenMP teams per core stall at their barriers (on an 8-core CPU host,
+    alone, 1 thread runs `test_torch_f0.py::test_trainer_serves_a_
+    predictor_checkpoint` in 14.7 s against 45.3 with 8)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.mark.parametrize("spec", [None, "", "100:5", "0:1", "7:0", "-2:3",
                                   " 3 : 4 ", "100", "1:2:3", "a:b", "5:",
                                   ":5", "1.5:2"])

@@ -23,6 +23,20 @@ from ns2vc_tpu_torch.diffusion.schedule import NoiseSchedule
 from ns2vc_tpu_torch.models.diffusion import NaturalSpeech2, generate_mel
 from test_torch_slice import tiny_config
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tests: their models are small,
+    and the suite's test workers share the host's cores, where several
+    OpenMP teams per core stall at their barriers (on an 8-core CPU host,
+    alone, 1 thread runs `test_torch_f0.py::test_trainer_serves_a_
+    predictor_checkpoint` in 14.7 s against 45.3 with 8)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 ATOL = 1e-4
 SHAPE = (2, 8, 5)
 

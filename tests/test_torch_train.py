@@ -49,6 +49,20 @@ from test_torch_data import write_features
 from test_torch_kernels import kernels_on_cpu
 from test_torch_slice import _filled_tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tests: their models are small,
+    and the suite's test workers share the host's cores, where several
+    OpenMP teams per core stall at their barriers (on an 8-core CPU host,
+    alone, 1 thread runs `test_torch_f0.py::test_trainer_serves_a_
+    predictor_checkpoint` in 14.7 s against 45.3 with 8)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 LOSS_RTOL, GRAD_RTOL, OPT_RTOL = 1e-5, 1e-4, 1e-6
 LEVELS = (16, 24)   # two UNet levels keep the JAX compile short
 
