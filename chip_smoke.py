@@ -250,7 +250,15 @@ have `flash_attention_backward_f32tc` (launches counted in the F0
 predictor's training step, timed at its 10 calls; the f32 card
 gradients' calls beside as `grad_f32_*`) and
 `flash_attention_backward_f32tc_q1` (launched and timed at the f32 card
-gradients' pools); the statistics' backward kernels
+gradients' pools; both single-query entries are
+`flash_attention_q1_bwd.cu`); the sub-routes of geometries outside the
+tile kernels' plain instantiations, `flash_attention_backward_f32tc_d128`
+(f32 heads of 65-128,
+the f32 kernels' 128-wide instantiation), `flash_attention_backward_tc_pad`
+and `_f32tc_pad` (rows that are not whole aligned 16-byte chunks, on
+zero-padded copies): launches counted in one training step each through
+the op registry's layers (`check_registry_backward`), timed at their
+calls; the statistics' backward kernels
 `group_norm_affine_backward` (launches counted in one training step; ms,
 plain_ms the closed form in torch ops, recompute_ms the autograd
 recompute they replaced, bound_ms, summed over the step's calls;
@@ -349,7 +357,14 @@ BACKWARD_ROUTES = {
     "flash_attention_backward_tc": (
         "flash_attention_bwd_wgmma.cu",
         "ns2vc_tpu/ops/pallas_attention.py:92"),
+    # the single-query backward (keys split over a cluster, wide loads,
+    # rank-order merges), both dtypes
     "flash_attention_backward_tc_q1": (
+        "flash_attention_q1_bwd.cu",
+        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    # rows that are not whole aligned 16-byte chunks: the tile kernels on
+    # zero-padded contiguous copies (launched in the op-registry phase)
+    "flash_attention_backward_tc_pad": (
         "flash_attention_bwd_wgmma.cu",
         "ns2vc_tpu/ops/pallas_attention.py:92"),
     "affine_silu_conv1d_backward_bf16": (
@@ -363,7 +378,16 @@ BACKWARD_ROUTES = {
         "flash_attention_f32_bwd_wgmma.cu",
         "ns2vc_tpu/ops/pallas_attention.py:92"),
     "flash_attention_backward_f32tc_q1": (
-        "flash_attention_bwd_wgmma.cu",
+        "flash_attention_q1_bwd.cu",
+        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    # f32 heads of 65-128 (the op registry's ids 14/15 at D = 128): the
+    # f32 tile kernels' 128-wide instantiation; f32 rows TMA cannot take:
+    # the f32 tile kernels on zero-padded copies (op-registry phase)
+    "flash_attention_backward_f32tc_d128": (
+        "flash_attention_f32_bwd_wgmma.cu",
+        "ns2vc_tpu/ops/pallas_attention.py:92"),
+    "flash_attention_backward_f32tc_pad": (
+        "flash_attention_f32_bwd_wgmma.cu",
         "ns2vc_tpu/ops/pallas_attention.py:92"),
     # the statistics' backward: the gradient of the XLA fold of the Pallas
     # kernel's wrapper, which XLA differentiates
@@ -1657,6 +1681,48 @@ NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
               "conditional")
 
 
+def _kernel_namer(cu, check):
+    """node -> its kernel's function name, None for another node type (a
+    child graph, a memset, ...), names read through libcuda once per
+    function."""
+    import ctypes
+
+    vp = ctypes.c_void_p
+    names = {}
+    params = (ctypes.c_uint8 * 128)()   # CUDA_KERNEL_NODE_PARAMS_v2: 72 B
+    kind, name = ctypes.c_int(), ctypes.c_char_p()
+
+    def name_of(node):
+        check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:     # CU_GRAPH_NODE_TYPE_KERNEL
+            return None
+        check(cu.cuGraphKernelNodeGetParams_v2(vp(node), params),
+              "cuGraphKernelNodeGetParams_v2")
+        func = vp.from_buffer(params, 0).value     # CUfunction
+        kern = vp.from_buffer(params, 56).value    # CUkernel
+        handle = func or kern
+        if handle not in names:
+            get = cu.cuFuncGetName if func else cu.cuKernelGetName
+            check(get(ctypes.byref(name), vp(handle)),
+                  "cuFuncGetName" if func else "cuKernelGetName")
+            names[handle] = name.value.decode()
+        return names[handle]
+    return name_of
+
+
+def _graph_nodes(cu, check, g) -> list:
+    import ctypes
+
+    vp = ctypes.c_void_p
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(vp(g), None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * max(1, n.value))()
+    check(cu.cuGraphGetNodes(vp(g), nodes, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    return [nodes[i] for i in range(n.value)]
+
+
 def graph_census(graph) -> tuple[Counter, Counter]:
     """(kernel nodes by function name, nodes by type) of a CUDA graph kept
     after instantiation (keep_graph=True), read through libcuda (node
@@ -1671,18 +1737,12 @@ def graph_census(graph) -> tuple[Counter, Counter]:
         if err != 0:
             fail(f"graph nodes: {what} returned CUresult {err}")
 
-    names, kernels, types = {}, Counter(), Counter()
-    params = (ctypes.c_uint8 * 128)()   # CUDA_KERNEL_NODE_PARAMS_v2: 72 B
-    kind, name, child = ctypes.c_int(), ctypes.c_char_p(), vp()
+    name_of = _kernel_namer(cu, check)
+    kernels, types = Counter(), Counter()
+    kind, child = ctypes.c_int(), vp()
 
     def walk(g):
-        n = ctypes.c_size_t(0)
-        check(cu.cuGraphGetNodes(vp(g), None, ctypes.byref(n)),
-              "cuGraphGetNodes")
-        nodes = (vp * n.value)()
-        check(cu.cuGraphGetNodes(vp(g), nodes, ctypes.byref(n)),
-              "cuGraphGetNodes")
-        for node in nodes:
+        for node in _graph_nodes(cu, check, g):
             check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
                   "cuGraphNodeGetType")
             types[NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES)
@@ -1693,21 +1753,83 @@ def graph_census(graph) -> tuple[Counter, Counter]:
                     "cuGraphChildGraphNodeGetGraph")
                 walk(child.value)
                 continue
-            if kind.value != 0:     # CU_GRAPH_NODE_TYPE_KERNEL
-                continue
-            check(cu.cuGraphKernelNodeGetParams_v2(vp(node), params),
-                  "cuGraphKernelNodeGetParams_v2")
-            func = vp.from_buffer(params, 0).value     # CUfunction
-            kern = vp.from_buffer(params, 56).value    # CUkernel
-            handle = func or kern
-            if handle not in names:
-                get = cu.cuFuncGetName if func else cu.cuKernelGetName
-                check(get(ctypes.byref(name), vp(handle)),
-                      "cuFuncGetName" if func else "cuKernelGetName")
-                names[handle] = name.value.decode()
-            kernels[names[handle]] += 1
+            name = name_of(node)
+            if name is not None:
+                kernels[name] += 1
     walk(graph.raw_cuda_graph())
     return kernels, types
+
+
+def graph_edges(graph) -> dict:
+    """Dependency edges of a CUDA graph by type ("default", "programmatic":
+    a kernel launched with programmatic dependent launch after another,
+    which stream capture records as such an edge), child graphs walked,
+    read through libcuda (cuGraphGetEdges_v2, CUDA 12.3 or later); and
+    "k2_sources": for each K2 conv node, the kernels (KERNEL_NAMES' keys,
+    "other" for the rest) its programmatic edges come from, counted by
+    their sorted tuple."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def check(err, what):
+        if err != 0:
+            fail(f"graph edges: {what} returned CUresult {err}")
+
+    name_of = _kernel_namer(cu, check)
+
+    def key_of(node):
+        name = name_of(node) or ""
+        return next((k for k, part in KERNEL_NAMES if part in name), "other")
+
+    counts, sources = Counter(), Counter()
+    kind, child = ctypes.c_int(), vp()
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetEdges_v2(vp(g), None, None, None, ctypes.byref(n)),
+              "cuGraphGetEdges_v2")
+        frm, to = (vp * max(1, n.value))(), (vp * max(1, n.value))()
+        data = (ctypes.c_uint8 * (8 * max(1, n.value)))()   # CUgraphEdgeData
+        if n.value:
+            check(cu.cuGraphGetEdges_v2(vp(g), frm, to, data,
+                                        ctypes.byref(n)), "cuGraphGetEdges_v2")
+        into = defaultdict(list)
+        for i in range(n.value):
+            prog = data[8 * i + 2] == 1
+            counts["programmatic" if prog else "default"] += 1
+            if prog:
+                into[to[i]].append(key_of(frm[i]))
+        for node in _graph_nodes(cu, check, g):
+            check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            if kind.value == 4:     # CU_GRAPH_NODE_TYPE_GRAPH
+                check(cu.cuGraphChildGraphNodeGetGraph(
+                    vp(node), ctypes.byref(child)),
+                    "cuGraphChildGraphNodeGetGraph")
+                walk(child.value)
+            elif key_of(node) == "k2":
+                sources[tuple(sorted(into.get(node, ())))] += 1
+    walk(graph.raw_cuda_graph())
+    return {"default": counts["default"],
+            "programmatic": counts["programmatic"],
+            "k2_sources": {"+".join(k) or "none": n
+                           for k, n in sources.items()}}
+
+
+def check_pdl_edges(graph, nodes: dict, what: str) -> dict:
+    """The programmatic dependent launch of the statistics kernel and the
+    K2 conv kept by stream capture: every K2 conv node of the graph has one
+    programmatic edge, and it comes from a statistics kernel node (the conv
+    copies its packed weights before its wait, so the kernel just before it
+    must be one that writes none of them)."""
+    edges = graph_edges(graph)
+    if edges["k2_sources"] != ({"gn": nodes["k2"]} if nodes["k2"] else {}):
+        fail(f"{what}: the programmatic edges into the graph's "
+             f"{nodes['k2']} K2 conv nodes come from {edges['k2_sources']} "
+             f"(wanted one from a statistics kernel each)")
+    return edges
 
 
 def graph_kernels(graph) -> dict:
@@ -1771,10 +1893,13 @@ def check_compiled_serving(cfg, sd, vsd, svc, svc32, clips, refer, dev):
                  f"{[p.key for p in progs]}, K1 / K2 / statistics kernel "
                  f"nodes in its graph {nodes}, launches counted per replay "
                  f"{kernel_totals(launches['graph'])}")
+        edges = check_pdl_edges(progs[0].graph, nodes,
+                                f"compiled serving {name}")
         e, g = (float(np.mean(walls[m])) for m in ("eager", "graph"))
         audio_s = len(cl) * cl[0].shape[0] * hop / cfg.data.sampling_rate
         res["cases"][name] = {"eager_ms": walls["eager"],
                               "graph_ms": walls["graph"],
+                              "graph_edges": edges,
                               "launches": launches["graph"],
                               "graph_kernel_nodes": nodes}
         say(f"compiled serving {name} (B={len(cl)} T={T_CLIP} steps={STEPS}):"
@@ -2425,7 +2550,7 @@ def k1_backward_case(q, k, v, bias, scale, do) -> dict:
         flash_attention_backward, flash_attention_grad, grad_route,
     )
 
-    sub = grad_route(q, k.shape[2])
+    sub, _ = grad_route(q, k, v)
     got = flash_attention_grad(q, k, v, bias, scale, do)
     again = flash_attention_grad(q, k, v, bias, scale, do)
     want = flash_attention_backward(q, k, v, bias, scale, do)
@@ -2642,8 +2767,11 @@ def grad_launches() -> dict:
             affine_silu_conv1d_grad.route_launches)
     return {"flash_attention_backward_tc": a["tc"],
             "flash_attention_backward_tc_q1": a["tc_q1"],
+            "flash_attention_backward_tc_pad": a["tc_pad"],
             "flash_attention_backward_f32tc": a["f32tc"],
             "flash_attention_backward_f32tc_q1": a["f32tc_q1"],
+            "flash_attention_backward_f32tc_d128": a["f32tc_d128"],
+            "flash_attention_backward_f32tc_pad": a["f32tc_pad"],
             "affine_silu_conv1d_backward_bf16": r["bf16"],
             "affine_silu_conv1d_backward_f32": r["f32"],
             "group_norm_affine_backward": group_norm_affine.backward_launches}
@@ -3248,8 +3376,8 @@ def cosine(a, b) -> float:
 
 
 POOL = ".pool."               # the two attention pools' tensors
-WITNESS_DRAWS = 3             # further draws of rows, t and noise
-WITNESS_STATES = 4            # further states: other batch orders
+WITNESS_DRAWS = 2             # further draws of rows, t and noise
+WITNESS_STATES = 2            # further states: other batch orders
 WITNESS_STEPS = 10            # steps from the pre-loop state to each
 
 
@@ -3604,8 +3732,11 @@ def check_training(vsd, cv_sd, dev, tmp):
     # statistics' torch ops
     if grads != {"flash_attention_backward_tc": 44,
                  "flash_attention_backward_tc_q1": 2,
+                 "flash_attention_backward_tc_pad": 0,
                  "flash_attention_backward_f32tc": 0,
                  "flash_attention_backward_f32tc_q1": 0,
+                 "flash_attention_backward_f32tc_d128": 0,
+                 "flash_attention_backward_f32tc_pad": 0,
                  "affine_silu_conv1d_backward_bf16": 45,
                  "affine_silu_conv1d_backward_f32": 0,
                  "group_norm_affine_backward": 45} or plain_k1 or plain_gn:
@@ -4085,12 +4216,14 @@ def compiled_figures(trainer, batches, label: str) -> dict:
         fail(f"compiled training {label}: the step graph's kernel nodes "
              f"{nodes}, a replay's counted launches "
              f"{kernel_totals(launches)}")
+    edges = check_pdl_edges(prog.graph, nodes, f"compiled training {label}")
     out = {"compiled_ms": [t[0] for t in turns["compiled"]],
            "eager_ms": [t[0] for t in turns["eager"]],
            "compiled_peak_gb": max(t[1] for t in turns["compiled"]),
            "eager_peak_gb": max(t[1] for t in turns["eager"]),
            "pool_gb": pool_gb(trainer), "capture_ms": prog.capture_ms,
            "nodes": prog.nodes, "graph_kernel_nodes": nodes,
+           "graph_edges": edges,
            "replay_launches": launches, "replay_backward_calls": bwd}
     say(f"compiled training {label}: median step in turns (compiled, eager, "
         f"eager, compiled) {out['compiled_ms'][0]:.2f}, "
@@ -4941,6 +5074,94 @@ def check_op_registry(dev):
     return worst, d128
 
 
+# op registry layers whose K1 backward takes the 128-wide f32 kernels or
+# the padded copies: (op id, channels, dtype, the backward's sub-route)
+REGISTRY_BWD_CASES = (
+    (14, 256, "float32", "f32tc_d128"),   # two heads of 128
+    (15, 256, "float32", "f32tc_d128"),
+    (14, 200, "bfloat16", "tc_pad"),      # two heads of 100: 200-byte rows
+    (14, 198, "float32", "f32tc_pad"),    # two heads of 99: 396-byte rows
+)
+
+
+def check_registry_backward(dev):
+    """One training step (forward and backward, TF32 off) through each of
+    REGISTRY_BWD_CASES at B=MODULE_B x MODULE_T with padded items, the
+    counts set to 0 just before the step and read just after: the case's
+    sub-route launched once, no other K1 backward kernel, the plain
+    backward never called, a finite input gradient. Each recorded K1
+    backward call then goes through `k1_backward_case` (within its dtype's
+    bound, bitwise repeatable, timed in turns with the plain backward and
+    SDPA's). Per kernels-line name: launches, ms, plain, lib, bound,
+    bound_by and the worst errors."""
+    import torch
+    from unittest import mock
+
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    from ns2vc_tpu_torch.convert import init_module_
+    from ns2vc_tpu_torch.models.op_registry import OPERATIONS_ENCODER
+
+    out = defaultdict(lambda: defaultdict(float))
+    real = fa.flash_attention_backward
+    lengths = torch.tensor([MODULE_T - (i % 2) * MODULE_T // 4
+                            for i in range(MODULE_B)])
+    mask = (torch.arange(MODULE_T)[None] < lengths[:, None]).to(dev)
+    for op_id, c, dt, sub in REGISTRY_BWD_CASES:
+        dtype = getattr(torch, dt)
+        name = f"flash_attention_backward_{sub}"
+        layer = init_module_(OPERATIONS_ENCODER[op_id](c, 0.0),
+                             torch.Generator().manual_seed(op_id)).to(
+            dev, dtype).train()
+        r = np.random.default_rng(SEED + 62 + op_id)
+        x = torch.tensor(r.standard_normal((MODULE_B, MODULE_T, c)),
+                         dtype=torch.float32).to(dev, dtype).requires_grad_()
+        store, plain = {}, []
+        with no_tf32(), record_k1_grads(store), mock.patch.object(
+                fa, "flash_attention_backward",
+                lambda *a: plain.append(1) or real(*a)):
+            reset_launches()
+            layer(x, mask).float().square().mean().backward()
+            torch.cuda.synchronize()
+        # read after the recorder is gone (it stands in for the counters'
+        # function while it records)
+        got = {k: n for k, n in grad_launches().items() if n}
+        if plain or got != {name: 1} or not torch.isfinite(
+                x.grad.float()).all():
+            fail(f"op {op_id} C={c} {dt} training step: backward kernel "
+                 f"launches {got} (expected {{{name}: 1}}), plain backward "
+                 f"calls {len(plain)}, finite input gradient "
+                 f"{bool(torch.isfinite(x.grad.float()).all())}")
+        d = out[name]
+        d["launches"] += 1
+        with no_tf32():
+            for n, (q, k, v, bias, scale, do) in store.values():
+                rr = k1_backward_case(q, k, v, bias, scale, do)
+                bnd, by = k1_backward_bound(q, k, bias)
+                if rr["name"] != name or not (rr["ok"] and rr["repeat"]):
+                    fail(f"{name} op {op_id} q{tuple(q.shape)} {dt}: error "
+                         f"{rr['err']:.3e} of the batch row's max|plain| "
+                         f"(against f64 {rr.get('err64', float('nan')):.3e},"
+                         f" the plain f32's "
+                         f"{rr.get('plain_err64', float('nan')):.3e}), "
+                         f"bitwise repeat {rr['repeat']}")
+                say(f"{name} (op registry id {op_id}, C={c}, {dt}) "
+                    f"q{tuple(q.shape)} strides {q.stride()}: err "
+                    f"{rr['err']:.3e} of the batch row's max|plain|"
+                    + (f", against f64 {rr['err64']:.3e} (plain f32 "
+                       f"{rr['plain_err64']:.3e})" if "err64" in rr else "")
+                    + f"; device ms in turns: kernels {rr['ms']:.4f}, "
+                    f"torch ops (plain) {rr['plain']:.4f}, SDPA's backward "
+                    f"{rr['lib']:.4f} (bound {bnd:.5f}, {by}) [{CARD}]")
+                for key in ("ms", "plain", "lib"):
+                    d[key] += n * rr[key]
+                d["bound"] += n * bnd
+                d["bound_by"] = by
+                for key in ("err", "abs_err", "rms", "err64"):
+                    if key in rr:
+                        d[key] = max(d[key], rr[key])
+    return {k: {**v, "launches": int(v["launches"])} for k, v in out.items()}
+
+
 def check_cfg_sample(cfg, sd, dev):
     """A classifier-free-guidance UniPC sample, B=16 x 400, 10 steps, bf16:
     model_wrapper over the denoiser with the encoded prompt as the
@@ -5103,6 +5324,7 @@ def check_streaming(dev):
 def check_model_modules(cfg, sd, dev):
     res = {}
     res["op_registry_worst"], res["d128"] = check_op_registry(dev)
+    res["backward"] = check_registry_backward(dev)
     res["cfg_sample_ms"] = check_cfg_sample(cfg, sd, dev)
     res["lora_err"] = check_lora_merge(cfg, sd, dev)
     res["stream_errs"] = check_streaming(dev)
@@ -6602,6 +6824,14 @@ def main() -> int:
             train["grad_f32_k1_launches"]["flash_attention_backward_f32tc_q1"],
             "train_grads_f32", grads_k1["flash_attention_backward_f32tc_q1"],
             "the f32 card gradients' (B=2) pool backwards"),
+        # the op registry's training steps (model modules phase)
+        **{name: (modules["backward"][name]["launches"], "op_registry_step",
+                  modules["backward"][name],
+                  f"the op registry's training steps at B={MODULE_B} x "
+                  f"{MODULE_T} ({', '.join(f'id {i} C={c} {dt}' for i, c, dt, sub in REGISTRY_BWD_CASES if name == f'flash_attention_backward_{sub}')})")
+           for name in ("flash_attention_backward_tc_pad",
+                        "flash_attention_backward_f32tc_d128",
+                        "flash_attention_backward_f32tc_pad")},
         "group_norm_affine_backward": (
             train["grad_launches"]["group_norm_affine_backward"],
             "train_step_bf16", geo["group_norm_affine_backward"],
@@ -6644,7 +6874,8 @@ def main() -> int:
                               modules["op_registry_worst"].items()},
         "cfg_sample_ms": modules["cfg_sample_ms"],
         "lora_err": modules["lora_err"],
-        "stream_errs": modules["stream_errs"]}}))
+        "stream_errs": modules["stream_errs"],
+        "registry_backward": modules["backward"]}}))
     print(json.dumps({"compiled_serving": compiled}))
     print(json.dumps({"nsf_hifigan": nsf}))
     print(json.dumps({"data_parallel": dp}))

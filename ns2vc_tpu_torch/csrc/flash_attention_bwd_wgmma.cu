@@ -62,17 +62,11 @@
 // on one input give bitwise-equal outputs. Keys past Tk get a bias of
 // -inf (P = 0); tiles past T and columns past D arrive as zeros from TMA.
 //
-// Calls of one query (Tq = 1: the attention pools, D = 4 and 100, rows
-// TMA cannot take) take `q1`, on the CUDA cores: a tile of 64 query rows
-// would be 63 rows of padding, and the products are dot products. One
-// block of 256 threads per (batch, head); teams of L lanes (the power of
-// two >= D, at most 32) take one key at a time, each lane E = ceil(D / L)
-// elements, the dot products reduced by xor shuffles within the team. A
-// first pass over the keys finds m, l and u online per team; the teams
-// are merged in a fixed order (xor shuffles, then the warps in index
-// order by one thread); a second pass gives each key's dv and dk row and
-// the team's share of dq, the shares added in a fixed order. All in f32:
-// dS needs no planes here.
+// Calls of one query (Tq = 1: the attention pools) take the single-query
+// backward (flash_attention_q1_bwd.cu): a tile of 64 query rows would be
+// 63 rows of padding, and the products are dot products. Rows TMA cannot
+// take of more than one query come from the wrapper as zero-padded
+// contiguous copies ("tc_pad").
 #include <math_constants.h>
 
 #include <cstdint>
@@ -548,162 +542,6 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                  row0, Tk, D, qd, 1.f);
 }
 
-// -- single query -------------------------------------------------------------
-
-constexpr int kQ1Threads = 256;
-constexpr int kQ1Warps = kQ1Threads / 32;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// T: bf16 (the bf16 route's pools) or float (the f32 route's)
-template <typename T>
-struct Q1Args {
-  const T *q, *k, *v, *dout;
-  const float* bias;
-  T *dq, *dk, *dv;
-  int H, Tk, D, lanes_log2;
-  // (batch, head, seq) element strides of q, k, v, dO, dq, dk, dv
-  int64_t s[21];
-  float scale_log2, scale;
-};
-
-// m, l, u of two parts of a row merged (m the max in the log2 domain, l
-// and u rescaled to it); from either side the same sums (a + b == b + a)
-__device__ __forceinline__ void merge_row(float& m, float& l, float& u,
-                                          float m2, float l2, float u2) {
-  const float mn = fmaxf(m, m2);
-  const float ref = mn == -CUDART_INF_F ? 0.f : mn;
-  const float a = ex2_approx(m - ref), a2 = ex2_approx(m2 - ref);
-  l = __fadd_rn(__fmul_rn(l, a), __fmul_rn(l2, a2));
-  u = __fadd_rn(__fmul_rn(u, a), __fmul_rn(u2, a2));
-  m = mn;
-}
-
-template <typename T, int E>
-__global__ void __launch_bounds__(kQ1Threads)
-flash_bwd_q1_kernel(const __grid_constant__ Q1Args<T> a) {
-  __shared__ float red[kQ1Warps][128];
-  __shared__ float parts[kQ1Warps][3];
-  __shared__ float row[2];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int L = 1 << a.lanes_log2, sub = lane & (L - 1);
-  const int team = tid >> a.lanes_log2, teams = kQ1Threads >> a.lanes_log2;
-  const int D = a.D;
-  const int64_t* s = a.s;
-  const T* qr = a.q + int64_t(b) * s[0] + int64_t(h) * s[1];
-  const T* kr = a.k + int64_t(b) * s[3] + int64_t(h) * s[4];
-  const T* vr = a.v + int64_t(b) * s[6] + int64_t(h) * s[7];
-  const T* dor = a.dout + int64_t(b) * s[9] + int64_t(h) * s[10];
-  const float* brow = a.bias ? a.bias + int64_t(b) * a.Tk : nullptr;
-  float qv[E], dov[E], kv[E], dqa[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int d = sub + L * e;
-    qv[e] = d < D ? to_f(qr[d]) : 0.f;
-    dov[e] = d < D ? to_f(dor[d]) : 0.f;
-    dqa[e] = 0.f;
-  }
-  // key j's logit (log2 domain) and dP, the same in every lane of the team;
-  // its k values stay in kv
-  auto key = [&](int j, float& x, float& dp) {
-    const T* kj = kr + int64_t(j) * s[5];
-    const T* vj = vr + int64_t(j) * s[8];
-    float sk = 0.f, sv = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int d = sub + L * e;
-      kv[e] = d < D ? to_f(kj[d]) : 0.f;
-      const float vv = d < D ? to_f(vj[d]) : 0.f;
-      sk = fmaf(qv[e], kv[e], sk);
-      sv = fmaf(dov[e], vv, sv);
-    }
-    for (int o = L >> 1; o > 0; o >>= 1) {
-      sk += __shfl_xor_sync(0xffffffffu, sk, o);
-      sv += __shfl_xor_sync(0xffffffffu, sv, o);
-    }
-    x = brow ? fmaf(sk, a.scale_log2, brow[j] * kLog2e) : sk * a.scale_log2;
-    dp = sv;
-  };
-
-  // every lane runs every round (the shuffles take the whole warp); a
-  // team past the last key skips its round's work
-  float m = -CUDART_INF_F, l = 0.f, u = 0.f;
-  for (int j0 = 0; j0 < a.Tk; j0 += teams) {
-    const int j = j0 + team;
-    float x, dp;
-    key(min(j, a.Tk - 1), x, dp);
-    if (j < a.Tk) merge_row(m, l, u, x, 1.f, dp);
-  }
-  for (int o = L; o < 32; o <<= 1)
-    merge_row(m, l, u, __shfl_xor_sync(0xffffffffu, m, o),
-              __shfl_xor_sync(0xffffffffu, l, o),
-              __shfl_xor_sync(0xffffffffu, u, o));
-  if (lane == 0) {
-    parts[warp][0] = m;
-    parts[warp][1] = l;
-    parts[warp][2] = u;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float mm = parts[0][0], ll = parts[0][1], uu = parts[0][2];
-    for (int w = 1; w < kQ1Warps; ++w)
-      merge_row(mm, ll, uu, parts[w][0], parts[w][1], parts[w][2]);
-    row[0] = mm == -CUDART_INF_F ? CUDART_INF_F : mm + log2f(ll);
-    row[1] = mm == -CUDART_INF_F ? 0.f : uu / ll;
-  }
-  __syncthreads();
-  const float lse = row[0], delta = row[1];
-
-  for (int j0 = 0; j0 < a.Tk; j0 += teams) {
-    const int j = j0 + team;
-    float x, dp;
-    key(min(j, a.Tk - 1), x, dp);
-    if (j >= a.Tk) continue;
-    const float p = ex2_approx(x - lse);
-    const float ds = p * (dp - delta);
-    const float pb = to_f(from_f<T>(p));   // P in v's type, as the PV product
-    T* dkj = a.dk + int64_t(b) * s[15] + int64_t(h) * s[16] +
-             int64_t(j) * s[17];
-    T* dvj = a.dv + int64_t(b) * s[18] + int64_t(h) * s[19] +
-             int64_t(j) * s[20];
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int d = sub + L * e;
-      if (d < D) {
-        dvj[d] = from_f<T>(pb * dov[e]);
-        dkj[d] = from_f<T>(ds * qv[e] * a.scale);
-      }
-      dqa[e] = fmaf(ds, kv[e], dqa[e]);
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    for (int o = L; o < 32; o <<= 1)
-      dqa[e] += __shfl_xor_sync(0xffffffffu, dqa[e], o);
-    const int d = sub + L * e;
-    if (lane < L && d < D) red[warp][d] = dqa[e];
-  }
-  __syncthreads();
-  if (tid < D) {
-    float sum = red[0][tid];
-    for (int w = 1; w < kQ1Warps; ++w) sum += red[w][tid];
-    T* dqr = a.dq + int64_t(b) * s[12] + int64_t(h) * s[13];
-    dqr[tid] = from_f<T>(sum * a.scale);
-  }
-}
-
 // one operand's tensor map: (D, H, T, B) with element strides (sh, st,
 // sb), a box of PC columns x 64 rows of one head, swizzled as the tiles
 int encode_map(CUtensorMap* map, const void* p, int B, int H, int T, int D,
@@ -782,33 +620,6 @@ int launch_dp(const Call& c) {
   return c.bias ? launch<DP, true>(c) : launch<DP, false>(c);
 }
 
-template <typename T, int E>
-int launch_q1(const Call& c) {
-  Q1Args<T> a;
-  a.q = static_cast<const T*>(c.q);
-  a.k = static_cast<const T*>(c.k);
-  a.v = static_cast<const T*>(c.v);
-  a.dout = static_cast<const T*>(c.dout);
-  a.bias = c.bias;
-  a.dq = static_cast<T*>(c.dq);
-  a.dk = static_cast<T*>(c.dk);
-  a.dv = static_cast<T*>(c.dv);
-  a.H = c.H;
-  a.Tk = c.Tk;
-  a.D = c.D;
-  int lanes = 1, lg = 0;
-  while (lanes < c.D && lanes < 32) {
-    lanes *= 2;
-    ++lg;
-  }
-  a.lanes_log2 = lg;
-  for (int i = 0; i < 21; ++i) a.s[i] = c.s[i];
-  a.scale_log2 = c.scale * kLog2e;
-  a.scale = c.scale;
-  flash_bwd_q1_kernel<T, E><<<c.B * c.H, kQ1Threads, 0, c.stream>>>(a);
-  return int(cudaGetLastError());
-}
-
 Call make_call(const void* q, const void* k, const void* v, const void* bias,
                const void* dout, void* dq, void* dk, void* dv, void* ws,
                int B, int H, int Tq, int Tk, int D, const int64_t* s,
@@ -816,18 +627,6 @@ Call make_call(const void* q, const void* k, const void* v, const void* bias,
   return Call{q, k, v, dout, static_cast<const float*>(bias), dq, dk, dv,
               static_cast<float*>(ws), B, H, Tq, Tk, D, s, scale,
               static_cast<cudaStream_t>(stream)};
-}
-
-template <typename T>
-int launch_q1_any(const Call& c) {
-  if (c.Tq != 1 || c.D < 1 || c.D > 128) return int(cudaErrorInvalidValue);
-  const int lanes = c.D >= 32 ? 32 : c.D;   // E = ceil(D / lanes)
-  switch ((c.D + lanes - 1) / lanes) {
-    case 1: return launch_q1<T, 1>(c);
-    case 2: return launch_q1<T, 2>(c);
-    case 3: return launch_q1<T, 3>(c);
-    default: return launch_q1<T, 4>(c);
-  }
 }
 
 }  // namespace
@@ -849,14 +648,14 @@ int launch_q1_any(const Call& c) {
   const ns2vc::Call c = ns2vc::make_call(q, k, v, bias, dout, dq, dk, dv, ws, \
                                          B, H, Tq, Tk, D, s, scale, stream)
 
-// Both entries: bf16 q, k, v, dout (the gradient of o) as (B, H, T, D)
-// views by element strides (batch, head, seq) with unit stride on D; bias
-// (B, Tk) f32 contiguous or null; dq, dk, dv bf16 (B, H, T, D) views by
-// their strides (rows 4-byte aligned), written whole; scale the forward's.
-// The 21 strides: q, k, v, dout, dq, dk, dv, three each. Each returns the
-// CUDA error of its launches (0 on success), or a negative code from a
-// tensor map (-1: libcuda's encoder was not found; -(1000 + r): it
-// returned CUresult r).
+// bf16 q, k, v, dout (the gradient of o) as (B, H, T, D) views by element
+// strides (batch, head, seq) with unit stride on D; bias (B, Tk) f32
+// contiguous or null; dq, dk, dv bf16 (B, H, T, D) views by their strides
+// (rows 4-byte aligned), written whole; scale the forward's. The 21
+// strides: q, k, v, dout, dq, dk, dv, three each. Returns the CUDA error
+// of its launches (0 on success), or a negative code from a tensor map
+// (-1: libcuda's encoder was not found; -(1000 + r): it returned CUresult
+// r).
 //
 // The tile kernels (dq, then dkdv): 1 <= D <= 128 with D % 8 == 0, Tq, Tk
 // >= 1, B*H <= 65535, q, k, v, dout 16-byte aligned with strides of whole
@@ -871,18 +670,4 @@ extern "C" int ns2vc_flash_attention_bwd_wgmma(NS2VC_BWD_ARGS) {
   if (D <= 64) return launch_dp<64>(c);
   if (D <= 128) return launch_dp<128>(c);
   return int(cudaErrorInvalidValue);
-}
-
-// The single-query kernel: Tq == 1, 1 <= D <= 128, any strides (element
-// loads); ws unused.
-extern "C" int ns2vc_flash_attention_bwd_q1(NS2VC_BWD_ARGS) {
-  NS2VC_BWD_CALL;
-  return ns2vc::launch_q1_any<ns2vc::bf16>(c);
-}
-
-// The same kernel over f32 q, k, v, dout, dq, dk, dv (the f32 route's
-// pools): P is not rounded before dV.
-extern "C" int ns2vc_flash_attention_bwd_q1_f32(NS2VC_BWD_ARGS) {
-  NS2VC_BWD_CALL;
-  return ns2vc::launch_q1_any<float>(c);
 }

@@ -61,10 +61,14 @@
 //     lse and Delta from the workspace; P^T = 2^(x - lse), dS^T = P^T
 //     (dP^T - Delta); dV += P^T.dO^T's planes, then dK += dS^T.Q^T's, A from
 //     registers (one set of plane registers for both, in turn).
-// Tiles: BN = 64 at DP = 16 and 32, 32 at DP = 64 (what fits shared
-// memory: a ring of 6 (dq) or 8 (dkdv) BN-row planes per stage beside the
-// fixed tile's four planes and the raw slots), 3 stages where they fit the
-// 232,448 bytes a block may have, else 2. Measured on an H100 and not
+// Tiles: BN = 64 at DP = 16 and 32, 32 at DP = 64, 16 at DP = 128 (what
+// fits shared memory: a ring of 6 (dq) or 8 (dkdv) BN-row planes per stage
+// beside the fixed tile's four planes and the raw slots), 3 stages where
+// they fit the 232,448 bytes a block may have, else 2, else 1 (DP = 128:
+// the fixed tile's four planes alone take 128 KB; its 16-key transposes
+// are one 64-byte swizzled panel, its products m64n16k8). At DP = 128 the
+// accumulators of dkdv (dK and dV, 64 floats each) fit a consumer's
+// registers beside the 16-wide S and dP. Measured on an H100 and not
 // kept (PERF.md): two raw slots per operand and, in dq's second
 // sweep, tile j+1's products issued before tile j's dQ (no gain at the F0
 // step's calls; dq's registers 124 -> 170): the converting warpgroup's
@@ -78,11 +82,11 @@
 // product, the tiles in order, a row's four lanes by xor shuffles), so two
 // launches on one input give bitwise-equal outputs. A fully masked row
 // (every key at -1e4) has a finite max and stays finite. Head dims: DP =
-// 16 (64-byte swizzle), 32 or 64 (128-byte); 48 takes 64 (TMA fills the
-// columns past D with zeros, the products skip the k-steps past D, and
-// the columns past D are not stored). Wider heads and rows TMA cannot
-// take (D % 4 != 0, unaligned) are refused by the wrapper: no path has
-// such an f32 backward.
+// 16 (64-byte swizzle), 32, 64 or 128 (128-byte); 48 takes 64, 100 takes
+// 128 (TMA fills the columns past D with zeros, the products skip the
+// k-steps past D, and the columns past D are not stored). Rows TMA cannot
+// take (D % 4 != 0, unaligned) come from the wrapper as zero-padded
+// contiguous copies ("f32tc_pad").
 #include <math_constants.h>
 
 #include <cstdint>
@@ -102,7 +106,8 @@ constexpr int kSmemLimit = 232448;
 
 // a tile of R rows of DP f32 in W-byte swizzled panels (the TMA box's
 // layout, rows along M or N and K contiguous: K-major), and its transpose
-// (DP rows of R keys, 32 keys a 128-byte panel)
+// (DP rows of R keys in TW-byte swizzled panels of KP keys: 32 keys a
+// 128-byte panel, 16 keys one 64-byte panel at R = 16)
 template <int DP, int R>
 struct Rows {
   static constexpr int W = DP < 32 ? 4 * DP : 128;
@@ -113,12 +118,16 @@ struct Rows {
   static constexpr int Plane = NP * Panel;
   static constexpr int Chunks = R * CPR;
   static constexpr int PerThread = (Chunks + kGroup - 1) / kGroup;
-  static constexpr int TPanel = DP * 128;
+  static constexpr int TW = R >= 32 ? 128 : 4 * R;
+  static constexpr int KP = TW / 4;                 // keys per transposed panel
+  static constexpr int TPanel = DP * TW;
   // a transposed item: one half of a group of 8 rows at one 16-byte chunk
   static constexpr int TItems = 2 * (R / 8) * CPR;
   static constexpr int TPerThread = (TItems + kGroup - 1) / kGroup;
-  static_assert(Plane % 1024 == 0 && TPanel % 1024 == 0, "atom alignment");
-  static_assert(R % 32 == 0, "whole 32-key panels of the transpose");
+  static_assert(Plane % 1024 == 0 && TPanel % (8 * TW) == 0,
+                "atom alignment");
+  static_assert(R % KP == 0 && KP % 16 == 0,
+                "whole panels of the transpose");
 };
 
 template <int DP, int BN, int PlanesPerStage, int RowFloats>
@@ -245,14 +254,16 @@ __device__ __forceinline__ void write_trans(
   for (int t = 0; t < T::TPerThread; ++t) {
     int half, ch, g8;
     if (titem<T>(gt, t, half, ch, g8)) {
-      const uint32_t panel = (g8 / 4) * T::TPanel;
+      constexpr int GP = T::KP / 8;   // groups of 8 keys per panel
+      const uint32_t panel = (g8 / GP) * T::TPanel;
 #pragma unroll
       for (int dd = 0; dd < 4; ++dd) {
         const uint4 vals = make_uint4(lane_of(x[t][0], dd), lane_of(x[t][1], dd),
                                       lane_of(x[t][2], dd), lane_of(x[t][3], dd));
         uint4 b, s;
         split4(vals, b, s);
-        const uint32_t off = swz128(panel, 4 * ch + dd, 2 * (g8 % 4) + half);
+        const uint32_t off =
+            swz<T::TW>(panel, 4 * ch + dd, 2 * (g8 % GP) + half);
         sts128(big + off, b);
         sts128(small + off, s);
       }
@@ -321,12 +332,13 @@ __device__ __forceinline__ void product_t(float (&d)[DP / 2],
                                           const uint32_t (&big)[BN / 8][4],
                                           const uint32_t (&small)[BN / 8][4],
                                           uint32_t tb, uint32_t ts) {
-  constexpr int TPanel = Rows<DP, BN>::TPanel;
+  using T = Rows<DP, BN>;
+  constexpr int SPP = T::KP / 8;   // k-steps per transposed panel
 #pragma unroll
   for (int kk = 0; kk < BN / 8; ++kk) {
-    const uint32_t off = (kk / 4) * TPanel + (kk % 4) * 32;
-    const uint64_t b_b = wgmma_desc<128>(tb + off, 16, 1024);
-    const uint64_t b_s = wgmma_desc<128>(ts + off, 16, 1024);
+    const uint32_t off = (kk / SPP) * T::TPanel + (kk % SPP) * 32;
+    const uint64_t b_b = wgmma_desc<T::TW>(tb + off, 16, 8 * T::TW);
+    const uint64_t b_s = wgmma_desc<T::TW>(ts + off, 16, 8 * T::TW);
     wgmma_tf32_rs<DP>(d, small[kk], b_b, 1);
     wgmma_tf32_rs<DP>(d, big[kk], b_s, 1);
     wgmma_tf32_rs<DP>(d, big[kk], b_b, 1);
@@ -873,7 +885,7 @@ int launch_dp(const Call& c) {
 // contiguous or null; dq, dk, dv f32 (B, H, T, D) views by their strides
 // (rows 8-byte aligned), written whole; scale the forward's. The 21
 // strides: q, k, v, dout, dq, dk, dv, three each. The caller guarantees 1
-// <= D <= 64 with D % 4 == 0, Tq, Tk >= 1, B*H <= 65535, q, k, v, dout
+// <= D <= 128 with D % 4 == 0, Tq, Tk >= 1, B*H <= 65535, q, k, v, dout
 // 16-byte aligned with strides of whole 16-byte chunks (TMA's rule); ws:
 // f32 workspace of 2 * B * H * Tq_pad values, Tq_pad = Tq rounded up to
 // 64 (each row's lse, then its Delta). Returns the CUDA error of its
@@ -898,5 +910,6 @@ extern "C" int ns2vc_flash_attention_f32_bwd_wgmma(
   if (D <= 16) return launch_dp<16, 64>(c);
   if (D <= 32) return launch_dp<32, 64>(c);
   if (D <= 64) return launch_dp<64, 32>(c);
+  if (D <= 128) return launch_dp<128, 16>(c);
   return int(cudaErrorInvalidValue);
 }

@@ -56,6 +56,14 @@
 // aligned) the caller passes vec = 0: the activating warpgroup loads x
 // element by element from global memory into the same swizzled layout
 // (sub-route "tc_elem"); the weights still come by TMA.
+// Launched with programmatic dependent launch (kPdl, hopper.cuh) where
+// the caller says the kernel just before it writes none of the packed
+// weights (pdl != 0: after the statistics kernel, group_norm_affine.cu,
+// with the weights packed before that): a block may start while that
+// kernel merges and folds, initialises its barriers and issues its first
+// stages' weight copies, and reads a, b, x and the bias only after
+// `grid_dependency_wait`. Without the attribute it waits for the kernel
+// before it as any launch does.
 #include <cstdint>
 #include <cstring>
 #include <type_traits>
@@ -136,22 +144,38 @@ affine_silu_conv_k3_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     if (lane == 0) {
       prefetch_tensormap(&wmap);
       if (kTmaX) prefetch_tensormap(&xmap);
-      for (int i = 0; i < n; ++i) {
-        const int s = i % kStages, c0 = (ch_begin + i) * kBK;
-        if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
-        mbar_arrive_expect_tx(xfull(s), kTmaX ? kXBoxBytes : 0);
-        if (kTmaX) tma_load_3d(stage(s), &xmap, xfull(s), c0, t0 - 1, b);
+      // the first stages' weights before the wait: the kernel before
+      // this one does not write them (pdl; x, a and b come from the
+      // kernels before it: after the wait)
+      const int pre = min(n, kStages);
+      for (int i = 0; i < pre; ++i) {
+        const int s = i, c0 = (ch_begin + i) * kBK;
         mbar_arrive_expect_tx(wfull(s), kWBytes);
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           tma_load_2d(stage(s) + kXBytes + k * kWTapBytes, &wmap, wfull(s),
                       c0, k * Cop + co0);
       }
+      if constexpr (kPdl) grid_dependency_wait();
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages, c0 = (ch_begin + i) * kBK;
+        if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(xfull(s), kTmaX ? kXBoxBytes : 0);
+        if (kTmaX) tma_load_3d(stage(s), &xmap, xfull(s), c0, t0 - 1, b);
+        if (i >= pre) {
+          mbar_arrive_expect_tx(wfull(s), kWBytes);
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            tma_load_2d(stage(s) + kXBytes + k * kWTapBytes, &wmap, wfull(s),
+                        c0, k * Cop + co0);
+        }
+      }
     }
     __syncwarp();
   } else if (warp >= kConsumers / 32) {
     // activation: silu(x * a + b) in place, zeros outside [0, T) and past C
     const int at = tid - kConsumers, j = at & 7;
+    if constexpr (kPdl) grid_dependency_wait();   // a, b and x
     const float* ab = a + int64_t(b) * C;
     const float* bb = bsh + int64_t(b) * C;
     for (int i = 0; i < n; ++i) {
@@ -343,7 +367,7 @@ template <bool kTmaX>
 cudaError_t launch(const CUtensorMap& wmap, const CUtensorMap& xmap,
                    const void* x, const void* a, const void* b,
                    const void* bias, void* y, int B, int Tlen, int C, int Co,
-                   int Cop, int chunks_per_split, int splits,
+                   int Cop, int chunks_per_split, int splits, int pdl,
                    cudaStream_t st) {
   static bool smem_set[kMaxDevices] = {};
   cudaError_t err = allow_dynamic_smem(
@@ -354,13 +378,14 @@ cudaError_t launch(const CUtensorMap& wmap, const CUtensorMap& xmap,
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmemBytes;
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = splits;
+  attr[1] = pdl_attribute();   // may start while the statistics finish
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = kPdl && pdl ? 2 : 1;
   err = cudaLaunchKernelEx(
       &cfg, affine_silu_conv_k3_wgmma_kernel<kTmaX>, wmap, xmap,
       static_cast<const bf16*>(x), static_cast<const float*>(a),
@@ -394,21 +419,23 @@ extern "C" int ns2vc_encode_weight_map(const void* wp, int rows, int cols,
 // the 64-channel chunks [z * chunks_per_split, (z + 1) * chunks_per_split);
 // splits (1..8) is the cluster size. vec != 0: C % 8 == 0 and x, a, b
 // 16-byte aligned (x through a TMA map), else element loads. The caller
-// guarantees B * splits <= 65535 and T, C, Co >= 1. Returns the CUDA error
-// of the launch (0 on success), or a negative code from the map of x.
+// guarantees B * splits <= 65535 and T, C, Co >= 1. pdl != 0: launched
+// programmatically (the kernel before it writes none of the packed
+// weights). Returns the CUDA error of the launch (0 on success), or a
+// negative code from the map of x.
 extern "C" int ns2vc_affine_silu_conv1d_tc(const void* x, const void* a,
                                            const void* b, const void* wmap,
                                            const void* bias, void* y, int B,
                                            int Tlen, int C, int Co, int Cop,
                                            int chunks_per_split, int splits,
-                                           int vec, void* stream) {
+                                           int vec, int pdl, void* stream) {
   using namespace ns2vc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   CUtensorMap w, xm;
   std::memcpy(&w, wmap, sizeof w);
   if (!vec) {
     return int(launch<false>(w, w, x, a, b, bias, y, B, Tlen, C, Co, Cop,
-                             chunks_per_split, splits, st));
+                             chunks_per_split, splits, pdl, st));
   }
   const uint64_t dims[3] = {uint64_t(C), uint64_t(Tlen), uint64_t(B)};
   const uint64_t strides[2] = {uint64_t(C) * 2, uint64_t(Tlen) * C * 2};
@@ -416,5 +443,5 @@ extern "C" int ns2vc_affine_silu_conv1d_tc(const void* x, const void* a,
   const int r = encode_bf16_map(&xm, x, 3, dims, strides, box);
   if (r != 0) return r;
   return int(launch<true>(w, xm, x, a, b, bias, y, B, Tlen, C, Co, Cop,
-                          chunks_per_split, splits, st));
+                          chunks_per_split, splits, pdl, st));
 }

@@ -425,6 +425,24 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               uint64_t desc, int accumulate);
 
 template <>
+__device__ __forceinline__ void wgmma_tf32_ss<16>(float (&d)[8],
+                                                  uint64_t adesc,
+                                                  uint64_t bdesc,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16],
                                                   uint64_t adesc,
                                                   uint64_t bdesc,
@@ -569,6 +587,37 @@ __device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(accumulate));
+}
+
+// -- programmatic dependent launch ---------------------------------------------
+
+// A kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization
+// (`pdl_attribute`) may start while the kernel before it in the stream
+// still runs, once every block of that kernel has called
+// `launch_dependents` (or exited). It reads nothing that kernel, or any
+// before it, may still write until `grid_dependency_wait` returns: the
+// wait ends when the kernels it depends on have completed and their writes
+// are visible. Without the attribute both are no-ops. kPdl (0 or 1) turns
+// the attribute off at build time (-DNS2VC_PDL=0).
+#ifndef NS2VC_PDL
+#define NS2VC_PDL 1
+#endif
+constexpr bool kPdl = NS2VC_PDL != 0;
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// the launch attribute of a kernel that waits with grid_dependency_wait
+inline cudaLaunchAttribute pdl_attribute() {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  a.val.programmaticStreamSerializationAllowed = 1;
+  return a;
 }
 
 // -- clusters ----------------------------------------------------------------

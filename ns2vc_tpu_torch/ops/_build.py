@@ -59,19 +59,21 @@ _SIGNATURES = {
     "ns2vc_flash_attention_bwd_wgmma":
         [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
     "ns2vc_flash_attention_bwd_q1":
-        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
+        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float] + [_I] * 4
+        + [_P],
     "ns2vc_flash_attention_bwd_q1_f32":
-        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
+        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float] + [_I] * 4
+        + [_P],
     "ns2vc_flash_attention_f32_bwd_wgmma":
         [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
-    "ns2vc_affine_silu_conv1d_f32tc": [_P] * 6 + [_I] * 8 + [_P],
-    "ns2vc_affine_silu_conv1d_tc": [_P] * 6 + [_I] * 8 + [_P],
+    "ns2vc_affine_silu_conv1d_f32tc": [_P] * 6 + [_I] * 9 + [_P],
+    "ns2vc_affine_silu_conv1d_tc": [_P] * 6 + [_I] * 9 + [_P],
     "ns2vc_affine_silu_conv1d_bwd": [_P] * 11 + [_I] * 5 + [_P],
     "ns2vc_affine_silu_conv1d_bwd_wgmma": [_P] * 11 + [_I] * 8 + [_P],
     "ns2vc_encode_weight_map": [_P, _I, _I, _P],
     "ns2vc_encode_weight_map_f32": [_P, _I, _I, _P],
     "ns2vc_group_norm_affine":
-        [_P] * 5 + [_I] + [_P] * 4 + [_I] * 4 + [ctypes.c_float] + [_I] * 4
+        [_P] * 5 + [_I] + [_P] * 4 + [_I] * 4 + [ctypes.c_float] + [_I] * 5
         + [_P],
     "ns2vc_group_norm_affine_bwd": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 8
     + [_P],

@@ -68,17 +68,25 @@ attention; its Pallas kernel is forward-only), routed by dtype:
     cuda, bf16 -> "tc": `csrc/flash_attention_bwd_wgmma.cu`, two kernels on
                   wgmma over TMA-fed tiles (dq with each row's lse and
                   Delta, then dk and dv), no atomics, D % 8 == 0 with
-                  aligned rows (as the forward's "tc" takes them); a single
-                  query (the pools) takes its single-query kernel on the
-                  CUDA cores, counted apart as "tc_q1"; other rows raise
+                  aligned rows (as the forward's "tc" takes them); other
+                  rows of more than one query take the same kernels on
+                  zero-padded contiguous copies, counted apart as
+                  "tc_pad"; a single query (the pools) takes
+                  `csrc/flash_attention_q1_bwd.cu` (keys split over a
+                  cluster, `plan_q1_backward`), counted apart as "tc_q1"
     cuda, f32  -> "f32tc": `csrc/flash_attention_f32_bwd_wgmma.cu`, the same
                   two kernels on tf32 wgmma in three passes per product
                   (3xTF32, f32 accuracy) over TMA-fed tiles split into TF32
                   planes by a converting warpgroup (the F0 predictor's f32
-                  cross-attentions and the f32 gradient checks), D <= 64
-                  with D % 4 == 0 and aligned rows; a single query takes
-                  the single-query kernel in f32, counted apart as
-                  "f32tc_q1"; other rows raise
+                  cross-attentions and the f32 gradient checks), D % 4 == 0
+                  with aligned rows; heads of 65-128 take their 128-wide
+                  instantiation (16-row streamed tiles), counted apart as
+                  "f32tc_d128"; other rows take them on zero-padded
+                  copies, "f32tc_pad"; a single query takes the
+                  single-query backward in f32, "f32tc_q1"
+
+`grad_plan` is the route decision, a pure function of the shapes, dtype,
+strides and addresses; no geometry the forward takes is refused.
 
 `flash_attention_grad.launches` counts the backward kernels' launches,
 `.route_launches` each sub-route's. No gradient flows to the key bias (a
@@ -102,15 +110,18 @@ Q1_THREADS, Q1_STAGES = 256, 3
 Q1_SEGMENT_BYTES, Q1_STAGE_BYTES = 512, 32768
 Q1_MAX_KEYS = 16384
 Q1_MAX_SPLITS = 8       # a portable cluster
+# the single-query backward (csrc/flash_attention_q1_bwd.cu): its ring of
+# stages, each a tile of k and one of v, at most this many bytes together
+Q1_BWD_STAGES, Q1_BWD_STAGE_BYTES = 2, 98304
+Q1_WARPS = Q1_THREADS // 32
 MAX_SMEM = 232448       # an H100 block's shared memory
 # the dtypes whose Tq == 1 calls take it: both (at the pools it beat the
 # f32 3xTF32 kernel on an H100, PERF.md)
 Q1_DTYPES = (torch.bfloat16, torch.float32)
 BWD_ROWS = 64           # the backward tile kernels' rows: queries or keys
-F32_BWD_MAX_HEAD_DIM = 64   # the f32 backward tile kernels' widest head
 # the f32 backward tile kernels' streamed tiles (keys in dq, queries in
 # dkdv) per padded head dim (csrc/flash_attention_f32_bwd_wgmma.cu)
-F32_BWD_KEY_TILES = {16: 64, 32: 64, 64: 32}
+F32_BWD_KEY_TILES = {16: 64, 32: 64, 64: 32, 128: 16}
 
 
 def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
@@ -223,15 +234,17 @@ def plan_q1(b: int, h: int, tk: int, d: int,
         hg = -(-hg // 2)
 
 
-def q1_vec_bytes(k: torch.Tensor, v: torch.Tensor, hg: int) -> int:
+def q1_vec_bytes(k: torch.Tensor, v: torch.Tensor, hg: int,
+                 *more: torch.Tensor) -> int:
     """The widest load (16, 8 or 4 bytes, else one element) that divides
-    every base, stride and row segment the single-query kernel reads of k
-    and v in blocks of `hg` heads. Where the heads of a key lie side by side
+    every base, stride and row segment the single-query kernels read of k
+    and v (and write of `more`: the backward's dk and dv) in blocks of `hg`
+    heads. Where the heads of a key lie side by side in every one of them
     (head stride D, or one head) a block's segment is its heads' H_g x D
     values, else one head's D."""
     b, h, tk, d = k.shape
     es = k.element_size()
-    merged = h == 1 or all(t.stride(1) == d for t in (k, v))
+    merged = h == 1 or all(t.stride(1) == d for t in (k, v, *more))
     last = h - (-(-h // hg) - 1) * hg
     segs = {hg * d, last * d} if merged else {d}
 
@@ -241,8 +254,49 @@ def q1_vec_bytes(k: torch.Tensor, v: torch.Tensor, hg: int) -> int:
                 and (tk == 1 or t.stride(2) * es % vb == 0)
                 and all(n * es % vb == 0 for n in segs)
                 and (merged or h == 1 or t.stride(1) * es % vb == 0))
-    return next((vb for vb in (16, 8, 4) if fits(k, vb) and fits(v, vb)),
-                es)
+    return next((vb for vb in (16, 8, 4)
+                 if all(fits(t, vb) for t in (k, v, *more))), es)
+
+
+def q1_backward_smem(hg: int, d: int, kpb: int, tile: int, es: int) -> int:
+    """Shared memory of a block of the single-query backward
+    (csrc/flash_attention_q1_bwd.cu, `q1b_floats`): q, dO and the block's
+    dq partial, each head's logits and dP over its keys, the dq shares,
+    five values per head in f32 (16-byte aligned), then its stages of a k
+    and a v tile each: one where the share is one tile, else
+    Q1_BWD_STAGES."""
+    floats = (3 * hg * d + 2 * hg * kpb + Q1_THREADS + 5 * hg + 3) & ~3
+    stages = 1 if kpb <= tile else Q1_BWD_STAGES
+    return 4 * floats + es * stages * 2 * tile * hg * d
+
+
+def plan_q1_backward(b: int, h: int, tk: int, d: int,
+                     es: int) -> tuple[int, int, int]:
+    """(heads per block, keys per tile, key splits) of the single-query
+    backward. Heads are grouped so that B x groups stays within one block
+    per H100 SM where the heads allow it (the floor of SMs / B groups), a
+    group at least Q1_WARPS heads where there are as many (the softmax
+    takes a warp per head) and its row segment at most Q1_SEGMENT_BYTES;
+    where B x groups falls short, the keys are split over a cluster of up
+    to Q1_MAX_SPLITS blocks, as many as keep the grid within the SMs, of
+    32 keys or more each, dealt evenly with none empty. A stage holds a
+    tile of k and one of v, together at most Q1_BWD_STAGE_BYTES: a share
+    that fits is one tile (k then read once for both passes), else tiles
+    of that size; fewer heads per block until the shared memory fits."""
+    sms = _build.H100_SMS
+    groups = max(1, min(h, sms // b))
+    hg = min(max(-(-h // groups), min(h, Q1_WARPS)),
+             max(1, Q1_SEGMENT_BYTES // (d * es)))
+    while True:
+        blocks = b * -(-h // hg)
+        splits = max(1, min(Q1_MAX_SPLITS, sms // blocks, tk // 32))
+        kpb = -(-tk // splits)
+        splits = -(-tk // kpb)
+        seg = Q1_BWD_STAGE_BYTES // (2 * hg * d * es)
+        tile = min(kpb, max(32, min(Q1_MAX_KEYS, seg)))
+        if hg == 1 or q1_backward_smem(hg, d, kpb, tile, es) <= MAX_SMEM:
+            return hg, tile, splits
+        hg = -(-hg // 2)
 
 
 def attention_route(device: torch.device | str, dtype: torch.dtype) -> str:
@@ -336,18 +390,57 @@ def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _grad_launch(q, k, v, bias, scale, do)
 
 
-def grad_route(q: torch.Tensor, tk: int) -> str:
-    """The backward kernels' sub-route of a CUDA call: "tc" / "f32tc" (the
-    tile kernels), "tc_q1" / "f32tc_q1" (one query)."""
-    route = "tc" if q.dtype == torch.bfloat16 else "f32tc"
-    return route + "_q1" if q.shape[2] == 1 and tk <= Q1_MAX_KEYS else route
+def grad_plan(shape: tuple[int, int, int, int], tk: int,
+              dtype: torch.dtype, strides: tuple[tuple[int, ...], ...],
+              addresses: tuple[int, ...]) -> tuple[str, int]:
+    """The backward kernels' sub-route of a CUDA call, and the head dim
+    they run it at, from q's shape (B, H, Tq, D), the keys, the dtype and
+    q's, k's and v's strides and data addresses (bytes):
+        one query (at most Q1_MAX_KEYS keys) -> "tc_q1" / "f32tc_q1", the
+            single-query kernel, at D, any rows;
+        rows of whole aligned 16-byte chunks (D % (16 / element size) == 0,
+            16-byte aligned bases, strides of whole chunks) -> "tc" /
+            "f32tc", the tile kernels, at D; f32 at D > 64 "f32tc_d128",
+            the f32 kernels' 128-wide instantiation;
+        other rows -> "tc_pad" / "f32tc_pad": the tile kernels at D rounded
+            up to whole 16-byte chunks, on zero-padded contiguous copies
+            (zero columns change no score; their gradients are zero and are
+            dropped)."""
+    b, h, tq, d = shape
+    route = "tc" if dtype == torch.bfloat16 else "f32tc"
+    if tq == 1 and tk <= Q1_MAX_KEYS:
+        return route + "_q1", d
+    per = 16 // (2 if dtype == torch.bfloat16 else 4)
+    dims = ((b, h, tq), (b, h, tk), (b, h, tk))
+    aligned = d % per == 0 and all(a % 16 == 0 for a in addresses) and all(
+        st % per == 0 for sts, ns in zip(strides, dims)
+        for st, n in zip(sts[:3], ns) if n > 1)
+    if not aligned:
+        return route + "_pad", -(-d // per) * per
+    return (route + "_d128" if route == "f32tc" and d > 64 else route), d
+
+
+def grad_route(q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> tuple[str, int]:
+    """`grad_plan` of q, k and v: (sub-route, head dim it runs at)."""
+    return grad_plan(tuple(q.shape), k.shape[2], q.dtype,
+                     tuple(t.stride() for t in (q, k, v)),
+                     tuple(t.data_ptr() for t in (q, k, v)))
+
+
+def _padded(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """A contiguous (B, H, T, dp) copy of t, zeros past its head dim."""
+    out = t.new_zeros((*t.shape[:3], dp))
+    out[..., :t.shape[3]] = t
+    return out
 
 
 def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  bias: torch.Tensor | None, scale: float, do: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Check the inputs and launch the backward kernels: (dq, dk, dv) as
-    (B, H, T, D) views of (B, T, H, D) buffers."""
+    """Check the inputs and launch the backward kernels of `grad_plan`'s
+    sub-route: (dq, dk, dv) as (B, H, T, D) views of (B, T, H, D) buffers
+    (of their padded copies' on the "_pad" sub-routes)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d) \
@@ -376,49 +469,55 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_grad: bias must be contiguous f32 "
                          f"({b}, {tk}) on {q.device}, got "
                          f"{tuple(bias.shape)} {bias.dtype}")
-    route = grad_route(q, tk)
-    tiles = not route.endswith("_q1")
-    if tiles and (d * q.element_size() % 16 != 0 or not all(
-            _build.aligned16(t) for t in (q, k, v))):
-        raise ValueError(f"flash_attention_grad: the backward kernels take "
-                         f"rows of whole aligned 16-byte chunks (D % "
-                         f"{16 // q.element_size()} == 0, aligned strides), "
-                         f"got D={d}, strides {q.stride()} {k.stride()} "
-                         f"{v.stride()}")
-    if route == "f32tc" and d > F32_BWD_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_grad: the f32 backward kernels "
-                         f"take D <= {F32_BWD_MAX_HEAD_DIM}, got D={d}")
-    # do comes as autograd gives it: a layout the kernel cannot read (TMA:
-    # aligned rows, nonzero strides) is copied first
-    if do.stride(-1) != 1 or tiles and not (
-            _build.aligned16(do) and all(
-                s > 0 for s, n in zip(do.stride()[:-1], do.shape) if n > 1)):
-        do = do.contiguous()
+    route, dp = grad_route(q, k, v)
     _build.require_current_device(q)
     lib = _build.library()
-    grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    if route.endswith("_q1"):
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+                 .permute(0, 2, 1, 3) for t in (tq, tk, tk)]
+        hg, tile, splits = plan_q1_backward(b, h, tk, d, q.element_size())
+        _grad_counts.launches += 1
+        _grad_counts.route_launches[route] += 1
+        fn = (lib.ns2vc_flash_attention_bwd_q1 if route == "tc_q1"
+              else lib.ns2vc_flash_attention_bwd_q1_f32)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if bias is None else bias.data_ptr(), do.data_ptr(),
+                 *(t.data_ptr() for t in grads), None, b, h, tq, tk, d,
+                 *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]),
+                 float(scale), hg, tile, splits,
+                 q1_vec_bytes(k, v, hg, *grads[1:]), _build.stream_of(q))
+        _build.check(err, f"flash_attention_grad ({route})")
+        return tuple(grads)
+    if route.endswith("_pad"):
+        q, k, v, do = (_padded(t, dp) for t in (q, k, v, do))
+    elif not (_build.aligned16(do) and all(
+            s > 0 for s, n in zip(do.stride()[:-1], do.shape) if n > 1)):
+        # do comes as autograd gives it: a layout TMA cannot read (aligned
+        # rows, nonzero strides) is copied first
+        do = do.contiguous()
+    grads = [torch.empty((b, t, h, dp), dtype=q.dtype, device=q.device)
              .permute(0, 2, 1, 3) for t in (tq, tk, tk)]
     ws = torch.empty(bwd_workspace(b, h, tq), dtype=torch.float32,
-                     device=q.device) if tiles else None
+                     device=q.device)
     _grad_counts.launches += 1
     _grad_counts.route_launches[route] += 1
-    fn = {"tc": lib.ns2vc_flash_attention_bwd_wgmma,
-          "tc_q1": lib.ns2vc_flash_attention_bwd_q1,
-          "f32tc": lib.ns2vc_flash_attention_f32_bwd_wgmma,
-          "f32tc_q1": lib.ns2vc_flash_attention_bwd_q1_f32}[route]
+    fn = (lib.ns2vc_flash_attention_bwd_wgmma if q.dtype == torch.bfloat16
+          else lib.ns2vc_flash_attention_f32_bwd_wgmma)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), do.data_ptr(),
-             *(t.data_ptr() for t in grads),
-             None if ws is None else ws.data_ptr(), b, h, tq, tk, d,
+             *(t.data_ptr() for t in grads), ws.data_ptr(), b, h, tq, tk, dp,
              *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]),
              float(scale), _build.stream_of(q))
     _build.check(err, f"flash_attention_grad ({route})")
-    return tuple(grads)
+    return tuple(g[..., :d] for g in grads) if dp != d else tuple(grads)
 
 
 flash_attention_grad.launches = 0
-flash_attention_grad.route_launches = {"tc": 0, "tc_q1": 0, "f32tc": 0,
-                                       "f32tc_q1": 0}
+flash_attention_grad.route_launches = {"tc": 0, "tc_q1": 0, "tc_pad": 0,
+                                       "f32tc": 0, "f32tc_q1": 0,
+                                       "f32tc_pad": 0, "f32tc_d128": 0}
 _grad_counts = flash_attention_grad
 
 

@@ -157,20 +157,30 @@ def plan_wgmma(bsz: int, t: int, c: int, co: int) -> tuple[int, int]:
                          -(-c // TC_BK))
 
 
-GN_THREADS, GN_LOADS = 512, 8   # the statistics kernel's block, loads in
-                                # flight per thread
+GN_THREADS, GN_LOADS = 512, 8   # the statistics kernel's largest block,
+                                # loads in flight per thread at most
 
 
 def gn_splits(t: int, c: int, groups: int, vec_width: int) -> int:
     """Blocks per (batch, group) slab of the statistics kernel, one
     cluster over equal runs of frames: as many as the slab's T * C / groups
     values need for each block to read its share in one round of loads
-    (GN_LOADS vectors of `vec_width` values per thread), at most
-    GN_MAX_SPLITS and at most T. The kernel's time is the latency of its
-    rounds of loads, not the card's bandwidth."""
+    (GN_LOADS vectors of `vec_width` values per thread of GN_THREADS), at
+    most GN_MAX_SPLITS and at most T. The kernel's time is the latency of
+    its rounds of loads and of the steps after them, not the card's
+    bandwidth."""
     per_round = GN_THREADS * GN_LOADS * vec_width
     want = -(-t * (c // groups) // per_round)
     return max(1, min(GN_MAX_SPLITS, t, want))
+
+
+def gn_threads(t: int, c: int, groups: int, vec_width: int,
+               splits: int) -> int:
+    """Threads of one statistics block, which the kernel is launched with:
+    two vectors of `vec_width` values of its share of the slab per thread,
+    in whole warps, at most GN_THREADS."""
+    items = -(-t // splits) * (c // groups // vec_width)
+    return min(GN_THREADS, max(32, -(-(-(-items // 2)) // 32) * 32))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -217,17 +227,28 @@ _PACKED: dict[int, _Packed] = {}   # id(w) -> its packing, while w lives
 _BY_KEY: dict[tuple, _Packed] = {}  # the same packings by their keys
 
 
+def _key(w: torch.Tensor) -> tuple:
+    return (w.data_ptr(), w._version, w.dtype, tuple(w.shape), w.stride())
+
+
+def _current_packing(w: torch.Tensor) -> _Packed | None:
+    """w's packing where one is current, else None (nothing is packed)."""
+    key = _key(w)
+    hit = _PACKED.get(id(w))
+    if hit is not None and hit.key == key:
+        return hit
+    return _BY_KEY.get(key)
+
+
 def _packing(w: torch.Tensor) -> _Packed:
     """w's packing; another tensor object over the same memory, stride and
     version as a live packed tensor (the alias autograd saves for a
     backward, as under remat) shares that tensor's packing."""
-    key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape), w.stride())
+    current = _current_packing(w)
+    if current is not None:
+        return current
+    key = _key(w)
     hit = _PACKED.get(id(w))
-    if hit is not None and hit.key == key:
-        return hit
-    alias = _BY_KEY.get(key)
-    if alias is not None:
-        return alias
     if hit is None:
         weakref.finalize(w, _forget, id(w))
     else:
@@ -500,6 +521,10 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _build.require_current_device(x)
     lib = _build.library()
     y = torch.empty((bsz, t, co), dtype=x.dtype, device=x.device)
+    # the kernel copies its first packed weights before its grid dependency
+    # wait: it may start before the kernel ahead of it ends (programmatic
+    # dependent launch) only where that kernel is not the packing's
+    pdl = _current_packing(w) is not None
     wp = packed_weight(w)
     tmap = weight_map(w, lib)
     vec = all(_build.aligned16(v) for v in (x, a, b))
@@ -510,7 +535,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     affine_silu_conv1d.route_launches[sub] += 1
     err = entry(x.data_ptr(), a.data_ptr(), b.data_ptr(),
                 ctypes.addressof(tmap), bias.data_ptr(), y.data_ptr(), bsz, t,
-                c, co, wp.shape[-2], cps, splits, int(vec),
+                c, co, wp.shape[-2], cps, splits, int(vec), int(pdl),
                 _build.stream_of(x))
     _build.check(err, f"affine_silu_conv1d ({sub})")
     return y, route
@@ -676,6 +701,7 @@ def _gn_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     per = 16 // x.element_size()
     vec = (c // groups) % per == 0 and x.data_ptr() % 16 == 0
     splits = gn_splits(t, c, groups, per if vec else 1)
+    threads = gn_threads(t, c, groups, per if vec else 1, splits)
     _gn_counts.launches += 1
     err = lib.ns2vc_group_norm_affine(
         x.data_ptr(), params[0].data_ptr(), params[1].data_ptr(),
@@ -683,7 +709,7 @@ def _gn_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
           else (None, None)),
         film_stride, a.data_ptr(), b.data_ptr(),
         *((mean.data_ptr(), rstd.data_ptr()) if stats else (None, None)),
-        bsz, t, c, groups, float(eps), splits,
+        bsz, t, c, groups, float(eps), splits, threads,
         int(x.dtype == torch.bfloat16),
         int(params[0].dtype == torch.bfloat16), int(vec),
         _build.stream_of(x))
@@ -872,7 +898,11 @@ def gn_silu_conv1d(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float = 1e-5, film_scale: torch.Tensor | None = None,
                    film_shift: torch.Tensor | None = None) -> torch.Tensor:
     """GroupNorm(+FiLM) -> SiLU -> conv k3 SAME on (B, T, C), w in torch
-    Conv1d layout (Co, C, 3)."""
+    Conv1d layout (Co, C, 3). On CUDA w is packed ahead of the statistics
+    kernel (an in-place update repacks it), so the conv, which starts while
+    the statistics finish, has the statistics kernel just before it."""
+    if gn_route(x.device) == "cuda":
+        packed_weight(w)
     a, b = group_norm_affine(x, gamma, beta, groups, eps, film_scale,
                              film_shift)
     return affine_silu_conv1d(x, a, b, w, bias)

@@ -50,7 +50,13 @@ error), two launches bitwise equal, a fully masked row finite; K1's bf16 backwar
 against `flash_attention_backward` at every geometry of a `Config()`
 training step (1e-2 of max|plain| in each batch row), at ragged shapes, fully
 masked rows and a key component all keys share, bitwise repeatable, with
-their refusals and their route's counters; K2's bf16 route (the wgmma
+their refusals and their route's counters; the geometries outside the
+tile kernels' plain instantiations (a training step through the op registry's
+ids 14/15 in f32 at D = 128, "f32tc_d128", and through a bf16 layer of
+heads of 100, "tc_pad"; padded f32 and bf16 rows), the redesigned
+single-query backward at the pools and odd layouts, the statistics'
+mean and rstd against f64 at a mean of 1000, and the statistics and conv
+chain (programmatic dependent launch) replayed in a CUDA graph; K2's bf16 route (the wgmma
 kernels) also at every
 geometry of a `Config()` training step at its batch of 32; under autograd
 K2's backward takes them and never cuDNN. K2's f32 kernel is also held to give
@@ -1401,16 +1407,18 @@ def test_k1_backward_keeps_dq_with_a_shared_key_component(dev):
 
 
 def test_k1_backward_refuses_what_it_cannot_take(dev):
-    """A bf16 call the kernels cannot take raises: rows that are not whole
-    aligned 16-byte chunks (D % 8 != 0 with more than one query), mixed
-    dtypes, a wrong dO or bias. f32 takes its own route (torch ops)."""
+    """A bf16 call the kernels cannot take raises: a head dim of other than
+    unit stride, mixed dtypes, a wrong dO or bias (rows that are not whole
+    aligned 16-byte chunks take the padded copies, "tc_pad"). f32 takes
+    its own route."""
     from ns2vc_tpu_torch.ops.flash_attention import flash_attention_grad
 
     g = _gen(dev, 35)
-    q, k, v, do = (torch.randn(2, 2, 9, 4, generator=g, device=dev)
+    q, k, v, do = (torch.randn(2, 2, 9, 8, generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention_grad(q, k, v, None, 0.5, do)
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention_grad(q[..., ::2], k[..., ::2], v[..., ::2], None,
+                             0.5, do[..., ::2])
     q, k, v, do = (torch.randn(2, 2, 9, 16, generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
     with pytest.raises(ValueError, match="dtypes"):
@@ -1523,7 +1531,8 @@ def test_train_step_on_the_card_runs_the_kernels(dev, remat_policy):
                                  "tc_narrow": 0}
     # every K1 backward on the bf16 kernels, none in torch ops
     assert fa.flash_attention_grad.route_launches == {
-        "tc": 14, "tc_q1": 2, "f32tc": 0, "f32tc_q1": 0}
+        "tc": 14, "tc_q1": 2, "tc_pad": 0, "f32tc": 0, "f32tc_q1": 0,
+        "f32tc_pad": 0, "f32tc_d128": 0}
     assert k2.route_launches == {"f32tc": 0, "f32tc_elem": 0,
                                  "tc": 25 + again[1], "tc_elem": 0}
     assert k2.backward_calls == {"f32tc": 0, "tc": 25}
@@ -1956,7 +1965,7 @@ def test_k1_backward_f32_at_its_geometries(dev, bsz, geometry):
     q, k, v, bias, do = _k1_backward_inputs(_gen(dev, 43), dev, bsz,
                                             geometry, torch.float32)
     scale = q.shape[-1] ** -0.5
-    route = grad_route(q, k.shape[2])
+    route, _ = grad_route(q, k, v)
     assert route == ("f32tc_q1" if q.shape[2] == 1 else "f32tc")
     n0 = dict(flash_attention_grad.route_launches)
     got = flash_attention_grad(q, k, v, bias, scale, do)
@@ -1991,3 +2000,288 @@ def test_k1_backward_f32_fully_masked_row(dev):
     assert cs.k1_f32_holds(errs, plain), (errs, plain)
     peak, _ = cs.k1_grad_errors([x[1:] for x in got], [w[1:] for w in want])
     assert max(peak) <= MASKED_F32_ATOL, peak
+
+
+# -- K1's backward at the geometries it refused before; the single-query
+# backward and the statistics kernel redesigned ------------------------------
+
+@pytest.mark.parametrize("op_id,c,dtype,route", [
+    (14, 256, torch.float32, "f32tc_d128"),   # two heads of 128
+    (15, 256, torch.float32, "f32tc_d128"),
+    (14, 200, torch.bfloat16, "tc_pad"),      # two heads of 100: rows of
+])                                            # 200 bytes
+def test_k1_backward_trains_through_its_refused_geometries(dev, op_id, c,
+                                                           dtype, route):
+    """One training step's forward and backward through an op registry
+    layer whose attention the backward kernels refused before: every K1
+    backward takes the kernels (the sub-route counted, the plain backward
+    never called), each call's gradients hold against the plain backward
+    (f32: against f64 by `k1_f32_holds`; bf16: K1_BWD_RTOL and RMS),
+    bitwise repeatable, and the layer's input gradient against the CPU's
+    (f32: 1e-4 of its max; bf16: cosine 0.999)."""
+    from unittest import mock
+
+    import chip_smoke as cs
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    from ns2vc_tpu_torch.convert import init_module_
+    from ns2vc_tpu_torch.models.op_registry import OPERATIONS_ENCODER
+
+    layer = init_module_(OPERATIONS_ENCODER[op_id](c, 0.0),
+                         torch.Generator().manual_seed(op_id)).train()
+    g = _gen(dev, 50 + op_id)
+    b, t = 2, 96
+    x0 = torch.randn(b, t, c, generator=g, device=dev)
+    w = torch.randn(b, t, c, generator=g, device=dev)
+    mask = torch.arange(t, device=dev)[None] < torch.tensor(
+        [t, t - 29], device=dev)[:, None]
+
+    def step(device, dt):
+        net = layer.to(device, dt)
+        x = x0.to(device, dt, copy=True).requires_grad_()
+        (net(x, mask.to(device)).float() * w.to(device)).sum().backward()
+        return x.grad.float()
+    store, plain = {}, []
+    real = fa.flash_attention_backward
+    n0 = dict(fa.flash_attention_grad.route_launches)
+    with cs.record_k1_grads(store), mock.patch.object(
+            fa, "flash_attention_backward",
+            lambda *a: plain.append(1) or real(*a)):
+        got = step(dev, dtype)
+    torch.cuda.synchronize()
+    assert not plain
+    assert fa.flash_attention_grad.route_launches[route] == n0[route] + 1
+    (key, (n, (q, k, v, bias, scale, do))), = store.items()
+    kern = fa.flash_attention_grad(q, k, v, bias, scale, do)
+    again = fa.flash_attention_grad(q, k, v, bias, scale, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(kern, again))
+    assert all(gk.shape == t_.shape for gk, t_ in zip(kern, (q, k, v)))
+    if dtype == torch.float32:
+        errs, plain_errs = cs.k1_f32_errors(kern, q, k, v, bias, scale, do)
+        assert cs.k1_f32_holds(errs, plain_errs), (errs, plain_errs)
+    else:
+        _hold_k1_backward(kern, real(q, k, v, bias, scale, do))
+    want = step(torch.device("cpu"), torch.float32)
+    if dtype == torch.float32:
+        assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    else:
+        cos = torch.nn.functional.cosine_similarity(
+            got.cpu().flatten(), want.flatten(), dim=0)
+        assert cos.item() >= 0.999
+
+
+@pytest.mark.parametrize("dtype,d,extra,tq", [
+    (torch.bfloat16, 100, 0, 70),    # D % 8 != 0
+    (torch.bfloat16, 16, 1, 130),    # a packed head view one longer per row
+    (torch.float32, 6, 0, 65),       # D % 4 != 0
+    (torch.float32, 126, 0, 40),     # pads to the 128-wide instantiation
+    (torch.float32, 100, 0, 129),    # D = 100 f32: the 128-wide kernels
+])
+def test_k1_backward_padded_and_wide_routes(dev, dtype, d, extra, tq):
+    """The padded copies and the f32 128-wide instantiation against the
+    plain backward, with a key bias, bitwise repeatable, counted apart."""
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad, grad_route,
+    )
+
+    g = _gen(dev, 60 + d)
+    h, tk = 2, 90
+
+    def heads(t):
+        buf = torch.randn(2, t, h * (d + extra), generator=g, device=dev)
+        return buf.to(dtype).view(2, t, h, d + extra)[..., :d] \
+            .permute(0, 2, 1, 3)
+    q, k, v, do = (heads(t) for t in (tq, tk, tk, tq))
+    bias = torch.zeros(2, tk, device=dev)
+    bias[1, 61:] = -1e4
+    route, _ = grad_route(q, k, v)
+    assert route in ("tc_pad", "f32tc_pad", "f32tc_d128")
+    n0 = dict(flash_attention_grad.route_launches)
+    got = flash_attention_grad(q, k, v, bias, d ** -0.5, do)
+    again = flash_attention_grad(q, k, v, bias, d ** -0.5, do)
+    assert flash_attention_grad.route_launches == {**n0,
+                                                   route: n0[route] + 2}
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    if dtype == torch.float32:
+        errs, plain = cs.k1_f32_errors(got, q, k, v, bias, d ** -0.5, do)
+        assert cs.k1_f32_holds(errs, plain), (errs, plain)
+    else:
+        _hold_k1_backward(got, flash_attention_backward(q, k, v, bias,
+                                                        d ** -0.5, do))
+
+
+@pytest.mark.parametrize("b,h,tk,d,dtype,layout", [
+    (32, 1, 273, 100, torch.bfloat16, "pool"),    # ref_enc: a cluster of 4
+    (32, 64, 273, 4, torch.bfloat16, "pool"),     # add_embedding: 16 heads
+    (2, 1, 273, 100, torch.float32, "pool"),      # cluster of 8
+    (2, 64, 273, 4, torch.float32, "pool"),
+    (1, 1, 16384, 128, torch.float32, "pool"),    # streamed tiles, 8 splits
+    (3, 5, 777, 24, torch.bfloat16, "separate"),  # heads apart: per head
+    (2, 6, 50, 7, torch.bfloat16, "pool"),        # 14-byte rows: 2-byte
+    (4, 3, 40, 1, torch.float32, "pool"),         # one column
+])
+def test_k1_backward_single_query_kernel(dev, b, h, tk, d, dtype, layout):
+    """The single-query backward against the plain backward (bf16: the
+    batch-row bounds; f32: against f64 by `k1_f32_holds`), with a key bias
+    and a fully masked batch row where B > 2, bitwise repeatable."""
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_grad,
+    )
+
+    g = _gen(dev, 70 + tk + d)
+    c = h * d
+    if layout == "pool":
+        q = split_heads(torch.randn(b, 1, c, generator=g, device=dev)
+                        .to(dtype), h)
+        k, v = (split_heads(x, h) for x in torch.randn(
+            b, tk, 2 * c, generator=g, device=dev).to(dtype).split(c, -1))
+    else:
+        q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev).to(dtype)
+                   for t in (1, tk, tk))
+    do = torch.randn(b, h, 1, d, generator=g, device=dev).to(dtype)
+    bias = torch.zeros(b, tk, device=dev)
+    bias[0, tk // 2:] = -1e4
+    if b > 2:
+        bias[2] = -1e4
+    route = "tc_q1" if dtype == torch.bfloat16 else "f32tc_q1"
+    n0 = dict(flash_attention_grad.route_launches)
+    got = flash_attention_grad(q, k, v, bias, d ** -0.5, do)
+    again = flash_attention_grad(q, k, v, bias, d ** -0.5, do)
+    assert flash_attention_grad.route_launches == {**n0,
+                                                   route: n0[route] + 2}
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    assert all(torch.isfinite(x.float()).all() for x in got)
+    # a fully masked batch row (row 2): its logits, quantised to 2^-10 near
+    # -1e4 in both versions, differ in every element, so it is held to the
+    # largest-error bound alone, as test_k1_backward_fully_masked_rows does
+    keep = slice(0, 2)
+    if dtype == torch.float32:
+        errs, plain = cs.k1_f32_errors([x[keep] for x in got], q[keep],
+                                       k[keep], v[keep], bias[keep],
+                                       d ** -0.5, do[keep])
+        assert cs.k1_f32_holds(errs, plain), (errs, plain)
+        want = flash_attention_backward(q, k, v, bias, d ** -0.5, do)
+        assert max(cs.k1_grad_errors(got, want)[0]) <= MASKED_F32_ATOL
+    else:
+        want = flash_attention_backward(q, k, v, bias, d ** -0.5, do)
+        assert max(cs.k1_grad_errors(got, want)[0]) <= cs.K1_BWD_RTOL
+        _hold_k1_backward([x[keep] for x in got], [x[keep] for x in want])
+
+
+@pytest.mark.parametrize("b,t,c,xdtype", [
+    (16, 448, 128, torch.float32),
+    (16, 56, 512, torch.bfloat16),
+    (1, 832, 384, torch.float32),    # the CLI's B=1 bucket: a cluster
+])
+def test_group_norm_affine_keeps_the_digits_of_a_large_mean(dev, b, t, c,
+                                                            xdtype):
+    """A slab whose mean is 1000 times its spread: the kernel's mean and
+    rstd against f64 within 2e-5 (the variance is centred)."""
+    from ns2vc_tpu_torch.ops.fused_resnet import _gn_launch
+
+    g = _gen(dev, 80)
+    x = (1000.0 + torch.randn(b, t, c, generator=g, device=dev)).to(xdtype)
+    gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    _, _, mean, rstd = _gn_launch(x, gamma, beta, 8, 1e-5, None, None,
+                                  stats=True)
+    xg = x.double().reshape(b, t, 8, c // 8)
+    var, mu = torch.var_mean(xg, dim=(1, 3), correction=0)
+    torch.cuda.synchronize()
+    assert ((mean.double() - mu).abs() / mu.abs()).max() <= 2e-5
+    want = torch.rsqrt(var + 1e-5)
+    assert ((rstd.double() - want).abs() / want).max() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_statistics_and_conv_replay_in_a_graph(dev, dtype):
+    """The statistics kernel and the K2 conv after it (both launched with
+    programmatic dependent launch) captured as one CUDA graph: the capture
+    keeps a programmatic edge into the conv, and replays give the eager
+    chain's output bit for bit."""
+    import chip_smoke as cs
+
+    g = _gen(dev, 81)
+    b, t, c, co = 16, 448, 128, 128
+    x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    w = (0.05 * torch.randn(co, c, 3, generator=g, device=dev)).to(dtype)
+    bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
+    s, sh = (0.2 * torch.randn(b, 2 * c, generator=g, device=dev)
+             ).to(dtype).chunk(2, dim=-1)
+    with torch.no_grad():
+        want = gn_silu_conv1d(x, gamma, beta, w, bias, 8, 1e-5, s, sh)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            gn_silu_conv1d(x, gamma, beta, w, bias, 8, 1e-5, s, sh)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            got = gn_silu_conv1d(x, gamma, beta, w, bias, 8, 1e-5, s, sh)
+        assert cs.check_pdl_edges(graph, {"k2": 1}, "chain")[
+            "programmatic"] >= 1
+        graph.instantiate()
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_step_graph_with_in_place_weight_updates(dev, dtype):
+    """A training step of two statistics + conv layers, their weights
+    updated in place at its end, captured as one CUDA graph: every replay
+    repacks the conv weights ahead of the statistics kernel, each conv's
+    programmatic edge comes from a statistics kernel (never from the
+    packing's copies, which write the weights the conv reads before its
+    wait), and four replays give four eager steps' weights bit for bit."""
+    import chip_smoke as cs
+
+    g = _gen(dev, 82)
+    b, t, c = 4, 112, 128
+
+    def params():
+        return [(1 + 0.1 * torch.randn(c, generator=g, device=dev)),
+                0.1 * torch.randn(c, generator=g, device=dev),
+                0.05 * torch.randn(c, c, 3, generator=g, device=dev),
+                0.1 * torch.randn(c, generator=g, device=dev)]
+
+    first = [p.to(dtype) for p in params() + params()]
+    x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+
+    def step(ps):
+        h = x
+        for i in (0, 4):
+            h = gn_silu_conv1d(h, *ps[i:i + 4], 8, 1e-5)
+        h.float().square().mean().backward()
+        with torch.no_grad():
+            for p in ps:
+                p.sub_(0.5 * p.grad)
+                p.grad = None
+
+    eager = [p.clone().requires_grad_() for p in first]
+    for _ in range(4):
+        step(eager)
+    graphed = [p.clone().requires_grad_() for p in first]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step(graphed)      # warm-up: one eager step
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        step(graphed)
+    nodes = cs.graph_kernels(graph)
+    assert nodes["k2"] == 2 and nodes["gn"] >= 2
+    cs.check_pdl_edges(graph, nodes, "step")
+    graph.instantiate()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(graphed, eager):
+        assert torch.equal(got, want)

@@ -6,8 +6,9 @@ The kernels run only on a card (tests/test_torch_cuda.py holds them there
 against `flash_attention_backward`). Here:
   - `grad_route` and the wrapper's refusals: f32 rows of more than one
     query take the tile kernels ("f32tc"), one query the single-query
-    kernel ("f32tc_q1"); D > 64 or rows TMA cannot take raise before any
-    launch; `bwd_workspace` at the F0 predictor's cross-attention;
+    kernel ("f32tc_q1"); D > 128 or a head dim of other than unit stride
+    raise before any launch; `bwd_workspace` at the F0 predictor's
+    cross-attention;
   - `emulate_f32_backward` repeats the kernels' arithmetic: every product
     in three TF32 passes (small.big + big.small + big.big of each
     operand's halves, rounded as `tf32_round`, cvt.rna), products exact in
@@ -208,7 +209,8 @@ def test_one_tf32_pass_misses_the_bound():
     (1, 273, 100, torch.bfloat16, "tc_q1"),
 ])
 def test_backward_routes(tq, tk, d, dtype, route):
-    assert grad_route(torch.zeros(2, 8, tq, d, dtype=dtype), tk) == route
+    q, kv = (torch.zeros(2, 8, n, d, dtype=dtype) for n in (tq, tk))
+    assert grad_route(q, kv, kv)[0] == route
 
 
 def test_workspace_at_the_f0_cross_attention():
@@ -218,12 +220,17 @@ def test_workspace_at_the_f0_cross_attention():
 
 
 @pytest.mark.parametrize("d,tq,match", [
-    (128, 40, "D <= 64"),       # wider than the tile kernels' heads
-    (6, 40, "16-byte"),         # rows TMA cannot take
+    (136, 40, "unsupported shape"),   # wider than any kernel's head
+    (6, 40, "unit stride"),           # a head dim the kernels cannot step
 ])
 def test_f32_tile_kernels_refuse_what_they_cannot_take(d, tq, match):
-    """Refused before any launch (so here, on CPU tensors)."""
+    """Refused before any launch (so here, on CPU tensors). D = 128 and
+    rows TMA cannot take are not refused: they take the 128-wide
+    instantiation and the zero-padded copies
+    (tests/test_torch_k1_refused_geometries.py)."""
     q, k, v, do = (torch.zeros(2, 2, t, d) for t in (tq, 9, 9, tq))
+    if match == "unit stride":
+        q = torch.zeros(2, 2, tq, 2 * d)[..., ::2]
     with pytest.raises(ValueError, match=match):
         fa._grad_launch(q, k, v, None, 0.5, do)
 
@@ -241,7 +248,7 @@ def test_f32_backward_launches_its_entry(card_routes, tq, d, entry):
 
     q, do = (torch.zeros(2, 8, tq, d) for _ in range(2))
     k, v = (torch.zeros(2, 8, 40, d) for _ in range(2))
-    route = grad_route(q, 40)
+    route, _ = grad_route(q, k, v)
     n0 = dict(fa_mod.flash_attention_grad.route_launches)
     grads = fa_mod.flash_attention_grad(q, k, v, None, 0.5, do)
     assert fa_mod.flash_attention_grad.route_launches == {

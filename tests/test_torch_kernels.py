@@ -752,11 +752,15 @@ def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
         assert enc == "ns2vc_encode_weight_map"
         assert enc_args[1:3] == (3 * cop, cp) and enc_args[3] == args[3]
         assert name == "ns2vc_affine_silu_conv1d_tc"
-        assert args[6:] == (bsz, t, c, co, cop, cps, splits, int(aligned), 0)
-        # the packed weights and their map are made once per weight tensor
+        # no programmatic launch right after the weights' packing
+        assert args[6:] == (bsz, t, c, co, cop, cps, splits, int(aligned), 0,
+                            0)
+        # the packed weights and their map are made once per weight tensor;
+        # packed before, they let the conv start early
         affine_silu_conv1d(x, a, a, w, bias)
         assert len(card_routes.calls) == 3
         assert card_routes.calls[2][1][3] == args[3]
+        assert card_routes.calls[2][1][14] == 1
     else:
         sub = "f32tc" if aligned else "f32tc_elem"
         assert {k: affine_silu_conv1d.route_launches[k] - r0[k]
@@ -767,11 +771,15 @@ def test_resnet_wrapper_routes_card_calls(card_routes, dtype, bsz, t, c, co):
         assert enc == "ns2vc_encode_weight_map_f32"
         assert enc_args[1:3] == (2 * 3 * cop, cp) and enc_args[3] == args[3]
         assert name == "ns2vc_affine_silu_conv1d_f32tc"
-        assert args[6:] == (bsz, t, c, co, cop, cps, splits, int(aligned), 0)
-        # the packed weights and their map are made once per weight tensor
+        # no programmatic launch right after the weights' packing
+        assert args[6:] == (bsz, t, c, co, cop, cps, splits, int(aligned), 0,
+                            0)
+        # the packed weights and their map are made once per weight tensor;
+        # packed before, they let the conv start early
         affine_silu_conv1d(x, a, a, w, bias)
         assert len(card_routes.calls) == 3
         assert card_routes.calls[2][1][3] == args[3]
+        assert card_routes.calls[2][1][14] == 1
     assert pack_conv_weight(w).shape[-2:] == (cop, cp)
 
 
@@ -786,9 +794,11 @@ def test_group_norm_affine_routes_card_calls(card_routes, xdt, pdt, bsz, t,
     """The statistics kernel's arguments: x's and the parameters' dtypes,
     FiLM rows (a chunk of one projection keeps its row stride), the
     16-byte loads when a group's channels come in whole vectors, and
-    `gn_splits`'s blocks per slab; gamma, beta and FiLM of mixed dtypes
+    `gn_splits`'s blocks per slab of `gn_threads` threads; gamma, beta and FiLM of mixed dtypes
     go as f32."""
-    from ns2vc_tpu_torch.ops.fused_resnet import gn_splits, group_norm_affine
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        gn_splits, gn_threads, group_norm_affine,
+    )
 
     x = torch.zeros(bsz, t, c, dtype=xdt)
     gamma, beta = (torch.ones(c, dtype=torch.float32 if pdt == "mixed"
@@ -816,7 +826,8 @@ def test_group_norm_affine_routes_card_calls(card_routes, xdt, pdt, bsz, t,
     assert args[8:10] == (None, None)
     assert args[10:14] == (bsz, t, c, 8) and args[14] == pytest.approx(1e-5)
     width = 16 // x.element_size() if vec else 1
-    assert args[15:] == (gn_splits(t, c, 8, width),
+    splits = gn_splits(t, c, 8, width)
+    assert args[15:] == (splits, gn_threads(t, c, 8, width, splits),
                          int(xdt == torch.bfloat16), p_bf16, vec, 0)
 
 
@@ -840,7 +851,8 @@ def test_statistics_count_while_their_name_is_wrapped(card_routes,
 
 def test_gn_silu_conv1d_feeds_the_statistics_to_the_conv(card_routes):
     """gn_silu_conv1d on a card: one statistics launch, then the bf16 conv
-    on the a, b it wrote."""
+    on the a, b it wrote, launched programmatically (its weights were
+    packed ahead of the statistics)."""
     bsz, t, c, co = 16, 56, 512, 512
     x = torch.zeros(bsz, t, c, dtype=torch.bfloat16)
     gamma, beta = torch.ones(c), torch.zeros(c)
@@ -853,6 +865,8 @@ def test_gn_silu_conv1d_feeds_the_statistics_to_the_conv(card_routes):
     stats, conv = card_routes.calls[0][1], card_routes.calls[2][1]
     assert conv[1:3] == stats[6:8]     # a, b
     assert conv[11:13] == (4, 2)       # plan_wgmma: 64 tiles, 2 splits
+    # the weights packed ahead of the statistics: the conv starts early
+    assert conv[14] == 1
 
 
 # -- K1 and K2 under autograd -------------------------------------------------
