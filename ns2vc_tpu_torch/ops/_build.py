@@ -65,10 +65,10 @@ _SIGNATURES = {
         [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float] + [_I] * 4
         + [_P],
     "ns2vc_flash_attention_f32_bwd_wgmma":
-        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
+        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _I, _I, _P],
     "ns2vc_affine_silu_conv1d_f32tc": [_P] * 6 + [_I] * 9 + [_P],
     "ns2vc_affine_silu_conv1d_tc": [_P] * 6 + [_I] * 9 + [_P],
-    "ns2vc_affine_silu_conv1d_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "ns2vc_affine_silu_conv1d_f32_bwd_wgmma": [_P] * 11 + [_I] * 6 + [_P],
     "ns2vc_affine_silu_conv1d_bwd_wgmma": [_P] * 11 + [_I] * 8 + [_P],
     "ns2vc_encode_weight_map": [_P, _I, _I, _P],
     "ns2vc_encode_weight_map_f32": [_P, _I, _I, _P],

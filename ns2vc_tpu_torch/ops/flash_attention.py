@@ -74,16 +74,19 @@ attention; its Pallas kernel is forward-only), routed by dtype:
                   "tc_pad"; a single query (the pools) takes
                   `csrc/flash_attention_q1_bwd.cu` (keys split over a
                   cluster, `plan_q1_backward`), counted apart as "tc_q1"
-    cuda, f32  -> "f32tc": `csrc/flash_attention_f32_bwd_wgmma.cu`, the same
+    cuda, f32  -> "f32tc": `csrc/flash_attention_f32_bwd_wgmma.cu`, a
+                  converting pass that writes q's, k's, v's and dO's TF32
+                  planes (rows and transposes) once per call, then the same
                   two kernels on tf32 wgmma in three passes per product
-                  (3xTF32, f32 accuracy) over TMA-fed tiles split into TF32
-                  planes by a converting warpgroup (the F0 predictor's f32
-                  cross-attentions and the f32 gradient checks), D % 4 == 0
-                  with aligned rows; heads of 65-128 take their 128-wide
+                  (3xTF32, f32 accuracy) over those planes as TMA brings
+                  them, small grids split over a cluster
+                  (`plan_f32_backward`; the F0 predictor's f32
+                  cross-attentions and the f32 gradient checks), D % 4 ==
+                  0 with aligned rows; heads of 65-128 take their 128-wide
                   instantiation (16-row streamed tiles), counted apart as
-                  "f32tc_d128"; other rows take them on zero-padded
-                  copies, "f32tc_pad"; a single query takes the
-                  single-query backward in f32, "f32tc_q1"
+                  "f32tc_d128"; other rows (the converting pass reads any
+                  rows, zeros past D) "f32tc_pad"; a single query takes
+                  the single-query backward in f32, "f32tc_q1"
 
 `grad_plan` is the route decision, a pure function of the shapes, dtype,
 strides and addresses; no geometry the forward takes is refused.
@@ -119,9 +122,12 @@ MAX_SMEM = 232448       # an H100 block's shared memory
 # f32 3xTF32 kernel on an H100, PERF.md)
 Q1_DTYPES = (torch.bfloat16, torch.float32)
 BWD_ROWS = 64           # the backward tile kernels' rows: queries or keys
-# the f32 backward tile kernels' streamed tiles (keys in dq, queries in
-# dkdv) per padded head dim (csrc/flash_attention_f32_bwd_wgmma.cu)
-F32_BWD_KEY_TILES = {16: 64, 32: 64, 64: 32, 128: 16}
+# the f32 backward tile kernels per padded head dim (`Shape` in
+# csrc/flash_attention_f32_bwd_wgmma.cu): dq's key tile, dkdv's query tile
+# and the blocks an H100 SM holds
+F32_BWD_SHAPES = {16: (64, 32, 2), 32: (64, 32, 2), 64: (64, 32, 1),
+                  128: (64, 32, 1)}
+F32_BWD_MAX_SPLITS = 8   # a portable cluster
 
 
 def plan_f32tc(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
@@ -373,6 +379,41 @@ def bwd_workspace(b: int, h: int, tq: int) -> int:
     return 2 * b * h * -(-tq // BWD_ROWS) * BWD_ROWS
 
 
+def plan_f32_backward(bh: int, tq: int, tk: int, d: int
+                      ) -> tuple[int, int, int, int, int]:
+    """(padded head dim, dq's key tile, dkdv's query tile, dq's key splits,
+    dkdv's query splits) of the f32 backward tile kernels for B*H = bh. A
+    kernel whose (64-row tiles x bh) grid fills fewer than the H100's SMs
+    times the blocks each holds splits its streamed tiles over a cluster of
+    up to
+    F32_BWD_MAX_SPLITS blocks: as many as keep the grid within one wave,
+    at most half its tiles (two or more each), rank r taking tiles [r n /
+    c, (r + 1) n / c)."""
+    dp = f32_wgmma_dp(d)
+    bn, kbn, per_sm = F32_BWD_SHAPES[dp]
+
+    def splits(rows: int, streamed: int, tile: int) -> int:
+        blocks = -(-rows // BWD_ROWS) * bh
+        n = -(-streamed // tile)
+        return max(1, min(F32_BWD_MAX_SPLITS, n // 2,
+                          per_sm * _build.H100_SMS // blocks))
+    return dp, bn, kbn, splits(tq, tk, bn), splits(tk, tq, kbn)
+
+
+def f32_bwd_workspace(b: int, h: int, tq: int, tk: int, d: int) -> int:
+    """f32 values of the f32 backward kernels' workspace (`Planes` in their
+    source), each part rounded up to 32 values: lse and Delta of every
+    query row (tiles of 64), the TF32 big and small planes of q, k, v and
+    dO as rows (B*H, T, DP) and of q, k and dO transposed (B*H, DP, T
+    rounded up to 8)."""
+    dp = f32_wgmma_dp(d)
+    bh = b * h
+    tq_pad = -(-tq // BWD_ROWS) * BWD_ROWS
+    parts = [bh * tq_pad] * 2 + [2 * bh * t * dp for t in (tq, tk, tk, tq)]
+    parts += [2 * bh * dp * -(-t // 8) * 8 for t in (tq, tk, tq)]
+    return sum(-(-n // 32) * 32 for n in parts)
+
+
 def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor | None, scale: float,
                          do: torch.Tensor
@@ -490,6 +531,26 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q1_vec_bytes(k, v, hg, *grads[1:]), _build.stream_of(q))
         _build.check(err, f"flash_attention_grad ({route})")
         return tuple(grads)
+    if q.dtype == torch.float32:
+        # the f32 kernels read q, k, v, do through their strides (a
+        # converting pass writes their TF32 planes), any rows
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        grads = [torch.empty((b, t, h, dp), dtype=q.dtype, device=q.device)
+                 .permute(0, 2, 1, 3) for t in (tq, tk, tk)]
+        ws = torch.empty(f32_bwd_workspace(b, h, tq, tk, d),
+                         dtype=torch.float32, device=q.device)
+        *_, dq_splits, kv_splits = plan_f32_backward(b * h, tq, tk, d)
+        _grad_counts.launches += 1
+        _grad_counts.route_launches[route] += 1
+        err = lib.ns2vc_flash_attention_f32_bwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), do.data_ptr(),
+            *(t.data_ptr() for t in grads), ws.data_ptr(), b, h, tq, tk, d,
+            *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]),
+            float(scale), dq_splits, kv_splits, _build.stream_of(q))
+        _build.check(err, f"flash_attention_grad ({route})")
+        return tuple(g[..., :d] for g in grads) if dp != d else tuple(grads)
     if route.endswith("_pad"):
         q, k, v, do = (_padded(t, dp) for t in (q, k, v, do))
     elif not (_build.aligned16(do) and all(
@@ -503,13 +564,12 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      device=q.device)
     _grad_counts.launches += 1
     _grad_counts.route_launches[route] += 1
-    fn = (lib.ns2vc_flash_attention_bwd_wgmma if q.dtype == torch.bfloat16
-          else lib.ns2vc_flash_attention_f32_bwd_wgmma)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), do.data_ptr(),
-             *(t.data_ptr() for t in grads), ws.data_ptr(), b, h, tq, tk, dp,
-             *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]),
-             float(scale), _build.stream_of(q))
+    err = lib.ns2vc_flash_attention_bwd_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), do.data_ptr(),
+        *(t.data_ptr() for t in grads), ws.data_ptr(), b, h, tq, tk, dp,
+        *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]),
+        float(scale), _build.stream_of(q))
     _build.check(err, f"flash_attention_grad ({route})")
     return tuple(g[..., :d] for g in grads) if dp != d else tuple(grads)
 

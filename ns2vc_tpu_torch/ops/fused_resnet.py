@@ -53,7 +53,10 @@ card. bf16 (every training step's route): `csrc/affine_silu_conv1d_bwd_
 wgmma.cu`, dgrad and wgrad on wgmma over TMA-fed tiles of the flattened
 B * T frames, h in BWD_H_PLANES bf16 planes (written by dgrad, read by
 wgrad), splits of the weight gradient's frame sum from `plan_wgrad`; f32:
-`csrc/affine_silu_conv1d_bwd.cu`, f32 FFMA, splits from `plan_backward`.
+`csrc/affine_silu_conv1d_f32_bwd_wgmma.cu`, the same structure on tf32
+wgmma in three passes per product (3xTF32), w packed once per call as
+TF32 planes with its output channels contiguous, h's TF32 planes written
+transposed by dgrad for wgrad, splits from `plan_wgrad_f32`.
 `affine_silu_conv1d_backward`, the same arithmetic in f32 torch ops (the
 conv's input and weight gradients one `convolution_backward`), is their
 plain version, which a CPU tensor takes. Each backward adds one to
@@ -90,11 +93,12 @@ F32_BM, F32_BN, F32_BK = 64, 128, 16
 TC_MAX_SPLITS = 8         # either conv kernel's splits form one portable
                           # cluster
 GN_MAX_SPLITS = 8         # the statistics kernel's blocks per slab, likewise
-# the f32 backward kernels' tiles (csrc/affine_silu_conv1d_bwd.cu kTile,
-# kCols, kChunk): frames (dgrad) or output channels (wgrad), input
-# channels, and the weight gradient's frames per chunk
-BWD_TILE, BWD_COLS, BWD_CHUNK = 64, 64, 16
-BWD_MAX_SPLITS = 64
+# the f32 backward kernels' tiles (csrc/affine_silu_conv1d_f32_bwd_
+# wgmma.cu kDgFrames, kWgFrames, kOChunk): a dgrad block's frames, the
+# weight gradient's frames per chunk, the packed weights' output channels
+# per row (input channels per tile and output channels per weight-gradient
+# tile: WG_COLS, WG_ROWS)
+F32_DG_FRAMES, F32_WG_FRAMES, F32_CO_CHUNK = 128, 32, 32
 # the bf16 backward kernels' tiles (csrc/affine_silu_conv1d_bwd_wgmma.cu
 # kFrames, kCols, kWgRows): frames of the flattened B * T per dgrad tile and
 # per weight-gradient chunk, input channels per tile, output channels per
@@ -340,22 +344,30 @@ class _AffineSiluConv1dFn(torch.autograd.Function):
         return affine_silu_conv1d_grad(*ctx.saved_tensors, dy.contiguous())
 
 
-def plan_backward(bsz: int, t: int, c: int, co: int) -> int:
-    """Splits of the f32 backward's weight-gradient sum over its B * ceil(T
-    / 16) frame chunks: enough (64 x 64) dw tiles times splits for two
-    blocks per SM of the H100, at most BWD_MAX_SPLITS and at most the
-    chunks."""
-    tiles = -(-c // BWD_COLS) * -(-co // BWD_TILE)
-    chunks = bsz * -(-t // BWD_CHUNK)
-    return max(1, min(chunks, BWD_MAX_SPLITS,
-                      round(2 * _build.H100_SMS / tiles)))
+def plan_wgrad_f32(bsz: int, t: int, c: int, co: int) -> int:
+    """Splits of the f32 backward's weight-gradient sum over the
+    ceil(B * T / 32) chunks of the flattened frames: (64 x 64 x 3 taps) dw
+    tiles times splits up to the H100's SMs (one block each), at most
+    WG_MAX_SPLITS and at most the chunks; split z takes chunks [z n / S,
+    (z + 1) n / S), as `plan_wgrad`'s."""
+    tiles = -(-c // WG_COLS) * -(-co // WG_ROWS)
+    chunks = -(-bsz * t // F32_WG_FRAMES)
+    return max(1, min(chunks, WG_MAX_SPLITS, _build.H100_SMS // tiles))
 
 
-def backward_workspace(bsz: int, t: int, c: int, co: int,
-                       splits: int) -> int:
-    """f32 values of the f32 backward kernels' workspace: each split's dw
-    and dbias partials, each frame tile's da and db partials."""
-    return splits * (3 * co * c + co) + 2 * bsz * -(-t // BWD_TILE) * c
+def f32_backward_workspace(bsz: int, t: int, c: int, co: int,
+                           splits: int) -> int:
+    """f32 values of the f32 backward kernels' workspace (`Workspace` in
+    their source), each part rounded up to 32 values: each split's dw and
+    dbias partials, each batch row's frame-tile partials of da and db, w's
+    TF32 planes (2, 3, C_pad, Co_pad), C rounded up to 64 and Co to 32, and
+    h's (2, C_pad, B * T rounded up to 4), frames contiguous."""
+    cp = -(-c // WG_COLS) * WG_COLS
+    cop = -(-co // F32_CO_CHUNK) * F32_CO_CHUNK
+    parts = (splits * 3 * co * c, splits * co, bsz * frame_slots(t) * c,
+             bsz * frame_slots(t) * c, 2 * 3 * cp * cop,
+             2 * cp * -(-bsz * t // 4) * 4)
+    return sum(-(-n // 32) * 32 for n in parts)
 
 
 def plan_wgrad(bsz: int, t: int, c: int, co: int) -> int:
@@ -395,8 +407,8 @@ def affine_silu_conv1d_grad(x: torch.Tensor, a: torch.Tensor,
     (the sums before their rounding to bf16). A CPU tensor takes
     `affine_silu_conv1d_backward`; a CUDA tensor the backward kernels of
     its dtype (bf16: `csrc/affine_silu_conv1d_bwd_wgmma.cu`, wgmma; f32:
-    `csrc/affine_silu_conv1d_bwd.cu`, f32 FFMA; no atomics, so two calls
-    on one input agree bit for bit) or raises. On CUDA: x, w, bias, dy
+    `csrc/affine_silu_conv1d_f32_bwd_wgmma.cu`, 3xTF32 on tf32 wgmma; no
+    atomics, so two calls on one input agree bit for bit) or raises. On CUDA: x, w, bias, dy
     contiguous and of one dtype (f32 or bf16); a, b contiguous f32."""
     if resnet_route(x.device, x.dtype) == "plain":
         if keep_f32:
@@ -419,8 +431,7 @@ def _grad_launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          f"{dy.dtype} must be contiguous ({bsz}, {t}, {co}) "
                          f"{x.dtype} on {x.device}")
     bf16 = x.dtype == torch.bfloat16
-    if (-(-bsz * t // WG_FRAMES) if bf16 else max(bsz, -(-t // BWD_TILE))) \
-            > 65535:
+    if -(-bsz * t // (WG_FRAMES if bf16 else F32_DG_FRAMES)) > 65535:
         raise ValueError(f"affine_silu_conv1d_grad: unsupported shape "
                          f"{tuple(x.shape)}")
     _build.require_current_device(x)
@@ -429,8 +440,8 @@ def _grad_launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         splits = plan_wgrad(bsz, t, c, co)
         size = wgmma_backward_workspace(bsz, t, c, co, splits)
     else:
-        splits = plan_backward(bsz, t, c, co)
-        size = backward_workspace(bsz, t, c, co, splits)
+        splits = plan_wgrad_f32(bsz, t, c, co)
+        size = f32_backward_workspace(bsz, t, c, co, splits)
     ws = torch.empty(size, dtype=torch.float32, device=x.device)
     out = torch.float32 if keep_f32 else x.dtype
     dx = torch.empty((bsz, t, c), dtype=out, device=x.device)
@@ -451,9 +462,9 @@ def _grad_launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             *outs, bsz, t, c, co, packed_weight(w).shape[-2], splits,
             int(vec), int(keep_f32), _build.stream_of(x))
     else:
-        err = lib.ns2vc_affine_silu_conv1d_bwd(
+        err = lib.ns2vc_affine_silu_conv1d_f32_bwd_wgmma(
             *ptrs, w.data_ptr(), dy.data_ptr(), *outs, bsz, t, c, co, splits,
-            _build.stream_of(x))
+            int(_build.aligned16(dy)), _build.stream_of(x))
     _build.check(err, f"affine_silu_conv1d_grad ({route})")
     return dx, da, db, dw, dbias
 

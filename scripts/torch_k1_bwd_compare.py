@@ -5,7 +5,23 @@ the same way (TF32 off) at the F0 predictor's cross-attention (B = 32 x
 272, 8 heads of 32, key padding: its 10 calls a step) and at every K1
 geometry of the step at B = 2 (the f32 gradient checks').
 
-    python3 scripts/torch_k1_bwd_compare.py [--f32] [--out FILE]
+    python3 scripts/torch_k1_bwd_compare.py [--f32 [--old-source OLD.cu]]
+        [--out FILE]
+
+With --f32 the op registry's f32 layers whose backward takes the 128-wide
+instantiation ("f32tc_d128": ids 14 and 15 at C = 256, two heads of 128)
+and unaligned rows ("f32tc_pad": id 14 at C = 198, two heads of 99) are
+timed too, their calls recorded from one training step of each layer at
+`chip_smoke.MODULE_B` x `MODULE_T` (`chip_smoke.REGISTRY_BWD_CASES`).
+--old-source builds an older `csrc/flash_attention_f32_bwd_wgmma.cu`
+(`git show 3eefe3f:ns2vc_tpu_torch/csrc/flash_attention_f32_bwd_wgmma.cu >
+.scratch/k1_f32_bwd_old.cu` before the chip call: the copy there has no
+.git), bound with ctypes as its wrapper launched it (rows TMA cannot take
+on zero-padded contiguous copies, dO made contiguous where TMA cannot read
+it, lse and Delta in `bwd_workspace`), and times it at every f32 call of
+more than one query in turns with the current kernels (old, new, new,
+old), held to the same f64 bound; rows whose plan splits a kernel over a
+cluster are also timed with the splits at 1, in turns.
 
 The calls are enumerated from the step itself: the step body of
 `train/trainer.py::make_train_step` runs once on the meta device (no
@@ -50,6 +66,8 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
 import os
 import re
@@ -120,7 +138,8 @@ def step_calls(bsz: int, t: int, tp: int, gn: Counter | None = None
     with mock.patch.object(attention, "flash_attention", record), \
             mock.patch.object(fr, "affine_silu_conv1d",
                               fr.affine_silu_conv1d_plain), \
-            mock.patch.object(fr, "group_norm_affine", record_gn):
+            mock.patch.object(fr, "group_norm_affine", record_gn), \
+            mock.patch.object(fr, "gn_route", lambda device: "plain"):
         step.body(state, batch, None, torch.zeros(bsz, device=meta),
                   torch.randn(bsz, t, 100, device=meta), None,
                   torch.zeros((), dtype=torch.int64, device=meta))
@@ -215,10 +234,96 @@ def kernel_ms(run, reps=3):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        m = re.search(r"flash_bwd_(?:f32_)?(dq|dkdv|q1)_kernel", e.key)
+        m = re.search(r"flash_bwd_(?:f32_)?(dq|dkdv|q1|convert)_kernel",
+                      e.key)
         name = m.group(1) if m else "other"
         out[name] += us / 1e3 / reps
     return dict(out)
+
+
+def build_old(source: str):
+    """An older f32 backward's entry point, compiled once per source into
+    .scratch/ (the current csrc/ on the include path)."""
+    from ns2vc_tpu_torch.ops import _build
+
+    text = open(source, "rb").read()
+    tag = hashlib.sha256(text).hexdigest()[:12]
+    out = os.path.join(ROOT, ".scratch", f"libk1_f32_bwd_old_{tag}.so")
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+               str(_build.CSRC_DIR), source, "-o", out, *_build.LINK_FLAGS]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            cs.fail(f"old kernel build: {proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(out).ns2vc_flash_attention_f32_bwd_wgmma
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.c_int64] * 21 + [ctypes.c_float,
+                                              ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def old_grad(fn, q, k, v, bias, scale, do):
+    """A closure that runs the older f32 kernels on these inputs as their
+    wrapper did: rows TMA cannot take as zero-padded contiguous copies (in
+    the call), dO contiguous where TMA cannot read it; (dq, dk, dv)."""
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+    from ns2vc_tpu_torch.ops import _build
+
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    route, dp = fa.grad_route(q, k, v)
+    if not (_build.aligned16(do) and all(
+            s > 0 for s, n in zip(do.stride()[:-1], do.shape) if n > 1)):
+        do = do.contiguous()
+    ws = torch.empty(fa.bwd_workspace(b, h, tq), dtype=torch.float32,
+                     device=q.device)
+
+    def run():
+        ins = (q, k, v, do)
+        if route.endswith("_pad"):
+            ins = tuple(fa._padded(t, dp) for t in ins)
+        grads = [torch.empty((b, t, h, dp), dtype=q.dtype, device=q.device)
+                 .permute(0, 2, 1, 3) for t in (tq, tk, tk)]
+        err = fn(*(t.data_ptr() for t in ins[:3]),
+                 None if bias is None else bias.data_ptr(), ins[3].data_ptr(),
+                 *(t.data_ptr() for t in grads), ws.data_ptr(), b, h, tq, tk,
+                 dp, *(s for t in (*ins, *grads) for s in t.stride()[:3]),
+                 float(scale), torch.cuda.current_stream().cuda_stream)
+        if err:
+            cs.fail(f"old kernels: CUDA error {err}")
+        return tuple(g[..., :d] for g in grads)
+    return run
+
+
+def registry_calls(dev) -> list:
+    """The f32 K1 backward calls of one training step through each f32
+    layer of `chip_smoke.REGISTRY_BWD_CASES` (TF32 off): (label, q, k, v,
+    bias, scale, do) as recorded."""
+    from ns2vc_tpu_torch.convert import init_module_
+    from ns2vc_tpu_torch.models.op_registry import OPERATIONS_ENCODER
+
+    out = []
+    lengths = torch.tensor([cs.MODULE_T - (i % 2) * cs.MODULE_T // 4
+                            for i in range(cs.MODULE_B)])
+    mask = (torch.arange(cs.MODULE_T)[None] < lengths[:, None]).to(dev)
+    for op_id, c, dt, sub in cs.REGISTRY_BWD_CASES:
+        if dt != "float32":
+            continue
+        layer = init_module_(OPERATIONS_ENCODER[op_id](c, 0.0),
+                             torch.Generator().manual_seed(op_id)).to(
+            dev).train()
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + 62 + op_id)
+        x = torch.randn(cs.MODULE_B, cs.MODULE_T, c, generator=g,
+                        device=dev).requires_grad_()
+        store = {}
+        with cs.no_tf32(), cs.record_k1_grads(store):
+            layer(x, mask).float().square().mean().backward()
+        torch.cuda.synchronize()
+        for _, (q, k, v, bias, scale, do) in store.values():
+            out.append((f"op {op_id} C={c} {sub}", q, k, v, bias, scale, do))
+    return out
 
 
 def blocks_by_registers(regs: int, threads: int) -> int:
@@ -231,9 +336,9 @@ def blocks_by_registers(regs: int, threads: int) -> int:
 def ptxas_report(f32: bool = False) -> list:
     """(kernel, registers, spill stores, spill loads, blocks an SM holds by
     registers) of every instantiation in the source, from nvcc
-    -Xptxas=-v: the bf16 tile kernels run 160 threads (a consumer
-    warpgroup and a producer warp), the f32 ones 256 (a converting and a
-    consumer warpgroup), the single-query kernel 256."""
+    -Xptxas=-v: the tile kernels run 160 threads (a consumer warpgroup and
+    a producer warp), the f32 converting pass and the single-query kernel
+    256."""
     from ns2vc_tpu_torch.ops import _build
 
     source = SOURCES["f32" if f32 else "bf16"]
@@ -259,7 +364,9 @@ def ptxas_report(f32: bool = False) -> list:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            threads = 256 if f32 or name.startswith("flash_bwd_q1") else 160
+            threads = 256 if name.startswith(("flash_bwd_q1",
+                                              "flash_bwd_f32_convert")) \
+                else 160
             row = (name, int(m.group(1)), *spills,
                    blocks_by_registers(int(m.group(1)), threads))
             if row not in out:
@@ -267,12 +374,25 @@ def ptxas_report(f32: bool = False) -> list:
     return out
 
 
+def fa_plan(q, k) -> tuple:
+    """`plan_f32_backward` of an f32 call: (DP, dq's key tile, dkdv's query
+    tile, dq's and dkdv's splits)."""
+    from ns2vc_tpu_torch.ops.flash_attention import plan_f32_backward
+
+    b, h, tq, d = q.shape
+    return plan_f32_backward(b * h, tq, k.shape[2], d)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--f32", action="store_true",
                     help="K1's f32 backward kernels at the F0 predictor's "
-                         "cross-attention and the step's geometries at B=2")
+                         "cross-attention, the step's geometries at B=2 and "
+                         "the op registry's f32 layers")
+    ap.add_argument("--old-source", default=None,
+                    help="(with --f32) an older csrc/flash_attention_f32_"
+                         "bwd_wgmma.cu, timed in turns at every call")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k1_bwd_compare: no CUDA device", file=sys.stderr)
@@ -302,15 +422,52 @@ def main() -> int:
     dtype = torch.float32 if args.f32 else torch.bfloat16
     f0_sums = defaultdict(float)
     g = torch.Generator(device=dev).manual_seed(cs.SEED + 90)
+    cases = []   # (label, calls, q, k, v, bias, scale, do)
+    for key, n in calls.items():
+        q, k, v, bias, do = inputs(key, g, dev, dtype)
+        scale = q.shape[-1] ** -0.5 if key[1] is None else key[1]
+        label = "F0" if args.f32 and q.shape[0] == cs.TRAIN_B else "step"
+        cases.append((label, n, q, k, v, bias, scale, do))
+    if args.f32:
+        cases += [(label, 1, *call) for label, *call in registry_calls(dev)]
+    old_fn = build_old(args.old_source) if args.old_source else None
+    old_sums = defaultdict(float)
     rows = []
     sums = defaultdict(float)
     per_kernel = defaultdict(float)
     worst = {}
-    for key, n in calls.items():
-        q, k, v, bias, do = inputs(key, g, dev, dtype)
-        scale = q.shape[-1] ** -0.5 if key[1] is None else key[1]
+    for label, n, q, k, v, bias, scale, do in cases:
         r = cs.k1_backward_case(q, k, v, bias, scale, do)
-        if not (r["ok"] and r["repeat"]):
+        old = None
+        if old_fn is not None and not r["name"].endswith("_q1"):
+            # (a call of one query takes the single-query kernel, which
+            # the older source does not hold: it is the same kernel)
+            run_old = old_grad(old_fn, q, k, v, bias, scale, do)
+            og = [t.clone() for t in run_old()]
+            og2 = run_old()
+            torch.cuda.synchronize()
+            errs, plain_errs = cs.k1_f32_errors(og, q, k, v, bias, scale, do)
+            new = lambda: flash_attention_grad(  # noqa: E731
+                q, k, v, bias, scale, do)
+            turns = [cs.graph_ms(run_old), cs.graph_ms(new),
+                     cs.graph_ms(new), cs.graph_ms(run_old)]
+            old = {"old_ms": (turns[0] + turns[3]) / 2,
+                   "new_ms": (turns[1] + turns[2]) / 2, "turns": turns,
+                   "old_err64": max(errs),
+                   "old_ok": cs.k1_f32_holds(errs, plain_errs),
+                   "old_repeat": all(torch.equal(a_, b_)
+                                     for a_, b_ in zip(og, og2))}
+            old_sums[label + "_old"] += n * old["old_ms"]
+            old_sums[label + "_new"] += n * old["new_ms"]
+            old_sums["old"] += n * old["old_ms"]
+            old_sums["new"] += n * old["new_ms"]
+            cs.say(f"  {label} q{tuple(q.shape)} x{n}: the older kernels "
+                   f"{turns[0]:.4f}/{turns[3]:.4f} ms, these "
+                   f"{turns[1]:.4f}/{turns[2]:.4f} in turns; the older "
+                   f"against f64 {old['old_err64']:.2e}, bitwise repeat "
+                   f"{old['old_repeat']} [{cs.CARD}]")
+        if not (r["ok"] and r["repeat"]) or (old is not None and not (
+                old["old_ok"] and old["old_repeat"])):
             cs.fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: "
                     f"error {r['err']} of the batch row's max|plain| (tol "
                     f"{cs.K1_BWD_RTOL}), relative RMS {r['rms']} (tol "
@@ -333,12 +490,35 @@ def main() -> int:
                 worst[(name, metric)] = (min(lo, max(e)), max(hi, max(e)))
         kernels = kernel_ms(lambda: flash_attention_grad(
             q, k, v, bias, scale, do))
+        unsplit = None
+        if args.f32 and max(fa_plan(q, k)[3:]) > 1:
+            # the same kernels with the clusters' splits at 1, in turns
+            import ns2vc_tpu_torch.ops.flash_attention as fa_mod
+
+            real_plan = fa_mod.plan_f32_backward
+
+            def one(*a):
+                return (*real_plan(*a)[:3], 1, 1)
+            new = lambda: flash_attention_grad(  # noqa: E731
+                q, k, v, bias, scale, do)
+            times = []
+            for which in ("split", "one", "one", "split"):
+                with mock.patch.object(fa_mod, "plan_f32_backward",
+                                       one if which == "one" else real_plan):
+                    times.append(cs.graph_ms(new))
+            unsplit = {"split_ms": (times[0] + times[3]) / 2,
+                       "one_ms": (times[1] + times[2]) / 2}
+            cs.say(f"  {label} q{tuple(q.shape)}: plan {fa_plan(q, k)} "
+                   f"{unsplit['split_ms']:.4f} ms, unsplit "
+                   f"{unsplit['one_ms']:.4f} in turns [{cs.CARD}]")
         for kname, ms in kernels.items():
             per_kernel[kname] += n * ms
-            if q.shape[0] == cs.TRAIN_B and args.f32:
+            if label == "F0":
                 f0_sums["profiled_" + kname] += n * ms
         bound, by = cs.k1_backward_bound(q, k, bias)
-        row = {"q": list(q.shape), "k": list(k.shape),
+        row = {"label": label, "q": list(q.shape), "k": list(k.shape),
+               "plan": (list(fa_plan(q, k)) if args.f32 else None),
+               "old": old, "unsplit": unsplit,
                "bias": bias is not None, "calls": n, "sub": r["name"],
                "ms": r["ms"], "plain_ms": r["plain"], "sdpa_ms": r["lib"],
                "turns": r["turns"],
@@ -351,8 +531,10 @@ def main() -> int:
         rows.append(row)
         for name in ("ms", "plain_ms", "sdpa_ms", "bound_ms"):
             sums[name] += n * row[name]
-            if q.shape[0] == cs.TRAIN_B and args.f32:
+            if label == "F0":
                 f0_sums[name] += n * row[name]
+            if args.f32:
+                f0_sums[label + "_" + name] += n * row[name]
         t = r["turns"]
         cs.say(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)} bias="
                f"{int(bias is not None)} x{n}: kernels "
@@ -379,6 +561,14 @@ def main() -> int:
                "profiled: " + ", ".join(
                    f"{k[9:]} {v:.4f}" for k, v in sorted(f0_sums.items())
                    if k.startswith("profiled_")) + f" [{cs.CARD}]")
+    if old_sums:
+        cs.say("K1 f32 backward in turns, the older kernels -> these, per "
+               "group of calls: " + "; ".join(
+                   f"{lab} {old_sums[lab + '_old']:.4f} -> "
+                   f"{old_sums[lab + '_new']:.4f} ms (SDPA's "
+                   f"{f0_sums[lab + '_sdpa_ms']:.4f})"
+                   for lab in dict.fromkeys(c[0] for c in cases))
+               + f" [{cs.CARD}]")
     cs.say(f"K1 backward, {'all' if args.f32 else 'one training step'}'s "
            f"{sum(calls.values())} calls ("
            + ("the F0 calls and B=2, f32" if args.f32 else
@@ -404,7 +594,7 @@ def main() -> int:
         cs.say(f"  ptxas {name}: {r} registers, spills {st} / {ld} bytes, "
                f"{blocks} blocks per SM by registers")
     out = {"card": cs.CARD, "dtype": str(dtype), "per_step": dict(sums),
-           "f0_per_step": dict(f0_sums),
+           "f0_per_step": dict(f0_sums), "old_in_turns": dict(old_sums),
            "readings": {f"{name}, {metric}": v
                         for (name, metric), v in worst.items()},
            "per_kernel": dict(per_kernel), "ptxas": regs, "rows": rows}

@@ -1,10 +1,24 @@
 """K2's bf16 backward (the wgmma kernels) against the FFMA kernels they
-replaced, on one GPU, in turns, at a training step's 45 K2 geometries.
+replaced, on one GPU, in turns, at a training step's 45 K2 geometries;
+with --f32, K2's f32 backward (3xTF32 on tf32 wgmma) against the f32 FFMA
+kernels it replaced, the same way.
 
     git show fadfcc3:ns2vc_tpu_torch/csrc/affine_silu_conv1d_bwd.cu \\
         > .scratch/affine_silu_conv1d_bwd_ffma.cu
     python3 scripts/torch_k2_bwd_compare.py \\
         --old-source .scratch/affine_silu_conv1d_bwd_ffma.cu [--out FILE]
+    git show 3eefe3f:ns2vc_tpu_torch/csrc/affine_silu_conv1d_bwd.cu \\
+        > .scratch/affine_silu_conv1d_bwd_f32_ffma.cu
+    python3 scripts/torch_k2_bwd_compare.py --f32 \\
+        --old-source .scratch/affine_silu_conv1d_bwd_f32_ffma.cu [--out FILE]
+
+With --f32 the inputs are f32 (not bf16 values), TF32 is off for the
+plain backward, and each side is also held against the plain backward in
+f64 (`chip_smoke.k2_f32_holds`: max(1e-4, 4 x the plain f32 backward's own
+error) of max|f64| per gradient); the old source is the f32 route as the
+port had it before the tf32 design (its entry without the vec and keep_f32
+arguments), its splits and workspace planned as its wrapper planned them
+(`ffma_plan`, `ffma_workspace` below).
 
 The old source is the bf16 backward as the port had it before the wgmma
 design (dgrad, wgrad and finalize in f32 FFMA on the CUDA cores, 64-frame
@@ -51,8 +65,23 @@ import chip_smoke as cs  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_old(source: str):
-    """The FFMA kernels' library, compiled once per source into .scratch/."""
+def ffma_plan(bsz: int, t: int, c: int, co: int) -> int:
+    """The FFMA kernels' weight-gradient splits, as their wrapper planned
+    them: (64 x 64) dw tiles times splits for two blocks per SM, at most 64
+    and at most the B * ceil(T / 16) frame chunks."""
+    tiles = -(-c // 64) * -(-co // 64)
+    return max(1, min(bsz * -(-t // 16), 64, round(2 * 132 / tiles)))
+
+
+def ffma_workspace(bsz: int, t: int, c: int, co: int, splits: int) -> int:
+    """f32 values of the FFMA kernels' workspace: each split's dw and dbias
+    partials, each 64-frame tile's da and db partials."""
+    return splits * (3 * co * c + co) + 2 * bsz * -(-t // 64) * c
+
+
+def build_old(source: str, f32: bool = False):
+    """The FFMA kernels' library, compiled once per source into .scratch/;
+    the f32 route's entry takes no vec and keep_f32 arguments."""
     from ns2vc_tpu_torch.ops import _build
 
     text = open(source, "rb").read()
@@ -67,23 +96,23 @@ def build_old(source: str):
             cs.fail(f"old kernel build: {proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(out)
     fn = lib.ns2vc_affine_silu_conv1d_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * (
+        5 if f32 else 7) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def old_grad(fn, x, a, b, w, dy, keep_f32):
-    """A closure that launches the FFMA kernels on these bf16 inputs (their
-    workspace and outputs made once): (dx, da, db, dw, dbias)."""
-    import ns2vc_tpu_torch.ops.fused_resnet as fr
-
+    """A closure that launches the FFMA kernels on these bf16 (or, for the
+    f32 entry, f32) inputs (their workspace and outputs made once): (dx,
+    da, db, dw, dbias)."""
     bsz, t, c = x.shape
     co = w.shape[0]
-    splits = fr.plan_backward(bsz, t, c, co)
-    ws = torch.empty(fr.backward_workspace(bsz, t, c, co, splits),
+    f32 = x.dtype == torch.float32
+    splits = ffma_plan(bsz, t, c, co)
+    ws = torch.empty(ffma_workspace(bsz, t, c, co, splits),
                      dtype=torch.float32, device=x.device)
-    out = torch.float32 if keep_f32 else torch.bfloat16
+    out = torch.float32 if keep_f32 or f32 else torch.bfloat16
     outs = (torch.empty(bsz, t, c, dtype=out, device=x.device),
             torch.empty(bsz, c, device=x.device),
             torch.empty(bsz, c, device=x.device),
@@ -92,11 +121,11 @@ def old_grad(fn, x, a, b, w, dy, keep_f32):
 
     def run():
         dx, da, db, dw, dbias = outs
+        tail = () if f32 else (1, int(keep_f32))
         err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
                  dy.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(),
                  dw.data_ptr(), dbias.data_ptr(), ws.data_ptr(), bsz, t, c,
-                 co, splits, 1, int(keep_f32),
-                 torch.cuda.current_stream().cuda_stream)
+                 co, splits, *tail, torch.cuda.current_stream().cuda_stream)
         if err:
             cs.fail(f"old kernels: CUDA error {err}")
         return outs
@@ -134,7 +163,7 @@ def kernel_ms(run, reps=3):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        name = next((k for k in ("dgrad", "wgrad", "finalize")
+        name = next((k for k in ("dgrad", "wgrad", "finalize", "pack")
                      if f"{k}_" in e.key), "other")
         out[name] += us / 1e3 / reps
     return dict(out)
@@ -144,6 +173,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old-source", required=True)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--f32", action="store_true",
+                    help="the f32 route against the f32 FFMA kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k2_bwd_compare: no CUDA device", file=sys.stderr)
@@ -158,7 +189,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cs.CARD = cs.card_line()
     cs.say(f"device: {torch.cuda.get_device_name(0)}; {cs.CARD}")
-    fn = build_old(args.old_source)
+    fn = build_old(args.old_source, args.f32)
+    dtype = torch.float32 if args.f32 else torch.bfloat16
     with torch.device("meta"):
         unet = NaturalSpeech2(Config()).diff_model.unet
     bsz = cs.TRAIN_B
@@ -166,15 +198,16 @@ def main() -> int:
     rows = []
     sums = defaultdict(float)
     per_kernel = {"old": defaultdict(float), "new": defaultdict(float)}
+    f64_errs = {"old": 0.0, "new": 0.0, "plain": 0.0}
     for name, t, c, co, _ in cs.resnet_cases(unet):
         t = t * cs.TRAIN_T // cs.T_PAD
-        x = torch.randn(bsz, t, c, generator=g, device=dev).bfloat16()
+        x = torch.randn(bsz, t, c, generator=g, device=dev).to(dtype)
         a = 1 + 0.3 * torch.randn(bsz, c, generator=g, device=dev)
         b = 0.3 * torch.randn(bsz, c, generator=g, device=dev)
         w = (torch.randn(co, c, 3, generator=g, device=dev)
-             / (3 * c) ** 0.5).bfloat16()
-        bias = (0.1 * torch.randn(co, generator=g, device=dev)).bfloat16()
-        dy = torch.randn(bsz, t, co, generator=g, device=dev).bfloat16()
+             / (3 * c) ** 0.5).to(dtype)
+        bias = (0.1 * torch.randn(co, generator=g, device=dev)).to(dtype)
+        dy = torch.randn(bsz, t, co, generator=g, device=dev).to(dtype)
         want = fr.affine_silu_conv1d_backward(x.float(), a, b, w.float(),
                                               bias.float(), dy.float())
         old_f32 = old_grad(fn, x, a, b, w, dy, True)
@@ -186,10 +219,21 @@ def main() -> int:
         errs = (rel_err(og, want), rel_err(ng, want))
         repeat = (all(torch.equal(p, r) for p, r in zip(og, og2)),
                   all(torch.equal(p, r) for p, r in zip(ng, ng2)))
-        if not (max(errs) <= cs.K2_BWD_RTOL and all(repeat)):
+        held = True
+        if args.f32:
+            f64 = fr.affine_silu_conv1d_backward(
+                *(v.double() for v in (x, a, b, w, bias, dy)))
+            e_old, plain = cs.k2_f32_errors(og, want, f64)
+            e_new, _ = cs.k2_f32_errors(ng, want, f64)
+            held = cs.k2_f32_holds(e_old, plain) and cs.k2_f32_holds(
+                e_new, plain)
+            for side, e in (("old", e_old), ("new", e_new),
+                            ("plain", plain)):
+                f64_errs[side] = max(f64_errs[side], max(e))
+        if not (max(errs) <= cs.K2_BWD_RTOL and all(repeat) and held):
             cs.fail(f"{name} T={t} C={c} Co={co}: errors old/new {errs} of "
                     f"max|plain| (tol {cs.K2_BWD_RTOL}), bitwise repeat "
-                    f"{repeat}")
+                    f"{repeat}, f64 bound held {held}")
         old = old_grad(fn, x, a, b, w, dy, False)
         new = lambda: fr.affine_silu_conv1d_grad(  # noqa: E731
             x, a, b, w, bias, dy)
@@ -205,20 +249,22 @@ def main() -> int:
                 lib.setdefault(det, []).append(cs.graph_ms(
                     lambda: fr.affine_silu_conv1d_backward(
                         x, a, b, w, bias, dy)))
-        bound = cs.k2_backward_bound(bsz, t, c, co, torch.bfloat16)[0]
+        bound = cs.k2_backward_bound(bsz, t, c, co, dtype)[0]
         row = {"name": name, "t": t, "c": c, "co": co,
                "old_ms": (turns[0] + turns[3]) / 2,
                "new_ms": (turns[1] + turns[2]) / 2, "turns": turns,
                "cudnn_ms": sum(lib[False]) / 2,
                "cudnn_det_ms": sum(lib[True]) / 2, "bound_ms": bound,
-               "splits": fr.plan_wgrad(bsz, t, c, co),
+               "splits": (fr.plan_wgrad_f32 if args.f32 else fr.plan_wgrad)(
+                   bsz, t, c, co),
                "old_err": errs[0], "new_err": errs[1],
                "kernels": kernels}
         rows.append(row)
         for key in ("old_ms", "new_ms", "cudnn_ms", "cudnn_det_ms",
                     "bound_ms"):
             sums[key] += row[key]
-        cs.say(f"K2 backward B={bsz} {name:18s} T={t} C={c} Co={co}: FFMA "
+        cs.say(f"K2 backward {dtype} B={bsz} {name:18s} T={t} C={c} "
+               f"Co={co}: FFMA "
                f"{turns[0]:.4f}/{turns[3]:.4f} wgmma {turns[1]:.4f}/"
                f"{turns[2]:.4f} ms (splits {row['splits']}), cuDNN's path "
                f"{row['cudnn_ms']:.4f} (deterministic "
@@ -226,8 +272,13 @@ def main() -> int:
                f"max|plain| FFMA {errs[0]:.2e} wgmma {errs[1]:.2e}; wgmma "
                "profiled: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
                    kernels["new"].items())))
+    if args.f32:
+        cs.say(f"K2 f32 backward against the plain backward in f64, worst "
+               f"of max|f64| over the calls: FFMA {f64_errs['old']:.2e}, "
+               f"tf32 wgmma {f64_errs['new']:.2e}, the plain f32 backward "
+               f"{f64_errs['plain']:.2e}")
     cs.say(f"K2 backward, one training step's {len(rows)} calls (B={bsz} x "
-           f"{cs.TRAIN_T}, bf16): FFMA {sums['old_ms']:.4f} ms -> wgmma "
+           f"{cs.TRAIN_T}, {dtype}): FFMA {sums['old_ms']:.4f} ms -> wgmma "
            f"{sums['new_ms']:.4f} ms; cuDNN's path {sums['cudnn_ms']:.4f} "
            f"(deterministic {sums['cudnn_det_ms']:.4f}); bound "
            f"{sums['bound_ms']:.5f} ({100 * sums['bound_ms'] / sums['new_ms']:.1f}"
@@ -238,7 +289,8 @@ def main() -> int:
         cs.say(f"  profiled per step, {'FFMA' if side == 'old' else 'wgmma'}"
                ": " + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(
                    ms.items())) + f" [{cs.CARD}]")
-    out = {"card": cs.CARD, "per_step": dict(sums),
+    out = {"card": cs.CARD, "dtype": str(dtype), "per_step": dict(sums),
+           "f64_errs": f64_errs if args.f32 else None,
            "per_kernel": {k: dict(v) for k, v in per_kernel.items()},
            "rows": rows}
     line = json.dumps({"k2_bwd_compare": out})

@@ -1183,11 +1183,13 @@ def _k2_backward_inputs(g, dev, bsz, t, c, co, dtype):
 @pytest.mark.parametrize("geometry", K2_BWD_GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_backward_kernels_match_the_plain_backward(dev, dtype, geometry):
+    import chip_smoke as cs
     from ns2vc_tpu_torch.ops.fused_resnet import (
-        affine_silu_conv1d_backward, plan_backward,
+        affine_silu_conv1d_backward, plan_wgrad, plan_wgrad_f32,
     )
 
     args = _k2_backward_inputs(_gen(dev, 21), dev, *geometry, dtype)
+    plan = (plan_wgrad if dtype == torch.bfloat16 else plan_wgrad_f32)
     route = "bf16" if dtype == torch.bfloat16 else "f32"
     n0 = affine_silu_conv1d_grad.route_launches[route]
     got = affine_silu_conv1d_grad(*args, keep_f32=True)
@@ -1205,12 +1207,16 @@ def test_k2_backward_kernels_match_the_plain_backward(dev, dtype, geometry):
         assert torch.equal(gv, rv), name
         scale = max(wv.abs().max().item(), 1e-30)
         err = (gv - wv).abs().max().item() / scale
-        assert err <= K2_BWD_RTOL, (name, err, plan_backward(*geometry))
+        assert err <= K2_BWD_RTOL, (name, err, plan(*geometry))
         assert ov.dtype == inp.dtype, name
         # one rounding of the kept sums (bf16: half an ulp, 2^-8 relative)
         assert ((ov.float() - gv).abs()
                 <= gv.abs() * (2.0 ** -8 if dtype == torch.bfloat16
                                else 0.0)).all(), name
+    if dtype == torch.float32:   # against f64, beside the plain f32's
+        errs, plain = cs.k2_f32_errors(got, want, affine_silu_conv1d_backward(
+            *(v.double() for v in args)))
+        assert cs.k2_f32_holds(errs, plain), (errs, plain)
 
 
 # every (T, C, Co) of K2 in a `Config()` training step at 32 x 272: the
@@ -1224,6 +1230,35 @@ K2_TRAIN_GEOMETRIES = [
     (68, 640, 384),
     (34, 384, 512), (34, 512, 512), (34, 1024, 512), (34, 896, 512),
 ]
+
+
+@pytest.mark.parametrize("geometry", K2_TRAIN_GEOMETRIES)
+def test_k2_backward_f32_at_the_training_geometries(dev, geometry):
+    """The f32 route (3xTF32 on tf32 wgmma) at every K2 geometry of a
+    training step at B = 32: within K2_BWD_RTOL of the plain f32 backward,
+    within `chip_smoke.k2_f32_holds` of the plain backward in f64, two
+    launches bitwise equal, one launch counted per call."""
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.fused_resnet import affine_silu_conv1d_backward
+
+    t, c, co = geometry
+    args = _k2_backward_inputs(_gen(dev, 24), dev, 32, t, c, co,
+                               torch.float32)
+    n0 = dict(affine_silu_conv1d_grad.route_launches)
+    got = affine_silu_conv1d_grad(*args)
+    again = affine_silu_conv1d_grad(*args)
+    assert affine_silu_conv1d_grad.route_launches == {**n0,
+                                                      "f32": n0["f32"] + 2}
+    want = affine_silu_conv1d_backward(*args)
+    f64 = affine_silu_conv1d_backward(*(v.double() for v in args))
+    torch.cuda.synchronize()
+    for gv, rv, wv in zip(got, again, want):
+        assert torch.equal(gv, rv)
+        err = (gv - wv).abs().max().item() / max(wv.abs().max().item(),
+                                                 1e-30)
+        assert err <= K2_BWD_RTOL, err
+    errs, plain = cs.k2_f32_errors(got, want, f64)
+    assert cs.k2_f32_holds(errs, plain), (errs, plain)
 
 
 @pytest.mark.parametrize("geometry", K2_TRAIN_GEOMETRIES)
@@ -2000,6 +2035,42 @@ def test_k1_backward_f32_fully_masked_row(dev):
     assert cs.k1_f32_holds(errs, plain), (errs, plain)
     peak, _ = cs.k1_grad_errors([x[1:] for x in got], [w[1:] for w in want])
     assert max(peak) <= MASKED_F32_ATOL, peak
+
+
+@pytest.mark.parametrize("tq,tk,d", [
+    (130, 400, 128),   # dq's keys over a cluster of 3, dkdv's queries of 2
+    (70, 272, 32),     # two blocks an SM, dq's keys over 2
+    (64, 400, 99),     # unaligned rows (the converting pass pads), split
+])
+def test_k1_backward_f32_split_clusters(dev, tq, tk, d):
+    """Small grids split each kernel's streamed sweep over a cluster
+    (`plan_f32_backward`), merged in rank order through distributed shared
+    memory: against f64 within `k1_f32_holds`, bitwise repeatable, a fully
+    masked batch row finite."""
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.flash_attention import (
+        flash_attention_grad, plan_f32_backward,
+    )
+
+    g = _gen(dev, 45 + d)
+    h = 2
+    *_, dq_splits, kv_splits = plan_f32_backward(2 * h, tq, tk, d)
+    assert dq_splits > 1
+
+    def heads(t):
+        return torch.randn(2, t, h * d, generator=g, device=dev).view(
+            2, t, h, d).permute(0, 2, 1, 3)
+    q, k, v, do = (heads(t) for t in (tq, tk, tk, tq))
+    bias = torch.zeros(2, tk, device=dev)
+    bias[1] = -1e4
+    got = flash_attention_grad(q, k, v, bias, d ** -0.5, do)
+    again = flash_attention_grad(q, k, v, bias, d ** -0.5, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    assert all(torch.isfinite(x).all() for x in got)
+    errs, plain = cs.k1_f32_errors([x[:1] for x in got], q[:1], k[:1], v[:1],
+                                   bias[:1], d ** -0.5, do[:1])
+    assert cs.k1_f32_holds(errs, plain), (errs, plain, kv_splits)
 
 
 # -- K1's backward at the geometries it refused before; the single-query

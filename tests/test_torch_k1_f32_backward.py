@@ -7,17 +7,23 @@ against `flash_attention_backward`). Here:
   - `grad_route` and the wrapper's refusals: f32 rows of more than one
     query take the tile kernels ("f32tc"), one query the single-query
     kernel ("f32tc_q1"); D > 128 or a head dim of other than unit stride
-    raise before any launch; `bwd_workspace` at the F0 predictor's
-    cross-attention;
+    raise before any launch; `plan_f32_backward` (the cluster splits of
+    each kernel's streamed sweep, a pure function of the shape) and
+    `f32_bwd_workspace` (lse and Delta, then the TF32 planes the converting
+    pass writes: rows, and transposes with each 8 keys in the kernels'
+    order) at the F0 predictor's cross-attention, the op registry's D =
+    128 and the B = 2 gradient checks' widths;
   - `emulate_f32_backward` repeats the kernels' arithmetic: every product
     in three TF32 passes (small.big + big.small + big.big of each
     operand's halves, rounded as `tf32_round`, cvt.rna), products exact in
     f32 and summed in f32; the logits in the log2 domain with the key
-    bias, keys padded to the kernels' tiles (64 keys at D <= 32, 32 at D =
-    48, 64) with a bias of -inf; sweep 1's online row max m, sum l and u =
-    sum P dP over the tiles in order, lse = m + log2(l), Delta = u / l
-    (never rowsum(dO * O)); P = 2^(x - lse); dS = P (dP - Delta) in two
-    TF32 planes into dQ and dK, P in two into dV. The single-query
+    bias, keys padded to the kernels' tiles (`F32_BWD_SHAPES`) with a
+    bias of -inf; the plan's key splits: each rank's online row max m, sum
+    l and u = sum P dP over its tiles in order, merged in rank order
+    (rescaled to the ranks' max), lse = m + log2(l), Delta = u / l (never
+    rowsum(dO * O)); P = 2^(x - lse); dS = P (dP - Delta) in two TF32
+    planes into dQ and dK, P in two into dV; each rank's partial dQ (its
+    keys) and dK, dV (its queries) summed in rank order. The single-query
     kernel's calls in exact f32. It is held against `flash_attention_
     backward` in f32 and against JAX's gradient (`jax.vjp`) of
     ns2vc_tpu/ops/attention.py::scaled_dot_product_attention at the
@@ -47,8 +53,11 @@ import torch.nn.functional as F
 import ns2vc_tpu_torch.ops.flash_attention as fa
 from chip_smoke import K1_F32_BWD_RTOL, k1_f32_holds, k1_grad_errors
 from ns2vc_tpu.ops.attention import scaled_dot_product_attention
+from ns2vc_tpu_torch.ops import _build
 from ns2vc_tpu_torch.ops.flash_attention import (
-    F32_BWD_KEY_TILES, bwd_workspace, flash_attention_backward, grad_route,
+    BWD_ROWS, F32_BWD_MAX_SPLITS, F32_BWD_SHAPES, bwd_workspace,
+    f32_bwd_workspace, flash_attention_backward, grad_route,
+    plan_f32_backward,
 )
 from ns2vc_tpu_torch.ops.fused_resnet import tf32_round
 from test_torch_kernels import card_routes  # noqa: F401 (a fixture)
@@ -65,40 +74,68 @@ def _x3(a, b):
     return as_ @ bb + ab @ bs + ab @ bb
 
 
-def emulate_f32_backward(q, k, v, bias, scale, do):
+def _ranks(n, splits):
+    """Rank r's tiles [r n / c, (r + 1) n / c), as the kernels take them."""
+    return [range(r * n // splits, (r + 1) * n // splits)
+            for r in range(splits)]
+
+
+def emulate_f32_backward(q, k, v, bias, scale, do, plan=None):
     """(dq, dk, dv) in f32 as the f32 kernels compute them, on f32 q, k, v,
-    do (B, H, T, D) and an f32 key bias (B, Tk) or None."""
-    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    do (B, H, T, D) and an f32 key bias (B, Tk) or None, under `plan`
+    (`plan_f32_backward`'s by default)."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
     if tq == 1:   # the single-query kernel: f32 on the CUDA cores
         return flash_attention_backward(q, k, v, bias, scale, do)
-    bn = F32_BWD_KEY_TILES[next(p for p in (16, 32, 64) if d <= p)]
-    tiles = -(-tk // bn)
+    _, bn, kbn, dq_splits, kv_splits = plan or plan_f32_backward(
+        b * h, tq, tk, d)
+    tiles, qtiles = -(-tk // bn), -(-tq // kbn)
     pad = tiles * bn - tk
     kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
     kb = torch.zeros(q.shape[0], tk) if bias is None else bias * LOG2E
     kb = F.pad(kb, (0, pad), value=-float("inf"))[:, None, None, :]
     x = _x3(q, kp.transpose(-1, -2)) * (scale * LOG2E) + kb
     dp = _x3(do, vp.transpose(-1, -2))
-    m = torch.full(x.shape[:-1], -float("inf"))
-    l = torch.zeros(x.shape[:-1])
-    u = torch.zeros(x.shape[:-1])
-    for j in range(tiles):   # sweep 1, the key tiles in order
-        xs, dps = (t[..., j * bn:(j + 1) * bn] for t in (x, dp))
-        mx = torch.maximum(m, xs.amax(-1))
-        ref = torch.where(mx == -float("inf"), 0.0, mx)
-        alpha = torch.exp2(m - ref)
-        p = torch.exp2(xs - ref[..., None])
-        l = l * alpha + p.sum(-1)
-        u = u * alpha + (p * dps).sum(-1)
-        m = mx
+    parts = []   # each rank's (m, l, u) over its key tiles
+    for own in _ranks(tiles, dq_splits):
+        m = torch.full(x.shape[:-1], -float("inf"))
+        l = torch.zeros(x.shape[:-1])
+        u = torch.zeros(x.shape[:-1])
+        for j in own:   # sweep 1, the rank's key tiles in order
+            xs, dps = (t[..., j * bn:(j + 1) * bn] for t in (x, dp))
+            mx = torch.maximum(m, xs.amax(-1))
+            ref = torch.where(mx == -float("inf"), 0.0, mx)
+            alpha = torch.exp2(m - ref)
+            p = torch.exp2(xs - ref[..., None])
+            l = l * alpha + p.sum(-1)
+            u = u * alpha + (p * dps).sum(-1)
+            m = mx
+        parts.append((m, l, u))
+    if dq_splits > 1:   # the ranks' rows merged in rank order
+        m = torch.stack([p_[0] for p_ in parts]).amax(0)
+        ref = torch.where(m == -float("inf"), 0.0, m)
+        l = torch.zeros_like(m)
+        u = torch.zeros_like(m)
+        for mr, lr, ur in parts:
+            a = torch.exp2(mr - ref)
+            l = lr * a + l
+            u = ur * a + u
     lse = m + torch.log2(l)
     delta = u / l
     p = torch.exp2(x - lse[..., None])
     ds = p * (dp - delta[..., None])
-    dv = _x3(p.transpose(-1, -2), do)
-    dq = _x3(ds, kp) * scale
-    dk = _x3(ds.transpose(-1, -2), q) * scale
-    return dq, dk[..., :tk, :], dv[..., :tk, :]
+    dq = torch.zeros_like(q)
+    for own in _ranks(tiles, dq_splits):   # partial dQ over each rank's keys
+        keys = slice(own[0] * bn, (own[-1] + 1) * bn)
+        dq = dq + _x3(ds[..., keys], kp[..., keys, :])
+    dk = torch.zeros_like(kp)
+    dv = torch.zeros_like(vp)
+    for own in _ranks(qtiles, kv_splits):   # over each rank's queries
+        rows = slice(own[0] * kbn, min(tq, (own[-1] + 1) * kbn))
+        dv = dv + _x3(p[..., rows, :].transpose(-1, -2), do[..., rows, :])
+        dk = dk + _x3(ds[..., rows, :].transpose(-1, -2), q[..., rows, :])
+    return dq * scale, (dk * scale)[..., :tk, :], dv[..., :tk, :]
 
 
 def _inputs(rng, b, h, tq, tk, d, lengths=None):
@@ -214,9 +251,83 @@ def test_backward_routes(tq, tk, d, dtype, route):
 
 
 def test_workspace_at_the_f0_cross_attention():
-    """lse and Delta of each of the 32 x 8 x 272 query rows, padded to 320:
-    655 KB."""
+    """The bf16 kernels': lse and Delta of each of the 32 x 8 x 272 query
+    rows, padded to 320: 655 KB. The f32 kernels' adds the TF32 planes:
+    q, k, v, dO's rows (2 x 256 x 272 x 32 each) and q, k, dO's
+    transposes (272 is a multiple of 8): 125 MB in all."""
     assert bwd_workspace(32, 8, 272) == 2 * 32 * 8 * 320
+    planes = 2 * 256 * 272 * 32
+    assert f32_bwd_workspace(32, 8, 272, 272, 32) == \
+        2 * 32 * 8 * 320 + 7 * planes
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d", [
+    (2, 2, 9, 30, 6),       # every part rounded up to 32 values
+    (4, 2, 400, 400, 99),   # the op registry's unaligned rows, DP = 128
+])
+def test_f32_workspace_layout(b, h, tq, tk, d):
+    """The `Planes` order: lse, Delta, the rows of q, k, v, dO at the
+    padded head dim, the transposes of q, k, dO over T rounded up to 8;
+    each part at a multiple of 32 values (TMA's 16-byte bases)."""
+    dp = next(p for p in F32_BWD_SHAPES if d <= p)
+    bh, tq_pad = b * h, -(-tq // BWD_ROWS) * BWD_ROWS
+    parts = [bh * tq_pad, bh * tq_pad, 2 * bh * tq * dp, 2 * bh * tk * dp,
+             2 * bh * tk * dp, 2 * bh * tq * dp,
+             2 * bh * dp * -(-tq // 8) * 8, 2 * bh * dp * -(-tk // 8) * 8,
+             2 * bh * dp * -(-tq // 8) * 8]
+    assert f32_bwd_workspace(b, h, tq, tk, d) == sum(
+        -(-n // 32) * 32 for n in parts)
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,want", [
+    (256, 272, 272, 32, (32, 64, 32, 1, 1)),   # the F0 step: 1280 blocks
+    (8, 400, 400, 128, (128, 64, 32, 2, 2)),   # ids 14/15: 56 blocks
+    (8, 400, 400, 99, (128, 64, 32, 2, 2)),    # id 14 at C = 198
+    (16, 272, 320, 16, (16, 64, 32, 2, 3)),    # B = 2 gradient checks'
+    (16, 68, 320, 48, (64, 64, 32, 2, 1)),     # widths
+    (2, 40, 40, 64, (64, 64, 32, 1, 1)),       # too few tiles to split
+])
+def test_plan_f32_backward(bh, tq, tk, d, want):
+    """Splits only where the (64-row tiles x B*H) grid is under a wave of
+    the H100's SMs times the blocks each holds, within a portable cluster,
+    each rank with two streamed tiles or more; a pure function."""
+    plan = plan_f32_backward(bh, tq, tk, d)
+    assert plan == want == plan_f32_backward(bh, tq, tk, d)
+    dp, bn, kbn, dq_splits, kv_splits = plan
+    per_sm = F32_BWD_SHAPES[dp][2]
+    for rows, streamed, tile, splits in ((tq, tk, bn, dq_splits),
+                                         (tk, tq, kbn, kv_splits)):
+        blocks = -(-rows // BWD_ROWS) * bh
+        n = -(-streamed // tile)
+        assert 1 <= splits <= F32_BWD_MAX_SPLITS
+        assert splits == 1 or (blocks * splits <= per_sm * _build.H100_SMS
+                               and all(len(r) >= 2 for r in _ranks(n, splits)))
+        assert sum(len(r) for r in _ranks(n, splits)) == n
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_emulated_splits_hold_the_plain_backward(splits):
+    """The rank-order merges of (m, l, u), dQ and dK, dV at any cluster
+    size agree with the plain backward within the f32 bound; a forced
+    plan, on a 128-wide head with a key bias."""
+    rng = np.random.default_rng(20 + splits)
+    q, k, v, bias, do = _inputs(rng, 2, 2, 290, 530, 128, [530, 77])
+    scale = 128 ** -0.5
+    got = emulate_f32_backward(q, k, v, bias, scale, do,
+                               plan=(128, 64, 32, splits, splits))
+    want = flash_attention_backward(q, k, v, bias, scale, do)
+    assert max(_errors(got, want)) <= RTOL, _errors(got, want)
+
+
+def test_transposed_planes_order_the_keys_as_the_fragments():
+    """The transposes hold each 8 keys in the order 0, 2, 4, 6, 1, 3, 5,
+    7: position p of a group is key 2p (p < 4) or 2 (p - 4) + 1, so the
+    accumulator's column pair (2t, 2t + 1) of a thread is the A fragment's
+    (t, t + 4)."""
+    perm = [2 * p if p < 4 else 2 * (p - 4) + 1 for p in range(8)]
+    assert perm == [0, 2, 4, 6, 1, 3, 5, 7]
+    for t in range(4):   # lane q = t holds columns 2t, 2t + 1
+        assert perm[t] == 2 * t and perm[t + 4] == 2 * t + 1
 
 
 @pytest.mark.parametrize("d,tq,match", [

@@ -108,15 +108,17 @@ def test_grad_plan_reads_the_addresses():
      104),
     (torch.bfloat16, 16, 1, "tc_pad", "ns2vc_flash_attention_bwd_wgmma", 16),
     (torch.float32, 6, 0, "f32tc_pad",
-     "ns2vc_flash_attention_f32_bwd_wgmma", 8),
+     "ns2vc_flash_attention_f32_bwd_wgmma", 6),
     (torch.float32, 128, 0, "f32tc_d128",
      "ns2vc_flash_attention_f32_bwd_wgmma", 128),
 ])
 def test_refused_geometries_launch_the_tile_kernels(card_routes, dtype, d,
                                                     extra, route, entry, dp):
     """As for a CUDA tensor (the library a recorder): no error, the tile
-    kernels' entry at the padded head dim on contiguous copies, gradients
-    of the inputs' shape, the sub-route counted."""
+    kernels' entry (bf16: at the padded head dim on contiguous copies; f32:
+    at the head dim on the inputs' own strides, which the converting pass
+    reads and pads), gradients of the inputs' shape, the sub-route
+    counted."""
     q, k, v, do = (_heads(2, t, 2, d, dtype, extra) for t in (9, 30, 30, 9))
     n0 = dict(fa.flash_attention_grad.route_launches)
     grads = fa.flash_attention_grad(q, k, v, None, d ** -0.5, do)
@@ -125,8 +127,10 @@ def test_refused_geometries_launch_the_tile_kernels(card_routes, dtype, d,
     (name, args), = card_routes.calls
     assert name == entry
     assert args[9:14] == (2, 2, 9, 30, dp)
-    if route.endswith("_pad"):   # q's copy: contiguous (B, H, T, dp)
+    if route == "tc_pad":   # q's copy: contiguous (B, H, T, dp)
         assert args[14:17] == (2 * 9 * dp, 9 * dp, dp)
+    elif route == "f32tc_pad":   # q itself
+        assert args[14:17] == q.stride()[:3]
     for g, t in zip(grads, (9, 30, 30)):
         assert g.shape == (2, 2, t, d) and g.dtype == dtype
 
