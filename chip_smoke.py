@@ -71,8 +71,9 @@ backward (cuDNN, TF32 off; the bf16 kernels' f32 sums before rounding)
 within K2_BWD_RTOL of max|plain| per gradient, two launches bitwise equal,
 timed in turns against cuDNN's path under the step's flags and under
 cudnn.deterministic; a step's launches of the backward kernels (45 bf16,
-one per K2 backward); the statistics' backward kernels
-(`group_norm_affine_grad`: csrc/group_norm_affine_bwd.cu) at every
+one per K2 backward); the statistics' backward kernel
+(`group_norm_affine_grad`: csrc/group_norm_affine_bwd.cu, one launch a
+call) at every
 statistics call of the step against their plain version
 (`group_norm_affine_backward`, torch ops, on the forward's mean and rstd)
 within GN_BWD_RTOL of max|plain| per gradient (one bf16 rounding more for
@@ -4015,8 +4016,8 @@ def training_profile(trainer, batch, step_ms, title=""):
                ("affine_silu_conv", "split_k_reduce")),
               ("GroupNorm statistics (group_norm_affine_kernel)",
                ("group_norm_affine_kernel",)),
-              ("GroupNorm statistics backward (gn_bwd_coef, gn_bwd_dx "
-               "kernels)", ("gn_bwd_",)),
+              ("GroupNorm statistics backward (gn_bwd_kernel)",
+               ("gn_bwd_",)),
               # before cuDNN's group, whose kernel names hold "dgrad" too
               ("K2 backward (dgrad, wgrad, finalize kernels: bf16 "
                "*_wgmma_kernel, f32 *_kernel)",

@@ -57,7 +57,7 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 5 + [_I64] * 12 + [ctypes.c_float] + [_I] * 5
         + [_P],
     "ns2vc_flash_attention_bwd_wgmma":
-        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _P],
+        [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float, _I, _I, _P],
     "ns2vc_flash_attention_bwd_q1":
         [_P] * 9 + [_I] * 5 + [_I64] * 21 + [ctypes.c_float] + [_I] * 4
         + [_P],
@@ -75,7 +75,7 @@ _SIGNATURES = {
     "ns2vc_group_norm_affine":
         [_P] * 5 + [_I] + [_P] * 4 + [_I] * 4 + [ctypes.c_float] + [_I] * 5
         + [_P],
-    "ns2vc_group_norm_affine_bwd": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 8
+    "ns2vc_group_norm_affine_bwd": [_P] * 5 + [_I] + [_P] * 9 + [_I] * 8
     + [_P],
 }
 

@@ -122,6 +122,11 @@ MAX_SMEM = 232448       # an H100 block's shared memory
 # f32 3xTF32 kernel on an H100, PERF.md)
 Q1_DTYPES = (torch.bfloat16, torch.float32)
 BWD_ROWS = 64           # the backward tile kernels' rows: queries or keys
+# the bf16 backward tile kernels' runs an H100 SM works at once (its
+# consumer warpgroups), per padded head dim: blocks by their launch bounds
+# times producer / consumer pairs a block (`Cfg::Blocks`, `Cfg::Pairs` in
+# csrc/flash_attention_bwd_wgmma.cu)
+BWD_RUNS_PER_SM = {16: 3, 32: 3, 64: 2, 128: 1}
 # the f32 backward tile kernels per padded head dim (`Shape` in
 # csrc/flash_attention_f32_bwd_wgmma.cu): dq's key tile, dkdv's query tile
 # and the blocks an H100 SM holds
@@ -379,6 +384,19 @@ def bwd_workspace(b: int, h: int, tq: int) -> int:
     return 2 * b * h * -(-tq // BWD_ROWS) * BWD_ROWS
 
 
+def plan_backward(bh: int, tq: int, tk: int, d: int) -> tuple[int, int]:
+    """(dq's, dkdv's) runs of the bf16 backward tile kernels for B*H = bh:
+    a kernel's items are its 64 fixed rows (queries for dq, keys for dkdv)
+    of each batch*head, and each run an even share of them, consecutive,
+    taken by one producer / consumer pair of a block (paying its set-up
+    once, loading each next item while it finishes the one before): as
+    many runs as the H100 works at once (H100_SMS x BWD_RUNS_PER_SM at the
+    padded head dim, 16, 32, 64 or 128), or one per item where there are
+    fewer."""
+    slots = _build.H100_SMS * BWD_RUNS_PER_SM[f32_wgmma_dp(d)]
+    return tuple(min(-(-rows // BWD_ROWS) * bh, slots) for rows in (tq, tk))
+
+
 def plan_f32_backward(bh: int, tq: int, tk: int, d: int
                       ) -> tuple[int, int, int, int, int]:
     """(padded head dim, dq's key tile, dkdv's query tile, dq's key splits,
@@ -569,7 +587,7 @@ def _grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if bias is None else bias.data_ptr(), do.data_ptr(),
         *(t.data_ptr() for t in grads), ws.data_ptr(), b, h, tq, tk, dp,
         *(s for t in (q, k, v, do, *grads) for s in t.stride()[:3]),
-        float(scale), _build.stream_of(q))
+        float(scale), *plan_backward(b * h, tq, tk, dp), _build.stream_of(q))
     _build.check(err, f"flash_attention_grad ({route})")
     return tuple(g[..., :d] for g in grads) if dp != d else tuple(grads)
 

@@ -68,9 +68,11 @@ through the packed copy. `group_norm_affine` goes through its own Function
 whose forward is the statistics kernel, which then also writes each
 (batch, group)'s f32 mean and rstd for the backward, and whose backward is
 `group_norm_affine_grad`: on a card `csrc/group_norm_affine_bwd.cu`, one
-launch of two kernels (the per-group coefficients and every parameter
-gradient in a fixed order, then dx in one streaming pass over x), on the
-CPU `group_norm_affine_backward`, the same closed form in torch ops. Each
+launch of one kernel over all SMs (parameter blocks: every parameter
+gradient in a fixed order; dx blocks: each derives its batch row's
+per-group coefficients, then writes its share of dx in one streaming pass
+over x), on the CPU `group_norm_affine_backward`, the same closed form in
+torch ops. Each
 backward adds one to `group_norm_affine.backward_calls`, each launch of
 the backward kernels one to `group_norm_affine.backward_launches`.
 """
@@ -751,14 +753,22 @@ def group_norm_affine_grad(x: torch.Tensor, gamma: torch.Tensor,
                            mean, rstd, da, db, need_x)
 
 
-GN_BWD_THREADS, GN_BWD_VECS = 256, 4   # the dx kernel's block, vectors in
+GN_BWD_THREADS, GN_BWD_VECS = 256, 4   # the kernel's block, vectors in
                                        # flight per thread
+GN_BWD_MAX_GROUPS = 3072   # the coefficients' shared memory (48 KB)
+GN_BWD_WAVE = 8 * _build.H100_SMS   # blocks of 256 threads the card holds
 
 
 def gn_backward_blocks(bsz: int, t: int, c: int, vec_width: int) -> int:
-    """Blocks of the statistics backward's dx kernel: each thread writes
-    GN_BWD_VECS vectors of `vec_width` values of dx."""
-    return -(-bsz * t * c // (vec_width * GN_BWD_THREADS * GN_BWD_VECS))
+    """dx blocks per batch row of the statistics backward kernel. A row's
+    T*C values go in rounds of GN_BWD_VECS vectors of `vec_width` values
+    per thread of GN_BWD_THREADS; each block takes an even share of the
+    rounds (and derives the row's coefficients once): one round each
+    while the B rows' blocks fit one wave of the H100 (GN_BWD_WAVE), else
+    the fewest blocks whose shares keep the most rounds a block takes."""
+    rounds = -(-t * c // (vec_width * GN_BWD_THREADS * GN_BWD_VECS))
+    per = -(-rounds // max(1, GN_BWD_WAVE // bsz))
+    return -(-rounds // per)
 
 
 def _gn_grad_launch(x, gamma, beta, groups, film_scale, film_shift, mean,
@@ -767,7 +777,7 @@ def _gn_grad_launch(x, gamma, beta, groups, film_scale, film_shift, mean,
     params, film_stride = _gn_params(x, gamma, beta, film_scale, film_shift,
                                      "group_norm_affine_grad")
     bsz, t, c = x.shape
-    if groups < 1 or c % groups or bsz > 65535 or groups > 65535:
+    if groups < 1 or c % groups or groups > GN_BWD_MAX_GROUPS:
         raise ValueError(f"group_norm_affine_grad: shapes x "
                          f"{tuple(x.shape)} groups {groups}")
     for name, v, shape in (("mean", mean, (bsz, groups)),
@@ -789,8 +799,6 @@ def _gn_grad_launch(x, gamma, beta, groups, film_scale, film_shift, mean,
     if film:
         dscale, dshift = torch.empty((2, bsz, c), dtype=pdt,
                                      device=x.device)
-    coef = torch.empty((bsz, groups, 4), dtype=torch.float32,
-                       device=x.device)
     per = 16 // x.element_size()
     vec = (c // groups) % per == 0 and x.data_ptr() % 16 == 0
     _gn_counts.backward_launches += 1
@@ -802,8 +810,7 @@ def _gn_grad_launch(x, gamma, beta, groups, film_scale, film_shift, mean,
         db.data_ptr(), None if dx is None else dx.data_ptr(),
         dgamma.data_ptr(), dbeta.data_ptr(),
         *((dscale.data_ptr(), dshift.data_ptr()) if film else (None, None)),
-        coef.data_ptr(), bsz, t, c, groups,
-        gn_backward_blocks(bsz, t, c, per if vec else 1),
+        bsz, t, c, groups, gn_backward_blocks(bsz, t, c, per if vec else 1),
         int(x.dtype == torch.bfloat16), int(pdt == torch.bfloat16),
         int(vec), _build.stream_of(x))
     _build.check(err, "group_norm_affine_grad")

@@ -5,7 +5,7 @@ the same way (TF32 off) at the F0 predictor's cross-attention (B = 32 x
 272, 8 heads of 32, key padding: its 10 calls a step) and at every K1
 geometry of the step at B = 2 (the f32 gradient checks').
 
-    python3 scripts/torch_k1_bwd_compare.py [--f32 [--old-source OLD.cu]]
+    python3 scripts/torch_k1_bwd_compare.py [--f32] [--old-source OLD.cu]
         [--out FILE]
 
 With --f32 the op registry's f32 layers whose backward takes the 128-wide
@@ -13,15 +13,20 @@ instantiation ("f32tc_d128": ids 14 and 15 at C = 256, two heads of 128)
 and unaligned rows ("f32tc_pad": id 14 at C = 198, two heads of 99) are
 timed too, their calls recorded from one training step of each layer at
 `chip_smoke.MODULE_B` x `MODULE_T` (`chip_smoke.REGISTRY_BWD_CASES`).
---old-source builds an older `csrc/flash_attention_f32_bwd_wgmma.cu`
-(`git show 3eefe3f:ns2vc_tpu_torch/csrc/flash_attention_f32_bwd_wgmma.cu >
-.scratch/k1_f32_bwd_old.cu` before the chip call: the copy there has no
-.git), bound with ctypes as its wrapper launched it (rows TMA cannot take
-on zero-padded contiguous copies, dO made contiguous where TMA cannot read
-it, lse and Delta in `bwd_workspace`), and times it at every f32 call of
-more than one query in turns with the current kernels (old, new, new,
-old), held to the same f64 bound; rows whose plan splits a kernel over a
-cluster are also timed with the splits at 1, in turns.
+--old-source builds an older source of the dtype's kernels: with --f32
+`csrc/flash_attention_f32_bwd_wgmma.cu` (`git show 3eefe3f:ns2vc_tpu_torch/
+csrc/flash_attention_f32_bwd_wgmma.cu > .scratch/k1_f32_bwd_old.cu` before
+the chip call: the copy there has no .git), else `csrc/flash_attention_
+bwd_wgmma.cu` (the earlier design: `git show 7602d88:ns2vc_tpu_torch/csrc/
+flash_attention_bwd_wgmma.cu > .scratch/k1_bwd_old.cu`), bound with ctypes
+as its wrapper launched it (rows TMA cannot take on zero-padded contiguous
+copies, dO made contiguous where TMA cannot read it, lse and Delta in
+`bwd_workspace`), and times it at every call of more than one query in
+turns with the current kernels (old, new, new, old), held to the same
+bound (f32: against f64; bf16: K1_BWD_RTOL and K1_BWD_RMS against the
+plain backward) and a bitwise repeat, each of its kernels profiled; f32
+rows whose plan splits a kernel over a cluster are also timed with the
+splits at 1, in turns.
 
 The calls are enumerated from the step itself: the step body of
 `train/trainer.py::make_train_step` runs once on the meta device (no
@@ -241,14 +246,14 @@ def kernel_ms(run, reps=3):
     return dict(out)
 
 
-def build_old(source: str):
-    """An older f32 backward's entry point, compiled once per source into
-    .scratch/ (the current csrc/ on the include path)."""
+def build_old(source: str, f32: bool):
+    """An older backward's entry point (f32 or bf16), compiled once per
+    source into .scratch/ (the current csrc/ on the include path)."""
     from ns2vc_tpu_torch.ops import _build
 
     text = open(source, "rb").read()
     tag = hashlib.sha256(text).hexdigest()[:12]
-    out = os.path.join(ROOT, ".scratch", f"libk1_f32_bwd_old_{tag}.so")
+    out = os.path.join(ROOT, ".scratch", f"libk1_bwd_old_{tag}.so")
     if not os.path.exists(out):
         os.makedirs(os.path.dirname(out), exist_ok=True)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
@@ -256,7 +261,8 @@ def build_old(source: str):
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             cs.fail(f"old kernel build: {proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(out).ns2vc_flash_attention_f32_bwd_wgmma
+    fn = getattr(ctypes.CDLL(out), "ns2vc_flash_attention_f32_bwd_wgmma"
+                 if f32 else "ns2vc_flash_attention_bwd_wgmma")
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 21 + [ctypes.c_float,
                                               ctypes.c_void_p])
@@ -265,7 +271,7 @@ def build_old(source: str):
 
 
 def old_grad(fn, q, k, v, bias, scale, do):
-    """A closure that runs the older f32 kernels on these inputs as their
+    """A closure that runs the older kernels on these inputs as their
     wrapper did: rows TMA cannot take as zero-padded contiguous copies (in
     the call), dO contiguous where TMA cannot read it; (dq, dk, dv)."""
     import ns2vc_tpu_torch.ops.flash_attention as fa
@@ -337,8 +343,10 @@ def ptxas_report(f32: bool = False) -> list:
     """(kernel, registers, spill stores, spill loads, blocks an SM holds by
     registers) of every instantiation in the source, from nvcc
     -Xptxas=-v: the tile kernels run 160 threads (a consumer warpgroup and
-    a producer warp), the f32 converting pass and the single-query kernel
-    256."""
+    a producer warp; bf16 at heads of 32 or fewer 512, three consumer
+    warpgroups and a producer warpgroup, the registers reported those a
+    thread enters with, the consumers' raised by setmaxnreg), the f32
+    converting pass and the single-query kernel 256."""
     from ns2vc_tpu_torch.ops import _build
 
     source = SOURCES["f32" if f32 else "bf16"]
@@ -353,11 +361,12 @@ def ptxas_report(f32: bool = False) -> list:
     for line in (proc.stdout + proc.stderr).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_bwd_\w+?_kernel)I((?:Li\d+E)*)(Lb(\d))?",
+            k = re.search(r"(flash_bwd_\w+?_kernel)I((?:Li\d+E)*)((?:Lb\dE)*)",
                           m.group(1))
             dims = re.findall(r"Li(\d+)E", k.group(2))
+            flags = re.findall(r"Lb(\d)E", k.group(3))
             name = k.group(1) + (f"<{', '.join(dims)}>" if dims else "") \
-                + (f" bias={k.group(4)}" if k.group(4) else "")
+                + "".join(f" bias={f}" for f in flags)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -366,6 +375,7 @@ def ptxas_report(f32: bool = False) -> list:
         if m and name:
             threads = 256 if name.startswith(("flash_bwd_q1",
                                               "flash_bwd_f32_convert")) \
+                else 512 if not f32 and ("<16>" in name or "<32>" in name) \
                 else 160
             row = (name, int(m.group(1)), *spills,
                    blocks_by_registers(int(m.group(1)), threads))
@@ -391,8 +401,9 @@ def main() -> int:
                          "cross-attention, the step's geometries at B=2 and "
                          "the op registry's f32 layers")
     ap.add_argument("--old-source", default=None,
-                    help="(with --f32) an older csrc/flash_attention_f32_"
-                         "bwd_wgmma.cu, timed in turns at every call")
+                    help="an older csrc/flash_attention_bwd_wgmma.cu (with "
+                         "--f32: _f32_bwd_wgmma.cu), timed in turns at "
+                         "every call")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k1_bwd_compare: no CUDA device", file=sys.stderr)
@@ -430,7 +441,8 @@ def main() -> int:
         cases.append((label, n, q, k, v, bias, scale, do))
     if args.f32:
         cases += [(label, 1, *call) for label, *call in registry_calls(dev)]
-    old_fn = build_old(args.old_source) if args.old_source else None
+    old_fn = build_old(args.old_source, args.f32) if args.old_source \
+        else None
     old_sums = defaultdict(float)
     rows = []
     sums = defaultdict(float)
@@ -446,26 +458,40 @@ def main() -> int:
             og = [t.clone() for t in run_old()]
             og2 = run_old()
             torch.cuda.synchronize()
-            errs, plain_errs = cs.k1_f32_errors(og, q, k, v, bias, scale, do)
+            if args.f32:
+                errs, plain_errs = cs.k1_f32_errors(og, q, k, v, bias, scale,
+                                                    do)
+                old_ok = cs.k1_f32_holds(errs, plain_errs)
+            else:
+                errs, rms = cs.k1_grad_errors(og, flash_attention_backward(
+                    q, k, v, bias, scale, do))
+                old_ok = max(errs) <= cs.K1_BWD_RTOL \
+                    and max(rms) <= cs.K1_BWD_RMS
             new = lambda: flash_attention_grad(  # noqa: E731
                 q, k, v, bias, scale, do)
             turns = [cs.graph_ms(run_old), cs.graph_ms(new),
                      cs.graph_ms(new), cs.graph_ms(run_old)]
             old = {"old_ms": (turns[0] + turns[3]) / 2,
                    "new_ms": (turns[1] + turns[2]) / 2, "turns": turns,
-                   "old_err64": max(errs),
-                   "old_ok": cs.k1_f32_holds(errs, plain_errs),
+                   "old_err" + ("64" if args.f32 else ""): max(errs),
+                   "old_ok": old_ok,
                    "old_repeat": all(torch.equal(a_, b_)
-                                     for a_, b_ in zip(og, og2))}
+                                     for a_, b_ in zip(og, og2)),
+                   "old_kernels": kernel_ms(run_old)}
+            for kname, ms in old["old_kernels"].items():
+                per_kernel["old_" + kname] += n * ms
             old_sums[label + "_old"] += n * old["old_ms"]
             old_sums[label + "_new"] += n * old["new_ms"]
             old_sums["old"] += n * old["old_ms"]
             old_sums["new"] += n * old["new_ms"]
-            cs.say(f"  {label} q{tuple(q.shape)} x{n}: the older kernels "
-                   f"{turns[0]:.4f}/{turns[3]:.4f} ms, these "
-                   f"{turns[1]:.4f}/{turns[2]:.4f} in turns; the older "
-                   f"against f64 {old['old_err64']:.2e}, bitwise repeat "
-                   f"{old['old_repeat']} [{cs.CARD}]")
+            cs.say(f"  {label} q{tuple(q.shape)} k{tuple(k.shape)} x{n}: "
+                   f"the older kernels {turns[0]:.4f}/{turns[3]:.4f} ms, "
+                   f"these {turns[1]:.4f}/{turns[2]:.4f} in turns; the older "
+                   f"{'against f64' if args.f32 else 'against plain'} "
+                   f"{max(errs):.2e}, bitwise repeat {old['old_repeat']}; "
+                   "the older profiled: " + ", ".join(
+                       f"{k_} {v_:.4f}" for k_, v_ in sorted(
+                           old["old_kernels"].items())) + f" [{cs.CARD}]")
         if not (r["ok"] and r["repeat"]) or (old is not None and not (
                 old["old_ok"] and old["old_repeat"])):
             cs.fail(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)}: "
@@ -533,8 +559,7 @@ def main() -> int:
             sums[name] += n * row[name]
             if label == "F0":
                 f0_sums[name] += n * row[name]
-            if args.f32:
-                f0_sums[label + "_" + name] += n * row[name]
+            f0_sums[label + "_" + name] += n * row[name]
         t = r["turns"]
         cs.say(f"K1 backward q{tuple(q.shape)} k{tuple(k.shape)} bias="
                f"{int(bias is not None)} x{n}: kernels "
@@ -562,7 +587,8 @@ def main() -> int:
                    f"{k[9:]} {v:.4f}" for k, v in sorted(f0_sums.items())
                    if k.startswith("profiled_")) + f" [{cs.CARD}]")
     if old_sums:
-        cs.say("K1 f32 backward in turns, the older kernels -> these, per "
+        cs.say(f"K1 {'f32' if args.f32 else 'bf16'} backward in turns, the "
+               "older kernels -> these, per "
                "group of calls: " + "; ".join(
                    f"{lab} {old_sums[lab + '_old']:.4f} -> "
                    f"{old_sums[lab + '_new']:.4f} ms (SDPA's "

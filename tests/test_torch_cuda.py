@@ -1366,6 +1366,32 @@ def test_k1_backward_bf16_at_the_training_geometries(dev, geometry):
     _hold_k1_backward(got, want)
 
 
+@pytest.mark.parametrize("geometry", [   # runs of more than one item
+    g for g in K1_TRAIN_GEOMETRIES if g[1] > 1 and g[2] > 34][::3])
+def test_k1_backward_bf16_runs_land_in_any_block(dev, geometry):
+    """Each producer / consumer pair takes a run of the items (64 fixed
+    rows of one batch*head), `plan_backward`'s runs of even shares: the
+    gradients are the same bits when one pair takes every item, and when
+    each item is a run of its own."""
+    from unittest import mock
+
+    import ns2vc_tpu_torch.ops.flash_attention as fa
+
+    q, k, v, bias, do = _k1_backward_inputs(_gen(dev, 37), dev, 32, geometry)
+    scale = q.shape[-1] ** -0.5
+    b, h, tq, d = q.shape
+    runs = fa.plan_backward(b * h, tq, k.shape[2], d)
+    assert max(runs) > 1
+    got = fa.flash_attention_grad(q, k, v, bias, scale, do)
+    items = [-(-t // fa.BWD_ROWS) * b * h for t in (tq, k.shape[2])]
+    for other in ((1, 1), tuple(items)):
+        with mock.patch.object(fa, "plan_backward", lambda *a: other):
+            one = fa.flash_attention_grad(q, k, v, bias, scale, do)
+        torch.cuda.synchronize()
+        for a_, b_ in zip(got, one):
+            assert torch.equal(a_, b_), other
+
+
 @pytest.mark.parametrize("b,h,tq,tk,d,valid", [
     (2, 3, 37, 53, 8, None),       # the narrowest head, ragged tiles
     (2, 2, 130, 65, 24, 40),       # D between tiles' widths, key padding
@@ -1981,6 +2007,47 @@ def test_gn_backward_kernels_element_loads(dev):
                                       mean, rstd)
     for gv, wv in zip(got, want):
         assert cs.gn_grad_error(gv, wv) <= cs.GN_BWD_RTOL
+
+
+@pytest.mark.parametrize("b,t,c,groups,dtype", [
+    (1, 832, 1024, 8, torch.bfloat16),   # one row, 104 dx blocks on it
+    (3, 70, 48, 8, torch.float32),       # 6 channels a group: elements
+    (2, 40, 256, 32, torch.bfloat16),    # 32 groups
+    (4, 17, 96, 1, torch.float32),       # one group
+])
+def test_gn_backward_one_launch_shapes(dev, b, t, c, groups, dtype):
+    """The one launch at other shapes than the step's: within the bound,
+    bitwise repeatable, and without dx (the input needs no gradient) the
+    parameter gradients of the call with it, bit for bit."""
+    import chip_smoke as cs
+    from ns2vc_tpu_torch.ops.fused_resnet import (
+        _gn_launch, group_norm_affine_backward, group_norm_affine_grad,
+    )
+
+    g = _gen(dev, 43)
+    x = (0.5 + torch.randn(b, t, c, generator=g, device=dev)).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    fs = (0.2 * torch.randn(b, 2 * c, generator=g, device=dev)).to(
+        dtype).chunk(2, dim=-1)
+    _, _, mean, rstd = _gn_launch(x, gamma, beta, groups, 1e-5, *fs,
+                                  stats=True)
+    da, db = (torch.randn(b, c, generator=g, device=dev) for _ in range(2))
+    args = (x, gamma, beta, groups, *fs, mean, rstd, da, db)
+    n0 = group_norm_affine.backward_launches
+    got = group_norm_affine_grad(*args)
+    again = group_norm_affine_grad(*args)
+    part = group_norm_affine_grad(*args, need_x=False)
+    assert group_norm_affine.backward_launches == n0 + 3
+    want = group_norm_affine_backward(x, gamma, beta, groups, 1e-5, *fs, da,
+                                      db, mean, rstd)
+    torch.cuda.synchronize()
+    assert part[0] is None
+    for gv, rv, pv, wv in zip(got, again, part, want):
+        assert torch.equal(gv, rv)
+        assert cs.gn_grad_error(gv, wv) <= cs.gn_grad_rtol(wv.dtype)
+        if pv is not None:
+            assert torch.equal(gv, pv)
 
 
 # K1's f32 backward kernels at every f32 geometry a path runs: the F0

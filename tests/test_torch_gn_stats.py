@@ -36,7 +36,8 @@ import jax.numpy as jnp
 from ns2vc_tpu.ops import pallas_resnet
 import ns2vc_tpu_torch.ops.fused_resnet as fr
 from ns2vc_tpu_torch.ops.fused_resnet import (
-    affine_silu_conv1d_plain, gn_backward_blocks, gn_splits,
+    GN_BWD_THREADS, GN_BWD_VECS, GN_BWD_WAVE, affine_silu_conv1d_plain,
+    gn_backward_blocks, gn_splits,
     group_norm_affine, group_norm_affine_backward, group_norm_affine_plain,
     group_norm_stats_plain,
 )
@@ -282,14 +283,21 @@ def test_statistics_backward_matches_autograd_and_jax(dtype, b, t, c, film):
 
 
 @pytest.mark.parametrize("b,t,c,width,want", [
-    (32, 272, 256, 8, 272),     # a training step's bf16 call
-    (32, 272, 1024, 8, 1088),
+    (32, 272, 256, 8, 9),       # a training step's bf16 call: one round
+    (32, 272, 128, 8, 5),       #   each (8.5 / 4.25 rounds a row)
+    (32, 272, 1024, 8, 17),     # 34 rounds a row, 33 blocks fill a wave
+    (1, 832, 1024, 8, 104),     # one row: one block per round
     (2, 9, 16, 1, 1),           # element loads
 ])
 def test_statistics_backward_blocks(b, t, c, width, want):
-    """The dx kernel's blocks: every value of x in one of GN_BWD_VECS
-    vectors per thread of GN_BWD_THREADS."""
+    """The kernel's dx blocks per batch row: an even share of the row's
+    rounds of GN_BWD_VECS vectors per thread of GN_BWD_THREADS each, one
+    round a block while the rows' blocks fit one wave of the H100."""
     assert gn_backward_blocks(b, t, c, width) == want
+    rounds = -(-t * c // (width * GN_BWD_THREADS * GN_BWD_VECS))
+    per = -(-rounds // want)
+    assert want * per >= rounds and (want - 1) * per < rounds
+    assert b * want <= max(GN_BWD_WAVE, b)
 
 
 def test_statistics_without_grad_launch_directly():
@@ -365,7 +373,7 @@ def test_statistics_backward_launches_its_entry(card_routes, xdt, pdt, film):
     mixed = pdt == "mixed"
     assert args[5] == (0 if not film else c if mixed else 2 * c)
     width = 16 // x.element_size()
-    assert args[16:] == (b, t, c, 8, gn_backward_blocks(b, t, c, width),
+    assert args[15:] == (b, t, c, 8, gn_backward_blocks(b, t, c, width),
                          int(xdt == torch.bfloat16),
                          int(pdt == torch.bfloat16), 1, 0)
     want = [x, gamma, beta, *fs]

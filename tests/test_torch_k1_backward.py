@@ -3,6 +3,9 @@ their workspace and their arithmetic emulated in torch ops.
 
 The kernels run only on a card (tests/test_torch_cuda.py holds them there
 against `flash_attention_backward`). Here:
+  - `plan_backward`, the runs each tile kernel's items go in, at the
+    step's geometries and elsewhere: one per item or as many as the card
+    works at once, even shares;
   - `bwd_workspace`, the wrapper's scratch, at every tile-kernel K1
     geometry of a `Config()` training step (B = 32 x 272, bf16: 46 calls in
     11 geometries): lse and Delta of each padded query row, fixed by the
@@ -43,9 +46,10 @@ import torch.nn.functional as F
 
 from chip_smoke import K1_BWD_RMS, K1_BWD_RTOL, k1_grad_errors
 from ns2vc_tpu.ops.attention import scaled_dot_product_attention
+from ns2vc_tpu_torch.ops import _build
 from ns2vc_tpu_torch.ops.flash_attention import (
-    BWD_ROWS, bwd_workspace, flash_attention_backward,
-    flash_attention_plain,
+    BWD_ROWS, BWD_RUNS_PER_SM, bwd_workspace, flash_attention_backward,
+    flash_attention_plain, plan_backward,
 )
 
 LOG2E = 1.4426950408889634
@@ -82,6 +86,46 @@ def test_workspace_at_the_training_geometries(geometry):
     ws = bwd_workspace(TRAIN_B, h, tq)
     assert ws == 2 * TRAIN_B * h * tiles * BWD_ROWS
     assert 4 * ws <= 2 ** 20
+
+
+# (B*H, Tq, Tk, D) -> (dq's, dkdv's) runs at the step's tile calls: the
+# runs the card works at once (three an SM at heads of 16 and 32, two at
+# 48 and 64), or one per item where there are fewer
+PLANS = {(256, 272, 272, 32): (396, 396), (256, 272, 272, 16): (396, 396),
+         (256, 136, 136, 32): (396, 396), (256, 136, 272, 32): (396, 396),
+         (256, 68, 68, 48): (264, 264), (256, 68, 272, 48): (264, 264),
+         (256, 34, 34, 64): (256, 256), (256, 34, 272, 64): (256, 264)}
+
+
+@pytest.mark.parametrize("geometry",
+                         [g for g in TRAIN_GEOMETRIES if g[1] > 1])
+def test_plan_at_the_training_geometries(geometry):
+    """Each kernel's runs: at most one per item and within what the H100
+    works at once; their even shares of the items differ by one at most."""
+    h, tq, tk, d, _, _ = geometry
+    bh = TRAIN_B * h
+    plan = plan_backward(bh, tq, tk, d)
+    assert plan == PLANS[(bh, tq, tk, d)]
+    dp = 16 if d <= 16 else 32 if d <= 32 else 64
+    for runs, rows in zip(plan, (tq, tk)):
+        items = -(-rows // BWD_ROWS) * bh
+        assert runs == min(items, _build.H100_SMS * BWD_RUNS_PER_SM[dp])
+        shares = [(r + 1) * items // runs - r * items // runs
+                  for r in range(runs)]
+        assert sum(shares) == items and max(shares) - min(shares) <= 1
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,want", [
+    (8, 400, 400, 128, (56, 56)),   # the op registry's ids 14 / 15 in bf16
+    (2, 9, 30, 104, (2, 2)),        # "tc_pad" at D = 100, padded to 104
+    (1, 40000, 64, 64, (264, 1)),   # one head, long queries: 625 q tiles
+    (512, 1000, 1000, 16, (396, 396)),
+    (2000, 64, 64, 128, (132, 132)),   # one block an SM at 128 columns
+])
+def test_plan_elsewhere(bh, tq, tk, d, want):
+    """One run per item, or as many as the card works at once: one an SM
+    at the 128-wide head, two at 48-64 columns, three at 32 or fewer."""
+    assert plan_backward(bh, tq, tk, d) == want
 
 
 def _planes(x, n):
